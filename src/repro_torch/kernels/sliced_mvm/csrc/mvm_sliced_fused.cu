@@ -1,0 +1,286 @@
+// Quantize-fused bit-sliced crossbar read (PANTHER's finite-ADC MVM) for
+// NVIDIA Hopper (sm_90a), with a plain C interface for ctypes.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/sliced_mvm/kernel.py::
+// mvm_sliced_fused (bodies _mvm_fused_db_kernel / _mvm_fused_kernel,
+// _tile_compute, _dac_block), forward read with no device read noise.
+//
+// What it computes, per 128-row crossbar tile k, token b, output column n:
+//   x_q[b,r]  = clamp(rint(x[b,r] * 2^F), +-(2^(io-1)-1))         (DAC)
+//   c[t,s]    = sum_r sgn(x_q)·bit_t(|x_q|)[b,r] · plane[s,r,n]  (int32)
+//   code[t,s] = clamp(rint(c / step_s), +-2^(adc-1)),  step_s = 2·128·pm_s/2^adc
+//   z[s]      = sum_t code[t,s] · 2^t                            (int32, exact)
+//   out[b,n] += sum_s z[s] · step_s · 16^s                       (f32)
+// With adc_bits <= 0 (ideal ADC) code = c. step_s is a power of two, so the
+// ADC is exact; the DAC scale is built from the exponent field like exp2i;
+// rintf rounds half to even like jnp.round.
+//
+// Design. A block owns BN=32 output columns and up to MAX_BB=16 tokens and
+// loops over the 128-row tiles (the TPU's sequential k axis and its 2-slot
+// DMA become this loop). Per tile, the x strip is quantized and split into
+// its io_bits-1 signed bit planes, each packed 4 rows to a 32-bit word, and
+// the plane tile [S,128,BN] is transposed into the same 4-rows-per-word
+// packing, both in shared memory. A thread owns one slice, 4 columns and
+// every 4th token of the block; it holds the 15x4 column currents of one
+// token in registers and computes them with __dp4a (4 int8 MACs a lane),
+// exact in int32 (|c| <= 128·pm). Each tile's slice fold then runs through
+// shared memory in ascending s, and the tile is added to the accumulator:
+// the order of the plain version (and of the reference), so at finite ADC
+// the kernel agrees with it bit for bit.
+//
+// Bound on the H100. Decode at small batch moves S·M·N plane bytes once and
+// is bound by those bytes (3.35 TB/s); prefill does 2·B·M·N·S·(io_bits-1)
+// int8 operations and is bound by the int8 tensor-core rate (1979 TOP/s).
+// This simple design runs on the CUDA cores (dp4a), so it is far from
+// either bound. Left for later: the [(io_bits-1)·bb, 128] x [128, S·bn]
+// packed product on int8 wgmma (exact in s32), fed by a TMA/cp.async ring of
+// plane tiles, and a split over tiles for the narrow-N decode shapes.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int XBAR_ROWS = 128;
+constexpr int R4 = XBAR_ROWS / 4;       // packed 4-row words per column per tile
+constexpr int BN = 32;                  // output columns per block
+constexpr int TN = 4;                   // columns per thread
+constexpr int NG = BN / TN;             // column groups
+constexpr int BG = 4;                   // token groups
+constexpr int SG = 8;                   // slice groups
+constexpr int THREADS = NG * BG * SG;   // 256
+constexpr int MAX_BB = 16;              // tokens per block
+constexpr int TPT = MAX_BB / BG;        // tokens per thread
+constexpr int MAX_S = 16;
+
+struct SliceParams {
+  float inv_step[MAX_S];  // 2^-e_s: column current -> ADC code units
+  float weight[MAX_S];    // step_s · 16^s (finite ADC) or 16^s (ideal)
+};
+
+__device__ __forceinline__ uint32_t pack_row_bytes(const int8_t* p, int valid, bool vec) {
+  // 4 consecutive plane bytes of one row; columns at or past N read as 0
+  if (vec && valid >= 4) return *reinterpret_cast<const uint32_t*>(p);
+  uint32_t w = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (j < valid) w |= (uint32_t)(uint8_t)p[j] << (8 * j);
+  return w;
+}
+
+template <int D, bool FINITE>
+__global__ void __launch_bounds__(THREADS)
+mvm_sliced_fused_kernel(const int8_t* __restrict__ planes, const float* __restrict__ x,
+                        const int* __restrict__ frac_bits, float* __restrict__ out,
+                        int B, int M, int N, int S, int BB, int io_bits, int adc_half,
+                        int vec, SliceParams sp) {
+  extern __shared__ __align__(16) int smem[];
+  constexpr int XS = D * R4 + 1;       // +1 word: tokens land on distinct banks
+  int* wpk = smem;                     // [S][R4][BN] packed plane words
+  int* xd = wpk + S * R4 * BN;         // [BB][XS] packed x digit words
+  float* red = reinterpret_cast<float*>(xd + BB * XS);  // [S][BB][BN] slice terms
+
+  const int tid = threadIdx.x;
+  const int ng = tid % NG;
+  const int bg = (tid / NG) % BG;
+  const int sg = tid / (NG * BG);
+  const int n0 = blockIdx.x * BN;
+  const int b0 = blockIdx.y * BB;
+
+  const float scale = __int_as_float((frac_bits[0] + 127) << 23);  // exp2i(F)
+  const float lim = (float)((1 << (io_bits - 1)) - 1);
+  const float half = (float)adc_half;
+
+  // per-thread output accumulators: tasks tid, tid + THREADS of [BB x BN]
+  constexpr int OUT_TASKS = MAX_BB * BN / THREADS;
+  float acc[OUT_TASKS];
+#pragma unroll
+  for (int i = 0; i < OUT_TASKS; ++i) acc[i] = 0.f;
+
+  const int ntiles = (M + XBAR_ROWS - 1) / XBAR_ROWS;
+  for (int k = 0; k < ntiles; ++k) {
+    const int row0 = k * XBAR_ROWS;
+
+    // DAC + bit planes of the x strip: word (b, t, r4) packs sgn·bit_t of
+    // rows 4r4..4r4+3 as int8 lanes (-1, 0, +1)
+    for (int task = tid; task < BB * R4; task += THREADS) {
+      const int b = task / R4, r4 = task % R4;
+      const int gb = b0 + b;
+      uint32_t mag[4], neg[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = row0 + 4 * r4 + i;
+        const float v = (gb < B && r < M) ? x[(size_t)gb * M + r] : 0.f;
+        const float y = fminf(fmaxf(rintf(v * scale), -lim), lim);
+        const int q = (int)y;
+        mag[i] = (uint32_t)(q < 0 ? -q : q);
+        neg[i] = q < 0;
+      }
+      int* dst = xd + b * XS + r4;
+#pragma unroll
+      for (int t = 0; t < D; ++t) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t bit = (mag[i] >> t) & 1u;
+          word |= (bit ? (neg[i] ? 0xFFu : 0x01u) : 0u) << (8 * i);
+        }
+        dst[t * R4] = (int)word;
+      }
+    }
+
+    // plane tile [S,128,BN] -> wpk[s][r4][n]: rows 4r4..4r4+3 of column n
+    // in one word (a 4x4 byte transpose per 4 rows x 4 columns)
+    for (int task = tid; task < S * R4 * NG; task += THREADS) {
+      const int c4 = task % NG;
+      const int r4 = (task / NG) % R4;
+      const int s = task / (NG * R4);
+      const int col = n0 + 4 * c4;
+      const int valid = N - col;
+      uint32_t rw[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = row0 + 4 * r4 + i;
+        rw[i] = (r < M && valid > 0)
+                    ? pack_row_bytes(planes + ((size_t)s * M + r) * N + col, valid, vec)
+                    : 0u;
+      }
+      const uint32_t lo01 = __byte_perm(rw[0], rw[1], 0x5140);
+      const uint32_t hi01 = __byte_perm(rw[0], rw[1], 0x7362);
+      const uint32_t lo23 = __byte_perm(rw[2], rw[3], 0x5140);
+      const uint32_t hi23 = __byte_perm(rw[2], rw[3], 0x7362);
+      int4 o;
+      o.x = (int)__byte_perm(lo01, lo23, 0x5410);
+      o.y = (int)__byte_perm(lo01, lo23, 0x7632);
+      o.z = (int)__byte_perm(hi01, hi23, 0x5410);
+      o.w = (int)__byte_perm(hi01, hi23, 0x7632);
+      reinterpret_cast<int4*>(wpk)[((s * R4 + r4) * BN + 4 * c4) / 4] = o;
+    }
+    __syncthreads();
+
+    // column currents, ADC and bit fold; each (slice, token, column) term
+    // z·step_s·16^s goes to red[s][b][n]
+    for (int s = sg; s < S; s += SG) {
+      const int4* wcol = reinterpret_cast<const int4*>(wpk + s * R4 * BN) + ng;
+      const float inv_step = sp.inv_step[s];
+      const float weight = sp.weight[s];
+#pragma unroll
+      for (int i = 0; i < TPT; ++i) {
+        const int b = bg + i * BG;
+        if (b >= BB) break;
+        const int* xrow = xd + b * XS;
+        int c[D][TN];
+#pragma unroll
+        for (int t = 0; t < D; ++t)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) c[t][j] = 0;
+#pragma unroll 2
+        for (int r4 = 0; r4 < R4; ++r4) {
+          const int4 w = wcol[r4 * NG];
+#pragma unroll
+          for (int t = 0; t < D; ++t) {
+            const int xv = xrow[t * R4 + r4];
+            c[t][0] = __dp4a(xv, w.x, c[t][0]);
+            c[t][1] = __dp4a(xv, w.y, c[t][1]);
+            c[t][2] = __dp4a(xv, w.z, c[t][2]);
+            c[t][3] = __dp4a(xv, w.w, c[t][3]);
+          }
+        }
+        int z[TN] = {0, 0, 0, 0};
+#pragma unroll
+        for (int t = 0; t < D; ++t)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            int code = c[t][j];
+            if (FINITE) {
+              // c·2^-e is exact in f32; rint is round half to even
+              code = (int)fminf(fmaxf(rintf((float)code * inv_step), -half), half);
+            }
+            z[j] += code * (1 << t);
+          }
+        float* dst = red + (s * BB + b) * BN + ng * TN;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) dst[j] = (float)z[j] * weight;
+      }
+    }
+    __syncthreads();
+
+    // slice fold in ascending s, then add the tile to the accumulator
+#pragma unroll
+    for (int i = 0; i < OUT_TASKS; ++i) {
+      const int task = tid + i * THREADS;
+      if (task < BB * BN) {
+        float v = red[task];
+        for (int s = 1; s < S; ++s) v += red[s * BB * BN + task];
+        acc[i] += v;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < OUT_TASKS; ++i) {
+    const int task = tid + i * THREADS;
+    const int b = task / BN, n = task % BN;
+    const int gb = b0 + b, gn = n0 + n;
+    if (task < BB * BN && gb < B && gn < N) out[(size_t)gb * N + gn] = acc[i];
+  }
+}
+
+template <int D>
+cudaError_t launch(bool finite, const int8_t* planes, const float* x, const int* frac_bits,
+                   float* out, int B, int M, int N, int S, int BB, int io_bits,
+                   int adc_half, int vec, const SliceParams& sp, cudaStream_t stream) {
+  const size_t smem =
+      ((size_t)S * R4 * BN + (size_t)BB * (D * R4 + 1) + (size_t)S * BB * BN) * sizeof(int);
+  const dim3 grid((N + BN - 1) / BN, (B + BB - 1) / BB);
+  cudaError_t err;
+  if (finite) {
+    err = cudaFuncSetAttribute(mvm_sliced_fused_kernel<D, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    mvm_sliced_fused_kernel<D, true><<<grid, THREADS, smem, stream>>>(
+        planes, x, frac_bits, out, B, M, N, S, BB, io_bits, adc_half, vec, sp);
+  } else {
+    err = cudaFuncSetAttribute(mvm_sliced_fused_kernel<D, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    mvm_sliced_fused_kernel<D, false><<<grid, THREADS, smem, stream>>>(
+        planes, x, frac_bits, out, B, M, N, S, BB, io_bits, adc_half, vec, sp);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// planes int8 [S,M,N], x f32 [B,M], frac_bits int32 [1] (device), out f32
+// [B,N], all contiguous on the current device. slice_bits: host int[S],
+// physical bits per slice LSB-first. adc_bits <= 0 selects the ideal ADC.
+// Returns a cudaError_t (0 on success).
+extern "C" int panther_mvm_sliced_fused(const void* planes, const void* x, const void* frac_bits,
+                                        void* out, int B, int M, int N, int S, int io_bits,
+                                        int adc_bits, const int* slice_bits, int vec,
+                                        void* stream) {
+  if (S < 1 || S > MAX_S || B < 1 || M < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  if (adc_bits > 16) return (int)cudaErrorInvalidValue;
+  SliceParams sp;
+  const bool finite = adc_bits > 0;
+  for (int s = 0; s < MAX_S; ++s) {
+    sp.inv_step[s] = 0.f;
+    sp.weight[s] = 0.f;
+  }
+  for (int s = 0; s < S; ++s) {
+    // full scale 128·2^(b-1) = 2^(6+b); step = 2·fs/2^adc = 2^(7+b-adc)
+    const int e = 7 + slice_bits[s] - adc_bits;
+    sp.inv_step[s] = finite ? ldexpf(1.f, -e) : 1.f;
+    sp.weight[s] = finite ? ldexpf(1.f, e + 4 * s) : ldexpf(1.f, 4 * s);
+  }
+  const int adc_half = finite ? (1 << (adc_bits - 1)) : 0;
+  const int BB = B < MAX_BB ? B : MAX_BB;
+  const int8_t* p = static_cast<const int8_t*>(planes);
+  const float* xf = static_cast<const float*>(x);
+  const int* f = static_cast<const int*>(frac_bits);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (io_bits != 16) return (int)cudaErrorInvalidValue;  // the one width instantiated
+  return (int)launch<15>(finite, p, xf, f, o, B, M, N, S, BB, io_bits, adc_half, vec, sp, st);
+}

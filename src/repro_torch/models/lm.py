@@ -1,0 +1,172 @@
+"""Transformer LM orchestrator (port of ``repro.models.lm``): pattern-driven
+block groups, prefill with caches and single-token decode.
+
+A config's ``pattern`` is an ordered tuple of ``(block_name, count)``
+groups; a counted group keeps its params stacked on a leading ``[count,
+...]`` axis and runs as a Python loop over layers (the reference's
+``lax.scan``). Only the ``"dense"`` attention + MLP block is ported; the
+other block types raise.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch import tree
+from repro_torch.device import resolve
+from . import attention as att
+from .common import LMConfig, ShapeDtype, XbarWeight, dense_init, embed_init, rms_norm, rms_norm_init, softcap
+
+
+class BlockDef(NamedTuple):
+    init: Callable  # (cfg, gen, *, stack, device) -> params
+    prefill: Callable  # (cfg, params, h, ctx) -> (h, cache)
+    decode: Callable  # (cfg, params, h, cache, ctx) -> (h, cache)
+    cache_spec: Callable  # (cfg, B, S, dtype) -> tree of ShapeDtype
+
+
+def _dense_init(cfg, gen, *, stack=(), device=None):
+    return att.block_init(cfg, gen, stack=stack, device=device)
+
+
+def _dense_prefill(cfg, p, h, ctx):
+    return att.block_prefill(cfg, p, h, ctx["positions"])
+
+
+def _dense_decode(cfg, p, h, cache, ctx):
+    return att.block_decode(cfg, p, h, cache, ctx["pos"])
+
+
+BLOCKS: dict[str, BlockDef] = {
+    "dense": BlockDef(_dense_init, _dense_prefill, _dense_decode, att.attn_cache_spec),
+}
+
+
+def _block(name: str) -> BlockDef:
+    if name not in BLOCKS:
+        raise NotImplementedError(f"block {name!r} is not ported yet (ported: {sorted(BLOCKS)})")
+    return BLOCKS[name]
+
+
+def layer(group, i: int):
+    """Layer ``i``'s params out of a stacked group (views, no copies)."""
+    def pick(x):
+        return x[i] if isinstance(x, (torch.Tensor, XbarWeight)) else x
+
+    return tree.map(pick, group)
+
+
+# =============================== model API ==================================
+
+
+def init_params(cfg: LMConfig, gen, device=None) -> dict:
+    """Random f32 params from a seed (int) or a ``torch.Generator`` on the
+    target device (``cuda`` unless ``device`` says otherwise)."""
+    dev = resolve(device)
+    if isinstance(gen, int):
+        gen = torch.Generator(device=dev).manual_seed(gen)
+    if cfg.zamba is not None:
+        raise NotImplementedError("zamba shared blocks are not ported yet")
+    params: dict = {"final_ln": rms_norm_init(cfg.d_model, device=dev)}
+    if cfg.input_mode == "tokens":
+        params["embed"] = embed_init(gen, cfg.vocab, cfg.d_model, device=dev)
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, device=dev)
+    else:
+        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, device=dev)
+    params["groups"] = [
+        _block(name).init(cfg, gen, stack=() if count == 1 else (count,), device=dev)
+        for name, count in cfg.pattern
+    ]
+    return params
+
+
+def _embed_in(cfg: LMConfig, params, tokens_or_embeds: torch.Tensor) -> torch.Tensor:
+    if cfg.input_mode == "tokens":
+        h = params["embed"][tokens_or_embeds].to(cfg.dtype)
+    else:
+        h = tokens_or_embeds.to(cfg.dtype)
+    if cfg.embed_scale:
+        # sqrt(d) rounds to the activation dtype first (45.25 in bf16 at d=2048)
+        h = h * torch.tensor(math.sqrt(float(cfg.d_model)), dtype=torch.float32).to(cfg.dtype)
+    return h
+
+
+def _head_out(cfg: LMConfig, params, h: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(params["final_ln"], h, cfg.norm_eps)
+    if cfg.tie_embeddings and cfg.input_mode == "tokens":
+        logits = h @ params["embed"].to(h.dtype).T
+    else:
+        logits = h @ params["lm_head"].to(h.dtype)
+    return softcap(logits, cfg.softcap_final)
+
+
+def cache_specs(cfg: LMConfig, batch: int, max_seq: int, dtype=None):
+    """Cache specs in the stacked layout prefill returns: ``[count, ...]``
+    per counted group."""
+    dtype = dtype or cfg.dtype
+    specs = []
+    for name, count in cfg.pattern:
+        spec = _block(name).cache_spec(cfg, batch, max_seq, dtype)
+        if count > 1:
+            spec = tree.map(lambda s: ShapeDtype((count, *s.shape), s.dtype), spec)
+        specs.append(spec)
+    return specs
+
+
+def unstack_caches(cfg: LMConfig, caches):
+    """Prefill's stacked group caches -> the decode list layout (views)."""
+    out = []
+    for (name, count), cache in zip(cfg.pattern, caches):
+        out.append(cache if count == 1 else [tree.map(lambda x: x[i], cache) for i in range(count)])
+    return out
+
+
+def init_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None, device=None):
+    dev = resolve(device)
+    return tree.map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
+                    cache_specs(cfg, batch, max_seq, dtype))
+
+
+def prefill(cfg: LMConfig, params, inputs: torch.Tensor):
+    """Full-sequence prefill. Returns (last-position logits [B, V], caches in
+    the stacked layout)."""
+    h = _embed_in(cfg, params, inputs)
+    ctx = {"positions": torch.arange(h.shape[1], device=h.device)}
+    out_caches = []
+    for (name, count), gparams in zip(cfg.pattern, params["groups"]):
+        block = _block(name)
+        if count == 1:
+            h, cache = block.prefill(cfg, gparams, h, ctx)
+        else:
+            per_layer = []
+            for i in range(count):
+                h, c = block.prefill(cfg, layer(gparams, i), h, ctx)
+                per_layer.append(c)
+            cache = tree.map(lambda *xs: torch.stack(xs), *per_layer)
+        out_caches.append(cache)
+    # head on the last position only: decode continues from there
+    return _head_out(cfg, params, h[:, -1:])[:, 0], out_caches
+
+
+def decode_step(cfg: LMConfig, params, token: torch.Tensor, caches, pos: int):
+    """One decode step. token [B] ids; caches in the list layout; ``pos`` the
+    scalar position of ``token``. Returns (logits [B, V], caches), the caches
+    updated in place."""
+    inp = token[:, None] if cfg.input_mode == "tokens" else token
+    h = _embed_in(cfg, params, inp)
+    ctx = {"pos": int(pos)}
+    new_caches = []
+    for (name, count), gparams, cache in zip(cfg.pattern, params["groups"], caches):
+        block = _block(name)
+        if count == 1:
+            h, c = block.decode(cfg, gparams, h, cache, ctx)
+        else:
+            c = []
+            for i in range(count):
+                h, c_new = block.decode(cfg, layer(gparams, i), h, cache[i], ctx)
+                c.append(c_new)
+        new_caches.append(c)
+    return _head_out(cfg, params, h)[:, -1], new_caches

@@ -1,0 +1,188 @@
+"""Declarative per-leaf crossbar mapping plans (port of ``repro.plan``).
+
+A :class:`LeafPlan` says how one parameter leaf maps to hardware: ``mapped``
+(int8 digit planes vs digital), its ``spec``, its ``grad`` path
+(``"operand"`` | ``"dense"``) and an optional ``fidelity`` for finite-ADC
+reads. An ordered list of :class:`PlanRule` s resolves one
+plan per leaf: every matching rule applies in order, later rules overriding
+earlier ones field by field. Rules match a glob over the '/'-joined leaf
+path plus an optional predicate over :class:`LeafInfo`; the paths are the
+JAX package's, so one rule list means the same thing on both trees.
+
+Not ported yet: shard hints, the operand group kinds (``im2col`` conv taps,
+MoE expert banks) and their per-expert fidelity, the operand-stash rule,
+``coverage_rules``, plan serialization and summaries.
+"""
+from __future__ import annotations
+
+import dataclasses
+import fnmatch
+import warnings
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch import tree
+from repro_torch.core.slicing import DEFAULT_SPEC, SliceSpec
+from repro_torch.models.common import OPERAND_LINEAR_KEYS, FidelityConfig, path_str
+
+
+class _Unset:
+    """Sentinel distinguishing "no override" from "override with None"."""
+
+    __slots__ = ()
+
+    def __repr__(self):  # pragma: no cover - debugging aid
+        return "UNSET"
+
+
+UNSET = _Unset()
+
+
+class LeafInfo(NamedTuple):
+    """What a rule predicate can see about a parameter leaf."""
+
+    path: str
+    shape: tuple
+    dtype: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    """How one parameter leaf maps to hardware. See module docstring."""
+
+    mapped: bool = False
+    spec: SliceSpec = DEFAULT_SPEC
+    grad: str = "dense"  # "operand" | "dense"
+    fidelity: FidelityConfig | None = None
+
+    def __post_init__(self):
+        if self.grad not in ("operand", "dense"):
+            raise ValueError(f"LeafPlan.grad must be 'operand' or 'dense', got {self.grad!r}")
+
+
+_OVERRIDE_FIELDS = ("mapped", "spec", "grad", "fidelity")
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanRule:
+    """``glob (+ optional predicate) -> field overrides``, applied in order."""
+
+    pattern: str = "*"
+    where: Callable[[LeafInfo], bool] | None = None
+    mapped: Any = UNSET
+    spec: Any = UNSET
+    grad: Any = UNSET
+    fidelity: Any = UNSET
+
+    def matches(self, info: LeafInfo) -> bool:
+        if not fnmatch.fnmatchcase(info.path, self.pattern):
+            return False
+        return self.where is None or bool(self.where(info))
+
+    def apply(self, plan: LeafPlan, info: LeafInfo) -> LeafPlan:
+        if not self.matches(info):
+            return plan
+        kw = {f: getattr(self, f) for f in _OVERRIDE_FIELDS if getattr(self, f) is not UNSET}
+        return dataclasses.replace(plan, **kw) if kw else plan
+
+
+# ------------------------------ default rules -------------------------------
+
+_FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def crossbar_eligible(shape, dtype, min_ndim: int = 2, min_dim: int = 8) -> bool:
+    """Eligibility is a property of the matrix dims ``[-2:]`` (leading dims
+    are layer stacks, each slice its own crossbar tile)."""
+    return len(shape) >= min_ndim and min(shape[-2:]) >= min_dim and dtype in _FLOAT_DTYPES
+
+
+def operand_eligible_path(path: str) -> bool:
+    """Single-use matmul weights directly under an ``attn``/``mlp`` subtree,
+    never under a ``shared`` one."""
+    parts = path.split("/")
+    return (
+        parts[-1] in OPERAND_LINEAR_KEYS
+        and len(parts) >= 2
+        and parts[-2] in ("attn", "mlp")
+        and "shared" not in parts
+    )
+
+
+def default_rules(cfg=None, fidelity: FidelityConfig | None = None) -> tuple:
+    """The reference's historical mapping: matrix-shaped float leaves map to
+    planes at ``cfg.spec``, single-use attn/mlp matmul weights take operand
+    gradients, ``fidelity`` (if given) attaches to every operand leaf.
+    ``cfg`` is anything with ``spec``/``min_ndim``/``min_dim``."""
+    spec = getattr(cfg, "spec", DEFAULT_SPEC)
+    min_ndim = getattr(cfg, "min_ndim", 2)
+    min_dim = getattr(cfg, "min_dim", 8)
+    rules = [
+        PlanRule("*", where=lambda i: crossbar_eligible(i.shape, i.dtype, min_ndim, min_dim),
+                 mapped=True, spec=spec),
+        PlanRule("*", where=lambda i: operand_eligible_path(i.path), grad="operand"),
+    ]
+    if fidelity is not None:
+        rules.append(PlanRule("*", fidelity=fidelity))
+    return tuple(rules)
+
+
+# ------------------------------- resolution ---------------------------------
+
+# Leaf keys the operand pipeline can never serve (gather / recurrent reads);
+# a rule that makes them operand leaves demotes to dense with one warning.
+_UNMAPPABLE_OPERAND_KEYS = frozenset({"r", "embed"})
+
+
+def _operand_unmappable(path: str) -> str | None:
+    parts = path.split("/")
+    if "shared" in parts:
+        return "lives under a 'shared' subtree (applied more than once per step)"
+    if parts[-1] in _UNMAPPABLE_OPERAND_KEYS:
+        return "is consumed by gather/recurrent ops, not a single xbar matmul site"
+    return None
+
+
+def _normalize(plan: LeafPlan, path: str = "", warned: set | None = None) -> LeafPlan:
+    """Demote unmappable operand leaves; drop a fidelity that cannot apply
+    (unmapped leaf, or a non-operand leaf without a device model); sync an
+    attached fidelity's spec to the leaf's plane layout."""
+    if plan.grad == "operand" and path:
+        reason = _operand_unmappable(path)
+        if reason is not None:
+            if warned is not None and path not in warned:
+                warned.add(path)
+                warnings.warn(
+                    f"plan: leaf {path!r} {reason}; the operand gradient path "
+                    "cannot serve it — demoting to grad='dense'. Narrow the "
+                    "rule pattern to silence this.",
+                    UserWarning,
+                    stacklevel=3,
+                )
+            plan = dataclasses.replace(plan, grad="dense")
+    if plan.fidelity is not None:
+        if not plan.mapped or (plan.grad != "operand" and plan.fidelity.device is None):
+            return dataclasses.replace(plan, fidelity=None)
+        if plan.fidelity.spec != plan.spec:
+            return dataclasses.replace(plan, fidelity=dataclasses.replace(plan.fidelity, spec=plan.spec))
+    return plan
+
+
+def resolve_leaf(path: str, shape, dtype, rules, warned: set | None = None) -> LeafPlan:
+    info = LeafInfo(path=path, shape=tuple(shape), dtype=dtype)
+    plan = LeafPlan()
+    for r in rules:
+        plan = r.apply(plan, info)
+    return _normalize(plan, path, warned)
+
+
+def resolve_plan(params, rules):
+    """A tree of :class:`LeafPlan` mirroring ``params`` (only ``.shape`` and
+    ``.dtype`` of each leaf are read). Each demoted leaf warns once per
+    call."""
+    warned: set = set()
+    return tree.map_with_path(
+        lambda p, leaf: resolve_leaf(path_str(p), leaf.shape, leaf.dtype, rules, warned),
+        params,
+    )

@@ -1,0 +1,111 @@
+"""Boundaries of the port: it imports neither JAX nor the JAX package, its
+CPU path never touches the kernel, and its entry points never drift to the
+CPU on their own."""
+from __future__ import annotations
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _port_modules():
+    import repro_torch
+
+    return ["repro_torch"] + [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for name in {_port_modules()!r}:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        print(len({_port_modules()!r}))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_chip_smoke_and_port_sources_import_no_jax():
+    files = [ROOT / "chip_smoke.py", *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
+    for f in files:
+        bad = _imported_roots(f) & {"jax", "jaxlib", "repro"}
+        assert not bad, (f, bad)
+
+
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.kernels.sliced_mvm import ops, ref
+
+    before = K.mvm_sliced_fused.launches
+    g = torch.Generator().manual_seed(0)
+    planes = torch.randint(-8, 8, (8, 256, 64), generator=g, dtype=torch.int8)
+    x = torch.randn((3, 256), generator=g)
+    out = ops.mvm_sliced_fused(planes, x, 12, DEFAULT_SPEC, adc_bits=9)
+    assert torch.equal(out, ref.mvm_sliced_fused_ref(planes, x, 12, DEFAULT_SPEC, 16, 9))
+    assert K.mvm_sliced_fused.launches == before == 0
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_mvm import kernel as K
+
+    planes = torch.zeros((8, 128, 32), dtype=torch.int8)
+    with pytest.raises(ValueError):
+        K.mvm_sliced_fused(planes, torch.zeros((1, 128)), torch.zeros(1, dtype=torch.int32),
+                           spec=DEFAULT_SPEC, adc_bits=9)
+    with pytest.raises(NotImplementedError):
+        K.mvm_sliced_fused(planes, torch.zeros((1, 32)), torch.zeros(1, dtype=torch.int32),
+                           spec=DEFAULT_SPEC, adc_bits=9, transpose=True)
+
+
+def test_entry_points_without_a_device_run_on_cuda_or_raise():
+    from repro_torch import configs, convert
+    from repro_torch.device import resolve
+    from repro_torch.models import lm
+
+    cfg = configs.get_smoke("gemma_2b")
+    if torch.cuda.is_available():
+        assert resolve().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm.init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        convert.params_from_jax({"w": __import__("numpy").zeros(2)})
+    assert lm.init_params(cfg, 0, device="cpu")["embed"].device.type == "cpu"
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run in full")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
