@@ -3,8 +3,9 @@
 Hopper card and check it.
 
 Phases:
-  1. build the CUDA kernel from the sources in this checkout (``nvcc``,
-     ``sm_90a``) and print the card's name and power limit;
+  1. build the CUDA kernels from the sources in this checkout (one ``nvcc``
+     per library, all started together, ``sm_90a``) and print the card's
+     name and power limit;
   2. hold the kernel against its plain PyTorch version at every (M, N) the
      gemma-2b serving path reads, at tokens {1, 4, 5, 16, 128} and ADC
      {9, 6, ideal}, plus a short last crossbar tile and a ragged N, and time
@@ -16,15 +17,33 @@ Phases:
      int8 digit planes, 4 prompts of 32 tokens prefilled and 16 tokens
      greedily decoded; the kernel's launch count must equal 5 reads x layers x
      (1 prefill + 15 decode steps), the logits must be finite and the
-     adc9-vs-lossless gap finite.
+     adc9-vs-lossless gap finite;
+  4. hold the update kernels and the transpose read against their plain
+     versions: ``crs`` and ``opa_deposit`` bit for bit at gemma-2b's four
+     (M, N), the 256000x2048 embedding and a ragged 320x100, on inputs that
+     hit every rail; ``opa_fused`` bit for bit on f32-exact operands (f32
+     and bf16, with and without key words) at T in {1, 100, 256}, and within
+     one grid LSB on training-like operands; the MᵀVM read bit for bit at
+     finite ADC at tokens {1, 4, 5, 16, 256}, ADC {9, 6, ideal}, a short
+     last column tile and a ragged M. Then time each at 256 tokens against
+     its plain version, its library yardstick and its bound;
+  5. train gemma-2b at full width: random weights from a seed, synthetic
+     bigram tokens at batch 4 x 64, lr 3e-2, CRS every 2 steps, counter
+     stochastic rounding; 3 steps through the adc9 plan, then 2 lossless
+     steps, then one more step of each under the profiler. Every kernel's
+     launches per step must be exact (K1 per operand block, K2 per
+     dense-gradient block, K3 per mapped block on CRS steps, K4 and K4ᵀ per
+     adc9 read), the loss and the gradient norm finite, and the planes must
+     change.
 
-It prints one JSON line with the kernel's numbers, the card's
+It prints one JSON line with the kernels' numbers, the card's
 ``name, power.limit`` line, and last the device JSON line. Any failure exits
 non-zero. Usage: ``python3 chip_smoke.py`` (no arguments).
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -32,11 +51,17 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores (the 32-bit elementwise rate)
 SLICE_SHAPES = ((2048, 2560), (2048, 2048), (2048, 16384), (16384, 2048))  # gemma-2b reads
 SLICE_READS = (("attn/wqkv", 2048, 2560), ("attn/wo", 2048, 2048), ("mlp/wi_gate", 2048, 16384),
                ("mlp/wi_up", 2048, 16384), ("mlp/wo", 16384, 2048))
 EDGE_SHAPES = ((320, 2048), (256, 100))  # short last tile; ragged N
 TOL = 1e-3  # |kernel - plain| <= TOL * (1 + max|plain|), as tests/test_kernels_mvm_fused.py
+EMBED_SHAPE = (256000, 2048)  # gemma-2b's embedding: the dense-gradient leaf
+RAGGED_SHAPE = (320, 100)
+T_TRAIN = 256  # tokens per training step: batch 4 x seq 64
+T_EDGE_SHAPES = ((2048, 320), (100, 256))  # MᵀVM: short last column tile; ragged M
 
 
 def gpu_line() -> str:
@@ -113,9 +138,9 @@ def phase_kernels(torch, K, ref, fp, spec, gen):
     return max_err, timings
 
 
-def profile_step(torch, step):
-    """One more decode step under torch.profiler: device time by kernel and
-    the device's busy share of the step's wall time (profiler on)."""
+def profile_step(torch, step, what="decode step"):
+    """One more step under torch.profiler: device time by kernel and the
+    device's busy share of the step's wall time (profiler on)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -129,9 +154,9 @@ def profile_step(torch, step):
     rows = sorted(((e.device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"profiled decode step: wall {wall_ms:.1f} ms (profiler on), device busy {busy:.1f} ms "
+    print(f"profiled {what}: wall {wall_ms:.1f} ms (profiler on), device busy {busy:.1f} ms "
           f"({100 * busy / wall_ms:.0f}%), {sum(r[1] for r in rows)} kernels", flush=True)
-    for ms, n, key in rows[:8]:
+    for ms, n, key in rows[:10]:
         print(f"  {ms:9.3f} ms  x{n:<5d} {key[:100]}")
 
 
@@ -219,6 +244,341 @@ def phase_slice(torch, K, gen):
     return launches
 
 
+def bound_of(nbytes: float, ops: float, ops_rate: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def random_planes(torch, spec, shape, gen):
+    """int8 planes [S, *shape], each plane uniform over its whole range
+    [-m_s, m_s]: saturated cells, carries out of the MSB and digit vectors
+    below -canonical_limit all occur."""
+    out = torch.empty((spec.n_slices, *shape), dtype=torch.int8, device="cuda")
+    for s, m in enumerate(spec.plane_max):
+        out[s] = torch.randint(-m, m + 1, shape, generator=gen, device="cuda", dtype=torch.int32).to(torch.int8)
+    return out
+
+
+def rail_updates(torch, spec, shape, gen):
+    """int32 updates: a quarter small, a quarter within 1000 of
+    +canonical_limit, a quarter within 1000 of -canonical_limit (both sides
+    of each rail), a quarter anywhere in int32."""
+    lim = spec.canonical_limit
+    kind = torch.randint(0, 4, shape, generator=gen, device="cuda", dtype=torch.int32)
+    near = torch.randint(-1000, 1001, shape, generator=gen, device="cuda", dtype=torch.int32)
+    out = torch.randint(-2**31, 2**31, shape, generator=gen, device="cuda", dtype=torch.int64).to(torch.int32)
+    out = torch.where(kind == 0, near * 4, out)
+    out = torch.where(kind == 1, near + lim, out)
+    return torch.where(kind == 2, near - lim, out)
+
+
+def plain_by_rows(torch, fn, planes, *rest, rows=8192):
+    """An elementwise plain version applied row block by row block, so the
+    256000-row embedding fits beside its int32 temporaries."""
+    out = torch.empty_like(planes)
+    for r0 in range(0, planes.shape[1], rows):
+        out[:, r0:r0 + rows] = fn(planes[:, r0:r0 + rows], *(x[r0:r0 + rows] for x in rest))
+    return out
+
+
+def plane_values(torch, planes):
+    """sum_s plane_s 16^s in int64 (dirty planes included)."""
+    acc = planes[-1].to(torch.int64)
+    for s in range(planes.shape[0] - 2, -1, -1):
+        acc = acc * 16 + planes[s].to(torch.int64)
+    return acc
+
+
+def phase_update_kernels(torch, spec, gen):
+    """crs and opa_deposit bit for bit against their plain versions."""
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.crs import ref as RC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+
+    checks = 0
+    for shape in (*SLICE_SHAPES, EMBED_SHAPE, RAGGED_SHAPE):
+        planes = random_planes(torch, spec, shape, gen)
+        want = plain_by_rows(torch, lambda p: RC.crs_ref(p, spec), planes)
+        got = KC.crs(planes.clone(), spec=spec)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"crs kernel vs plain at {shape}: {bad} plane cells differ")
+        del got, want
+        p_q = rail_updates(torch, spec, shape, gen)
+        want = plain_by_rows(torch, lambda p, q: RO.opa_deposit_ref(p, q, spec), planes, p_q)
+        got = KO.opa_deposit(planes.clone(), p_q, spec=spec)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"opa_deposit kernel vs plain at {shape}: {bad} plane cells differ")
+        checks += 2
+        del planes, p_q, got, want
+        torch.cuda.empty_cache()
+    print(f"crs, opa_deposit vs plain: {checks} cases bit-identical (gemma-2b layer shapes, "
+          f"embedding {EMBED_SHAPE}, ragged {RAGGED_SHAPE}; every rail hit)", flush=True)
+
+
+def exact_operands(torch, T, M, N, dtype, gen):
+    """Operands whose f32 contraction is exact in any order: small integers
+    on a power-of-two grid (|partial sum| <= 16 on a 2^-8 grid)."""
+    x = torch.randint(-4, 5, (T, M), generator=gen, device="cuda").to(torch.float32) * 0.125
+    dh = torch.randint(-4, 5, (T, N), generator=gen, device="cuda").to(torch.float32) * 2.0**-5
+    return x.to(dtype), dh.to(dtype)
+
+
+def phase_opa_fused(torch, spec, gen):
+    """opa_fused bit for bit on f32-exact operands; within one grid LSB on
+    training-like ones. Returns the max |plane value| difference seen on the
+    exact operands."""
+    from repro_torch.core.fixed_point import choose_frac_bits, quantize
+    from repro_torch.core.slicing import slice_weights
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+
+    max_err, checks = 0, 0
+    cases = [(m, n, t) for (m, n) in SLICE_SHAPES for t in (1, 100, 256)] + [(*RAGGED_SHAPE, 100)]
+    for i, (M, N, T) in enumerate(cases):
+        planes = random_planes(torch, spec, (M, N), gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dh = exact_operands(torch, T, M, N, dtype, gen)
+            # (lr, F): fractional updates where the draw decides; updates past the rails
+            for lr, F in ((2.0**-4, 8), (4.0, 28)):
+                frac = torch.tensor([F], dtype=torch.int32, device="cuda")
+                for words in (None, (0x1234567 + i, -0x7654321 - i)):
+                    got = KO.opa_fused(planes.clone(), x, dh, lr, frac, spec=spec, key_words=words)
+                    want = RO.opa_fused_ref(planes, x, dh, lr, frac[0], spec, words)
+                    torch.cuda.synchronize()
+                    err = int((plane_values(torch, got) - plane_values(torch, want)).abs().max())
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"opa_fused vs plain at M={M} N={N} T={T} {dtype} lr={lr} "
+                                             f"F={F} key={words is not None}: max |value diff| {err}")
+                    max_err, checks = max(max_err, err), checks + 1
+        del planes
+    print(f"opa_fused vs plain on f32-exact operands: {checks} cases bit-identical", flush=True)
+
+    # training-like operands on canonical planes: the f32 sums are not exact,
+    # so the two contraction orders may round some updates differently, by
+    # at most one grid LSB beyond the f32 summation error of the two orders
+    # (each within T·2^-24·sum_t |x||dh| of the exact sum)
+    for M, N in SLICE_SHAPES:
+        w = torch.randn((M, N), generator=gen, device="cuda") / M**0.5
+        f = choose_frac_bits(w, margin_bits=2)
+        planes = slice_weights(quantize(w, f), spec)
+        x = torch.randn((T_TRAIN, M), generator=gen, device="cuda").to(torch.bfloat16)
+        dh = (torch.randn((T_TRAIN, N), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+        got = KO.opa_fused(planes.clone(), x, dh, 3e-2, f.reshape(1), spec=spec, key_words=(11, 22))
+        want = RO.opa_fused_ref(planes, x, dh, 3e-2, f, spec, (11, 22))
+        d = (plane_values(torch, got) - plane_values(torch, want)).abs()
+        moved = (plane_values(torch, want) != plane_values(torch, planes)).float().mean()
+        share, worst = float((d > 0).float().mean()), int(d.max())
+        scale = 3e-2 * 2.0 ** int(f)
+        allowed = 1.0 + scale * 2 * T_TRAIN * 2.0**-24 * (x.float().abs().T @ dh.float().abs())
+        print(f"  opa_fused M={M:5d} N={N:5d} T={T_TRAIN} bf16 training-like: {share:.3e} of elements "
+              f"differ from plain, max {worst} grid LSB ({float(moved):.3f} of elements updated)", flush=True)
+        if bool((d > allowed).any()):
+            raise AssertionError(f"opa_fused vs plain on training-like operands: {worst} LSB beyond the f32 bound")
+        del w, planes, x, dh, got, want, d, allowed
+    torch.cuda.empty_cache()
+    return max_err
+
+
+def phase_transpose(torch, K, ref, fp, spec, gen):
+    """The MᵀVM read against its plain version; bit for bit at finite ADC."""
+    max_err, checks = 0.0, 0
+    cases = [(m, n, b) for (m, n) in SLICE_SHAPES for b in (1, 4, 5, 16, T_TRAIN)]
+    cases += [(m, n, b) for (m, n) in T_EDGE_SHAPES for b in (5, 16)]
+    for M, N, B in cases:
+        planes = torch.randint(-8, 8, (spec.n_slices, M, N), generator=gen, device="cuda", dtype=torch.int8)
+        dy = torch.randn((B, N), generator=gen, device="cuda") * 0.7
+        xf = fp.choose_frac_bits(dy, word_bits=16, margin_bits=1, clip_to_word=False).reshape(1)
+        for adc in (9, 6, None):
+            got = K.mvm_sliced_fused(planes, dy, xf, spec=spec, adc_bits=adc, transpose=True)
+            want = ref.mvm_sliced_fused_ref(planes, dy, xf[0], spec, 16, adc, transpose=True)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            scale = 1.0 + float(want.abs().max())
+            if (adc is not None and not torch.equal(got, want)) or not err <= TOL * scale:
+                raise AssertionError(f"MᵀVM kernel vs plain at M={M} N={N} B={B} adc={adc}: |diff| {err}")
+            max_err, checks = max(max_err, err), checks + 1
+        del planes, dy
+    torch.cuda.empty_cache()
+    print(f"MᵀVM kernel vs plain: {checks} cases, bit-identical at finite ADC; max |diff| {max_err}", flush=True)
+    return max_err
+
+
+def time_update_kernels(torch, K, ref, spec, gen):
+    """One layer's work at the training step's 256 tokens (the five operand
+    leaves) for opa_fused, the MᵀVM read and crs, and the embedding's deposit
+    for opa_deposit: kernel, plain version, library yardstick and bound."""
+    from repro_torch.core.slicing import dequantize_planes
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.crs import ref as RC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+
+    S, T = spec.n_slices, T_TRAIN
+    rows = {"opa_fused": [], "mvm_sliced_fused_transpose": [], "crs": []}
+    for name, M, N in SLICE_READS:
+        planes = torch.randint(-8, 8, (S, M, N), generator=gen, device="cuda", dtype=torch.int8)
+        frac = torch.tensor([30], dtype=torch.int32, device="cuda")
+        x = torch.randn((T, M), generator=gen, device="cuda").to(torch.bfloat16)
+        dh = (torch.randn((T, N), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+        k = cuda_time_ms(lambda: KO.opa_fused(planes, x, dh, 3e-2, frac, spec=spec, key_words=(1, 2)), 10)
+        p = cuda_time_ms(lambda: RO.opa_fused_ref(planes, x, dh, 3e-2, frac[0], spec, (1, 2)), 3, 1)
+        lib = cuda_time_ms(lambda: torch.matmul(x.t(), dh), 10)
+        b = bound_of(2 * S * M * N + 2 * T * (M + N) + 4, 2.0 * T * M * N, BF16_FLOPS_PER_S)
+        rows["opa_fused"].append((k, p, lib, *b))
+        dy = torch.randn((T, N), generator=gen, device="cuda")
+        xf = torch.tensor([10], dtype=torch.int32, device="cuda")
+        w = dequantize_planes(planes, 30, spec)
+        k = cuda_time_ms(lambda: K.mvm_sliced_fused(planes, dy, xf, spec=spec, adc_bits=9, transpose=True), 3)
+        p = cuda_time_ms(lambda: ref.mvm_sliced_fused_ref(planes, dy, xf[0], spec, 16, 9, transpose=True), 2, 1)
+        lib = cuda_time_ms(lambda: torch.matmul(dy, w.T), 10)
+        b = bound_of(S * M * N + 4 * T * (M + N) + 4, 2.0 * T * M * N * S * 15, INT8_OPS_PER_S)
+        rows["mvm_sliced_fused_transpose"].append((k, p, lib, *b))
+        k = cuda_time_ms(lambda: KC.crs(planes, spec=spec), 10)
+        p = cuda_time_ms(lambda: RC.crs_ref(planes, spec), 3, 1)
+        # ~12 32-bit operations a plane cell: carry, digit, compare, rail select
+        b = bound_of(2 * S * M * N, 12.0 * S * M * N, CUDA_CORE_OPS_PER_S)
+        rows["crs"].append((k, p, None, *b))
+        for key, r in rows.items():
+            k, p, lib, b_ms, b_by = r[-1]
+            lib = "-" if lib is None else f"{lib:.4f}"
+            print(f"  {key:27s} {name:11s} M={M:5d} N={N:5d} T={T}: kernel {k:.4f} ms  plain {p:.4f} ms  "
+                  f"library {lib} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+        del planes, x, dh, dy, w
+    V, D = EMBED_SHAPE
+    planes = torch.randint(-8, 8, (S, V, D), generator=gen, device="cuda", dtype=torch.int8)
+    p_q = torch.randint(-2**20, 2**20, (V, D), generator=gen, device="cuda", dtype=torch.int32)
+    k = cuda_time_ms(lambda: KO.opa_deposit(planes, p_q, spec=spec), 5)
+    p = cuda_time_ms(lambda: plain_by_rows(torch, lambda a, q: RO.opa_deposit_ref(a, q, spec), planes, p_q), 1, 1)
+    # ~8 32-bit operations a plane cell: digit, add, clip, carry
+    b = bound_of((4 + 2 * S) * V * D, 8.0 * S * V * D, CUDA_CORE_OPS_PER_S)
+    print(f"  opa_deposit embedding {V}x{D}: kernel {k:.4f} ms  plain {p:.4f} ms  bound {b[0]:.4f} ms ({b[1]})",
+          flush=True)
+    del planes, p_q
+    torch.cuda.empty_cache()
+
+    def total(rs):
+        lib = [r[2] for r in rs]
+        return {"ms": sum(r[0] for r in rs), "plain_ms": sum(r[1] for r in rs),
+                "library_ms": None if None in lib else sum(lib), "bound_ms": sum(r[3] for r in rs),
+                "bound_by": "bytes" if all(r[4] == "bytes" for r in rs) else "operations"}
+
+    out = {key: total(rs) for key, rs in rows.items()}
+    out["opa_deposit"] = {"ms": k, "plain_ms": p, "library_ms": None, "bound_ms": b[0], "bound_by": b[1]}
+    return out
+
+
+def snapshot(torch, sliced):
+    """A few plane rows of every mapped leaf, copied, to show the update
+    moved them."""
+    from repro_torch import tree
+
+    return {path: s.planes[..., :4, :].clone() for path, s in tree.leaves_with_path(sliced) if s is not None}
+
+
+def phase_train(torch, gen):
+    """gemma-2b at full width: 3 adc9 steps, then 2 lossless steps, with
+    every kernel's launches per step checked. Returns the launch totals."""
+    import dataclasses
+
+    from repro_torch import configs, tree
+    from repro_torch import plan as planlib
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.sliced_mvm import kernel as KM
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.optim import PantherConfig, panther
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train.step import make_train_step, param_shapes, train_state_init
+
+    cfg = configs.get("gemma_2b")
+    L = cfg.n_layers
+    opt_cfg = PantherConfig(crs_every=2, stochastic_round=True)
+    t0 = time.perf_counter()
+    state = train_state_init(cfg, opt_cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    print(f"train state: {L} layers, init+slice {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+    ds = SyntheticLMDataset(cfg.vocab, 64, 4, seed=0, device="cuda")
+    adc9 = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=opt_cfg.spec)
+    steps = {
+        "adc9": make_train_step(cfg, opt_cfg, constant(3e-2),
+                                plan_rules=planlib.default_rules(opt_cfg, fidelity=adc9)),
+        "lossless": make_train_step(cfg, opt_cfg, constant(3e-2)),
+    }
+    # blocks a step updates: one per layer of each mapped leaf, by gradient
+    # path. The [18, 2048] norm-scale stacks are matrices to the default
+    # plan (as to the reference's), so they map, with dense gradients.
+    plan = planlib.resolve_plan(param_shapes(state.digital, state.sliced), planlib.default_rules(opt_cfg))
+    blocks = {"operand": 0, "dense": 0}
+    for (path, sl), (_, pl) in zip(tree.leaves_with_path(state.sliced), tree.leaves_with_path(plan)):
+        if sl is not None:
+            blocks[pl.grad] += math.prod(sl.planes.shape[1:-2])
+    print(f"mapped blocks per step: {blocks['operand']} operand, {blocks['dense']} dense ("
+          + ", ".join("/".join(map(str, path)) for (path, sl), (_, pl)
+                      in zip(tree.leaves_with_path(state.sliced), tree.leaves_with_path(plan))
+                      if sl is not None and pl.grad == "dense") + ")", flush=True)
+    if blocks["operand"] != 5 * L:
+        raise AssertionError(f"{blocks['operand']} operand blocks, not 5 x {L} layers")
+    counters = {"opa_fused": (KO.opa_fused, "launches"), "opa_deposit": (KO.opa_deposit, "launches"),
+                "crs": (KC.crs, "launches"), "mvm_sliced_fused": (KM.mvm_sliced_fused, "launches"),
+                "mvm_sliced_fused_transpose": (KM.mvm_sliced_fused, "transpose_launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    totals = dict.fromkeys(counters, 0)
+    before = snapshot(torch, state.sliced)
+    torch.cuda.reset_peak_memory_stats()
+    for step, mode in enumerate(("adc9", "adc9", "adc9", "lossless", "lossless")):
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        batch = ds.batch(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = steps[mode](state, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        crs_step = step % opt_cfg.crs_every == opt_cfg.crs_every - 1
+        want = {"opa_fused": blocks["operand"], "opa_deposit": blocks["dense"],
+                "crs": blocks["operand"] + blocks["dense"] if crs_step else 0,
+                "mvm_sliced_fused": 5 * L if mode == "adc9" else 0,
+                "mvm_sliced_fused_transpose": 5 * L if mode == "adc9" else 0}
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        print(f"step {step} ({mode:8s}): {ms:.1f} ms, {4 * 64 / ms * 1e3:.0f} tokens/s, loss {loss:.4f}, "
+              f"grad_norm {gnorm:.4f}, launches {got}", flush=True)
+        if got != want:
+            raise AssertionError(f"step {step} ({mode}): launches {got} != {want}")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"step {step}: loss {loss} or grad_norm {gnorm} not finite")
+        for k in totals:
+            totals[k] += got[k]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    after = snapshot(torch, state.sliced)
+    moved = {path: float((after[path] != before[path]).float().mean()) for path in before}
+    print(f"peak memory over the 5 steps: {peak:.1f} GiB; share of sampled plane cells changed per leaf: "
+          + ", ".join(f"{'/'.join(map(str, p))} {v:.3f}" for p, v in moved.items()), flush=True)
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"planes did not change: {moved}")
+    for step, mode in ((5, "adc9"), (6, "lossless")):  # where a step's time goes
+        out = {}
+
+        def one_more():
+            out["state"], _ = steps[mode](state, ds.batch(step))
+
+        profile_step(torch, one_more, f"{mode} train step")
+        state = out["state"]
+    rep = panther.saturation_report(state.sliced, opt_cfg)
+    for path, sat in tree.leaves_with_path(rep):
+        if sat is not None:
+            print(f"  saturation {'/'.join(map(str, path)):24s} per plane (LSB first): "
+                  + " ".join(f"{v:.2e}" for v in sat.tolist()))
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -237,15 +597,28 @@ def main() -> int:
     card = gpu_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}", flush=True)
 
-    built = K.build_kernel()
-    print(f"built mvm_sliced_fused in {built.seconds:.1f} s -> {built.path.name}", flush=True)
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+
+    t0 = time.perf_counter()
+    libs = B.build_all({"mvm_sliced_fused": [K.SOURCE], "crs": [KC.SOURCE], **KO.SOURCES})
+    print(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s (in parallel)", flush=True)
+    for name, built in libs.items():
+        print(f"  {name}: nvcc {built.seconds:.1f} s -> {built.path.name}")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("    ptxas:", line.strip())
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err, timings = phase_kernels(torch, K, ref, fp, DEFAULT_SPEC, gen)
     launches = phase_slice(torch, K, gen)
+    torch.cuda.empty_cache()
+    phase_update_kernels(torch, DEFAULT_SPEC, gen)
+    opa_err = phase_opa_fused(torch, DEFAULT_SPEC, gen)
+    t_err = phase_transpose(torch, K, ref, fp, DEFAULT_SPEC, gen)
+    train_timings = time_update_kernels(torch, K, ref, DEFAULT_SPEC, gen)
+    train_launches = phase_train(torch, gen)
 
     # one layer's five reads at the decode batch (4 tokens): the main path's
     # per-layer decode work
@@ -253,6 +626,11 @@ def main() -> int:
         return sum(timings[(m, n, 4)][i] for _, m, n in SLICE_READS)
 
     bounds = [bound_ms(4, m, n, DEFAULT_SPEC.n_slices, 16) for _, m, n in SLICE_READS]
+
+    def entry(name, source, replaces, max_abs_err):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": train_launches[name], "max_abs_err": max_abs_err, **train_timings[name]}
+
     line = {"kernels": [{
         "name": "mvm_sliced_fused",
         "route": "cuda",
@@ -265,7 +643,15 @@ def main() -> int:
         "bound_ms": sum(b for b, _ in bounds),
         "bound_by": "bytes" if all(by == "bytes" for _, by in bounds) else "operations",
         "library_ms": per_layer(2),
-    }]}
+    },
+        entry("mvm_sliced_fused_transpose", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
+              "src/repro/kernels/sliced_mvm/kernel.py:367", t_err),
+        entry("opa_fused", "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",
+              "src/repro/kernels/sliced_opa/kernel.py:255", float(opa_err)),
+        entry("opa_deposit", "src/repro_torch/kernels/sliced_opa/csrc/opa_deposit.cu",
+              "src/repro/kernels/sliced_opa/kernel.py:90", 0.0),
+        entry("crs", "src/repro_torch/kernels/crs/csrc/crs.cu", "src/repro/kernels/crs/kernel.py:70", 0.0),
+    ]}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-"""Carry weights across from the JAX package.
+"""Carry weights and train states across from the JAX package.
 
-Both functions take trees whose leaves are numpy arrays (``jax.tree.map(
+The functions take trees whose leaves are numpy arrays (``jax.tree.map(
 np.asarray, tree)`` of a JAX tree): nested dicts and lists with the JAX
 layout, stacked layer groups on a leading ``[L, ...]`` axis. The port keeps
 that layout, so conversion is leaf by leaf.
@@ -13,6 +13,7 @@ import torch
 from repro_torch import tree
 from repro_torch.device import resolve
 from repro_torch.optim.panther import SlicedTensor
+from repro_torch.train.step import TrainState
 
 
 def params_from_jax(tree_of_numpy, device=None):
@@ -38,3 +39,12 @@ def sliced_from_jax(tree_of_numpy, device=None):
         return SlicedTensor(planes=store.movedim(lead, 0), frac_bits=frac)
 
     return tree.map(one, tree_of_numpy)
+
+
+def train_state_from_jax(step, digital, sliced, rng, device=None) -> TrainState:
+    """A JAX ``TrainState``'s parts (numpy trees, the step and the raw
+    ``uint32[2]`` rng key) -> the port's ``TrainState``, so both packages
+    run the same step from the same state."""
+    words = tuple(int(w) for w in np.asarray(rng, dtype=np.uint32).reshape(-1)[:2])
+    return TrainState(step=int(step), digital=params_from_jax(digital, device),
+                      sliced=sliced_from_jax(sliced, device), rng=words)

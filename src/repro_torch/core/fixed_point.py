@@ -1,8 +1,10 @@
 """Fixed-point quantization utilities (port of ``repro.core.fixed_point``).
 
 16-bit fixed point for activations, 32-bit for weights, per-tensor
-power-of-two scales. Deterministic rounding only: the counter-hash
-stochastic-rounding RNG belongs to the training slice.
+power-of-two scales, and the counter-hash U[0, 1) draw of stochastic
+rounding: a stateless int32 hash of the global (row, col) element position
+and two key words, so the update kernels and the plain versions draw the
+same bits for any blocking. Keys are host words (``core.prng``).
 """
 from __future__ import annotations
 
@@ -73,14 +75,80 @@ def _f32_to_i32(y: torch.Tensor) -> torch.Tensor:
     return torch.where(y >= 2.0**31, torch.full_like(out, _I32_MAX), out)
 
 
-def quantize(x: torch.Tensor, frac_bits, word_bits: int = WEIGHT_BITS) -> torch.Tensor:
-    """Quantize float -> signed fixed-point int32 with saturation, rounding
-    half to even (``torch.round``, like ``jnp.round``)."""
+# ------------------- counter-based stochastic-rounding noise -----------------
+# int32 arithmetic that wraps (two's complement, as uint32 multiplies); torch's
+# ``>>`` on int32 is arithmetic, so each right shift is masked to make it
+# logical.
+
+_FMIX_C1 = -2048144789  # 0x85ebca6b as int32
+_FMIX_C2 = -1028477387  # 0xc2b2ae35 as int32
+_GOLDEN = -1640531527  # 0x9e3779b9 as int32
+_U24 = 2.0**-24  # u = (h >>> 8) * 2^-24
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3 finalizer of an int32 word."""
+    h = h ^ ((h >> 16) & 0xFFFF)
+    h = h * _FMIX_C1
+    h = h ^ ((h >> 13) & 0x7FFFF)
+    h = h * _FMIX_C2
+    return h ^ ((h >> 16) & 0xFFFF)
+
+
+def counter_u01(r: torch.Tensor, c: torch.Tensor, k0: int, k1: int) -> torch.Tensor:
+    """U[0, 1) f32 noise at (row ``r``, col ``c``) under the int32 key words
+    ``(k0, k1)`` (Python ints)."""
+    h = (r.to(torch.int32) * _GOLDEN) ^ (c.to(torch.int32) * _FMIX_C2) ^ k0
+    h = _fmix32(h ^ k1)
+    return ((h >> 8) & 0xFFFFFF).to(torch.float32) * _U24
+
+
+def counter_uniform(key: tuple, shape: tuple, device=None) -> torch.Tensor:
+    """Counter-mode U[0, 1) of ``shape``: the trailing two dims are the
+    (row, col) grid; each leading (layer-stack) index ``l`` draws under
+    ``fold_in(key, l)``, the per-layer key of the stacked update kernel.
+    Rank < 2 shapes are one row."""
+    from .prng import counter_key_scalars, fold_in
+
+    shape = tuple(shape)
+    gs = shape[-2:] if len(shape) >= 2 else (1,) + shape
+    r = torch.arange(gs[0], dtype=torch.int32, device=device)[:, None]
+    c = torch.arange(gs[1], dtype=torch.int32, device=device)[None, :]
+    lead = shape[:-2] if len(shape) >= 2 else ()
+    if not lead:
+        return counter_u01(r, c, *counter_key_scalars(key)).reshape(shape)
+    L = math.prod(lead)
+    u = torch.empty((L, *gs), dtype=torch.float32, device=device)
+    for l in range(L):
+        u[l] = counter_u01(r, c, *counter_key_scalars(fold_in(key, l)))
+    return u.reshape(shape)
+
+
+def rounding_noise(key: tuple, shape: tuple, rng_mode: str = "counter", device=None) -> torch.Tensor:
+    """The stochastic-rounding draw. Only ``"counter"`` is ported: the
+    reference's ``"grid"`` draw is ``jax.random.uniform``'s array traversal
+    (and its own goldens fail), and ``"hw"`` is the TPU's hardware PRNG."""
+    if rng_mode != "counter":
+        raise NotImplementedError(f"rng_mode {rng_mode!r} is not ported; use 'counter'")
+    return counter_uniform(key, shape, device=device)
+
+
+def quantize(x: torch.Tensor, frac_bits, word_bits: int = WEIGHT_BITS, *,
+             stochastic: bool = False, key: tuple | None = None,
+             rng_mode: str = "counter") -> torch.Tensor:
+    """Quantize float -> signed fixed-point int32 with saturation: round half
+    to even (``torch.round``, like ``jnp.round``), or with ``stochastic``
+    ``floor(y + u)`` under the counter draw of ``key``."""
     scale = exp2i(frac_bits).to(x.device)
-    y = torch.round(x.to(torch.float32) * scale)
+    y = x.to(torch.float32) * scale
+    if stochastic:
+        if key is None:
+            raise ValueError("stochastic rounding requires a PRNG key")
+        y = torch.floor(y + rounding_noise(key, tuple(y.shape), rng_mode, device=y.device))
+    else:
+        y = torch.round(y)
     lim = float(2 ** (word_bits - 1) - 1)
-    y = torch.clamp(y, -lim, lim)
-    return _f32_to_i32(y)
+    return _f32_to_i32(torch.clamp(y, -lim, lim))
 
 
 def dequantize(q: torch.Tensor, frac_bits, dtype=torch.float32) -> torch.Tensor:

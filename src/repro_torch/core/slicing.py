@@ -105,3 +105,76 @@ def dequantize_planes(
         acc = acc * float(RADIX) + planes[s].to(torch.float32)
     scale = exp2i(-torch.as_tensor(frac_bits, dtype=torch.int32)).to(acc.device)
     return (acc * scale).to(dtype)
+
+
+def _digits_of(value: int, n: int) -> list:
+    """Balanced base-16 digits of a Python int, LSB-first."""
+    out, rem = [], value
+    for _ in range(n):
+        d = ((rem + RADIX // 2) % RADIX) - RADIX // 2
+        out.append(d)
+        rem = (rem - d) // RADIX
+    return out
+
+
+def _plane_max(spec: SliceSpec, ndim: int, device) -> torch.Tensor:
+    m = torch.tensor(spec.plane_max, dtype=torch.int32, device=device)
+    return m.reshape((spec.n_slices,) + (1,) * (ndim - 1))
+
+
+def saturating_add(planes: torch.Tensor, delta: torch.Tensor, spec: SliceSpec = DEFAULT_SPEC) -> torch.Tensor:
+    """Per-plane saturating accumulate ``clip(plane + delta, -m_s, m_s)``:
+    int32 ``delta`` ``[S, ...]`` -> int8 planes."""
+    m = _plane_max(spec, planes.dim(), planes.device)
+    out = planes.to(torch.int32) + delta.to(torch.int32)
+    return torch.minimum(torch.maximum(out, -m), m).to(torch.int8)
+
+
+def saturation_fraction(planes: torch.Tensor, spec: SliceSpec = DEFAULT_SPEC) -> torch.Tensor:
+    """Fraction of saturated cells per plane (the paper's Fig-9 metric), f32
+    ``[S]``."""
+    m = _plane_max(spec, planes.dim(), planes.device)
+    sat = planes.to(torch.int32).abs() >= m
+    return sat.to(torch.float32).mean(dim=tuple(range(1, planes.dim())))
+
+
+def crs(planes: torch.Tensor, spec: SliceSpec = DEFAULT_SPEC) -> torch.Tensor:
+    """Carry Resolution Step (paper §3.2): digit-serial carry propagation
+    LSB -> MSB; a carry out of the MSB rails the whole digit vector to
+    ``±canonical_limit``, and carry-free vectors below ``-canonical_limit``
+    rail to it by an MSB-first lexicographic compare."""
+    S = spec.n_slices
+    carry = torch.zeros(planes.shape[1:], dtype=torch.int32, device=planes.device)
+    digs = []
+    for s in range(S):
+        v = planes[s].to(torch.int32) + carry
+        d = ((v + RADIX // 2) % RADIX) - RADIX // 2
+        digs.append(d)
+        carry = (v - d) // RADIX
+    lim = spec.canonical_limit
+    pos, neg = _digits_of(lim, S), _digits_of(-lim, S)
+    lt = torch.zeros(planes.shape[1:], dtype=torch.bool, device=planes.device)
+    gt = torch.zeros_like(lt)
+    for s in range(S - 1, -1, -1):
+        lt_new = lt | (~gt & (digs[s] < neg[s]))
+        gt = gt | (~lt & (digs[s] > neg[s]))
+        lt = lt_new
+    out = torch.empty_like(planes, dtype=torch.int8)
+    for s in range(S):
+        d = torch.where(carry > 0, pos[s], digs[s])
+        d = torch.where(carry < 0, neg[s], d)
+        out[s] = torch.where(lt & (carry == 0), neg[s], d).to(torch.int8)
+    return out
+
+
+def product_digits(p: torch.Tensor, spec: SliceSpec = DEFAULT_SPEC) -> torch.Tensor:
+    """Balanced base-16 digit deltas ``[S, ...]`` (int32 in [-8, 7]) of an
+    int32 update, clipped to ``±canonical_limit`` first."""
+    lim = spec.canonical_limit
+    rem = torch.clamp(p.to(torch.int32), -lim, lim)
+    out = torch.empty((spec.n_slices, *p.shape), dtype=torch.int32, device=p.device)
+    for s in range(spec.n_slices):
+        d = ((rem + RADIX // 2) % RADIX) - RADIX // 2
+        out[s] = d
+        rem = (rem - d) // RADIX
+    return out

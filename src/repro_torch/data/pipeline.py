@@ -1,0 +1,45 @@
+"""Deterministic synthetic data (port of ``repro.data.pipeline``): every
+batch is a pure function of (seed, step, host id), made with numpy exactly
+as the reference makes it, and handed over as tensors on the chosen device."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve
+
+
+class SyntheticLMDataset:
+    """Markov-ish token stream with a learnable bigram structure: next token
+    = ``(a · tok + b) % vocab``, replaced by a uniform token with
+    probability ``noise``."""
+
+    def __init__(self, vocab: int, seq_len: int, global_batch: int, seed: int = 0,
+                 n_hosts: int = 1, host_id: int = 0, noise: float = 0.05, device=None):
+        self.vocab, self.seq_len, self.global_batch = vocab, seq_len, global_batch
+        self.seed, self.noise = seed, noise
+        self.n_hosts, self.host_id = n_hosts, host_id
+        if global_batch % n_hosts:
+            raise ValueError(f"global batch {global_batch} does not split over {n_hosts} hosts")
+        self.local_batch = global_batch // n_hosts
+        self.device = resolve(device)
+        rng = np.random.default_rng(seed)
+        self.a = int(rng.integers(2, max(3, vocab - 1)))
+        self.b = int(rng.integers(1, vocab))
+
+    def batch_numpy(self, step: int) -> dict:
+        rng = np.random.default_rng((self.seed, step, self.host_id))
+        x = np.empty((self.local_batch, self.seq_len + 1), np.int64)
+        x[:, 0] = rng.integers(0, self.vocab, self.local_batch)
+        noise = rng.random((self.local_batch, self.seq_len)) < self.noise
+        rnd = rng.integers(0, self.vocab, (self.local_batch, self.seq_len))
+        for t in range(self.seq_len):
+            nxt = (self.a * x[:, t] + self.b) % self.vocab
+            x[:, t + 1] = np.where(noise[:, t], rnd[:, t], nxt)
+        return {"inputs": x[:, :-1], "labels": x[:, 1:]}
+
+    def batch(self, step: int) -> dict:
+        """``{"inputs", "labels"}``: int64 [local_batch, seq_len] tensors on
+        the dataset's device."""
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in self.batch_numpy(step).items()}

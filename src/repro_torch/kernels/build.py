@@ -1,10 +1,12 @@
 """Build the port's CUDA sources into shared libraries with a plain C
 interface, at first use, with ``nvcc`` for ``sm_90a``.
 
-A library is named by a digest of its sources and flags, so an edited source
-never loads a stale build; the build writes to a temporary name and renames,
-so concurrent processes never load a half-written file. The build directory
-is ``src/repro_torch/kernels/_build`` (listed in ``.gitignore``).
+A library is named by a digest of its sources, the headers they include and
+the flags, so an edited source never loads a stale build; the build writes to
+a temporary name and renames, so concurrent processes never load a
+half-written file. ``build_all`` starts one ``nvcc`` per library at once and
+waits for all of them. The build directory is
+``src/repro_torch/kernels/_build`` (listed in ``.gitignore``).
 """
 from __future__ import annotations
 
@@ -16,7 +18,9 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
+KERNELS_DIR = Path(__file__).resolve().parent
+BUILD_DIR = KERNELS_DIR / "_build"
+HEADERS = (KERNELS_DIR / "deposit.cuh",)  # shared by the update kernels
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,27 +42,45 @@ def nvcc() -> str:
     return path
 
 
-def build(name: str, sources) -> Built:
-    sources = [Path(s) for s in sources]
+def _target(name: str, sources) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
-        h.update(s.read_bytes())
-    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-    log_path = out.with_suffix(".log")
-    if out.exists():
-        return Built(out, 0.0, log_path.read_text() if log_path.exists() else "")
+    for s in (*sources, *HEADERS):
+        h.update(Path(s).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(libs: dict) -> dict:
+    """``{name: [source, ...]}`` -> ``{name: Built}``: every library not
+    built yet is compiled by its own ``nvcc``, all started together."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed building {name}:\n{proc.stdout}\n{proc.stderr}")
-    log = proc.stdout + proc.stderr
-    log_path.write_text(log)
-    os.replace(tmp, out)
-    return Built(out, seconds, log)
+    out, running = {}, {}
+    for name, sources in libs.items():
+        target = _target(name, sources)
+        log_path = target.with_suffix(".log")
+        if target.exists():
+            out[name] = Built(target, 0.0, log_path.read_text() if log_path.exists() else "")
+            continue
+        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        running[name] = (proc, target, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, target, tmp, t0) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed building {name}:\n{log}")
+            continue
+        target.with_suffix(".log").write_text(log)
+        os.replace(tmp, target)
+        out[name] = Built(target, seconds, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
+def build(name: str, sources) -> Built:
+    return build_all({name: list(sources)})[name]

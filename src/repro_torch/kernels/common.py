@@ -1,12 +1,14 @@
 """Shared kernel utilities (port of ``repro.kernels.common``)."""
 from __future__ import annotations
 
+import itertools
+
 
 def pick_block(dim: int, pref: int, granule: int = 128) -> int:
     """Largest block <= pref that divides dim, preferring hardware granules;
     the full dimension when no divisor exists. The sliced-MVM kernel masks
-    its ragged token and column edges itself and needs no divisor block; the
-    update kernels of the training slice block their operands with this."""
+    its ragged token and column edges itself and needs no divisor block, and
+    so do the update kernels."""
     if dim <= pref:
         return dim
     if dim % pref == 0:
@@ -18,3 +20,12 @@ def pick_block(dim: int, pref: int, granule: int = 128) -> int:
         if dim % cand == 0:
             return cand
     return dim
+
+
+def layer_views(planes) -> list:
+    """Each layer's ``[S, M, N]`` block of planes ``[S, *stack, M, N]``, as
+    views in stack order. On the port's layer-major storage (``[*stack, S,
+    M, N]``, see ``optim.panther``) every block is contiguous, so a kernel
+    updates it in place with no copy of the stack."""
+    stack = planes.shape[1:-2]
+    return [planes[(slice(None), *idx)] for idx in itertools.product(*map(range, stack))]

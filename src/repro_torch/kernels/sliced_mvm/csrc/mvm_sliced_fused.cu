@@ -3,9 +3,13 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/sliced_mvm/kernel.py::
 // mvm_sliced_fused (bodies _mvm_fused_db_kernel / _mvm_fused_kernel,
-// _tile_compute, _dac_block), forward read with no device read noise.
+// _tile_compute, _dac_block), the forward read and the transpose (MᵀVM)
+// read, with no device read noise.
 //
-// What it computes, per 128-row crossbar tile k, token b, output column n:
+// What it computes, per 128-row crossbar tile k, token b, output column n
+// (the transpose read swaps the roles of the plane's rows and columns: it
+// contracts over 128-column tiles of N into outputs over M, with the same
+// ADC full scale 128·plane_max):
 //   x_q[b,r]  = clamp(rint(x[b,r] * 2^F), +-(2^(io-1)-1))         (DAC)
 //   c[t,s]    = sum_r sgn(x_q)·bit_t(|x_q|)[b,r] · plane[s,r,n]  (int32)
 //   code[t,s] = clamp(rint(c / step_s), +-2^(adc-1)),  step_s = 2·128·pm_s/2^adc
@@ -27,6 +31,12 @@
 // shared memory in ascending s, and the tile is added to the accumulator:
 // the order of the plain version (and of the reference), so at finite ADC
 // the kernel agrees with it bit for bit.
+//
+// The transpose read takes the planes in place, row-major [S, M, N]: four
+// consecutive contraction indices of one output row are four consecutive
+// bytes of a plane row, so its packed word is a plain 4-byte load and no
+// transposed copy of the planes is made. Its shared-memory rows are padded
+// by 4 words (WS) so the stores of one warp spread over the banks.
 //
 // Bound on the H100. Decode at small batch moves S·M·N plane bytes once and
 // is bound by those bytes (3.35 TB/s); prefill does 2·B·M·N·S·(io_bits-1)
@@ -68,16 +78,19 @@ __device__ __forceinline__ uint32_t pack_row_bytes(const int8_t* p, int valid, b
   return w;
 }
 
-template <int D, bool FINITE>
+// K: contraction length (M forward, N transpose); NO: outputs (N forward,
+// M transpose); the planes are [S, M, N] row-major either way
+template <int D, bool FINITE, bool TRANS>
 __global__ void __launch_bounds__(THREADS)
 mvm_sliced_fused_kernel(const int8_t* __restrict__ planes, const float* __restrict__ x,
                         const int* __restrict__ frac_bits, float* __restrict__ out,
-                        int B, int M, int N, int S, int BB, int io_bits, int adc_half,
+                        int B, int K, int NO, int S, int BB, int io_bits, int adc_half,
                         int vec, SliceParams sp) {
   extern __shared__ __align__(16) int smem[];
   constexpr int XS = D * R4 + 1;       // +1 word: tokens land on distinct banks
-  int* wpk = smem;                     // [S][R4][BN] packed plane words
-  int* xd = wpk + S * R4 * BN;         // [BB][XS] packed x digit words
+  constexpr int WS = TRANS ? BN + 4 : BN;  // packed plane words per r4 row
+  int* wpk = smem;                     // [S][R4][WS] packed plane words
+  int* xd = wpk + S * R4 * WS;         // [BB][XS] packed x digit words
   float* red = reinterpret_cast<float*>(xd + BB * XS);  // [S][BB][BN] slice terms
 
   const int tid = threadIdx.x;
@@ -97,7 +110,7 @@ mvm_sliced_fused_kernel(const int8_t* __restrict__ planes, const float* __restri
 #pragma unroll
   for (int i = 0; i < OUT_TASKS; ++i) acc[i] = 0.f;
 
-  const int ntiles = (M + XBAR_ROWS - 1) / XBAR_ROWS;
+  const int ntiles = (K + XBAR_ROWS - 1) / XBAR_ROWS;
   for (int k = 0; k < ntiles; ++k) {
     const int row0 = k * XBAR_ROWS;
 
@@ -110,7 +123,7 @@ mvm_sliced_fused_kernel(const int8_t* __restrict__ planes, const float* __restri
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = row0 + 4 * r4 + i;
-        const float v = (gb < B && r < M) ? x[(size_t)gb * M + r] : 0.f;
+        const float v = (gb < B && r < K) ? x[(size_t)gb * K + r] : 0.f;
         const float y = fminf(fmaxf(rintf(v * scale), -lim), lim);
         const int q = (int)y;
         mag[i] = (uint32_t)(q < 0 ? -q : q);
@@ -129,39 +142,57 @@ mvm_sliced_fused_kernel(const int8_t* __restrict__ planes, const float* __restri
       }
     }
 
-    // plane tile [S,128,BN] -> wpk[s][r4][n]: rows 4r4..4r4+3 of column n
-    // in one word (a 4x4 byte transpose per 4 rows x 4 columns)
-    for (int task = tid; task < S * R4 * NG; task += THREADS) {
-      const int c4 = task % NG;
-      const int r4 = (task / NG) % R4;
-      const int s = task / (NG * R4);
-      const int col = n0 + 4 * c4;
-      const int valid = N - col;
-      uint32_t rw[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = row0 + 4 * r4 + i;
-        rw[i] = (r < M && valid > 0)
-                    ? pack_row_bytes(planes + ((size_t)s * M + r) * N + col, valid, vec)
-                    : 0u;
+    if (TRANS) {
+      // plane tile [S,BN,128] (rows n0.., columns row0..) -> wpk[s][r4][n]:
+      // columns 4r4..4r4+3 of plane row n are one 4-byte word; a warp
+      // reads one 128-byte row segment
+      for (int task = tid; task < S * BN * R4; task += THREADS) {
+        const int r4 = task % R4;
+        const int n = (task / R4) % BN;
+        const int s = task / (R4 * BN);
+        const int gn = n0 + n;
+        const int col = row0 + 4 * r4;
+        const int valid = K - col;
+        wpk[(s * R4 + r4) * WS + n] =
+            (gn < NO && valid > 0)
+                ? (int)pack_row_bytes(planes + ((size_t)s * NO + gn) * K + col, valid, vec)
+                : 0;
       }
-      const uint32_t lo01 = __byte_perm(rw[0], rw[1], 0x5140);
-      const uint32_t hi01 = __byte_perm(rw[0], rw[1], 0x7362);
-      const uint32_t lo23 = __byte_perm(rw[2], rw[3], 0x5140);
-      const uint32_t hi23 = __byte_perm(rw[2], rw[3], 0x7362);
-      int4 o;
-      o.x = (int)__byte_perm(lo01, lo23, 0x5410);
-      o.y = (int)__byte_perm(lo01, lo23, 0x7632);
-      o.z = (int)__byte_perm(hi01, hi23, 0x5410);
-      o.w = (int)__byte_perm(hi01, hi23, 0x7632);
-      reinterpret_cast<int4*>(wpk)[((s * R4 + r4) * BN + 4 * c4) / 4] = o;
+    } else {
+      // plane tile [S,128,BN] -> wpk[s][r4][n]: rows 4r4..4r4+3 of column n
+      // in one word (a 4x4 byte transpose per 4 rows x 4 columns)
+      for (int task = tid; task < S * R4 * NG; task += THREADS) {
+        const int c4 = task % NG;
+        const int r4 = (task / NG) % R4;
+        const int s = task / (NG * R4);
+        const int col = n0 + 4 * c4;
+        const int valid = NO - col;
+        uint32_t rw[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = row0 + 4 * r4 + i;
+          rw[i] = (r < K && valid > 0)
+                      ? pack_row_bytes(planes + ((size_t)s * K + r) * NO + col, valid, vec)
+                      : 0u;
+        }
+        const uint32_t lo01 = __byte_perm(rw[0], rw[1], 0x5140);
+        const uint32_t hi01 = __byte_perm(rw[0], rw[1], 0x7362);
+        const uint32_t lo23 = __byte_perm(rw[2], rw[3], 0x5140);
+        const uint32_t hi23 = __byte_perm(rw[2], rw[3], 0x7362);
+        int4 o;
+        o.x = (int)__byte_perm(lo01, lo23, 0x5410);
+        o.y = (int)__byte_perm(lo01, lo23, 0x7632);
+        o.z = (int)__byte_perm(hi01, hi23, 0x5410);
+        o.w = (int)__byte_perm(hi01, hi23, 0x7632);
+        reinterpret_cast<int4*>(wpk)[((s * R4 + r4) * WS + 4 * c4) / 4] = o;
+      }
     }
     __syncthreads();
 
     // column currents, ADC and bit fold; each (slice, token, column) term
     // z·step_s·16^s goes to red[s][b][n]
     for (int s = sg; s < S; s += SG) {
-      const int4* wcol = reinterpret_cast<const int4*>(wpk + s * R4 * BN) + ng;
+      const int* wrow = wpk + s * R4 * WS;
       const float inv_step = sp.inv_step[s];
       const float weight = sp.weight[s];
 #pragma unroll
@@ -176,7 +207,7 @@ mvm_sliced_fused_kernel(const int8_t* __restrict__ planes, const float* __restri
           for (int j = 0; j < TN; ++j) c[t][j] = 0;
 #pragma unroll 2
         for (int r4 = 0; r4 < R4; ++r4) {
-          const int4 w = wcol[r4 * NG];
+          const int4 w = reinterpret_cast<const int4*>(wrow + r4 * WS)[ng];
 #pragma unroll
           for (int t = 0; t < D; ++t) {
             const int xv = xrow[t * R4 + r4];
@@ -222,44 +253,55 @@ mvm_sliced_fused_kernel(const int8_t* __restrict__ planes, const float* __restri
     const int task = tid + i * THREADS;
     const int b = task / BN, n = task % BN;
     const int gb = b0 + b, gn = n0 + n;
-    if (task < BB * BN && gb < B && gn < N) out[(size_t)gb * N + gn] = acc[i];
+    if (task < BB * BN && gb < B && gn < NO) out[(size_t)gb * NO + gn] = acc[i];
   }
 }
 
-template <int D>
-cudaError_t launch(bool finite, const int8_t* planes, const float* x, const int* frac_bits,
-                   float* out, int B, int M, int N, int S, int BB, int io_bits,
-                   int adc_half, int vec, const SliceParams& sp, cudaStream_t stream) {
+template <int D, bool FINITE, bool TRANS>
+cudaError_t launch_one(const int8_t* planes, const float* x, const int* frac_bits, float* out,
+                       int B, int K, int NO, int S, int BB, int io_bits, int adc_half, int vec,
+                       const SliceParams& sp, cudaStream_t stream) {
+  constexpr int WS = TRANS ? BN + 4 : BN;
   const size_t smem =
-      ((size_t)S * R4 * BN + (size_t)BB * (D * R4 + 1) + (size_t)S * BB * BN) * sizeof(int);
-  const dim3 grid((N + BN - 1) / BN, (B + BB - 1) / BB);
-  cudaError_t err;
-  if (finite) {
-    err = cudaFuncSetAttribute(mvm_sliced_fused_kernel<D, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    mvm_sliced_fused_kernel<D, true><<<grid, THREADS, smem, stream>>>(
-        planes, x, frac_bits, out, B, M, N, S, BB, io_bits, adc_half, vec, sp);
-  } else {
-    err = cudaFuncSetAttribute(mvm_sliced_fused_kernel<D, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    mvm_sliced_fused_kernel<D, false><<<grid, THREADS, smem, stream>>>(
-        planes, x, frac_bits, out, B, M, N, S, BB, io_bits, adc_half, vec, sp);
-  }
+      ((size_t)S * R4 * WS + (size_t)BB * (D * R4 + 1) + (size_t)S * BB * BN) * sizeof(int);
+  const dim3 grid((NO + BN - 1) / BN, (B + BB - 1) / BB);
+  cudaError_t err = cudaFuncSetAttribute(mvm_sliced_fused_kernel<D, FINITE, TRANS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  mvm_sliced_fused_kernel<D, FINITE, TRANS><<<grid, THREADS, smem, stream>>>(
+      planes, x, frac_bits, out, B, K, NO, S, BB, io_bits, adc_half, vec, sp);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(bool finite, bool transpose, const int8_t* planes, const float* x,
+                   const int* frac_bits, float* out, int B, int M, int N, int S, int BB,
+                   int io_bits, int adc_half, int vec, const SliceParams& sp,
+                   cudaStream_t stream) {
+  if (transpose) {
+    return finite ? launch_one<D, true, true>(planes, x, frac_bits, out, B, N, M, S, BB, io_bits,
+                                              adc_half, vec, sp, stream)
+                  : launch_one<D, false, true>(planes, x, frac_bits, out, B, N, M, S, BB, io_bits,
+                                               adc_half, vec, sp, stream);
+  }
+  return finite ? launch_one<D, true, false>(planes, x, frac_bits, out, B, M, N, S, BB, io_bits,
+                                             adc_half, vec, sp, stream)
+                : launch_one<D, false, false>(planes, x, frac_bits, out, B, M, N, S, BB, io_bits,
+                                              adc_half, vec, sp, stream);
 }
 
 }  // namespace
 
-// planes int8 [S,M,N], x f32 [B,M], frac_bits int32 [1] (device), out f32
-// [B,N], all contiguous on the current device. slice_bits: host int[S],
-// physical bits per slice LSB-first. adc_bits <= 0 selects the ideal ADC.
+// planes int8 [S,M,N], x f32 [B,M] ([B,N] when transpose), frac_bits int32
+// [1] (device), out f32 [B,N] ([B,M] when transpose), all contiguous on the
+// current device. slice_bits: host int[S], physical bits per slice
+// LSB-first. adc_bits <= 0 selects the ideal ADC. vec != 0: the planes' row
+// length (N) is a multiple of 4 and the planes 4-byte aligned.
 // Returns a cudaError_t (0 on success).
 extern "C" int panther_mvm_sliced_fused(const void* planes, const void* x, const void* frac_bits,
                                         void* out, int B, int M, int N, int S, int io_bits,
                                         int adc_bits, const int* slice_bits, int vec,
-                                        void* stream) {
+                                        int transpose, void* stream) {
   if (S < 1 || S > MAX_S || B < 1 || M < 1 || N < 1) return (int)cudaErrorInvalidValue;
   if (adc_bits > 16) return (int)cudaErrorInvalidValue;
   SliceParams sp;
@@ -282,5 +324,6 @@ extern "C" int panther_mvm_sliced_fused(const void* planes, const void* x, const
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (io_bits != 16) return (int)cudaErrorInvalidValue;  // the one width instantiated
-  return (int)launch<15>(finite, p, xf, f, o, B, M, N, S, BB, io_bits, adc_half, vec, sp, st);
+  return (int)launch<15>(finite, transpose != 0, p, xf, f, o, B, M, N, S, BB, io_bits, adc_half,
+                         vec, sp, st);
 }

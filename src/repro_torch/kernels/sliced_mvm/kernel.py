@@ -4,15 +4,18 @@
 The kernel (``csrc/mvm_sliced_fused.cu``) replaces ``mvm_sliced_fused`` of
 ``src/repro/kernels/sliced_mvm/kernel.py`` — both its double-buffered and
 its 3-D-grid lowerings, which compute the same numbers — for the forward
-read without device read noise: per 128-row crossbar tile it does the DAC,
-the sign·magnitude bit planes, the int32 column currents, the per-slice ADC
-and the shift-and-add, and accumulates the tiles in f32. The source comment
-says what bounds it on the card and what the simple design leaves for later.
+and the transpose (MᵀVM) read without device read noise: per 128-row
+crossbar tile (128-column tile for the transpose) it does the DAC, the
+sign·magnitude bit planes, the int32 column currents, the per-slice ADC and
+the shift-and-add, and accumulates the tiles in f32. The transpose reads the
+same row-major planes in place. The source comment says what bounds it on
+the card and what the simple design leaves for later.
 
 The library builds at first use (``kernels.build``); nothing is compiled or
 loaded at import, so CPU-only machines import this module freely. The
 wrapper launches on the current stream and counts its launches in
-``mvm_sliced_fused.launches``.
+``mvm_sliced_fused.launches`` (forward) and
+``mvm_sliced_fused.transpose_launches`` (MᵀVM).
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ def _entry():
     lib = ctypes.CDLL(str(build_kernel().path))
     fn = lib.panther_mvm_sliced_fused
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -57,13 +60,11 @@ def mvm_sliced_fused(
     transpose: bool = False,
     dev=None,
 ) -> torch.Tensor:
-    """planes int8 [S, M, N]; x float32 [B, M]; frac_bits int32 1-element
-    tensor (the DAC exponent, read by the kernel on the device) -> f32
-    [B, N] on the product grid. All CUDA tensors on one device, contiguous.
-    Raises on what the kernel does not take: the MᵀVM (``transpose``) read
-    and device read noise have no kernel yet."""
-    if transpose:
-        raise NotImplementedError("mvm_sliced_fused: the transpose (MᵀVM) read has no CUDA kernel yet")
+    """planes int8 [S, M, N]; x float32 [B, M] ([B, N] when ``transpose``);
+    frac_bits int32 1-element tensor (the DAC exponent, read by the kernel
+    on the device) -> f32 [B, N] ([B, M]) on the product grid. All CUDA
+    tensors on one device, contiguous. Raises on what the kernel does not
+    take: device read noise has no kernel yet."""
     if dev is not None:
         raise NotImplementedError("mvm_sliced_fused: device read noise has no CUDA kernel yet")
     if not (planes.is_cuda and x.is_cuda and frac_bits.is_cuda):
@@ -78,7 +79,8 @@ def mvm_sliced_fused(
         raise ValueError("frac_bits must be a 1-element int32 tensor")
     S, M, N = planes.shape
     B = x.shape[0]
-    if x.shape[1] != M or S != spec.n_slices:
+    contract, out_dim = (N, M) if transpose else (M, N)
+    if x.shape[1] != contract or S != spec.n_slices:
         raise ValueError(f"x {tuple(x.shape)} / spec S={spec.n_slices} do not match planes {tuple(planes.shape)}")
     if S > MAX_SLICES:
         raise ValueError(f"at most {MAX_SLICES} slices, got {S}")
@@ -86,10 +88,10 @@ def mvm_sliced_fused(
         raise ValueError(f"io_bits {io_bits} not built; the kernel takes {IO_BITS_BUILT}")
     if adc_bits is not None and not 1 <= adc_bits <= 16:
         raise ValueError(f"adc_bits must be in [1, 16] or None, got {adc_bits}")
-    out = torch.empty((B, N), dtype=torch.float32, device=x.device)
-    if B == 0 or N == 0:
+    out = torch.empty((B, out_dim), dtype=torch.float32, device=x.device)
+    if B == 0 or out_dim == 0:
         return out
-    if M == 0:
+    if contract == 0:
         return out.zero_()
     bits = (ctypes.c_int * S)(*spec.bits_lsb_first)
     vec = int(N % 4 == 0 and planes.data_ptr() % 4 == 0)
@@ -98,11 +100,15 @@ def mvm_sliced_fused(
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         err = fn(planes.data_ptr(), x.data_ptr(), frac_bits.data_ptr(), out.data_ptr(),
                  B, M, N, S, io_bits, 0 if adc_bits is None else adc_bits,
-                 ctypes.cast(bits, ctypes.c_void_p), vec, stream)
+                 ctypes.cast(bits, ctypes.c_void_p), vec, int(transpose), stream)
     if err != 0:
         raise RuntimeError(f"mvm_sliced_fused kernel launch failed (cudaError {err})")
-    mvm_sliced_fused.launches += 1
+    if transpose:
+        mvm_sliced_fused.transpose_launches += 1
+    else:
+        mvm_sliced_fused.launches += 1
     return out
 
 
 mvm_sliced_fused.launches = 0
+mvm_sliced_fused.transpose_launches = 0

@@ -1,0 +1,124 @@
+"""CUDA kernels for the sliced-OPA update on Hopper, bound through ``ctypes``
+(port of the Pallas kernels ``repro.kernels.sliced_opa.kernel``).
+
+* ``opa_deposit`` (``csrc/opa_deposit.cu``) deposits an int32 update on the
+  weight grid into one ``[S, M, N]`` block of digit planes, in place.
+* ``opa_fused`` (``csrc/opa_fused.cu``) forms ``xᵀdh`` tile by tile, scales
+  it by ``-lr · 2^F``, rounds it (the counter draw under key words, or half
+  to even) and deposits it in the same pass: the gradient never reaches
+  device memory. The ideal device only: write physics has no kernel yet.
+
+Each source says what bounds it. The libraries build at first use
+(``kernels.build``), never at import. The wrappers launch on the current
+stream and count their launches in ``opa_deposit.launches`` and
+``opa_fused.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.core.slicing import SliceSpec
+from repro_torch.kernels import build as _build
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"opa_deposit": [CSRC / "opa_deposit.cu"], "opa_fused": [CSRC / "opa_fused.cu"]}
+MAX_SLICES = 8  # canonical_limit fits int32
+_OPERAND_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    lib = ctypes.CDLL(str(_build.build(name, SOURCES[name]).path))
+    if name == "opa_deposit":
+        fn = lib.panther_opa_deposit
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    else:
+        fn = lib.panther_opa_fused
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_planes(planes: torch.Tensor, spec: SliceSpec) -> None:
+    if planes.dtype != torch.int8 or planes.dim() != 3 or not planes.is_contiguous():
+        raise ValueError(f"planes must be contiguous int8 [S, M, N], got {planes.dtype} {tuple(planes.shape)}")
+    S = planes.shape[0]
+    if S != spec.n_slices or S > MAX_SLICES:
+        raise ValueError(f"planes S={S} vs spec S={spec.n_slices} (at most {MAX_SLICES})")
+
+
+def _plane_max(spec: SliceSpec):
+    return (ctypes.c_int * spec.n_slices)(*spec.plane_max)
+
+
+def _launch(name: str, planes: torch.Tensor, *args) -> None:
+    fn = _entry(name)
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
+
+
+def opa_deposit(planes: torch.Tensor, p_q: torch.Tensor, *, spec: SliceSpec) -> torch.Tensor:
+    """planes int8 [S, M, N] updated in place by p_q int32 [M, N], both
+    contiguous on one CUDA device; returns ``planes``."""
+    if not (planes.is_cuda and p_q.is_cuda) or planes.device != p_q.device:
+        raise ValueError("opa_deposit kernel takes CUDA tensors on one device only")
+    _check_planes(planes, spec)
+    if p_q.dtype != torch.int32 or tuple(p_q.shape) != tuple(planes.shape[1:]) or not p_q.is_contiguous():
+        raise ValueError(f"p_q must be contiguous int32 {tuple(planes.shape[1:])}, got {p_q.dtype} {tuple(p_q.shape)}")
+    mn = p_q.numel()
+    if mn == 0:
+        return planes
+    vec = int(mn % 4 == 0 and planes.data_ptr() % 4 == 0 and p_q.data_ptr() % 16 == 0)
+    _launch("opa_deposit", planes, planes.data_ptr(), p_q.data_ptr(), mn, spec.n_slices,
+            ctypes.cast(_plane_max(spec), ctypes.c_void_p), spec.canonical_limit, vec)
+    opa_deposit.launches += 1
+    return planes
+
+
+def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float,
+              frac_bits: torch.Tensor, *, spec: SliceSpec, key_words=None, dev=None) -> torch.Tensor:
+    """planes int8 [S, M, N] updated in place by ``-lr · xᵀdh`` on the
+    ``2^-F`` grid; x [T, M] and dh [T, N] contiguous f32 or bf16 (one
+    dtype); frac_bits a 1-element int32 tensor read on the device; lr a host
+    float; key_words None (round half to even) or two int32 Python ints
+    (stochastic rounding by the counter draw). Returns ``planes``. Raises on
+    write physics (``dev``): it has no kernel yet."""
+    if dev is not None:
+        raise NotImplementedError("opa_fused: device write physics has no CUDA kernel yet")
+    if not (planes.is_cuda and x.is_cuda and dh.is_cuda and frac_bits.is_cuda):
+        raise ValueError("opa_fused kernel takes CUDA tensors only")
+    if not (planes.device == x.device == dh.device == frac_bits.device):
+        raise ValueError("opa_fused: tensors on different devices")
+    _check_planes(planes, spec)
+    S, M, N = planes.shape
+    if x.dtype not in _OPERAND_DTYPES or dh.dtype != x.dtype:
+        raise ValueError(f"x and dh must share a dtype in {list(_OPERAND_DTYPES)}, got {x.dtype}, {dh.dtype}")
+    if x.dim() != 2 or dh.dim() != 2 or x.shape[1] != M or dh.shape[1] != N or x.shape[0] != dh.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} / dh {tuple(dh.shape)} do not match planes {tuple(planes.shape)}")
+    if not (x.is_contiguous() and dh.is_contiguous()):
+        raise ValueError("x and dh must be contiguous")
+    if frac_bits.dtype != torch.int32 or frac_bits.numel() != 1:
+        raise ValueError("frac_bits must be a 1-element int32 tensor")
+    if M == 0 or N == 0:
+        return planes
+    k0, k1 = (0, 0) if key_words is None else key_words
+    vec = int(N % 8 == 0 and planes.data_ptr() % 8 == 0)
+    _launch("opa_fused", planes, planes.data_ptr(), x.data_ptr(), dh.data_ptr(), frac_bits.data_ptr(),
+            float(np.float32(lr)), x.shape[0], M, N, S, ctypes.cast(_plane_max(spec), ctypes.c_void_p),
+            spec.canonical_limit, _OPERAND_DTYPES[x.dtype], int(key_words is not None), k0, k1, vec)
+    opa_fused.launches += 1
+    return planes
+
+
+opa_deposit.launches = 0
+opa_fused.launches = 0

@@ -1,0 +1,86 @@
+"""Training launcher (port of ``repro.launch.train``):
+``python -m repro_torch.launch.train --arch gemma-2b --steps 50``.
+
+Trains on the card (``--device cuda``, the default; without one it raises)
+or, for a check at the reduced size, on the CPU with the plain versions
+(``--smoke --device cpu``). Random weights from seed 0, synthetic
+bigram tokens, the PANTHER update with counter-hash stochastic rounding and
+CRS every ``--crs-every`` steps; ``--fidelity`` trains through the
+finite-ADC reads. Checkpoints and meshes are not ported: ``--ckpt-dir`` and
+``--mesh`` raise.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="gemma-2b")
+    ap.add_argument("--smoke", action="store_true", help="use the reduced config")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-2)
+    ap.add_argument("--schedule", default="constant", choices=["constant", "cosine", "wsd"])
+    ap.add_argument("--crs-every", type=int, default=1024)
+    ap.add_argument("--fidelity", default="none",
+                    choices=["none", "ideal", "adc9", "adc6", "adc6_fwd", "adc6_bwd"],
+                    help="crossbar-in-the-loop preset: train through the finite-ADC reads")
+    ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt-dir", default=None, help="not ported: raises")
+    ap.add_argument("--mesh", default="none", help="not ported: anything but 'none' raises")
+    return ap
+
+
+def main(argv=None) -> list:
+    """Run the launcher; returns the per-step metrics (floats)."""
+    args = build_parser().parse_args(argv)
+    if args.ckpt_dir is not None:
+        raise NotImplementedError("checkpoints are not ported yet (--ckpt-dir)")
+    if args.mesh != "none":
+        raise NotImplementedError("meshes are not ported yet (--mesh)")
+
+    from repro_torch import configs
+    from repro_torch import plan as planlib
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.device import resolve
+    from repro_torch.optim import PantherConfig
+    from repro_torch.optim.schedules import constant, cosine, wsd
+    from repro_torch.train.step import make_train_step, train_state_init
+
+    device = resolve(args.device)
+    cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
+    sched = {
+        "constant": lambda: constant(args.lr),
+        "cosine": lambda: cosine(args.lr, warmup=max(args.steps // 20, 1), total=args.steps),
+        "wsd": lambda: wsd(args.lr, warmup=max(args.steps // 20, 1),
+                           stable=int(args.steps * 0.7), decay=max(int(args.steps * 0.25), 1)),
+    }[args.schedule]()
+    opt_cfg = PantherConfig(crs_every=args.crs_every, stochastic_round=True)
+    rules = None
+    if args.fidelity != "none":
+        # the engine must read the planes the optimizer writes
+        fid = dataclasses.replace(configs.fidelity_presets()[args.fidelity], spec=opt_cfg.spec)
+        rules = planlib.default_rules(opt_cfg, fidelity=fid)
+
+    ds = SyntheticLMDataset(cfg.vocab, args.seq, args.batch, device=device)
+    step_fn = make_train_step(cfg, opt_cfg, sched, plan_rules=rules)
+    state = train_state_init(cfg, opt_cfg, 0, device=device)
+    history = []
+    t0 = time.perf_counter()
+    for step in range(args.steps):
+        state, metrics = step_fn(state, ds.batch(step))
+        history.append(metrics)
+        if step % args.log_every == 0 or step == args.steps - 1:  # the only device syncs
+            print(f"step {step:5d} loss {float(metrics['loss']):.4f} lr {metrics['lr']:.2e} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} ({time.perf_counter() - t0:.1f}s)", flush=True)
+    print("done")
+    return [{k: float(v) for k, v in m.items()} for m in history]
+
+
+if __name__ == "__main__":
+    main()

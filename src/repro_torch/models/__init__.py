@@ -1,5 +1,5 @@
 from . import attention, common, lm, mlp
-from .common import LMConfig, MLACfg, MoECfg, SSMCfg, XbarWeight, XLSTMCfg, ZambaCfg
+from .common import LMConfig, MLACfg, MoECfg, OuterProductGrad, SSMCfg, XbarWeight, XLSTMCfg, ZambaCfg
 
 __all__ = [
     "attention",
@@ -7,6 +7,7 @@ __all__ = [
     "lm",
     "mlp",
     "LMConfig",
+    "OuterProductGrad",
     "XbarWeight",
     "MLACfg",
     "MoECfg",

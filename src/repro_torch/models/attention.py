@@ -182,6 +182,12 @@ def block_init(cfg: LMConfig, gen: torch.Generator, *,
     }
 
 
+def block_apply(cfg: LMConfig, p, h, positions):
+    """Training forward of one layer (no cache)."""
+    h = attn_apply(cfg, p["attn"], h, positions)
+    return mlp_apply(cfg, p["mlp"], h)
+
+
 def block_prefill(cfg: LMConfig, p, h, positions):
     h, cache = attn_apply(cfg, p["attn"], h, positions, with_cache=True)
     return mlp_apply(cfg, p["mlp"], h), cache

@@ -1,5 +1,6 @@
 """Shared model components (port of ``repro.models.common``): configs,
-the finite-ADC fidelity wrap, norms, RoPE, initializers.
+the crossbar linear (``xbar_linear``) with its operand-form weight gradient
+and its finite-ADC fidelity reads, norms, RoPE, initializers.
 
 Parameters are plain nested dicts of tensors with the JAX trees' layout:
 layer groups are stacked on a leading ``[L, ...]`` axis, and a leaf's path is
@@ -27,14 +28,97 @@ class ShapeDtype(NamedTuple):
     dtype: torch.dtype
 
 
+# ------------------------- operand-form gradients ----------------------------
+#
+# PANTHER's update is an in-crossbar outer product: the weight gradient of a
+# crossbar linear is never formed as a dense [M, N] matrix; the optimizer
+# consumes the operands (x, dh) and deposits ``-lr·xᵀdh`` through the fused
+# update kernel. A ``torch.autograd.Function`` cannot return such a pair as a
+# gradient, so the train-side wrap carries an ``OperandSlot``: the backward
+# writes ``(x, dh)`` of its layer there and returns no weight gradient.
+
+
+class OuterProductGrad:
+    """A weight gradient in operand form, ``dW = xᵀ·dh`` unmaterialized
+    (matmul kind): ``x`` ``[*stack, T, M]`` layer inputs, ``dh`` ``[*stack,
+    T, N]`` output gradients, leading stack dims one crossbar tile per
+    stacked layer."""
+
+    __slots__ = ("x", "dh")
+    SQ_NORM_CHUNK = 2048  # token rows per Gram block in sq_norm
+
+    def __init__(self, x: torch.Tensor, dh: torch.Tensor):
+        self.x = x
+        self.dh = dh
+
+    @property
+    def shape(self) -> tuple:
+        """Shape of the (virtual) dense gradient."""
+        return (*self.x.shape[:-2], self.x.shape[-1], self.dh.shape[-1])
+
+    def materialize(self, dtype=None) -> torch.Tensor:
+        """The dense gradient (f32 accumulation), for the dense fallback."""
+        g = torch.einsum("...tm,...tn->...mn", self.x.to(torch.float32), self.dh.to(torch.float32))
+        return g if dtype is None else g.to(dtype)
+
+    def scale_dh(self, c: float) -> "OuterProductGrad":
+        """dW is linear in dh: fold a scalar into it."""
+        return OuterProductGrad(self.x, (self.dh.to(torch.float32) * c).to(self.dh.dtype))
+
+    def sq_norm(self) -> torch.Tensor:
+        """``||xᵀdh||_F^2`` by the Gram identity ``<x xᵀ, dh dhᵀ>_F``,
+        without the [M, N] product; token rows in blocks of
+        ``SQ_NORM_CHUNK``."""
+        x = self.x.to(torch.float32)
+        dh = self.dh.to(torch.float32)
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for t0 in range(0, x.shape[-2], self.SQ_NORM_CHUNK):
+            xi, dhi = x[..., t0:t0 + self.SQ_NORM_CHUNK, :], dh[..., t0:t0 + self.SQ_NORM_CHUNK, :]
+            gx = torch.einsum("...tm,...sm->...ts", xi, x)
+            gh = torch.einsum("...tn,...sn->...ts", dhi, dh)
+            total = total + torch.sum(gx * gh)
+        return total
+
+
+class OperandSlot:
+    """Where the backward of a train-side wrap leaves each layer's operands.
+    ``stack`` is the wrap's layer-stack shape (``()`` for an unstacked
+    leaf). A slot written twice in one backward raises: operand gradients do
+    not sum, and each ``OPERAND_LINEAR_KEYS`` weight is used once per layer."""
+
+    __slots__ = ("stack", "x", "dh")
+
+    def __init__(self, stack: tuple = ()):
+        self.stack = tuple(stack)
+        n = math.prod(self.stack)
+        self.x = [None] * n
+        self.dh = [None] * n
+
+    def put(self, i: int, x: torch.Tensor, dh: torch.Tensor) -> None:
+        if self.x[i] is not None:
+            raise RuntimeError(f"operand slot of layer {i} written twice in one backward: "
+                               "an operand-form weight must be used once per layer")
+        self.x[i], self.dh[i] = x, dh
+
+    def grad(self) -> OuterProductGrad:
+        """The operands as one ``OuterProductGrad`` (layers stacked)."""
+        if any(v is None for v in self.x):
+            raise RuntimeError("operand slot not filled: a layer's weight was never read")
+        if not self.stack:
+            return OuterProductGrad(self.x[0], self.dh[0])
+        x, dh = torch.stack(self.x), torch.stack(self.dh)
+        return OuterProductGrad(x.reshape(*self.stack, *x.shape[1:]),
+                                dh.reshape(*self.stack, *dh.shape[1:]))
+
+
 # ------------------------ fidelity (finite-ADC) mode -------------------------
 
 
 @dataclasses.dataclass(frozen=True)
 class DeviceModel:
     """Non-ideal ReRAM device physics. The port carries the configuration;
-    the write physics belongs to the training slice and the read noise has
-    no kernel yet, so a read-noisy model raises at the read."""
+    neither the read noise nor the write physics has a kernel yet, so a
+    non-ideal model raises at the read or at the update."""
 
     write_noise: float = 0.0
     asym_up: float = 1.0
@@ -45,6 +129,10 @@ class DeviceModel:
 
     def reads_nonideal(self) -> bool:
         return self.read_noise > 0.0
+
+    def writes_nonideal(self) -> bool:
+        return (self.write_noise > 0.0 or self.asym_up != 1.0 or self.asym_down != 1.0
+                or self.stuck_frac > 0.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,25 +154,35 @@ class FidelityConfig:
 
 
 class XbarWeight:
-    """A crossbar-mapped weight as the serving forward sees it: the int8
-    digit planes (slice dim behind any layer-stack dims), the per-tensor
-    ``frac_bits`` broadcast over the stack, and its ``FidelityConfig``.
-    ``w`` is the dense copy, kept only when ``fid.fwd`` is off (serving
-    through the planes never reads it, so the wrap drops it to save the
-    device memory). Forward only: the training slice adds the operand
-    gradient slots. Indexing selects one layer of a stacked group."""
+    """A crossbar-mapped weight as the model sees it.
 
-    __slots__ = ("w", "planes", "frac_bits", "fid")
+    * ``w``: the dense copy (dequantized planes), or None where no read
+      needs it (fidelity reads in both directions);
+    * ``planes``/``frac_bits``/``fid``: the int8 digit planes (slice dim
+      behind any layer-stack dims), the per-tensor ``frac_bits`` broadcast
+      over the stack, and the ``FidelityConfig`` of the finite-ADC reads
+      (all None for a lossless train-side wrap);
+    * ``slot``: the ``OperandSlot`` of a train-side wrap (None when
+      serving), and ``index`` the layer this wrap writes in it.
 
-    def __init__(self, w, planes, frac_bits, fid):
+    Indexing selects one layer of a stacked group."""
+
+    __slots__ = ("w", "planes", "frac_bits", "fid", "slot", "index")
+
+    def __init__(self, w, planes, frac_bits, fid, slot=None, index=0):
         self.w = w
         self.planes = planes
         self.frac_bits = frac_bits
         self.fid = fid
+        self.slot = slot
+        self.index = index
 
     def __getitem__(self, i) -> "XbarWeight":
-        return XbarWeight(None if self.w is None else self.w[i], self.planes[i],
-                          self.frac_bits[i], self.fid)
+        if self.slot is not None and len(self.slot.stack) != 1:
+            raise IndexError("only a wrap with one layer-stack dim can be indexed")
+        pick = lambda t: None if t is None else t[i]  # noqa: E731
+        return XbarWeight(pick(self.w), pick(self.planes), pick(self.frac_bits), self.fid,
+                          self.slot, i)
 
 
 def path_str(path) -> str:
@@ -100,22 +198,54 @@ OPERAND_LINEAR_KEYS = frozenset(
 )
 
 
-def _xbar_linear_fid_fwd(x: torch.Tensor, ww: XbarWeight) -> torch.Tensor:
-    from repro_torch.core.mvm import fidelity_read  # lazy: core stays model-free
+def _xbar_read(v: torch.Tensor, ww: XbarWeight, transpose: bool) -> torch.Tensor:
+    """``v @ w`` (``v @ wᵀ`` when ``transpose``) in ``v``'s dtype: through
+    the finite-ADC engine where the wrap's fidelity reads that direction
+    (forward MVM, MᵀVM), else through the dense copy."""
+    fid = ww.fid
+    if fid is not None and (fid.bwd if transpose else fid.fwd):
+        from repro_torch.core.mvm import fidelity_read  # lazy: core stays model-free
 
-    if ww.fid.fwd:
-        return fidelity_read(ww.planes, ww.frac_bits, x, ww.fid).to(x.dtype)
-    return x @ ww.w.to(x.dtype)
+        return fidelity_read(ww.planes, ww.frac_bits, v, fid, transpose=transpose).to(v.dtype)
+    w = ww.w.to(v.dtype)
+    return v @ (w.T if transpose else w)
+
+
+class _XbarLinear(torch.autograd.Function):
+    """``x @ w`` whose backward returns ``dx`` and leaves the weight's
+    gradient in operand form: ``(x, dy)`` flattened over tokens go into the
+    wrap's slot, and the weight gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, ww):
+        ctx.ww = ww
+        ctx.save_for_backward(x)
+        return _xbar_read(x, ww, transpose=False)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        ww = ctx.ww
+        dx = _xbar_read(dy, ww, transpose=True) if ctx.needs_input_grad[0] else None
+        ww.slot.put(ww.index, x.detach().reshape(-1, x.shape[-1]), dy.reshape(-1, dy.shape[-1]))
+        return dx, None
 
 
 def xbar_linear(x: torch.Tensor, w, dtype=None) -> torch.Tensor:
-    """``x @ w`` where ``w`` may be a plain tensor or a fidelity
-    ``XbarWeight``, whose read goes through the finite-ADC engine (f32 read,
-    cast back to the activation dtype)."""
+    """``x @ w`` where ``w`` may be a plain tensor or an ``XbarWeight``.
+
+    A plain tensor takes the ordinary matmul with a dense gradient. A
+    train-side wrap (with a slot) takes ``_XbarLinear``: forward through the
+    finite-ADC engine or the dense copy, backward ``dx`` through the MᵀVM
+    read or the dense copy, and the weight gradient as operands in the slot.
+    A serving wrap reads forward only. ``dtype`` is the compute dtype (the
+    activation dtype at every model site)."""
     if isinstance(w, XbarWeight):
         if dtype is not None:
             x = x.to(dtype)
-        return _xbar_linear_fid_fwd(x, w)
+        if w.slot is not None:
+            return _XbarLinear.apply(x, w)
+        return _xbar_read(x, w, transpose=False)
     return x @ w.to(dtype if dtype is not None else x.dtype)
 
 

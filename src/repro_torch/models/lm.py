@@ -1,11 +1,14 @@
 """Transformer LM orchestrator (port of ``repro.models.lm``): pattern-driven
-block groups, prefill with caches and single-token decode.
+block groups, the training forward and its loss, prefill with caches and
+single-token decode.
 
 A config's ``pattern`` is an ordered tuple of ``(block_name, count)``
 groups; a counted group keeps its params stacked on a leading ``[count,
 ...]`` axis and runs as a Python loop over layers (the reference's
 ``lax.scan``). Only the ``"dense"`` attention + MLP block is ported; the
-other block types raise.
+other block types raise. The reference rematerializes each layer in the
+backward; that saves memory and does not change the numbers, and the port
+keeps the activations instead.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from .common import LMConfig, ShapeDtype, XbarWeight, dense_init, embed_init, rm
 
 class BlockDef(NamedTuple):
     init: Callable  # (cfg, gen, *, stack, device) -> params
+    apply: Callable  # (cfg, params, h, ctx) -> h (training forward)
     prefill: Callable  # (cfg, params, h, ctx) -> (h, cache)
     decode: Callable  # (cfg, params, h, cache, ctx) -> (h, cache)
     cache_spec: Callable  # (cfg, B, S, dtype) -> tree of ShapeDtype
@@ -29,6 +33,10 @@ class BlockDef(NamedTuple):
 
 def _dense_init(cfg, gen, *, stack=(), device=None):
     return att.block_init(cfg, gen, stack=stack, device=device)
+
+
+def _dense_apply(cfg, p, h, ctx):
+    return att.block_apply(cfg, p, h, ctx["positions"])
 
 
 def _dense_prefill(cfg, p, h, ctx):
@@ -40,7 +48,7 @@ def _dense_decode(cfg, p, h, cache, ctx):
 
 
 BLOCKS: dict[str, BlockDef] = {
-    "dense": BlockDef(_dense_init, _dense_prefill, _dense_decode, att.attn_cache_spec),
+    "dense": BlockDef(_dense_init, _dense_apply, _dense_prefill, _dense_decode, att.attn_cache_spec),
 }
 
 
@@ -83,9 +91,19 @@ def init_params(cfg: LMConfig, gen, device=None) -> dict:
     return params
 
 
-def _embed_in(cfg: LMConfig, params, tokens_or_embeds: torch.Tensor) -> torch.Tensor:
+def _table(cfg: LMConfig, params):
+    """The embedding cast once to the activation dtype (None without one).
+    A step reads it for both the gather and the tied head, as the reference
+    does, so in training their gradients sum in that dtype."""
+    if cfg.input_mode == "tokens" and "embed" in params:
+        return params["embed"].to(cfg.dtype)
+    return None
+
+
+def _embed_in(cfg: LMConfig, params, tokens_or_embeds: torch.Tensor, table=None) -> torch.Tensor:
+    """Embed tokens from ``table`` (``_table``, cast here when not given)."""
     if cfg.input_mode == "tokens":
-        h = params["embed"][tokens_or_embeds].to(cfg.dtype)
+        h = (table if table is not None else _table(cfg, params))[tokens_or_embeds]
     else:
         h = tokens_or_embeds.to(cfg.dtype)
     if cfg.embed_scale:
@@ -94,13 +112,69 @@ def _embed_in(cfg: LMConfig, params, tokens_or_embeds: torch.Tensor) -> torch.Te
     return h
 
 
-def _head_out(cfg: LMConfig, params, h: torch.Tensor) -> torch.Tensor:
+def _head_out(cfg: LMConfig, params, h: torch.Tensor, table=None) -> torch.Tensor:
     h = rms_norm(params["final_ln"], h, cfg.norm_eps)
     if cfg.tie_embeddings and cfg.input_mode == "tokens":
-        logits = h @ params["embed"].to(h.dtype).T
+        logits = h @ (table if table is not None else _table(cfg, params)).T
     else:
         logits = h @ params["lm_head"].to(h.dtype)
     return softcap(logits, cfg.softcap_final)
+
+
+def hidden(cfg: LMConfig, params, inputs: torch.Tensor, table=None) -> torch.Tensor:
+    """Backbone training forward without the LM head: h [B, S, d]."""
+    h = _embed_in(cfg, params, inputs, table)
+    ctx = {"positions": torch.arange(h.shape[1], device=h.device)}
+    for (name, count), gparams in zip(cfg.pattern, params["groups"]):
+        block = _block(name)
+        if count == 1:
+            h = block.apply(cfg, gparams, h, ctx)
+        else:
+            for i in range(count):
+                h = block.apply(cfg, layer(gparams, i), h, ctx)
+    return h
+
+
+def forward(cfg: LMConfig, params, inputs: torch.Tensor) -> torch.Tensor:
+    """Training forward: logits [B, S, V]."""
+    table = _table(cfg, params)
+    return _head_out(cfg, params, hidden(cfg, params, inputs, table), table)
+
+
+def _nll_of_chunk(cfg: LMConfig, params, h_c, labels_c, table=None) -> torch.Tensor:
+    """Head and stable cross entropy of one token chunk. The label's
+    shifted logit is taken in bf16 (the reference's bf16 one-hot einsum),
+    so it is rounded to bf16 whatever the activation dtype."""
+    logits = _head_out(cfg, params, h_c, table).to(torch.float32)
+    shifted = logits - logits.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
+    ll = shifted.to(torch.bfloat16).gather(-1, labels_c.long()[..., None])[..., 0].to(torch.float32)
+    return lse - ll
+
+
+LOSS_CHUNK = 1024
+
+
+def loss_fn(cfg: LMConfig, params, batch) -> torch.Tensor:
+    """Mean next-token cross entropy. batch: {inputs, labels, mask?}. Above
+    ``LOSS_CHUNK`` tokens a sequence is summed chunk by chunk, in the
+    reference's order."""
+    table = _table(cfg, params)
+    h = hidden(cfg, params, batch["inputs"], table)
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    B, S, _ = h.shape
+    C = min(LOSS_CHUNK, S)
+    if mask is not None:
+        nll = _nll_of_chunk(cfg, params, h, labels, table) * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    if S % C == 0 and S > C:
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for q in range(S // C):
+            sl = slice(q * C, (q + 1) * C)
+            total = total + _nll_of_chunk(cfg, params, h[:, sl], labels[:, sl], table).sum()
+        return total / float(B * S)
+    return _nll_of_chunk(cfg, params, h, labels, table).sum() / float(B * S)
 
 
 def cache_specs(cfg: LMConfig, batch: int, max_seq: int, dtype=None):
@@ -133,7 +207,8 @@ def init_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None, device=None)
 def prefill(cfg: LMConfig, params, inputs: torch.Tensor):
     """Full-sequence prefill. Returns (last-position logits [B, V], caches in
     the stacked layout)."""
-    h = _embed_in(cfg, params, inputs)
+    table = _table(cfg, params)
+    h = _embed_in(cfg, params, inputs, table)
     ctx = {"positions": torch.arange(h.shape[1], device=h.device)}
     out_caches = []
     for (name, count), gparams in zip(cfg.pattern, params["groups"]):
@@ -148,7 +223,7 @@ def prefill(cfg: LMConfig, params, inputs: torch.Tensor):
             cache = tree.map(lambda *xs: torch.stack(xs), *per_layer)
         out_caches.append(cache)
     # head on the last position only: decode continues from there
-    return _head_out(cfg, params, h[:, -1:])[:, 0], out_caches
+    return _head_out(cfg, params, h[:, -1:], table)[:, 0], out_caches
 
 
 def decode_step(cfg: LMConfig, params, token: torch.Tensor, caches, pos: int):
@@ -156,7 +231,8 @@ def decode_step(cfg: LMConfig, params, token: torch.Tensor, caches, pos: int):
     scalar position of ``token``. Returns (logits [B, V], caches), the caches
     updated in place."""
     inp = token[:, None] if cfg.input_mode == "tokens" else token
-    h = _embed_in(cfg, params, inp)
+    table = _table(cfg, params)
+    h = _embed_in(cfg, params, inp, table)
     ctx = {"pos": int(pos)}
     new_caches = []
     for (name, count), gparams, cache in zip(cfg.pattern, params["groups"], caches):
@@ -169,4 +245,4 @@ def decode_step(cfg: LMConfig, params, token: torch.Tensor, caches, pos: int):
                 h, c_new = block.decode(cfg, layer(gparams, i), h, cache[i], ctx)
                 c.append(c_new)
         new_caches.append(c)
-    return _head_out(cfg, params, h)[:, -1], new_caches
+    return _head_out(cfg, params, h, table)[:, -1], new_caches

@@ -1,9 +1,19 @@
-"""PANTHER crossbar state (port of the serving half of
-``repro.optim.panther``): slicing a param tree into int8 digit planes,
-reading it back, and the forward-only fidelity wrap for serving.
+"""PANTHER sliced SGD (port of ``repro.optim.panther``): slicing a param
+tree into int8 digit planes, reading it back, the fidelity wraps for serving
+(``fidelitize``) and training (``operandize``), and the split-state update.
 
-The update family (``update``/``update_split``, the OPA deposit kernels, CRS)
-belongs to the training slice.
+The update quantizes ``-lr · grad`` onto each leaf's ``2^-F`` grid with
+counter-hash stochastic rounding and deposits it into the planes:
+operand-form gradients through the fused update kernel (``opa_fused``),
+dense gradients through ``quantize`` and the deposit kernel
+(``opa_deposit``). Every ``crs_every`` steps the CRS kernel canonicalizes
+every mapped leaf. The planes update in place. Vector leaves take plain
+float SGD. Keys, the step and the learning rate are host values, so the
+update makes no device sync.
+
+Not ported yet: momentum (and Tiki-Taka), the ``"grid"``/``"hw"`` rounding
+draws, device write physics, and the ``im2col``/``expert`` operand kinds;
+each raises.
 
 Layout: a ``SlicedTensor``'s planes are ``[S, *stack, M, N]`` as in the
 reference, but a stacked leaf's storage is laid out ``[*stack, S, M, N]``
@@ -17,12 +27,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.core import prng
 from repro_torch.core.fixed_point import choose_frac_bits, quantize
-from repro_torch.core.slicing import DEFAULT_SPEC, SliceSpec, dequantize_planes, slice_weights
-from repro_torch.models.common import XbarWeight
+from repro_torch.core.slicing import (
+    DEFAULT_SPEC,
+    SliceSpec,
+    dequantize_planes,
+    slice_weights,
+)
+from repro_torch.models.common import OperandSlot, OuterProductGrad, XbarWeight
 from repro_torch.plan import default_rules, resolve_plan
 
 # elements sliced per chunk: bounds the int32 temporaries of slicing a large
@@ -33,10 +50,15 @@ _SLICE_CHUNK = 1 << 24
 @dataclasses.dataclass(frozen=True)
 class PantherConfig:
     spec: SliceSpec = DEFAULT_SPEC
+    crs_every: int = 1024
+    stochastic_round: bool = True
+    momentum: float = 0.0  # digital-VFU momentum: not ported, > 0 raises
     min_ndim: int = 2  # crossbar-map params with ndim >= this
     min_dim: int = 8  # ... and every matrix dim >= this
+    variant: str = "v2"  # informational: v1 (SGD), v2 (mini-batch), v3 (large-batch)
     margin_bits: int = 2  # headroom when choosing the per-tensor scale
     compute_dtype: Any = torch.float32
+    rng_mode: str = "counter"  # the stochastic-rounding draw; only "counter" is ported
 
 
 class SlicedTensor(NamedTuple):
@@ -115,3 +137,129 @@ def fidelitize(params, sliced, plan):
         return XbarWeight(None if fid.fwd else p, planes, frac, fid)
 
     return tree.map_with_path(wrap, params, sliced, plan)
+
+
+# ------------------------------ training wrap --------------------------------
+
+
+def needs_dense(s, pl) -> bool:
+    """Whether a mapped leaf needs its dense (dequantized) copy in the train
+    step: every leaf except an operand leaf read through the finite-ADC
+    engine in both directions."""
+    fid = pl.fidelity if pl.grad == "operand" else None
+    return s is not None and not (fid is not None and fid.fwd and fid.bwd)
+
+
+def operandize(params, sliced, plan):
+    """Wrap each operand leaf of a param tree (``plan.grad == "operand"``,
+    mapped) in a train-side ``XbarWeight`` with an ``OperandSlot``: the
+    model's backward then leaves ``(x, dh)`` there instead of a dense
+    gradient. A leaf with a ``plan.fidelity`` also carries its planes, so
+    its forward and its ``dx`` read them through the finite-ADC engine.
+    ``params`` may hold None where ``needs_dense`` is False."""
+    def wrap(path, p, s, pl):
+        if s is None or pl.grad != "operand":
+            return p
+        stack = tuple(s.planes.shape[1:-2])
+        if pl.fidelity is None:
+            return XbarWeight(p, None, None, None, OperandSlot(stack))
+        planes, frac = _fid_leaves(s, stack)
+        return XbarWeight(p, planes, frac, pl.fidelity, OperandSlot(stack))
+
+    return tree.map_with_path(wrap, params, sliced, plan)
+
+
+# --------------------------------- update ------------------------------------
+
+
+def global_grad_norm(grads) -> torch.Tensor:
+    """Global L2 norm of a mixed dense/operand gradient tree, in the
+    reference's leaf order; operand leaves by the Gram identity."""
+    total = None
+    for _, g in tree.leaves_sorted(grads):
+        t = g.sq_norm() if isinstance(g, OuterProductGrad) else torch.sum(g.to(torch.float32) ** 2)
+        total = t if total is None else total + t
+    return torch.sqrt(total)
+
+
+def _leaf_device(pl):
+    if pl is None or pl.fidelity is None or pl.fidelity.device is None:
+        return None
+    dev = pl.fidelity.device
+    return dev if dev.writes_nonideal() else None
+
+
+def update_split(grads, digital, sliced, step: int, lr: float, cfg: PantherConfig = PantherConfig(),
+                 rng=None, plan=None):
+    """One OPA step on the split state. Returns ``(digital', sliced)``: the
+    sliced leaves' planes are updated in place (the same tree comes back),
+    the digital leaves are new tensors.
+
+    ``step`` is a host int, ``lr`` a host float, ``rng`` a host key
+    (``core.prng``, default ``PRNGKey(0)``). Leaf ``i`` of the gradient tree
+    in the reference's order (``jax.tree.flatten``: dict keys sorted, an
+    ``OuterProductGrad`` one leaf) rounds under ``fold_in(fold_in(rng,
+    step), i)``; a stacked leaf's layer ``l`` under ``fold_in(·, l)``. So
+    the operand and dense pipelines, and the reference, draw the same bits.
+    CRS runs on every mapped leaf when ``step % crs_every == crs_every -
+    1``: a host branch."""
+    from repro_torch.kernels.crs import crs
+    from repro_torch.kernels.sliced_opa import opa_deposit, opa_fused_update
+
+    if cfg.momentum > 0:
+        raise NotImplementedError("momentum (digital-VFU buffers, Tiki-Taka) is not ported yet")
+    if cfg.rng_mode != "counter":
+        raise NotImplementedError(f"rng_mode {cfg.rng_mode!r} is not ported; use 'counter'")
+    do_crs = step % cfg.crs_every == cfg.crs_every - 1
+    base = prng.fold_in(rng if rng is not None else prng.PRNGKey(0), step)
+    lr32 = float(np.float32(lr))
+    d_at = dict(tree.leaves_with_path(digital))
+    s_at = dict(tree.leaves_with_path(sliced))
+    pl_at = dict(tree.leaves_with_path(plan)) if plan is not None else {}
+    new_d = {}
+    for i, (path, g) in enumerate(tree.leaves_sorted(grads)):
+        s = s_at[path]
+        if s is None:
+            if isinstance(g, OuterProductGrad):
+                g = g.materialize()
+            d = d_at[path]
+            new_d[path] = (d - lr32 * g.to(d.dtype)).to(d.dtype)
+            continue
+        pl = pl_at.get(path)
+        spec = pl.spec if pl is not None else cfg.spec
+        if _leaf_device(pl) is not None:
+            raise NotImplementedError("device write physics in the OPA update is not ported yet")
+        key = prng.fold_in(base, i)
+        if isinstance(g, OuterProductGrad):
+            opa_fused_update(s.planes, g.x, g.dh, lr32, s.frac_bits, spec,
+                             stochastic=cfg.stochastic_round, key=key, rng_mode=cfg.rng_mode)
+        else:
+            upd = quantize(-lr32 * g.to(torch.float32), s.frac_bits,
+                           stochastic=cfg.stochastic_round, key=key, rng_mode=cfg.rng_mode)
+            opa_deposit(s.planes, upd, spec)
+            del upd
+        if do_crs:
+            crs(s.planes, spec)
+    return tree.map_with_path(lambda path, d: new_d.get(path, d), digital), sliced
+
+
+def saturation_report(sliced, cfg: PantherConfig = PantherConfig(), plan=None):
+    """Per-leaf per-plane saturation fractions (the paper's Fig-9 metric),
+    f32 ``[S]``; one plane of one layer at a time, so no wide copy of a
+    whole leaf is made."""
+    from repro_torch.kernels.common import layer_views
+
+    def rep(s, pl=None):
+        if s is None:
+            return None
+        spec = pl.spec if pl is not None else cfg.spec
+        views = layer_views(s.planes)
+        out = torch.zeros(spec.n_slices, dtype=torch.float32, device=s.planes.device)
+        for v in views:
+            for k, m in enumerate(spec.plane_max):
+                out[k] += (v[k].to(torch.int16).abs() >= m).to(torch.float32).mean()
+        return out / len(views)
+
+    if plan is None:
+        return tree.map(rep, sliced)
+    return tree.map(rep, sliced, plan)

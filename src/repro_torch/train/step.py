@@ -1,0 +1,129 @@
+"""The PANTHER train step (port of ``repro.train.step``), single device.
+
+The int8 digit planes are the only copy of every crossbar-mapped weight.
+Each step reads them, runs the forward and backward, and writes the update
+back into them:
+
+* the forward reads each mapped leaf through its dense (dequantized) copy,
+  or, for an operand leaf with a finite-ADC plan, through the fidelity
+  engine in both directions (forward MVM, backward MᵀVM ``dx``), with no
+  dense copy at all;
+* operand leaves (``OPERAND_LINEAR_KEYS`` under ``attn``/``mlp``) return
+  their weight gradient as operands ``(x, dh)``, which the fused update
+  kernel deposits without forming ``[M, N]``; every other leaf (the
+  embedding and the vector leaves) gets a dense gradient;
+* ``optim.panther.update_split`` quantizes and deposits the update in
+  place, and runs CRS every ``crs_every`` steps.
+
+``operand_grads=False`` is the dense pipeline: every mapped leaf gets a
+dense gradient, quantized and deposited by ``opa_deposit``. The reference
+holds the two bit-compatible.
+
+The state's step and rng are host values, and the learning-rate schedule is
+a host function, so nothing in the step waits on the device. Not ported:
+meshes and FSDP, microbatches, remat (activations are kept), the
+operand-stash fallback rule.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch import plan as planlib
+from repro_torch import tree
+from repro_torch.core import prng
+from repro_torch.core.slicing import dequantize_planes
+from repro_torch.models import lm
+from repro_torch.models.common import LMConfig, ShapeDtype, XbarWeight
+from repro_torch.optim import PantherConfig, panther
+
+
+class TrainState(NamedTuple):
+    step: int  # host step
+    digital: Any  # float leaves (VFU path); None at crossbar leaves
+    sliced: Any  # SlicedTensor leaves; None at digital leaves
+    rng: tuple  # host key words (core.prng)
+
+
+def train_state_init(cfg: LMConfig, opt_cfg: PantherConfig, seed=0, plan=None, device=None) -> TrainState:
+    """Random params from ``seed`` (an int or a ``torch.Generator``),
+    sliced into planes; ``rng`` is ``PRNGKey(7)``, the reference's."""
+    params = lm.init_params(cfg, seed, device=device)
+    digital, sliced = panther.init_split(params, opt_cfg, plan=plan)
+    return TrainState(step=0, digital=digital, sliced=sliced, rng=prng.PRNGKey(7))
+
+
+def param_shapes(digital, sliced):
+    """The param tree's shapes and dtypes (f32, as the reference's params),
+    read off the split state: what a plan resolves against."""
+    return tree.map(
+        lambda d, s: d if s is None else ShapeDtype(tuple(s.planes.shape[1:]), torch.float32),
+        digital, sliced,
+    )
+
+
+def make_train_step(cfg: LMConfig, opt_cfg: PantherConfig, lr_schedule, mesh=None,
+                    microbatches: int = 1, fsdp: bool = False, operand_grads: bool = True,
+                    plan=None, plan_rules=None):
+    """Returns ``train_step(state, batch) -> (state', metrics)``; ``metrics``
+    holds ``loss`` and ``grad_norm`` (device scalars) and ``lr`` (a float).
+
+    ``cfg.fidelity``, or per leaf ``plan``/``plan_rules``, turns on
+    crossbar-in-the-loop training; it rides the operand pipeline. The
+    sliced state's planes are updated in place."""
+    if mesh is not None or fsdp:
+        raise NotImplementedError("meshes and FSDP are not ported yet (single device only)")
+    if microbatches != 1:
+        raise NotImplementedError("microbatches > 1 are not ported yet")
+    fidelity = cfg.fidelity
+    if (plan is not None or plan_rules is not None) and fidelity is not None:
+        raise ValueError("with an explicit plan, attach fidelity per leaf via PlanRule(fidelity=...) "
+                         "instead of cfg.fidelity")
+    if plan is not None and plan_rules is not None:
+        raise ValueError("pass either a resolved plan or plan_rules, not both")
+    if fidelity is not None and fidelity.spec != opt_cfg.spec:
+        raise ValueError(f"FidelityConfig.spec {fidelity.spec} must match the optimizer plane layout {opt_cfg.spec}")
+    rules = tuple(plan_rules) if plan_rules is not None else planlib.default_rules(opt_cfg, fidelity=fidelity)
+    resolved = []
+
+    def plan_of(state: TrainState):
+        if not resolved:
+            p = plan if plan is not None else planlib.resolve_plan(
+                param_shapes(state.digital, state.sliced), rules)
+            if not operand_grads and any(pl.fidelity is not None for _, pl in tree.leaves_with_path(p)):
+                raise ValueError("fidelity mode rides the operand pipeline (operand_grads=True)")
+            resolved.append(p)
+        return resolved[0]
+
+    def leaf_param(d, s, pl):
+        """The differentiated copy of one leaf: a digital leaf, or a mapped
+        leaf's dequantized planes; None where the fidelity reads need none."""
+        if s is None:
+            return d.detach().requires_grad_(True)
+        if operand_grads and not panther.needs_dense(s, pl):
+            return None
+        w = dequantize_planes(s.planes, s.frac_bits, pl.spec, dtype=opt_cfg.compute_dtype)
+        return w.requires_grad_(not (operand_grads and pl.grad == "operand"))
+
+    def train_step(state: TrainState, batch):
+        plan_t = plan_of(state)
+        params = tree.map(leaf_param, state.digital, state.sliced, plan_t)
+        wrt = [(path, p) for path, p in tree.leaves_with_path(params)
+               if isinstance(p, torch.Tensor) and p.requires_grad]
+        if operand_grads:
+            params = panther.operandize(params, state.sliced, plan_t)
+        loss = lm.loss_fn(cfg, params, batch)
+        dense = dict(zip((path for path, _ in wrt), torch.autograd.grad(loss, [p for _, p in wrt])))
+        grads = tree.map_with_path(
+            lambda path, p: p.slot.grad() if isinstance(p, XbarWeight) else dense[path], params)
+        del params, wrt, dense  # the dense layer copies
+        lr = lr_schedule(state.step)
+        with torch.no_grad():
+            digital, sliced = panther.update_split(grads, state.digital, state.sliced, state.step, lr,
+                                                   opt_cfg, rng=state.rng, plan=plan_t)
+            gnorm = panther.global_grad_norm(grads)
+        new_state = TrainState(step=state.step + 1, digital=digital, sliced=sliced, rng=state.rng)
+        return new_state, {"loss": loss.detach(), "lr": lr, "grad_norm": gnorm}
+
+    return train_step

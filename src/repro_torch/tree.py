@@ -28,3 +28,14 @@ def leaves_with_path(tree, path: tuple = ()) -> list:
     if isinstance(tree, list):
         return [pl for i, v in enumerate(tree) for pl in leaves_with_path(v, path + (i,))]
     return [(path, tree)]
+
+
+def leaves_sorted(tree, path: tuple = ()) -> list:
+    """``[(path, leaf), ...]`` in ``jax.tree.flatten``'s order: dict keys
+    sorted, lists in order. The update keys each leaf by its index in this
+    order, as the reference does."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree) for pl in leaves_sorted(tree[k], path + (k,))]
+    if isinstance(tree, list):
+        return [pl for i, v in enumerate(tree) for pl in leaves_sorted(v, path + (i,))]
+    return [(path, tree)]

@@ -74,14 +74,61 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
 def test_kernel_wrapper_refuses_cpu_tensors():
     from repro_torch.core.slicing import DEFAULT_SPEC
     from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.models.common import DeviceModel
 
     planes = torch.zeros((8, 128, 32), dtype=torch.int8)
-    with pytest.raises(ValueError):
-        K.mvm_sliced_fused(planes, torch.zeros((1, 128)), torch.zeros(1, dtype=torch.int32),
-                           spec=DEFAULT_SPEC, adc_bits=9)
+    frac = torch.zeros(1, dtype=torch.int32)
+    for transpose, x in ((False, torch.zeros((1, 128))), (True, torch.zeros((1, 32)))):
+        with pytest.raises(ValueError):
+            K.mvm_sliced_fused(planes, x, frac, spec=DEFAULT_SPEC, adc_bits=9, transpose=transpose)
+    # device read noise has no kernel: it raises before any launch
     with pytest.raises(NotImplementedError):
-        K.mvm_sliced_fused(planes, torch.zeros((1, 32)), torch.zeros(1, dtype=torch.int32),
-                           spec=DEFAULT_SPEC, adc_bits=9, transpose=True)
+        K.mvm_sliced_fused(planes, torch.zeros((1, 32)), frac, spec=DEFAULT_SPEC, adc_bits=9,
+                           transpose=True, dev=DeviceModel(read_noise=0.1))
+    assert K.mvm_sliced_fused.launches == K.mvm_sliced_fused.transpose_launches == 0
+
+
+def test_update_kernel_wrappers_refuse_cpu_tensors():
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.models.common import DeviceModel
+
+    planes = torch.zeros((8, 16, 16), dtype=torch.int8)
+    frac = torch.zeros(1, dtype=torch.int32)
+    x = torch.zeros((4, 16))
+    with pytest.raises(ValueError):
+        KC.crs(planes, spec=DEFAULT_SPEC)
+    with pytest.raises(ValueError):
+        KO.opa_deposit(planes, torch.zeros((16, 16), dtype=torch.int32), spec=DEFAULT_SPEC)
+    with pytest.raises(ValueError):
+        KO.opa_fused(planes, x, x, 0.1, frac, spec=DEFAULT_SPEC)
+    with pytest.raises(NotImplementedError):
+        KO.opa_fused(planes, x, x, 0.1, frac, spec=DEFAULT_SPEC, dev=DeviceModel(write_noise=0.5))
+    assert KC.crs.launches == KO.opa_deposit.launches == KO.opa_fused.launches == 0
+
+
+def test_cpu_training_step_takes_the_plain_versions_and_launches_nothing():
+    from repro_torch import configs
+    from repro_torch import plan as planlib
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.optim import PantherConfig
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train.step import make_train_step, train_state_init
+
+    cfg = configs.get_smoke("gemma_2b")
+    opt = PantherConfig(crs_every=1)
+    rules = planlib.default_rules(opt, fidelity=configs.fidelity_presets()["adc9"])
+    state = train_state_init(cfg, opt, 0, device="cpu")
+    state, metrics = make_train_step(cfg, opt, constant(1e-2), plan_rules=rules)(
+        state, SyntheticLMDataset(cfg.vocab, 8, 2, device="cpu").batch(0))
+    assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
+    counts = (K.mvm_sliced_fused.launches, K.mvm_sliced_fused.transpose_launches,
+              KO.opa_fused.launches, KO.opa_deposit.launches, KC.crs.launches)
+    assert counts == (0, 0, 0, 0, 0)
 
 
 def test_entry_points_without_a_device_run_on_cuda_or_raise():
@@ -100,6 +147,24 @@ def test_entry_points_without_a_device_run_on_cuda_or_raise():
     with pytest.raises(RuntimeError, match="cuda"):
         convert.params_from_jax({"w": __import__("numpy").zeros(2)})
     assert lm.init_params(cfg, 0, device="cpu")["embed"].device.type == "cpu"
+
+
+def test_training_entry_points_without_a_device_run_on_cuda_or_raise():
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch import train as launch
+    from repro_torch.optim import PantherConfig
+    from repro_torch.train.step import train_state_init
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry points would run on it")
+    cfg = configs.get_smoke("gemma_2b")
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_state_init(cfg, PantherConfig(), 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        SyntheticLMDataset(cfg.vocab, 8, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        launch.main(["--smoke", "--steps", "1"])
 
 
 def test_chip_smoke_fails_without_a_card():
