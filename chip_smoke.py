@@ -34,7 +34,24 @@ Phases:
      launches per step must be exact (K1 per operand block, K2 per
      dense-gradient block, K3 per mapped block on CRS steps, K4 and K4ᵀ per
      adc9 read), the loss and the gradient norm finite, and the planes must
-     change.
+     change;
+  6. (run before 5, on its own memory) hold the new kernel instances against
+     their plain versions at gemma-2b's four (M, N) and a ragged 320x100, at
+     tokens {1, 100, 256}: K1's device instance with each write-physics
+     field alone and all together, K2's stuck instance (the embedding
+     included), K4/K4ᵀ with read noise, K4/K4ᵀ at io 8 and 12 and K5 forward
+     and transposed at io 8, 12 and 16, each at ADC {9, 6, ideal}; then time
+     each at 256 tokens against its plain version, its library yardstick and
+     its bound;
+  7. train the same state on the non-ideal device (write noise 4e6 LSB,
+     asymmetry 1.2/0.8, 2% stuck cells, read noise 1% of full scale): 2 adc9
+     steps, then one adc9 step each at io 8 and 12 on the ideal device, every
+     launch count exact (the device steps through K1's device instance, K2's
+     stuck instance and the noisy K4/K4ᵀ), stuck digits held across the
+     device step that runs no CRS, then one more step of each kind under the
+     profiler;
+  8. drive K5's entry point, ``mvm_sliced_batched``, over every operand
+     block of the trained state, forward and transposed, at 4 x 64 tokens.
 
 It prints one JSON line with the kernels' numbers, the card's
 ``name, power.limit`` line, and last the device JSON line. Any failure exits
@@ -482,7 +499,8 @@ def snapshot(torch, sliced):
 
 def phase_train(torch, gen):
     """gemma-2b at full width: 3 adc9 steps, then 2 lossless steps, with
-    every kernel's launches per step checked. Returns the launch totals."""
+    every kernel's launches per step checked. Returns the launch totals, the
+    state, the data and the blocks a step updates by gradient path."""
     import dataclasses
 
     from repro_torch import configs, tree
@@ -576,7 +594,398 @@ def phase_train(torch, gen):
         if sat is not None:
             print(f"  saturation {'/'.join(map(str, path)):24s} per plane (LSB first): "
                   + " ".join(f"{v:.2e}" for v in sat.tolist()))
-    return totals
+    return totals, state, ds, blocks
+
+
+# ------------------ device physics, io widths 8/12, K5 ------------------------
+
+# the non-ideal device of the device phase: write noise and asymmetry are the
+# middle setting of the reference's fig9 device sweep, stuck cells and read
+# noise those of its test_train_step_threads_device_plan
+DEVICE = dict(write_noise=4e6, asym_up=1.2, asym_down=0.8, stuck_frac=0.02, stuck_seed=3, read_noise=0.01)
+PHYSICS = {
+    "asym": dict(asym_up=1.2, asym_down=0.8),
+    "noise": dict(write_noise=4e6),
+    "stuck": dict(stuck_frac=0.02, stuck_seed=3),
+    "all": {k: v for k, v in DEVICE.items() if k != "read_noise"},
+}
+T_CHECK = (1, 100, 256)  # token counts of the new kernels' checks
+# 32-bit CUDA-core operations a cell that the write physics add to K1's
+# finalize (two hashes and a Box-Muller for the noise, S = 8 hashes for the
+# stuck mask), and that the stuck mask adds to K2 per plane cell (a hash and
+# a compare)
+DEVICE_OPS_PER_CELL = 150
+STUCK_OPS_PER_PLANE_CELL = 13
+
+
+def one_lsb_flips(torch, got, want, planes, p_q, stuck, spec):
+    """Elements where the kernel's planes differ from the plain version's:
+    each must be the deposit of the plain update moved by one grid LSB (a
+    rounding flip of the write noise's last bit), stuck digits kept.
+    Returns the count; raises on any other difference."""
+    from repro_torch.core.opa import opa_batched
+
+    bad = (got != want).any(0)
+    n = int(bad.sum())
+    if n == 0:
+        return 0
+    old, g, q = planes[:, bad], got[:, bad], p_q[bad]
+    ok = torch.zeros_like(q, dtype=torch.bool)
+    for d in (-1, 1):
+        alt = opa_batched(old, q + d, spec)
+        if stuck is not None:
+            alt = torch.where(stuck[:, bad], old, alt)
+        ok |= (alt == g).all(0)
+    if not bool(ok.all()):
+        raise AssertionError(f"{int((~ok).sum())} elements differ from the plain version by more than one grid LSB")
+    return n
+
+
+def phase_device_kernels(torch, spec, gen):
+    """The new kernel instances against their plain versions: K1's device
+    instance and K2's stuck instance (bit for bit but for counted one-LSB
+    write-noise flips), the noisy K4/K4ᵀ reads, K4/K4ᵀ at io 8 and 12, and K5
+    forward and transposed (bit for bit at finite ADC). Returns the max
+    |diff| of each."""
+    from repro_torch.core.fixed_point import choose_frac_bits, quantize
+    from repro_torch.core.slicing import slice_weights
+    from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.kernels.sliced_mvm import ref
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+    from repro_torch.models.common import DeviceModel
+
+    err = {}
+    # K1 device instance: bf16 f32-exact operands on canonical planes
+    flips, cases = 0, 0
+    for M, N in (*SLICE_SHAPES, RAGGED_SHAPE):
+        w = torch.randn((M, N), generator=gen, device="cuda") / M**0.5
+        f = choose_frac_bits(w, margin_bits=2)
+        planes = slice_weights(quantize(w, f), spec)
+        frac = f.reshape(1)
+        for T in T_CHECK:
+            x, dh = exact_operands(torch, T, M, N, torch.bfloat16, gen)
+            for name, kw in PHYSICS.items():
+                dev = DeviceModel(**kw)
+                for words in (None, (0x1234567 + T, -0x7654321)):
+                    got = KO.opa_fused(planes.clone(), x, dh, 3e-2, frac, spec=spec, key_words=words, dev=dev,
+                                       noise_words=(77 + T, -99))
+                    want = RO.opa_fused_ref(planes, x, dh, 3e-2, f, spec, words, dev, (77 + T, -99))
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        if dev.write_noise == 0.0:
+                            raise AssertionError(f"opa_fused device instance ({name}) vs plain at M={M} N={N} T={T}")
+                        acc = x.float().T @ dh.float()
+                        p_q = RO.write_rows(acc * (-RO._lr32(3e-2) * 2.0 ** int(f)), dev, 0, (77 + T, -99), words)
+                        stuck = RO.stuck_rows(dev, spec, 0, M, N, "cuda") if dev.stuck_frac > 0 else None
+                        flips += one_lsb_flips(torch, got, want, planes, p_q, stuck, spec)
+                    cases += 1
+        del w, planes
+    err["opa_fused_device"] = float(flips)
+    print(f"opa_fused device instance vs plain: {cases} cases (gemma-2b's four (M, N) and {RAGGED_SHAPE}, "
+          f"T {T_CHECK}, physics {list(PHYSICS)}, with and without key words); {flips} elements "
+          "differ, each by one grid LSB", flush=True)
+
+    # K2 stuck instance: bit for bit, the embedding included
+    dev = DeviceModel(**PHYSICS["stuck"])
+    for shape in (*SLICE_SHAPES, EMBED_SHAPE, RAGGED_SHAPE, (18, 2048)):
+        planes = random_planes(torch, spec, shape, gen)
+        p_q = rail_updates(torch, spec, shape, gen)
+        want = torch.empty_like(planes)
+        rows = 8192
+        for r0 in range(0, shape[0], rows):
+            blk, q = planes[:, r0:r0 + rows], p_q[r0:r0 + rows]
+            stuck = RO.stuck_rows(dev, spec, r0, blk.shape[1], shape[1], "cuda")
+            want[:, r0:r0 + rows] = torch.where(stuck, blk, RO.opa_deposit_ref(blk, q, spec))
+        got = KO.opa_deposit(planes.clone(), p_q, spec=spec, stuck=dev)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"opa_deposit stuck instance vs plain at {shape}: "
+                                 f"{int((got != want).sum())} plane cells differ")
+        del planes, p_q, want, got
+        torch.cuda.empty_cache()
+    err["opa_deposit_stuck"] = 0.0
+    print("opa_deposit stuck instance vs plain: bit-identical at gemma-2b's four (M, N), the embedding, "
+          f"{RAGGED_SHAPE} and (18, 2048)", flush=True)
+
+    # the reads: K4/K4ᵀ with read noise (io 16), at io 8 and 12, and K5 at
+    # io 8, 12 and 16 (one entry for its three widths)
+    noisy = DeviceModel(read_noise=DEVICE["read_noise"], stuck_seed=DEVICE["stuck_seed"])
+    reads = [("mvm_sliced_fused{}_read_noise", True, 16, noisy), ("mvm_sliced_fused{}_io8", True, 8, None),
+             ("mvm_sliced_fused{}_io12", True, 12, None), *(("mvm_sliced{}", False, io, None) for io in (8, 12, 16))]
+    adcs = (9, 6, None)
+    for name, fused, io, dev in reads:
+        for transpose in (False, True):
+            key = name.format("_transpose" if transpose else "")
+            worst, n_diff, n_cases = err.get(key, 0.0), 0, 0
+            for M, N in (*SLICE_SHAPES, RAGGED_SHAPE):
+                planes = torch.randint(-8, 8, (spec.n_slices, M, N), generator=gen, device="cuda", dtype=torch.int8)
+                for B in T_CHECK:
+                    x = torch.randn((B, N if transpose else M), generator=gen, device="cuda")
+                    xf = choose_frac_bits(x, word_bits=io, margin_bits=1, clip_to_word=False).reshape(1)
+                    x_q = ref.dac_quantize(x, xf[0], io)
+                    for adc in adcs:
+                        if fused:
+                            got = K.mvm_sliced_fused(planes, x, xf, spec=spec, io_bits=io, adc_bits=adc,
+                                                     transpose=transpose, dev=dev)
+                            want = ref.mvm_sliced_fused_ref(planes, x, xf[0], spec, io, adc, transpose=transpose,
+                                                            device=dev)
+                        else:
+                            got = K.mvm_sliced(planes, x_q, spec=spec, io_bits=io, adc_bits=adc, transpose=transpose)
+                            want = ref.mvm_sliced_ref(planes, x_q, spec, io, adc, transpose=transpose)
+                        torch.cuda.synchronize()
+                        d = float((got - want).abs().max())
+                        worst = max(worst, d)
+                        if not d <= TOL * (1.0 + float(want.abs().max())):
+                            raise AssertionError(f"{key} io{io} vs plain at M={M} N={N} B={B} adc={adc}: |diff| {d}")
+                        if adc is not None and not torch.equal(got, want):
+                            # only an offset's last bit may move a column current
+                            # across an ADC rounding boundary: one code of one
+                            # (slice, bit cycle), at most the top one's weight
+                            top = 2.0 ** (7 + max(spec.bits_lsb_first) - adc + 4 * (spec.n_slices - 1) + io - 2)
+                            if dev is None or d > top:
+                                raise AssertionError(f"{key} io{io} vs plain at M={M} N={N} B={B} adc={adc}: "
+                                                     f"not bit-identical, max |diff| {d}")
+                            n_diff += int((got != want).sum())
+                        n_cases += 1
+                del planes
+            err[key] = worst
+            print(f"{key} io{io} vs plain: {n_cases} cases (gemma-2b's four (M, N) and {RAGGED_SHAPE}, tokens "
+                  f"{T_CHECK}, ADC {adcs}); bit-identical at finite ADC but for {n_diff} outputs one ADC code "
+                  f"apart; max |diff| {worst}", flush=True)
+    torch.cuda.empty_cache()
+    return err
+
+
+def time_device_kernels(torch, spec, gen):
+    """One layer's work at 256 tokens for each new instance, and the
+    embedding's stuck deposit: kernel, plain version, library yardstick and
+    bound, as in time_update_kernels."""
+    from repro_torch.core.slicing import dequantize_planes
+    from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.kernels.sliced_mvm import ref
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+    from repro_torch.models.common import DeviceModel
+
+    S, T = spec.n_slices, T_TRAIN
+    dev = DeviceModel(**DEVICE)
+    rows = {}
+
+    def add(key, *row):
+        rows.setdefault(key, []).append(row)
+
+    for name, M, N in SLICE_READS:
+        planes = torch.randint(-8, 8, (S, M, N), generator=gen, device="cuda", dtype=torch.int8)
+        frac = torch.tensor([30], dtype=torch.int32, device="cuda")
+        x = torch.randn((T, M), generator=gen, device="cuda").to(torch.bfloat16)
+        dh = (torch.randn((T, N), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+        k = cuda_time_ms(lambda: KO.opa_fused(planes, x, dh, 3e-2, frac, spec=spec, key_words=(1, 2), dev=dev,
+                                              noise_words=(3, 4)), 10)
+        p = cuda_time_ms(lambda: RO.opa_fused_ref(planes, x, dh, 3e-2, frac[0], spec, (1, 2), dev, (3, 4)), 3, 1)
+        lib = cuda_time_ms(lambda: torch.matmul(x.t(), dh), 10)
+        # bf16 products on the tensor cores, the physics on the CUDA cores
+        t_bytes = (2 * S * M * N + 2 * T * (M + N) + 4) / HBM_BYTES_PER_S
+        t_ops = 2.0 * T * M * N / BF16_FLOPS_PER_S + DEVICE_OPS_PER_CELL * M * N / CUDA_CORE_OPS_PER_S
+        add("opa_fused_device", k, p, lib, 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+        w = dequantize_planes(planes, 30, spec)
+        for transpose in (False, True):
+            xin = torch.randn((T, N if transpose else M), generator=gen, device="cuda")
+            xf = torch.tensor([10], dtype=torch.int32, device="cuda")
+            x_q = ref.dac_quantize(xin, 10, 16)
+            lib = cuda_time_ms(lambda: torch.matmul(xin, w.T if transpose else w), 10)
+            lib_q = cuda_time_ms(lambda: torch.matmul(x_q.float(), w.T if transpose else w), 10)
+            tag = "_transpose" if transpose else ""
+            for key, io, d in ((f"mvm_sliced_fused{tag}_read_noise", 16, dev), (f"mvm_sliced_fused{tag}_io8", 8, None),
+                               (f"mvm_sliced_fused{tag}_io12", 12, None)):
+                k = cuda_time_ms(lambda: K.mvm_sliced_fused(planes, xin, xf, spec=spec, io_bits=io, adc_bits=9,
+                                                            transpose=transpose, dev=d), 3)
+                p = cuda_time_ms(lambda: ref.mvm_sliced_fused_ref(planes, xin, xf[0], spec, io, 9,
+                                                                  transpose=transpose, device=d), 2, 1)
+                add(key, k, p, lib, *bound_of(S * M * N + 4 * T * (M + N) + 4, 2.0 * T * M * N * S * (io - 1),
+                                              INT8_OPS_PER_S))
+            k = cuda_time_ms(lambda: K.mvm_sliced(planes, x_q, spec=spec, adc_bits=9, transpose=transpose), 3)
+            p = cuda_time_ms(lambda: ref.mvm_sliced_ref(planes, x_q, spec, 16, 9, transpose=transpose), 2, 1)
+            add(f"mvm_sliced{tag}", k, p, lib_q, *bound_of(S * M * N + 4 * T * (M + N), 2.0 * T * M * N * S * 15,
+                                                          INT8_OPS_PER_S))
+        for key in rows:
+            k, p, lib, b_ms, b_by = rows[key][-1]
+            print(f"  {key:37s} {name:11s} M={M:5d} N={N:5d} T={T}: kernel {k:.4f} ms  plain {p:.4f} ms  "
+                  f"library {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+        del planes, x, dh, w
+    V, D = EMBED_SHAPE
+    planes = torch.randint(-8, 8, (S, V, D), generator=gen, device="cuda", dtype=torch.int8)
+    p_q = torch.randint(-2**20, 2**20, (V, D), generator=gen, device="cuda", dtype=torch.int32)
+    k = cuda_time_ms(lambda: KO.opa_deposit(planes, p_q, spec=spec, stuck=dev), 5)
+
+    def plain():
+        for r0 in range(0, V, 8192):
+            blk = planes[:, r0:r0 + 8192]
+            torch.where(RO.stuck_rows(dev, spec, r0, blk.shape[1], D, "cuda"), blk,
+                        RO.opa_deposit_ref(blk, p_q[r0:r0 + 8192], spec))
+
+    p = cuda_time_ms(plain, 1, 1)
+    b = bound_of((4 + 2 * S) * V * D, (8.0 + STUCK_OPS_PER_PLANE_CELL) * S * V * D, CUDA_CORE_OPS_PER_S)
+    print(f"  opa_deposit_stuck embedding {V}x{D}: kernel {k:.4f} ms  plain {p:.4f} ms  bound {b[0]:.4f} ms "
+          f"({b[1]})", flush=True)
+    del planes, p_q
+    torch.cuda.empty_cache()
+
+    def total(rs):
+        return {"ms": sum(r[0] for r in rs), "plain_ms": sum(r[1] for r in rs),
+                "library_ms": sum(r[2] for r in rs), "bound_ms": sum(r[3] for r in rs),
+                "bound_by": "bytes" if all(r[4] == "bytes" for r in rs) else "operations"}
+
+    out = {key: total(rs) for key, rs in rows.items()}
+    out["opa_deposit_stuck"] = {"ms": k, "plain_ms": p, "library_ms": None, "bound_ms": b[0], "bound_by": b[1]}
+    return out
+
+
+def stuck_sample(torch, sliced, dev, spec):
+    """Rows 0..3 of every mapped leaf's planes, copied, with the stuck mask
+    of those rows (the same on every layer)."""
+    from repro_torch import tree
+    from repro_torch.kernels.sliced_opa import ref as RO
+
+    out = {}
+    for path, s in tree.leaves_with_path(sliced):
+        if s is None:
+            continue
+        sample = s.planes[..., :4, :].clone()
+        mask = RO.stuck_rows(dev, spec, 0, sample.shape[-2], sample.shape[-1], "cuda")
+        out[path] = (sample, mask.reshape(spec.n_slices, *(1,) * (sample.dim() - 3), *mask.shape[1:]))
+    return out
+
+
+def phase_device_train(torch, state, ds, blocks, gen):
+    """gemma-2b at full width on the non-ideal device: 2 adc9 steps (one of
+    them a CRS step), then one adc9 step each at io 8 and 12 on the ideal
+    device, every launch count exact; stuck digits held across the device
+    step that runs no CRS. Returns the launch totals and the state."""
+    from repro_torch import configs
+    from repro_torch import plan as planlib
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.sliced_mvm import kernel as KM
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.models.common import DeviceModel, FidelityConfig
+    from repro_torch.optim import PantherConfig
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train.step import make_train_step
+
+    cfg = configs.get("gemma_2b")
+    L = cfg.n_layers
+    opt_cfg = PantherConfig(crs_every=2, stochastic_round=True)
+    dev = DeviceModel(**DEVICE)
+    fids = {"device": FidelityConfig(adc_bits_fwd=9, adc_bits_bwd=9, device=dev, spec=opt_cfg.spec),
+            "io8": FidelityConfig(io_bits=8, adc_bits_fwd=9, adc_bits_bwd=9, spec=opt_cfg.spec),
+            "io12": FidelityConfig(io_bits=12, adc_bits_fwd=9, adc_bits_bwd=9, spec=opt_cfg.spec)}
+    steps = {mode: make_train_step(cfg, opt_cfg, constant(3e-2), plan_rules=planlib.default_rules(opt_cfg, fidelity=f))
+             for mode, f in fids.items()}
+    counted = (KO.opa_fused, KO.opa_deposit, KM.mvm_sliced_fused)
+    totals = {}
+    before = snapshot(torch, state.sliced)
+    torch.cuda.reset_peak_memory_stats()
+    for mode in ("device", "device", "io8", "io12"):
+        for fn in (*counted, KC.crs):
+            fn.launches = 0
+        for fn in counted:
+            fn.instances.clear()
+        crs_step = state.step % opt_cfg.crs_every == opt_cfg.crs_every - 1
+        sample = stuck_sample(torch, state.sliced, dev, opt_cfg.spec) if mode == "device" and not crs_step else None
+        batch = ds.batch(state.step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = steps[mode](state, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        got = {"opa_fused": dict(KO.opa_fused.instances), "opa_deposit": dict(KO.opa_deposit.instances),
+               "crs": KC.crs.launches, "mvm": dict(KM.mvm_sliced_fused.instances)}
+        io = 16 if mode == "device" else int(mode[2:])
+        noise = mode == "device"
+        want = {"opa_fused": {"device" if noise else "ideal": blocks["operand"]},
+                "opa_deposit": {"stuck" if noise else "ideal": blocks["dense"]},
+                "crs": blocks["operand"] + blocks["dense"] if crs_step else 0,
+                "mvm": {KM.instance_name(False, io, noise): 5 * L, KM.instance_name(True, io, noise): 5 * L}}
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        print(f"step {state.step - 1} ({mode:6s}{', CRS' if crs_step else ''}): {ms:.1f} ms, "
+              f"{4 * 64 / ms * 1e3:.0f} tokens/s, loss {loss:.4f}, grad_norm {gnorm:.4f}, launches {got}", flush=True)
+        if got != want:
+            raise AssertionError(f"{mode} step: launches {got} != {want}")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"{mode} step: loss {loss} or grad_norm {gnorm} not finite")
+        # the new instances' launches, by their entry names
+        news = {"opa_fused_device": got["opa_fused"].get("device", 0),
+                "opa_deposit_stuck": got["opa_deposit"].get("stuck", 0),
+                **{"mvm_sliced_fused_" + k.replace("io16_", ""): v for k, v in got["mvm"].items()}}
+        for key, n in news.items():
+            totals[key] = totals.get(key, 0) + n
+        if sample is not None:
+            held = {}
+            for path, (old, mask) in sample.items():
+                new = state.sliced
+                for k in path:
+                    new = new[k]
+                new = new.planes[..., :4, :]
+                m = mask.expand(old.shape)
+                if not torch.equal(new[m], old[m]):
+                    raise AssertionError(f"stuck digits of {'/'.join(map(str, path))} moved")
+                held[path] = [int(mask[s].sum()) for s in range(mask.shape[0])]
+                if min(held[path]) == 0:
+                    raise AssertionError(f"no stuck cell of some slice in the sample of {path}")
+            print("  stuck digits held on every leaf's sampled rows (stuck cells per slice, first leaf: "
+                  f"{next(iter(held.values()))})", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    after = snapshot(torch, state.sliced)
+    moved = {path: float((after[path] != before[path]).float().mean()) for path in before}
+    print(f"peak memory over the 4 steps: {peak:.1f} GiB; share of sampled plane cells changed per leaf: "
+          + ", ".join(f"{'/'.join(map(str, p))} {v:.3f}" for p, v in moved.items()), flush=True)
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"planes did not change: {moved}")
+    for mode in ("device", "io8", "io12"):  # where a step's time goes
+        out = {}
+
+        def one_more():
+            out["state"], _ = steps[mode](state, ds.batch(state.step))
+
+        profile_step(torch, one_more, f"{mode} train step")
+        state = out["state"]
+    return totals, state
+
+
+def phase_k5_path(torch, state):
+    """K5's entry point over gemma-2b's planes: every operand block read
+    forward and transposed through ``mvm_sliced_batched`` on an input already
+    on the 16-bit DAC grid (batch 4 x 64), as the reference's unfused read
+    serves it. Returns the launch counts."""
+    from repro_torch import tree
+    from repro_torch.core.fixed_point import choose_frac_bits
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.common import layer_views
+    from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.kernels.sliced_mvm import mvm_sliced_batched, ref
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    blocks = [(path, blk) for path, s in tree.leaves_with_path(state.sliced)
+              if s is not None and path[-1] in ("wqkv", "wo", "wi_gate", "wi_up") for blk in layer_views(s.planes)]
+    K.mvm_sliced.launches = K.mvm_sliced.transpose_launches = 0
+    K.mvm_sliced.instances.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    finite = True
+    for path, planes in blocks:
+        for transpose in (False, True):
+            x = torch.randn((4, 64, planes.shape[2 if transpose else 1]), generator=g, device="cuda")
+            x_q = ref.dac_quantize(x, choose_frac_bits(x, word_bits=16, margin_bits=1, clip_to_word=False), 16)
+            out = mvm_sliced_batched(planes, x_q, DEFAULT_SPEC, adc_bits=9, transpose=transpose)
+            finite &= bool(torch.isfinite(out).all()) and tuple(out.shape[:2]) == (4, 64)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    counts = (K.mvm_sliced.launches, K.mvm_sliced.transpose_launches)
+    print(f"K5 path: {len(blocks)} operand blocks read forward and transposed at 4 x 64 tokens, adc9, in {s:.2f} s; "
+          f"launches {counts}", flush=True)
+    if counts != (len(blocks), len(blocks)) or not finite:
+        raise AssertionError(f"K5 path: launches {counts} for {len(blocks)} blocks, finite {finite}")
+    return {"mvm_sliced": counts[0], "mvm_sliced_transpose": counts[1]}
 
 
 def main() -> int:
@@ -611,14 +1020,32 @@ def main() -> int:
                 print("    ptxas:", line.strip())
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    t_start = time.perf_counter()
+
+    def done(what):
+        print(f"[{time.perf_counter() - t_start:7.1f} s] {what} done", flush=True)
+
     max_err, timings = phase_kernels(torch, K, ref, fp, DEFAULT_SPEC, gen)
+    done("phase 2: K4 checks")
     launches = phase_slice(torch, K, gen)
     torch.cuda.empty_cache()
+    done("phase 3: serving")
     phase_update_kernels(torch, DEFAULT_SPEC, gen)
     opa_err = phase_opa_fused(torch, DEFAULT_SPEC, gen)
     t_err = phase_transpose(torch, K, ref, fp, DEFAULT_SPEC, gen)
     train_timings = time_update_kernels(torch, K, ref, DEFAULT_SPEC, gen)
-    train_launches = phase_train(torch, gen)
+    done("phase 4: update kernels and K4ᵀ")
+    dev_err = phase_device_kernels(torch, DEFAULT_SPEC, gen)
+    train_timings.update(time_device_kernels(torch, DEFAULT_SPEC, gen))
+    done("phase 6: device, io 8/12 and K5 kernels")
+    train_launches, state, ds, blocks = phase_train(torch, gen)
+    done("phase 5: training")
+    dev_launches, state = phase_device_train(torch, state, ds, blocks, gen)
+    train_launches.update(dev_launches)
+    done("phase 7: training on the non-ideal device and at io 8/12")
+    train_launches.update(phase_k5_path(torch, state))
+    del state
+    done("phase 8: K5 entry point")
 
     # one layer's five reads at the decode batch (4 tokens): the main path's
     # per-layer decode work
@@ -651,6 +1078,15 @@ def main() -> int:
         entry("opa_deposit", "src/repro_torch/kernels/sliced_opa/csrc/opa_deposit.cu",
               "src/repro/kernels/sliced_opa/kernel.py:90", 0.0),
         entry("crs", "src/repro_torch/kernels/crs/csrc/crs.cu", "src/repro/kernels/crs/kernel.py:70", 0.0),
+        entry("opa_fused_device", "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",
+              "src/repro/kernels/sliced_opa/kernel.py:255", dev_err["opa_fused_device"]),
+        entry("opa_deposit_stuck", "src/repro_torch/kernels/sliced_opa/csrc/opa_deposit.cu",
+              "src/repro/kernels/sliced_opa/kernel.py:90", dev_err["opa_deposit_stuck"]),
+        *(entry(f"mvm_sliced_fused{t}_{v}", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
+                "src/repro/kernels/sliced_mvm/kernel.py:367", dev_err[f"mvm_sliced_fused{t}_{v}"])
+          for v in ("read_noise", "io8", "io12") for t in ("", "_transpose")),
+        *(entry(f"mvm_sliced{t}", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
+                "src/repro/kernels/sliced_mvm/kernel.py:233", dev_err[f"mvm_sliced{t}"]) for t in ("", "_transpose")),
     ]}
     print(json.dumps(line))
     print(card)

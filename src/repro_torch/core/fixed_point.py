@@ -4,13 +4,16 @@
 power-of-two scales, and the counter-hash U[0, 1) draw of stochastic
 rounding: a stateless int32 hash of the global (row, col) element position
 and two key words, so the update kernels and the plain versions draw the
-same bits for any blocking. Keys are host words (``core.prng``).
+same bits for any blocking. ``counter_gauss`` is its Box-Muller Gaussian,
+the draw of the device model's write noise and read offsets. Keys are host
+words (``core.prng``).
 """
 from __future__ import annotations
 
 import functools
 import math
 
+import numpy as np
 import torch
 
 WEIGHT_BITS = 32
@@ -103,8 +106,52 @@ def counter_u01(r: torch.Tensor, c: torch.Tensor, k0: int, k1: int) -> torch.Ten
     return ((h >> 8) & 0xFFFFFF).to(torch.float32) * _U24
 
 
-def counter_uniform(key: tuple, shape: tuple, device=None) -> torch.Tensor:
-    """Counter-mode U[0, 1) of ``shape``: the trailing two dims are the
+def _i32(w: int) -> int:
+    """A 32-bit word as a signed int32 Python int."""
+    w &= 0xFFFFFFFF
+    return w - (1 << 32) if w >= (1 << 31) else w
+
+
+def _fmix32_host(h: int) -> int:
+    """``_fmix32`` of one int32 word on the host."""
+    h &= 0xFFFFFFFF
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & 0xFFFFFFFF
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & 0xFFFFFFFF
+    return _i32(h ^ (h >> 16))
+
+
+_TWO_PI_F32 = float(np.float32(2.0 * np.pi))
+
+
+def counter_gauss(r: torch.Tensor, c: torch.Tensor, k0: int, k1: int) -> torch.Tensor:
+    """Standard-normal f32 noise at (row ``r``, col ``c``) under the int32
+    key words ``(k0, k1)``: Box-Muller over two counter draws, the second
+    under ``(k0 ^ GOLDEN, fmix32(k1 ^ FMIX_C1))``. Every product rounds to
+    f32 on its own. ``u1 <= 1 - 2^-24``, so ``log1p(-u1)`` is finite."""
+    u1 = counter_u01(r, c, k0, k1)
+    u2 = counter_u01(r, c, _i32(k0 ^ _GOLDEN), _fmix32_host(k1 ^ _FMIX_C1))
+    rad = torch.sqrt(-2.0 * torch.log1p(-u1))
+    return rad * torch.cos(_TWO_PI_F32 * u2)
+
+
+# fold_in tag of the device write-noise key stream, apart from the rounding
+# stream: the write-noise key is fold_in(key, WRITE_NOISE_FOLD)
+WRITE_NOISE_FOLD = 0x57A9
+
+
+def device_pattern_words(seed: int, salt: int) -> tuple[int, int]:
+    """Two int32 key words of a frozen device pattern (the stuck-cell masks,
+    the read offsets) from a seed and a site salt: wrapping uint32
+    arithmetic on the host."""
+    w0 = (seed * 0x9E3779B9 + salt * 0x85EBCA6B + 0xC2B2AE35) & 0xFFFFFFFF
+    w1 = (seed ^ (salt * 0x27D4EB2F) ^ 0x165667B1) & 0xFFFFFFFF
+    return _i32(w0), _i32(w1)
+
+
+def _counter_array(draw, key: tuple, shape: tuple, device=None) -> torch.Tensor:
+    """``draw(r, c, k0, k1)`` over ``shape``: the trailing two dims are the
     (row, col) grid; each leading (layer-stack) index ``l`` draws under
     ``fold_in(key, l)``, the per-layer key of the stacked update kernel.
     Rank < 2 shapes are one row."""
@@ -116,12 +163,23 @@ def counter_uniform(key: tuple, shape: tuple, device=None) -> torch.Tensor:
     c = torch.arange(gs[1], dtype=torch.int32, device=device)[None, :]
     lead = shape[:-2] if len(shape) >= 2 else ()
     if not lead:
-        return counter_u01(r, c, *counter_key_scalars(key)).reshape(shape)
+        return draw(r, c, *counter_key_scalars(key)).reshape(shape)
     L = math.prod(lead)
     u = torch.empty((L, *gs), dtype=torch.float32, device=device)
     for l in range(L):
-        u[l] = counter_u01(r, c, *counter_key_scalars(fold_in(key, l)))
+        u[l] = draw(r, c, *counter_key_scalars(fold_in(key, l)))
     return u.reshape(shape)
+
+
+def counter_uniform(key: tuple, shape: tuple, device=None) -> torch.Tensor:
+    """Counter-mode U[0, 1) of ``shape`` (per-layer keys over leading dims)."""
+    return _counter_array(counter_u01, key, shape, device)
+
+
+def counter_gauss_array(key: tuple, shape: tuple, device=None) -> torch.Tensor:
+    """Counter-mode standard normal of ``shape``, with ``counter_uniform``'s
+    grid and per-layer keys: the write noise a stacked leaf draws."""
+    return _counter_array(counter_gauss, key, shape, device)
 
 
 def rounding_noise(key: tuple, shape: tuple, rng_mode: str = "counter", device=None) -> torch.Tensor:

@@ -4,8 +4,15 @@
 // is clipped to +-canonical_limit, cut into balanced digits LSB-first
 // (d = ((rem + 8) & 15) - 8, then rem = (rem - d) >> 4, exact), and each
 // digit is added to its plane with that plane's saturating clip.
+//
+// With a device model's stuck cells (keep_stuck), the digit of slice s at
+// (r, c) keeps its old value where counter_u01(r, c, w0_s, w1_s) < frac,
+// with (w0_s, w1_s) = device_pattern_words(stuck_seed, s): the reference's
+// _stuck_masks, applied after the deposit.
 #pragma once
 #include <stdint.h>
+
+#include "counter.cuh"
 
 #define PANTHER_MAX_DEPOSIT_S 8  // canonical_limit fits int32 up to 8 slices
 
@@ -13,6 +20,12 @@ struct DepositParams {
   int S;
   int lim;                              // canonical_limit
   int plane_max[PANTHER_MAX_DEPOSIT_S];  // saturating bound per plane, LSB-first
+};
+
+struct StuckParams {
+  float frac;                     // stuck share (f32); the mask is off when <= 0
+  int w0[PANTHER_MAX_DEPOSIT_S];  // per-slice pattern key words
+  int w1[PANTHER_MAX_DEPOSIT_S];
 };
 
 // new planes of one element: p[s] the S plane digits, read and written
@@ -27,4 +40,17 @@ __device__ __forceinline__ void deposit_one(int* p, int rem, const DepositParams
       rem = (rem - d) >> 4;
     }
   }
+}
+
+// the deposit of one element at global (r, c), whose stuck digits keep
+// their old value
+__device__ __forceinline__ void deposit_stuck(int* p, int rem, const DepositParams& dp, int r, int c,
+                                              const StuckParams& st) {
+  int old[PANTHER_MAX_DEPOSIT_S];
+#pragma unroll
+  for (int s = 0; s < PANTHER_MAX_DEPOSIT_S; ++s) old[s] = p[s];
+  deposit_one(p, rem, dp);
+#pragma unroll
+  for (int s = 0; s < PANTHER_MAX_DEPOSIT_S; ++s)
+    if (s < dp.S && counter_u01(r, c, st.w0[s], st.w1[s]) < st.frac) p[s] = old[s];
 }

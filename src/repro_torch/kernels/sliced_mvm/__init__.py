@@ -1,3 +1,3 @@
-from .ops import mvm_sliced_fused, mvm_sliced_fused_batched
+from .ops import mvm_sliced, mvm_sliced_batched, mvm_sliced_fused, mvm_sliced_fused_batched
 
-__all__ = ["mvm_sliced_fused", "mvm_sliced_fused_batched"]
+__all__ = ["mvm_sliced", "mvm_sliced_batched", "mvm_sliced_fused", "mvm_sliced_fused_batched"]

@@ -1,36 +1,49 @@
-// Quantize-fused bit-sliced crossbar read (PANTHER's finite-ADC MVM) for
-// NVIDIA Hopper (sm_90a), with a plain C interface for ctypes.
+// Bit-sliced crossbar read (PANTHER's finite-ADC MVM) for NVIDIA Hopper
+// (sm_90a), with a plain C interface for ctypes: the quantize-fused read
+// (K4) and the read of a pre-quantized int input (K5).
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/sliced_mvm/kernel.py::
-// mvm_sliced_fused (bodies _mvm_fused_db_kernel / _mvm_fused_kernel,
-// _tile_compute, _dac_block), the forward read and the transpose (MᵀVM)
-// read, with no device read noise.
+// Replaces the Pallas TPU kernels src/repro/kernels/sliced_mvm/kernel.py::
+// mvm_sliced_fused (K4: bodies _mvm_fused_db_kernel / _mvm_fused_kernel,
+// _tile_compute, _dac_block, read_offsets), the forward read and the
+// transpose (MᵀVM) read, with and without device read noise, and
+// mvm_sliced (K5: body _mvm_kernel, the same _tile_compute on an int32
+// x_q, no DAC prologue).
 //
 // What it computes, per 128-row crossbar tile k, token b, output column n
 // (the transpose read swaps the roles of the plane's rows and columns: it
 // contracts over 128-column tiles of N into outputs over M, with the same
 // ADC full scale 128·plane_max):
-//   x_q[b,r]  = clamp(rint(x[b,r] * 2^F), +-(2^(io-1)-1))         (DAC)
+//   x_q[b,r]  = clamp(rint(x[b,r] * 2^F), +-(2^(io-1)-1))         (DAC, K4)
 //   c[t,s]    = sum_r sgn(x_q)·bit_t(|x_q|)[b,r] · plane[s,r,n]  (int32)
-//   code[t,s] = clamp(rint(c / step_s), +-2^(adc-1)),  step_s = 2·128·pm_s/2^adc
+//   code[t,s] = clamp(rint((c + off[k,s,n]) / step_s), +-2^(adc-1))
+//               step_s = 2·128·pm_s/2^adc
 //   z[s]      = sum_t code[t,s] · 2^t                            (int32, exact)
 //   out[b,n] += sum_s z[s] · step_s · 16^s                       (f32)
-// With adc_bits <= 0 (ideal ADC) code = c. step_s is a power of two, so the
-// ADC is exact; the DAC scale is built from the exponent field like exp2i;
-// rintf rounds half to even like jnp.round.
+// With adc_bits <= 0 (ideal ADC) code = c, and the offset enters once, as
+// (z + off·(2^(io-1)-1))·16^s: every bit cycle reads the same offset. off is
+// 0 without read noise (the ideal instances add nothing); with it, it is a
+// frozen Gaussian per (global tile, slice, global column),
+// counter_gauss((tile0 + k)·S + s, col0 + n) under the pattern's key words
+// (the forward and the MᵀVM read use different salts), times
+// f32(read_noise·128·pm_s). step_s is a power of two, so the ADC is exact;
+// the DAC scale is built from the exponent field like exp2i; rintf rounds
+// half to even like jnp.round; each add of an offset rounds on its own.
 //
 // Design. A block owns BN=32 output columns and up to MAX_BB=16 tokens and
 // loops over the 128-row tiles (the TPU's sequential k axis and its 2-slot
 // DMA become this loop). Per tile, the x strip is quantized and split into
 // its io_bits-1 signed bit planes, each packed 4 rows to a 32-bit word, and
 // the plane tile [S,128,BN] is transposed into the same 4-rows-per-word
-// packing, both in shared memory. A thread owns one slice, 4 columns and
-// every 4th token of the block; it holds the 15x4 column currents of one
-// token in registers and computes them with __dp4a (4 int8 MACs a lane),
-// exact in int32 (|c| <= 128·pm). Each tile's slice fold then runs through
-// shared memory in ascending s, and the tile is added to the accumulator:
-// the order of the plain version (and of the reference), so at finite ADC
-// the kernel agrees with it bit for bit.
+// packing, both in shared memory; with read noise the block draws the
+// tile's S·BN offsets into shared memory once (not per token or bit cycle).
+// A thread owns one slice, 4 columns and every 4th token of the block; it
+// holds the (io_bits-1)x4 column currents of one token in registers and
+// computes them with __dp4a (4 int8 MACs a lane), exact in int32 (|c| <=
+// 128·pm). Each tile's slice fold then runs through shared memory in
+// ascending s, and the tile is added to the accumulator: the order of the
+// plain version (and of the reference), so at finite ADC the kernel agrees
+// with it bit for bit. io_bits 8, 12 and 16 are template instances (7, 11,
+// 15 bit cycles).
 //
 // The transpose read takes the planes in place, row-major [S, M, N]: four
 // consecutive contraction indices of one output row are four consecutive
@@ -49,6 +62,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "../../counter.cuh"
+
 namespace {
 
 constexpr int XBAR_ROWS = 128;
@@ -63,9 +80,17 @@ constexpr int MAX_BB = 16;              // tokens per block
 constexpr int TPT = MAX_BB / BG;        // tokens per thread
 constexpr int MAX_S = 16;
 
-struct SliceParams {
+struct ReadParams {
+  const int8_t* planes;   // [S, M, N] row-major
+  const void* x;          // f32 (K4) or int32 (K5) [B, K]
+  const int* frac_bits;   // [1] DAC exponent on the device (K4)
+  float* out;             // [B, NO]
+  int B, K, NO, S, BB, io_bits, adc_half, vec;
+  int rw0, rw1;           // read-noise pattern key words
+  int tile0, col0;        // global crossbar-tile and output-column offsets
   float inv_step[MAX_S];  // 2^-e_s: column current -> ADC code units
   float weight[MAX_S];    // step_s · 16^s (finite ADC) or 16^s (ideal)
+  float off_scale[MAX_S]; // f32(read_noise · 128 · pm_s)
 };
 
 __device__ __forceinline__ uint32_t pack_row_bytes(const int8_t* p, int valid, bool vec) {
@@ -79,19 +104,21 @@ __device__ __forceinline__ uint32_t pack_row_bytes(const int8_t* p, int valid, b
 }
 
 // K: contraction length (M forward, N transpose); NO: outputs (N forward,
-// M transpose); the planes are [S, M, N] row-major either way
-template <int D, bool FINITE, bool TRANS>
+// M transpose); the planes are [S, M, N] row-major either way. XT: float
+// (K4, the DAC in the prologue) or int (K5, x_q read as it is).
+template <int D, bool FINITE, bool TRANS, bool NOISY, typename XT>
 __global__ void __launch_bounds__(THREADS)
-mvm_sliced_fused_kernel(const int8_t* __restrict__ planes, const float* __restrict__ x,
-                        const int* __restrict__ frac_bits, float* __restrict__ out,
-                        int B, int K, int NO, int S, int BB, int io_bits, int adc_half,
-                        int vec, SliceParams sp) {
+mvm_sliced_kernel(const ReadParams a) {
   extern __shared__ __align__(16) int smem[];
   constexpr int XS = D * R4 + 1;       // +1 word: tokens land on distinct banks
   constexpr int WS = TRANS ? BN + 4 : BN;  // packed plane words per r4 row
+  const int S = a.S, BB = a.BB, B = a.B, K = a.K, NO = a.NO;
   int* wpk = smem;                     // [S][R4][WS] packed plane words
   int* xd = wpk + S * R4 * WS;         // [BB][XS] packed x digit words
   float* red = reinterpret_cast<float*>(xd + BB * XS);  // [S][BB][BN] slice terms
+  float* offs = red + S * BB * BN;     // [S][BN] read offsets of the tile (NOISY)
+  const XT* __restrict__ x = static_cast<const XT*>(a.x);
+  const int8_t* __restrict__ planes = a.planes;
 
   const int tid = threadIdx.x;
   const int ng = tid % NG;
@@ -100,9 +127,11 @@ mvm_sliced_fused_kernel(const int8_t* __restrict__ planes, const float* __restri
   const int n0 = blockIdx.x * BN;
   const int b0 = blockIdx.y * BB;
 
-  const float scale = __int_as_float((frac_bits[0] + 127) << 23);  // exp2i(F)
-  const float lim = (float)((1 << (io_bits - 1)) - 1);
-  const float half = (float)adc_half;
+  float scale = 0.f;
+  if constexpr (std::is_same<XT, float>::value)
+    scale = __int_as_float((a.frac_bits[0] + 127) << 23);  // exp2i(F)
+  const float lim = (float)((1 << (a.io_bits - 1)) - 1);
+  const float half = (float)a.adc_half;
 
   // per-thread output accumulators: tasks tid, tid + THREADS of [BB x BN]
   constexpr int OUT_TASKS = MAX_BB * BN / THREADS;
@@ -123,10 +152,15 @@ mvm_sliced_fused_kernel(const int8_t* __restrict__ planes, const float* __restri
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = row0 + 4 * r4 + i;
-        const float v = (gb < B && r < K) ? x[(size_t)gb * K + r] : 0.f;
-        const float y = fminf(fmaxf(rintf(v * scale), -lim), lim);
-        const int q = (int)y;
-        mag[i] = (uint32_t)(q < 0 ? -q : q);
+        const bool in = gb < B && r < K;
+        int q;
+        if constexpr (std::is_same<XT, float>::value) {
+          const float v = in ? x[(size_t)gb * K + r] : 0.f;
+          q = (int)fminf(fmaxf(rintf(v * scale), -lim), lim);
+        } else {
+          q = in ? x[(size_t)gb * K + r] : 0;
+        }
+        mag[i] = q < 0 ? 0u - (uint32_t)q : (uint32_t)q;
         neg[i] = q < 0;
       }
       int* dst = xd + b * XS + r4;
@@ -155,7 +189,7 @@ mvm_sliced_fused_kernel(const int8_t* __restrict__ planes, const float* __restri
         const int valid = K - col;
         wpk[(s * R4 + r4) * WS + n] =
             (gn < NO && valid > 0)
-                ? (int)pack_row_bytes(planes + ((size_t)s * NO + gn) * K + col, valid, vec)
+                ? (int)pack_row_bytes(planes + ((size_t)s * NO + gn) * K + col, valid, a.vec)
                 : 0;
       }
     } else {
@@ -172,7 +206,7 @@ mvm_sliced_fused_kernel(const int8_t* __restrict__ planes, const float* __restri
         for (int i = 0; i < 4; ++i) {
           const int r = row0 + 4 * r4 + i;
           rw[i] = (r < K && valid > 0)
-                      ? pack_row_bytes(planes + ((size_t)s * K + r) * NO + col, valid, vec)
+                      ? pack_row_bytes(planes + ((size_t)s * K + r) * NO + col, valid, a.vec)
                       : 0u;
         }
         const uint32_t lo01 = __byte_perm(rw[0], rw[1], 0x5140);
@@ -187,14 +221,30 @@ mvm_sliced_fused_kernel(const int8_t* __restrict__ planes, const float* __restri
         reinterpret_cast<int4*>(wpk)[((s * R4 + r4) * WS + 4 * c4) / 4] = o;
       }
     }
+
+    if (NOISY) {
+      // the tile's frozen read offsets, once per block and tile; at the
+      // ideal ADC already summed over the io_bits-1 bit cycles
+      const float cycles = (float)((1 << (a.io_bits - 1)) - 1);
+      for (int task = tid; task < S * BN; task += THREADS) {
+        const int s = task / BN, n = task - s * BN;
+        float o = __fmul_rn(counter_gauss((a.tile0 + k) * S + s, a.col0 + n0 + n, a.rw0, a.rw1),
+                            a.off_scale[s]);
+        if (!FINITE) o = __fmul_rn(o, cycles);
+        offs[task] = o;
+      }
+    }
     __syncthreads();
 
     // column currents, ADC and bit fold; each (slice, token, column) term
     // z·step_s·16^s goes to red[s][b][n]
     for (int s = sg; s < S; s += SG) {
       const int* wrow = wpk + s * R4 * WS;
-      const float inv_step = sp.inv_step[s];
-      const float weight = sp.weight[s];
+      const float inv_step = a.inv_step[s];
+      const float weight = a.weight[s];
+      float off[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) off[j] = NOISY ? offs[s * BN + ng * TN + j] : 0.f;
 #pragma unroll
       for (int i = 0; i < TPT; ++i) {
         const int b = bg + i * BG;
@@ -225,13 +275,16 @@ mvm_sliced_fused_kernel(const int8_t* __restrict__ planes, const float* __restri
             int code = c[t][j];
             if (FINITE) {
               // c·2^-e is exact in f32; rint is round half to even
-              code = (int)fminf(fmaxf(rintf((float)code * inv_step), -half), half);
+              const float cur = NOISY ? __fadd_rn((float)code, off[j]) : (float)code;
+              code = (int)fminf(fmaxf(rintf(cur * inv_step), -half), half);
             }
             z[j] += code * (1 << t);
           }
         float* dst = red + (s * BB + b) * BN + ng * TN;
 #pragma unroll
-        for (int j = 0; j < TN; ++j) dst[j] = (float)z[j] * weight;
+        for (int j = 0; j < TN; ++j)
+          dst[j] = (NOISY && !FINITE) ? __fmul_rn(__fadd_rn((float)z[j], off[j]), weight)
+                                      : (float)z[j] * weight;
       }
     }
     __syncthreads();
@@ -253,77 +306,112 @@ mvm_sliced_fused_kernel(const int8_t* __restrict__ planes, const float* __restri
     const int task = tid + i * THREADS;
     const int b = task / BN, n = task % BN;
     const int gb = b0 + b, gn = n0 + n;
-    if (task < BB * BN && gb < B && gn < NO) out[(size_t)gb * NO + gn] = acc[i];
+    if (task < BB * BN && gb < B && gn < NO) a.out[(size_t)gb * NO + gn] = acc[i];
   }
 }
 
-template <int D, bool FINITE, bool TRANS>
-cudaError_t launch_one(const int8_t* planes, const float* x, const int* frac_bits, float* out,
-                       int B, int K, int NO, int S, int BB, int io_bits, int adc_half, int vec,
-                       const SliceParams& sp, cudaStream_t stream) {
+template <int D, bool FINITE, bool TRANS, bool NOISY, typename XT>
+cudaError_t launch_one(const ReadParams& a, cudaStream_t stream) {
   constexpr int WS = TRANS ? BN + 4 : BN;
-  const size_t smem =
-      ((size_t)S * R4 * WS + (size_t)BB * (D * R4 + 1) + (size_t)S * BB * BN) * sizeof(int);
-  const dim3 grid((NO + BN - 1) / BN, (B + BB - 1) / BB);
-  cudaError_t err = cudaFuncSetAttribute(mvm_sliced_fused_kernel<D, FINITE, TRANS>,
+  const size_t smem = ((size_t)a.S * R4 * WS + (size_t)a.BB * (D * R4 + 1) + (size_t)a.S * a.BB * BN +
+                       (NOISY ? (size_t)a.S * BN : 0)) * sizeof(int);
+  const dim3 grid((a.NO + BN - 1) / BN, (a.B + a.BB - 1) / a.BB);
+  cudaError_t err = cudaFuncSetAttribute(mvm_sliced_kernel<D, FINITE, TRANS, NOISY, XT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  mvm_sliced_fused_kernel<D, FINITE, TRANS><<<grid, THREADS, smem, stream>>>(
-      planes, x, frac_bits, out, B, K, NO, S, BB, io_bits, adc_half, vec, sp);
+  mvm_sliced_kernel<D, FINITE, TRANS, NOISY, XT><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch(bool finite, bool transpose, const int8_t* planes, const float* x,
-                   const int* frac_bits, float* out, int B, int M, int N, int S, int BB,
-                   int io_bits, int adc_half, int vec, const SliceParams& sp,
-                   cudaStream_t stream) {
-  if (transpose) {
-    return finite ? launch_one<D, true, true>(planes, x, frac_bits, out, B, N, M, S, BB, io_bits,
-                                              adc_half, vec, sp, stream)
-                  : launch_one<D, false, true>(planes, x, frac_bits, out, B, N, M, S, BB, io_bits,
-                                               adc_half, vec, sp, stream);
-  }
-  return finite ? launch_one<D, true, false>(planes, x, frac_bits, out, B, M, N, S, BB, io_bits,
-                                             adc_half, vec, sp, stream)
-                : launch_one<D, false, false>(planes, x, frac_bits, out, B, M, N, S, BB, io_bits,
-                                              adc_half, vec, sp, stream);
+template <int D, bool NOISY, typename XT>
+cudaError_t launch_d(bool finite, bool transpose, const ReadParams& a, cudaStream_t stream) {
+  if (finite)
+    return transpose ? launch_one<D, true, true, NOISY, XT>(a, stream)
+                     : launch_one<D, true, false, NOISY, XT>(a, stream);
+  return transpose ? launch_one<D, false, true, NOISY, XT>(a, stream)
+                   : launch_one<D, false, false, NOISY, XT>(a, stream);
 }
 
-}  // namespace
+// the io_bits the source instantiates: 8, 12 and 16 (7, 11, 15 bit cycles)
+template <bool NOISY, typename XT>
+cudaError_t launch(bool finite, bool transpose, const ReadParams& a, cudaStream_t stream) {
+  switch (a.io_bits) {
+    case 8: return launch_d<7, NOISY, XT>(finite, transpose, a, stream);
+    case 12: return launch_d<11, NOISY, XT>(finite, transpose, a, stream);
+    case 16: return launch_d<15, NOISY, XT>(finite, transpose, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
-// planes int8 [S,M,N], x f32 [B,M] ([B,N] when transpose), frac_bits int32
-// [1] (device), out f32 [B,N] ([B,M] when transpose), all contiguous on the
-// current device. slice_bits: host int[S], physical bits per slice
-// LSB-first. adc_bits <= 0 selects the ideal ADC. vec != 0: the planes' row
-// length (N) is a multiple of 4 and the planes 4-byte aligned.
-// Returns a cudaError_t (0 on success).
-extern "C" int panther_mvm_sliced_fused(const void* planes, const void* x, const void* frac_bits,
-                                        void* out, int B, int M, int N, int S, int io_bits,
-                                        int adc_bits, const int* slice_bits, int vec,
-                                        int transpose, void* stream) {
-  if (S < 1 || S > MAX_S || B < 1 || M < 1 || N < 1) return (int)cudaErrorInvalidValue;
-  if (adc_bits > 16) return (int)cudaErrorInvalidValue;
-  SliceParams sp;
+// the shapes, the ADC and the slice weights of a read; false on bad sizes
+bool read_params(ReadParams& a, const void* planes, const void* x, void* out, int B, int M, int N, int S,
+                 int io_bits, int adc_bits, const int* slice_bits, int vec, int transpose) {
+  if (S < 1 || S > MAX_S || B < 1 || M < 1 || N < 1 || adc_bits > 16) return false;
+  a.planes = static_cast<const int8_t*>(planes);
+  a.x = x;
+  a.frac_bits = nullptr;
+  a.out = static_cast<float*>(out);
+  a.B = B;
+  a.K = transpose ? N : M;
+  a.NO = transpose ? M : N;
+  a.S = S;
+  a.BB = B < MAX_BB ? B : MAX_BB;
+  a.io_bits = io_bits;
   const bool finite = adc_bits > 0;
+  a.adc_half = finite ? (1 << (adc_bits - 1)) : 0;
+  a.vec = vec;
+  a.rw0 = a.rw1 = a.tile0 = a.col0 = 0;
   for (int s = 0; s < MAX_S; ++s) {
-    sp.inv_step[s] = 0.f;
-    sp.weight[s] = 0.f;
+    a.inv_step[s] = 0.f;
+    a.weight[s] = 0.f;
+    a.off_scale[s] = 0.f;
   }
   for (int s = 0; s < S; ++s) {
     // full scale 128·2^(b-1) = 2^(6+b); step = 2·fs/2^adc = 2^(7+b-adc)
     const int e = 7 + slice_bits[s] - adc_bits;
-    sp.inv_step[s] = finite ? ldexpf(1.f, -e) : 1.f;
-    sp.weight[s] = finite ? ldexpf(1.f, e + 4 * s) : ldexpf(1.f, 4 * s);
+    a.inv_step[s] = finite ? ldexpf(1.f, -e) : 1.f;
+    a.weight[s] = finite ? ldexpf(1.f, e + 4 * s) : ldexpf(1.f, 4 * s);
   }
-  const int adc_half = finite ? (1 << (adc_bits - 1)) : 0;
-  const int BB = B < MAX_BB ? B : MAX_BB;
-  const int8_t* p = static_cast<const int8_t*>(planes);
-  const float* xf = static_cast<const float*>(x);
-  const int* f = static_cast<const int*>(frac_bits);
-  float* o = static_cast<float*>(out);
+  return true;
+}
+
+}  // namespace
+
+// K4. planes int8 [S,M,N], x f32 [B,M] ([B,N] when transpose), frac_bits
+// int32 [1] (device), out f32 [B,N] ([B,M] when transpose), all contiguous
+// on the current device. slice_bits: host int[S], physical bits per slice
+// LSB-first. adc_bits <= 0 selects the ideal ADC. io_bits: 8, 12 or 16.
+// vec != 0: the planes' row length (N) is a multiple of 4 and the planes
+// 4-byte aligned. off_scale: NULL (no read noise), or host float[S] =
+// f32(read_noise·128·pm_s), with (rw0, rw1) the pattern's key words and
+// (tile0, col0) the global tile and column offsets. Returns a cudaError_t.
+extern "C" int panther_mvm_sliced_fused(const void* planes, const void* x, const void* frac_bits,
+                                        void* out, int B, int M, int N, int S, int io_bits,
+                                        int adc_bits, const int* slice_bits, int vec,
+                                        int transpose, const float* off_scale, int rw0, int rw1,
+                                        int tile0, int col0, void* stream) {
+  ReadParams a;
+  if (!read_params(a, planes, x, out, B, M, N, S, io_bits, adc_bits, slice_bits, vec, transpose))
+    return (int)cudaErrorInvalidValue;
+  a.frac_bits = static_cast<const int*>(frac_bits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (io_bits != 16) return (int)cudaErrorInvalidValue;  // the one width instantiated
-  return (int)launch<15>(finite, transpose != 0, p, xf, f, o, B, M, N, S, BB, io_bits, adc_half,
-                         vec, sp, st);
+  if (off_scale == nullptr) return (int)launch<false, float>(adc_bits > 0, transpose != 0, a, st);
+  for (int s = 0; s < S; ++s) a.off_scale[s] = off_scale[s];
+  a.rw0 = rw0;
+  a.rw1 = rw1;
+  a.tile0 = tile0;
+  a.col0 = col0;
+  return (int)launch<true, float>(adc_bits > 0, transpose != 0, a, st);
+}
+
+// K5. As K4 without the DAC and the read noise: x_q int32 [B,M] ([B,N]
+// when transpose) on the io_bits grid; the bits of |x_q| at and above
+// io_bits-1 are not streamed. Returns a cudaError_t.
+extern "C" int panther_mvm_sliced(const void* planes, const void* x_q, void* out, int B, int M, int N,
+                                  int S, int io_bits, int adc_bits, const int* slice_bits, int vec,
+                                  int transpose, void* stream) {
+  ReadParams a;
+  if (!read_params(a, planes, x_q, out, B, M, N, S, io_bits, adc_bits, slice_bits, vec, transpose))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch<false, int>(adc_bits > 0, transpose != 0, a, static_cast<cudaStream_t>(stream));
 }

@@ -2,20 +2,24 @@
 // Hopper (sm_90a), with a plain C interface for ctypes.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/sliced_opa/kernel.py::
-// opa_fused (body _opa_fused_kernel, with _deposit and the counter draw of
-// _block_noise) for the ideal device (dev=None):
+// opa_fused (body _opa_fused_kernel, with _deposit, the counter draw of
+// _block_noise, and the device physics of _global_coords/_stuck_masks):
 //   acc[m,n] = sum_t x[t,m] · dh[t,n]                        (f32)
 //   y        = acc · scale,  scale = -lr · 2^F               (f32, exact)
+//   DEV:  y  = y >= 0 ? y · asym_up : y · asym_down          (asymmetry)
+//         y  = y + σ_w · gauss(m, n)                         (write noise)
 //   y        = floor(y + u(m, n))  with key words,  rint(y) without
 //   p_q      = sat_i32(clip(y, +-f32(2^31 - 1)))
 //   planes  <- deposit(planes, p_q)                          (deposit.cuh)
-// u(m, n) is the counter hash of core.fixed_point.counter_u01 at the GLOBAL
-// (row, col), so the draw does not depend on the blocking. The kernel builds
-// scale itself from the host lr and the device frac_bits: nothing syncs.
-// __fmul_rn/__fadd_rn keep the finalize from contracting into an FMA, so it
-// rounds as the plain version does; rintf rounds half to even like
+//   DEV:  stuck digits keep their old value                  (deposit_stuck)
+// u and gauss are the counter draws of core.fixed_point at the GLOBAL (row,
+// col) (counter.cuh), under the rounding key words and the write-noise key
+// words, so no draw depends on the blocking. The kernel builds scale itself
+// from the host lr and the device frac_bits: nothing syncs. Every product
+// and sum of the finalize rounds on its own (__fmul_rn/__fadd_rn), as the
+// reference's source and its jnp oracle do; rintf rounds half to even like
 // jnp.round; __float2int_rz saturates 2^31 to INT32_MAX as XLA's convert
-// does.
+// does. The ideal instance (DEV false) has none of the physics in its code.
 //
 // Design. The gradient [M, N] never reaches device memory: a block owns a
 // 128x128 output tile, walks the token axis 8 tokens at a time through
@@ -28,16 +32,19 @@
 //
 // Bound. 2·T·M·N operations and (S·M·N read + S·M·N written + T·(M+N)
 // operand) bytes. At the training step's 256 tokens the operations bound it.
-// The CUDA-core f32 FMAs run far below the card's tensor rate: bf16 x bf16
-// products are exact in f32, so a later design runs the contraction on bf16
-// wgmma with f32 accumulation (bit-identical to this one where the f32 sums
-// are exact) and overlaps the plane traffic of one tile with the next
-// tile's mainloop.
+// The device physics add ~150 CUDA-core operations a cell (two hashes and a
+// Box-Muller for the noise, S hashes for the stuck mask), a few percent of
+// the contraction's 2·T at T = 256. The CUDA-core f32 FMAs run far below
+// the card's tensor rate: bf16 x bf16 products are exact in f32, so a later
+// design runs the contraction on bf16 wgmma with f32 accumulation
+// (bit-identical to this one where the f32 sums are exact) and overlaps the
+// plane traffic of one tile with the next tile's mainloop.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "../../counter.cuh"
 #include "../../deposit.cuh"
 
 namespace {
@@ -50,27 +57,20 @@ constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85ebca6bu;
-  h ^= h >> 13;
-  h *= 0xc2b2ae35u;
-  h ^= h >> 16;
-  return h;
-}
+// a write-nonideal device model (DeviceModel's write fields)
+struct DeviceParams {
+  int asym;                  // != 0: gain asym_up on y >= 0, asym_down on y < 0
+  float asym_up, asym_down;
+  float write_noise;         // > 0: sigma in grid LSB, drawn under (nk0, nk1)
+  int nk0, nk1;
+  StuckParams stuck;         // frac > 0: stuck digits keep their value
+};
 
-// core.fixed_point.counter_u01: uint32 arithmetic wraps like the int32 hash
-__device__ __forceinline__ float counter_u01(int r, int c, int k0, int k1) {
-  uint32_t h = ((uint32_t)r * 0x9e3779b9u) ^ ((uint32_t)c * 0xc2b2ae35u) ^ (uint32_t)k0;
-  h = fmix32(h ^ (uint32_t)k1);
-  return (float)(h >> 8) * 5.9604644775390625e-08f;  // 2^-24
-}
-
-template <typename T>
+template <typename T, bool DEV>
 __global__ void __launch_bounds__(THREADS)
 opa_fused_kernel(int8_t* __restrict__ planes, const T* __restrict__ x, const T* __restrict__ dh,
                  const int* __restrict__ frac_bits, float lr, int Tn, int M, int N,
-                 int has_key, int k0, int k1, int vec, DepositParams dp) {
+                 int has_key, int k0, int k1, int vec, DepositParams dp, DeviceParams dv) {
   __shared__ __align__(16) float As[BK][BM];
   __shared__ __align__(16) float Bs[BK][BN];
   const int tid = threadIdx.x;
@@ -128,6 +128,11 @@ opa_fused_kernel(int8_t* __restrict__ planes, const T* __restrict__ x, const T* 
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       float y = __fmul_rn(acc[i][j], scale);
+      if (DEV) {
+        if (dv.asym) y = y >= 0.f ? __fmul_rn(y, dv.asym_up) : __fmul_rn(y, dv.asym_down);
+        if (dv.write_noise > 0.f)
+          y = __fadd_rn(y, __fmul_rn(dv.write_noise, counter_gauss(r, c0 + j, dv.nk0, dv.nk1)));
+      }
       y = has_key ? floorf(__fadd_rn(y, counter_u01(r, c0 + j, k0, k1))) : rintf(y);
       y = fminf(fmaxf(y, -2147483648.f), 2147483648.f);
       q[j] = __float2int_rz(y);
@@ -147,7 +152,10 @@ opa_fused_kernel(int8_t* __restrict__ planes, const T* __restrict__ x, const T* 
         }
       }
 #pragma unroll
-      for (int j = 0; j < TN; ++j) deposit_one(p[j], q[j], dp);
+      for (int j = 0; j < TN; ++j) {
+        if (DEV && dv.stuck.frac > 0.f) deposit_stuck(p[j], q[j], dp, r, c0 + j, dv.stuck);
+        else deposit_one(p[j], q[j], dp);
+      }
 #pragma unroll
       for (int s = 0; s < MAX_S; ++s) {
         if (s < dp.S) {
@@ -168,7 +176,8 @@ opa_fused_kernel(int8_t* __restrict__ planes, const T* __restrict__ x, const T* 
 #pragma unroll
           for (int s = 0; s < MAX_S; ++s)
             if (s < dp.S) p[s] = row[s * plane + j];
-          deposit_one(p, q[j], dp);
+          if (DEV && dv.stuck.frac > 0.f) deposit_stuck(p, q[j], dp, r, c0 + j, dv.stuck);
+          else deposit_one(p, q[j], dp);
 #pragma unroll
           for (int s = 0; s < MAX_S; ++s)
             if (s < dp.S) row[s * plane + j] = (int8_t)p[s];
@@ -178,15 +187,23 @@ opa_fused_kernel(int8_t* __restrict__ planes, const T* __restrict__ x, const T* 
   }
 }
 
-template <typename T>
+template <typename T, bool DEV>
 cudaError_t launch(int8_t* planes, const void* x, const void* dh, const int* frac_bits, float lr,
                    int Tn, int M, int N, int has_key, int k0, int k1, int vec,
-                   const DepositParams& dp, cudaStream_t stream) {
+                   const DepositParams& dp, const DeviceParams& dv, cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  opa_fused_kernel<T><<<grid, THREADS, 0, stream>>>(
+  opa_fused_kernel<T, DEV><<<grid, THREADS, 0, stream>>>(
       planes, static_cast<const T*>(x), static_cast<const T*>(dh), frac_bits, lr, Tn, M, N,
-      has_key, k0, k1, vec, dp);
+      has_key, k0, k1, vec, dp, dv);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dev(bool dev, int8_t* planes, const void* x, const void* dh, const int* frac_bits,
+                       float lr, int Tn, int M, int N, int has_key, int k0, int k1, int vec,
+                       const DepositParams& dp, const DeviceParams& dv, cudaStream_t stream) {
+  if (dev) return launch<T, true>(planes, x, dh, frac_bits, lr, Tn, M, N, has_key, k0, k1, vec, dp, dv, stream);
+  return launch<T, false>(planes, x, dh, frac_bits, lr, Tn, M, N, has_key, k0, k1, vec, dp, dv, stream);
 }
 
 }  // namespace
@@ -197,10 +214,14 @@ cudaError_t launch(int8_t* planes, const void* x, const void* dh, const int* fra
 // folds -lr·2^F). has_key != 0 rounds stochastically under the int32 key
 // words (k0, k1); otherwise half to even. plane_max: host int[S]; lim:
 // canonical_limit. vec != 0: N % 8 == 0 and planes 8-byte aligned.
+// physics: NULL for the ideal device, else host float[4] = (asym_up,
+// asym_down, write_noise, stuck_frac), with (nk0, nk1) the write-noise key
+// words and stuck_words host int[2·S] (w0_s, w1_s per slice).
 // Returns a cudaError_t (0 on success).
 extern "C" int panther_opa_fused(void* planes, const void* x, const void* dh, const void* frac_bits,
                                  float lr, int Tn, int M, int N, int S, const int* plane_max,
                                  int lim, int bf16, int has_key, int k0, int k1, int vec,
+                                 const float* physics, int nk0, int nk1, const int* stuck_words,
                                  void* stream) {
   if (S < 1 || S > MAX_S || Tn < 0 || M < 1 || N < 1) return (int)cudaErrorInvalidValue;
   if ((M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
@@ -208,10 +229,23 @@ extern "C" int panther_opa_fused(void* planes, const void* x, const void* dh, co
   dp.S = S;
   dp.lim = lim;
   for (int s = 0; s < MAX_S; ++s) dp.plane_max[s] = s < S ? plane_max[s] : 0;
+  DeviceParams dv;
+  const bool dev = physics != nullptr;
+  dv.asym_up = dev ? physics[0] : 1.f;
+  dv.asym_down = dev ? physics[1] : 1.f;
+  dv.asym = dv.asym_up != 1.f || dv.asym_down != 1.f;
+  dv.write_noise = dev ? physics[2] : 0.f;
+  dv.nk0 = nk0;
+  dv.nk1 = nk1;
+  dv.stuck.frac = dev ? physics[3] : 0.f;
+  for (int s = 0; s < MAX_S; ++s) {
+    dv.stuck.w0[s] = stuck_words != nullptr && s < S ? stuck_words[2 * s] : 0;
+    dv.stuck.w1[s] = stuck_words != nullptr && s < S ? stuck_words[2 * s + 1] : 0;
+  }
   int8_t* p = static_cast<int8_t*>(planes);
   const int* f = static_cast<const int*>(frac_bits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return (int)launch<__nv_bfloat16>(p, x, dh, f, lr, Tn, M, N, has_key, k0, k1, vec, dp, st);
-  return (int)launch<float>(p, x, dh, f, lr, Tn, M, N, has_key, k0, k1, vec, dp, st);
+    return (int)launch_dev<__nv_bfloat16>(dev, p, x, dh, f, lr, Tn, M, N, has_key, k0, k1, vec, dp, dv, st);
+  return (int)launch_dev<float>(dev, p, x, dh, f, lr, Tn, M, N, has_key, k0, k1, vec, dp, dv, st);
 }

@@ -2,19 +2,23 @@
 (port of the Pallas kernels ``repro.kernels.sliced_opa.kernel``).
 
 * ``opa_deposit`` (``csrc/opa_deposit.cu``) deposits an int32 update on the
-  weight grid into one ``[S, M, N]`` block of digit planes, in place.
+  weight grid into one ``[S, M, N]`` block of digit planes, in place; its
+  ``stuck`` instance then keeps a device model's stuck digits.
 * ``opa_fused`` (``csrc/opa_fused.cu``) forms ``xᵀdh`` tile by tile, scales
   it by ``-lr · 2^F``, rounds it (the counter draw under key words, or half
   to even) and deposits it in the same pass: the gradient never reaches
-  device memory. The ideal device only: write physics has no kernel yet.
+  device memory. Its ``device`` instance adds a write-nonideal device
+  model's physics to the finalize: asymmetry, write noise, stuck cells.
 
 Each source says what bounds it. The libraries build at first use
 (``kernels.build``), never at import. The wrappers launch on the current
-stream and count their launches in ``opa_deposit.launches`` and
-``opa_fused.launches``.
+stream and count their launches: ``launches`` over every instance, and
+``instances`` by instance (``"ideal"``, ``"device"`` for ``opa_fused``;
+``"ideal"``, ``"stuck"`` for ``opa_deposit``).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from pathlib import Path
@@ -22,6 +26,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.core.fixed_point import device_pattern_words
 from repro_torch.core.slicing import SliceSpec
 from repro_torch.kernels import build as _build
 
@@ -36,12 +41,14 @@ def _entry(name: str):
     lib = ctypes.CDLL(str(_build.build(name, SOURCES[name]).path))
     if name == "opa_deposit":
         fn = lib.panther_opa_deposit
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                       ctypes.c_void_p]
     else:
         fn = lib.panther_opa_fused
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                                     ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -58,6 +65,16 @@ def _plane_max(spec: SliceSpec):
     return (ctypes.c_int * spec.n_slices)(*spec.plane_max)
 
 
+def _stuck_words(dev, spec: SliceSpec):
+    """Host int[2·S]: the stuck-cell pattern's key words of each slice."""
+    words = [w for s in range(spec.n_slices) for w in device_pattern_words(dev.stuck_seed, s)]
+    return (ctypes.c_int * len(words))(*words)
+
+
+def _ptr(arr) -> ctypes.c_void_p:
+    return None if arr is None else ctypes.cast(arr, ctypes.c_void_p)
+
+
 def _launch(name: str, planes: torch.Tensor, *args) -> None:
     fn = _entry(name)
     with torch.cuda.device(planes.device):
@@ -67,34 +84,42 @@ def _launch(name: str, planes: torch.Tensor, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
 
 
-def opa_deposit(planes: torch.Tensor, p_q: torch.Tensor, *, spec: SliceSpec) -> torch.Tensor:
+def opa_deposit(planes: torch.Tensor, p_q: torch.Tensor, *, spec: SliceSpec, stuck=None) -> torch.Tensor:
     """planes int8 [S, M, N] updated in place by p_q int32 [M, N], both
-    contiguous on one CUDA device; returns ``planes``."""
+    contiguous on one CUDA device; returns ``planes``. ``stuck``: a
+    DeviceModel with ``stuck_frac > 0`` (the stuck instance: its stuck
+    digits keep their value), or None."""
     if not (planes.is_cuda and p_q.is_cuda) or planes.device != p_q.device:
         raise ValueError("opa_deposit kernel takes CUDA tensors on one device only")
     _check_planes(planes, spec)
     if p_q.dtype != torch.int32 or tuple(p_q.shape) != tuple(planes.shape[1:]) or not p_q.is_contiguous():
         raise ValueError(f"p_q must be contiguous int32 {tuple(planes.shape[1:])}, got {p_q.dtype} {tuple(p_q.shape)}")
+    if stuck is not None and not stuck.stuck_frac > 0.0:
+        raise ValueError("the stuck instance takes a DeviceModel with stuck_frac > 0")
     mn = p_q.numel()
     if mn == 0:
         return planes
     vec = int(mn % 4 == 0 and planes.data_ptr() % 4 == 0 and p_q.data_ptr() % 16 == 0)
-    _launch("opa_deposit", planes, planes.data_ptr(), p_q.data_ptr(), mn, spec.n_slices,
-            ctypes.cast(_plane_max(spec), ctypes.c_void_p), spec.canonical_limit, vec)
+    words = None if stuck is None else _stuck_words(stuck, spec)
+    frac = 0.0 if stuck is None else float(np.float32(stuck.stuck_frac))
+    _launch("opa_deposit", planes, planes.data_ptr(), p_q.data_ptr(), mn, planes.shape[2], spec.n_slices,
+            _ptr(_plane_max(spec)), spec.canonical_limit, vec, frac, _ptr(words))
     opa_deposit.launches += 1
+    opa_deposit.instances["ideal" if stuck is None else "stuck"] += 1
     return planes
 
 
 def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float,
-              frac_bits: torch.Tensor, *, spec: SliceSpec, key_words=None, dev=None) -> torch.Tensor:
+              frac_bits: torch.Tensor, *, spec: SliceSpec, key_words=None, dev=None,
+              noise_words=None) -> torch.Tensor:
     """planes int8 [S, M, N] updated in place by ``-lr · xᵀdh`` on the
     ``2^-F`` grid; x [T, M] and dh [T, N] contiguous f32 or bf16 (one
     dtype); frac_bits a 1-element int32 tensor read on the device; lr a host
     float; key_words None (round half to even) or two int32 Python ints
-    (stochastic rounding by the counter draw). Returns ``planes``. Raises on
-    write physics (``dev``): it has no kernel yet."""
-    if dev is not None:
-        raise NotImplementedError("opa_fused: device write physics has no CUDA kernel yet")
+    (stochastic rounding by the counter draw). ``dev``: None for the ideal
+    instance, or a write-nonideal DeviceModel for the device instance, with
+    ``noise_words`` the write-noise key words when ``dev.write_noise > 0``.
+    Returns ``planes``."""
     if not (planes.is_cuda and x.is_cuda and dh.is_cuda and frac_bits.is_cuda):
         raise ValueError("opa_fused kernel takes CUDA tensors only")
     if not (planes.device == x.device == dh.device == frac_bits.device):
@@ -109,16 +134,32 @@ def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float
         raise ValueError("x and dh must be contiguous")
     if frac_bits.dtype != torch.int32 or frac_bits.numel() != 1:
         raise ValueError("frac_bits must be a 1-element int32 tensor")
+    if dev is not None and not dev.writes_nonideal():
+        raise ValueError("the device instance takes a write-nonideal DeviceModel (None for the ideal one)")
+    if dev is not None and dev.write_noise > 0.0 and noise_words is None:
+        raise ValueError("DeviceModel.write_noise requires write-noise key words")
     if M == 0 or N == 0:
         return planes
     k0, k1 = (0, 0) if key_words is None else key_words
+    physics = stuck = None
+    nk0 = nk1 = 0
+    if dev is not None:
+        physics = (ctypes.c_float * 4)(dev.asym_up, dev.asym_down, dev.write_noise, dev.stuck_frac)
+        if dev.write_noise > 0.0:
+            nk0, nk1 = noise_words
+        if dev.stuck_frac > 0.0:
+            stuck = _stuck_words(dev, spec)
     vec = int(N % 8 == 0 and planes.data_ptr() % 8 == 0)
     _launch("opa_fused", planes, planes.data_ptr(), x.data_ptr(), dh.data_ptr(), frac_bits.data_ptr(),
-            float(np.float32(lr)), x.shape[0], M, N, S, ctypes.cast(_plane_max(spec), ctypes.c_void_p),
-            spec.canonical_limit, _OPERAND_DTYPES[x.dtype], int(key_words is not None), k0, k1, vec)
+            float(np.float32(lr)), x.shape[0], M, N, S, _ptr(_plane_max(spec)), spec.canonical_limit,
+            _OPERAND_DTYPES[x.dtype], int(key_words is not None), k0, k1, vec, _ptr(physics), nk0, nk1,
+            _ptr(stuck))
     opa_fused.launches += 1
+    opa_fused.instances["ideal" if dev is None else "device"] += 1
     return planes
 
 
 opa_deposit.launches = 0
+opa_deposit.instances = collections.Counter()
 opa_fused.launches = 0
+opa_fused.instances = collections.Counter()

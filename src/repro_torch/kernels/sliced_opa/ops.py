@@ -12,42 +12,80 @@ Planes are ``[S, *stack, M, N]`` with layer-major storage (see
 draws its rounding noise under ``fold_in(key, l)``: the derivation of the
 dense path's ``counter_uniform``, so both pipelines draw the same bits. Keys
 are host words (``core.prng``).
+
+A write-nonideal ``DeviceModel`` (``device``) adds its physics to the
+update: asymmetry and write noise before the rounding, the stuck-cell mask
+after the deposit. The write noise draws under ``fold_in(key,
+WRITE_NOISE_FOLD)``, with the same per-layer ``fold_in(·, l)``. An
+all-ideal model runs the ideal update, bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.prng import counter_key_scalars, fold_in
+from repro_torch.core.fixed_point import WRITE_NOISE_FOLD, exp2i
+from repro_torch.core.prng import fold_in
 from repro_torch.core.slicing import SliceSpec
 from repro_torch.kernels.common import layer_views
 from . import kernel as _k
 from . import ref as _ref
 
+# elements of the dense gradient finalized per chunk: bounds the f32 and
+# int32 temporaries of the device physics on the 256000 x 2048 embedding
+_ROW_CHUNK = 1 << 24
 
-def opa_deposit(planes: torch.Tensor, p_q: torch.Tensor, spec: SliceSpec) -> torch.Tensor:
+
+def _normalize_device(device):
+    """None unless some write-path field is non-ideal: an all-ideal
+    DeviceModel runs the exact ideal kernels."""
+    if device is None or not device.writes_nonideal():
+        return None
+    return device
+
+
+def _check_keys(device, stochastic: bool, key, rng_mode: str) -> None:
+    if stochastic and key is None:
+        raise ValueError("stochastic rounding requires a PRNG key")
+    if stochastic and rng_mode != "counter":
+        raise NotImplementedError(f"rng_mode {rng_mode!r} is not ported; use 'counter'")
+    if device is not None and device.write_noise > 0.0 and key is None:
+        raise ValueError("DeviceModel.write_noise requires a PRNG key")
+
+
+def opa_deposit(planes: torch.Tensor, p_q: torch.Tensor, spec: SliceSpec, *, stuck=None) -> torch.Tensor:
     """Saturating digit deposit of int32 ``p_q`` ``[*stack, M, N]`` into
-    planes ``[S, *stack, M, N]``, in place; returns ``planes``."""
+    planes ``[S, *stack, M, N]``, in place; returns ``planes``. ``stuck``:
+    a DeviceModel with ``stuck_frac > 0`` whose stuck cells keep their
+    digit, or None."""
+    if stuck is not None and not stuck.stuck_frac > 0.0:
+        stuck = None
     if planes.is_cuda:
         p3 = p_q.reshape(-1, *p_q.shape[-2:])
         for l, block in enumerate(layer_views(planes)):
-            _k.opa_deposit(block, p3[l].contiguous(), spec=spec)
+            _k.opa_deposit(block, p3[l].contiguous(), spec=spec, stuck=stuck)
         return planes
     if planes.device.type != "cpu":
         raise ValueError(f"no OPA implementation for device {planes.device}")
-    return planes.copy_(_ref.opa_deposit_ref(planes, p_q, spec))
+    new = _ref.opa_deposit_ref(planes, p_q, spec)
+    if stuck is not None:
+        new = torch.where(_ref.stuck_mask_ref(stuck, spec, planes.shape), planes, new)
+    return planes.copy_(new)
 
 
 def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float, frac_bits,
-              spec: SliceSpec, *, key_words=None) -> torch.Tensor:
+              spec: SliceSpec, *, key_words=None, device=None, noise_words=None) -> torch.Tensor:
     """One ``[S, M, N]`` block: ``planes <- deposit(planes, q(-lr · xᵀdh ·
-    2^F))``, in place; ``key_words`` as in ``kernel.opa_fused``."""
+    2^F))``, in place; ``key_words``, ``device`` and ``noise_words`` as in
+    ``kernel.opa_fused``."""
+    device = _normalize_device(device)
     if planes.is_cuda:
         frac = torch.as_tensor(frac_bits, dtype=torch.int32, device=planes.device).reshape(1)
         return _k.opa_fused(planes, x.contiguous(), dh.contiguous(), lr, frac, spec=spec,
-                            key_words=key_words)
+                            key_words=key_words, dev=device, noise_words=noise_words)
     if planes.device.type != "cpu":
         raise ValueError(f"no OPA implementation for device {planes.device}")
-    return planes.copy_(_ref.opa_fused_ref(planes, x, dh, lr, frac_bits, spec, key_words))
+    return planes.copy_(_ref.opa_fused_ref(planes, x, dh, lr, frac_bits, spec, key_words, device,
+                                           noise_words))
 
 
 def opa_fused_update(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float,
@@ -55,23 +93,50 @@ def opa_fused_update(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr
                      rng_mode: str = "counter", device=None) -> torch.Tensor:
     """The PANTHER update from gradient operands: planes ``[S, *stack, M,
     N]``, x ``[*stack, T, M]``, dh ``[*stack, T, N]``; ``lr`` a host float;
-    ``key`` a host key (``core.prng``). In place; returns ``planes``.
-
-    Only the counter draw and the ideal device are ported: ``rng_mode``
-    ``"grid"``/``"hw"`` and a ``device`` with write physics raise."""
-    if device is not None and device.writes_nonideal():
-        raise NotImplementedError("device write physics in the OPA update is not ported yet")
-    if stochastic and key is None:
-        raise ValueError("stochastic rounding requires a PRNG key")
-    if stochastic and rng_mode != "counter":
-        raise NotImplementedError(f"rng_mode {rng_mode!r} is not ported; use 'counter'")
+    ``key`` a host key (``core.prng``); ``device`` a DeviceModel or None.
+    In place; returns ``planes``. The write noise applies under
+    deterministic rounding too. Only the counter draw is ported:
+    ``rng_mode`` ``"grid"``/``"hw"`` raise."""
+    device = _normalize_device(device)
+    _check_keys(device, stochastic, key, rng_mode)
     stacked = planes.dim() > 3
     M, N = planes.shape[-2:]
     x3 = x.reshape(-1, x.shape[-2], M)
     dh3 = dh.reshape(-1, dh.shape[-2], N)
+    dk = fold_in(key, WRITE_NOISE_FOLD) if device is not None and device.write_noise > 0.0 else None
     for l, block in enumerate(layer_views(planes)):
-        words = None
-        if stochastic:
-            words = counter_key_scalars(fold_in(key, l) if stacked else key)
-        opa_fused(block, x3[l], dh3[l], lr, frac_bits, spec, key_words=words)
+        opa_fused(block, x3[l], dh3[l], lr, frac_bits, spec,
+                  key_words=_ref.layer_key_words(key if stochastic else None, l, stacked),
+                  device=device, noise_words=_ref.layer_key_words(dk, l, stacked))
+    return planes
+
+
+def opa_device_update(planes: torch.Tensor, g: torch.Tensor, lr: float, frac_bits, spec: SliceSpec, *,
+                      device, stochastic: bool = False, key=None, rng_mode: str = "counter") -> torch.Tensor:
+    """The dense-gradient update under a write-nonideal ``device``: the
+    physics of ``opa_fused_update`` (asymmetry, write noise, rounding,
+    deposit, stuck mask) on a materialized gradient ``g`` ``[*stack, M,
+    N]``, for the plan leaves whose gradient is dense (the embedding, the
+    norm-scale stacks). The finalize is plain elementwise PyTorch, as the
+    reference's is jnp, run in row chunks at global row coordinates; the
+    deposit and the stuck mask are the deposit kernel's, in place.
+    Returns ``planes``."""
+    if not device.writes_nonideal():
+        raise ValueError("opa_device_update takes a write-nonideal DeviceModel")
+    _check_keys(device, stochastic, key, rng_mode)
+    stacked = planes.dim() > 3
+    M, N = planes.shape[-2:]
+    g3 = g.reshape(-1, M, N)
+    scale = exp2i(torch.as_tensor(frac_bits, dtype=torch.int32)).to(planes.device) * -_ref._lr32(lr)
+    dk = fold_in(key, WRITE_NOISE_FOLD) if device.write_noise > 0.0 else None
+    rows = max(1, _ROW_CHUNK // max(N, 1))
+    for l, block in enumerate(layer_views(planes)):
+        noise_words = _ref.layer_key_words(dk, l, stacked)
+        key_words = _ref.layer_key_words(key if stochastic else None, l, stacked)
+        p_q = torch.empty((M, N), dtype=torch.int32, device=planes.device)
+        for r0 in range(0, M, rows):
+            y = g3[l, r0:r0 + rows].to(torch.float32) * scale
+            p_q[r0:r0 + rows] = _ref.write_rows(y, device, r0, noise_words, key_words)
+        opa_deposit(block, p_q, spec, stuck=device)
+        del p_q
     return planes

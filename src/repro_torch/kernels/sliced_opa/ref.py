@@ -1,12 +1,16 @@
 """Plain PyTorch versions of the sliced-OPA kernels (port of
-``repro.kernels.sliced_opa.ref`` for the ideal device, ``device=None``).
+``repro.kernels.sliced_opa.ref``).
 
 ``opa_fused_ref`` follows the reference's KERNEL path, not its CPU
 dispatch: the operands widen to f32 and the contraction accumulates in f32
 (``src/repro/kernels/sliced_opa/kernel.py``), where the reference's CPU
-oracle contracts in the operand dtype. The finalize is the kernel's: ``y =
-acc · (-lr · 2^F)``, then ``floor(y + u)`` under key words or ``round(y)``
-without, saturation to int32, and the digit deposit. The CPU tests run these
+oracle contracts in the operand dtype. The finalize is the kernel's, in its
+physical order: ``y = acc · (-lr · 2^F)``; with a device model the
+asymmetry gain on the sign of ``y`` and the write noise ``σ_w · gauss(r,
+c)``; then ``floor(y + u)`` under key words or ``round(y)`` without,
+saturation to int32, the digit deposit, and last the stuck-cell mask (stuck
+cells keep their old digit). Each product and sum rounds to f32 on its own,
+as in the reference's source and its jnp oracle. The CPU tests run these
 versions, and ``chip_smoke.py`` holds the CUDA kernels against them on the
 card.
 """
@@ -15,8 +19,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.fixed_point import _f32_to_i32, counter_u01, exp2i, quantize
+from repro_torch.core.fixed_point import (
+    WRITE_NOISE_FOLD,
+    _f32_to_i32,
+    counter_gauss,
+    counter_u01,
+    device_pattern_words,
+    exp2i,
+    quantize,
+)
 from repro_torch.core.opa import opa_batched
+from repro_torch.core.prng import counter_key_scalars, fold_in
 from repro_torch.core.slicing import SliceSpec
 
 
@@ -30,31 +43,112 @@ def _lr32(lr) -> float:
     return float(np.float32(lr))
 
 
-def opa_fused_ref(planes, x, dh, lr, frac_bits, spec: SliceSpec, key_words=None):
-    """planes int8 [S, M, N]; x [T, M] and dh [T, N] (any float dtype);
-    ``lr`` a host float; ``frac_bits`` the weight grid exponent F;
-    ``key_words`` None (round half to even) or two int32 Python ints (the
-    counter draw at global (row, col)) -> new int8 planes [S, M, N]."""
-    acc = x.to(torch.float32).T @ dh.to(torch.float32)
-    scale = exp2i(torch.as_tensor(frac_bits, dtype=torch.int32)).to(acc.device) * -_lr32(lr)
-    y = acc * scale
+def _f32(v) -> float:
+    return float(np.float32(v))
+
+
+def _coords(r0: int, rows: int, cols: int, device):
+    r = torch.arange(r0, r0 + rows, dtype=torch.int32, device=device)[:, None]
+    c = torch.arange(cols, dtype=torch.int32, device=device)[None, :]
+    return r, c
+
+
+def write_rows(y: torch.Tensor, device, r0: int = 0, noise_words=None, key_words=None) -> torch.Tensor:
+    """The update's finalize before the deposit, on rows ``r0..`` of one
+    ``[M, N]`` block: ``y`` f32 ``[rows, N]`` the grid-scaled increment;
+    ``device`` a DeviceModel or None; ``noise_words`` / ``key_words`` the
+    int32 key words of the write noise / the rounding draw (None: no noise /
+    round half to even) -> int32 ``[rows, N]``."""
+    r, c = _coords(r0, *y.shape, y.device)
+    if device is not None and (device.asym_up != 1.0 or device.asym_down != 1.0):
+        y = torch.where(y >= 0.0, y * _f32(device.asym_up), y * _f32(device.asym_down))
+    if device is not None and device.write_noise > 0.0:
+        if noise_words is None:
+            raise ValueError("DeviceModel.write_noise requires a PRNG key")
+        y = y + counter_gauss(r, c, *noise_words) * _f32(device.write_noise)
     if key_words is not None:
-        M, N = acc.shape
-        r = torch.arange(M, dtype=torch.int32, device=acc.device)[:, None]
-        c = torch.arange(N, dtype=torch.int32, device=acc.device)[None, :]
         y = torch.floor(y + counter_u01(r, c, *key_words))
     else:
         y = torch.round(y)
     lim = float(2**31 - 1)
-    return opa_batched(planes, _f32_to_i32(torch.clamp(y, -lim, lim)), spec)
+    return _f32_to_i32(torch.clamp(y, -lim, lim))
+
+
+def stuck_rows(device, spec: SliceSpec, r0: int, rows: int, cols: int, on=None) -> torch.Tensor:
+    """The frozen per-slice stuck-cell mask of rows ``r0..`` of an ``[M,
+    N]`` block: bool ``[S, rows, cols]``, slice ``s`` keyed by
+    ``device_pattern_words(stuck_seed, s)``, on torch device ``on``. The
+    same on every layer."""
+    r, c = _coords(r0, rows, cols, on)
+    frac = _f32(device.stuck_frac)
+    return torch.stack([counter_u01(r, c, *device_pattern_words(device.stuck_seed, s)) < frac
+                        for s in range(spec.n_slices)])
+
+
+def stuck_mask_ref(device, spec: SliceSpec, shape, on=None) -> torch.Tensor:
+    """The stuck-cell mask for planes of ``shape`` ``[S, *stack, M, N]``,
+    broadcast over the stack: bool ``[S, 1, ..., M, N]``."""
+    S, (M, N) = shape[0], shape[-2:]
+    mask = stuck_rows(device, spec, 0, M, N, on)
+    return mask.reshape((S,) + (1,) * (len(shape) - 3) + (M, N))
+
+
+def layer_key_words(key, l: int, stacked: bool):
+    """The int32 key words layer ``l`` of a leaf draws under: ``fold_in(key,
+    l)`` on a stacked leaf, ``key`` itself otherwise; None for no key."""
+    return None if key is None else counter_key_scalars(fold_in(key, l) if stacked else key)
+
+
+def write_device(y: torch.Tensor, device, *, key, stochastic: bool, rng_mode: str = "counter") -> torch.Tensor:
+    """Asymmetry, write noise and the rounding on the grid-scaled increment
+    ``y`` ``[*stack, M, N]`` -> int32: layer ``l`` of a stack draws its
+    noise under ``fold_in(fold_in(key, WRITE_NOISE_FOLD), l)`` and its
+    rounding under ``fold_in(key, l)``."""
+    if stochastic and rng_mode != "counter":
+        raise NotImplementedError(f"rng_mode {rng_mode!r} is not ported; use 'counter'")
+    if (stochastic or device.write_noise > 0.0) and key is None:
+        raise ValueError("stochastic rounding and DeviceModel.write_noise require a PRNG key")
+    M, N = y.shape[-2:]
+    stacked = y.dim() > 2
+    y3 = y.reshape(-1, M, N)
+    dk = fold_in(key, WRITE_NOISE_FOLD) if device.write_noise > 0.0 else None
+    out = torch.empty(y3.shape, dtype=torch.int32, device=y.device)
+    for l in range(y3.shape[0]):
+        out[l] = write_rows(y3[l], device, 0, layer_key_words(dk, l, stacked),
+                            layer_key_words(key if stochastic else None, l, stacked))
+    return out.reshape(y.shape)
+
+
+def opa_fused_ref(planes, x, dh, lr, frac_bits, spec: SliceSpec, key_words=None, device=None,
+                  noise_words=None):
+    """planes int8 [S, M, N]; x [T, M] and dh [T, N] (any float dtype);
+    ``lr`` a host float; ``frac_bits`` the weight grid exponent F;
+    ``key_words`` None (round half to even) or two int32 Python ints (the
+    counter draw at global (row, col)); ``device`` a write-nonideal
+    DeviceModel or None, with ``noise_words`` the write-noise key words ->
+    new int8 planes [S, M, N]."""
+    acc = x.to(torch.float32).T @ dh.to(torch.float32)
+    scale = exp2i(torch.as_tensor(frac_bits, dtype=torch.int32)).to(acc.device) * -_lr32(lr)
+    new = opa_batched(planes, write_rows(acc * scale, device, 0, noise_words, key_words), spec)
+    if device is not None and device.stuck_frac > 0.0:
+        new = torch.where(stuck_rows(device, spec, 0, *acc.shape, acc.device), planes, new)
+    return new
 
 
 def opa_fused_update_ref(planes, x, dh, lr, frac_bits, spec: SliceSpec, *,
-                         stochastic: bool = False, key=None, rng_mode: str = "counter"):
-    """The whole update on any stack: ``opa_batched(planes, quantize(-lr ·
-    xᵀdh))`` with the contraction in f32 and the counter draw of ``key``
-    (per-layer ``fold_in(key, l)`` over the stack, inside ``quantize``).
+                         stochastic: bool = False, key=None, rng_mode: str = "counter", device=None):
+    """The whole update on any stack: ``opa_batched(planes, q(-lr · xᵀdh))``
+    with the contraction in f32, the counter draw of ``key`` (per-layer
+    ``fold_in(key, l)`` over the stack) and, with a write-nonideal
+    ``device``, its physics (``write_device``, then the stuck mask).
     planes [S, *stack, M, N]; x [*stack, T, M]; dh [*stack, T, N]."""
     g = torch.einsum("...tm,...tn->...mn", x.to(torch.float32), dh.to(torch.float32))
-    upd = quantize(-_lr32(lr) * g, frac_bits, stochastic=stochastic, key=key, rng_mode=rng_mode)
-    return opa_batched(planes, upd, spec)
+    if device is None or not device.writes_nonideal():
+        upd = quantize(-_lr32(lr) * g, frac_bits, stochastic=stochastic, key=key, rng_mode=rng_mode)
+        return opa_batched(planes, upd, spec)
+    scale = exp2i(torch.as_tensor(frac_bits, dtype=torch.int32)).to(g.device) * -_lr32(lr)
+    new = opa_batched(planes, write_device(g * scale, device, key=key, stochastic=stochastic,
+                                           rng_mode=rng_mode), spec)
+    if device.stuck_frac > 0.0:
+        new = torch.where(stuck_mask_ref(device, spec, planes.shape, new.device), planes, new)
+    return new

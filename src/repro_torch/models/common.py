@@ -116,9 +116,27 @@ class OperandSlot:
 
 @dataclasses.dataclass(frozen=True)
 class DeviceModel:
-    """Non-ideal ReRAM device physics. The port carries the configuration;
-    neither the read noise nor the write physics has a kernel yet, so a
-    non-ideal model raises at the read or at the update."""
+    """Non-ideal ReRAM device physics, applied where code touches crossbar
+    state: the update's deposit (write path) and the MVM/MᵀVM reads.
+
+    Write path (the finalize of ``kernels.sliced_opa``, in this order):
+
+    * ``asym_up`` / ``asym_down``: gain on positive / negative update
+      increments (1.0 / 1.0 is symmetric);
+    * ``write_noise``: sigma of Gaussian write noise in weight-grid LSB, a
+      counter-hash draw per (row, col) under its own key stream, added
+      before the update rounds to the grid;
+    * ``stuck_frac`` / ``stuck_seed``: the share of cells stuck at their
+      value, a frozen per-slice pattern keyed by ``stuck_seed``. A stuck
+      cell keeps its digit through the update, and every read sees it.
+
+    Read path (``kernels.sliced_mvm``): ``read_noise`` is the sigma of a
+    frozen per-(crossbar tile, slice, output column) offset relative to the
+    slice's ADC full scale, keyed by ``stuck_seed`` and salted apart for the
+    MᵀVM read, added to the column current before the ADC.
+
+    ``DeviceModel()`` is all-ideal and runs the ideal kernels.
+    """
 
     write_noise: float = 0.0
     asym_up: float = 1.0
@@ -127,12 +145,17 @@ class DeviceModel:
     stuck_seed: int = 0
     read_noise: float = 0.0
 
+    def writes_nonideal(self) -> bool:
+        """True when the write path deviates from the ideal deposit."""
+        return (
+            self.write_noise > 0.0
+            or self.asym_up != 1.0
+            or self.asym_down != 1.0
+            or self.stuck_frac > 0.0
+        )
+
     def reads_nonideal(self) -> bool:
         return self.read_noise > 0.0
-
-    def writes_nonideal(self) -> bool:
-        return (self.write_noise > 0.0 or self.asym_up != 1.0 or self.asym_down != 1.0
-                or self.stuck_frac > 0.0)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,9 +11,11 @@ every mapped leaf. The planes update in place. Vector leaves take plain
 float SGD. Keys, the step and the learning rate are host values, so the
 update makes no device sync.
 
-Not ported yet: momentum (and Tiki-Taka), the ``"grid"``/``"hw"`` rounding
-draws, device write physics, and the ``im2col``/``expert`` operand kinds;
-each raises.
+A leaf whose plan carries a write-nonideal ``DeviceModel`` writes through
+its physics: operand leaves in the fused update kernel, dense-gradient
+leaves through ``opa_device_update``. Not ported yet: momentum (and
+Tiki-Taka), the ``"grid"``/``"hw"`` rounding draws, and the
+``im2col``/``expert`` operand kinds; each raises.
 
 Layout: a ``SlicedTensor``'s planes are ``[S, *stack, M, N]`` as in the
 reference, but a stacked leaf's storage is laid out ``[*stack, S, M, N]``
@@ -201,10 +203,13 @@ def update_split(grads, digital, sliced, step: int, lr: float, cfg: PantherConfi
     ``OuterProductGrad`` one leaf) rounds under ``fold_in(fold_in(rng,
     step), i)``; a stacked leaf's layer ``l`` under ``fold_in(·, l)``. So
     the operand and dense pipelines, and the reference, draw the same bits.
-    CRS runs on every mapped leaf when ``step % crs_every == crs_every -
-    1``: a host branch."""
+    A leaf whose plan carries a write-nonideal device model updates through
+    its physics (operand leaves in K1, dense leaves in
+    ``opa_device_update``). CRS runs on every mapped leaf when ``step %
+    crs_every == crs_every - 1``: a host branch; as in the reference, it
+    does not hold stuck cells."""
     from repro_torch.kernels.crs import crs
-    from repro_torch.kernels.sliced_opa import opa_deposit, opa_fused_update
+    from repro_torch.kernels.sliced_opa import opa_deposit, opa_device_update, opa_fused_update
 
     if cfg.momentum > 0:
         raise NotImplementedError("momentum (digital-VFU buffers, Tiki-Taka) is not ported yet")
@@ -227,12 +232,14 @@ def update_split(grads, digital, sliced, step: int, lr: float, cfg: PantherConfi
             continue
         pl = pl_at.get(path)
         spec = pl.spec if pl is not None else cfg.spec
-        if _leaf_device(pl) is not None:
-            raise NotImplementedError("device write physics in the OPA update is not ported yet")
+        dev = _leaf_device(pl)
         key = prng.fold_in(base, i)
         if isinstance(g, OuterProductGrad):
             opa_fused_update(s.planes, g.x, g.dh, lr32, s.frac_bits, spec,
-                             stochastic=cfg.stochastic_round, key=key, rng_mode=cfg.rng_mode)
+                             stochastic=cfg.stochastic_round, key=key, rng_mode=cfg.rng_mode, device=dev)
+        elif dev is not None:
+            opa_device_update(s.planes, g, lr32, s.frac_bits, spec, device=dev,
+                              stochastic=cfg.stochastic_round, key=key, rng_mode=cfg.rng_mode)
         else:
             upd = quantize(-lr32 * g.to(torch.float32), s.frac_bits,
                            stochastic=cfg.stochastic_round, key=key, rng_mode=cfg.rng_mode)

@@ -152,3 +152,240 @@ def test_training_step_on_the_card_goes_through_every_kernel(card):
     reads = 5 * cfg.n_layers
     assert [a - b for a, b in zip(after, before)] == [reads, reads, 1, reads + 1, reads]
     assert bool(torch.isfinite(metrics["loss"])) and bool(torch.isfinite(metrics["grad_norm"]))
+
+
+# ------------------- device physics, io widths 8/12, K5 ----------------------
+# The write noise and the read offsets go through log1p/sqrt/cos: the plain
+# version on the card calls the same CUDA math library as the kernels, so
+# they are held bit for bit; where a Gaussian differs in its last bit, the
+# differing elements are counted and must be within one grid LSB (updates)
+# or one ADC code (reads).
+
+PHYSICS = {
+    "asym": dict(asym_up=1.2, asym_down=0.8),
+    "noise": dict(write_noise=4.0),
+    "stuck": dict(stuck_frac=0.02, stuck_seed=3),
+    "all": dict(asym_up=1.2, asym_down=0.8, write_noise=4.0, stuck_frac=0.02, stuck_seed=3),
+}
+
+
+def _plane_values(planes):
+    acc = planes[-1].to(torch.int64)
+    for s in range(planes.shape[0] - 2, -1, -1):
+        acc = acc * 16 + planes[s].to(torch.int64)
+    return acc
+
+
+def _canonical_planes(card, shape, g):
+    """Canonical planes [S, *shape]; a stack is stored layer-major, as
+    ``optim.panther`` stores it, so each layer's block is contiguous."""
+    from repro_torch.core.slicing import DEFAULT_SPEC, slice_weights
+
+    q = torch.randint(-2**27, 2**27, shape, generator=g, device=card, dtype=torch.int32)
+    lead = len(shape) - 2
+    return slice_weights(q, DEFAULT_SPEC).movedim(0, lead).contiguous().movedim(lead, 0)
+
+
+@pytest.mark.parametrize("physics", list(PHYSICS))
+@pytest.mark.parametrize("m,n,t,keyed", [(2048, 2560, 100, True), (320, 100, 37, False)])
+def test_opa_fused_device_instance_matches_plain(card, physics, m, n, t, keyed):
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+    from repro_torch.models.common import DeviceModel
+
+    dev = DeviceModel(**PHYSICS[physics])
+    g = torch.Generator(device=card).manual_seed(m + n + t)
+    planes = _canonical_planes(card, (m, n), g)
+    x = torch.randint(-4, 5, (t, m), generator=g, device=card) * 0.125
+    dh = torch.randint(-4, 5, (t, n), generator=g, device=card) * 2.0**-5
+    words = (12345, -678) if keyed else None
+    for lr, f in ((2.0**-4, 8), (3e-2, 20)):
+        frac = torch.tensor([f], dtype=torch.int32, device=card)
+        before = KO.opa_fused.instances["device"]
+        got = KO.opa_fused(planes.clone(), x, dh, lr, frac, spec=DEFAULT_SPEC, key_words=words, dev=dev,
+                           noise_words=(77, -99))
+        want = RO.opa_fused_ref(planes, x, dh, lr, frac[0], DEFAULT_SPEC, words, dev, (77, -99))
+        torch.cuda.synchronize()
+        assert KO.opa_fused.instances["device"] == before + 1
+        d = (_plane_values(got) - _plane_values(want)).abs()
+        print(f"{physics} lr={lr}: {int((d > 0).sum())} of {d.numel()} elements differ")
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+        if dev.write_noise == 0.0:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,n", [(2048, 2560), (18, 2048), (320, 100)])
+def test_opa_deposit_stuck_instance_matches_plain(card, m, n):
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+    from repro_torch.models.common import DeviceModel
+
+    g = torch.Generator(device=card).manual_seed(m + n)
+    planes = _full_range_planes(card, (m, n), g)
+    p_q = torch.randint(-2**31, 2**31, (m, n), generator=g, device=card, dtype=torch.int64).to(torch.int32)
+    for frac in (0.02, 0.5):
+        dev = DeviceModel(stuck_frac=frac, stuck_seed=3)
+        want = RO.opa_deposit_ref(planes, p_q, DEFAULT_SPEC)
+        want = torch.where(RO.stuck_mask_ref(dev, DEFAULT_SPEC, planes.shape, card), planes, want)
+        before = KO.opa_deposit.instances["stuck"]
+        got = KO.opa_deposit(planes.clone(), p_q, spec=DEFAULT_SPEC, stuck=dev)
+        torch.cuda.synchronize()
+        assert KO.opa_deposit.instances["stuck"] == before + 1
+        assert torch.equal(got, want)
+
+
+def test_opa_device_update_on_the_card_matches_the_cpu(card):
+    from repro_torch.core import prng
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels import sliced_opa as ops
+    from repro_torch.models.common import DeviceModel
+
+    dev = DeviceModel(**PHYSICS["all"])
+    g = torch.Generator(device=card).manual_seed(5)
+    planes = _canonical_planes(card, (2, 384, 256), g)
+    grad = torch.randn((2, 384, 256), generator=g, device=card) * 1e-3
+    got = ops.opa_device_update(planes.clone(), grad, 3e-2, 24, DEFAULT_SPEC, device=dev, stochastic=True,
+                                key=prng.PRNGKey(3))
+    want = ops.opa_device_update(planes.cpu(), grad.cpu(), 3e-2, 24, DEFAULT_SPEC, device=dev, stochastic=True,
+                                 key=prng.PRNGKey(3))
+    d = (_plane_values(got.cpu()) - _plane_values(want)).abs()
+    print(f"opa_device_update card vs CPU: {int((d > 0).sum())} of {d.numel()} elements differ")
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+
+
+def test_an_all_ideal_device_runs_the_ideal_instances(card):
+    from repro_torch.core import prng
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels import sliced_mvm, sliced_opa
+    from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.models.common import DeviceModel
+
+    g = torch.Generator(device=card).manual_seed(9)
+    planes = _canonical_planes(card, (2, 256, 128), g)
+    x = torch.randint(-4, 5, (2, 16, 256), generator=g, device=card) * 0.125
+    dh = torch.randint(-4, 5, (2, 16, 128), generator=g, device=card) * 2.0**-5
+    outs = []
+    for device in (None, DeviceModel()):
+        before = dict(KO.opa_fused.instances)
+        p = planes.clone()
+        sliced_opa.opa_fused_update(p, x, dh, 3e-2, 20, DEFAULT_SPEC, stochastic=True, key=prng.PRNGKey(1),
+                                    device=device)
+        assert KO.opa_fused.instances["ideal"] == before.get("ideal", 0) + 2
+        assert KO.opa_fused.instances["device"] == before.get("device", 0)
+        before = dict(K.mvm_sliced_fused.instances)
+        y = sliced_mvm.mvm_sliced_fused(p[:, 0], x[0], 12, DEFAULT_SPEC, adc_bits=9, device=device)
+        assert K.mvm_sliced_fused.instances["io16"] == before.get("io16", 0) + 1
+        outs.append((p, y))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+def _read_case(card, m, n, b, transpose, io_bits, seed):
+    from repro_torch.core.fixed_point import choose_frac_bits
+
+    g = torch.Generator(device=card).manual_seed(seed)
+    planes = torch.randint(-8, 8, (8, m, n), generator=g, device=card, dtype=torch.int8)
+    x = torch.randn((b, n if transpose else m), generator=g, device=card)
+    xf = choose_frac_bits(x, word_bits=io_bits, margin_bits=1, clip_to_word=False).reshape(1)
+    return planes, x, xf
+
+
+@pytest.mark.parametrize("adc", [9, 6, None])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("m,n,b", [(2048, 2560, 5), (320, 100, 16)])
+def test_noisy_read_matches_plain(card, adc, transpose, m, n, b):
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.kernels.sliced_mvm import ref
+    from repro_torch.models.common import DeviceModel
+
+    dev = DeviceModel(read_noise=0.01, stuck_seed=3)
+    planes, x, xf = _read_case(card, m, n, b, transpose, 16, m + n + b)
+    name = K.instance_name(transpose, 16, True)
+    before = K.mvm_sliced_fused.instances[name]
+    got = K.mvm_sliced_fused(planes, x, xf, spec=DEFAULT_SPEC, adc_bits=adc, transpose=transpose, dev=dev,
+                             tile0=3, col0=7)
+    want = ref.mvm_sliced_fused_ref(planes, x, xf[0], DEFAULT_SPEC, 16, adc, transpose=transpose, device=dev,
+                                    tile0=3, col0=7)
+    torch.cuda.synchronize()
+    assert K.mvm_sliced_fused.instances[name] == before + 1
+    assert float((got - want).abs().max()) <= 1e-3 * (1.0 + float(want.abs().max()))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("io_bits", [8, 12])
+@pytest.mark.parametrize("adc", [9, 6, None])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_io_bits_8_and_12_match_plain(card, io_bits, adc, transpose):
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.kernels.sliced_mvm import ref
+
+    planes, x, xf = _read_case(card, 2048, 2560, 5, transpose, io_bits, io_bits)
+    name = K.instance_name(transpose, io_bits)
+    before = K.mvm_sliced_fused.instances[name]
+    got = K.mvm_sliced_fused(planes, x, xf, spec=DEFAULT_SPEC, io_bits=io_bits, adc_bits=adc, transpose=transpose)
+    want = ref.mvm_sliced_fused_ref(planes, x, xf[0], DEFAULT_SPEC, io_bits, adc, transpose=transpose)
+    torch.cuda.synchronize()
+    assert K.mvm_sliced_fused.instances[name] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("io_bits", [8, 12, 16])
+@pytest.mark.parametrize("adc", [9, 6, None])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_mvm_sliced_kernel_matches_plain(card, io_bits, adc, transpose):
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels import sliced_mvm
+    from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.kernels.sliced_mvm import ref
+
+    g = torch.Generator(device=card).manual_seed(io_bits)
+    m, n = 320, 2048
+    planes = torch.randint(-8, 8, (8, m, n), generator=g, device=card, dtype=torch.int8)
+    lim = 2 ** (io_bits - 1) - 1
+    x_q = torch.randint(-lim, lim + 1, (2, 3, n if transpose else m), generator=g, device=card, dtype=torch.int32)
+    before = (K.mvm_sliced.launches, K.mvm_sliced.transpose_launches)
+    got = sliced_mvm.mvm_sliced_batched(planes, x_q, DEFAULT_SPEC, io_bits=io_bits, adc_bits=adc,
+                                        transpose=transpose)
+    want = ref.mvm_sliced_ref(planes, x_q.reshape(6, -1), DEFAULT_SPEC, io_bits, adc, transpose=transpose)
+    torch.cuda.synchronize()
+    after = (K.mvm_sliced.launches, K.mvm_sliced.transpose_launches)
+    assert after == (before[0] + (not transpose), before[1] + transpose)
+    assert tuple(got.shape) == (2, 3, m if transpose else n)
+    assert torch.equal(got.reshape(6, -1), want)
+
+
+def test_device_training_step_on_the_card_goes_through_every_kernel(card):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import plan as planlib
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.models.common import DeviceModel
+    from repro_torch.optim import PantherConfig
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train.step import make_train_step, train_state_init
+
+    cfg = configs.get_smoke("gemma_2b")
+    opt = PantherConfig(crs_every=1)
+    dev = DeviceModel(write_noise=4e6, asym_up=1.2, asym_down=0.8, stuck_frac=0.02, stuck_seed=3, read_noise=0.01)
+    fid = dataclasses.replace(configs.fidelity_presets()["adc9"], device=dev)
+    state = train_state_init(cfg, opt, 0)
+    before = {c: dict(c.instances) for c in (K.mvm_sliced_fused, KO.opa_fused, KO.opa_deposit)}
+    crs_before = KC.crs.launches
+    state, metrics = make_train_step(cfg, opt, constant(1e-2), plan_rules=planlib.default_rules(opt, fidelity=fid))(
+        state, SyntheticLMDataset(cfg.vocab, 8, 2).batch(0))
+    reads = 5 * cfg.n_layers
+    got = {c: {k: v - before[c].get(k, 0) for k, v in c.instances.items() if v != before[c].get(k, 0)}
+           for c in before}
+    assert got[K.mvm_sliced_fused] == {"io16_read_noise": reads, "transpose_io16_read_noise": reads}
+    assert got[KO.opa_fused] == {"device": reads}
+    assert got[KO.opa_deposit] == {"stuck": 1}
+    assert KC.crs.launches == crs_before + reads + 1
+    assert bool(torch.isfinite(metrics["loss"])) and bool(torch.isfinite(metrics["grad_norm"]))

@@ -81,11 +81,20 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     for transpose, x in ((False, torch.zeros((1, 128))), (True, torch.zeros((1, 32)))):
         with pytest.raises(ValueError):
             K.mvm_sliced_fused(planes, x, frac, spec=DEFAULT_SPEC, adc_bits=9, transpose=transpose)
-    # device read noise has no kernel: it raises before any launch
-    with pytest.raises(NotImplementedError):
+    # the noisy instance, the other io widths and the int-input read (K5)
+    # refuse them too, before any launch
+    with pytest.raises(ValueError):
         K.mvm_sliced_fused(planes, torch.zeros((1, 32)), frac, spec=DEFAULT_SPEC, adc_bits=9,
                            transpose=True, dev=DeviceModel(read_noise=0.1))
+    with pytest.raises(ValueError):
+        K.mvm_sliced_fused(planes, torch.zeros((1, 128)), frac, spec=DEFAULT_SPEC, io_bits=8, adc_bits=9)
+    for transpose, x in ((False, torch.zeros((1, 128), dtype=torch.int32)),
+                         (True, torch.zeros((1, 32), dtype=torch.int32))):
+        with pytest.raises(ValueError):
+            K.mvm_sliced(planes, x, spec=DEFAULT_SPEC, io_bits=12, adc_bits=9, transpose=transpose)
     assert K.mvm_sliced_fused.launches == K.mvm_sliced_fused.transpose_launches == 0
+    assert K.mvm_sliced.launches == K.mvm_sliced.transpose_launches == 0
+    assert not K.mvm_sliced_fused.instances and not K.mvm_sliced.instances
 
 
 def test_update_kernel_wrappers_refuse_cpu_tensors():
@@ -103,9 +112,14 @@ def test_update_kernel_wrappers_refuse_cpu_tensors():
         KO.opa_deposit(planes, torch.zeros((16, 16), dtype=torch.int32), spec=DEFAULT_SPEC)
     with pytest.raises(ValueError):
         KO.opa_fused(planes, x, x, 0.1, frac, spec=DEFAULT_SPEC)
-    with pytest.raises(NotImplementedError):
-        KO.opa_fused(planes, x, x, 0.1, frac, spec=DEFAULT_SPEC, dev=DeviceModel(write_noise=0.5))
+    with pytest.raises(ValueError):
+        KO.opa_fused(planes, x, x, 0.1, frac, spec=DEFAULT_SPEC, dev=DeviceModel(write_noise=0.5),
+                     noise_words=(1, 2))
+    with pytest.raises(ValueError):
+        KO.opa_deposit(planes, torch.zeros((16, 16), dtype=torch.int32), spec=DEFAULT_SPEC,
+                       stuck=DeviceModel(stuck_frac=0.1))
     assert KC.crs.launches == KO.opa_deposit.launches == KO.opa_fused.launches == 0
+    assert not KO.opa_deposit.instances and not KO.opa_fused.instances
 
 
 def test_cpu_training_step_takes_the_plain_versions_and_launches_nothing():

@@ -245,7 +245,8 @@ def test_opa_fused_update_refuses_what_is_not_ported():
 
     planes = torch.zeros((8, 16, 16), dtype=torch.int8)
     x, dh = torch.zeros((4, 16)), torch.zeros((4, 16))
-    with pytest.raises(NotImplementedError, match="physics"):
+    # write noise draws under the key, also with deterministic rounding
+    with pytest.raises(ValueError, match="key"):
         topa.opa_fused_update(planes, x, dh, 0.1, 20, SPEC, device=DeviceModel(write_noise=0.5))
     with pytest.raises(NotImplementedError, match="rng_mode"):
         topa.opa_fused_update(planes, x, dh, 0.1, 20, SPEC, stochastic=True, key=(0, 1), rng_mode="hw")
