@@ -7,17 +7,21 @@ Phases:
      per library, all started together, ``sm_90a``) and print the card's
      name and power limit;
   2. hold the kernel against its plain PyTorch version at every (M, N) the
-     gemma-2b serving path reads, at tokens {1, 4, 5, 16, 128} and ADC
-     {9, 6, ideal}, plus a short last crossbar tile and a ragged N, and time
-     the kernel, the plain version and ``torch.matmul`` on the dequantized
-     weights (the lossless yardstick) at the decode (4) and prefill (128)
-     token counts;
+     gemma-2b serving path reads, at tokens {1, 4, 5, 16, 128, 256} and ADC
+     {9, 6, ideal} (bit for bit at finite ADC), plus a short last crossbar
+     tile and a ragged N, and time the kernel, the plain version and
+     ``torch.matmul`` on the dequantized weights (the lossless yardstick) at
+     the decode (4) and prefill (128) token counts and at 5, with K4's two
+     bodies side by side: the tensor-core body, and the dp4a body as K5 runs
+     it on x_q (the wrapper picks the dp4a body for reads of at most 4
+     tokens);
   3. serve gemma-2b at full width (d=2048, d_ff=16384, vocab 256000, bf16)
      through the adc9 finite-ADC plan: random weights from a seed, sliced into
      int8 digit planes, 4 prompts of 32 tokens prefilled and 16 tokens
      greedily decoded; the kernel's launch count must equal 5 reads x layers x
-     (1 prefill + 15 decode steps), the logits must be finite and the
-     adc9-vs-lossless gap finite;
+     (1 prefill + 15 decode steps), the prefill's on the tensor-core body
+     and the decode steps' on the dp4a body, the logits must be finite and
+     the adc9-vs-lossless gap finite;
   4. hold the update kernels and the transpose read against their plain
      versions: ``crs`` and ``opa_deposit`` bit for bit at gemma-2b's four
      (M, N), the 256000x2048 embedding and a ragged 320x100, on inputs that
@@ -26,7 +30,8 @@ Phases:
      one grid LSB on training-like operands; the MᵀVM read bit for bit at
      finite ADC at tokens {1, 4, 5, 16, 256}, ADC {9, 6, ideal}, a short
      last column tile and a ragged M. Then time each at 256 tokens against
-     its plain version, its library yardstick and its bound;
+     its plain version, its library yardstick and its bound, and K4 (forward
+     and MᵀVM) beside the dp4a body (K5 on x_q);
   5. train gemma-2b at full width: random weights from a seed, synthetic
      bigram tokens at batch 4 x 64, lr 3e-2, CRS every 2 steps, counter
      stochastic rounding; 3 steps through the adc9 plan, then 2 lossless
@@ -42,7 +47,10 @@ Phases:
      included), K4/K4ᵀ with read noise, K4/K4ᵀ at io 8 and 12 and K5 forward
      and transposed at io 8, 12 and 16, each at ADC {9, 6, ideal}; then time
      each at 256 tokens against its plain version, its library yardstick and
-     its bound;
+     its bound; then every K4 instance (forward and MᵀVM, io 8/12/16, finite
+     and ideal ADC, with and without read noise) at 256 tokens beside the
+     dp4a body (K5 on x_q), the ideal-device ones bit for bit against K5 on
+     x = x_q·2^-10;
   7. train the same state on the non-ideal device (write noise 4e6 LSB,
      asymmetry 1.2/0.8, 2% stuck cells, read noise 1% of full scale): 2 adc9
      steps, then one adc9 step each at io 8 and 12 on the ideal device, every
@@ -121,7 +129,7 @@ def phase_kernels(torch, K, ref, fp, spec, gen):
     dev = torch.device("cuda")
     max_err, worst = 0.0, 0.0
     timings = {}
-    shapes = [(m, n, b) for (m, n) in SLICE_SHAPES for b in (1, 4, 5, 16, 128)]
+    shapes = [(m, n, b) for (m, n) in SLICE_SHAPES for b in (1, 4, 5, 16, 128, T_TRAIN)]
     shapes += [(m, n, b) for (m, n) in EDGE_SHAPES for b in (5, 16)]
     for M, N, B in shapes:
         planes = torch.randint(-8, 8, (spec.n_slices, M, N), generator=gen, device=dev, dtype=torch.int8)
@@ -133,26 +141,52 @@ def phase_kernels(torch, K, ref, fp, spec, gen):
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             scale = 1.0 + float(want.abs().max())
-            if not err <= TOL * scale:
+            if (adc is not None and not torch.equal(got, want)) or not err <= TOL * scale:
                 raise AssertionError(f"kernel vs plain at M={M} N={N} B={B} adc={adc}: "
                                      f"|diff| {err} > {TOL} * {scale}")
             max_err, worst = max(max_err, err), max(worst, err / scale)
-        if (M, N) in SLICE_SHAPES and B in (4, 128):
-            reps = 20 if B == 4 else 5
+        if (M, N) in SLICE_SHAPES and B in (4, 5, 128):
+            reps = 20 if B < 128 else 5
             w = dequantize_planes(planes, 30, spec)
+            x_q = ref.dac_quantize(x, xf[0], 16)
             k_ms = cuda_time_ms(lambda: K.mvm_sliced_fused(planes, x, xf, spec=spec, adc_bits=9), reps)
             p_ms = cuda_time_ms(lambda: ref.mvm_sliced_fused_ref(planes, x, xf[0], spec, 16, 9), 2, 1)
             l_ms = cuda_time_ms(lambda: torch.matmul(x, w), reps)
             b_ms, b_by = bound_ms(B, M, N, spec.n_slices, 16)
-            timings[(M, N, B)] = (k_ms, p_ms, l_ms, b_ms, b_by)
-            print(f"  M={M:5d} N={N:5d} B={B:3d} adc9: kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
+            # the two bodies on the same work: the tensor-core body, and the
+            # dp4a body as K5 runs it on x_q
+            with tensor_core_body(K):
+                mma_ms = cuda_time_ms(lambda: K.mvm_sliced_fused(planes, x, xf, spec=spec, adc_bits=9), reps)
+            dp4a_ms = cuda_time_ms(lambda: K.mvm_sliced(planes, x_q, spec=spec, adc_bits=9), reps)
+            timings[(M, N, B)] = (k_ms, p_ms, l_ms, b_ms, b_by, dp4a_ms, mma_ms)
+            print(f"  M={M:5d} N={N:5d} B={B:3d} adc9: kernel {k_ms:.4f} ms ({'dp4a' if K.uses_dp4a(B) else 'mma'} "
+                  f"body; tensor-core body {mma_ms:.4f} ms, dp4a body {dp4a_ms:.4f} ms)  plain {p_ms:.4f} ms  "
                   f"matmul {l_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
             del w
         del planes, x
-    print(f"kernel vs plain: {len(shapes) * 3} cases within {TOL}*(1+max|plain|); "
-          f"max |diff| {max_err} (product grid), max |diff|/(1+max|plain|) {worst}", flush=True)
+    for B in (4, 5, 128):
+        print(f"  one layer's 5 reads at {B} tokens, adc9: "
+              + "  ".join(f"{what} {sum(timings[(m, n, B)][i] for _, m, n in SLICE_READS):.4f} ms"
+                          for what, i in (("kernel", 0), ("tensor-core body", 6), ("dp4a body (K5)", 5),
+                                          ("plain", 1), ("matmul", 2), ("bound", 3))), flush=True)
+    print(f"kernel vs plain: {len(shapes) * 3} cases, bit-identical at finite ADC, within {TOL}*(1+max|plain|) "
+          f"at the ideal ADC; max |diff| {max_err} (product grid), max |diff|/(1+max|plain|) {worst}", flush=True)
     torch.cuda.empty_cache()
     return max_err, timings
+
+
+class tensor_core_body:
+    """Run every K4 read on the tensor-core body while inside (the
+    wrapper otherwise picks the dp4a body for decode shapes)."""
+
+    def __init__(self, K):
+        self.K = K
+
+    def __enter__(self):
+        self.saved, self.K.DP4A_MAX_B = self.K.DP4A_MAX_B, 0
+
+    def __exit__(self, *exc):
+        self.K.DP4A_MAX_B = self.saved
 
 
 def profile_step(torch, step, what="decode step"):
@@ -225,6 +259,7 @@ def phase_slice(torch, K, gen):
         raise AssertionError(f"first read: card vs CPU |diff| {err} > {TOL} * {scale}")
 
     K.mvm_sliced_fused.launches = 0
+    K.mvm_sliced_fused.instances.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, caches = prefill(params, prompts)
@@ -241,6 +276,7 @@ def phase_slice(torch, K, gen):
         all_finite &= bool(torch.isfinite(lg).all())
         toks.append(tok)
     launches = K.mvm_sliced_fused.launches
+    instances = dict(K.mvm_sliced_fused.instances)
     gap = float((logits.float() - logits_ll.float()).abs().max())
     out = torch.stack(toks, dim=1).cpu().tolist()
     print(f"prefill [{B}x{P}] {prefill_s * 1e3:.1f} ms; decode {1e3 * sum(step_s) / len(step_s):.1f} "
@@ -252,8 +288,13 @@ def phase_slice(torch, K, gen):
           f"{float(logits_ll.float().abs().max())}", flush=True)
     profile_step(torch, lambda: decode(params, tok.long(), caches, P + T - 1))
     want = 5 * layers * T
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches} != 5 reads x {layers} layers x {T} steps = {want}")
+    # the prefill's B·P tokens on the tensor-core body, the decode steps' B on the dp4a body
+    bodies = {K.instance_name(False, 16, dp4a=K.uses_dp4a(B * P)): 5 * layers,
+              K.instance_name(False, 16, dp4a=K.uses_dp4a(B)): 5 * layers * (T - 1)}
+    print(f"K4 launches by instance: {instances}", flush=True)
+    if launches != want or instances != bodies:
+        raise AssertionError(f"kernel launches {launches} != 5 reads x {layers} layers x {T} steps = {want}, "
+                             f"or by instance {instances} != {bodies}")
     if not all_finite:
         raise AssertionError("non-finite logits on the adc9 path")
     if not gap == gap or gap == float("inf"):
@@ -436,7 +477,7 @@ def time_update_kernels(torch, K, ref, spec, gen):
     from repro_torch.kernels.sliced_opa import ref as RO
 
     S, T = spec.n_slices, T_TRAIN
-    rows = {"opa_fused": [], "mvm_sliced_fused_transpose": [], "crs": []}
+    rows = {"opa_fused": [], "mvm_sliced_fused_transpose": [], "mvm_sliced_fused_256": [], "crs": []}
     for name, M, N in SLICE_READS:
         planes = torch.randint(-8, 8, (S, M, N), generator=gen, device="cuda", dtype=torch.int8)
         frac = torch.tensor([30], dtype=torch.int32, device="cuda")
@@ -447,25 +488,33 @@ def time_update_kernels(torch, K, ref, spec, gen):
         lib = cuda_time_ms(lambda: torch.matmul(x.t(), dh), 10)
         b = bound_of(2 * S * M * N + 2 * T * (M + N) + 4, 2.0 * T * M * N, BF16_FLOPS_PER_S)
         rows["opa_fused"].append((k, p, lib, *b))
-        dy = torch.randn((T, N), generator=gen, device="cuda")
         xf = torch.tensor([10], dtype=torch.int32, device="cuda")
         w = dequantize_planes(planes, 30, spec)
-        k = cuda_time_ms(lambda: K.mvm_sliced_fused(planes, dy, xf, spec=spec, adc_bits=9, transpose=True), 3)
-        p = cuda_time_ms(lambda: ref.mvm_sliced_fused_ref(planes, dy, xf[0], spec, 16, 9, transpose=True), 2, 1)
-        lib = cuda_time_ms(lambda: torch.matmul(dy, w.T), 10)
         b = bound_of(S * M * N + 4 * T * (M + N) + 4, 2.0 * T * M * N * S * 15, INT8_OPS_PER_S)
-        rows["mvm_sliced_fused_transpose"].append((k, p, lib, *b))
+        # K4ᵀ (the training step's dx read) and K4 forward at the step's 256
+        # tokens; the dp4a body's time is K5's on x_q, the same work
+        for key, transpose in (("mvm_sliced_fused_transpose", True), ("mvm_sliced_fused_256", False)):
+            dy = torch.randn((T, N if transpose else M), generator=gen, device="cuda")
+            x_q = ref.dac_quantize(dy, 10, 16)
+            k = cuda_time_ms(lambda: K.mvm_sliced_fused(planes, dy, xf, spec=spec, adc_bits=9, transpose=transpose),
+                             5)
+            p = cuda_time_ms(lambda: ref.mvm_sliced_fused_ref(planes, dy, xf[0], spec, 16, 9, transpose=transpose),
+                             2, 1)
+            lib = cuda_time_ms(lambda: torch.matmul(dy, w.T if transpose else w), 10)
+            d = cuda_time_ms(lambda: K.mvm_sliced(planes, x_q, spec=spec, adc_bits=9, transpose=transpose), 3)
+            rows[key].append((k, p, lib, *b, d))
         k = cuda_time_ms(lambda: KC.crs(planes, spec=spec), 10)
         p = cuda_time_ms(lambda: RC.crs_ref(planes, spec), 3, 1)
         # ~12 32-bit operations a plane cell: carry, digit, compare, rail select
         b = bound_of(2 * S * M * N, 12.0 * S * M * N, CUDA_CORE_OPS_PER_S)
         rows["crs"].append((k, p, None, *b))
         for key, r in rows.items():
-            k, p, lib, b_ms, b_by = r[-1]
+            k, p, lib, b_ms, b_by, *dp4a = r[-1]
             lib = "-" if lib is None else f"{lib:.4f}"
-            print(f"  {key:27s} {name:11s} M={M:5d} N={N:5d} T={T}: kernel {k:.4f} ms  plain {p:.4f} ms  "
+            dp4a = f"  dp4a body {dp4a[0]:.4f} ms" if dp4a else ""
+            print(f"  {key:27s} {name:11s} M={M:5d} N={N:5d} T={T}: kernel {k:.4f} ms{dp4a}  plain {p:.4f} ms  "
                   f"library {lib} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
-        del planes, x, dh, dy, w
+        del planes, x, dh, dy, w, x_q
     V, D = EMBED_SHAPE
     planes = torch.randint(-8, 8, (S, V, D), generator=gen, device="cuda", dtype=torch.int8)
     p_q = torch.randint(-2**20, 2**20, (V, D), generator=gen, device="cuda", dtype=torch.int32)
@@ -478,14 +527,24 @@ def time_update_kernels(torch, K, ref, spec, gen):
     del planes, p_q
     torch.cuda.empty_cache()
 
-    def total(rs):
-        lib = [r[2] for r in rs]
-        return {"ms": sum(r[0] for r in rs), "plain_ms": sum(r[1] for r in rs),
-                "library_ms": None if None in lib else sum(lib), "bound_ms": sum(r[3] for r in rs),
-                "bound_by": "bytes" if all(r[4] == "bytes" for r in rs) else "operations"}
-
-    out = {key: total(rs) for key, rs in rows.items()}
+    out = {key: layer_total(rs) for key, rs in rows.items()}
     out["opa_deposit"] = {"ms": k, "plain_ms": p, "library_ms": None, "bound_ms": b[0], "bound_by": b[1]}
+    for key in ("mvm_sliced_fused_transpose", "mvm_sliced_fused_256"):
+        t = out[key]
+        print(f"  {key}: one layer's 5 reads at {T} tokens, adc9: kernel {t['ms']:.4f} ms, dp4a body "
+              f"{t['dp4a_ms']:.4f} ms ({t['dp4a_ms'] / t['ms']:.2f}x), bound {t['bound_ms']:.4f} ms", flush=True)
+    return out
+
+
+def layer_total(rs):
+    """One layer's rows (ms, plain, library, bound, bound_by[, dp4a]) summed
+    into a kernels-line entry."""
+    lib = [r[2] for r in rs]
+    out = {"ms": sum(r[0] for r in rs), "plain_ms": sum(r[1] for r in rs),
+           "library_ms": None if None in lib else sum(lib), "bound_ms": sum(r[3] for r in rs),
+           "bound_by": "bytes" if all(r[4] == "bytes" for r in rs) else "operations"}
+    if len(rs[0]) > 5:
+        out["dp4a_ms"] = sum(r[5] for r in rs)
     return out
 
 
@@ -796,6 +855,27 @@ def time_device_kernels(torch, spec, gen):
             lib = cuda_time_ms(lambda: torch.matmul(xin, w.T if transpose else w), 10)
             lib_q = cuda_time_ms(lambda: torch.matmul(x_q.float(), w.T if transpose else w), 10)
             tag = "_transpose" if transpose else ""
+            # every K4 instance beside the dp4a body (K5 on x_q, the same work
+            # without the DAC and the read offsets); on x = x_q·2^-10, which
+            # the DAC maps back to x_q, the ideal-device instances equal K5
+            for io in (8, 12, 16):
+                xq_io = ref.dac_quantize(xin, 10, io)
+                x_io = xq_io.float() * 2.0**-10
+                for adc in (9, None):
+                    d_ms = cuda_time_ms(lambda: K.mvm_sliced(planes, xq_io, spec=spec, io_bits=io, adc_bits=adc,
+                                                             transpose=transpose), 3)
+                    for d in (None, dev):
+                        got = K.mvm_sliced_fused(planes, x_io, xf, spec=spec, io_bits=io, adc_bits=adc,
+                                                 transpose=transpose, dev=d)
+                        if d is None and not torch.equal(
+                                got, K.mvm_sliced(planes, xq_io, spec=spec, io_bits=io, adc_bits=adc,
+                                                  transpose=transpose)):
+                            raise AssertionError(f"K4{tag} io{io} adc{adc} vs the dp4a body (K5) at M={M} N={N}: "
+                                                 "not bit-identical")
+                        k_ms = cuda_time_ms(lambda: K.mvm_sliced_fused(planes, x_io, xf, spec=spec, io_bits=io,
+                                                                       adc_bits=adc, transpose=transpose, dev=d), 3)
+                        add((transpose, io, adc, d is not None), k_ms, d_ms)
+                del xq_io, x_io
             for key, io, d in ((f"mvm_sliced_fused{tag}_read_noise", 16, dev), (f"mvm_sliced_fused{tag}_io8", 8, None),
                                (f"mvm_sliced_fused{tag}_io12", 12, None)):
                 k = cuda_time_ms(lambda: K.mvm_sliced_fused(planes, xin, xf, spec=spec, io_bits=io, adc_bits=9,
@@ -803,14 +883,17 @@ def time_device_kernels(torch, spec, gen):
                 p = cuda_time_ms(lambda: ref.mvm_sliced_fused_ref(planes, xin, xf[0], spec, io, 9,
                                                                   transpose=transpose, device=d), 2, 1)
                 add(key, k, p, lib, *bound_of(S * M * N + 4 * T * (M + N) + 4, 2.0 * T * M * N * S * (io - 1),
-                                              INT8_OPS_PER_S))
+                                              INT8_OPS_PER_S), rows[(transpose, io, 9, False)][-1][1])
             k = cuda_time_ms(lambda: K.mvm_sliced(planes, x_q, spec=spec, adc_bits=9, transpose=transpose), 3)
             p = cuda_time_ms(lambda: ref.mvm_sliced_ref(planes, x_q, spec, 16, 9, transpose=transpose), 2, 1)
             add(f"mvm_sliced{tag}", k, p, lib_q, *bound_of(S * M * N + 4 * T * (M + N), 2.0 * T * M * N * S * 15,
                                                           INT8_OPS_PER_S))
         for key in rows:
-            k, p, lib, b_ms, b_by = rows[key][-1]
-            print(f"  {key:37s} {name:11s} M={M:5d} N={N:5d} T={T}: kernel {k:.4f} ms  plain {p:.4f} ms  "
+            if not isinstance(key, str):
+                continue
+            k, p, lib, b_ms, b_by, *dp4a = rows[key][-1]
+            dp4a = f"  dp4a body {dp4a[0]:.4f} ms" if dp4a else ""
+            print(f"  {key:37s} {name:11s} M={M:5d} N={N:5d} T={T}: kernel {k:.4f} ms{dp4a}  plain {p:.4f} ms  "
                   f"library {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
         del planes, x, dh, w
     V, D = EMBED_SHAPE
@@ -831,14 +914,25 @@ def time_device_kernels(torch, spec, gen):
     del planes, p_q
     torch.cuda.empty_cache()
 
-    def total(rs):
-        return {"ms": sum(r[0] for r in rs), "plain_ms": sum(r[1] for r in rs),
-                "library_ms": sum(r[2] for r in rs), "bound_ms": sum(r[3] for r in rs),
-                "bound_by": "bytes" if all(r[4] == "bytes" for r in rs) else "operations"}
-
-    out = {key: total(rs) for key, rs in rows.items()}
+    print(f"every K4 instance, one layer's 5 reads at {T} tokens (tensor-core body; the dp4a body is K5's time "
+          "on x_q; bit-identical to K5 on the ideal device):", flush=True)
+    for transpose in (False, True):
+        for io in (8, 12, 16):
+            for adc in (9, None):
+                for noisy in (False, True):
+                    k_ms, d_ms = instance_time(rows, transpose, io, adc, noisy)
+                    print(f"  K4{'ᵀ' if transpose else ' '} io{io:2d} adc {adc if adc else 'ideal':5} "
+                          f"{'read noise' if noisy else 'ideal dev.':10s}: {k_ms:9.4f} ms   dp4a body {d_ms:9.4f} ms   "
+                          f"{d_ms / k_ms:5.2f}x", flush=True)
+    out = {key: layer_total(rs) for key, rs in rows.items() if isinstance(key, str)}
     out["opa_deposit_stuck"] = {"ms": k, "plain_ms": p, "library_ms": None, "bound_ms": b[0], "bound_by": b[1]}
     return out
+
+
+def instance_time(rows, transpose, io, adc, noisy):
+    """(K4 ms, dp4a body ms) of one instance over one layer's 5 reads."""
+    rs = rows[(transpose, io, adc, noisy)]
+    return sum(r[0] for r in rs), sum(r[1] for r in rs)
 
 
 def stuck_sample(torch, sliced, dev, spec):
@@ -1070,6 +1164,7 @@ def main() -> int:
         "bound_ms": sum(b for b, _ in bounds),
         "bound_by": "bytes" if all(by == "bytes" for _, by in bounds) else "operations",
         "library_ms": per_layer(2),
+        "dp4a_ms": per_layer(5),
     },
         entry("mvm_sliced_fused_transpose", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
               "src/repro/kernels/sliced_mvm/kernel.py:367", t_err),

@@ -26,38 +26,83 @@
 // counter_gauss((tile0 + k)·S + s, col0 + n) under the pattern's key words
 // (the forward and the MᵀVM read use different salts), times
 // f32(read_noise·128·pm_s). step_s is a power of two, so the ADC is exact;
-// the DAC scale is built from the exponent field like exp2i; rintf rounds
-// half to even like jnp.round; each add of an offset rounds on its own.
+// the DAC scale is built from the exponent field like exp2i; rint rounds
+// half to even like jnp.round; each add of an offset rounds on its own; the
+// slice fold runs in ascending s and each tile is added to the accumulator
+// in tile order, the order of the plain version (and of the reference), so
+// at finite ADC both bodies below agree with it bit for bit. io_bits 8, 12
+// and 16 are template instances (7, 11, 15 bit cycles).
 //
-// Design. A block owns BN=32 output columns and up to MAX_BB=16 tokens and
-// loops over the 128-row tiles (the TPU's sequential k axis and its 2-slot
-// DMA become this loop). Per tile, the x strip is quantized and split into
-// its io_bits-1 signed bit planes, each packed 4 rows to a 32-bit word, and
-// the plane tile [S,128,BN] is transposed into the same 4-rows-per-word
-// packing, both in shared memory; with read noise the block draws the
-// tile's S·BN offsets into shared memory once (not per token or bit cycle).
-// A thread owns one slice, 4 columns and every 4th token of the block; it
-// holds the (io_bits-1)x4 column currents of one token in registers and
-// computes them with __dp4a (4 int8 MACs a lane), exact in int32 (|c| <=
-// 128·pm). Each tile's slice fold then runs through shared memory in
-// ascending s, and the tile is added to the accumulator: the order of the
-// plain version (and of the reference), so at finite ADC the kernel agrees
-// with it bit for bit. io_bits 8, 12 and 16 are template instances (7, 11,
-// 15 bit cycles).
+// Two bodies compute these numbers.
 //
-// The transpose read takes the planes in place, row-major [S, M, N]: four
-// consecutive contraction indices of one output row are four consecutive
-// bytes of a plane row, so its packed word is a plain 4-byte load and no
-// transposed copy of the planes is made. Its shared-memory rows are padded
-// by 4 words (WS) so the stores of one warp spread over the banks.
+// The tensor-core body (mvm_mma_kernel: every K4 read of more than 4
+// tokens, the wrapper's DP4A_MAX_B). The column currents of one tile are one
+// int8 product, exact in s32, on mma.sync.m16n8k32: A = the bit planes
+// [T·bb, 128] (values -1/0/+1, rows t-major: one m16 fragment is 16 tokens
+// at one bit cycle t), B = the plane tile [S·BN, 128], contraction-
+// contiguous per output column as the .col operand wants. A block owns
+// BN=64 output columns and BB tokens (32, or 64 for reads of more than 128
+// tokens: 8 or 16 warps) and loops over the 128-row tiles (the TPU's
+// sequential k axis). Per tile it quantizes the x strip and writes its
+// (io-1) bit planes as packed words (4 rows of one token and cycle a word,
+// byte i for row 4r4+i; xa[b][t][r4]), and the plane tile as packed words
+// per column (wb[s][n][r4], 128 bytes a column): the MᵀVM read copies the
+// 16-byte chunks of the row-major plane rows as they are; the forward read
+// loads 4 rows x 16 columns a thread and transposes 4x4 bytes with
+// __byte_perm. A and B fragments come from shared memory with ldmatrix: an
+// A register is 4 consecutive k of one token, a B register 4 consecutive k
+// of one column, exactly the packed words. The 16-byte chunks of a column
+// are XOR-swizzled and the token rows padded by 4 words, so the stores and
+// the ldmatrix loads hit distinct banks. Each warp owns 16 tokens x 16
+// columns (two n8 fragments). It takes the slices two at a time in
+// ascending order: it holds their B fragments of the whole tile in
+// registers and walks the bit cycles t, loading the A fragments of t once
+// for 4 mma (2 slices x 2 n8). Every C fragment is 16 tokens x 8 columns of
+// one (t, s), so the same register of the same thread holds the same
+// (token, column) for every t and every s: the ADC, the bit fold and the
+// slice fold run in registers, with no shuffle and no reduction buffer.
+//
+// Its epilogue has no int<->float conversion in the bit-cycle loop (I2F and
+// F2I yield 16 results a clock per SM on sm_90, FFMA 128). The first mma of
+// each (t, s) starts from the bits of 1.5·2^23, so the four leave c +
+// 0x4B400000, whose float is 1.5·2^23 + c, exact for |c| < 2^22 (|c| <=
+// 128·128 here). One fmaf with the power-of-two 1/step and the exact addend
+// 1.5·2^23·(1 - 1/step) gives 1.5·2^23 + c/step rounded half to even at the
+// integer grid, like rintf. A float clamp to 1.5·2^23 +- 2^(adc-1) is right
+// for any current, since the rounding is monotone. The float's bits are then
+// 0x4B400000 + code: the bit fold adds them shifted by t and takes
+// (2^T-1)·0x4B400000 off once (wrapping uint32, exact). With read noise the
+// current is first recovered exactly (float less 1.5·2^23), the offset added
+// with one rounding as in the dp4a body, and fmaf(cur, 1/step, 1.5·2^23)
+// rounds it. The slice terms and the tile sum use __fmul_rn/__fadd_rn, so
+// nothing is contracted into an FMA that the plain version does not do.
+// Blocks run the token blocks of one column block together, so each plane
+// tile is read from device memory once and from L2 B/BB times.
+//
+// The dp4a body (mvm_sliced_kernel: K5, and the K4 decode reads of at most
+// 4 tokens, by shape only: nothing falls back on an error). A block owns 32
+// columns and up to 16 tokens; a thread holds the (io-1)x4 currents of one
+// token, slice and 4 columns in registers and computes them with __dp4a (4
+// int8 MACs a lane, exact in int32) from the same packed words; the slice
+// fold runs through shared memory in ascending s. At 4 tokens it beats the
+// tensor-core body (a 16-row fragment three-quarters empty, and half as
+// many blocks for the narrow outputs); at 5 tokens it no longer does
+// (chip_smoke.py phase 2 times both).
 //
 // Bound on the H100. Decode at small batch moves S·M·N plane bytes once and
 // is bound by those bytes (3.35 TB/s); prefill does 2·B·M·N·S·(io_bits-1)
 // int8 operations and is bound by the int8 tensor-core rate (1979 TOP/s).
-// This simple design runs on the CUDA cores (dp4a), so it is far from
-// either bound. Left for later: the [(io_bits-1)·bb, 128] x [128, S·bn]
-// packed product on int8 wgmma (exact in s32), fed by a TMA/cp.async ring of
-// plane tiles, and a split over tiles for the narrow-N decode shapes.
+// The tensor-core body makes one ADC output per 128 MACs. Its epilogue (4
+// instructions an output at finite ADC, 6 with read noise) runs on the CUDA
+// cores beside the mma, and the prologue's global loads are not overlapped
+// with the mma (one buffer, two barriers a tile), so it stays about 4x over
+// the int8 bound at 256 tokens: wgmma with TMA would buy little until the
+// epilogue shrinks. The 64-token blocks of 16 warps run at 128 registers a
+// thread and spill a few words, and still run faster than 8 warps of 32
+// tokens at 255 registers: hiding latency is worth more. Left for later:
+// K5 on this body, a cp.async ring for the plane tiles, and a split over
+// tiles for the narrow decode shapes (which the ascending tile fold forbids
+// while the read stays bit for bit).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -70,14 +115,6 @@ namespace {
 
 constexpr int XBAR_ROWS = 128;
 constexpr int R4 = XBAR_ROWS / 4;       // packed 4-row words per column per tile
-constexpr int BN = 32;                  // output columns per block
-constexpr int TN = 4;                   // columns per thread
-constexpr int NG = BN / TN;             // column groups
-constexpr int BG = 4;                   // token groups
-constexpr int SG = 8;                   // slice groups
-constexpr int THREADS = NG * BG * SG;   // 256
-constexpr int MAX_BB = 16;              // tokens per block
-constexpr int TPT = MAX_BB / BG;        // tokens per thread
 constexpr int MAX_S = 16;
 
 struct ReadParams {
@@ -86,9 +123,12 @@ struct ReadParams {
   const int* frac_bits;   // [1] DAC exponent on the device (K4)
   float* out;             // [B, NO]
   int B, K, NO, S, BB, io_bits, adc_half, vec;
+  int vec16;              // planes 16-byte aligned, N % 16 == 0 (tensor-core body)
+  int xvec;               // x 16-byte aligned, K % 4 == 0 (tensor-core body)
   int rw0, rw1;           // read-noise pattern key words
   int tile0, col0;        // global crossbar-tile and output-column offsets
   float inv_step[MAX_S];  // 2^-e_s: column current -> ADC code units
+  float bias[MAX_S];      // 1.5·2^23·(1 - 2^-e_s), exact: see the tensor-core epilogue
   float weight[MAX_S];    // step_s · 16^s (finite ADC) or 16^s (ideal)
   float off_scale[MAX_S]; // f32(read_noise · 128 · pm_s)
 };
@@ -102,6 +142,33 @@ __device__ __forceinline__ uint32_t pack_row_bytes(const int8_t* p, int valid, b
     if (j < valid) w |= (uint32_t)(uint8_t)p[j] << (8 * j);
   return w;
 }
+
+// 4 rows x 4 bytes -> 4 words, word j = byte j of every row (row i in byte i)
+__device__ __forceinline__ int4 transpose4x4(const uint32_t (&rw)[4]) {
+  const uint32_t lo01 = __byte_perm(rw[0], rw[1], 0x5140);
+  const uint32_t hi01 = __byte_perm(rw[0], rw[1], 0x7362);
+  const uint32_t lo23 = __byte_perm(rw[2], rw[3], 0x5140);
+  const uint32_t hi23 = __byte_perm(rw[2], rw[3], 0x7362);
+  int4 o;
+  o.x = (int)__byte_perm(lo01, lo23, 0x5410);
+  o.y = (int)__byte_perm(lo01, lo23, 0x7632);
+  o.z = (int)__byte_perm(hi01, hi23, 0x5410);
+  o.w = (int)__byte_perm(hi01, hi23, 0x7632);
+  return o;
+}
+
+// ---------------------------------------------------------------------------
+// The dp4a body
+// ---------------------------------------------------------------------------
+
+constexpr int BN = 32;                  // output columns per block
+constexpr int TN = 4;                   // columns per thread
+constexpr int NG = BN / TN;             // column groups
+constexpr int BG = 4;                   // token groups
+constexpr int SG = 8;                   // slice groups
+constexpr int THREADS = NG * BG * SG;   // 256
+constexpr int MAX_BB = 16;              // tokens per block
+constexpr int TPT = MAX_BB / BG;        // tokens per thread
 
 // K: contraction length (M forward, N transpose); NO: outputs (N forward,
 // M transpose); the planes are [S, M, N] row-major either way. XT: float
@@ -209,16 +276,7 @@ mvm_sliced_kernel(const ReadParams a) {
                       ? pack_row_bytes(planes + ((size_t)s * K + r) * NO + col, valid, a.vec)
                       : 0u;
         }
-        const uint32_t lo01 = __byte_perm(rw[0], rw[1], 0x5140);
-        const uint32_t hi01 = __byte_perm(rw[0], rw[1], 0x7362);
-        const uint32_t lo23 = __byte_perm(rw[2], rw[3], 0x5140);
-        const uint32_t hi23 = __byte_perm(rw[2], rw[3], 0x7362);
-        int4 o;
-        o.x = (int)__byte_perm(lo01, lo23, 0x5410);
-        o.y = (int)__byte_perm(lo01, lo23, 0x7632);
-        o.z = (int)__byte_perm(hi01, hi23, 0x5410);
-        o.w = (int)__byte_perm(hi01, hi23, 0x7632);
-        reinterpret_cast<int4*>(wpk)[((s * R4 + r4) * WS + 4 * c4) / 4] = o;
+        reinterpret_cast<int4*>(wpk)[((s * R4 + r4) * WS + 4 * c4) / 4] = transpose4x4(rw);
       }
     }
 
@@ -311,7 +369,7 @@ mvm_sliced_kernel(const ReadParams a) {
 }
 
 template <int D, bool FINITE, bool TRANS, bool NOISY, typename XT>
-cudaError_t launch_one(const ReadParams& a, cudaStream_t stream) {
+cudaError_t launch_dp4a(const ReadParams& a, cudaStream_t stream) {
   constexpr int WS = TRANS ? BN + 4 : BN;
   const size_t smem = ((size_t)a.S * R4 * WS + (size_t)a.BB * (D * R4 + 1) + (size_t)a.S * a.BB * BN +
                        (NOISY ? (size_t)a.S * BN : 0)) * sizeof(int);
@@ -323,22 +381,351 @@ cudaError_t launch_one(const ReadParams& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core body
+// ---------------------------------------------------------------------------
+
+namespace tc {
+constexpr int NJ = 2;                   // n8 fragments per warp
+constexpr int SP = 2;                   // slices a warp computes per pass over the bit cycles
+constexpr int WN = 4;                   // warps along the columns
+constexpr int BN = 8 * NJ * WN;         // 64 output columns per block
+constexpr int WIDE_B = 128;             // reads of more tokens take 64-token blocks, others 32
+constexpr int NC16 = BN / 16;           // 16-column groups of the forward plane loads
+constexpr int MAGIC_I = 0x4B400000;     // the bits of 1.5·2^23
+constexpr float MAGIC_F = 12582912.f;   // 1.5·2^23
+}  // namespace tc
+
+// the 16-byte chunk of column n's 128-byte row that holds chunk q: 8
+// consecutive columns put one chunk on 8 distinct bank groups (ldmatrix),
+// and the forward prologue's 4 column groups a warp stores land apart
+__device__ __forceinline__ int chunk_swz(int n, int q) {
+  return q ^ (n & 7) ^ ((((n >> 4) & (tc::NC16 - 1)) * (8 / tc::NC16)) & 7);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const int* p) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d = A(16x32, row) · B(32x8, col) + c, int8 in, exact s32
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1,
+                                       const int (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"(c[0]), "r"(c[1]), "r"(c[2]),
+        "r"(c[3]));
+}
+
+// MI: m16 fragments (warps) along the tokens; BB = 16·MI tokens a block
+template <int MI, int D, bool FINITE, bool TRANS, bool NOISY>
+__global__ void __launch_bounds__(32 * MI * tc::WN, 1)
+mvm_mma_kernel(const ReadParams a) {
+  constexpr int BB = 16 * MI, BN = tc::BN, NJ = tc::NJ, SP = tc::SP, NC16 = tc::NC16, THREADS = 32 * MI * tc::WN;
+  constexpr int MAGIC_I = tc::MAGIC_I;
+  constexpr float MAGIC_F = tc::MAGIC_F;
+  extern __shared__ __align__(16) int smem[];
+  constexpr int XS = D * R4 + 4;       // words per token: t-major bit planes, +4 (ldmatrix rows on distinct banks)
+  const int S = a.S, B = a.B, K = a.K, NO = a.NO;
+  int* wb = smem;                      // [S][BN][R4] packed plane words, chunks swizzled
+  int* xa = wb + S * BN * R4;          // [BB][XS] packed bit-plane words
+  float* offs = reinterpret_cast<float*>(xa + BB * XS);  // [S][BN] read offsets of the tile (NOISY)
+  const float* __restrict__ x = static_cast<const float*>(a.x);
+  const int8_t* __restrict__ planes = a.planes;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int mi = warp % MI, nq = warp / MI;  // the warp's 16 tokens and 16 columns
+  const int b0 = blockIdx.x * BB, n0 = blockIdx.y * BN;
+  const int bb = min(BB, B - b0);
+  const bool active = 16 * mi < bb;    // warp-uniform: a warp past the last token only loads
+
+  const float scale = __int_as_float((a.frac_bits[0] + 127) << 23);  // exp2i(F)
+  const float lim = (float)((1 << (a.io_bits - 1)) - 1);
+  const float lo = MAGIC_F - (float)a.adc_half, hi = MAGIC_F + (float)a.adc_half;
+
+  // per lane: the ldmatrix row addresses of the A fragments (matrix lane>>3:
+  // tokens +8 for odd matrices, bytes +16 for matrices 2 and 3) and of the B
+  // fragments (matrix lane>>3 is 16-byte chunk 4p + (lane>>3) of a kk pair p)
+  const int* a_lane = xa + (16 * mi + (lane & 7) + 8 * ((lane >> 3) & 1)) * XS + 4 * (lane >> 4);
+  const int bcol = 16 * nq + (lane & 7);  // + 8j
+
+  float acc[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+  const int ntiles = (K + XBAR_ROWS - 1) / XBAR_ROWS;
+  for (int k = 0; k < ntiles; ++k) {
+    const int row0 = k * XBAR_ROWS;
+
+    // DAC + bit planes of the x strip: word (b, t, r4) packs sgn·bit_t of
+    // rows 4r4..4r4+3 as int8 lanes (-1, 0, +1), byte i for row 4r4+i
+    for (int task = tid; task < bb * R4; task += THREADS) {
+      const int b = task / R4, r4 = task % R4;
+      const int r = row0 + 4 * r4;
+      const float* xr = x + (size_t)(b0 + b) * K + r;
+      float v[4];
+      if (a.xvec && r + 3 < K) {
+        const float4 f = *reinterpret_cast<const float4*>(xr);
+        v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = r + i < K ? xr[i] : 0.f;
+      }
+      uint32_t mag[4], nb = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int q = (int)fminf(fmaxf(rintf(v[i] * scale), -lim), lim);
+        mag[i] = (uint32_t)abs(q);
+        nb |= (uint32_t)(q < 0) << (8 * i);
+      }
+      // magnitudes < 2^15 in 16-bit lanes: bit t of rows 0, 2 and of 1, 3
+      const uint32_t m02 = mag[0] | (mag[2] << 16), m13 = mag[1] | (mag[3] << 16);
+      int* dst = xa + b * XS + r4;
+#pragma unroll
+      for (int t = 0; t < D; ++t) {
+        uint32_t w = ((m02 >> t) & 0x00010001u) | (((m13 >> t) & 0x00010001u) << 8);
+        w += (w & nb) * 0xFEu;  // byte 1 -> 0xFF (-1) where the row is negative
+        dst[t * R4] = (int)w;
+      }
+    }
+
+    if (TRANS) {
+      // plane rows n0.. (the outputs), columns row0..row0+127 (the
+      // contraction): each row's 16-byte chunks are packed words as they are
+      for (int task = tid; task < S * BN * 8; task += THREADS) {
+        const int q = task & 7, n = (task >> 3) % BN, s = task / (8 * BN);
+        const int gn = n0 + n, col = row0 + 16 * q;
+        const int valid = gn < NO ? K - col : 0;
+        const int8_t* src = planes + ((size_t)s * NO + gn) * K + col;
+        int4 w;
+        if (a.vec16 && valid >= 16) {
+          w = *reinterpret_cast<const int4*>(src);
+        } else {
+          w.x = valid > 0 ? (int)pack_row_bytes(src, valid, false) : 0;
+          w.y = valid > 4 ? (int)pack_row_bytes(src + 4, valid - 4, false) : 0;
+          w.z = valid > 8 ? (int)pack_row_bytes(src + 8, valid - 8, false) : 0;
+          w.w = valid > 12 ? (int)pack_row_bytes(src + 12, valid - 12, false) : 0;
+        }
+        reinterpret_cast<int4*>(wb)[(s * BN + n) * 8 + chunk_swz(n, q)] = w;
+      }
+    } else {
+      // plane rows row0.. (the contraction), columns n0.. (the outputs): a
+      // task reads 4 rows x 16 columns and writes the 16 columns' words of
+      // r4 (a 4x4 byte transpose per 4 columns)
+      for (int task = tid; task < S * R4 * NC16; task += THREADS) {
+        const int c16 = task % NC16, r4 = (task / NC16) % R4, s = task / (NC16 * R4);
+        const int col = n0 + 16 * c16;
+        const int valid = NO - col;
+        uint32_t rows[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = row0 + 4 * r4 + i;
+          const int8_t* src = planes + ((size_t)s * K + r) * NO + col;
+          if (r < K && a.vec16 && valid >= 16) {
+            const int4 w = *reinterpret_cast<const int4*>(src);
+            rows[i][0] = w.x, rows[i][1] = w.y, rows[i][2] = w.z, rows[i][3] = w.w;
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              rows[i][c] = (r < K && valid > 4 * c) ? pack_row_bytes(src + 4 * c, valid - 4 * c, false) : 0u;
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const uint32_t rw[4] = {rows[0][c], rows[1][c], rows[2][c], rows[3][c]};
+          const int4 o = transpose4x4(rw);
+          const int ow[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int n = 16 * c16 + 4 * c + j;
+            wb[(s * BN + n) * R4 + 4 * chunk_swz(n, r4 >> 2) + (r4 & 3)] = ow[j];
+          }
+        }
+      }
+    }
+
+    if (NOISY) {
+      const float cycles = (float)((1 << (a.io_bits - 1)) - 1);
+      for (int task = tid; task < S * BN; task += THREADS) {
+        const int s = task / BN, n = task - s * BN;
+        float o = __fmul_rn(counter_gauss((a.tile0 + k) * S + s, a.col0 + n0 + n, a.rw0, a.rw1),
+                            a.off_scale[s]);
+        if (!FINITE) o = __fmul_rn(o, cycles);
+        offs[task] = o;
+      }
+    }
+    __syncthreads();
+
+    if (active) {
+      float v[NJ][4];
+      // slices in passes of SP: each A fragment loaded serves SP·NJ mma
+      for (int s0 = 0; s0 < S; s0 += SP) {
+        // the tile's B fragments of slices s0..: [p][j][kk] = {bytes 0-15,
+        // 16-31}; zero past the last slice (its terms are not folded)
+        uint32_t bf[SP][NJ][4][2];
+        float off[SP][NJ][2], inv_step[SP], bias[SP];
+#pragma unroll
+        for (int p = 0; p < SP; ++p) {
+          const int s = s0 + p;
+          const bool in = s < S;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const int n = bcol + 8 * j;
+            const int* row = wb + (s * BN + n) * R4;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              uint32_t r[4] = {0u, 0u, 0u, 0u};
+              if (in) ldsm_x4(r, row + 4 * chunk_swz(n, 4 * h + (lane >> 3)));
+              bf[p][j][2 * h][0] = r[0], bf[p][j][2 * h][1] = r[1];
+              bf[p][j][2 * h + 1][0] = r[2], bf[p][j][2 * h + 1][1] = r[3];
+            }
+            off[p][j][0] = off[p][j][1] = 0.f;
+            if (NOISY && in) {
+              const float2 o = *reinterpret_cast<const float2*>(offs + s * BN + 16 * nq + 8 * j + 2 * tig);
+              off[p][j][0] = o.x, off[p][j][1] = o.y;
+            }
+          }
+          inv_step[p] = a.inv_step[in ? s : 0];
+          bias[p] = a.bias[in ? s : 0];
+        }
+
+        // z: the bit fold of the codes' float bits (finite) or of the
+        // currents (ideal), wrapping uint32
+        uint32_t z[SP][NJ][4];
+#pragma unroll
+        for (int p = 0; p < SP; ++p)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) z[p][j][i] = 0u;
+#pragma unroll
+        for (int t = 0; t < D; ++t) {
+          constexpr int C0[4] = {FINITE ? MAGIC_I : 0, FINITE ? MAGIC_I : 0, FINITE ? MAGIC_I : 0,
+                                 FINITE ? MAGIC_I : 0};
+          int c[SP][NJ][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            uint32_t af[4];
+            ldsm_x4(af, a_lane + t * R4 + 8 * kk);
+#pragma unroll
+            for (int p = 0; p < SP; ++p)
+#pragma unroll
+              for (int j = 0; j < NJ; ++j) {
+                if (kk == 0)
+                  mma_s8(c[p][j], af, bf[p][j][kk][0], bf[p][j][kk][1], C0);
+                else
+                  mma_s8(c[p][j], af, bf[p][j][kk][0], bf[p][j][kk][1], c[p][j]);
+              }
+          }
+#pragma unroll
+          for (int p = 0; p < SP; ++p)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                if (FINITE) {
+                  float r;
+                  if (NOISY) {
+                    const float cur = __fadd_rn(__fsub_rn(__int_as_float(c[p][j][i]), MAGIC_F), off[p][j][i & 1]);
+                    r = fmaf(cur, inv_step[p], MAGIC_F);
+                  } else {
+                    r = fmaf(__int_as_float(c[p][j][i]), inv_step[p], bias[p]);
+                  }
+                  r = fminf(fmaxf(r, lo), hi);
+                  z[p][j][i] += (uint32_t)__float_as_int(r) << t;
+                } else {
+                  z[p][j][i] += (uint32_t)c[p][j][i] << t;
+                }
+              }
+        }
+        // the slices' terms, folded in ascending s
+        constexpr uint32_t FOLD = FINITE ? (uint32_t)MAGIC_I * ((1u << D) - 1u) : 0u;
+#pragma unroll
+        for (int p = 0; p < SP; ++p) {
+          const int s = s0 + p;
+          if (s >= S) break;
+          const float weight = a.weight[s];
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float zf = (float)(int)(z[p][j][i] - FOLD);
+              const float term = (NOISY && !FINITE) ? __fmul_rn(__fadd_rn(zf, off[p][j][i & 1]), weight)
+                                                    : __fmul_rn(zf, weight);
+              v[j][i] = s == 0 ? term : __fadd_rn(v[j][i], term);
+            }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] = __fadd_rn(acc[j][i], v[j][i]);
+    }
+    __syncthreads();
+  }
+
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int gb = b0 + 16 * mi + g + 8 * (i >> 1);
+        const int gn = n0 + 16 * nq + 8 * j + 2 * tig + (i & 1);
+        if (gb < B && gn < NO) a.out[(size_t)gb * NO + gn] = acc[j][i];
+      }
+  }
+}
+
+template <int MI, int D, bool FINITE, bool TRANS, bool NOISY>
+cudaError_t launch_mma_mi(const ReadParams& a, cudaStream_t stream) {
+  constexpr int BB = 16 * MI;
+  const size_t smem = ((size_t)a.S * tc::BN * R4 + (size_t)BB * (D * R4 + 4) +
+                       (NOISY ? (size_t)a.S * tc::BN : 0)) * sizeof(int);
+  // token blocks fastest: the blocks of one column block run together
+  const dim3 grid((a.B + BB - 1) / BB, (a.NO + tc::BN - 1) / tc::BN);
+  cudaError_t err = cudaFuncSetAttribute(mvm_mma_kernel<MI, D, FINITE, TRANS, NOISY>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  mvm_mma_kernel<MI, D, FINITE, TRANS, NOISY><<<grid, 32 * MI * tc::WN, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D, bool FINITE, bool TRANS, bool NOISY>
+cudaError_t launch_mma(const ReadParams& a, cudaStream_t stream) {
+  return a.B > tc::WIDE_B ? launch_mma_mi<4, D, FINITE, TRANS, NOISY>(a, stream)
+                          : launch_mma_mi<2, D, FINITE, TRANS, NOISY>(a, stream);
+}
+
+template <int D, bool FINITE, bool TRANS, bool NOISY, typename XT>
+cudaError_t launch_one(bool mma, const ReadParams& a, cudaStream_t stream) {
+  if constexpr (std::is_same<XT, float>::value)
+    if (mma) return launch_mma<D, FINITE, TRANS, NOISY>(a, stream);
+  return launch_dp4a<D, FINITE, TRANS, NOISY, XT>(a, stream);
+}
+
 template <int D, bool NOISY, typename XT>
-cudaError_t launch_d(bool finite, bool transpose, const ReadParams& a, cudaStream_t stream) {
+cudaError_t launch_d(bool mma, bool finite, bool transpose, const ReadParams& a, cudaStream_t stream) {
   if (finite)
-    return transpose ? launch_one<D, true, true, NOISY, XT>(a, stream)
-                     : launch_one<D, true, false, NOISY, XT>(a, stream);
-  return transpose ? launch_one<D, false, true, NOISY, XT>(a, stream)
-                   : launch_one<D, false, false, NOISY, XT>(a, stream);
+    return transpose ? launch_one<D, true, true, NOISY, XT>(mma, a, stream)
+                     : launch_one<D, true, false, NOISY, XT>(mma, a, stream);
+  return transpose ? launch_one<D, false, true, NOISY, XT>(mma, a, stream)
+                   : launch_one<D, false, false, NOISY, XT>(mma, a, stream);
 }
 
 // the io_bits the source instantiates: 8, 12 and 16 (7, 11, 15 bit cycles)
 template <bool NOISY, typename XT>
-cudaError_t launch(bool finite, bool transpose, const ReadParams& a, cudaStream_t stream) {
+cudaError_t launch(bool mma, bool finite, bool transpose, const ReadParams& a, cudaStream_t stream) {
   switch (a.io_bits) {
-    case 8: return launch_d<7, NOISY, XT>(finite, transpose, a, stream);
-    case 12: return launch_d<11, NOISY, XT>(finite, transpose, a, stream);
-    case 16: return launch_d<15, NOISY, XT>(finite, transpose, a, stream);
+    case 8: return launch_d<7, NOISY, XT>(mma, finite, transpose, a, stream);
+    case 12: return launch_d<11, NOISY, XT>(mma, finite, transpose, a, stream);
+    case 16: return launch_d<15, NOISY, XT>(mma, finite, transpose, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -360,9 +747,12 @@ bool read_params(ReadParams& a, const void* planes, const void* x, void* out, in
   const bool finite = adc_bits > 0;
   a.adc_half = finite ? (1 << (adc_bits - 1)) : 0;
   a.vec = vec;
+  a.vec16 = N % 16 == 0 && reinterpret_cast<uintptr_t>(planes) % 16 == 0;
+  a.xvec = a.K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   a.rw0 = a.rw1 = a.tile0 = a.col0 = 0;
   for (int s = 0; s < MAX_S; ++s) {
     a.inv_step[s] = 0.f;
+    a.bias[s] = 0.f;
     a.weight[s] = 0.f;
     a.off_scale[s] = 0.f;
   }
@@ -370,6 +760,9 @@ bool read_params(ReadParams& a, const void* planes, const void* x, void* out, in
     // full scale 128·2^(b-1) = 2^(6+b); step = 2·fs/2^adc = 2^(7+b-adc)
     const int e = 7 + slice_bits[s] - adc_bits;
     a.inv_step[s] = finite ? ldexpf(1.f, -e) : 1.f;
+    // 1.5·2^23 - 1.5·2^23·2^-e: a multiple of 2^(22-e) below 2^24, exact in
+    // f32 for the e of any slice width and ADC the wrapper takes
+    a.bias[s] = finite ? (float)(12582912.0 - ldexp(12582912.0, -e)) : 0.f;
     a.weight[s] = finite ? ldexpf(1.f, e + 4 * s) : ldexpf(1.f, 4 * s);
   }
   return true;
@@ -384,34 +777,35 @@ bool read_params(ReadParams& a, const void* planes, const void* x, void* out, in
 // vec != 0: the planes' row length (N) is a multiple of 4 and the planes
 // 4-byte aligned. off_scale: NULL (no read noise), or host float[S] =
 // f32(read_noise·128·pm_s), with (rw0, rw1) the pattern's key words and
-// (tile0, col0) the global tile and column offsets. Returns a cudaError_t.
+// (tile0, col0) the global tile and column offsets. mma != 0 runs the
+// tensor-core body, 0 the dp4a body. Returns a cudaError_t.
 extern "C" int panther_mvm_sliced_fused(const void* planes, const void* x, const void* frac_bits,
                                         void* out, int B, int M, int N, int S, int io_bits,
                                         int adc_bits, const int* slice_bits, int vec,
                                         int transpose, const float* off_scale, int rw0, int rw1,
-                                        int tile0, int col0, void* stream) {
+                                        int tile0, int col0, int mma, void* stream) {
   ReadParams a;
   if (!read_params(a, planes, x, out, B, M, N, S, io_bits, adc_bits, slice_bits, vec, transpose))
     return (int)cudaErrorInvalidValue;
   a.frac_bits = static_cast<const int*>(frac_bits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (off_scale == nullptr) return (int)launch<false, float>(adc_bits > 0, transpose != 0, a, st);
+  if (off_scale == nullptr) return (int)launch<false, float>(mma != 0, adc_bits > 0, transpose != 0, a, st);
   for (int s = 0; s < S; ++s) a.off_scale[s] = off_scale[s];
   a.rw0 = rw0;
   a.rw1 = rw1;
   a.tile0 = tile0;
   a.col0 = col0;
-  return (int)launch<true, float>(adc_bits > 0, transpose != 0, a, st);
+  return (int)launch<true, float>(mma != 0, adc_bits > 0, transpose != 0, a, st);
 }
 
-// K5. As K4 without the DAC and the read noise: x_q int32 [B,M] ([B,N]
-// when transpose) on the io_bits grid; the bits of |x_q| at and above
-// io_bits-1 are not streamed. Returns a cudaError_t.
+// K5. As K4 without the DAC and the read noise, on the dp4a body: x_q
+// int32 [B,M] ([B,N] when transpose) on the io_bits grid; the bits of |x_q|
+// at and above io_bits-1 are not streamed. Returns a cudaError_t.
 extern "C" int panther_mvm_sliced(const void* planes, const void* x_q, void* out, int B, int M, int N,
                                   int S, int io_bits, int adc_bits, const int* slice_bits, int vec,
                                   int transpose, void* stream) {
   ReadParams a;
   if (!read_params(a, planes, x_q, out, B, M, N, S, io_bits, adc_bits, slice_bits, vec, transpose))
     return (int)cudaErrorInvalidValue;
-  return (int)launch<false, int>(adc_bits > 0, transpose != 0, a, static_cast<cudaStream_t>(stream));
+  return (int)launch<false, int>(false, adc_bits > 0, transpose != 0, a, static_cast<cudaStream_t>(stream));
 }

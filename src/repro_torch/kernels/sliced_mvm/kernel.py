@@ -14,14 +14,21 @@ One source (``csrc/mvm_sliced_fused.cu``) holds both reads:
 * ``mvm_sliced`` replaces ``mvm_sliced`` (K5): the same read on an int32
   input already on the DAC grid, with no DAC prologue.
 
-The transpose reads the same row-major planes in place. The source comment
-says what bounds it on the card and what the simple design leaves for later.
+Two bodies compute these reads, bit for bit the same numbers. K4 runs the
+tensor-core body (int8 ``mma.sync``, the ADC and both folds in registers)
+for reads of more than ``DP4A_MAX_B`` tokens, and the dp4a body (CUDA-core
+``__dp4a``) for the decode reads of at most ``DP4A_MAX_B`` tokens, where it
+is faster: the choice is by shape only (``uses_dp4a``). K5 always runs the
+dp4a body, which makes it the same-work yardstick of the old design. The
+transpose reads the same row-major planes in place. The source comment says
+what bounds each body on the card and what is left for later.
 
 The library builds at first use (``kernels.build``); nothing is compiled or
 loaded at import, so CPU-only machines import this module freely. The
 wrappers launch on the current stream and count their launches:
 ``launches`` (forward) and ``transpose_launches`` (MᵀVM) over every
-instance, and ``instances`` by instance name (``instance_name``).
+instance, and ``instances`` by instance name (``instance_name``; K4's dp4a
+reads end in ``"_dp4a"``).
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from .ref import READ_SALT, READ_SALT_T, read_offset_scales
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mvm_sliced_fused.cu"
 IO_BITS_BUILT = (8, 12, 16)  # io widths the source instantiates (the fig9 io sweep reads at 8 and 12)
 MAX_SLICES = 16
+DP4A_MAX_B = 4  # K4 reads of at most this many tokens (decode) run the dp4a body, larger ones the tensor-core body
 
 
 def build_kernel() -> _build.Built:
@@ -51,7 +59,7 @@ def build_kernel() -> _build.Built:
 def _lib():
     lib = ctypes.CDLL(str(build_kernel().path))
     lib.panther_mvm_sliced_fused.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.panther_mvm_sliced.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     for fn in (lib.panther_mvm_sliced_fused, lib.panther_mvm_sliced):
@@ -59,10 +67,16 @@ def _lib():
     return lib
 
 
-def instance_name(transpose: bool, io_bits: int, noisy: bool = False) -> str:
+def instance_name(transpose: bool, io_bits: int, noisy: bool = False, dp4a: bool = False) -> str:
     """The key of a read's instance in ``instances``: e.g. ``"io16"``,
-    ``"transpose_io8"``, ``"io16_read_noise"``."""
-    return f"{'transpose_' if transpose else ''}io{io_bits}{'_read_noise' if noisy else ''}"
+    ``"transpose_io8"``, ``"io16_read_noise"``; K4 reads on the dp4a body
+    (``uses_dp4a``) end in ``"_dp4a"``."""
+    return f"{'transpose_' if transpose else ''}io{io_bits}{'_read_noise' if noisy else ''}{'_dp4a' if dp4a else ''}"
+
+
+def uses_dp4a(n_tokens: int) -> bool:
+    """Whether a K4 read of ``n_tokens`` runs the dp4a body: by shape only."""
+    return n_tokens <= DP4A_MAX_B
 
 
 def _check_read(planes: torch.Tensor, x: torch.Tensor, x_dtype, spec: SliceSpec, io_bits: int, adc_bits,
@@ -109,12 +123,12 @@ def _run(name: str, planes: torch.Tensor, x: torch.Tensor, spec: SliceSpec, adc_
     return out, True
 
 
-def _count(wrapper, transpose: bool, io_bits: int, noisy: bool = False) -> None:
+def _count(wrapper, transpose: bool, io_bits: int, noisy: bool = False, dp4a: bool = False) -> None:
     if transpose:
         wrapper.transpose_launches += 1
     else:
         wrapper.launches += 1
-    wrapper.instances[instance_name(transpose, io_bits, noisy)] += 1
+    wrapper.instances[instance_name(transpose, io_bits, noisy, dp4a)] += 1
 
 
 def mvm_sliced_fused(
@@ -149,14 +163,15 @@ def mvm_sliced_fused(
         off = ctypes.cast((ctypes.c_float * spec.n_slices)(*read_offset_scales(dev, spec)), ctypes.c_void_p)
         words = device_pattern_words(dev.stuck_seed, READ_SALT_T if transpose else READ_SALT)
     fn = _lib().panther_mvm_sliced_fused
+    dp4a = uses_dp4a(x.shape[0])
 
     def call(out, B, M, N, S, adc, bits, vec, trans, stream):
         return fn(planes.data_ptr(), x.data_ptr(), frac_bits.data_ptr(), out, B, M, N, S, io_bits, adc,
-                  bits, vec, trans, off, *words, int(tile0), int(col0), stream)
+                  bits, vec, trans, off, *words, int(tile0), int(col0), int(not dp4a), stream)
 
     out, launched = _run("mvm_sliced_fused", planes, x, spec, adc_bits, transpose, call)
     if launched:
-        _count(mvm_sliced_fused, transpose, io_bits, dev is not None)
+        _count(mvm_sliced_fused, transpose, io_bits, dev is not None, dp4a)
     return out
 
 

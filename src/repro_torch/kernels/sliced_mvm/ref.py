@@ -11,7 +11,9 @@ regime the results are bit-identical to it.
 ``mvm_sliced_ref`` (the read of a pre-quantized int input, K5) are what the
 CUDA kernels are held against: the CPU tests run them, and ``chip_smoke.py``
 compares the kernels with them on the card. The ops entries take them only
-for tensors that lie on the CPU.
+for tensors that lie on the CPU. ``adc_codes_exact`` and
+``ideal_slice_term`` write the tensor-core body's epilogue arithmetic in
+torch ops, so the CPU tests can hold it against JAX's ADC model.
 
 A read-noisy ``DeviceModel`` adds its frozen per-(crossbar tile, slice,
 output column) offsets (``read_offsets_ref``) to the column currents: at
@@ -53,6 +55,47 @@ def read_offsets_ref(device, spec: SliceSpec, gtile: int, col0: int, n_cols: int
     c = torch.arange(col0, col0 + n_cols, dtype=torch.int32, device=on)[None, :]
     r = torch.tensor([[gtile * S + s] for s in range(S)], dtype=torch.int32, device=on)
     return counter_gauss(r, c, *words) * torch.tensor(read_offset_scales(device, spec), device=on)[:, None]
+
+
+ADC_MAGIC = 12582912.0  # 1.5·2^23: the f32 values in [2^23, 2^24) step by 1
+ADC_MAGIC_BITS = 0x4B400000  # its bits
+
+
+def adc_codes_exact(c: torch.Tensor, off, inv_step: float, half: int) -> torch.Tensor:
+    """The tensor-core body's ADC, in f32 torch ops: int32 column currents
+    ``c`` (|c| < 2^22) -> int32 codes ``clamp(rint((c + off)·inv_step),
+    ±half)``, with no int<->float conversion.
+
+    ``c + 0x4B400000`` read as a float is ``1.5·2^23 + c`` exactly. Without
+    an offset (``off`` None), ``that·inv_step + 1.5·2^23·(1 - inv_step)``
+    rounds once, half to even, to ``1.5·2^23 + rint(c·inv_step)``: the
+    product is exact (``inv_step`` is a power of two), so this is the
+    kernel's ``fmaf``. With ``off`` (f32, broadcast against ``c``) the current
+    is recovered exactly, the offset added with one rounding, and
+    ``cur·inv_step + 1.5·2^23`` rounded the same way. The clamp runs on the
+    float, which is right for any current since the rounding is monotone;
+    the code is the float's bits less ``0x4B400000``."""
+    x = (c.to(torch.int32) + ADC_MAGIC_BITS).view(torch.float32)
+    if off is None:
+        bias = ADC_MAGIC - ADC_MAGIC * inv_step
+        if float(np.float32(bias)) != bias:
+            raise ValueError(f"inv_step {inv_step}: the addend {bias} is not exact in f32")
+        r = x * inv_step + bias
+    else:
+        r = ((x - ADC_MAGIC) + off) * inv_step + ADC_MAGIC
+    r = torch.clamp(r, ADC_MAGIC - half, ADC_MAGIC + half)
+    return r.view(torch.int32) - ADC_MAGIC_BITS
+
+
+def ideal_slice_term(z: torch.Tensor, off, io_bits: int, s: int) -> torch.Tensor:
+    """Slice ``s``'s term of a tile at the ideal ADC, as both kernel bodies
+    form it: f32 ``(z + off·(2^(io_bits-1) - 1))·16^s`` for the int column
+    currents ``z`` (the whole input contracted), each product and sum rounded
+    on its own; ``off`` None without read noise."""
+    zf = z.to(torch.float32)
+    if off is not None:
+        zf = zf + off * float(2 ** (io_bits - 1) - 1)
+    return zf * float(2 ** (LOGICAL_BITS * s))
 
 
 def dac_quantize(x: torch.Tensor, frac_bits, io_bits: int) -> torch.Tensor:

@@ -4,11 +4,16 @@ they skip (a CUDA kernel has no interpret mode). Run them on the card with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 Tolerance: the reads within ``max|kernel - plain| <= 1e-3 * (1 + max|plain|)``,
-and at finite ADC bit for bit (the two sum in the same order); the update
-kernels bit for bit (``opa_fused`` on f32-exact operands, where every
-contraction order gives the same sums).
+and at finite ADC bit for bit (the two sum in the same order); K4's
+tensor-core body bit for bit against its plain version and against the dp4a
+body (K5) at every ADC; the update kernels bit for bit (``opa_fused`` on
+f32-exact operands, where every contraction order gives the same sums).
 """
 from __future__ import annotations
+
+import re
+import subprocess
+from pathlib import Path
 
 import pytest
 
@@ -389,3 +394,96 @@ def test_device_training_step_on_the_card_goes_through_every_kernel(card):
     assert got[KO.opa_deposit] == {"stuck": 1}
     assert KC.crs.launches == crs_before + reads + 1
     assert bool(torch.isfinite(metrics["loss"])) and bool(torch.isfinite(metrics["grad_norm"]))
+
+
+def _on_the_dac_grid(card, b, k, io_bits, g, frac=10):
+    """x_q on the io_bits grid and x = x_q·2^-frac, which the DAC maps back
+    to x_q exactly."""
+    lim = 2 ** (io_bits - 1) - 1
+    x_q = torch.randint(-lim, lim + 1, (b, k), generator=g, device=card, dtype=torch.int32)
+    return x_q, x_q.float() * 2.0**-frac, torch.tensor([frac], dtype=torch.int32, device=card)
+
+
+@pytest.mark.parametrize("b", [40, 200])
+@pytest.mark.parametrize("io_bits", [8, 12, 16])
+@pytest.mark.parametrize("adc", [9, 6, None])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_tensor_core_read_equals_the_dp4a_body(card, b, io_bits, adc, transpose):
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_mvm import kernel as K
+
+    g = torch.Generator(device=card).manual_seed(b + io_bits)
+    m, n = 2048, 2560
+    planes = torch.randint(-8, 8, (8, m, n), generator=g, device=card, dtype=torch.int8)
+    x_q, x, xf = _on_the_dac_grid(card, b, n if transpose else m, io_bits, g)
+    name = K.instance_name(transpose, io_bits)
+    before = K.mvm_sliced_fused.instances[name]
+    got = K.mvm_sliced_fused(planes, x, xf, spec=DEFAULT_SPEC, io_bits=io_bits, adc_bits=adc, transpose=transpose)
+    want = K.mvm_sliced(planes, x_q, spec=DEFAULT_SPEC, io_bits=io_bits, adc_bits=adc, transpose=transpose)
+    torch.cuda.synchronize()
+    assert K.mvm_sliced_fused.instances[name] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b", [1, 17, 33])
+@pytest.mark.parametrize("m,n", [(300, 100), (200, 2080)])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("noisy", [False, True])
+def test_tensor_core_read_on_ragged_edges(card, monkeypatch, b, m, n, transpose, noisy):
+    # M and N multiples of neither the 128-row tile nor the 64-column block;
+    # N = 100 also off the 16-byte loads. Every token count on the
+    # tensor-core body, 1 included.
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.kernels.sliced_mvm import ref
+    from repro_torch.models.common import DeviceModel
+
+    monkeypatch.setattr(K, "DP4A_MAX_B", 0)
+    dev = DeviceModel(read_noise=0.01, stuck_seed=3) if noisy else None
+    planes, x, xf = _read_case(card, m, n, b, transpose, 16, m + n + b)
+    for adc in (9, None):
+        name = K.instance_name(transpose, 16, noisy)
+        before = K.mvm_sliced_fused.instances[name]
+        got = K.mvm_sliced_fused(planes, x, xf, spec=DEFAULT_SPEC, adc_bits=adc, transpose=transpose, dev=dev,
+                                 tile0=2, col0=5)
+        want = ref.mvm_sliced_fused_ref(planes, x, xf[0], DEFAULT_SPEC, 16, adc, transpose=transpose, device=dev,
+                                        tile0=2, col0=5)
+        torch.cuda.synchronize()
+        assert K.mvm_sliced_fused.instances[name] == before + 1
+        assert tuple(got.shape) == (b, m if transpose else n)
+        assert torch.equal(got, want)
+
+
+def test_decode_reads_take_the_dp4a_body_by_shape(card):
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_mvm import kernel as K
+
+    g = torch.Generator(device=card).manual_seed(4)
+    planes = torch.randint(-8, 8, (8, 256, 128), generator=g, device=card, dtype=torch.int8)
+    for b in (K.DP4A_MAX_B, K.DP4A_MAX_B + 1):
+        x_q, x, xf = _on_the_dac_grid(card, b, 256, 16, g)
+        name = K.instance_name(False, 16, dp4a=K.uses_dp4a(b))
+        before = K.mvm_sliced_fused.instances[name]
+        got = K.mvm_sliced_fused(planes, x, xf, spec=DEFAULT_SPEC, adc_bits=9)
+        torch.cuda.synchronize()
+        assert K.mvm_sliced_fused.instances[name] == before + 1
+        assert torch.equal(got, K.mvm_sliced(planes, x_q, spec=DEFAULT_SPEC, adc_bits=9))
+    assert K.uses_dp4a(K.DP4A_MAX_B) and not K.uses_dp4a(K.DP4A_MAX_B + 1)
+
+
+def test_tensor_core_instances_run_imma_and_no_dp4a(card):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sliced_mvm import kernel as K
+
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(K.build_kernel().path)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = {f.split("\n", 1)[0].strip(): f for f in re.split(r"\n\s*Function : ", sass)[1:]}
+    mma = {name: body for name, body in funcs.items() if "mvm_mma_kernel" in name}
+    # 2 token heights x io 8/12/16 x finite/ideal ADC x forward/MᵀVM x noise
+    assert len(mma) == 48
+    idp4a = re.compile(r"\bIDP\.?4A")  # sm_90 SASS spells __dp4a IDP.4A
+    for name, body in mma.items():
+        assert "IMMA" in body and not idp4a.search(body), name
+    dp4a = [body for name, body in funcs.items() if "mvm_sliced_kernel" in name]
+    assert dp4a and all(idp4a.search(body) and "IMMA" not in body for body in dp4a)
