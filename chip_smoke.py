@@ -25,25 +25,33 @@ Phases:
   4. hold the update kernels and the transpose read against their plain
      versions: ``crs`` and ``opa_deposit`` bit for bit at gemma-2b's four
      (M, N), the 256000x2048 embedding and a ragged 320x100, on inputs that
-     hit every rail; ``opa_fused`` bit for bit on f32-exact operands (f32
-     and bf16, with and without key words) at T in {1, 100, 256}, and within
-     one grid LSB on training-like operands; the MᵀVM read bit for bit at
+     hit every rail; ``opa_fused`` bit for bit on f32-exact operands at
+     gemma-2b's four (M, N) and the ragged 320x100, T in {1, 17, 100, 256},
+     two (lr, F) settings, with and without key words: f32 operands on its
+     CUDA-core body, bf16 operands on its tensor-core body (``mma.sync``,
+     the training path) and on the CUDA-core body (the same work); on
+     training-like bf16 operands, both bodies within the f32 summation bound
+     of the plain version, the share of elements that differ printed; the
+     MᵀVM read bit for bit at
      finite ADC at tokens {1, 4, 5, 16, 256}, ADC {9, 6, ideal}, a short
      last column tile and a ragged M. Then time each at 256 tokens against
-     its plain version, its library yardstick and its bound, and K4 (forward
-     and MᵀVM) beside the dp4a body (K5 on x_q);
+     its plain version, its library yardstick and its bound, K4 (forward
+     and MᵀVM) beside the dp4a body (K5 on x_q), and K1's tensor-core body
+     beside its CUDA-core body;
   5. train gemma-2b at full width: random weights from a seed, synthetic
      bigram tokens at batch 4 x 64, lr 3e-2, CRS every 2 steps, counter
      stochastic rounding; 3 steps through the adc9 plan, then 2 lossless
      steps, then one more step of each under the profiler. Every kernel's
-     launches per step must be exact (K1 per operand block, K2 per
+     launches per step must be exact (K1 per operand block, all on its
+     tensor-core instance and none on the CUDA-core ones, K2 per
      dense-gradient block, K3 per mapped block on CRS steps, K4 and K4ᵀ per
      adc9 read), the loss and the gradient norm finite, and the planes must
      change;
   6. (run before 5, on its own memory) hold the new kernel instances against
      their plain versions at gemma-2b's four (M, N) and a ragged 320x100, at
-     tokens {1, 100, 256}: K1's device instance with each write-physics
-     field alone and all together, K2's stuck instance (the embedding
+     tokens {1, 100, 256} (K1 also at 17): K1's device instance, both
+     bodies, with each write-physics field alone and all together, K2's
+     stuck instance (the embedding
      included), K4/K4ᵀ with read noise, K4/K4ᵀ at io 8 and 12 and K5 forward
      and transposed at io 8, 12 and 16, each at ADC {9, 6, ideal}; then time
      each at 256 tokens against its plain version, its library yardstick and
@@ -59,7 +67,11 @@ Phases:
      device step that runs no CRS, then one more step of each kind under the
      profiler;
   8. drive K5's entry point, ``mvm_sliced_batched``, over every operand
-     block of the trained state, forward and transposed, at 4 x 64 tokens.
+     block of the trained state, forward and transposed, at 4 x 64 tokens;
+  9. drive the update's entry point, ``opa_fused_update``, with f32 operands
+     over every operand block of the trained state, on the ideal and on the
+     non-ideal device: f32 operands take K1's CUDA-core instances, one
+     launch a block.
 
 It prints one JSON line with the kernels' numbers, the card's
 ``name, power.limit`` line, and last the device JSON line. Any failure exits
@@ -87,6 +99,7 @@ EMBED_SHAPE = (256000, 2048)  # gemma-2b's embedding: the dense-gradient leaf
 RAGGED_SHAPE = (320, 100)
 T_TRAIN = 256  # tokens per training step: batch 4 x seq 64
 T_EDGE_SHAPES = ((2048, 320), (100, 256))  # MᵀVM: short last column tile; ragged M
+T_OPA = (1, 17, 100, 256)  # K1's checks: one token, a ragged k-step, a ragged stage, the step's tokens
 
 
 def gpu_line() -> str:
@@ -386,58 +399,103 @@ def exact_operands(torch, T, M, N, dtype, gen):
     return x.to(dtype), dh.to(dtype)
 
 
+def update_shifts(torch, got, want, planes, p_q, stuck, spec, reach):
+    """By how many grid LSB the kernel's update differs from the plain
+    version's, per element: 0 where their planes agree, else the k of least
+    |k| <= reach whose deposit of the plain update ``p_q + k`` into the old
+    ``planes`` (stuck digits kept) gives the kernel's planes. The deposit
+    saturates each plane, so a one-LSB change of an update can move the
+    plane value by far more; the update is what the f32 sums decide.
+    Returns int32 [M, N]; raises where no such k exists."""
+    from repro_torch.core.opa import opa_batched
+
+    shift = torch.zeros(p_q.shape, dtype=torch.int32, device=p_q.device)
+    bad = (got != want).any(0)
+    if not bool(bad.any()):
+        return shift
+    old, g, q = planes[:, bad], got[:, bad], p_q[bad].to(torch.int64)
+    k_of = torch.zeros_like(q, dtype=torch.int32)
+    found = torch.zeros_like(q, dtype=torch.bool)
+    for k in sorted(range(-reach, reach + 1), key=abs)[1:]:
+        alt = opa_batched(old, (q + k).clamp(-2**31, 2**31 - 1).to(torch.int32), spec)
+        if stuck is not None:
+            alt = torch.where(stuck[:, bad], old, alt)
+        hit = ~found & (alt == g).all(0)
+        k_of[hit], found = k, found | hit
+    if not bool(found.all()):
+        raise AssertionError(f"{int((~found).sum())} elements differ from the plain version by more than "
+                             f"{reach} grid LSB")
+    shift[bad] = k_of
+    return shift
+
+
 def phase_opa_fused(torch, spec, gen):
-    """opa_fused bit for bit on f32-exact operands; within one grid LSB on
-    training-like ones. Returns the max |plane value| difference seen on the
-    exact operands."""
+    """opa_fused bit for bit on f32-exact operands, each body on the dtypes
+    it takes (the tensor-core body on bf16, the CUDA-core body on f32 and on
+    the same bf16 work); within the f32 bound on training-like ones.
+    Returns the max |plane value| difference seen on the exact operands, by
+    body."""
     from repro_torch.core.fixed_point import choose_frac_bits, quantize
     from repro_torch.core.slicing import slice_weights
     from repro_torch.kernels.sliced_opa import kernel as KO
     from repro_torch.kernels.sliced_opa import ref as RO
 
-    max_err, checks = 0, 0
-    cases = [(m, n, t) for (m, n) in SLICE_SHAPES for t in (1, 100, 256)] + [(*RAGGED_SHAPE, 100)]
+    max_err, checks = {"mma": 0, "fma": 0}, dict.fromkeys(("fma f32", "mma bf16", "fma bf16"), 0)
+    cases = [(m, n, t) for (m, n) in (*SLICE_SHAPES, RAGGED_SHAPE) for t in T_OPA]
     for i, (M, N, T) in enumerate(cases):
         planes = random_planes(torch, spec, (M, N), gen)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, bodies in ((torch.float32, ("fma",)), (torch.bfloat16, ("mma", "fma"))):
             x, dh = exact_operands(torch, T, M, N, dtype, gen)
             # (lr, F): fractional updates where the draw decides; updates past the rails
             for lr, F in ((2.0**-4, 8), (4.0, 28)):
                 frac = torch.tensor([F], dtype=torch.int32, device="cuda")
                 for words in (None, (0x1234567 + i, -0x7654321 - i)):
-                    got = KO.opa_fused(planes.clone(), x, dh, lr, frac, spec=spec, key_words=words)
                     want = RO.opa_fused_ref(planes, x, dh, lr, frac[0], spec, words)
-                    torch.cuda.synchronize()
-                    err = int((plane_values(torch, got) - plane_values(torch, want)).abs().max())
-                    if not torch.equal(got, want):
-                        raise AssertionError(f"opa_fused vs plain at M={M} N={N} T={T} {dtype} lr={lr} "
-                                             f"F={F} key={words is not None}: max |value diff| {err}")
-                    max_err, checks = max(max_err, err), checks + 1
+                    for body in bodies:
+                        got = KO.opa_fused(planes.clone(), x, dh, lr, frac, spec=spec, key_words=words, body=body)
+                        torch.cuda.synchronize()
+                        err = int((plane_values(torch, got) - plane_values(torch, want)).abs().max())
+                        if not torch.equal(got, want):
+                            raise AssertionError(f"opa_fused {body} body vs plain at M={M} N={N} T={T} {dtype} "
+                                                 f"lr={lr} F={F} key={words is not None}: max |value diff| {err}")
+                        max_err[body] = max(max_err[body], err)
+                        checks[f"{body} {'f32' if dtype == torch.float32 else 'bf16'}"] += 1
         del planes
-    print(f"opa_fused vs plain on f32-exact operands: {checks} cases bit-identical", flush=True)
+    print(f"opa_fused vs plain on f32-exact operands (gemma-2b's four (M, N) and {RAGGED_SHAPE}, T {T_OPA}): "
+          "bit-identical in every case, by body and operand dtype: "
+          + ", ".join(f"{k} {v}" for k, v in checks.items()), flush=True)
 
     # training-like operands on canonical planes: the f32 sums are not exact,
     # so the two contraction orders may round some updates differently, by
     # at most one grid LSB beyond the f32 summation error of the two orders
-    # (each within T·2^-24·sum_t |x||dh| of the exact sum)
+    # (each within T·2^-24·sum_t |x||dh| of the exact sum). Each update is
+    # held to that bound (update_shifts), not the plane value, which a
+    # saturated plane can move by far more than the update.
     for M, N in SLICE_SHAPES:
         w = torch.randn((M, N), generator=gen, device="cuda") / M**0.5
         f = choose_frac_bits(w, margin_bits=2)
         planes = slice_weights(quantize(w, f), spec)
         x = torch.randn((T_TRAIN, M), generator=gen, device="cuda").to(torch.bfloat16)
         dh = (torch.randn((T_TRAIN, N), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
-        got = KO.opa_fused(planes.clone(), x, dh, 3e-2, f.reshape(1), spec=spec, key_words=(11, 22))
         want = RO.opa_fused_ref(planes, x, dh, 3e-2, f, spec, (11, 22))
-        d = (plane_values(torch, got) - plane_values(torch, want)).abs()
         moved = (plane_values(torch, want) != plane_values(torch, planes)).float().mean()
-        share, worst = float((d > 0).float().mean()), int(d.max())
         scale = 3e-2 * 2.0 ** int(f)
+        p_q = RO.write_rows((x.float().T @ dh.float()) * (-RO._lr32(3e-2) * 2.0 ** int(f)), None, 0, None, (11, 22))
         allowed = 1.0 + scale * 2 * T_TRAIN * 2.0**-24 * (x.float().abs().T @ dh.float().abs())
-        print(f"  opa_fused M={M:5d} N={N:5d} T={T_TRAIN} bf16 training-like: {share:.3e} of elements "
-              f"differ from plain, max {worst} grid LSB ({float(moved):.3f} of elements updated)", flush=True)
-        if bool((d > allowed).any()):
-            raise AssertionError(f"opa_fused vs plain on training-like operands: {worst} LSB beyond the f32 bound")
-        del w, planes, x, dh, got, want, d, allowed
+        line = []
+        for body, what in (("mma", "tensor-core"), ("fma", "CUDA-core")):
+            got = KO.opa_fused(planes.clone(), x, dh, 3e-2, f.reshape(1), spec=spec, key_words=(11, 22), body=body)
+            k = update_shifts(torch, got, want, planes, p_q, None, spec, reach=16).abs()
+            share, worst = float((k > 0).float().mean()), int(k.max())
+            line.append(f"{what} body {share:.3e} of updates differ, max {worst} grid LSB "
+                        f"(bound at least {float(allowed.min()):.1f})")
+            if bool((k > allowed).any()):
+                raise AssertionError(f"opa_fused {what} body vs plain on training-like operands at M={M} N={N}: "
+                                     f"an update {worst} LSB off, beyond the f32 bound")
+            del got, k
+        print(f"  opa_fused M={M:5d} N={N:5d} T={T_TRAIN} bf16 training-like vs plain: " + "; ".join(line)
+              + f" ({float(moved):.3f} of elements updated)", flush=True)
+        del w, planes, x, dh, want, p_q, allowed
     torch.cuda.empty_cache()
     return max_err
 
@@ -477,17 +535,22 @@ def time_update_kernels(torch, K, ref, spec, gen):
     from repro_torch.kernels.sliced_opa import ref as RO
 
     S, T = spec.n_slices, T_TRAIN
-    rows = {"opa_fused": [], "mvm_sliced_fused_transpose": [], "mvm_sliced_fused_256": [], "crs": []}
+    rows = {"opa_fused": [], "opa_fused_fma": [], "mvm_sliced_fused_transpose": [], "mvm_sliced_fused_256": [],
+            "crs": []}
     for name, M, N in SLICE_READS:
         planes = torch.randint(-8, 8, (S, M, N), generator=gen, device="cuda", dtype=torch.int8)
         frac = torch.tensor([30], dtype=torch.int32, device="cuda")
         x = torch.randn((T, M), generator=gen, device="cuda").to(torch.bfloat16)
         dh = (torch.randn((T, N), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
         k = cuda_time_ms(lambda: KO.opa_fused(planes, x, dh, 3e-2, frac, spec=spec, key_words=(1, 2)), 10)
+        # the CUDA-core body on the same bf16 work: the same-run yardstick
+        k_fma = cuda_time_ms(lambda: KO.opa_fused(planes, x, dh, 3e-2, frac, spec=spec, key_words=(1, 2),
+                                                  body="fma"), 10)
         p = cuda_time_ms(lambda: RO.opa_fused_ref(planes, x, dh, 3e-2, frac[0], spec, (1, 2)), 3, 1)
         lib = cuda_time_ms(lambda: torch.matmul(x.t(), dh), 10)
         b = bound_of(2 * S * M * N + 2 * T * (M + N) + 4, 2.0 * T * M * N, BF16_FLOPS_PER_S)
-        rows["opa_fused"].append((k, p, lib, *b))
+        rows["opa_fused"].append((k, p, lib, *b, k_fma))
+        rows["opa_fused_fma"].append((k_fma, p, lib, *b))
         xf = torch.tensor([10], dtype=torch.int32, device="cuda")
         w = dequantize_planes(planes, 30, spec)
         b = bound_of(S * M * N + 4 * T * (M + N) + 4, 2.0 * T * M * N * S * 15, INT8_OPS_PER_S)
@@ -509,10 +572,10 @@ def time_update_kernels(torch, K, ref, spec, gen):
         b = bound_of(2 * S * M * N, 12.0 * S * M * N, CUDA_CORE_OPS_PER_S)
         rows["crs"].append((k, p, None, *b))
         for key, r in rows.items():
-            k, p, lib, b_ms, b_by, *dp4a = r[-1]
+            k, p, lib, b_ms, b_by, *other = r[-1]
             lib = "-" if lib is None else f"{lib:.4f}"
-            dp4a = f"  dp4a body {dp4a[0]:.4f} ms" if dp4a else ""
-            print(f"  {key:27s} {name:11s} M={M:5d} N={N:5d} T={T}: kernel {k:.4f} ms{dp4a}  plain {p:.4f} ms  "
+            other = f"  {other_body(key)[1]} {other[0]:.4f} ms" if other else ""
+            print(f"  {key:27s} {name:11s} M={M:5d} N={N:5d} T={T}: kernel {k:.4f} ms{other}  plain {p:.4f} ms  "
                   f"library {lib} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
         del planes, x, dh, dy, w, x_q
     V, D = EMBED_SHAPE
@@ -527,25 +590,35 @@ def time_update_kernels(torch, K, ref, spec, gen):
     del planes, p_q
     torch.cuda.empty_cache()
 
-    out = {key: layer_total(rs) for key, rs in rows.items()}
+    out = {key: layer_total(rs, key) for key, rs in rows.items()}
     out["opa_deposit"] = {"ms": k, "plain_ms": p, "library_ms": None, "bound_ms": b[0], "bound_by": b[1]}
-    for key in ("mvm_sliced_fused_transpose", "mvm_sliced_fused_256"):
-        t = out[key]
-        print(f"  {key}: one layer's 5 reads at {T} tokens, adc9: kernel {t['ms']:.4f} ms, dp4a body "
-              f"{t['dp4a_ms']:.4f} ms ({t['dp4a_ms'] / t['ms']:.2f}x), bound {t['bound_ms']:.4f} ms", flush=True)
+    for key in ("mvm_sliced_fused_transpose", "mvm_sliced_fused_256", "opa_fused"):
+        print_layer_total(key, out[key], T)
     return out
 
 
-def layer_total(rs):
-    """One layer's rows (ms, plain, library, bound, bound_by[, dp4a]) summed
-    into a kernels-line entry."""
+def other_body(key):
+    """The other body a kernel's rows time on the same work: its key in the
+    kernels line and its name (K1: the CUDA-core body; K4: the dp4a body)."""
+    return ("fma_ms", "CUDA-core body") if key.startswith("opa_fused") else ("dp4a_ms", "dp4a body")
+
+
+def layer_total(rs, key):
+    """One layer's rows (ms, plain, library, bound, bound_by[, other body])
+    summed into a kernels-line entry."""
     lib = [r[2] for r in rs]
     out = {"ms": sum(r[0] for r in rs), "plain_ms": sum(r[1] for r in rs),
            "library_ms": None if None in lib else sum(lib), "bound_ms": sum(r[3] for r in rs),
            "bound_by": "bytes" if all(r[4] == "bytes" for r in rs) else "operations"}
     if len(rs[0]) > 5:
-        out["dp4a_ms"] = sum(r[5] for r in rs)
+        out[other_body(key)[0]] = sum(r[5] for r in rs)
     return out
+
+
+def print_layer_total(key, t, T):
+    col, what = other_body(key)
+    print(f"  {key}: one layer's 5 blocks at {T} tokens: kernel {t['ms']:.4f} ms, {what} {t[col]:.4f} ms "
+          f"({t[col] / t['ms']:.2f}x), bound {t['bound_ms']:.4f} ms, library {t['library_ms']:.4f} ms", flush=True)
 
 
 def snapshot(torch, sliced):
@@ -612,6 +685,7 @@ def phase_train(torch, gen):
     for step, mode in enumerate(("adc9", "adc9", "adc9", "lossless", "lossless")):
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
+        KO.opa_fused.instances.clear()
         batch = ds.batch(step)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -629,6 +703,9 @@ def phase_train(torch, gen):
               f"grad_norm {gnorm:.4f}, launches {got}", flush=True)
         if got != want:
             raise AssertionError(f"step {step} ({mode}): launches {got} != {want}")
+        # bf16 operands: every block on K1's tensor-core instance, none on the CUDA-core ones
+        if dict(KO.opa_fused.instances) != {"ideal": blocks["operand"]}:
+            raise AssertionError(f"step {step} ({mode}): K1 instances {dict(KO.opa_fused.instances)}")
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             raise AssertionError(f"step {step}: loss {loss} or grad_norm {gnorm} not finite")
         for k in totals:
@@ -677,28 +754,6 @@ DEVICE_OPS_PER_CELL = 150
 STUCK_OPS_PER_PLANE_CELL = 13
 
 
-def one_lsb_flips(torch, got, want, planes, p_q, stuck, spec):
-    """Elements where the kernel's planes differ from the plain version's:
-    each must be the deposit of the plain update moved by one grid LSB (a
-    rounding flip of the write noise's last bit), stuck digits kept.
-    Returns the count; raises on any other difference."""
-    from repro_torch.core.opa import opa_batched
-
-    bad = (got != want).any(0)
-    n = int(bad.sum())
-    if n == 0:
-        return 0
-    old, g, q = planes[:, bad], got[:, bad], p_q[bad]
-    ok = torch.zeros_like(q, dtype=torch.bool)
-    for d in (-1, 1):
-        alt = opa_batched(old, q + d, spec)
-        if stuck is not None:
-            alt = torch.where(stuck[:, bad], old, alt)
-        ok |= (alt == g).all(0)
-    if not bool(ok.all()):
-        raise AssertionError(f"{int((~ok).sum())} elements differ from the plain version by more than one grid LSB")
-    return n
-
 
 def phase_device_kernels(torch, spec, gen):
     """The new kernel instances against their plain versions: K1's device
@@ -715,35 +770,41 @@ def phase_device_kernels(torch, spec, gen):
     from repro_torch.models.common import DeviceModel
 
     err = {}
-    # K1 device instance: bf16 f32-exact operands on canonical planes
-    flips, cases = 0, 0
+    # K1 device instance, both bodies: bf16 f32-exact operands on canonical planes
+    flips, cases = {"mma": 0, "fma": 0}, 0
     for M, N in (*SLICE_SHAPES, RAGGED_SHAPE):
         w = torch.randn((M, N), generator=gen, device="cuda") / M**0.5
         f = choose_frac_bits(w, margin_bits=2)
         planes = slice_weights(quantize(w, f), spec)
         frac = f.reshape(1)
-        for T in T_CHECK:
+        for T in T_OPA:
             x, dh = exact_operands(torch, T, M, N, torch.bfloat16, gen)
             for name, kw in PHYSICS.items():
                 dev = DeviceModel(**kw)
                 for words in (None, (0x1234567 + T, -0x7654321)):
-                    got = KO.opa_fused(planes.clone(), x, dh, 3e-2, frac, spec=spec, key_words=words, dev=dev,
-                                       noise_words=(77 + T, -99))
                     want = RO.opa_fused_ref(planes, x, dh, 3e-2, f, spec, words, dev, (77 + T, -99))
-                    torch.cuda.synchronize()
-                    if not torch.equal(got, want):
-                        if dev.write_noise == 0.0:
-                            raise AssertionError(f"opa_fused device instance ({name}) vs plain at M={M} N={N} T={T}")
-                        acc = x.float().T @ dh.float()
-                        p_q = RO.write_rows(acc * (-RO._lr32(3e-2) * 2.0 ** int(f)), dev, 0, (77 + T, -99), words)
-                        stuck = RO.stuck_rows(dev, spec, 0, M, N, "cuda") if dev.stuck_frac > 0 else None
-                        flips += one_lsb_flips(torch, got, want, planes, p_q, stuck, spec)
-                    cases += 1
+                    for body in ("mma", "fma"):
+                        got = KO.opa_fused(planes.clone(), x, dh, 3e-2, frac, spec=spec, key_words=words, dev=dev,
+                                           noise_words=(77 + T, -99), body=body)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, want):
+                            if dev.write_noise == 0.0:
+                                raise AssertionError(f"opa_fused device instance ({name}), {body} body, vs plain "
+                                                     f"at M={M} N={N} T={T}")
+                            acc = x.float().T @ dh.float()
+                            p_q = RO.write_rows(acc * (-RO._lr32(3e-2) * 2.0 ** int(f)), dev, 0, (77 + T, -99),
+                                                words)
+                            stuck = RO.stuck_rows(dev, spec, 0, M, N, "cuda") if dev.stuck_frac > 0 else None
+                            # a rounding flip of the write noise's last bit
+                            flips[body] += int((update_shifts(torch, got, want, planes, p_q, stuck, spec,
+                                                              reach=1) != 0).sum())
+                        cases += 1
         del w, planes
-    err["opa_fused_device"] = float(flips)
-    print(f"opa_fused device instance vs plain: {cases} cases (gemma-2b's four (M, N) and {RAGGED_SHAPE}, "
-          f"T {T_CHECK}, physics {list(PHYSICS)}, with and without key words); {flips} elements "
-          "differ, each by one grid LSB", flush=True)
+    err["opa_fused_device"], err["opa_fused_device_fma"] = float(flips["mma"]), float(flips["fma"])
+    print(f"opa_fused device instance vs plain: {cases} cases (tensor-core and CUDA-core bodies, gemma-2b's four "
+          f"(M, N) and {RAGGED_SHAPE}, T {T_OPA}, physics {list(PHYSICS)}, with and without key words); "
+          f"elements that differ, each by one grid LSB: {flips['mma']} (tensor-core), {flips['fma']} "
+          "(CUDA-core)", flush=True)
 
     # K2 stuck instance: bit for bit, the embedding included
     dev = DeviceModel(**PHYSICS["stuck"])
@@ -841,12 +902,16 @@ def time_device_kernels(torch, spec, gen):
         dh = (torch.randn((T, N), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
         k = cuda_time_ms(lambda: KO.opa_fused(planes, x, dh, 3e-2, frac, spec=spec, key_words=(1, 2), dev=dev,
                                               noise_words=(3, 4)), 10)
+        k_fma = cuda_time_ms(lambda: KO.opa_fused(planes, x, dh, 3e-2, frac, spec=spec, key_words=(1, 2), dev=dev,
+                                                  noise_words=(3, 4), body="fma"), 10)
         p = cuda_time_ms(lambda: RO.opa_fused_ref(planes, x, dh, 3e-2, frac[0], spec, (1, 2), dev, (3, 4)), 3, 1)
         lib = cuda_time_ms(lambda: torch.matmul(x.t(), dh), 10)
         # bf16 products on the tensor cores, the physics on the CUDA cores
         t_bytes = (2 * S * M * N + 2 * T * (M + N) + 4) / HBM_BYTES_PER_S
         t_ops = 2.0 * T * M * N / BF16_FLOPS_PER_S + DEVICE_OPS_PER_CELL * M * N / CUDA_CORE_OPS_PER_S
-        add("opa_fused_device", k, p, lib, 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+        b = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+        add("opa_fused_device", k, p, lib, *b, k_fma)
+        add("opa_fused_device_fma", k_fma, p, lib, *b)
         w = dequantize_planes(planes, 30, spec)
         for transpose in (False, True):
             xin = torch.randn((T, N if transpose else M), generator=gen, device="cuda")
@@ -891,9 +956,9 @@ def time_device_kernels(torch, spec, gen):
         for key in rows:
             if not isinstance(key, str):
                 continue
-            k, p, lib, b_ms, b_by, *dp4a = rows[key][-1]
-            dp4a = f"  dp4a body {dp4a[0]:.4f} ms" if dp4a else ""
-            print(f"  {key:37s} {name:11s} M={M:5d} N={N:5d} T={T}: kernel {k:.4f} ms{dp4a}  plain {p:.4f} ms  "
+            k, p, lib, b_ms, b_by, *other = rows[key][-1]
+            other = f"  {other_body(key)[1]} {other[0]:.4f} ms" if other else ""
+            print(f"  {key:37s} {name:11s} M={M:5d} N={N:5d} T={T}: kernel {k:.4f} ms{other}  plain {p:.4f} ms  "
                   f"library {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
         del planes, x, dh, w
     V, D = EMBED_SHAPE
@@ -924,8 +989,9 @@ def time_device_kernels(torch, spec, gen):
                     print(f"  K4{'ᵀ' if transpose else ' '} io{io:2d} adc {adc if adc else 'ideal':5} "
                           f"{'read noise' if noisy else 'ideal dev.':10s}: {k_ms:9.4f} ms   dp4a body {d_ms:9.4f} ms   "
                           f"{d_ms / k_ms:5.2f}x", flush=True)
-    out = {key: layer_total(rs) for key, rs in rows.items() if isinstance(key, str)}
+    out = {key: layer_total(rs, key) for key, rs in rows.items() if isinstance(key, str)}
     out["opa_deposit_stuck"] = {"ms": k, "plain_ms": p, "library_ms": None, "bound_ms": b[0], "bound_by": b[1]}
+    print_layer_total("opa_fused_device", out["opa_fused_device"], T)
     return out
 
 
@@ -1082,6 +1148,47 @@ def phase_k5_path(torch, state):
     return {"mvm_sliced": counts[0], "mvm_sliced_transpose": counts[1]}
 
 
+def phase_f32_update(torch, state):
+    """The update's entry point, ``opa_fused_update``, with f32 operands on
+    every operand block of the trained state, on the ideal and on the
+    non-ideal device: one launch a block of K1's CUDA-core instances, the
+    planes changed. Returns the launch counts."""
+    from repro_torch import tree
+    from repro_torch.core import prng
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import opa_fused_update
+    from repro_torch.models.common import DeviceModel
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    leaves = [(path, s) for path, s in tree.leaves_with_path(state.sliced)
+              if s is not None and path[-1] in ("wqkv", "wo", "wi_gate", "wi_up")]
+    n_blocks = sum(math.prod(s.planes.shape[1:-2]) for _, s in leaves)
+    counts = {}
+    for i, dev in enumerate((None, DeviceModel(**{k: v for k, v in DEVICE.items() if k != "read_noise"}))):
+        KO.opa_fused.instances.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moved = True
+        for j, (path, s) in enumerate(leaves):
+            stack, (M, N) = s.planes.shape[1:-2], s.planes.shape[-2:]
+            x = torch.randn((*stack, T_TRAIN, M), generator=g, device="cuda")
+            dh = torch.randn((*stack, T_TRAIN, N), generator=g, device="cuda") * 1e-3
+            before = s.planes[:, ..., :4, :].clone()
+            opa_fused_update(s.planes, x, dh, 3e-2, s.frac_bits, DEFAULT_SPEC, stochastic=True,
+                             key=prng.PRNGKey(100 * i + j), device=dev)
+            moved &= not torch.equal(before, s.planes[:, ..., :4, :])
+        torch.cuda.synchronize()
+        got = dict(KO.opa_fused.instances)
+        name = KO.instance_name(dev is not None, "fma")
+        print(f"f32-operand update ({'non-ideal' if dev else 'ideal'} device): {n_blocks} operand blocks in "
+              f"{time.perf_counter() - t0:.2f} s; launches {got}", flush=True)
+        if got != {name: n_blocks} or not moved:
+            raise AssertionError(f"f32-operand update: launches {got} for {n_blocks} blocks, planes moved {moved}")
+        counts[f"opa_fused{'_device' if dev else ''}_fma"] = n_blocks
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1138,8 +1245,10 @@ def main() -> int:
     train_launches.update(dev_launches)
     done("phase 7: training on the non-ideal device and at io 8/12")
     train_launches.update(phase_k5_path(torch, state))
-    del state
     done("phase 8: K5 entry point")
+    train_launches.update(phase_f32_update(torch, state))
+    del state
+    done("phase 9: f32-operand update")
 
     # one layer's five reads at the decode batch (4 tokens): the main path's
     # per-layer decode work
@@ -1169,12 +1278,16 @@ def main() -> int:
         entry("mvm_sliced_fused_transpose", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
               "src/repro/kernels/sliced_mvm/kernel.py:367", t_err),
         entry("opa_fused", "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",
-              "src/repro/kernels/sliced_opa/kernel.py:255", float(opa_err)),
+              "src/repro/kernels/sliced_opa/kernel.py:255", float(opa_err["mma"])),
+        entry("opa_fused_fma", "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",
+              "src/repro/kernels/sliced_opa/kernel.py:255", float(opa_err["fma"])),
         entry("opa_deposit", "src/repro_torch/kernels/sliced_opa/csrc/opa_deposit.cu",
               "src/repro/kernels/sliced_opa/kernel.py:90", 0.0),
         entry("crs", "src/repro_torch/kernels/crs/csrc/crs.cu", "src/repro/kernels/crs/kernel.py:70", 0.0),
         entry("opa_fused_device", "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",
               "src/repro/kernels/sliced_opa/kernel.py:255", dev_err["opa_fused_device"]),
+        entry("opa_fused_device_fma", "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",
+              "src/repro/kernels/sliced_opa/kernel.py:255", dev_err["opa_fused_device_fma"]),
         entry("opa_deposit_stuck", "src/repro_torch/kernels/sliced_opa/csrc/opa_deposit.cu",
               "src/repro/kernels/sliced_opa/kernel.py:90", dev_err["opa_deposit_stuck"]),
         *(entry(f"mvm_sliced_fused{t}_{v}", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",

@@ -5,10 +5,12 @@
 // (d = ((rem + 8) & 15) - 8, then rem = (rem - d) >> 4, exact), and each
 // digit is added to its plane with that plane's saturating clip.
 //
-// With a device model's stuck cells (keep_stuck), the digit of slice s at
-// (r, c) keeps its old value where counter_u01(r, c, w0_s, w1_s) < frac,
+// With a device model's stuck cells (deposit_stuck), the digit of slice s
+// at (r, c) keeps its old value where counter_u01(r, c, w0_s, w1_s) < frac,
 // with (w0_s, w1_s) = device_pattern_words(stuck_seed, s): the reference's
-// _stuck_masks, applied after the deposit.
+// _stuck_masks, applied after the deposit. stuck_bits packs that mask into
+// a byte a cell, and deposit_keep applies a packed mask (K1's tensor-core
+// body caches the bytes, since the mask is frozen).
 #pragma once
 #include <stdint.h>
 
@@ -40,6 +42,28 @@ __device__ __forceinline__ void deposit_one(int* p, int rem, const DepositParams
       rem = (rem - d) >> 4;
     }
   }
+}
+
+// the stuck-cell mask of the element at global (r, c) as bits, bit s set
+// where slice s is stuck: the draws of deposit_stuck
+__device__ __forceinline__ uint32_t stuck_bits(int r, int c, const DepositParams& dp, const StuckParams& st) {
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int s = 0; s < PANTHER_MAX_DEPOSIT_S; ++s)
+    if (s < dp.S && counter_u01(r, c, st.w0[s], st.w1[s]) < st.frac) bits |= 1u << s;
+  return bits;
+}
+
+// the deposit of one element whose slices with a set bit keep their old
+// digit: deposit_stuck with the mask given as stuck_bits
+__device__ __forceinline__ void deposit_keep(int* p, int rem, const DepositParams& dp, uint32_t bits) {
+  int old[PANTHER_MAX_DEPOSIT_S];
+#pragma unroll
+  for (int s = 0; s < PANTHER_MAX_DEPOSIT_S; ++s) old[s] = p[s];
+  deposit_one(p, rem, dp);
+#pragma unroll
+  for (int s = 0; s < PANTHER_MAX_DEPOSIT_S; ++s)
+    if (s < dp.S && (bits >> s) & 1u) p[s] = old[s];
 }
 
 // the deposit of one element at global (r, c), whose stuck digits keep

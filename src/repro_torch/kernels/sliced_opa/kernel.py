@@ -8,13 +8,18 @@
   it by ``-lr · 2^F``, rounds it (the counter draw under key words, or half
   to even) and deposits it in the same pass: the gradient never reaches
   device memory. Its ``device`` instance adds a write-nonideal device
-  model's physics to the finalize: asymmetry, write noise, stuck cells.
+  model's physics to the finalize: asymmetry, write noise, stuck cells. It
+  has two bodies with the same finalize, chosen by the operands' dtype
+  (``body_for``): bf16 operands (the training path) run on the bf16 tensor
+  cores (``mma.sync``), f32 operands on the CUDA cores (``fma``). Where
+  the f32 sums are exact, the two give the same bits.
 
 Each source says what bounds it. The libraries build at first use
 (``kernels.build``), never at import. The wrappers launch on the current
 stream and count their launches: ``launches`` over every instance, and
-``instances`` by instance (``"ideal"``, ``"device"`` for ``opa_fused``;
-``"ideal"``, ``"stuck"`` for ``opa_deposit``).
+``instances`` by instance (``instance_name``: ``"ideal"``, ``"device"``,
+and ``"ideal_fma"``, ``"device_fma"`` for the CUDA-core body, for
+``opa_fused``; ``"ideal"``, ``"stuck"`` for ``opa_deposit``).
 """
 from __future__ import annotations
 
@@ -36,9 +41,33 @@ MAX_SLICES = 8  # canonical_limit fits int32
 _OPERAND_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def body_for(dtype: torch.dtype) -> str:
+    """The K1 body that takes operands of ``dtype``: ``"mma"`` (bf16 tensor
+    cores) for bfloat16, ``"fma"`` (f32 FMAs on the CUDA cores) for float32.
+    bf16 products are exact in f32; f32 operands have no exact tensor-core
+    route (TF32 is not f32)."""
+    if dtype == torch.bfloat16:
+        return "mma"
+    if dtype == torch.float32:
+        return "fma"
+    raise ValueError(f"opa_fused takes float32 or bfloat16 operands, got {dtype}")
+
+
+def instance_name(dev: bool, body: str) -> str:
+    """The key of a K1 launch in ``opa_fused.instances``: ``"ideal"`` or
+    ``"device"``, with ``"_fma"`` for the CUDA-core body."""
+    return ("device" if dev else "ideal") + ("_fma" if body == "fma" else "")
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(name: str):
-    lib = ctypes.CDLL(str(_build.build(name, SOURCES[name]).path))
+    return _bind(_build.build(name, SOURCES[name]).path, name)
+
+
+def _bind(path, name: str):
+    """The C entry point of library ``path`` (built from ``SOURCES[name]``),
+    its argument types set."""
+    lib = ctypes.CDLL(str(path))
     if name == "opa_deposit":
         fn = lib.panther_opa_deposit
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -47,8 +76,9 @@ def _entry(name: str):
     else:
         fn = lib.panther_opa_fused
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                                     ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                                     ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -69,6 +99,14 @@ def _stuck_words(dev, spec: SliceSpec):
     """Host int[2·S]: the stuck-cell pattern's key words of each slice."""
     words = [w for s in range(spec.n_slices) for w in device_pattern_words(dev.stuck_seed, s)]
     return (ctypes.c_int * len(words))(*words)
+
+
+# the tensor-core body's stuck-cell masks, one byte of slice bits a cell
+# (ref.stuck_bits_ref), by (card, stuck_seed, f32 stuck_frac, S, M, N): the
+# mask is frozen, so the first launch at a block shape writes it and later
+# launches read it. A memo of a pure function of its key: which caller
+# fills an entry changes no result.
+_STUCK_BITS: dict = {}
 
 
 def _ptr(arr) -> ctypes.c_void_p:
@@ -111,7 +149,7 @@ def opa_deposit(planes: torch.Tensor, p_q: torch.Tensor, *, spec: SliceSpec, stu
 
 def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float,
               frac_bits: torch.Tensor, *, spec: SliceSpec, key_words=None, dev=None,
-              noise_words=None) -> torch.Tensor:
+              noise_words=None, body=None) -> torch.Tensor:
     """planes int8 [S, M, N] updated in place by ``-lr · xᵀdh`` on the
     ``2^-F`` grid; x [T, M] and dh [T, N] contiguous f32 or bf16 (one
     dtype); frac_bits a 1-element int32 tensor read on the device; lr a host
@@ -119,7 +157,9 @@ def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float
     (stochastic rounding by the counter draw). ``dev``: None for the ideal
     instance, or a write-nonideal DeviceModel for the device instance, with
     ``noise_words`` the write-noise key words when ``dev.write_noise > 0``.
-    Returns ``planes``."""
+    ``body``: None takes ``body_for(x.dtype)``; ``"fma"`` runs the CUDA-core
+    body on either dtype (the same-work yardstick); ``"mma"`` takes bf16
+    only. Returns ``planes``."""
     if not (planes.is_cuda and x.is_cuda and dh.is_cuda and frac_bits.is_cuda):
         raise ValueError("opa_fused kernel takes CUDA tensors only")
     if not (planes.device == x.device == dh.device == frac_bits.device):
@@ -134,6 +174,10 @@ def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float
         raise ValueError("x and dh must be contiguous")
     if frac_bits.dtype != torch.int32 or frac_bits.numel() != 1:
         raise ValueError("frac_bits must be a 1-element int32 tensor")
+    if body is None:
+        body = body_for(x.dtype)
+    elif body not in ("mma", "fma") or (body == "mma" and x.dtype != torch.bfloat16):
+        raise ValueError(f"opa_fused body {body!r} does not take {x.dtype} operands")
     if dev is not None and not dev.writes_nonideal():
         raise ValueError("the device instance takes a write-nonideal DeviceModel (None for the ideal one)")
     if dev is not None and dev.write_noise > 0.0 and noise_words is None:
@@ -149,13 +193,25 @@ def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float
             nk0, nk1 = noise_words
         if dev.stuck_frac > 0.0:
             stuck = _stuck_words(dev, spec)
-    vec = int(N % 8 == 0 and planes.data_ptr() % 8 == 0)
+    word = 16 if body == "mma" else 8  # bytes of a plane row a thread moves at once
+    vec = int(N % word == 0 and planes.data_ptr() % word == 0)
+    mask = key = None
+    fresh = False
+    if stuck is not None and body == "mma":
+        key = (planes.device, dev.stuck_seed, float(np.float32(dev.stuck_frac)), S, M, N)
+        mask = _STUCK_BITS.get(key)
+        fresh = mask is None
+        if fresh:
+            mask = torch.empty((M, N), dtype=torch.uint8, device=planes.device)
     _launch("opa_fused", planes, planes.data_ptr(), x.data_ptr(), dh.data_ptr(), frac_bits.data_ptr(),
             float(np.float32(lr)), x.shape[0], M, N, S, _ptr(_plane_max(spec)), spec.canonical_limit,
-            _OPERAND_DTYPES[x.dtype], int(key_words is not None), k0, k1, vec, _ptr(physics), nk0, nk1,
-            _ptr(stuck))
+            _OPERAND_DTYPES[x.dtype], int(body == "mma"), int(key_words is not None), k0, k1, vec,
+            _ptr(physics), nk0, nk1, _ptr(stuck), None if mask is None else mask.data_ptr(),
+            0 if mask is None else 1 if fresh else 2)
+    if fresh:  # written by this launch, in stream order before any later one
+        _STUCK_BITS[key] = mask
     opa_fused.launches += 1
-    opa_fused.instances["ideal" if dev is None else "device"] += 1
+    opa_fused.instances[instance_name(dev is not None, body)] += 1
     return planes
 
 

@@ -85,6 +85,26 @@ def stuck_rows(device, spec: SliceSpec, r0: int, rows: int, cols: int, on=None) 
                         for s in range(spec.n_slices)])
 
 
+def stuck_bits_ref(device, spec: SliceSpec, rows: int, cols: int, on=None) -> torch.Tensor:
+    """The stuck-cell mask of an ``[rows, cols]`` block packed a byte a
+    cell, bit ``s`` set where slice ``s`` is stuck: the mask K1's tensor-core
+    body caches (``kernel._STUCK_BITS``). uint8 ``[rows, cols]``."""
+    mask = stuck_rows(device, spec, 0, rows, cols, on)
+    bits = torch.zeros((rows, cols), dtype=torch.int32, device=mask.device)
+    for s in range(spec.n_slices):
+        bits |= mask[s].to(torch.int32) << s
+    return bits.to(torch.uint8)
+
+
+def deposit_keep_ref(planes, p_q, bits, spec: SliceSpec):
+    """The deposit of int32 ``p_q`` into planes int8 ``[S, rows, cols]``
+    whose slices with a set bit in the packed mask ``bits`` (uint8 ``[rows,
+    cols]``, as ``stuck_bits_ref``) keep their old digit: ``deposit_keep``
+    of ``deposit.cuh``."""
+    keep = torch.stack([(bits.to(torch.int32) >> s) & 1 for s in range(spec.n_slices)]).bool()
+    return torch.where(keep, planes, opa_batched(planes, p_q, spec))
+
+
 def stuck_mask_ref(device, spec: SliceSpec, shape, on=None) -> torch.Tensor:
     """The stuck-cell mask for planes of ``shape`` ``[S, *stack, M, N]``,
     broadcast over the stack: bool ``[S, 1, ..., M, N]``."""
@@ -129,10 +149,10 @@ def opa_fused_ref(planes, x, dh, lr, frac_bits, spec: SliceSpec, key_words=None,
     new int8 planes [S, M, N]."""
     acc = x.to(torch.float32).T @ dh.to(torch.float32)
     scale = exp2i(torch.as_tensor(frac_bits, dtype=torch.int32)).to(acc.device) * -_lr32(lr)
-    new = opa_batched(planes, write_rows(acc * scale, device, 0, noise_words, key_words), spec)
+    p_q = write_rows(acc * scale, device, 0, noise_words, key_words)
     if device is not None and device.stuck_frac > 0.0:
-        new = torch.where(stuck_rows(device, spec, 0, *acc.shape, acc.device), planes, new)
-    return new
+        return deposit_keep_ref(planes, p_q, stuck_bits_ref(device, spec, *acc.shape, acc.device), spec)
+    return opa_batched(planes, p_q, spec)
 
 
 def opa_fused_update_ref(planes, x, dh, lr, frac_bits, spec: SliceSpec, *,

@@ -7,7 +7,8 @@ Tolerance: the reads within ``max|kernel - plain| <= 1e-3 * (1 + max|plain|)``,
 and at finite ADC bit for bit (the two sum in the same order); K4's
 tensor-core body bit for bit against its plain version and against the dp4a
 body (K5) at every ADC; the update kernels bit for bit (``opa_fused`` on
-f32-exact operands, where every contraction order gives the same sums).
+f32-exact operands, where every contraction order gives the same sums: its
+bf16 tensor-core body against its plain version and its CUDA-core body).
 """
 from __future__ import annotations
 
@@ -124,14 +125,114 @@ def test_opa_fused_kernel_matches_plain_on_exact_operands(card, dtype, m, n, t, 
     x = (torch.randint(-4, 5, (t, m), generator=g, device=card) * 0.125).to(getattr(torch, dtype))
     dh = (torch.randint(-4, 5, (t, n), generator=g, device=card) * 2.0**-5).to(getattr(torch, dtype))
     words = (12345, -678) if keyed else None
+    name = KO.instance_name(False, KO.body_for(x.dtype))
     for lr, f in ((2.0**-4, 8), (4.0, 28)):
         frac = torch.tensor([f], dtype=torch.int32, device=card)
-        before = KO.opa_fused.launches
+        before = KO.opa_fused.launches, KO.opa_fused.instances[name]
         got = KO.opa_fused(planes.clone(), x, dh, lr, frac, spec=DEFAULT_SPEC, key_words=words)
         want = RO.opa_fused_ref(planes, x, dh, lr, frac[0], DEFAULT_SPEC, words)
         torch.cuda.synchronize()
-        assert KO.opa_fused.launches == before + 1
+        assert (KO.opa_fused.launches, KO.opa_fused.instances[name]) == (before[0] + 1, before[1] + 1)
         assert torch.equal(got, want)
+
+
+def _exact_bf16_operands(card, t, m, n, g):
+    """bf16 operands whose f32 contraction is exact in any order: small
+    integers on a power-of-two grid (|partial sum| <= 16 on a 2^-8 grid)."""
+    x = (torch.randint(-4, 5, (t, m), generator=g, device=card) * 0.125).to(torch.bfloat16)
+    dh = (torch.randint(-4, 5, (t, n), generator=g, device=card) * 2.0**-5).to(torch.bfloat16)
+    return x, dh
+
+
+# (M, N): gemma-2b's attention block; N % 8 != 0 (element loads, scalar
+# plane path); M % 8 != 0 and a short last tile of each axis
+TC_SHAPES = [(2048, 2560), (320, 100), (100, 336)]
+
+
+@pytest.mark.parametrize("physics", [None, "asym", "noise", "stuck", "all"])
+@pytest.mark.parametrize("t", [1, 17, 100, 256])
+@pytest.mark.parametrize("m,n", TC_SHAPES)
+def test_tensor_core_opa_fused_matches_plain_on_exact_operands(card, physics, t, m, n):
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+    from repro_torch.models.common import DeviceModel
+
+    dev = None if physics is None else DeviceModel(**PHYSICS[physics])
+    g = torch.Generator(device=card).manual_seed(m + n + t)
+    planes = _full_range_planes(card, (m, n), g) if dev is None else _canonical_planes(card, (m, n), g)
+    x, dh = _exact_bf16_operands(card, t, m, n, g)
+    name = KO.instance_name(dev is not None, "mma")
+    for lr, f in ((2.0**-4, 8), (4.0, 28)):
+        frac = torch.tensor([f], dtype=torch.int32, device=card)
+        for words in (None, (12345 + t, -678)):
+            before = KO.opa_fused.instances[name]
+            got = KO.opa_fused(planes.clone(), x, dh, lr, frac, spec=DEFAULT_SPEC, key_words=words, dev=dev,
+                               noise_words=(77, -99))
+            want = RO.opa_fused_ref(planes, x, dh, lr, frac[0], DEFAULT_SPEC, words, dev, (77, -99))
+            torch.cuda.synchronize()
+            assert KO.opa_fused.instances[name] == before + 1
+            if dev is None or dev.write_noise == 0.0:
+                assert torch.equal(got, want)
+            else:  # a Gaussian's last bit may move one update by one grid LSB
+                d = (_plane_values(got) - _plane_values(want)).abs()
+                assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("physics", [None, "all"])
+@pytest.mark.parametrize("m,n,t", [(2048, 16384, 256), (16384, 2048, 100), (320, 100, 17)])
+def test_tensor_core_opa_fused_equals_the_cuda_core_body(card, physics, m, n, t):
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.models.common import DeviceModel
+
+    dev = None if physics is None else DeviceModel(**PHYSICS[physics])
+    g = torch.Generator(device=card).manual_seed(m + n + t)
+    planes = _canonical_planes(card, (m, n), g)
+    x, dh = _exact_bf16_operands(card, t, m, n, g)
+    frac = torch.tensor([20], dtype=torch.int32, device=card)
+    got = {body: KO.opa_fused(planes.clone(), x, dh, 3e-2, frac, spec=DEFAULT_SPEC, key_words=(5, 6), dev=dev,
+                              noise_words=(7, 8), body=body) for body in ("mma", "fma")}
+    assert torch.equal(got["mma"], got["fma"])
+
+
+@pytest.mark.parametrize("m,n", [(2048, 2560), (320, 100)])
+def test_tensor_core_stuck_mask_is_written_once_then_read(card, m, n):
+    # the first launch at a block shape draws the stuck bits and caches
+    # them; later launches read the cache; every launch equals the plain version
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+    from repro_torch.models.common import DeviceModel
+
+    dev = DeviceModel(stuck_frac=0.3, stuck_seed=11)
+    g = torch.Generator(device=card).manual_seed(m * n)
+    planes = _full_range_planes(card, (m, n), g)
+    frac = torch.tensor([8], dtype=torch.int32, device=card)
+    KO._STUCK_BITS.clear()
+    for t in (17, 100):
+        x, dh = _exact_bf16_operands(card, t, m, n, g)
+        got = KO.opa_fused(planes.clone(), x, dh, 2.0**-4, frac, spec=DEFAULT_SPEC, key_words=(1, t), dev=dev)
+        want = RO.opa_fused_ref(planes, x, dh, 2.0**-4, frac[0], DEFAULT_SPEC, (1, t), dev)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        (mask,) = KO._STUCK_BITS.values()
+        assert torch.equal(mask, RO.stuck_bits_ref(dev, DEFAULT_SPEC, m, n, card))
+
+
+def test_opa_fused_tensor_core_instances_run_hmma(card):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sliced_opa import kernel as KO
+
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    lib = build.build("opa_fused", KO.SOURCES["opa_fused"]).path
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs = {f.split("\n", 1)[0].strip(): f for f in re.split(r"\n\s*Function : ", sass)[1:]}
+    mma = [body for name, body in funcs.items() if "opa_mma_kernel" in name]
+    fma = [body for name, body in funcs.items() if "opa_fused_kernel" in name]
+    assert len(mma) == 2 and all("HMMA" in body for body in mma)  # ideal and device
+    assert len(fma) == 4 and not any("HMMA" in body for body in fma)  # f32/bf16 x ideal/device
 
 
 def test_training_step_on_the_card_goes_through_every_kernel(card):
@@ -151,11 +252,15 @@ def test_training_step_on_the_card_goes_through_every_kernel(card):
     state = train_state_init(cfg, opt, 0)
     counters = (K.mvm_sliced_fused, KO.opa_fused, KO.opa_deposit, KC.crs)
     before = [c.launches for c in counters] + [K.mvm_sliced_fused.transpose_launches]
+    ideal_before = dict(KO.opa_fused.instances)
     state, metrics = make_train_step(cfg, opt, constant(1e-2), plan_rules=rules)(
         state, SyntheticLMDataset(cfg.vocab, 8, 2).batch(0))
     after = [c.launches for c in counters] + [K.mvm_sliced_fused.transpose_launches]
     reads = 5 * cfg.n_layers
     assert [a - b for a, b in zip(after, before)] == [reads, reads, 1, reads + 1, reads]
+    # bf16 operands: every block on the tensor-core body, none on the CUDA-core one
+    assert {k: v - ideal_before.get(k, 0) for k, v in KO.opa_fused.instances.items()
+            if v != ideal_before.get(k, 0)} == {"ideal": reads}
     assert bool(torch.isfinite(metrics["loss"])) and bool(torch.isfinite(metrics["grad_norm"]))
 
 
@@ -205,14 +310,15 @@ def test_opa_fused_device_instance_matches_plain(card, physics, m, n, t, keyed):
     x = torch.randint(-4, 5, (t, m), generator=g, device=card) * 0.125
     dh = torch.randint(-4, 5, (t, n), generator=g, device=card) * 2.0**-5
     words = (12345, -678) if keyed else None
+    name = KO.instance_name(True, KO.body_for(x.dtype))  # f32 operands: the CUDA-core body
     for lr, f in ((2.0**-4, 8), (3e-2, 20)):
         frac = torch.tensor([f], dtype=torch.int32, device=card)
-        before = KO.opa_fused.instances["device"]
+        before = KO.opa_fused.instances[name]
         got = KO.opa_fused(planes.clone(), x, dh, lr, frac, spec=DEFAULT_SPEC, key_words=words, dev=dev,
                            noise_words=(77, -99))
         want = RO.opa_fused_ref(planes, x, dh, lr, frac[0], DEFAULT_SPEC, words, dev, (77, -99))
         torch.cuda.synchronize()
-        assert KO.opa_fused.instances["device"] == before + 1
+        assert KO.opa_fused.instances[name] == before + 1
         d = (_plane_values(got) - _plane_values(want)).abs()
         print(f"{physics} lr={lr}: {int((d > 0).sum())} of {d.numel()} elements differ")
         assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
@@ -273,13 +379,14 @@ def test_an_all_ideal_device_runs_the_ideal_instances(card):
     x = torch.randint(-4, 5, (2, 16, 256), generator=g, device=card) * 0.125
     dh = torch.randint(-4, 5, (2, 16, 128), generator=g, device=card) * 2.0**-5
     outs = []
+    ideal, device_fma = KO.instance_name(False, "fma"), KO.instance_name(True, "fma")  # f32 operands
     for device in (None, DeviceModel()):
         before = dict(KO.opa_fused.instances)
         p = planes.clone()
         sliced_opa.opa_fused_update(p, x, dh, 3e-2, 20, DEFAULT_SPEC, stochastic=True, key=prng.PRNGKey(1),
                                     device=device)
-        assert KO.opa_fused.instances["ideal"] == before.get("ideal", 0) + 2
-        assert KO.opa_fused.instances["device"] == before.get("device", 0)
+        assert KO.opa_fused.instances[ideal] == before.get(ideal, 0) + 2
+        assert KO.opa_fused.instances[device_fma] == before.get(device_fma, 0)
         before = dict(K.mvm_sliced_fused.instances)
         y = sliced_mvm.mvm_sliced_fused(p[:, 0], x[0], 12, DEFAULT_SPEC, adc_bits=9, device=device)
         assert K.mvm_sliced_fused.instances["io16"] == before.get("io16", 0) + 1

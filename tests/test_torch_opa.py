@@ -281,3 +281,25 @@ def test_reference_kernel_rounds_its_finalize_once():
     g = jnp.einsum("tm,tn->mn", jnp.asarray(x), jnp.asarray(dh))
     upd = JF.quantize(-jnp.float32(lr) * g, f, stochastic=True, key=jax.random.PRNGKey(11))
     _eq(JO.opa_batched(jnp.asarray(planes), upd, JSPEC), port)  # the oracle rounds twice, as the port
+
+
+# ------------------------- K1's body, by operand dtype -------------------------
+
+
+@pytest.mark.parametrize("dtype,body,ideal,device", [(torch.bfloat16, "mma", "ideal", "device"),
+                                                     (torch.float32, "fma", "ideal_fma", "device_fma")])
+def test_k1_body_follows_the_operand_dtype(dtype, body, ideal, device):
+    # bf16 operands (the training path) take the tensor-core body, f32 ones
+    # the CUDA-core body; the instance keys count the launches of each
+    from repro_torch.kernels.sliced_opa import kernel as topa_k
+
+    assert topa_k.body_for(dtype) == body
+    assert (topa_k.instance_name(False, body), topa_k.instance_name(True, body)) == (ideal, device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int8, torch.int32])
+def test_k1_body_refuses_other_dtypes(dtype):
+    from repro_torch.kernels.sliced_opa import kernel as topa_k
+
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        topa_k.body_for(dtype)
