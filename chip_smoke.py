@@ -71,7 +71,20 @@ Phases:
   9. drive the update's entry point, ``opa_fused_update``, with f32 operands
      over every operand block of the trained state, on the ideal and on the
      non-ideal device: f32 operands take K1's CUDA-core instances, one
-     launch a block.
+     launch a block;
+ 10. K1's other rounding sources, ``rng_mode="grid"`` (the threefry stream
+     of ``jax.random.uniform``) and ``"hw"`` (the port's Philox tile
+     stream): every grid/hw instance, ideal and device, both bodies, bit for
+     bit against its plain version on f32-exact operands at gemma-2b's four
+     (M, N) and 320x100, T in {1, 17, 256}, grid at layer offsets 0 and 17
+     (but for counted one-LSB write-noise flips), and within the f32 bound
+     on training-like bf16 operands; hw rounding unbiased on the card (4
+     sigma) and its plain stream uniform over 256 bins (chi-squared); each
+     instance timed over one layer's 5 blocks beside the counter one; then
+     on the trained state one adc9 step and one non-ideal-device step under
+     each mode (18 layers, launches by instance exact), a grid step under
+     the profiler, the dense leaves' grid draw timed alone, and
+     ``opa_fused_update`` with f32 operands under each mode.
 
 It prints one JSON line with the kernels' numbers, the card's
 ``name, power.limit`` line, and last the device JSON line. Any failure exits
@@ -427,6 +440,21 @@ def update_shifts(torch, got, want, planes, p_q, stuck, spec, reach):
                              f"{reach} grid LSB")
     shift[bad] = k_of
     return shift
+
+
+# the card tests' cap on write-noise flips: a share of a block's updates
+FLIP_SHARE = 1e-3
+
+
+def noise_flips(torch, got, want, planes, p_q, stuck, spec, what):
+    """How many updates the last bit of the write noise moved by one grid
+    LSB (update_shifts at reach 1); raises where more than FLIP_SHARE of
+    the block's updates moved."""
+    n = int((update_shifts(torch, got, want, planes, p_q, stuck, spec, reach=1) != 0).sum())
+    if n > FLIP_SHARE * p_q.numel():
+        raise AssertionError(f"{what}: {n} of {p_q.numel()} updates moved by one grid LSB, more than a share "
+                             f"of {FLIP_SHARE}")
+    return n
 
 
 def phase_opa_fused(torch, spec, gen):
@@ -796,8 +824,9 @@ def phase_device_kernels(torch, spec, gen):
                                                 words)
                             stuck = RO.stuck_rows(dev, spec, 0, M, N, "cuda") if dev.stuck_frac > 0 else None
                             # a rounding flip of the write noise's last bit
-                            flips[body] += int((update_shifts(torch, got, want, planes, p_q, stuck, spec,
-                                                              reach=1) != 0).sum())
+                            flips[body] += noise_flips(torch, got, want, planes, p_q, stuck, spec,
+                                                       f"opa_fused device instance ({name}), {body} body, "
+                                                       f"at M={M} N={N} T={T}")
                         cases += 1
         del w, planes
     err["opa_fused_device"], err["opa_fused_device_fma"] = float(flips["mma"]), float(flips["fma"])
@@ -1189,6 +1218,323 @@ def phase_f32_update(torch, state):
     return counts
 
 
+# --------------------- K1's grid and hw rounding sources ----------------------
+
+# grid's layer offsets checked: l·M·N of an 18-layer stack (a wrong offset
+# passes at l = 0)
+RNG_CASES = (("grid", 0), ("grid", 17), ("hw", 0))
+T_RNG = (1, 17, 256)
+# 32-bit CUDA-core operations a cell that the draw adds to K1's finalize:
+# threefry2x32's 20 rounds and key injections (grid); a quarter of
+# Philox4x32-10's 10 rounds, the tile seed and the tile coordinates (hw)
+RNG_OPS_PER_CELL = {"grid": 100, "hw": 40}
+
+
+def rng_entry(mode, dev, body):
+    """A grid/hw instance's name in the kernels line."""
+    return "opa_fused" + ("_device" if dev else "") + f"_{mode}" + ("_fma" if body == "fma" else "")
+
+
+def chi2_p(chi2: float, dof: int) -> float:
+    """Upper-tail p-value of a chi-squared statistic (Wilson-Hilferty's
+    normal approximation, good to a few percent at hundreds of degrees)."""
+    z = ((chi2 / dof) ** (1 / 3) - (1 - 2 / (9 * dof))) / math.sqrt(2 / (9 * dof))
+    return 0.5 * math.erfc(z / math.sqrt(2))
+
+
+def phase_rng_kernels(torch, spec, gen):
+    """K1's grid and hw instances, ideal and device, both bodies, against
+    their plain versions: bit for bit on f32-exact operands (but for counted
+    one-LSB write-noise flips, as in phase 6), grid at layer offsets 0 and
+    17; within the f32 bound on training-like bf16 operands; then hw's
+    statistics on the card. The device is once noise-free (asymmetry and
+    stuck cells: bit for bit) and once with the write noise too (flips
+    counted, at most FLIP_SHARE of a block). Returns the flips by entry
+    name."""
+    from repro_torch.core.fixed_point import choose_frac_bits, quantize
+    from repro_torch.core.slicing import slice_weights
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+    from repro_torch.models.common import DeviceModel
+
+    devs = (DeviceModel(**PHYSICS["asym"], **PHYSICS["stuck"]), DeviceModel(**PHYSICS["all"]))
+    words, noise_words = (0x2468ACE, -0x13579BD), (77, -99)
+    flips, cases = {}, 0
+    lr, F = 2.0**-4, 8  # updates on a 2^-4 grid: the draw decides
+    frac = torch.tensor([F], dtype=torch.int32, device="cuda")
+    for M, N in (*SLICE_SHAPES, RAGGED_SHAPE):
+        for T in T_RNG:
+            x, dh = exact_operands(torch, T, M, N, torch.bfloat16, gen)
+            for d in (None, *devs):
+                if d is None:
+                    planes = random_planes(torch, spec, (M, N), gen)
+                else:
+                    q = torch.randint(-2**27, 2**27, (M, N), generator=gen, device="cuda", dtype=torch.int32)
+                    planes = slice_weights(q, spec)
+                for mode, layer in RNG_CASES:
+                    offset = layer * M * N
+                    want = RO.opa_fused_ref(planes, x, dh, lr, F, spec, words, d, noise_words, rng_mode=mode,
+                                            offset=offset)
+                    for body in ("mma", "fma"):
+                        key = rng_entry(mode, d is not None, body)
+                        got = KO.opa_fused(planes.clone(), x, dh, lr, frac, spec=spec, key_words=words,
+                                           rng_mode=mode, offset=offset, dev=d, noise_words=noise_words, body=body)
+                        torch.cuda.synchronize()
+                        n = 0
+                        if not torch.equal(got, want):
+                            if d is None or d.write_noise == 0.0:
+                                raise AssertionError(f"{key} vs plain at M={M} N={N} T={T} layer {layer} "
+                                                     f"(device {d}): {int((got != want).sum())} plane cells "
+                                                     "differ")
+                            acc = x.float().T @ dh.float()
+                            p_q = RO.write_rows(acc * (-RO._lr32(lr) * 2.0**F), d, 0, noise_words, words,
+                                                rng_mode=mode, offset=offset)
+                            stuck = RO.stuck_rows(d, spec, 0, M, N, "cuda")
+                            # a rounding flip of the write noise's last bit
+                            n = noise_flips(torch, got, want, planes, p_q, stuck, spec,
+                                            f"{key} at M={M} N={N} T={T} layer {layer}")
+                        flips[key] = flips.get(key, 0) + n
+                        cases += 1
+                        del got
+                    del want
+                del planes
+    layers = [layer for mode, layer in RNG_CASES if mode == "grid"]
+    print(f"K1 grid/hw instances vs plain on f32-exact operands: {cases} cases (ideal, device noise-free and "
+          f"with write noise, both bodies, gemma-2b's four (M, N) and {RAGGED_SHAPE}, T {T_RNG}, grid at layers "
+          f"{layers} of 18): ideal and noise-free device bit-identical; with write noise, elements that differ, "
+          f"each by one grid LSB (at most {FLIP_SHARE} of a block): "
+          + ", ".join(f"{k} {v}" for k, v in flips.items() if "device" in k), flush=True)
+
+    # training-like bf16 operands on canonical planes, held to the f32 bound
+    # of the two contraction orders in update space, as phase 4 holds counter
+    for M, N in SLICE_SHAPES:
+        w = torch.randn((M, N), generator=gen, device="cuda") / M**0.5
+        f = choose_frac_bits(w, margin_bits=2)
+        planes = slice_weights(quantize(w, f), spec)
+        x = torch.randn((T_TRAIN, M), generator=gen, device="cuda").to(torch.bfloat16)
+        dh = (torch.randn((T_TRAIN, N), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+        scale = 3e-2 * 2.0 ** int(f)
+        allowed = 1.0 + scale * 2 * T_TRAIN * 2.0**-24 * (x.float().abs().T @ dh.float().abs())
+        acc = x.float().T @ dh.float()
+        line = []
+        for mode, offset in (("grid", 17 * M * N), ("hw", 0)):
+            want = RO.opa_fused_ref(planes, x, dh, 3e-2, f, spec, (11, 22), rng_mode=mode, offset=offset)
+            p_q = RO.write_rows(acc * (-RO._lr32(3e-2) * 2.0 ** int(f)), None, 0, None, (11, 22), rng_mode=mode,
+                                offset=offset)
+            for body in ("mma", "fma"):
+                got = KO.opa_fused(planes.clone(), x, dh, 3e-2, f.reshape(1), spec=spec, key_words=(11, 22),
+                                   rng_mode=mode, offset=offset, body=body)
+                k = update_shifts(torch, got, want, planes, p_q, None, spec, reach=16).abs()
+                if bool((k > allowed).any()):
+                    raise AssertionError(f"{rng_mode_body(mode, body)} vs plain on training-like operands at "
+                                         f"M={M} N={N}: an update {int(k.max())} LSB off, beyond the f32 bound")
+                line.append(f"{rng_mode_body(mode, body)} {float((k > 0).float().mean()):.3e} differ, max "
+                            f"{int(k.max())} LSB")
+                del got, k
+            del want, p_q
+        print(f"  K1 grid/hw M={M:5d} N={N:5d} T={T_TRAIN} bf16 training-like vs plain: " + "; ".join(line)
+              + f" (bound at least {float(allowed.min()):.1f} LSB)", flush=True)
+        del w, planes, x, dh, allowed, acc
+    torch.cuda.empty_cache()
+
+    # hw on the card: unbiased rounding of a constant sub-LSB increment
+    M, N = 2048, 2560
+    for body, dtype in (("mma", torch.bfloat16), ("fma", torch.float32)):
+        planes = torch.zeros((spec.n_slices, M, N), dtype=torch.int8, device="cuda")
+        x = torch.ones((1, M), device="cuda", dtype=dtype)
+        dh = torch.full((1, N), -0.3711, device="cuda", dtype=dtype)
+        p = -float(dh[0, 0].float())  # y = -lr·x·dh·2^F at lr 1, F 0
+        KO.opa_fused(planes, x, dh, 1.0, torch.zeros(1, dtype=torch.int32, device="cuda"), spec=spec,
+                     key_words=(21, -4), rng_mode="hw", body=body)
+        share = float((plane_values(torch, planes) == 1).double().mean())
+        sigma = math.sqrt(p * (1 - p) / (M * N))
+        print(f"  hw rounding, {body} body, {M}x{N} cells at y = {p:.6f}: rounded up {share:.6f} "
+              f"({(share - p) / sigma:+.2f} sigma)", flush=True)
+        if abs(share - p) > 4 * sigma:
+            raise AssertionError(f"hw rounding on the {body} body is biased: {share} vs {p}")
+    # the plain stream: 256 equal bins, two tiles, two keys
+    M, N = 2048, 16384
+    u = RO.hw_uniform_ref(21, -4, M, N, "cuda")
+    counts = torch.bincount((u * 256).long().flatten(), minlength=256).double()
+    expect = M * N / 256
+    chi2 = float(((counts - expect) ** 2 / expect).sum())
+    pval = chi2_p(chi2, 255)
+    bm, bn = RO.hw_tiles(M, N)
+    same_tile = float((u[:bm, :bn] == u[:bm, bn:2 * bn]).float().mean())
+    same_key = float((u == RO.hw_uniform_ref(21, -3, M, N, "cuda")).float().mean())
+    print(f"  hw_uniform_ref over {M}x{N}: chi2 {chi2:.1f} over 255 degrees, p {pval:.3g}; cells equal between "
+          f"two tiles {same_tile:.2e}, between two keys {same_key:.2e}", flush=True)
+    if not (pval > 1e-4 and same_tile < 1e-3 and same_key < 1e-3):
+        raise AssertionError("hw_uniform_ref's statistics fail")
+    del u, counts
+    torch.cuda.empty_cache()
+    return {k: float(v) for k, v in flips.items()}
+
+
+def rng_mode_body(mode, body):
+    return f"{mode} {'tensor-core' if body == 'mma' else 'CUDA-core'}"
+
+
+def time_rng_kernels(torch, spec, gen):
+    """One layer's 5 blocks at 256 tokens for each grid/hw instance beside
+    the counter instance in the same run: kernel (both bodies), plain
+    version, the bf16 contraction alone and the bound."""
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+    from repro_torch.models.common import DeviceModel
+
+    S, T = spec.n_slices, T_TRAIN
+    dev = DeviceModel(**PHYSICS["all"])
+    rows, counter = {}, {}
+    for name, M, N in SLICE_READS:
+        planes = torch.randint(-8, 8, (S, M, N), generator=gen, device="cuda", dtype=torch.int8)
+        frac = torch.tensor([30], dtype=torch.int32, device="cuda")
+        x = torch.randn((T, M), generator=gen, device="cuda").to(torch.bfloat16)
+        dh = (torch.randn((T, N), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+        lib = cuda_time_ms(lambda: torch.matmul(x.t(), dh), 10)
+        for d in (None, dev):
+            kw = dict(spec=spec, key_words=(1, 2), dev=d, noise_words=(3, 4))
+            c = counter.setdefault(d is not None, [0.0, 0.0])
+            c[0] += cuda_time_ms(lambda: KO.opa_fused(planes, x, dh, 3e-2, frac, **kw), 10)
+            c[1] += cuda_time_ms(lambda: KO.opa_fused(planes, x, dh, 3e-2, frac, body="fma", **kw), 10)
+            for mode in ("grid", "hw"):
+                offset = 17 * M * N if mode == "grid" else 0
+                k = cuda_time_ms(lambda: KO.opa_fused(planes, x, dh, 3e-2, frac, rng_mode=mode, offset=offset, **kw),
+                                 10)
+                k_fma = cuda_time_ms(lambda: KO.opa_fused(planes, x, dh, 3e-2, frac, rng_mode=mode, offset=offset,
+                                                          body="fma", **kw), 10)
+                p = cuda_time_ms(lambda: RO.opa_fused_ref(planes, x, dh, 3e-2, frac[0], spec, (1, 2), d, (3, 4),
+                                                          rng_mode=mode, offset=offset), 3, 1)
+                # bf16 products on the tensor cores; the draw (and the physics) on the CUDA cores
+                t_bytes = (2 * S * M * N + 2 * T * (M + N) + 4) / HBM_BYTES_PER_S
+                cell_ops = RNG_OPS_PER_CELL[mode] + (DEVICE_OPS_PER_CELL if d is not None else 0)
+                t_ops = 2.0 * T * M * N / BF16_FLOPS_PER_S + cell_ops * M * N / CUDA_CORE_OPS_PER_S
+                b = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+                rows.setdefault(rng_entry(mode, d is not None, "mma"), []).append((k, p, lib, *b, k_fma))
+                rows.setdefault(rng_entry(mode, d is not None, "fma"), []).append((k_fma, p, lib, *b))
+        for key, r in rows.items():
+            if not key.endswith("_fma"):
+                k, p, lib, b_ms, b_by, k_fma = r[-1]
+                print(f"  {key:25s} {name:11s} M={M:5d} N={N:5d} T={T}: kernel {k:.4f} ms  CUDA-core body "
+                      f"{k_fma:.4f} ms  plain {p:.4f} ms  library {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})",
+                      flush=True)
+        del planes, x, dh
+    torch.cuda.empty_cache()
+    out = {key: layer_total(rs, key) for key, rs in rows.items()}
+    for d, (k, k_fma) in counter.items():
+        print(f"  counter draw, same run: opa_fused{'_device' if d else ''} one layer's 5 blocks {k:.4f} ms, "
+              f"CUDA-core body {k_fma:.4f} ms", flush=True)
+        for mode in ("grid", "hw"):
+            print_layer_total(rng_entry(mode, d, "mma"), out[rng_entry(mode, d, "mma")], T)
+    return out
+
+
+def phase_rng_train(torch, state, ds, blocks):
+    """gemma-2b at full width, 18 layers, under rng_mode "grid" and "hw": one
+    adc9 step and one adc9 step on the non-ideal device each, every launch
+    count exact by instance; one more grid step under the profiler; the
+    dense leaves' grid draw timed alone; then ``opa_fused_update`` with f32
+    operands under each mode (K1's CUDA-core grid/hw instances). Returns
+    the launch counts by entry name and the state."""
+    import dataclasses
+
+    from repro_torch import configs, tree
+    from repro_torch import plan as planlib
+    from repro_torch.core import prng
+    from repro_torch.core.fixed_point import counter_uniform, rounding_noise
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.sliced_mvm import kernel as KM
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import opa_fused_update
+    from repro_torch.models.common import DeviceModel, FidelityConfig
+    from repro_torch.optim import PantherConfig
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train.step import make_train_step
+
+    cfg = configs.get("gemma_2b")
+    L = cfg.n_layers
+    dev = DeviceModel(**DEVICE)
+    launches, steps = {}, {}
+    for mode in ("grid", "hw"):
+        opt_cfg = PantherConfig(crs_every=2, stochastic_round=True, rng_mode=mode)
+        fids = {"adc9": dataclasses.replace(configs.fidelity_presets()["adc9"], spec=opt_cfg.spec),
+                "device": FidelityConfig(adc_bits_fwd=9, adc_bits_bwd=9, device=dev, spec=opt_cfg.spec)}
+        for kind, fid in fids.items():
+            steps[mode, kind] = step = make_train_step(cfg, opt_cfg, constant(3e-2),
+                                                       plan_rules=planlib.default_rules(opt_cfg, fidelity=fid))
+            for fn in (KO.opa_fused, KO.opa_deposit, KM.mvm_sliced_fused, KC.crs):
+                fn.launches = 0
+            for fn in (KO.opa_fused, KO.opa_deposit, KM.mvm_sliced_fused):
+                fn.instances.clear()
+            crs_step = state.step % opt_cfg.crs_every == opt_cfg.crs_every - 1
+            batch = ds.batch(state.step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            noise = kind == "device"
+            got = {"opa_fused": dict(KO.opa_fused.instances), "opa_deposit": dict(KO.opa_deposit.instances),
+                   "crs": KC.crs.launches, "mvm": dict(KM.mvm_sliced_fused.instances)}
+            want = {"opa_fused": {KO.instance_name(noise, "mma", mode): blocks["operand"]},
+                    "opa_deposit": {"stuck" if noise else "ideal": blocks["dense"]},
+                    "crs": blocks["operand"] + blocks["dense"] if crs_step else 0,
+                    "mvm": {KM.instance_name(False, 16, noise): 5 * L, KM.instance_name(True, 16, noise): 5 * L}}
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            print(f"step {state.step - 1} (rng_mode {mode}, {kind}{', CRS' if crs_step else ''}, {L} layers): "
+                  f"{ms:.1f} ms, {4 * 64 / ms * 1e3:.0f} tokens/s, loss {loss:.4f}, grad_norm {gnorm:.4f}, "
+                  f"launches {got}", flush=True)
+            if got != want:
+                raise AssertionError(f"rng_mode {mode} {kind} step: launches {got} != {want}")
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                raise AssertionError(f"rng_mode {mode} {kind} step: loss {loss} or grad_norm {gnorm} not finite")
+            launches[rng_entry(mode, noise, "mma")] = got["opa_fused"][KO.instance_name(noise, "mma", mode)]
+    out = {}
+
+    def one_more():
+        out["state"], _ = steps["grid", "adc9"](state, ds.batch(state.step))
+
+    profile_step(torch, one_more, "adc9 train step under rng_mode grid")
+    state = out["state"]
+    # the dense leaves' draws under grid (plain PyTorch, as the reference's is
+    # XLA's): the embedding and the two [18, 2048] norm-scale stacks, beside
+    # the counter draw of the same shapes
+    key = prng.fold_in(prng.PRNGKey(7), 1)
+    shapes = (EMBED_SHAPE, (L, cfg.d_model), (L, cfg.d_model))
+    for mode in ("grid", "counter"):
+        draw = (lambda s: rounding_noise(key, s, "grid", device="cuda")) if mode == "grid" else (
+            lambda s: counter_uniform(key, s, device="cuda"))
+        ms = cuda_time_ms(lambda: [draw(s) for s in shapes], 2, 1)
+        print(f"  dense leaves' {mode} draw ({sum(math.prod(s) for s in shapes)} cells): {ms:.1f} ms", flush=True)
+    torch.cuda.empty_cache()
+
+    # the update's entry point with f32 operands: K1's CUDA-core grid/hw instances
+    g = torch.Generator(device="cuda").manual_seed(3)
+    leaves = [(path, s) for path, s in tree.leaves_with_path(state.sliced)
+              if s is not None and path[-1] in ("wqkv", "wo", "wi_gate", "wi_up")]
+    n_blocks = sum(math.prod(s.planes.shape[1:-2]) for _, s in leaves)
+    for mode in ("grid", "hw"):
+        for i, d in enumerate((None, DeviceModel(**PHYSICS["all"]))):
+            KO.opa_fused.instances.clear()
+            t0 = time.perf_counter()
+            for j, (path, s) in enumerate(leaves):
+                stack, (M, N) = s.planes.shape[1:-2], s.planes.shape[-2:]
+                x = torch.randn((*stack, T_TRAIN, M), generator=g, device="cuda")
+                dh = torch.randn((*stack, T_TRAIN, N), generator=g, device="cuda") * 1e-3
+                opa_fused_update(s.planes, x, dh, 3e-2, s.frac_bits, DEFAULT_SPEC, stochastic=True,
+                                 key=prng.PRNGKey(100 * i + j), rng_mode=mode, device=d)
+            torch.cuda.synchronize()
+            got = dict(KO.opa_fused.instances)
+            name = KO.instance_name(d is not None, "fma", mode)
+            print(f"f32-operand update, rng_mode {mode} ({'non-ideal' if d else 'ideal'} device): {n_blocks} "
+                  f"operand blocks in {time.perf_counter() - t0:.2f} s; launches {got}", flush=True)
+            if got != {name: n_blocks}:
+                raise AssertionError(f"f32-operand update under {mode}: launches {got} for {n_blocks} blocks")
+            launches[rng_entry(mode, d is not None, "fma")] = n_blocks
+    return launches, state
+
+
 def main() -> int:
     import torch
 
@@ -1247,8 +1593,13 @@ def main() -> int:
     train_launches.update(phase_k5_path(torch, state))
     done("phase 8: K5 entry point")
     train_launches.update(phase_f32_update(torch, state))
-    del state
     done("phase 9: f32-operand update")
+    rng_err = phase_rng_kernels(torch, DEFAULT_SPEC, gen)
+    train_timings.update(time_rng_kernels(torch, DEFAULT_SPEC, gen))
+    rng_launches, state = phase_rng_train(torch, state, ds, blocks)
+    train_launches.update(rng_launches)
+    del state
+    done("phase 10: K1 rounding sources")
 
     # one layer's five reads at the decode batch (4 tokens): the main path's
     # per-layer decode work
@@ -1295,6 +1646,9 @@ def main() -> int:
           for v in ("read_noise", "io8", "io12") for t in ("", "_transpose")),
         *(entry(f"mvm_sliced{t}", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
                 "src/repro/kernels/sliced_mvm/kernel.py:233", dev_err[f"mvm_sliced{t}"]) for t in ("", "_transpose")),
+        *(entry(rng_entry(mode, d, body), "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",
+                "src/repro/kernels/sliced_opa/kernel.py:255", rng_err[rng_entry(mode, d, body)])
+          for mode in ("grid", "hw") for d in (False, True) for body in ("mma", "fma")),
     ]}
     print(json.dumps(line))
     print(card)

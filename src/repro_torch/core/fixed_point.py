@@ -5,8 +5,9 @@ power-of-two scales, and the counter-hash U[0, 1) draw of stochastic
 rounding: a stateless int32 hash of the global (row, col) element position
 and two key words, so the update kernels and the plain versions draw the
 same bits for any blocking. ``counter_gauss`` is its Box-Muller Gaussian,
-the draw of the device model's write noise and read offsets. Keys are host
-words (``core.prng``).
+the draw of the device model's write noise and read offsets. The rounding
+can also draw ``jax.random.uniform``'s stream (``rng_mode="grid"``,
+``core.prng.uniform``). Keys are host words (``core.prng``).
 """
 from __future__ import annotations
 
@@ -182,13 +183,35 @@ def counter_gauss_array(key: tuple, shape: tuple, device=None) -> torch.Tensor:
     return _counter_array(counter_gauss, key, shape, device)
 
 
+# the stochastic-rounding draws (PantherConfig.rng_mode), in the order of
+# the update kernel's codes (opa_fused.cu's Rng, 1 + the index)
+RNG_MODES = ("counter", "grid", "hw")
+
+
+def check_rng_mode(rng_mode: str, *, plain: bool = True) -> str:
+    """``rng_mode``, or ``ValueError`` for a mode not in ``RNG_MODES`` and,
+    with ``plain``, for ``"hw"``: the update kernel's own draw, which has
+    no plain one (the reference's ``rounding_noise`` and CPU path refuse
+    it too; dense leaves take ``"counter"``)."""
+    if rng_mode not in RNG_MODES:
+        raise ValueError(f"unknown rng_mode {rng_mode!r} (expected one of {RNG_MODES})")
+    if plain and rng_mode == "hw":
+        raise ValueError("rng_mode='hw' is the update kernel's own draw, on CUDA planes only, and has no plain "
+                         "draw; use 'counter' or 'grid' off the card")
+    return rng_mode
+
+
 def rounding_noise(key: tuple, shape: tuple, rng_mode: str = "counter", device=None) -> torch.Tensor:
-    """The stochastic-rounding draw. Only ``"counter"`` is ported: the
-    reference's ``"grid"`` draw is ``jax.random.uniform``'s array traversal
-    (and its own goldens fail), and ``"hw"`` is the TPU's hardware PRNG."""
-    if rng_mode != "counter":
-        raise NotImplementedError(f"rng_mode {rng_mode!r} is not ported; use 'counter'")
-    return counter_uniform(key, shape, device=device)
+    """The U[0, 1) stochastic-rounding draw of ``shape`` under ``rng_mode``:
+    ``"counter"`` (the coordinate hash, per-layer keys over leading dims) or
+    ``"grid"`` (``jax.random.uniform``'s stream over the whole shape, the
+    draw of runs from before the counter draw). ``"hw"`` exists only inside
+    the update kernel and raises here, as any other mode does."""
+    if check_rng_mode(rng_mode) == "counter":
+        return counter_uniform(key, shape, device=device)
+    from .prng import uniform
+
+    return uniform(key, shape, device=device)
 
 
 def quantize(x: torch.Tensor, frac_bits, word_bits: int = WEIGHT_BITS, *,
@@ -196,7 +219,7 @@ def quantize(x: torch.Tensor, frac_bits, word_bits: int = WEIGHT_BITS, *,
              rng_mode: str = "counter") -> torch.Tensor:
     """Quantize float -> signed fixed-point int32 with saturation: round half
     to even (``torch.round``, like ``jnp.round``), or with ``stochastic``
-    ``floor(y + u)`` under the counter draw of ``key``."""
+    ``floor(y + u)`` under the ``rng_mode`` draw of ``key``."""
     scale = exp2i(frac_bits).to(x.device)
     y = x.to(torch.float32) * scale
     if stochastic:

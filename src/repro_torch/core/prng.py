@@ -10,8 +10,16 @@ Python ints.
 * ``fold_in(key, data)`` is ``threefry_2x32(key, [0, data])``;
 * ``counter_key_scalars(key)`` is the two words bitcast to int32 (what the
   update kernels take as their key words).
+
+``uniform(key, shape)`` is the one draw made on tensors: the stream of
+``jax.random.uniform(key, shape, float32)`` (the ``rng_mode="grid"``
+rounding draw), whose element at flat index ``n`` is a pure function of
+the key and ``n`` (JAX's partitionable threefry), so any window of it can
+be drawn alone.
 """
 from __future__ import annotations
+
+import torch
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -49,3 +57,44 @@ def fold_in(key: tuple, data: int) -> tuple:
 def counter_key_scalars(key: tuple) -> tuple:
     """The two key words bitcast to int32, as Python ints."""
     return tuple(w - (1 << 32) if w >= (1 << 31) else w for w in (key[0] & _MASK, key[1] & _MASK))
+
+
+# elements drawn per chunk: bounds the int64 temporaries of a draw over the
+# 256000 x 2048 embedding
+_CHUNK = 1 << 24
+
+
+def threefry2x32_lanes(key: tuple, x0: torch.Tensor, x1: torch.Tensor) -> tuple:
+    """``threefry2x32`` of every counter pair ``(x0, x1)``: int64 tensors of
+    uint32 values, with every sum and rotation masked back to 32 bits (torch
+    has no uint32 arithmetic). Returns the two int64 output words."""
+    k0, k1 = key[0] & _MASK, key[1] & _MASK
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0.add_(x1).bitwise_and_(_MASK)
+            x1 = ((x1 << r) | (x1 >> (32 - r))).bitwise_and_(_MASK).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_MASK)
+        x1.add_((ks[(i + 2) % 3] + i + 1) & _MASK).bitwise_and_(_MASK)
+    return x0, x1
+
+
+def uniform(key: tuple, shape: tuple, *, offset: int = 0, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` bit for bit, or the window
+    of that stream that starts at flat index ``offset`` (of a larger draw
+    under the same key). Element ``n`` is ``(b0 ^ b1) >> 9`` as the mantissa
+    of a float in [1, 2), minus 1 (multiples of 2^-23), with ``(b0, b1) =
+    threefry2x32(key, (n >> 32, n & 0xFFFFFFFF))``: JAX's
+    ``jax_threefry_partitionable`` stream. Drawn in chunks of 2^24
+    elements."""
+    shape = tuple(shape)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    flat = out.view(-1)
+    for s in range(0, flat.numel(), _CHUNK):
+        n = torch.arange(offset + s, offset + min(s + _CHUNK, flat.numel()), dtype=torch.int64, device=device)
+        b0, b1 = threefry2x32_lanes(key, n >> 32, n & _MASK)
+        bits = (b0.bitwise_xor_(b1) >> 9) | 0x3F800000
+        flat[s:s + n.numel()] = bits.to(torch.int32).view(torch.float32) - 1.0
+    return out

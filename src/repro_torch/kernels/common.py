@@ -22,6 +22,13 @@ def pick_block(dim: int, pref: int, granule: int = 128) -> int:
     return dim
 
 
+def hw_tiles(M: int, N: int) -> tuple[int, int]:
+    """The (bm, bn) tile of an ``[M, N]`` block that seeds the update's
+    ``"hw"`` draw: the reference kernel's default blocking
+    (``pick_block(M, 128)``, ``pick_block(N, 256)``)."""
+    return pick_block(M, 128), pick_block(N, 256)
+
+
 def layer_views(planes) -> list:
     """Each layer's ``[S, M, N]`` block of planes ``[S, *stack, M, N]``, as
     views in stack order. On the port's layer-major storage (``[*stack, S,

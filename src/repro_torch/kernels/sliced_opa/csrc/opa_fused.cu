@@ -2,8 +2,9 @@
 // Hopper (sm_90a), with a plain C interface for ctypes.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/sliced_opa/kernel.py::
-// opa_fused (body _opa_fused_kernel, with _deposit, the counter draw of
-// _block_noise, and the device physics of _global_coords/_stuck_masks):
+// opa_fused (body _opa_fused_kernel, with _deposit, the three rounding
+// sources of its finalize, and the device physics of
+// _global_coords/_stuck_masks):
 //   acc[m,n] = sum_t x[t,m] · dh[t,n]                        (f32)
 //   y        = acc · scale,  scale = -lr · 2^F               (f32, exact)
 //   DEV:  y  = y >= 0 ? y · asym_up : y · asym_down          (asymmetry)
@@ -12,15 +13,28 @@
 //   p_q      = sat_i32(clip(y, +-f32(2^31 - 1)))
 //   planes  <- deposit(planes, p_q)                          (deposit.cuh)
 //   DEV:  stuck digits keep their old value                  (deposit_stuck)
-// u and gauss are the counter draws of core.fixed_point at the GLOBAL (row,
-// col) (counter.cuh), under the rounding key words and the write-noise key
-// words, so no draw depends on the blocking. The kernel builds scale itself
-// from the host lr and the device frac_bits: nothing syncs. Every product
-// and sum of the finalize rounds on its own (__fmul_rn/__fadd_rn), as the
-// reference's source and its jnp oracle do; rintf rounds half to even like
-// jnp.round; __float2int_rz saturates 2^31 to INT32_MAX as XLA's convert
-// does. The ideal instances (DEV false) have none of the physics in their
-// code. Both bodies below share that finalize (update_of, then the deposit).
+// gauss is the counter draw of core.fixed_point at the GLOBAL (row, col)
+// (counter.cuh) under the write-noise key words; u is the rounding draw of
+// the launch's Rng under the rounding key words: the counter hash at (row,
+// col); "grid", jax.random.uniform's threefry stream at the flat index
+// offset + row·N + col of the leaf (the reference reads it as an [M, N] f32
+// input; here it is generated in place, and no draw crosses device memory);
+// or "hw", the port's Philox stream over the reference's tile grid in place
+// of the TPU's hardware PRNG. No draw depends on the CUDA blocking. The
+// source is a runtime field of the launch. The grid and hw draws are ~100
+// and ~40 integer operations a cell (threefry's 20 rounds; Philox's 10
+// shared by 4 cells), the counter hash ~10; they run out of line, one call
+// (far_u4) a group of 4 cells after the group's write noise. The
+// tensor-core body has an instance of its own for them (FAR), so that the
+// counter instance's finalize is the code it was, draw inline; the
+// CUDA-core body branches per group of 4 cells. The kernel builds scale itself from the
+// host lr and the device frac_bits: nothing syncs. Every product and sum of
+// the finalize rounds on its own (__fmul_rn/__fadd_rn), as the reference's
+// source and its jnp oracle do; rintf rounds half to even like jnp.round;
+// __float2int_rz saturates 2^31 to INT32_MAX as XLA's convert does. The
+// ideal instances (DEV false) have none of the physics in their code. Both
+// bodies below share that finalize (increment_of, the draw, update_of or
+// update_far, then the deposit).
 //
 // Two bodies compute the contraction; the gradient [M, N] never reaches
 // device memory in either.
@@ -82,6 +96,9 @@ namespace {
 
 constexpr int MAX_S = PANTHER_MAX_DEPOSIT_S;
 
+// the rounding source (kernel.py's _RNG_CODES)
+enum Rng { RNG_NONE = 0, RNG_COUNTER = 1, RNG_GRID = 2, RNG_HW = 3 };
+
 // a write-nonideal device model (DeviceModel's write fields)
 struct DeviceParams {
   int asym;                  // != 0: gain asym_up on y >= 0, asym_down on y < 0
@@ -98,7 +115,7 @@ struct OpaParams {
   const int* frac_bits;      // [1]
   float lr;
   int Tn, M, N;
-  int has_key, k0, k1;       // rounding: the counter draw under (k0, k1), else half to even
+  int rng, k0, k1;           // rounding: Rng's draw under (k0, k1); RNG_NONE half to even
   int vec;                   // plane rows move in whole words (the body's width)
   int ld16;                  // x and dh rows load in 16-byte chunks (mma body)
   DepositParams dp;
@@ -108,21 +125,74 @@ struct OpaParams {
   // no stuck cells) draws them and keeps nothing
   uint8_t* stuck_mask;
   int mask_mode;
+  // the grid and hw draws' fields come last: placed before dp and dv, they
+  // slowed the tensor-core body's device instance of the counter draw
+  unsigned long long offset; // RNG_GRID: flat index of the block's cell (0, 0) in its leaf
+  int hw_bm, hw_bn, hw_tn;   // RNG_HW: the tile (bm, bn) and N / bn
+  int hw4;                   // RNG_HW: bn % 4 == 0, so 4 aligned cells share one Philox block
 };
 
-// the update on the weight grid of one cell at global (r, c) from its f32 sum
+// the grid or hw draws of the 4 cells (r, c..c + 3), c % 4 == 0 (cells past
+// N are drawn and never deposited). Under RNG_HW with bn % 4 == 0 the 4
+// cells are 4 aligned cells of one tile: one Philox block. Not inlined: one
+// call a group of 4 cells, as the write noise's counter_gauss is one call
+// a cell.
+__device__ __noinline__ float4 far_u4(int r, int c, int rng, int k0, int k1, unsigned long long offset, int N,
+                                      int bm, int bn, int tn, int hw4) {
+  if (rng == RNG_GRID) {
+    const unsigned long long i = offset + (unsigned long long)r * N + c;
+    return make_float4(threefry_u01(k0, k1, i), threefry_u01(k0, k1, i + 1), threefry_u01(k0, k1, i + 2),
+                       threefry_u01(k0, k1, i + 3));
+  }
+  const int tile_r = (r / bm) * tn, e_r = (r % bm) * bn;
+  if (hw4) return hw_u01(k0, k1, tile_r + c / bn, (uint32_t)(e_r + c % bn) >> 2);
+  float u[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const int e = e_r + (c + b) % bn;
+    const float4 w = hw_u01(k0, k1, tile_r + (c + b) / bn, (uint32_t)e >> 2);
+    u[b] = (e & 3) == 0 ? w.x : (e & 3) == 1 ? w.y : (e & 3) == 2 ? w.z : w.w;
+  }
+  return make_float4(u[0], u[1], u[2], u[3]);
+}
+
+__device__ __forceinline__ float4 far_u4(int r, int c, const OpaParams& a) {
+  return far_u4(r, c, a.rng, a.k0, a.k1, a.offset, a.N, a.hw_bm, a.hw_bn, a.hw_tn, a.hw4);
+}
+
+__device__ __forceinline__ float nth(const float4& v, int b) {
+  return b == 0 ? v.x : b == 1 ? v.y : b == 2 ? v.z : v.w;
+}
+
+// the increment on the weight grid of one cell at global (r, c) from its
+// f32 sum, before the rounding: the scale, then the device's write physics
 template <bool DEV>
-__device__ __forceinline__ int update_of(float acc, float scale, int r, int c, const OpaParams& a) {
+__device__ __forceinline__ float increment_of(float acc, float scale, int r, int c, const OpaParams& a) {
   float y = __fmul_rn(acc, scale);
   if (DEV) {
     if (a.dv.asym) y = y >= 0.f ? __fmul_rn(y, a.dv.asym_up) : __fmul_rn(y, a.dv.asym_down);
     if (a.dv.write_noise > 0.f)
       y = __fadd_rn(y, __fmul_rn(a.dv.write_noise, counter_gauss(r, c, a.dv.nk0, a.dv.nk1)));
   }
-  y = a.has_key ? floorf(__fadd_rn(y, counter_u01(r, c, a.k0, a.k1))) : rintf(y);
+  return y;
+}
+
+__device__ __forceinline__ int saturated(float y) {
   y = fminf(fmaxf(y, -2147483648.f), 2147483648.f);
   return __float2int_rz(y);
 }
+
+// the update on the weight grid of one cell at global (r, c) from its f32
+// sum under RNG_COUNTER (the draw inline) or RNG_NONE
+template <bool DEV>
+__device__ __forceinline__ int update_of(float acc, float scale, int r, int c, const OpaParams& a) {
+  const float y = increment_of<DEV>(acc, scale, r, c, a);
+  return saturated(a.rng == RNG_COUNTER ? floorf(__fadd_rn(y, counter_u01(r, c, a.k0, a.k1))) : rintf(y));
+}
+
+// the update under RNG_GRID or RNG_HW from the increment y and its draw u
+// (far_u4): a body draws after the write noise of the 4 cells
+__device__ __forceinline__ int update_far(float y, float u) { return saturated(floorf(__fadd_rn(y, u))); }
 
 // the deposit of update q into the S digits p of the cell at global (r, c)
 template <bool DEV>
@@ -228,7 +298,19 @@ opa_fused_kernel(const OpaParams a) {
     }
     int q[TN];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) q[j] = update_of<DEV>(acc[i][j], scale, r, c0 + j, a);
+    for (int j4 = 0; j4 < TN; j4 += 4) {
+      if (a.rng >= RNG_GRID) {
+        float y[4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) y[b] = increment_of<DEV>(acc[i][j4 + b], scale, r, c0 + j4 + b, a);
+        const float4 u = far_u4(r, c0 + j4, a);  // past N: drawn, never deposited
+#pragma unroll
+        for (int b = 0; b < 4; ++b) q[j4 + b] = update_far(y[b], nth(u, b));
+      } else {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) q[j4 + b] = update_of<DEV>(acc[i][j4 + b], scale, r, c0 + j4 + b, a);
+      }
+    }
     if (a.vec && c0 + TN <= N) {
       int p[TN][MAX_S];
 #pragma unroll
@@ -351,7 +433,12 @@ __device__ __forceinline__ uint32_t& word_of(uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-template <bool DEV>
+// FAR: the instance of the grid and hw draws (far_u4), apart from the
+// counter one, whose finalize keeps the counter draw inline. A runtime
+// branch on the source in one instance spills at the 128-register cap of
+// the device instance and slows the counter instances (PERF.md, K1's
+// rounding sources).
+template <bool DEV, bool FAR>
 __global__ void __launch_bounds__(tc::THREADS, 2)
 opa_mma_kernel(const OpaParams a) {
   using namespace tc;
@@ -494,10 +581,17 @@ opa_mma_kernel(const OpaParams a) {
       for (int j4 = 0; j4 < SEG / 4; ++j4) {
         const float4 v = reinterpret_cast<const float4*>(cs + cs_at(lr, SEG * seg + 4 * j4))[0];
         const float vs[4] = {v.x, v.y, v.z, v.w};
+        float y[4];
+        float4 u;
+        if (FAR) {
+#pragma unroll
+          for (int b = 0; b < 4; ++b) y[b] = increment_of<DEV>(vs[b], scale, r, c + 4 * j4 + b, a);
+          u = far_u4(r, c + 4 * j4, a);
+        }
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
           const int j = 4 * j4 + b;
-          const int q = update_of<DEV>(vs[b], scale, r, c + j, a);
+          const int q = FAR ? update_far(y[b], nth(u, b)) : update_of<DEV>(vs[b], scale, r, c + j, a);
           int p[MAX_S];
 #pragma unroll
           for (int s = 0; s < MAX_S; ++s)
@@ -528,7 +622,10 @@ opa_mma_kernel(const OpaParams a) {
       if (stuck && a.mask_mode == 1) *reinterpret_cast<uint4*>(mrow) = keep;
     } else if (OPA_PART != 3) {
       for (int j = 0; j < SEG && c + j < N; ++j) {
-        const int q = update_of<DEV>(cs[cs_at(lr, SEG * seg + j)], scale, r, c + j, a);
+        const float acc = cs[cs_at(lr, SEG * seg + j)];
+        const int q = FAR ? update_far(increment_of<DEV>(acc, scale, r, c + j, a),
+                                       nth(far_u4(r, (c + j) & ~3, a), (c + j) & 3))
+                          : update_of<DEV>(acc, scale, r, c + j, a);
         int p[MAX_S];
 #pragma unroll
         for (int s = 0; s < MAX_S; ++s)
@@ -556,19 +653,19 @@ cudaError_t launch_fma(const OpaParams& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool DEV>
+template <bool DEV, bool FAR>
 cudaError_t launch_mma(const OpaParams& a, cudaStream_t stream) {
   const dim3 grid((a.N + tc::BN - 1) / tc::BN, (a.M + tc::BM - 1) / tc::BM);
-  cudaError_t err = cudaFuncSetAttribute(opa_mma_kernel<DEV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(opa_mma_kernel<DEV, FAR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          tc::SMEM);
   if (err != cudaSuccess) return err;
-  opa_mma_kernel<DEV><<<grid, tc::THREADS, tc::SMEM, stream>>>(a);
+  opa_mma_kernel<DEV, FAR><<<grid, tc::THREADS, tc::SMEM, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <bool DEV>
 cudaError_t launch_body(bool bf16, bool mma, const OpaParams& a, cudaStream_t stream) {
-  if (mma) return launch_mma<DEV>(a, stream);
+  if (mma) return a.rng >= RNG_GRID ? launch_mma<DEV, true>(a, stream) : launch_mma<DEV, false>(a, stream);
   return bf16 ? launch_fma<__nv_bfloat16, DEV>(a, stream) : launch_fma<float, DEV>(a, stream);
 }
 
@@ -578,23 +675,28 @@ cudaError_t launch_body(bool bf16, bool mma, const OpaParams& a, cudaStream_t st
 // dtype (bf16 != 0: bfloat16, else float32), frac_bits int32 [1], all
 // contiguous on the current device. mma != 0 runs the bf16 tensor-core body
 // (bf16 operands only), else the CUDA-core body. lr: the host learning rate
-// (the kernel folds -lr·2^F). has_key != 0 rounds stochastically under the
-// int32 key words (k0, k1); otherwise half to even. plane_max: host int[S];
-// lim: canonical_limit. vec != 0: planes 16-byte aligned with N % 16 == 0
-// (mma), 8-byte aligned with N % 8 == 0 (CUDA-core body). physics: NULL for
-// the ideal device, else host float[4] = (asym_up, asym_down, write_noise,
-// stuck_frac), with (nk0, nk1) the write-noise key words and stuck_words
-// host int[2·S] (w0_s, w1_s per slice). stuck_mask: uint8 [M, N] on the
+// (the kernel folds -lr·2^F). rng (enum Rng) != 0 rounds stochastically by
+// that draw under the int32 key words (k0, k1); 0 half to even. offset:
+// RNG_GRID's flat index of cell (0, 0); hw_bm, hw_bn: RNG_HW's tile, which
+// divides (M, N). plane_max: host int[S]; lim: canonical_limit. vec != 0:
+// planes 16-byte aligned with N % 16 == 0 (mma), 8-byte aligned with N % 8
+// == 0 (CUDA-core body). physics: NULL for the ideal device, else host
+// float[4] = (asym_up, asym_down, write_noise, stuck_frac), with (nk0, nk1)
+// the write-noise key words and stuck_words host int[2·S] (w0_s, w1_s per
+// slice). stuck_mask: uint8 [M, N] on the
 // device for the mma body's stuck cells, mask_mode 1 (write it) or 2 (read
 // it), else NULL and 0. Returns a cudaError_t (0 on success).
 extern "C" int panther_opa_fused(void* planes, const void* x, const void* dh, const void* frac_bits,
                                  float lr, int Tn, int M, int N, int S, const int* plane_max,
-                                 int lim, int bf16, int mma, int has_key, int k0, int k1, int vec,
+                                 int lim, int bf16, int mma, int rng, int k0, int k1,
+                                 unsigned long long offset, int hw_bm, int hw_bn, int vec,
                                  const float* physics, int nk0, int nk1, const int* stuck_words,
                                  void* stuck_mask, int mask_mode, void* stream) {
   if (S < 1 || S > MAX_S || Tn < 0 || M < 1 || N < 1 || (mma && !bf16)) return (int)cudaErrorInvalidValue;
   if (mask_mode < 0 || mask_mode > 2 || (mask_mode && (!mma || !stuck_mask))) return (int)cudaErrorInvalidValue;
   if ((M + 127) / 128 > 65535) return (int)cudaErrorInvalidValue;
+  if (rng < RNG_NONE || rng > RNG_HW) return (int)cudaErrorInvalidValue;
+  if (rng == RNG_HW && (hw_bm < 1 || hw_bn < 1 || M % hw_bm || N % hw_bn)) return (int)cudaErrorInvalidValue;
   OpaParams a;
   a.planes = static_cast<int8_t*>(planes);
   a.x = x;
@@ -604,9 +706,14 @@ extern "C" int panther_opa_fused(void* planes, const void* x, const void* dh, co
   a.Tn = Tn;
   a.M = M;
   a.N = N;
-  a.has_key = has_key;
+  a.rng = rng;
   a.k0 = k0;
   a.k1 = k1;
+  a.offset = offset;
+  a.hw_bm = rng == RNG_HW ? hw_bm : 1;
+  a.hw_bn = rng == RNG_HW ? hw_bn : 1;
+  a.hw_tn = N / a.hw_bn;
+  a.hw4 = a.hw_bn % 4 == 0;
   a.vec = vec;
   a.ld16 = M % 8 == 0 && N % 8 == 0 && (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dh)) % 16 == 0;
   a.dp.S = S;

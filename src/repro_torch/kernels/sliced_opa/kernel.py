@@ -5,21 +5,25 @@
   weight grid into one ``[S, M, N]`` block of digit planes, in place; its
   ``stuck`` instance then keeps a device model's stuck digits.
 * ``opa_fused`` (``csrc/opa_fused.cu``) forms ``xᵀdh`` tile by tile, scales
-  it by ``-lr · 2^F``, rounds it (the counter draw under key words, or half
-  to even) and deposits it in the same pass: the gradient never reaches
-  device memory. Its ``device`` instance adds a write-nonideal device
-  model's physics to the finalize: asymmetry, write noise, stuck cells. It
-  has two bodies with the same finalize, chosen by the operands' dtype
-  (``body_for``): bf16 operands (the training path) run on the bf16 tensor
-  cores (``mma.sync``), f32 operands on the CUDA cores (``fma``). Where
-  the f32 sums are exact, the two give the same bits.
+  it by ``-lr · 2^F``, rounds it (stochastically under key words, by the
+  draw of ``rng_mode``: the counter hash, the ``"grid"`` threefry stream
+  of ``jax.random.uniform`` or the ``"hw"`` Philox tile stream; or half to
+  even without) and deposits it in the same pass: the gradient never
+  reaches device memory, nor does any draw. Its ``device`` instance adds a
+  write-nonideal device model's physics to the finalize: asymmetry, write
+  noise, stuck cells. It has two bodies with the same finalize, chosen by
+  the operands' dtype (``body_for``): bf16 operands (the training path)
+  run on the bf16 tensor cores (``mma.sync``), f32 operands on the CUDA
+  cores (``fma``). Where the f32 sums are exact, the two give the same
+  bits.
 
 Each source says what bounds it. The libraries build at first use
 (``kernels.build``), never at import. The wrappers launch on the current
 stream and count their launches: ``launches`` over every instance, and
 ``instances`` by instance (``instance_name``: ``"ideal"``, ``"device"``,
-and ``"ideal_fma"``, ``"device_fma"`` for the CUDA-core body, for
-``opa_fused``; ``"ideal"``, ``"stuck"`` for ``opa_deposit``).
+with ``"_grid"``/``"_hw"`` for those draws and ``"_fma"`` for the
+CUDA-core body, for ``opa_fused``; ``"ideal"``, ``"stuck"`` for
+``opa_deposit``).
 """
 from __future__ import annotations
 
@@ -31,14 +35,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.core.fixed_point import device_pattern_words
+from repro_torch.core.fixed_point import RNG_MODES, check_rng_mode, device_pattern_words
 from repro_torch.core.slicing import SliceSpec
 from repro_torch.kernels import build as _build
+from repro_torch.kernels.common import hw_tiles
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"opa_deposit": [CSRC / "opa_deposit.cu"], "opa_fused": [CSRC / "opa_fused.cu"]}
 MAX_SLICES = 8  # canonical_limit fits int32
 _OPERAND_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_RNG_CODES = {mode: 1 + i for i, mode in enumerate(RNG_MODES)}  # opa_fused.cu's Rng; 0: half to even
 
 
 def body_for(dtype: torch.dtype) -> str:
@@ -53,10 +59,13 @@ def body_for(dtype: torch.dtype) -> str:
     raise ValueError(f"opa_fused takes float32 or bfloat16 operands, got {dtype}")
 
 
-def instance_name(dev: bool, body: str) -> str:
+def instance_name(dev: bool, body: str, rng_mode: str = "counter") -> str:
     """The key of a K1 launch in ``opa_fused.instances``: ``"ideal"`` or
-    ``"device"``, with ``"_fma"`` for the CUDA-core body."""
-    return ("device" if dev else "ideal") + ("_fma" if body == "fma" else "")
+    ``"device"``, then ``"_grid"`` or ``"_hw"`` for those rounding draws
+    (the counter draw and half to even keep the bare name), then ``"_fma"``
+    for the CUDA-core body."""
+    draw = "" if rng_mode == "counter" else "_" + rng_mode
+    return ("device" if dev else "ideal") + draw + ("_fma" if body == "fma" else "")
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,9 +85,9 @@ def _bind(path, name: str):
     else:
         fn = lib.panther_opa_fused
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                                     ctypes.c_void_p]
+            ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_ulonglong] + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -148,14 +157,17 @@ def opa_deposit(planes: torch.Tensor, p_q: torch.Tensor, *, spec: SliceSpec, stu
 
 
 def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float,
-              frac_bits: torch.Tensor, *, spec: SliceSpec, key_words=None, dev=None,
-              noise_words=None, body=None) -> torch.Tensor:
+              frac_bits: torch.Tensor, *, spec: SliceSpec, key_words=None, rng_mode: str = "counter",
+              offset: int = 0, dev=None, noise_words=None, body=None) -> torch.Tensor:
     """planes int8 [S, M, N] updated in place by ``-lr · xᵀdh`` on the
     ``2^-F`` grid; x [T, M] and dh [T, N] contiguous f32 or bf16 (one
     dtype); frac_bits a 1-element int32 tensor read on the device; lr a host
-    float; key_words None (round half to even) or two int32 Python ints
-    (stochastic rounding by the counter draw). ``dev``: None for the ideal
-    instance, or a write-nonideal DeviceModel for the device instance, with
+    float; key_words None (round half to even) or two int32 Python ints,
+    the key of the stochastic rounding's ``rng_mode`` draw: ``"counter"``,
+    ``"grid"`` (at flat index ``offset + row·N + col``: ``offset`` is the
+    block's first element in its leaf) or ``"hw"`` (``ref.hw_uniform_ref``);
+    the plain version of each draw is ``ref.rounding_u``. ``dev``: None for
+    the ideal instance, or a write-nonideal DeviceModel for the device instance, with
     ``noise_words`` the write-noise key words when ``dev.write_noise > 0``.
     ``body``: None takes ``body_for(x.dtype)``; ``"fma"`` runs the CUDA-core
     body on either dtype (the same-work yardstick); ``"mma"`` takes bf16
@@ -182,9 +194,15 @@ def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float
         raise ValueError("the device instance takes a write-nonideal DeviceModel (None for the ideal one)")
     if dev is not None and dev.write_noise > 0.0 and noise_words is None:
         raise ValueError("DeviceModel.write_noise requires write-noise key words")
+    check_rng_mode(rng_mode, plain=False)
+    if not (0 <= offset and offset + M * N <= 2**64):
+        raise ValueError(f"opa_fused grid offset {offset} out of the 64-bit counter range")
     if M == 0 or N == 0:
         return planes
     k0, k1 = (0, 0) if key_words is None else key_words
+    rng = 0 if key_words is None else _RNG_CODES[rng_mode]
+    bm, bn = hw_tiles(M, N) if rng == _RNG_CODES["hw"] else (0, 0)
+    offset = offset if rng == _RNG_CODES["grid"] else 0
     physics = stuck = None
     nk0 = nk1 = 0
     if dev is not None:
@@ -205,13 +223,13 @@ def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float
             mask = torch.empty((M, N), dtype=torch.uint8, device=planes.device)
     _launch("opa_fused", planes, planes.data_ptr(), x.data_ptr(), dh.data_ptr(), frac_bits.data_ptr(),
             float(np.float32(lr)), x.shape[0], M, N, S, _ptr(_plane_max(spec)), spec.canonical_limit,
-            _OPERAND_DTYPES[x.dtype], int(body == "mma"), int(key_words is not None), k0, k1, vec,
+            _OPERAND_DTYPES[x.dtype], int(body == "mma"), rng, k0, k1, offset, bm, bn, vec,
             _ptr(physics), nk0, nk1, _ptr(stuck), None if mask is None else mask.data_ptr(),
             0 if mask is None else 1 if fresh else 2)
     if fresh:  # written by this launch, in stream order before any later one
         _STUCK_BITS[key] = mask
     opa_fused.launches += 1
-    opa_fused.instances[instance_name(dev is not None, body)] += 1
+    opa_fused.instances[instance_name(dev is not None, body, rng_mode if rng else "counter")] += 1
     return planes
 
 

@@ -8,10 +8,15 @@ The planes are updated in place on both (the reference returns new arrays):
 one resident copy of the ~20 GB plane state of gemma-2b.
 
 Planes are ``[S, *stack, M, N]`` with layer-major storage (see
-``optim.panther``). A stacked leaf updates layer by layer, and layer ``l``
-draws its rounding noise under ``fold_in(key, l)``: the derivation of the
-dense path's ``counter_uniform``, so both pipelines draw the same bits. Keys
-are host words (``core.prng``).
+``optim.panther``). A stacked leaf updates layer by layer. Under the counter
+draw (``rng_mode="counter"``) layer ``l`` draws its rounding noise under
+``fold_in(key, l)``: the derivation of the dense path's ``counter_uniform``,
+so both pipelines draw the same bits. Under ``"grid"`` the leaf draws one
+``jax.random.uniform`` stream under its key, layer ``l`` from flat offset
+``l·M·N``, as the dense path's ``quantize`` does. ``"hw"`` (the kernel's
+Philox tile stream, keyed per layer like counter) runs on CUDA planes only:
+on CPU planes it raises, as the reference's CPU path does. Keys are host
+words (``core.prng``).
 
 A write-nonideal ``DeviceModel`` (``device``) adds its physics to the
 update: asymmetry and write noise before the rounding, the stuck-cell mask
@@ -23,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.fixed_point import WRITE_NOISE_FOLD, exp2i
+from repro_torch.core.fixed_point import WRITE_NOISE_FOLD, check_rng_mode, exp2i
 from repro_torch.core.prng import fold_in
 from repro_torch.core.slicing import SliceSpec
 from repro_torch.kernels.common import layer_views
@@ -43,11 +48,13 @@ def _normalize_device(device):
     return device
 
 
-def _check_keys(device, stochastic: bool, key, rng_mode: str) -> None:
+def _check_keys(device, stochastic: bool, key, rng_mode: str, *, plain: bool) -> None:
+    """The keys the update needs, and its rounding draw: with ``plain`` one
+    that has a plain draw (``check_rng_mode``)."""
     if stochastic and key is None:
         raise ValueError("stochastic rounding requires a PRNG key")
-    if stochastic and rng_mode != "counter":
-        raise NotImplementedError(f"rng_mode {rng_mode!r} is not ported; use 'counter'")
+    if stochastic:
+        check_rng_mode(rng_mode, plain=plain)
     if device is not None and device.write_noise > 0.0 and key is None:
         raise ValueError("DeviceModel.write_noise requires a PRNG key")
 
@@ -73,19 +80,22 @@ def opa_deposit(planes: torch.Tensor, p_q: torch.Tensor, spec: SliceSpec, *, stu
 
 
 def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float, frac_bits,
-              spec: SliceSpec, *, key_words=None, device=None, noise_words=None) -> torch.Tensor:
+              spec: SliceSpec, *, key_words=None, rng_mode: str = "counter", offset: int = 0, device=None,
+              noise_words=None) -> torch.Tensor:
     """One ``[S, M, N]`` block: ``planes <- deposit(planes, q(-lr · xᵀdh ·
-    2^F))``, in place; ``key_words``, ``device`` and ``noise_words`` as in
-    ``kernel.opa_fused``."""
+    2^F))``, in place; ``key_words``, ``rng_mode``, ``offset``, ``device``
+    and ``noise_words`` as in ``kernel.opa_fused``."""
     device = _normalize_device(device)
+    if key_words is not None:
+        check_rng_mode(rng_mode, plain=not planes.is_cuda)
     if planes.is_cuda:
         frac = torch.as_tensor(frac_bits, dtype=torch.int32, device=planes.device).reshape(1)
-        return _k.opa_fused(planes, x.contiguous(), dh.contiguous(), lr, frac, spec=spec,
-                            key_words=key_words, dev=device, noise_words=noise_words)
+        return _k.opa_fused(planes, x.contiguous(), dh.contiguous(), lr, frac, spec=spec, key_words=key_words,
+                            rng_mode=rng_mode, offset=offset, dev=device, noise_words=noise_words)
     if planes.device.type != "cpu":
         raise ValueError(f"no OPA implementation for device {planes.device}")
-    return planes.copy_(_ref.opa_fused_ref(planes, x, dh, lr, frac_bits, spec, key_words, device,
-                                           noise_words))
+    return planes.copy_(_ref.opa_fused_ref(planes, x, dh, lr, frac_bits, spec, key_words, device, noise_words,
+                                           rng_mode=rng_mode, offset=offset))
 
 
 def opa_fused_update(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float,
@@ -93,20 +103,19 @@ def opa_fused_update(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr
                      rng_mode: str = "counter", device=None) -> torch.Tensor:
     """The PANTHER update from gradient operands: planes ``[S, *stack, M,
     N]``, x ``[*stack, T, M]``, dh ``[*stack, T, N]``; ``lr`` a host float;
-    ``key`` a host key (``core.prng``); ``device`` a DeviceModel or None.
-    In place; returns ``planes``. The write noise applies under
-    deterministic rounding too. Only the counter draw is ported:
-    ``rng_mode`` ``"grid"``/``"hw"`` raise."""
+    ``key`` a host key (``core.prng``); ``rng_mode`` the rounding draw
+    (module docstring); ``device`` a DeviceModel or None. In place; returns
+    ``planes``. The write noise applies under deterministic rounding too."""
     device = _normalize_device(device)
-    _check_keys(device, stochastic, key, rng_mode)
+    _check_keys(device, stochastic, key, rng_mode, plain=not planes.is_cuda)
     stacked = planes.dim() > 3
     M, N = planes.shape[-2:]
     x3 = x.reshape(-1, x.shape[-2], M)
     dh3 = dh.reshape(-1, dh.shape[-2], N)
     dk = fold_in(key, WRITE_NOISE_FOLD) if device is not None and device.write_noise > 0.0 else None
     for l, block in enumerate(layer_views(planes)):
-        opa_fused(block, x3[l], dh3[l], lr, frac_bits, spec,
-                  key_words=_ref.layer_key_words(key if stochastic else None, l, stacked),
+        words, offset = _ref.layer_rounding(key if stochastic else None, l, stacked, rng_mode, M, N)
+        opa_fused(block, x3[l], dh3[l], lr, frac_bits, spec, key_words=words, rng_mode=rng_mode, offset=offset,
                   device=device, noise_words=_ref.layer_key_words(dk, l, stacked))
     return planes
 
@@ -118,12 +127,13 @@ def opa_device_update(planes: torch.Tensor, g: torch.Tensor, lr: float, frac_bit
     deposit, stuck mask) on a materialized gradient ``g`` ``[*stack, M,
     N]``, for the plan leaves whose gradient is dense (the embedding, the
     norm-scale stacks). The finalize is plain elementwise PyTorch, as the
-    reference's is jnp, run in row chunks at global row coordinates; the
-    deposit and the stuck mask are the deposit kernel's, in place.
-    Returns ``planes``."""
+    reference's is jnp, run in row chunks at global row coordinates (under
+    ``"grid"``, at flat offset ``(l·M + r0)·N``); the deposit and the stuck
+    mask are the deposit kernel's, in place. ``"hw"`` has no dense draw and
+    raises, as in the reference. Returns ``planes``."""
     if not device.writes_nonideal():
         raise ValueError("opa_device_update takes a write-nonideal DeviceModel")
-    _check_keys(device, stochastic, key, rng_mode)
+    _check_keys(device, stochastic, key, rng_mode, plain=True)
     stacked = planes.dim() > 3
     M, N = planes.shape[-2:]
     g3 = g.reshape(-1, M, N)
@@ -132,11 +142,12 @@ def opa_device_update(planes: torch.Tensor, g: torch.Tensor, lr: float, frac_bit
     rows = max(1, _ROW_CHUNK // max(N, 1))
     for l, block in enumerate(layer_views(planes)):
         noise_words = _ref.layer_key_words(dk, l, stacked)
-        key_words = _ref.layer_key_words(key if stochastic else None, l, stacked)
+        words, offset = _ref.layer_rounding(key if stochastic else None, l, stacked, rng_mode, M, N)
         p_q = torch.empty((M, N), dtype=torch.int32, device=planes.device)
         for r0 in range(0, M, rows):
             y = g3[l, r0:r0 + rows].to(torch.float32) * scale
-            p_q[r0:r0 + rows] = _ref.write_rows(y, device, r0, noise_words, key_words)
+            p_q[r0:r0 + rows] = _ref.write_rows(y, device, r0, noise_words, words, rng_mode=rng_mode,
+                                                offset=offset)
         opa_deposit(block, p_q, spec, stuck=device)
         del p_q
     return planes

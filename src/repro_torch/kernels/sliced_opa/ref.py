@@ -9,7 +9,10 @@ physical order: ``y = acc · (-lr · 2^F)``; with a device model the
 asymmetry gain on the sign of ``y`` and the write noise ``σ_w · gauss(r,
 c)``; then ``floor(y + u)`` under key words or ``round(y)`` without,
 saturation to int32, the digit deposit, and last the stuck-cell mask (stuck
-cells keep their old digit). Each product and sum rounds to f32 on its own,
+cells keep their old digit). ``u`` is the draw of ``rng_mode``
+(``rounding_u``): the counter hash at (row, col), the ``"grid"`` stream of
+``jax.random.uniform`` at the flat index, or the ``"hw"`` Philox stream of
+the port's kernel (``hw_uniform_ref``). Each product and sum rounds to f32 on its own,
 as in the reference's source and its jnp oracle. The CPU tests run these
 versions, and ``chip_smoke.py`` holds the CUDA kernels against them on the
 card.
@@ -20,8 +23,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.fixed_point import (
+    _U24,
     WRITE_NOISE_FOLD,
     _f32_to_i32,
+    check_rng_mode,
+    _fmix32,
     counter_gauss,
     counter_u01,
     device_pattern_words,
@@ -29,8 +35,11 @@ from repro_torch.core.fixed_point import (
     quantize,
 )
 from repro_torch.core.opa import opa_batched
-from repro_torch.core.prng import counter_key_scalars, fold_in
+from repro_torch.core.prng import counter_key_scalars, fold_in, uniform
 from repro_torch.core.slicing import SliceSpec
+from repro_torch.kernels.common import hw_tiles
+
+_MASK = 0xFFFFFFFF
 
 
 def opa_deposit_ref(planes, p_q, spec: SliceSpec):
@@ -53,12 +62,72 @@ def _coords(r0: int, rows: int, cols: int, device):
     return r, c
 
 
-def write_rows(y: torch.Tensor, device, r0: int = 0, noise_words=None, key_words=None) -> torch.Tensor:
+def _mulhilo(a: int, b: torch.Tensor) -> tuple:
+    """(hi, lo) words of the 64-bit product of the constant ``a`` and the
+    uint32 values ``b`` (int64 lanes), in 16-bit halves: ``a · b`` itself
+    would overflow int64."""
+    t = a * (b & 0xFFFF)
+    u = a * (b >> 16) + (t >> 16)
+    return u >> 16, ((u & 0xFFFF) << 16) | (t & 0xFFFF)
+
+
+def philox4x32_10(ctr: tuple, k0, k1) -> tuple:
+    """Philox4x32-10 (Random123's constants) of the four counter words
+    ``ctr`` under key ``(k0, k1)``, uint32 values in int64 lanes (tensors or
+    ints): ``philox4x32_10`` of ``counter.cuh``."""
+    c0, c1, c2, c3 = ctr
+    for i in range(10):
+        if i > 0:
+            k0, k1 = (k0 + 0x9E3779B9) & _MASK, (k1 + 0xBB67AE85) & _MASK
+        hi0, lo0 = _mulhilo(0xD2511F53, c0)
+        hi1, lo1 = _mulhilo(0xCD9E8D57, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def hw_uniform_ref(k0: int, k1: int, M: int, N: int, device=None) -> torch.Tensor:
+    """The ``"hw"`` draw of an ``[M, N]`` block under the int32 key words
+    ``(k0, k1)``, f32 ``[M, N]``: tile ``tid = (r // bm)·(N // bn) + c // bn``
+    (``hw_tiles``) seeds Philox4x32-10 with key ``(fmix32(k0 ^ fmix32(k1 ^
+    tid)), 0)``; the in-tile cell ``e = (r % bm)·bn + c % bn`` takes word
+    ``e % 4`` of counter ``(e // 4, 0, 0, 0)``, as ``(word >> 8) · 2^-24``.
+    ``hw_u01`` of ``counter.cuh``, bit for bit."""
+    bm, bn = hw_tiles(M, N)
+    r = torch.arange(M, dtype=torch.int32, device=device)[:, None]
+    c = torch.arange(N, dtype=torch.int32, device=device)[None, :]
+    tid = (r // bm) * (N // bn) + c // bn
+    seed = _fmix32(k0 ^ _fmix32(tid ^ k1)).to(torch.int64) & _MASK
+    e = ((r % bm) * bn + c % bn).to(torch.int64)
+    zero = torch.zeros_like(e)
+    words = philox4x32_10((e >> 2, zero, zero, zero), seed, 0)
+    w = (e & 3).expand(M, N)
+    word = torch.where(w == 0, words[0], torch.where(w == 1, words[1], torch.where(w == 2, words[2], words[3])))
+    return (word >> 8).to(torch.float32) * _U24
+
+
+def rounding_u(key_words, rng_mode: str, r0: int, rows: int, N: int, *, offset: int = 0, M=None,
+               device=None) -> torch.Tensor:
+    """The U[0, 1) rounding draw of rows ``r0..r0 + rows`` of an ``[M, N]``
+    block (``M`` defaults to ``r0 + rows``) under the int32 key words:
+    ``"counter"`` the hash at (row, col); ``"grid"`` ``jax.random.uniform``'s
+    stream at flat index ``offset + row·N + col`` (``offset`` the block's
+    first element in its leaf); ``"hw"`` ``hw_uniform_ref``'s tile stream."""
+    if check_rng_mode(rng_mode, plain=False) == "hw":
+        return hw_uniform_ref(*key_words, r0 + rows if M is None else M, N, device)[r0:r0 + rows]
+    if rng_mode == "grid":
+        return uniform(key_words, (rows, N), offset=offset + r0 * N, device=device)
+    r, c = _coords(r0, rows, N, device)
+    return counter_u01(r, c, *key_words)
+
+
+def write_rows(y: torch.Tensor, device, r0: int = 0, noise_words=None, key_words=None, *,
+               rng_mode: str = "counter", offset: int = 0, M=None) -> torch.Tensor:
     """The update's finalize before the deposit, on rows ``r0..`` of one
     ``[M, N]`` block: ``y`` f32 ``[rows, N]`` the grid-scaled increment;
     ``device`` a DeviceModel or None; ``noise_words`` / ``key_words`` the
     int32 key words of the write noise / the rounding draw (None: no noise /
-    round half to even) -> int32 ``[rows, N]``."""
+    round half to even), the draw ``rounding_u``'s of ``rng_mode``,
+    ``offset`` and ``M`` -> int32 ``[rows, N]``."""
     r, c = _coords(r0, *y.shape, y.device)
     if device is not None and (device.asym_up != 1.0 or device.asym_down != 1.0):
         y = torch.where(y >= 0.0, y * _f32(device.asym_up), y * _f32(device.asym_down))
@@ -67,7 +136,7 @@ def write_rows(y: torch.Tensor, device, r0: int = 0, noise_words=None, key_words
             raise ValueError("DeviceModel.write_noise requires a PRNG key")
         y = y + counter_gauss(r, c, *noise_words) * _f32(device.write_noise)
     if key_words is not None:
-        y = torch.floor(y + counter_u01(r, c, *key_words))
+        y = torch.floor(y + rounding_u(key_words, rng_mode, r0, *y.shape, offset=offset, M=M, device=y.device))
     else:
         y = torch.round(y)
     lim = float(2**31 - 1)
@@ -119,13 +188,27 @@ def layer_key_words(key, l: int, stacked: bool):
     return None if key is None else counter_key_scalars(fold_in(key, l) if stacked else key)
 
 
+def layer_rounding(key, l: int, stacked: bool, rng_mode: str, M: int, N: int) -> tuple:
+    """``(key_words, offset)`` of layer ``l``'s rounding draw, for ``[M, N]``
+    layers: ``"grid"`` draws one stream over the whole leaf, so every layer
+    takes the leaf key and starts at flat offset ``l·M·N``; ``"counter"``
+    and ``"hw"`` key each layer of a stack by ``fold_in(key, l)``.
+    ``(None, 0)`` without a key (round half to even)."""
+    if key is None:
+        return None, 0
+    if rng_mode == "grid":
+        return counter_key_scalars(key), l * M * N
+    return layer_key_words(key, l, stacked), 0
+
+
 def write_device(y: torch.Tensor, device, *, key, stochastic: bool, rng_mode: str = "counter") -> torch.Tensor:
     """Asymmetry, write noise and the rounding on the grid-scaled increment
     ``y`` ``[*stack, M, N]`` -> int32: layer ``l`` of a stack draws its
     noise under ``fold_in(fold_in(key, WRITE_NOISE_FOLD), l)`` and its
-    rounding under ``fold_in(key, l)``."""
-    if stochastic and rng_mode != "counter":
-        raise NotImplementedError(f"rng_mode {rng_mode!r} is not ported; use 'counter'")
+    rounding as ``layer_rounding`` says. ``"hw"`` has no plain draw here and
+    raises, as the reference's ``rounding_noise`` does."""
+    if stochastic:
+        check_rng_mode(rng_mode)
     if (stochastic or device.write_noise > 0.0) and key is None:
         raise ValueError("stochastic rounding and DeviceModel.write_noise require a PRNG key")
     M, N = y.shape[-2:]
@@ -134,22 +217,24 @@ def write_device(y: torch.Tensor, device, *, key, stochastic: bool, rng_mode: st
     dk = fold_in(key, WRITE_NOISE_FOLD) if device.write_noise > 0.0 else None
     out = torch.empty(y3.shape, dtype=torch.int32, device=y.device)
     for l in range(y3.shape[0]):
-        out[l] = write_rows(y3[l], device, 0, layer_key_words(dk, l, stacked),
-                            layer_key_words(key if stochastic else None, l, stacked))
+        words, offset = layer_rounding(key if stochastic else None, l, stacked, rng_mode, M, N)
+        out[l] = write_rows(y3[l], device, 0, layer_key_words(dk, l, stacked), words, rng_mode=rng_mode,
+                            offset=offset)
     return out.reshape(y.shape)
 
 
 def opa_fused_ref(planes, x, dh, lr, frac_bits, spec: SliceSpec, key_words=None, device=None,
-                  noise_words=None):
+                  noise_words=None, *, rng_mode: str = "counter", offset: int = 0):
     """planes int8 [S, M, N]; x [T, M] and dh [T, N] (any float dtype);
     ``lr`` a host float; ``frac_bits`` the weight grid exponent F;
-    ``key_words`` None (round half to even) or two int32 Python ints (the
-    counter draw at global (row, col)); ``device`` a write-nonideal
+    ``key_words`` None (round half to even) or two int32 Python ints, the
+    key of the ``rng_mode`` draw (``rounding_u``; ``offset`` the block's
+    flat offset in its leaf under ``"grid"``); ``device`` a write-nonideal
     DeviceModel or None, with ``noise_words`` the write-noise key words ->
     new int8 planes [S, M, N]."""
     acc = x.to(torch.float32).T @ dh.to(torch.float32)
     scale = exp2i(torch.as_tensor(frac_bits, dtype=torch.int32)).to(acc.device) * -_lr32(lr)
-    p_q = write_rows(acc * scale, device, 0, noise_words, key_words)
+    p_q = write_rows(acc * scale, device, 0, noise_words, key_words, rng_mode=rng_mode, offset=offset)
     if device is not None and device.stuck_frac > 0.0:
         return deposit_keep_ref(planes, p_q, stuck_bits_ref(device, spec, *acc.shape, acc.device), spec)
     return opa_batched(planes, p_q, spec)
@@ -158,10 +243,12 @@ def opa_fused_ref(planes, x, dh, lr, frac_bits, spec: SliceSpec, key_words=None,
 def opa_fused_update_ref(planes, x, dh, lr, frac_bits, spec: SliceSpec, *,
                          stochastic: bool = False, key=None, rng_mode: str = "counter", device=None):
     """The whole update on any stack: ``opa_batched(planes, q(-lr · xᵀdh))``
-    with the contraction in f32, the counter draw of ``key`` (per-layer
-    ``fold_in(key, l)`` over the stack) and, with a write-nonideal
-    ``device``, its physics (``write_device``, then the stuck mask).
-    planes [S, *stack, M, N]; x [*stack, T, M]; dh [*stack, T, N]."""
+    with the contraction in f32, the ``rng_mode`` draw of ``key`` (counter:
+    per-layer ``fold_in(key, l)`` over the stack; grid: one stream over the
+    whole leaf; hw raises ``ValueError``, as the reference's CPU path does)
+    and, with a write-nonideal ``device``, its physics (``write_device``,
+    then the stuck mask). planes [S, *stack, M, N]; x [*stack, T, M]; dh
+    [*stack, T, N]."""
     g = torch.einsum("...tm,...tn->...mn", x.to(torch.float32), dh.to(torch.float32))
     if device is None or not device.writes_nonideal():
         upd = quantize(-_lr32(lr) * g, frac_bits, stochastic=stochastic, key=key, rng_mode=rng_mode)

@@ -7,18 +7,21 @@ and store alone. This script builds the four (one ``nvcc`` each, all
 started together) and times each body (``mma``, ``fma``) and instance
 (ideal, device) at the largest operand block of gemma-2b's training step,
 ``mlp/wi_gate`` (M 2048, N 16384, T 256, bf16 operands), with the device
-model of ``chip_smoke.py``'s device phase, and then the whole device
-instance of each body with one write-physics field at a time. The parts'
-numbers are timings only: their planes are not a valid update.
+model of ``chip_smoke.py``'s device phase, under each rounding draw asked
+for (``--rng``: the counter draw by default; ``grid`` at layer 17's offset,
+``hw``), and then the whole device instance of each body with one
+write-physics field at a time. The parts' numbers are timings only: their
+planes are not a valid update.
 
 Usage, on a machine with the card: ``PYTHONPATH=src python -m
-repro_torch.kernels.sliced_opa.split [--bodies mma,fma]``.
+repro_torch.kernels.sliced_opa.split [--bodies mma,fma] [--rng counter,grid,hw]``.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import time
 
@@ -37,24 +40,30 @@ DEVICE = {k: v for kw in PHYSICS.values() for k, v in kw.items()}
 
 
 def build_parts() -> dict:
-    """{part: library path}, built together."""
+    """{part: library path}, built together; a part built from the same
+    sources before is reused."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src = KO.SOURCES["opa_fused"][0]
-    procs = {}
+    procs, out = {}, {}
     for part in PARTS:
-        path = _build.BUILD_DIR / f"libopa_fused_part{part}.so"
-        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, f"-DOPA_PART={part}", "-o", str(path), str(src)]
-        procs[part] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), path)
-    out = {}
-    for part, (proc, path) in procs.items():
+        path = _build._target(f"opa_fused_part{part}", [src])
+        if path.exists():
+            out[part] = path
+            continue
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")  # renamed once built, as build.py does
+        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, f"-DOPA_PART={part}", "-o", str(tmp), str(src)]
+        procs[part] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), path, tmp)
+    for part, (proc, path, tmp) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed building part {part}:\n{log}")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            # each function's name, then its spills and registers
+            if any(k in line for k in ("Function properties", "registers", "spill")):
                 print(f"  part {part} ptxas: {line.strip()}")
+        os.replace(tmp, path)
         out[part] = path
-    return out
+    return dict(sorted(out.items()))
 
 
 @contextlib.contextmanager
@@ -85,6 +94,7 @@ def time_ms(fn, reps: int = 10) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bodies", default="mma,fma", help="comma-separated K1 bodies to time")
+    ap.add_argument("--rng", default="counter", help="comma-separated rounding draws to time (counter, grid, hw)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("split.py needs an NVIDIA card")
@@ -99,16 +109,18 @@ def main() -> int:
     dh = (torch.randn((T, N), generator=g, device="cuda") * 1e-3).to(torch.bfloat16)
     dev = DeviceModel(**DEVICE)
     rows = []
-    for body in args.bodies.split(","):
-        for d in (None, dev):
-            for part, path in libs.items():
-                with using(path):
-                    ms = time_ms(lambda: KO.opa_fused(planes, x, dh, 3e-2, frac, spec=DEFAULT_SPEC,
-                                                      key_words=(1, 2), dev=d, noise_words=(3, 4), body=body))
-                rows.append({"body": body, "instance": KO.instance_name(d is not None, body), "part": PARTS[part],
-                             "ms": ms})
-                print(f"  {body} {KO.instance_name(d is not None, body):10s} {PARTS[part]:9s} "
-                      f"M={M} N={N} T={T}: {ms:.4f} ms", flush=True)
+    for rng in args.rng.split(","):
+        offset = 17 * M * N if rng == "grid" else 0
+        for body in args.bodies.split(","):
+            for d in (None, dev):
+                name = KO.instance_name(d is not None, body, rng)
+                for part, path in libs.items():
+                    with using(path):
+                        ms = time_ms(lambda: KO.opa_fused(planes, x, dh, 3e-2, frac, spec=DEFAULT_SPEC,
+                                                          key_words=(1, 2), rng_mode=rng, offset=offset, dev=d,
+                                                          noise_words=(3, 4), body=body))
+                    rows.append({"body": body, "instance": name, "part": PARTS[part], "ms": ms})
+                    print(f"  {body} {name:15s} {PARTS[part]:9s} M={M} N={N} T={T}: {ms:.4f} ms", flush=True)
     for body in args.bodies.split(","):
         for name, kw in PHYSICS.items():
             d = DeviceModel(**kw)

@@ -3,7 +3,7 @@ tree into int8 digit planes, reading it back, the fidelity wraps for serving
 (``fidelitize``) and training (``operandize``), and the split-state update.
 
 The update quantizes ``-lr · grad`` onto each leaf's ``2^-F`` grid with
-counter-hash stochastic rounding and deposits it into the planes:
+stochastic rounding (the ``rng_mode`` draw) and deposits it into the planes:
 operand-form gradients through the fused update kernel (``opa_fused``),
 dense gradients through ``quantize`` and the deposit kernel
 (``opa_deposit``). Every ``crs_every`` steps the CRS kernel canonicalizes
@@ -14,8 +14,7 @@ update makes no device sync.
 A leaf whose plan carries a write-nonideal ``DeviceModel`` writes through
 its physics: operand leaves in the fused update kernel, dense-gradient
 leaves through ``opa_device_update``. Not ported yet: momentum (and
-Tiki-Taka), the ``"grid"``/``"hw"`` rounding draws, and the
-``im2col``/``expert`` operand kinds; each raises.
+Tiki-Taka) and the ``im2col``/``expert`` operand kinds; each raises.
 
 Layout: a ``SlicedTensor``'s planes are ``[S, *stack, M, N]`` as in the
 reference, but a stacked leaf's storage is laid out ``[*stack, S, M, N]``
@@ -60,7 +59,11 @@ class PantherConfig:
     variant: str = "v2"  # informational: v1 (SGD), v2 (mini-batch), v3 (large-batch)
     margin_bits: int = 2  # headroom when choosing the per-tensor scale
     compute_dtype: Any = torch.float32
-    rng_mode: str = "counter"  # the stochastic-rounding draw; only "counter" is ported
+    # the stochastic-rounding draw: "counter" (coordinate hash), "grid" (the
+    # jax.random.uniform stream of runs from before the counter draw), or
+    # "hw" (the update kernel's own Philox stream, on the card only; dense
+    # leaves then take "counter", as in the reference)
+    rng_mode: str = "counter"
 
 
 class SlicedTensor(NamedTuple):
@@ -201,8 +204,10 @@ def update_split(grads, digital, sliced, step: int, lr: float, cfg: PantherConfi
     (``core.prng``, default ``PRNGKey(0)``). Leaf ``i`` of the gradient tree
     in the reference's order (``jax.tree.flatten``: dict keys sorted, an
     ``OuterProductGrad`` one leaf) rounds under ``fold_in(fold_in(rng,
-    step), i)``; a stacked leaf's layer ``l`` under ``fold_in(·, l)``. So
-    the operand and dense pipelines, and the reference, draw the same bits.
+    step), i)``; under the counter draw a stacked leaf's layer ``l`` under
+    ``fold_in(·, l)``, under ``"grid"`` the leaf's one stream from offset
+    ``l·M·N``. So the operand and dense pipelines, and the reference, draw
+    the same bits.
     A leaf whose plan carries a write-nonideal device model updates through
     its physics (operand leaves in K1, dense leaves in
     ``opa_device_update``). CRS runs on every mapped leaf when ``step %
@@ -213,8 +218,8 @@ def update_split(grads, digital, sliced, step: int, lr: float, cfg: PantherConfi
 
     if cfg.momentum > 0:
         raise NotImplementedError("momentum (digital-VFU buffers, Tiki-Taka) is not ported yet")
-    if cfg.rng_mode != "counter":
-        raise NotImplementedError(f"rng_mode {cfg.rng_mode!r} is not ported; use 'counter'")
+    # "hw" exists only inside the fused kernel: dense leaves take the counter draw
+    dense_mode = "counter" if cfg.rng_mode == "hw" else cfg.rng_mode
     do_crs = step % cfg.crs_every == cfg.crs_every - 1
     base = prng.fold_in(rng if rng is not None else prng.PRNGKey(0), step)
     lr32 = float(np.float32(lr))
@@ -239,10 +244,10 @@ def update_split(grads, digital, sliced, step: int, lr: float, cfg: PantherConfi
                              stochastic=cfg.stochastic_round, key=key, rng_mode=cfg.rng_mode, device=dev)
         elif dev is not None:
             opa_device_update(s.planes, g, lr32, s.frac_bits, spec, device=dev,
-                              stochastic=cfg.stochastic_round, key=key, rng_mode=cfg.rng_mode)
+                              stochastic=cfg.stochastic_round, key=key, rng_mode=dense_mode)
         else:
             upd = quantize(-lr32 * g.to(torch.float32), s.frac_bits,
-                           stochastic=cfg.stochastic_round, key=key, rng_mode=cfg.rng_mode)
+                           stochastic=cfg.stochastic_round, key=key, rng_mode=dense_mode)
             opa_deposit(s.planes, upd, spec)
             del upd
         if do_crs:

@@ -231,7 +231,8 @@ def test_opa_fused_tensor_core_instances_run_hmma(card):
     funcs = {f.split("\n", 1)[0].strip(): f for f in re.split(r"\n\s*Function : ", sass)[1:]}
     mma = [body for name, body in funcs.items() if "opa_mma_kernel" in name]
     fma = [body for name, body in funcs.items() if "opa_fused_kernel" in name]
-    assert len(mma) == 2 and all("HMMA" in body for body in mma)  # ideal and device
+    # ideal and device, each with the counter draw and with the grid/hw draws (FAR)
+    assert len(mma) == 4 and all("HMMA" in body for body in mma)
     assert len(fma) == 4 and not any("HMMA" in body for body in fma)  # f32/bf16 x ideal/device
 
 
@@ -594,3 +595,141 @@ def test_tensor_core_instances_run_imma_and_no_dp4a(card):
         assert "IMMA" in body and not idp4a.search(body), name
     dp4a = [body for name, body in funcs.items() if "mvm_sliced_kernel" in name]
     assert dp4a and all(idp4a.search(body) and "IMMA" not in body for body in dp4a)
+
+
+# --------------------- K1's grid and hw rounding sources ---------------------
+# (M, N) with their hw tiles (bm, bn): gemma-2b's attention block (128, 256);
+# ragged (80, 100) and (100, 168); bn = 131, not a multiple of 4, on the
+# tensor-core body's 16-byte plane path (2096) and on its scalar one (262)
+RNG_SHAPES = [(2048, 2560), (320, 100), (100, 336), (64, 2096), (64, 262)]
+
+
+@pytest.mark.parametrize("physics", [None, "asym", "stuck", "all"])
+@pytest.mark.parametrize("body", ["mma", "fma"])
+@pytest.mark.parametrize("rng_mode,layer", [("grid", 0), ("grid", 17), ("hw", 0)])
+@pytest.mark.parametrize("t", [1, 17, 256])
+@pytest.mark.parametrize("m,n", RNG_SHAPES)
+def test_opa_fused_rng_sources_match_plain_on_exact_operands(card, m, n, t, rng_mode, layer, body, physics):
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+    from repro_torch.models.common import DeviceModel
+
+    dev = None if physics is None else DeviceModel(**PHYSICS[physics])
+    g = torch.Generator(device=card).manual_seed(m + n + t + layer)
+    planes = _full_range_planes(card, (m, n), g) if dev is None else _canonical_planes(card, (m, n), g)
+    x, dh = _exact_bf16_operands(card, t, m, n, g)
+    if body == "fma":  # the CUDA-core body on f32 operands
+        x, dh = x.float(), dh.float()
+    name = KO.instance_name(dev is not None, body, rng_mode)
+    offset = layer * m * n  # layer l of an 18-layer stack under grid
+    for lr, f in ((2.0**-4, 8), (4.0, 28)):
+        frac = torch.tensor([f], dtype=torch.int32, device=card)
+        before = KO.opa_fused.instances[name]
+        got = KO.opa_fused(planes.clone(), x, dh, lr, frac, spec=DEFAULT_SPEC, key_words=(12345 + t, -678),
+                           rng_mode=rng_mode, offset=offset, dev=dev, noise_words=(77, -99))
+        want = RO.opa_fused_ref(planes, x, dh, lr, frac[0], DEFAULT_SPEC, (12345 + t, -678), dev, (77, -99),
+                                rng_mode=rng_mode, offset=offset)
+        torch.cuda.synchronize()
+        assert KO.opa_fused.instances[name] == before + 1
+        if dev is None or dev.write_noise == 0.0:
+            assert torch.equal(got, want)
+        else:  # a Gaussian's last bit may move one update by one grid LSB
+            d = (_plane_values(got) - _plane_values(want)).abs()
+            assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("rng_mode", ["grid", "hw"])
+def test_opa_fused_rng_sources_draw_what_their_plain_streams_draw(card, rng_mode):
+    # half-way updates y = k + 1/2 on a fine grid: floor(y + u) rounds up
+    # exactly where u >= 1/2, so the kernel's draws show through its planes
+    from repro_torch.core.prng import counter_key_scalars, PRNGKey
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+
+    m, n = 256, 512
+    words = counter_key_scalars(PRNGKey(3))
+    planes = torch.zeros((DEFAULT_SPEC.n_slices, m, n), dtype=torch.int8, device=card)
+    x = torch.ones((1, m), device=card)
+    dh = torch.full((1, n), -1.5, device=card)  # y = -lr·x·dh·2^F = 1.5 at lr = 2^-3, F = 3
+    got = KO.opa_fused(planes, x, dh, 2.0**-3, torch.tensor([3], dtype=torch.int32, device=card),
+                       spec=DEFAULT_SPEC, key_words=words, rng_mode=rng_mode, offset=5 * m * n)
+    u = RO.rounding_u(words, rng_mode, 0, m, n, offset=5 * m * n, device=card)
+    torch.cuda.synchronize()
+    assert torch.equal(_plane_values(got), torch.where(u >= 0.5, 2, 1).to(torch.int64))
+    assert 0.45 < float((u >= 0.5).float().mean()) < 0.55
+
+
+def test_opa_fused_update_grid_on_the_card_matches_the_cpu(card):
+    from repro_torch.core import prng
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels import sliced_opa as ops
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.models.common import DeviceModel
+
+    g = torch.Generator(device=card).manual_seed(13)
+    planes = _canonical_planes(card, (3, 320, 256), g)
+    x = torch.randint(-4, 5, (3, 40, 320), generator=g, device=card) * 0.125
+    dh = torch.randint(-4, 5, (3, 40, 256), generator=g, device=card) * 2.0**-5
+    for dev in (None, DeviceModel(**PHYSICS["asym"]), DeviceModel(**PHYSICS["stuck"])):
+        name = KO.instance_name(dev is not None, "mma", "grid")
+        before = KO.opa_fused.instances[name]
+        got = ops.opa_fused_update(planes.clone(), x.bfloat16(), dh.bfloat16(), 2.0**-5, 16, DEFAULT_SPEC,
+                                   stochastic=True, key=prng.PRNGKey(8), rng_mode="grid", device=dev)
+        want = ops.opa_fused_update(planes.cpu(), x.cpu(), dh.cpu(), 2.0**-5, 16, DEFAULT_SPEC, stochastic=True,
+                                    key=prng.PRNGKey(8), rng_mode="grid", device=dev)
+        assert KO.opa_fused.instances[name] == before + 3
+        assert torch.equal(got.cpu(), want)
+
+
+def test_training_steps_under_grid_and_hw_go_through_their_instances(card):
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.optim import PantherConfig
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train.step import make_train_step, train_state_init
+
+    cfg = configs.get_smoke("gemma_2b")
+    blocks = 5 * cfg.n_layers
+    for mode in ("grid", "hw"):
+        opt = PantherConfig(crs_every=2, rng_mode=mode)
+        state = train_state_init(cfg, opt, 0)
+        before = dict(KO.opa_fused.instances)
+        state, metrics = make_train_step(cfg, opt, constant(1e-2))(state, SyntheticLMDataset(cfg.vocab, 8, 2).batch(0))
+        torch.cuda.synchronize()
+        assert {k: v - before.get(k, 0) for k, v in KO.opa_fused.instances.items()
+                if v != before.get(k, 0)} == {f"ideal_{mode}": blocks}
+        assert bool(torch.isfinite(metrics["loss"])) and bool(torch.isfinite(metrics["grad_norm"]))
+
+
+def test_hw_rounding_on_the_card_is_unbiased(card):
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+
+    m, n, frac = 2048, 2560, 0.3711
+    planes = torch.zeros((DEFAULT_SPEC.n_slices, m, n), dtype=torch.int8, device=card)
+    # y = -lr·x·dh·2^F = frac on every cell: 0.3711 is not on a short binary grid, so a
+    # few ulps of f32 rounding do not bias it at this sample size
+    x = torch.ones((1, m), device=card)
+    dh = torch.full((1, n), -frac, device=card)
+    KO.opa_fused(planes, x, dh, 1.0, torch.tensor([0], dtype=torch.int32, device=card), spec=DEFAULT_SPEC,
+                 key_words=(21, -4), rng_mode="hw")
+    p = float(torch.tensor(frac, dtype=torch.float32))
+    share = float((_plane_values(planes) == 1).double().mean())
+    assert abs(share - p) <= 4.0 * (p * (1 - p) / (m * n)) ** 0.5
+
+
+def test_opa_fused_grid_and_hw_instances_run_hmma(card):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sliced_opa import kernel as KO
+
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    lib = build.build("opa_fused", KO.SOURCES["opa_fused"]).path
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs = {f.split("\n", 1)[0].strip(): f for f in re.split(r"\n\s*Function : ", sass)[1:]}
+    # opa_mma_kernel<DEV, FAR = true>: the grid and hw instances, ideal and device
+    far = [body for name, body in funcs.items() if "opa_mma_kernel" in name and "ELb1EEE" in name]
+    assert len(far) == 2 and all("HMMA" in body for body in far)

@@ -94,8 +94,13 @@ def test_counter_uniform_bit_identical_including_stacks(shape):
 
 
 def test_rounding_noise_other_modes_raise():
-    for mode in ("grid", "hw"):
-        with pytest.raises(NotImplementedError):
+    # "grid" is ported (jax.random.uniform's stream); "hw", and any other
+    # mode, raises ValueError as the reference's rounding_noise does
+    _eq(JF.rounding_noise(jax.random.PRNGKey(0), (4, 4), "grid"), TF.rounding_noise(prng.PRNGKey(0), (4, 4), "grid"))
+    for mode in ("hw", "other"):
+        with pytest.raises(ValueError):
+            JF.rounding_noise(jax.random.PRNGKey(0), (4, 4), mode)
+        with pytest.raises(ValueError):
             TF.rounding_noise(prng.PRNGKey(0), (4, 4), mode)
 
 
@@ -248,7 +253,8 @@ def test_opa_fused_update_refuses_what_is_not_ported():
     # write noise draws under the key, also with deterministic rounding
     with pytest.raises(ValueError, match="key"):
         topa.opa_fused_update(planes, x, dh, 0.1, 20, SPEC, device=DeviceModel(write_noise=0.5))
-    with pytest.raises(NotImplementedError, match="rng_mode"):
+    # "hw" is the kernel's own draw: CPU planes refuse it, as the reference's CPU path does
+    with pytest.raises(ValueError, match="hw"):
         topa.opa_fused_update(planes, x, dh, 0.1, 20, SPEC, stochastic=True, key=(0, 1), rng_mode="hw")
     with pytest.raises(ValueError, match="key"):
         topa.opa_fused_update(planes, x, dh, 0.1, 20, SPEC, stochastic=True)
