@@ -4,23 +4,24 @@ Hopper card and check it.
 
 Phases:
   1. build the CUDA kernels from the sources in this checkout (one ``nvcc``
-     per library, all started together, ``sm_90a``) and print the card's
-     name and power limit;
+     per library, all started together, ``sm_90a``), print each kernel's
+     ptxas registers and spills, and the card's name and power limit;
   2. hold the kernel against its plain PyTorch version at every (M, N) the
      gemma-2b serving path reads, at tokens {1, 4, 5, 16, 128, 256} and ADC
      {9, 6, ideal} (bit for bit at finite ADC), plus a short last crossbar
-     tile and a ragged N, and time the kernel, the plain version and
-     ``torch.matmul`` on the dequantized weights (the lossless yardstick) at
-     the decode (4) and prefill (128) token counts and at 5, with K4's two
-     bodies side by side: the tensor-core body, and the dp4a body as K5 runs
-     it on x_q (the wrapper picks the dp4a body for reads of at most 4
-     tokens);
+     tile and a ragged N at tokens {1, 4, 5, 16}, and time the kernel, the
+     plain version and ``torch.matmul`` on the dequantized weights (the
+     lossless yardstick) at the decode (4) and prefill (128) token counts
+     and at 1 and 5, with K4's three bodies side by side: the decode body
+     (the wrapper's for forward reads of at most 4 tokens), the tensor-core
+     body (for more), and the dp4a body as K5 runs it on x_q; it prints the
+     fastest body at each token count;
   3. serve gemma-2b at full width (d=2048, d_ff=16384, vocab 256000, bf16)
      through the adc9 finite-ADC plan: random weights from a seed, sliced into
      int8 digit planes, 4 prompts of 32 tokens prefilled and 16 tokens
      greedily decoded; the kernel's launch count must equal 5 reads x layers x
      (1 prefill + 15 decode steps), the prefill's on the tensor-core body
-     and the decode steps' on the dp4a body, the logits must be finite and
+     and the decode steps' on the decode body, the logits must be finite and
      the adc9-vs-lossless gap finite;
   4. hold the update kernels and the transpose read against their plain
      versions: ``crs`` and ``opa_deposit`` bit for bit at gemma-2b's four
@@ -49,11 +50,12 @@ Phases:
      change;
   6. (run before 5, on its own memory) hold the new kernel instances against
      their plain versions at gemma-2b's four (M, N) and a ragged 320x100, at
-     tokens {1, 100, 256} (K1 also at 17): K1's device instance, both
+     tokens {1, 100, 256} (the reads also at 4, K1 at 17): K1's device instance, both
      bodies, with each write-physics field alone and all together, K2's
      stuck instance (the embedding
      included), K4/K4ᵀ with read noise, K4/K4ᵀ at io 8 and 12 and K5 forward
-     and transposed at io 8, 12 and 16, each at ADC {9, 6, ideal}; then time
+     and transposed at io 8, 12 and 16, each at ADC {9, 6, ideal} (K4 at 1 and
+     4 tokens on its decode body); then time
      each at 256 tokens against its plain version, its library yardstick and
      its bound; then every K4 instance (forward and MᵀVM, io 8/12/16, finite
      and ideal ADC, with and without read noise) at 256 tokens beside the
@@ -123,6 +125,41 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_lines(log: str) -> list:
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its name with its
+    template arguments, its registers and its spill bytes."""
+    import re
+
+    out, fn, spills = [], None, {}
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            fn = m.group(1)
+        elif m := re.search(r"Function properties for (\S+)", line):
+            props = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills[props] = m.groups()
+        elif (m := re.search(r"Used (\d+) registers", line)) and fn:
+            args = ",".join(re.findall(r"L[ib](\d+)E", fn))
+            st, ld = spills.get(fn, ("?", "?"))
+            out.append(f"{kernel_name(fn)}<{args}>: {m.group(1)} registers, spill stores {st} bytes, loads {ld} bytes")
+            fn = None
+    return out
+
+
+def kernel_name(mangled: str) -> str:
+    """The ``*_kernel`` component of a mangled name's nested names (each a
+    length and that many characters), or the name itself."""
+    i = mangled.find("_ZN") + 3 if "_ZN" in mangled else 2
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        ident, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+        if ident.endswith("_kernel"):
+            return ident
+    return mangled
+
+
 def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     import torch
 
@@ -149,14 +186,15 @@ def bound_ms(B: int, M: int, N: int, S: int, io_bits: int) -> tuple[float, str]:
 
 
 def phase_kernels(torch, K, ref, fp, spec, gen):
-    """Kernel vs plain at the slice's shapes; timings at 4 and 128 tokens."""
+    """Kernel vs plain at the slice's shapes; timings at 1, 4, 5 and 128
+    tokens, with K4's three bodies side by side."""
     from repro_torch.core.slicing import dequantize_planes
 
     dev = torch.device("cuda")
     max_err, worst = 0.0, 0.0
     timings = {}
     shapes = [(m, n, b) for (m, n) in SLICE_SHAPES for b in (1, 4, 5, 16, 128, T_TRAIN)]
-    shapes += [(m, n, b) for (m, n) in EDGE_SHAPES for b in (5, 16)]
+    shapes += [(m, n, b) for (m, n) in EDGE_SHAPES for b in (1, 4, 5, 16)]
     for M, N, B in shapes:
         planes = torch.randint(-8, 8, (spec.n_slices, M, N), generator=gen, device=dev, dtype=torch.int8)
         x = torch.randn((B, M), generator=gen, device=dev) * 0.7
@@ -171,48 +209,75 @@ def phase_kernels(torch, K, ref, fp, spec, gen):
                 raise AssertionError(f"kernel vs plain at M={M} N={N} B={B} adc={adc}: "
                                      f"|diff| {err} > {TOL} * {scale}")
             max_err, worst = max(max_err, err), max(worst, err / scale)
-        if (M, N) in SLICE_SHAPES and B in (4, 5, 128):
+        if (M, N) in SLICE_SHAPES and B in T_BODIES:
             reps = 20 if B < 128 else 5
             w = dequantize_planes(planes, 30, spec)
             x_q = ref.dac_quantize(x, xf[0], 16)
-            k_ms = cuda_time_ms(lambda: K.mvm_sliced_fused(planes, x, xf, spec=spec, adc_bits=9), reps)
-            p_ms = cuda_time_ms(lambda: ref.mvm_sliced_fused_ref(planes, x, xf[0], spec, 16, 9), 2, 1)
-            l_ms = cuda_time_ms(lambda: torch.matmul(x, w), reps)
-            b_ms, b_by = bound_ms(B, M, N, spec.n_slices, 16)
-            # the two bodies on the same work: the tensor-core body, and the
-            # dp4a body as K5 runs it on x_q
-            with tensor_core_body(K):
-                mma_ms = cuda_time_ms(lambda: K.mvm_sliced_fused(planes, x, xf, spec=spec, adc_bits=9), reps)
-            dp4a_ms = cuda_time_ms(lambda: K.mvm_sliced(planes, x_q, spec=spec, adc_bits=9), reps)
-            timings[(M, N, B)] = (k_ms, p_ms, l_ms, b_ms, b_by, dp4a_ms, mma_ms)
-            print(f"  M={M:5d} N={N:5d} B={B:3d} adc9: kernel {k_ms:.4f} ms ({'dp4a' if K.uses_dp4a(B) else 'mma'} "
-                  f"body; tensor-core body {mma_ms:.4f} ms, dp4a body {dp4a_ms:.4f} ms)  plain {p_ms:.4f} ms  "
-                  f"matmul {l_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+            t = {"ms": cuda_time_ms(lambda: K.mvm_sliced_fused(planes, x, xf, spec=spec, adc_bits=9), reps),
+                 "plain_ms": cuda_time_ms(lambda: ref.mvm_sliced_fused_ref(planes, x, xf[0], spec, 16, 9), 2, 1),
+                 "library_ms": cuda_time_ms(lambda: torch.matmul(x, w), reps),
+                 # the dp4a body as K5 runs it on x_q: the same work
+                 "dp4a_ms": cuda_time_ms(lambda: K.mvm_sliced(planes, x_q, spec=spec, adc_bits=9), reps)}
+            t["bound_ms"], t["bound_by"] = bound_ms(B, M, N, spec.n_slices, 16)
+            # the same read forced onto the tensor-core body, and onto the
+            # decode body where it takes the shape (S·B <= 64)
+            with forced_body(K, 0):
+                t["mma_ms"] = cuda_time_ms(lambda: K.mvm_sliced_fused(planes, x, xf, spec=spec, adc_bits=9), reps)
+            if spec.n_slices * B <= K.DECODE_MAX_SB:
+                with forced_body(K, B):
+                    t["decode_ms"] = cuda_time_ms(lambda: K.mvm_sliced_fused(planes, x, xf, spec=spec, adc_bits=9),
+                                                  reps)
+            timings[(M, N, B)] = t
+            print(f"  M={M:5d} N={N:5d} B={B:3d} adc9: kernel {t['ms']:.4f} ms ({K.body_for(B, False)} body; "
+                  + ", ".join(f"{BODY_NAMES[k]} {t[k]:.4f} ms" for k in BODY_NAMES if k in t)
+                  + f")  plain {t['plain_ms']:.4f} ms  matmul {t['library_ms']:.4f} ms  "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
             del w
         del planes, x
-    for B in (4, 5, 128):
-        print(f"  one layer's 5 reads at {B} tokens, adc9: "
-              + "  ".join(f"{what} {sum(timings[(m, n, B)][i] for _, m, n in SLICE_READS):.4f} ms"
-                          for what, i in (("kernel", 0), ("tensor-core body", 6), ("dp4a body (K5)", 5),
-                                          ("plain", 1), ("matmul", 2), ("bound", 3))), flush=True)
+    on_decode = []
+    for B in T_BODIES:
+        t = layer_timings(timings, B)
+        fastest = min((k for k in BODY_NAMES if k in t), key=t.get)
+        if fastest == "decode_ms":
+            on_decode.append(B)
+        print(f"  one layer's 5 reads at {B} tokens, adc9: kernel {t['ms']:.4f} ms ({K.body_for(B, False)} body)  "
+              + "  ".join(f"{BODY_NAMES[k]} {t[k]:.4f} ms" for k in BODY_NAMES if k in t)
+              + f"  plain {t['plain_ms']:.4f} ms  matmul {t['library_ms']:.4f} ms  bound {t['bound_ms']:.4f} ms; "
+              f"fastest: the {BODY_NAMES[fastest]}", flush=True)
+    print(f"  crossover: the decode body is the fastest a layer at tokens {on_decode} of {list(T_BODIES)}; the "
+          f"wrapper takes it for forward reads of at most DECODE_MAX_B = {K.DECODE_MAX_B}", flush=True)
     print(f"kernel vs plain: {len(shapes) * 3} cases, bit-identical at finite ADC, within {TOL}*(1+max|plain|) "
           f"at the ideal ADC; max |diff| {max_err} (product grid), max |diff|/(1+max|plain|) {worst}", flush=True)
     torch.cuda.empty_cache()
     return max_err, timings
 
 
-class tensor_core_body:
-    """Run every K4 read on the tensor-core body while inside (the
-    wrapper otherwise picks the dp4a body for decode shapes)."""
+# K4's bodies as phase 2 times them, by their key in the timings
+BODY_NAMES = {"decode_ms": "decode body", "mma_ms": "tensor-core body", "dp4a_ms": "dp4a body (K5)"}
+T_BODIES = (1, 4, 5, 128)  # phase 2's timed token counts: decode (4) and its neighbours, the prefill (128)
 
-    def __init__(self, K):
-        self.K = K
+
+def layer_timings(timings, B):
+    """Phase 2's timings of one layer's 5 reads at B tokens, summed by key."""
+    rows = [timings[(m, n, B)] for _, m, n in SLICE_READS]
+    out = {k: sum(r[k] for r in rows) for k in rows[0] if k != "bound_by"}
+    out["bound_by"] = "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations"
+    return out
+
+
+class forced_body:
+    """While inside, K4's forward reads of at most ``n`` tokens run the
+    decode body and larger ones the tensor-core body (``n = 0``: every read
+    on the tensor-core body)."""
+
+    def __init__(self, K, n):
+        self.K, self.n = K, n
 
     def __enter__(self):
-        self.saved, self.K.DP4A_MAX_B = self.K.DP4A_MAX_B, 0
+        self.saved, self.K.DECODE_MAX_B = self.K.DECODE_MAX_B, self.n
 
     def __exit__(self, *exc):
-        self.K.DP4A_MAX_B = self.saved
+        self.K.DECODE_MAX_B = self.saved
 
 
 def profile_step(torch, step, what="decode step"):
@@ -314,9 +379,9 @@ def phase_slice(torch, K, gen):
           f"{float(logits_ll.float().abs().max())}", flush=True)
     profile_step(torch, lambda: decode(params, tok.long(), caches, P + T - 1))
     want = 5 * layers * T
-    # the prefill's B·P tokens on the tensor-core body, the decode steps' B on the dp4a body
-    bodies = {K.instance_name(False, 16, dp4a=K.uses_dp4a(B * P)): 5 * layers,
-              K.instance_name(False, 16, dp4a=K.uses_dp4a(B)): 5 * layers * (T - 1)}
+    # the prefill's B·P tokens on the tensor-core body, the decode steps' B on the decode body
+    bodies = {K.instance_name(False, 16, body=K.body_for(B * P, False)): 5 * layers,
+              K.instance_name(False, 16, body=K.body_for(B, False)): 5 * layers * (T - 1)}
     print(f"K4 launches by instance: {instances}", flush=True)
     if launches != want or instances != bodies:
         raise AssertionError(f"kernel launches {launches} != 5 reads x {layers} layers x {T} steps = {want}, "
@@ -325,7 +390,7 @@ def phase_slice(torch, K, gen):
         raise AssertionError("non-finite logits on the adc9 path")
     if not gap == gap or gap == float("inf"):
         raise AssertionError(f"adc9-vs-lossless gap not finite: {gap}")
-    return launches
+    return instances
 
 
 def bound_of(nbytes: float, ops: float, ops_rate: float) -> tuple[float, str]:
@@ -773,7 +838,7 @@ PHYSICS = {
     "stuck": dict(stuck_frac=0.02, stuck_seed=3),
     "all": {k: v for k, v in DEVICE.items() if k != "read_noise"},
 }
-T_CHECK = (1, 100, 256)  # token counts of the new kernels' checks
+T_CHECK = (1, 4, 100, 256)  # token counts of the new kernels' checks (K4 at 1 and 4 on its decode body)
 # 32-bit CUDA-core operations a cell that the write physics add to K1's
 # finalize (two hashes and a Box-Muller for the noise, S = 8 hashes for the
 # stuck mask), and that the stuck mask adds to K2 per plane cell (a hash and
@@ -1562,9 +1627,8 @@ def main() -> int:
     print(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s (in parallel)", flush=True)
     for name, built in libs.items():
         print(f"  {name}: nvcc {built.seconds:.1f} s -> {built.path.name}")
-        for line in built.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("    ptxas:", line.strip())
+        for line in ptxas_lines(built.log):
+            print("    ptxas:", line)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     t_start = time.perf_counter()
@@ -1574,7 +1638,7 @@ def main() -> int:
 
     max_err, timings = phase_kernels(torch, K, ref, fp, DEFAULT_SPEC, gen)
     done("phase 2: K4 checks")
-    launches = phase_slice(torch, K, gen)
+    serving = phase_slice(torch, K, gen)
     torch.cuda.empty_cache()
     done("phase 3: serving")
     phase_update_kernels(torch, DEFAULT_SPEC, gen)
@@ -1601,31 +1665,25 @@ def main() -> int:
     del state
     done("phase 10: K1 rounding sources")
 
-    # one layer's five reads at the decode batch (4 tokens): the main path's
-    # per-layer decode work
-    def per_layer(i):
-        return sum(timings[(m, n, 4)][i] for _, m, n in SLICE_READS)
-
-    bounds = [bound_ms(4, m, n, DEFAULT_SPEC.n_slices, 16) for _, m, n in SLICE_READS]
+    # one layer's five reads: "mvm_sliced_fused" at the decode batch's 4
+    # tokens on the decode body (the entry's meaning since the port began:
+    # the main path's per-layer decode work), "mvm_sliced_fused_prefill" at
+    # the prefill's 128 on the tensor-core body, each beside the other bodies
+    # on the same work and with the launches of its own body
+    def serving_entry(name, B, body, extra):
+        t = layer_timings(timings, B)
+        return {"name": name, "route": "cuda", "source": "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
+                "replaces": "src/repro/kernels/sliced_mvm/kernel.py:367",
+                "launches": serving[K.instance_name(False, 16, body=body)], "max_abs_err": max_err,
+                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "dp4a_ms", *extra)}}
 
     def entry(name, source, replaces, max_abs_err):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": train_launches[name], "max_abs_err": max_abs_err, **train_timings[name]}
 
-    line = {"kernels": [{
-        "name": "mvm_sliced_fused",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
-        "replaces": "src/repro/kernels/sliced_mvm/kernel.py:367",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": per_layer(0),
-        "plain_ms": per_layer(1),
-        "bound_ms": sum(b for b, _ in bounds),
-        "bound_by": "bytes" if all(by == "bytes" for _, by in bounds) else "operations",
-        "library_ms": per_layer(2),
-        "dp4a_ms": per_layer(5),
-    },
+    line = {"kernels": [
+        serving_entry("mvm_sliced_fused", 4, K.body_for(4, False), ("mma_ms",)),
+        serving_entry("mvm_sliced_fused_prefill", 128, K.body_for(128, False), ()),
         entry("mvm_sliced_fused_transpose", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
               "src/repro/kernels/sliced_mvm/kernel.py:367", t_err),
         entry("opa_fused", "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",

@@ -30,13 +30,15 @@
 // half to even like jnp.round; each add of an offset rounds on its own; the
 // slice fold runs in ascending s and each tile is added to the accumulator
 // in tile order, the order of the plain version (and of the reference), so
-// at finite ADC both bodies below agree with it bit for bit. io_bits 8, 12
-// and 16 are template instances (7, 11, 15 bit cycles).
+// at finite ADC the three bodies below agree with it bit for bit. io_bits 8,
+// 12 and 16 are template instances (7, 11, 15 bit cycles).
 //
-// Two bodies compute these numbers.
+// Three bodies compute these numbers, chosen by shape only (the wrapper's
+// body_for; nothing falls back on an error): the decode body for forward K4
+// reads of at most 4 tokens (DECODE_MAX_B), the dp4a body for MᵀVM reads of
+// as few tokens and for K5, the tensor-core body for every K4 read of more.
 //
-// The tensor-core body (mvm_mma_kernel: every K4 read of more than 4
-// tokens, the wrapper's DP4A_MAX_B). The column currents of one tile are one
+// The tensor-core body (mvm_mma_kernel). The column currents of one tile are one
 // int8 product, exact in s32, on mma.sync.m16n8k32: A = the bit planes
 // [T·bb, 128] (values -1/0/+1, rows t-major: one m16 fragment is 16 tokens
 // at one bit cycle t), B = the plane tile [S·BN, 128], contraction-
@@ -79,19 +81,48 @@
 // Blocks run the token blocks of one column block together, so each plane
 // tile is read from device memory once and from L2 B/BB times.
 //
-// The dp4a body (mvm_sliced_kernel: K5, and the K4 decode reads of at most
-// 4 tokens, by shape only: nothing falls back on an error). A block owns 32
-// columns and up to 16 tokens; a thread holds the (io-1)x4 currents of one
-// token, slice and 4 columns in registers and computes them with __dp4a (4
-// int8 MACs a lane, exact in int32) from the same packed words; the slice
-// fold runs through shared memory in ascending s. At 4 tokens it beats the
-// tensor-core body (a 16-row fragment three-quarters empty, and half as
-// many blocks for the narrow outputs); at 5 tokens it no longer does
-// (chip_smoke.py phase 2 times both).
+// The dp4a body (mvm_sliced_kernel: K5, and the MᵀVM reads of at most 4
+// tokens). A block owns 32 columns and up to 16 tokens and walks every
+// crossbar tile; a thread holds the (io-1)x4 currents of one token, slice
+// and 4 columns in registers and computes them with __dp4a (4 int8 MACs a
+// lane, exact in int32) from the same packed words; the slice fold runs
+// through shared memory in ascending s.
+//
+// The decode body (mvm_decode_kernel: forward K4 reads of at most 4
+// tokens, the serving path's decode). Such a read moves S·M·N plane bytes
+// once for few operations each, so it needs many blocks in flight and its
+// plane loads overlapped with the compute. It is split over crossbar tiles:
+// a block owns 32 output columns and a group of G consecutive 128-row
+// tiles, G chosen per shape by the wrapper's decode_plan so that every
+// gemma-2b read launches several waves of blocks (64 columns a block, a
+// deeper ring and taller stages ran no faster on the card). The split
+// stays bit for bit: every block computes each of its tiles' f32 term (ADC,
+// bit fold, slice fold in ascending s) exactly as the other bodies do, into
+// a workspace [tiles, B, NO]; the last block of a column block to finish
+// (an atomic ticket taken after __threadfence) sums the workspace in
+// ascending tile order from 0.f with __fadd_rn, the plain version's order,
+// so which block finishes first does not matter. Its ticket is reset by
+// that block, so a read needs no memset; the wrapper keeps one ticket array
+// per (device, stream), so reads on two streams never share one. A ring of
+// 3 stages of 64 plane rows fed by 16-byte cp.async copies (zero-filled
+// past the M and N edges) keeps the next stages' loads in flight while one
+// is computed; the next stage's x rows are loaded into registers meanwhile
+// and turned into bit-plane words after the compute, so a stage costs one
+// barrier. A thread holds the (io-1)x4 currents of one
+// slice, token and 4 columns, transposes 4x4 plane bytes from the stage
+// with __byte_perm and computes them with __dp4a, each accumulator started
+// from the bits of 1.5·2^23 as the tensor-core body starts its C fragment:
+// the ADC is the same fmaf and float clamp, with no int<->float conversion
+// a code.
 //
 // Bound on the H100. Decode at small batch moves S·M·N plane bytes once and
 // is bound by those bytes (3.35 TB/s); prefill does 2·B·M·N·S·(io_bits-1)
 // int8 operations and is bound by the int8 tensor-core rate (1979 TOP/s).
+// On the CUDA cores the decode read is not free either: B·(io_bits-1)/4
+// __dp4a a plane byte (15 at 4 tokens and io 16, ~13 G a gemma-2b layer),
+// at 64 a clock per SM about 0.8 ms a layer, three times the 0.26 ms byte
+// bound; an int8 mma.sync decode body with rows packed as (bit cycle,
+// token) would do the same work in 4 m16 fragments.
 // The tensor-core body makes one ADC output per 128 MACs. Its epilogue (4
 // instructions an output at finite ADC, 6 with read noise) runs on the CUDA
 // cores beside the mma, and the prologue's global loads are not overlapped
@@ -100,9 +131,8 @@
 // epilogue shrinks. The 64-token blocks of 16 warps run at 128 registers a
 // thread and spill a few words, and still run faster than 8 warps of 32
 // tokens at 255 registers: hiding latency is worth more. Left for later:
-// K5 on this body, a cp.async ring for the plane tiles, and a split over
-// tiles for the narrow decode shapes (which the ascending tile fold forbids
-// while the read stays bit for bit).
+// K5 on this body, a cp.async ring for its plane tiles, and the MᵀVM reads
+// of at most 4 tokens on the decode body's split.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -131,6 +161,10 @@ struct ReadParams {
   float bias[MAX_S];      // 1.5·2^23·(1 - 2^-e_s), exact: see the tensor-core epilogue
   float weight[MAX_S];    // step_s · 16^s (finite ADC) or 16^s (ideal)
   float off_scale[MAX_S]; // f32(read_noise · 128 · pm_s)
+  float* ws;              // [tiles, B, NO] tile terms (decode body)
+  unsigned* tickets;      // [n_tickets] zero between reads, one a column block (decode body)
+  int group;              // crossbar tiles a block owns (decode body)
+  int n_tickets;          // the tickets' length: the widest grid a launch may take (decode body)
 };
 
 __device__ __forceinline__ uint32_t pack_row_bytes(const int8_t* p, int valid, bool vec) {
@@ -703,29 +737,342 @@ cudaError_t launch_mma(const ReadParams& a, cudaStream_t stream) {
                           : launch_mma_mi<2, D, FINITE, TRANS, NOISY>(a, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The decode body
+// ---------------------------------------------------------------------------
+
+namespace dec {
+constexpr int BN = 32;                  // output columns a block owns
+constexpr int NQ = BN / 4;              // 4-column groups: one thread each per (slice, token)
+constexpr int CH = 64;                  // plane rows a ring stage holds: half a crossbar tile
+constexpr int CR4 = CH / 4;             // packed 4-row words a column per stage
+constexpr int CHUNKS = XBAR_ROWS / CH;  // stages a tile
+constexpr int NST = 3;                  // ring depth
+constexpr int C16 = BN / 16;            // 16-byte copies a stage row
+constexpr int MAX_THREADS = 512;        // one thread per (slice, token, 4 columns): S·B <= 64
+constexpr int MAX_DEVICES = 64;
+
+// words of one token's bit-plane words [CR4][DP] (DP: the bit cycles
+// padded to 16 bytes), +4 words so the tokens' 16-byte loads hit distinct banks
+__host__ __device__ constexpr int xs_words(int D) { return CR4 * ((D + 3) & ~3) + 4; }
+// the ring [NST][S][CH][BN] int8, the bit-plane words [2][B][xs_words],
+// the slice terms [S][B][BN] f32, the read offsets [S][BN] f32 (noisy)
+inline size_t smem_bytes(int D, bool noisy, int S, int B) {
+  return (size_t)NST * S * CH * BN + 4 * (2 * (size_t)B * xs_words(D) + (size_t)S * B * BN + (noisy ? (size_t)S * BN : 0));
+}
+}  // namespace dec
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// Forward read only (K = M rows contracted, NO = N outputs). Grid: (column
+// blocks of BN, groups of a.group tiles); a.S·a.B·NQ threads (rounded up to
+// a warp), thread (s, b, q) owning slice s, token b, columns 4q..4q+3.
+template <int D, bool FINITE, bool NOISY>
+__global__ void __launch_bounds__(dec::MAX_THREADS)
+mvm_decode_kernel(const ReadParams a) {
+  constexpr int BN = dec::BN, NQ = dec::NQ, CH = dec::CH, CR4 = dec::CR4, CHUNKS = dec::CHUNKS, NST = dec::NST,
+                C16 = dec::C16;
+  constexpr int DP = (D + 3) & ~3;
+  constexpr int XSW = dec::xs_words(D);
+  constexpr int MAGIC_I = tc::MAGIC_I;
+  constexpr float MAGIC_F = tc::MAGIC_F;
+  extern __shared__ __align__(16) unsigned char dsm[];
+  __shared__ int last_block;
+  const int S = a.S, B = a.B, K = a.K, NO = a.NO;
+  const int stage = S * CH * BN;
+  int* xs = reinterpret_cast<int*>(dsm + NST * stage);  // [2][B][XSW] bit-plane words, by chunk parity
+  float* red = reinterpret_cast<float*>(xs + 2 * B * XSW);  // [S][B][BN] slice terms of the tile
+  float* offs = red + S * B * BN;                            // [S][BN] read offsets of the tile (NOISY)
+  const int8_t* __restrict__ planes = a.planes;
+  const float* __restrict__ x = static_cast<const float*>(a.x);
+
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int q = tid % NQ, b = (tid / NQ) % B, s = tid / (NQ * B);
+  const bool worker = s < S;  // the threads past S·B·NQ only load
+  const int n0 = blockIdx.x * BN;
+  const int ntiles = (K + XBAR_ROWS - 1) / XBAR_ROWS;
+  const int k0 = blockIdx.y * a.group;
+  const int nchunks = min(a.group, ntiles - k0) * CHUNKS;
+  const auto chunk_row0 = [&](int i) { return (k0 + i / CHUNKS) * XBAR_ROWS + (i % CHUNKS) * CH; };
+
+  const float scale = __int_as_float((a.frac_bits[0] + 127) << 23);  // exp2i(F)
+  const float lim = (float)((1 << (a.io_bits - 1)) - 1);
+  const float lo = MAGIC_F - (float)a.adc_half, hi = MAGIC_F + (float)a.adc_half;
+  const int sw = worker ? s : 0;
+  const float inv_step = a.inv_step[sw], bias = a.bias[sw], weight = a.weight[sw];
+
+  // the planes of chunk i (64 rows of tile k0 + i/2) into stage i % NST: one
+  // commit group a call, empty past the last chunk
+  const auto load = [&](int i) {
+    if (i < nchunks) {
+      const int row0 = chunk_row0(i);
+      unsigned char* st = dsm + (i % NST) * stage;
+      if (a.vec16) {
+        for (int task = tid; task < S * CH * C16; task += nthr) {
+          const int c16 = task % C16, r = (task / C16) % CH, sl = task / (C16 * CH);
+          const int gr = row0 + r, gc = n0 + 16 * c16;
+          const bool in = gr < K && gc < NO;
+          cp_async16(smem_addr(st + (sl * CH + r) * BN + 16 * c16),
+                     in ? planes + ((size_t)sl * K + gr) * NO + gc : planes, in);
+        }
+      } else {
+        for (int task = tid; task < S * CH * NQ; task += nthr) {
+          const int c4 = task % NQ, r = (task / NQ) % CH, sl = task / (NQ * CH);
+          const int gr = row0 + r, gc = n0 + 4 * c4;
+          const int valid = gr < K ? NO - gc : 0;
+          reinterpret_cast<uint32_t*>(st)[(sl * CH + r) * NQ + c4] =
+              valid > 0 ? pack_row_bytes(planes + ((size_t)sl * K + gr) * NO + gc, valid, a.vec) : 0u;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the DAC of chunk i's x rows, in two steps so the loads fly during a
+  // chunk's compute: x_rows reads the 4 rows of task (token, r4) = tid,
+  // x_words writes their bit-plane words: word (b, r4, t) packs sgn·bit_t of
+  // rows 4r4..4r4+3 as int8 lanes (-1, 0, +1), byte i for row 4r4+i
+  const bool dac_task = tid < B * CR4;
+  const int dac_b = tid / CR4, dac_r4 = tid % CR4;
+  const auto x_rows = [&](int i) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (dac_task && i < nchunks) {
+      const int r = chunk_row0(i) + 4 * dac_r4;
+      const float* src = x + (size_t)dac_b * K + r;
+      if (a.xvec && r + 3 < K) {
+        v = *reinterpret_cast<const float4*>(src);
+      } else {
+        v.x = r < K ? src[0] : 0.f;
+        v.y = r + 1 < K ? src[1] : 0.f;
+        v.z = r + 2 < K ? src[2] : 0.f;
+        v.w = r + 3 < K ? src[3] : 0.f;
+      }
+    }
+    return v;
+  };
+  const auto x_words = [&](int i, float4 f) {
+    if (!dac_task || i >= nchunks) return;
+    const float v[4] = {f.x, f.y, f.z, f.w};
+    uint32_t mag[4], nb = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int qv = (int)fminf(fmaxf(rintf(v[j] * scale), -lim), lim);
+      mag[j] = (uint32_t)abs(qv);
+      nb |= (uint32_t)(qv < 0) << (8 * j);
+    }
+    const uint32_t m02 = mag[0] | (mag[2] << 16), m13 = mag[1] | (mag[3] << 16);
+    int* dst = xs + ((i & 1) * B + dac_b) * XSW + dac_r4 * DP;
+#pragma unroll
+    for (int t = 0; t < D; ++t) {
+      uint32_t w = ((m02 >> t) & 0x00010001u) | (((m13 >> t) & 0x00010001u) << 8);
+      w += (w & nb) * 0xFEu;  // byte 1 -> 0xFF (-1) where the row is negative
+      dst[t] = (int)w;
+    }
+  };
+
+  int c[D][4];
+#pragma unroll
+  for (int t = 0; t < D; ++t)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[t][j] = FINITE ? MAGIC_I : 0;
+
+#pragma unroll
+  for (int i = 0; i < NST - 1; ++i) load(i);
+  x_words(0, x_rows(0));
+  for (int i = 0; i < nchunks; ++i) {
+    cp_async_wait<NST - 2>();
+    // chunk i's planes and bit-plane words are in; every thread is done
+    // with chunk i-1's stage, words and slice terms
+    __syncthreads();
+    load(i + NST - 1);
+    const float4 x_next = x_rows(i + 1);
+    const unsigned char* st = dsm + (i % NST) * stage;
+    const int tile = k0 + i / CHUNKS;
+    if (NOISY && i % CHUNKS == 0) {
+      // the tile's frozen read offsets (read at its end, after the next
+      // barrier); at the ideal ADC summed over the bit cycles
+      const float cycles = (float)((1 << (a.io_bits - 1)) - 1);
+      for (int task = tid; task < S * BN; task += nthr) {
+        const int sl = task / BN, n = task % BN;
+        float o = __fmul_rn(counter_gauss((a.tile0 + tile) * S + sl, a.col0 + n0 + n, a.rw0, a.rw1),
+                            a.off_scale[sl]);
+        if (!FINITE) o = __fmul_rn(o, cycles);
+        offs[task] = o;
+      }
+    }
+
+    if (worker) {
+      // column currents: rows 4r4..4r4+3 of columns 4q..4q+3 (one word a
+      // row in the stage) transposed to a word a column, times every bit
+      // cycle's word of token b
+      const uint32_t* prow = reinterpret_cast<const uint32_t*>(st + s * CH * BN) + q;
+      const int4* xrow = reinterpret_cast<const int4*>(xs + ((i & 1) * B + b) * XSW);
+#pragma unroll 2
+      for (int r4 = 0; r4 < CR4; ++r4) {
+        uint32_t rw[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) rw[j] = prow[(4 * r4 + j) * NQ];
+        const int4 w = transpose4x4(rw);
+        int xv[DP];
+#pragma unroll
+        for (int t4 = 0; t4 < DP / 4; ++t4) {
+          const int4 v = xrow[r4 * (DP / 4) + t4];
+          xv[4 * t4] = v.x, xv[4 * t4 + 1] = v.y, xv[4 * t4 + 2] = v.z, xv[4 * t4 + 3] = v.w;
+        }
+#pragma unroll
+        for (int t = 0; t < D; ++t) {
+          c[t][0] = __dp4a(xv[t], w.x, c[t][0]);
+          c[t][1] = __dp4a(xv[t], w.y, c[t][1]);
+          c[t][2] = __dp4a(xv[t], w.z, c[t][2]);
+          c[t][3] = __dp4a(xv[t], w.w, c[t][3]);
+        }
+      }
+    }
+    x_words(i + 1, x_next);  // the other parity's words: free since the barrier
+
+    if (i % CHUNKS == CHUNKS - 1) {
+      // the tile is read: ADC and bit fold on the codes' float bits, as the
+      // tensor-core body does; the slice term goes to red[s][b][4q..]
+      if (worker) {
+        float off[4] = {0.f, 0.f, 0.f, 0.f};
+        if (NOISY) {
+          const float4 o = reinterpret_cast<const float4*>(offs + s * BN)[q];
+          off[0] = o.x, off[1] = o.y, off[2] = o.z, off[3] = o.w;
+        }
+        uint32_t z[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int t = 0; t < D; ++t)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (FINITE) {
+              float r;
+              if (NOISY) {
+                const float cur = __fadd_rn(__fsub_rn(__int_as_float(c[t][j]), MAGIC_F), off[j]);
+                r = fmaf(cur, inv_step, MAGIC_F);
+              } else {
+                r = fmaf(__int_as_float(c[t][j]), inv_step, bias);
+              }
+              r = fminf(fmaxf(r, lo), hi);
+              z[j] += (uint32_t)__float_as_int(r) << t;
+              c[t][j] = MAGIC_I;
+            } else {
+              z[j] += (uint32_t)c[t][j] << t;
+              c[t][j] = 0;
+            }
+          }
+        constexpr uint32_t FOLD = FINITE ? (uint32_t)MAGIC_I * ((1u << D) - 1u) : 0u;
+        float term[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float zf = (float)(int)(z[j] - FOLD);
+          term[j] = (NOISY && !FINITE) ? __fmul_rn(__fadd_rn(zf, off[j]), weight) : __fmul_rn(zf, weight);
+        }
+        reinterpret_cast<float4*>(red + (s * B + b) * BN)[q] = make_float4(term[0], term[1], term[2], term[3]);
+      }
+      __syncthreads();
+      // the slice fold in ascending s: the tile's term, into the workspace
+      for (int o = tid; o < B * BN; o += nthr) {
+        const int bb = o / BN, gn = n0 + o % BN;
+        float v = red[o];
+        for (int sl = 1; sl < S; ++sl) v = __fadd_rn(v, red[sl * B * BN + o]);
+        if (gn < NO) a.ws[((size_t)tile * B + bb) * NO + gn] = v;
+      }
+    }
+  }
+
+  // the last block of this column block to finish folds every tile's term
+  // in ascending tile order, from 0 as the plain version does, and resets
+  // the ticket for the next read on this stream
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last_block = atomicAdd(a.tickets + blockIdx.x, 1u) == gridDim.y - 1;
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+  const size_t tile_stride = (size_t)B * NO;
+  for (int o = tid; o < B * BN; o += nthr) {
+    const int bb = o / BN, gn = n0 + o % BN;
+    if (gn >= NO) continue;
+    const float* src = a.ws + (size_t)bb * NO + gn;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < ntiles; ++k) acc = __fadd_rn(acc, __ldcg(src + k * tile_stride));
+    a.out[(size_t)bb * NO + gn] = acc;
+  }
+  if (tid == 0) atomicExch(a.tickets + blockIdx.x, 0u);
+}
+
+template <int D, bool FINITE, bool NOISY>
+cudaError_t launch_decode(const ReadParams& a, cudaStream_t stream) {
+  const int threads = (a.S * a.B * dec::NQ + 31) / 32 * 32;
+  const int ntiles = (a.K + XBAR_ROWS - 1) / XBAR_ROWS;
+  const dim3 grid((a.NO + dec::BN - 1) / dec::BN, (ntiles + a.group - 1) / a.group);
+  if (a.ws == nullptr || a.tickets == nullptr || a.group < 1 || threads > dec::MAX_THREADS ||
+      (int)grid.x > a.n_tickets)
+    return cudaErrorInvalidValue;
+  const size_t smem = dec::smem_bytes(D, NOISY, a.S, a.B);
+  // the dynamic shared-memory limit, raised once per instance and device (a
+  // launch that needs more than the last one raises it again)
+  static size_t allowed[dec::MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= dec::MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (smem > allowed[dev]) {
+    err = cudaFuncSetAttribute(mvm_decode_kernel<D, FINITE, NOISY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    allowed[dev] = smem;
+  }
+  mvm_decode_kernel<D, FINITE, NOISY><<<grid, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Dispatch
+// ---------------------------------------------------------------------------
+
+enum Body { BODY_DP4A = 0, BODY_MMA = 1, BODY_DECODE = 2 };
+
+// K4 (float x): the tensor-core body, the decode body (forward only) or the
+// dp4a body (MᵀVM only); K5 (int x_q): the dp4a body
 template <int D, bool FINITE, bool TRANS, bool NOISY, typename XT>
-cudaError_t launch_one(bool mma, const ReadParams& a, cudaStream_t stream) {
-  if constexpr (std::is_same<XT, float>::value)
-    if (mma) return launch_mma<D, FINITE, TRANS, NOISY>(a, stream);
-  return launch_dp4a<D, FINITE, TRANS, NOISY, XT>(a, stream);
+cudaError_t launch_one(int body, const ReadParams& a, cudaStream_t stream) {
+  if constexpr (std::is_same<XT, float>::value) {
+    if (body == BODY_MMA) return launch_mma<D, FINITE, TRANS, NOISY>(a, stream);
+    if constexpr (TRANS)
+      return body == BODY_DP4A ? launch_dp4a<D, FINITE, true, NOISY, float>(a, stream) : cudaErrorInvalidValue;
+    else
+      return body == BODY_DECODE ? launch_decode<D, FINITE, NOISY>(a, stream) : cudaErrorInvalidValue;
+  } else {
+    return launch_dp4a<D, FINITE, TRANS, NOISY, XT>(a, stream);
+  }
 }
 
 template <int D, bool NOISY, typename XT>
-cudaError_t launch_d(bool mma, bool finite, bool transpose, const ReadParams& a, cudaStream_t stream) {
+cudaError_t launch_d(int body, bool finite, bool transpose, const ReadParams& a, cudaStream_t stream) {
   if (finite)
-    return transpose ? launch_one<D, true, true, NOISY, XT>(mma, a, stream)
-                     : launch_one<D, true, false, NOISY, XT>(mma, a, stream);
-  return transpose ? launch_one<D, false, true, NOISY, XT>(mma, a, stream)
-                   : launch_one<D, false, false, NOISY, XT>(mma, a, stream);
+    return transpose ? launch_one<D, true, true, NOISY, XT>(body, a, stream)
+                     : launch_one<D, true, false, NOISY, XT>(body, a, stream);
+  return transpose ? launch_one<D, false, true, NOISY, XT>(body, a, stream)
+                   : launch_one<D, false, false, NOISY, XT>(body, a, stream);
 }
 
 // the io_bits the source instantiates: 8, 12 and 16 (7, 11, 15 bit cycles)
 template <bool NOISY, typename XT>
-cudaError_t launch(bool mma, bool finite, bool transpose, const ReadParams& a, cudaStream_t stream) {
+cudaError_t launch(int body, bool finite, bool transpose, const ReadParams& a, cudaStream_t stream) {
   switch (a.io_bits) {
-    case 8: return launch_d<7, NOISY, XT>(mma, finite, transpose, a, stream);
-    case 12: return launch_d<11, NOISY, XT>(mma, finite, transpose, a, stream);
-    case 16: return launch_d<15, NOISY, XT>(mma, finite, transpose, a, stream);
+    case 8: return launch_d<7, NOISY, XT>(body, finite, transpose, a, stream);
+    case 12: return launch_d<11, NOISY, XT>(body, finite, transpose, a, stream);
+    case 16: return launch_d<15, NOISY, XT>(body, finite, transpose, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -750,6 +1097,10 @@ bool read_params(ReadParams& a, const void* planes, const void* x, void* out, in
   a.vec16 = N % 16 == 0 && reinterpret_cast<uintptr_t>(planes) % 16 == 0;
   a.xvec = a.K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   a.rw0 = a.rw1 = a.tile0 = a.col0 = 0;
+  a.ws = nullptr;
+  a.tickets = nullptr;
+  a.group = 0;
+  a.n_tickets = 0;
   for (int s = 0; s < MAX_S; ++s) {
     a.inv_step[s] = 0.f;
     a.bias[s] = 0.f;
@@ -777,25 +1128,42 @@ bool read_params(ReadParams& a, const void* planes, const void* x, void* out, in
 // vec != 0: the planes' row length (N) is a multiple of 4 and the planes
 // 4-byte aligned. off_scale: NULL (no read noise), or host float[S] =
 // f32(read_noise·128·pm_s), with (rw0, rw1) the pattern's key words and
-// (tile0, col0) the global tile and column offsets. mma != 0 runs the
-// tensor-core body, 0 the dp4a body. Returns a cudaError_t.
+// (tile0, col0) the global tile and column offsets. body: 1 the tensor-core
+// body; 2 the decode body (forward only), with ws f32 [ceil(M/128), B, N]
+// workspace, tickets uint32 [n_tickets] zero (and left zero), n_tickets at
+// least ceil(N / bn) (bn from panther_decode_geometry), group the tiles a
+// block owns; 0 the dp4a body (MᵀVM only).
+// Returns a cudaError_t.
 extern "C" int panther_mvm_sliced_fused(const void* planes, const void* x, const void* frac_bits,
                                         void* out, int B, int M, int N, int S, int io_bits,
                                         int adc_bits, const int* slice_bits, int vec,
                                         int transpose, const float* off_scale, int rw0, int rw1,
-                                        int tile0, int col0, int mma, void* stream) {
+                                        int tile0, int col0, int body, void* ws, void* tickets, int n_tickets,
+                                        int group, void* stream) {
   ReadParams a;
   if (!read_params(a, planes, x, out, B, M, N, S, io_bits, adc_bits, slice_bits, vec, transpose))
     return (int)cudaErrorInvalidValue;
   a.frac_bits = static_cast<const int*>(frac_bits);
+  a.ws = static_cast<float*>(ws);
+  a.tickets = static_cast<unsigned*>(tickets);
+  a.n_tickets = n_tickets;
+  a.group = group;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (off_scale == nullptr) return (int)launch<false, float>(mma != 0, adc_bits > 0, transpose != 0, a, st);
+  if (off_scale == nullptr) return (int)launch<false, float>(body, adc_bits > 0, transpose != 0, a, st);
   for (int s = 0; s < S; ++s) a.off_scale[s] = off_scale[s];
   a.rw0 = rw0;
   a.rw1 = rw1;
   a.tile0 = tile0;
   a.col0 = col0;
-  return (int)launch<true, float>(mma != 0, adc_bits > 0, transpose != 0, a, st);
+  return (int)launch<true, float>(body, adc_bits > 0, transpose != 0, a, st);
+}
+
+// The decode body's geometry, which the wrapper's planner repeats: the
+// output columns a block owns, and the most slices × tokens a read may have
+// (one thread per slice, token and 4 columns).
+extern "C" void panther_decode_geometry(int* bn, int* max_sb) {
+  *bn = dec::BN;
+  *max_sb = dec::MAX_THREADS / dec::NQ;
 }
 
 // K5. As K4 without the DAC and the read noise, on the dp4a body: x_q
@@ -807,5 +1175,5 @@ extern "C" int panther_mvm_sliced(const void* planes, const void* x_q, void* out
   ReadParams a;
   if (!read_params(a, planes, x_q, out, B, M, N, S, io_bits, adc_bits, slice_bits, vec, transpose))
     return (int)cudaErrorInvalidValue;
-  return (int)launch<false, int>(false, adc_bits > 0, transpose != 0, a, static_cast<cudaStream_t>(stream));
+  return (int)launch<false, int>(BODY_DP4A, adc_bits > 0, transpose != 0, a, static_cast<cudaStream_t>(stream));
 }

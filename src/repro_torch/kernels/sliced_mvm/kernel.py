@@ -14,21 +14,29 @@ One source (``csrc/mvm_sliced_fused.cu``) holds both reads:
 * ``mvm_sliced`` replaces ``mvm_sliced`` (K5): the same read on an int32
   input already on the DAC grid, with no DAC prologue.
 
-Two bodies compute these reads, bit for bit the same numbers. K4 runs the
-tensor-core body (int8 ``mma.sync``, the ADC and both folds in registers)
-for reads of more than ``DP4A_MAX_B`` tokens, and the dp4a body (CUDA-core
-``__dp4a``) for the decode reads of at most ``DP4A_MAX_B`` tokens, where it
-is faster: the choice is by shape only (``uses_dp4a``). K5 always runs the
-dp4a body, which makes it the same-work yardstick of the old design. The
-transpose reads the same row-major planes in place. The source comment says
-what bounds each body on the card and what is left for later.
+Three bodies compute these reads, bit for bit the same numbers, chosen by
+shape only (``body_for``; nothing falls back on an error):
+
+* the tensor-core body (int8 ``mma.sync``, the ADC and both folds in
+  registers) for every K4 read of more than ``DECODE_MAX_B`` tokens (prefill,
+  training);
+* the decode body (CUDA-core ``__dp4a`` over a ``cp.async`` ring, split over
+  crossbar tiles with a one-launch fold in ascending tile order) for forward
+  K4 reads of at most ``DECODE_MAX_B`` tokens, the serving path's decode;
+  ``decode_plan`` picks its columns and tiles a block per shape;
+* the dp4a body (CUDA-core ``__dp4a``, a block walking every tile) for MᵀVM
+  reads of at most ``DECODE_MAX_B`` tokens, and always for K5, which makes
+  K5 the same-work yardstick of the old design.
+
+The transpose reads the same row-major planes in place. The source comment
+says what bounds each body on the card and what is left for later.
 
 The library builds at first use (``kernels.build``); nothing is compiled or
 loaded at import, so CPU-only machines import this module freely. The
 wrappers launch on the current stream and count their launches:
 ``launches`` (forward) and ``transpose_launches`` (MᵀVM) over every
-instance, and ``instances`` by instance name (``instance_name``; K4's dp4a
-reads end in ``"_dp4a"``).
+instance, and ``instances`` by instance name (``instance_name``; K4's
+decode-body reads end in ``"_decode"``, its dp4a-body reads in ``"_dp4a"``).
 """
 from __future__ import annotations
 
@@ -36,18 +44,28 @@ import collections
 import ctypes
 import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.fixed_point import device_pattern_words
 from repro_torch.core.slicing import SliceSpec
 from repro_torch.kernels import build as _build
-from .ref import READ_SALT, READ_SALT_T, read_offset_scales
+from .ref import READ_SALT, READ_SALT_T, XBAR_ROWS, read_offset_scales
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mvm_sliced_fused.cu"
 IO_BITS_BUILT = (8, 12, 16)  # io widths the source instantiates (the fig9 io sweep reads at 8 and 12)
 MAX_SLICES = 16
-DP4A_MAX_B = 4  # K4 reads of at most this many tokens (decode) run the dp4a body, larger ones the tensor-core body
+# K4 reads of at most this many tokens (decode): forward on the decode body,
+# MᵀVM on the dp4a body; larger reads on the tensor-core body
+DECODE_MAX_B = 4
+BODY_CODES = {"dp4a": 0, "mma": 1, "decode": 2}  # the C interface's body argument
+H100_SMS = 132  # streaming multiprocessors of the card the plan is tuned for (the planner's default)
+# the decode body's geometry, which the source owns (dec::BN, dec::MAX_THREADS
+# / dec::NQ): the planner's copy, checked against the library when it loads
+DECODE_BN = 32  # output columns a decode-body block owns
+DECODE_MAX_SB = 64  # slices x tokens: one thread per (slice, token, 4 columns), 512 a block
+DECODE_WAVES = 8  # the decode plan wants at least this many blocks per SM
 
 
 def build_kernel() -> _build.Built:
@@ -59,24 +77,85 @@ def build_kernel() -> _build.Built:
 def _lib():
     lib = ctypes.CDLL(str(build_kernel().path))
     lib.panther_mvm_sliced_fused.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.panther_mvm_sliced.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     for fn in (lib.panther_mvm_sliced_fused, lib.panther_mvm_sliced):
         fn.restype = ctypes.c_int
+    bn, max_sb = ctypes.c_int(), ctypes.c_int()
+    lib.panther_decode_geometry(ctypes.byref(bn), ctypes.byref(max_sb))
+    if (bn.value, max_sb.value) != (DECODE_BN, DECODE_MAX_SB):
+        raise RuntimeError(f"the decode body's geometry (BN {bn.value}, S·B <= {max_sb.value}) is not the "
+                           f"planner's (DECODE_BN {DECODE_BN}, DECODE_MAX_SB {DECODE_MAX_SB})")
     return lib
 
 
-def instance_name(transpose: bool, io_bits: int, noisy: bool = False, dp4a: bool = False) -> str:
+def instance_name(transpose: bool, io_bits: int, noisy: bool = False, body: str = "mma") -> str:
     """The key of a read's instance in ``instances``: e.g. ``"io16"``,
-    ``"transpose_io8"``, ``"io16_read_noise"``; K4 reads on the dp4a body
-    (``uses_dp4a``) end in ``"_dp4a"``."""
-    return f"{'transpose_' if transpose else ''}io{io_bits}{'_read_noise' if noisy else ''}{'_dp4a' if dp4a else ''}"
+    ``"transpose_io8"``, ``"io16_read_noise"``; K4 reads on the decode body
+    end in ``"_decode"``, on the dp4a body in ``"_dp4a"`` (``body_for``); K5's
+    keys carry no body."""
+    suffix = "" if body == "mma" else f"_{body}"
+    return f"{'transpose_' if transpose else ''}io{io_bits}{'_read_noise' if noisy else ''}{suffix}"
 
 
-def uses_dp4a(n_tokens: int) -> bool:
-    """Whether a K4 read of ``n_tokens`` runs the dp4a body: by shape only."""
-    return n_tokens <= DP4A_MAX_B
+def uses_decode_body(n_tokens: int) -> bool:
+    """Whether a K4 read of ``n_tokens`` is a decode read (the decode body
+    forward, the dp4a body for the MᵀVM): by shape only."""
+    return n_tokens <= DECODE_MAX_B
+
+
+def body_for(n_tokens: int, transpose: bool) -> str:
+    """The body a K4 read runs: ``"decode"``, ``"dp4a"`` or ``"mma"``."""
+    if not uses_decode_body(n_tokens):
+        return "mma"
+    return "dp4a" if transpose else "decode"
+
+
+class DecodePlan(NamedTuple):
+    group: int  # consecutive 128-row crossbar tiles a block owns (the kernel's one blocking argument)
+    col_blocks: int  # grid x: blocks of DECODE_BN columns
+    tile_groups: int  # grid y
+
+
+def decode_plan(n_tokens: int, M: int, N: int, S: int, sms: int = H100_SMS) -> DecodePlan:
+    """The decode body's blocking of a forward read of ``n_tokens`` through
+    planes [S, M, N]: ``DECODE_BN`` columns a block, and the largest
+    power-of-two group of tiles that still launches ``DECODE_WAVES·sms``
+    blocks (one tile a block when even that falls short)."""
+    if S * n_tokens > DECODE_MAX_SB:
+        raise ValueError(f"the decode body takes S·B <= {DECODE_MAX_SB}, got S={S} B={n_tokens}")
+    tiles, cols = -(-M // XBAR_ROWS), -(-N // DECODE_BN)
+    group = 1
+    while group * 2 <= tiles and cols * -(-tiles // (group * 2)) >= DECODE_WAVES * sms:
+        group *= 2
+    return DecodePlan(group, cols, -(-tiles // group))
+
+
+# the decode body's tickets, one int32 a column block, by (device, stream):
+# zero between reads (the last block of a column resets its own), so a read
+# needs no memset, and reads on two streams never share one
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            # a graph would own the array and zero it on every replay; make it
+            # (and set the kernel's shared-memory limit) with one read on the
+            # capture stream before the capture
+            raise RuntimeError("the decode body's tickets for this stream and shape do not exist yet: run "
+                               "one decode read of this shape on the stream before capturing a CUDA graph")
+        t = _TICKETS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_read(planes: torch.Tensor, x: torch.Tensor, x_dtype, spec: SliceSpec, io_bits: int, adc_bits,
@@ -123,12 +202,12 @@ def _run(name: str, planes: torch.Tensor, x: torch.Tensor, spec: SliceSpec, adc_
     return out, True
 
 
-def _count(wrapper, transpose: bool, io_bits: int, noisy: bool = False, dp4a: bool = False) -> None:
+def _count(wrapper, transpose: bool, io_bits: int, noisy: bool = False, body: str = "mma") -> None:
     if transpose:
         wrapper.transpose_launches += 1
     else:
         wrapper.launches += 1
-    wrapper.instances[instance_name(transpose, io_bits, noisy, dp4a)] += 1
+    wrapper.instances[instance_name(transpose, io_bits, noisy, body)] += 1
 
 
 def mvm_sliced_fused(
@@ -163,15 +242,25 @@ def mvm_sliced_fused(
         off = ctypes.cast((ctypes.c_float * spec.n_slices)(*read_offset_scales(dev, spec)), ctypes.c_void_p)
         words = device_pattern_words(dev.stuck_seed, READ_SALT_T if transpose else READ_SALT)
     fn = _lib().panther_mvm_sliced_fused
-    dp4a = uses_dp4a(x.shape[0])
+    body = body_for(x.shape[0], transpose)
 
     def call(out, B, M, N, S, adc, bits, vec, trans, stream):
+        if body != "decode":
+            return fn(planes.data_ptr(), x.data_ptr(), frac_bits.data_ptr(), out, B, M, N, S, io_bits, adc,
+                      bits, vec, trans, off, *words, int(tile0), int(col0), BODY_CODES[body], None, None, 0, 0,
+                      stream)
+        plan = decode_plan(B, M, N, S, _sm_count(planes.device.index))
+        tickets = _tickets(planes.device, stream, plan.col_blocks)
+        # the tile terms the last block of each column folds: held until the
+        # launch is queued, then freed to the caching allocator in stream order
+        ws = torch.empty((-(-M // XBAR_ROWS), B, N), dtype=torch.float32, device=planes.device)
         return fn(planes.data_ptr(), x.data_ptr(), frac_bits.data_ptr(), out, B, M, N, S, io_bits, adc,
-                  bits, vec, trans, off, *words, int(tile0), int(col0), int(not dp4a), stream)
+                  bits, vec, trans, off, *words, int(tile0), int(col0), BODY_CODES[body], ws.data_ptr(),
+                  tickets.data_ptr(), tickets.numel(), plan.group, stream)
 
     out, launched = _run("mvm_sliced_fused", planes, x, spec, adc_bits, transpose, call)
     if launched:
-        _count(mvm_sliced_fused, transpose, io_bits, dev is not None, dp4a)
+        _count(mvm_sliced_fused, transpose, io_bits, dev is not None, body)
     return out
 
 

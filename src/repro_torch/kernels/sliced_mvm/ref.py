@@ -12,8 +12,11 @@ regime the results are bit-identical to it.
 CUDA kernels are held against: the CPU tests run them, and ``chip_smoke.py``
 compares the kernels with them on the card. The ops entries take them only
 for tensors that lie on the CPU. ``adc_codes_exact`` and
-``ideal_slice_term`` write the tensor-core body's epilogue arithmetic in
-torch ops, so the CPU tests can hold it against JAX's ADC model.
+``ideal_slice_term`` write the tensor-core and decode bodies' epilogue
+arithmetic in torch ops, so the CPU tests can hold it against JAX's ADC
+model. ``tile_terms`` and ``fold_tiles`` mirror the decode body's split over
+crossbar tiles and its ordered fold, so the CPU tests can show the split
+gives the plain version's numbers; nothing on the card path calls them.
 
 A read-noisy ``DeviceModel`` adds its frozen per-(crossbar tile, slice,
 output column) offsets (``read_offsets_ref``) to the column currents: at
@@ -62,7 +65,9 @@ ADC_MAGIC_BITS = 0x4B400000  # its bits
 
 
 def adc_codes_exact(c: torch.Tensor, off, inv_step: float, half: int) -> torch.Tensor:
-    """The tensor-core body's ADC, in f32 torch ops: int32 column currents
+    """The tensor-core and decode bodies' ADC (the decode body's ``__dp4a``
+    accumulators start from ``0x4B400000`` as the mma's C fragment does), in
+    f32 torch ops: int32 column currents
     ``c`` (|c| < 2^22) -> int32 codes ``clamp(rint((c + off)·inv_step),
     ±half)``, with no int<->float conversion.
 
@@ -146,6 +151,18 @@ def mvm_sliced_ref(
     return _read(w, x_q, spec, io_bits, adc_bits, transpose, None, 0, 0)
 
 
+def _fused_operands(planes, x, frac_bits, io_bits, transpose, device):
+    """(f32 planes [S, contract, out], DAC codes of x, the read-noisy device
+    or None) of a quantize-fused read."""
+    w = planes.to(torch.float32)
+    if transpose:
+        w = w.transpose(1, 2)
+    if x.dim() != 2 or x.shape[1] != w.shape[1]:
+        raise ValueError(f"x {tuple(x.shape)} does not match planes {tuple(planes.shape)}")
+    noisy = device is not None and device.read_noise > 0.0
+    return w, dac_quantize(x, frac_bits, io_bits), device if noisy else None
+
+
 def mvm_sliced_fused_ref(
     planes: torch.Tensor,
     x: torch.Tensor,
@@ -171,25 +188,57 @@ def mvm_sliced_fused_ref(
     whose ADC full scale stays ``128·plane_max``. ``device`` with
     ``read_noise > 0`` adds the read offsets; ``tile0``/``col0`` are the
     global crossbar-tile and output-column offsets of these planes."""
-    w = planes.to(torch.float32)
-    if transpose:
-        w = w.transpose(1, 2)
-    if x.dim() != 2 or x.shape[1] != w.shape[1]:
-        raise ValueError(f"x {tuple(x.shape)} does not match planes {tuple(planes.shape)}")
-    noisy = device is not None and device.read_noise > 0.0
-    return _read(w, dac_quantize(x, frac_bits, io_bits), spec, io_bits, adc_bits, transpose,
-                 device if noisy else None, tile0, col0)
+    w, x_q, device = _fused_operands(planes, x, frac_bits, io_bits, transpose, device)
+    return _read(w, x_q, spec, io_bits, adc_bits, transpose, device, tile0, col0)
+
+
+def tile_terms(
+    planes: torch.Tensor,
+    x: torch.Tensor,
+    frac_bits,
+    spec: SliceSpec,
+    io_bits: int = 16,
+    adc_bits: int | None = None,
+    device=None,
+    tile0: int = 0,
+    col0: int = 0,
+) -> torch.Tensor:
+    """The decode body's split, in plain torch: the forward read's f32 term
+    of each 128-row crossbar tile (DAC, ADC, bit fold, slice fold in
+    ascending s), ``[tiles, B, N]``, the workspace the kernel's blocks fill.
+    Arguments as ``mvm_sliced_fused_ref``'s; a block's share is this on its
+    planes' rows and columns, at its global ``tile0``/``col0``."""
+    w, x_q, device = _fused_operands(planes, x, frac_bits, io_bits, False, device)
+    return torch.stack(list(_tile_terms(w, x_q, spec, io_bits, adc_bits, False, device, tile0, col0)))
+
+
+def fold_tiles(terms: torch.Tensor) -> torch.Tensor:
+    """``[tiles, B, N]`` -> ``[B, N]``: the tile terms added one at a time in
+    ascending tile order from 0, the plain version's order (a fold that
+    starts from term 0 differs in the sign of a zero, one that pairs terms
+    in the rounding)."""
+    out = torch.zeros(terms.shape[1:], dtype=torch.float32, device=terms.device)
+    for term in terms:
+        out = out + term
+    return out
 
 
 def _read(w, x_q, spec: SliceSpec, io_bits: int, adc_bits, transpose: bool, device, tile0: int,
           col0: int) -> torch.Tensor:
     """The packed read of int ``x_q`` [B, M] through f32 planes ``w`` [S, M,
     N] (already transposed for the MᵀVM read), with read offsets when
-    ``device`` is not None."""
+    ``device`` is not None: the tile terms summed in ascending order."""
+    out = torch.zeros((x_q.shape[0], w.shape[2]), dtype=torch.float32, device=w.device)
+    for term in _tile_terms(w, x_q, spec, io_bits, adc_bits, transpose, device, tile0, col0):
+        out = out + term
+    return out
+
+
+def _tile_terms(w, x_q, spec: SliceSpec, io_bits: int, adc_bits, transpose: bool, device, tile0: int, col0: int):
+    """Each 128-row crossbar tile's f32 term [B, N] of the read, in
+    ascending tile order."""
     S, M, N = w.shape
-    B = x_q.shape[0]
     n_tiles = -(-M // XBAR_ROWS)
-    out = torch.zeros((B, N), dtype=torch.float32, device=w.device)
 
     def offs(tile):
         return read_offsets_ref(device, spec, tile0 + tile, col0, N, transpose, w.device)
@@ -202,8 +251,8 @@ def _read(w, x_q, spec: SliceSpec, io_bits: int, adc_bits, transpose: bool, devi
             y = torch.einsum("bm,smn->bsn", xf[:, lo:hi], w[:, lo:hi])
             if device is not None:  # each of the io_bits-1 bit cycles reads the offset
                 y = y + offs(tile)[None] * float(2 ** (io_bits - 1) - 1)
-            out = out + _slice_fold(y, s_scale)
-        return out
+            yield _slice_fold(y, s_scale)
+        return
 
     T = io_bits - 1
     bp = bit_planes(x_q, io_bits).to(torch.float32)  # [T, B, M]
@@ -220,5 +269,4 @@ def _read(w, x_q, spec: SliceSpec, io_bits: int, adc_bits, transpose: bool, devi
             y = y + (offs(tile) / step[:, None])[None, None]
         q = torch.clamp(torch.round(y), -half, half)  # integer ADC codes
         z = torch.tensordot(tw, q, dims=([0], [0]))  # bit fold -> [B, S, n]
-        out = out + _slice_fold(z, sw)  # slice fold (step folded)
-    return out
+        yield _slice_fold(z, sw)  # slice fold (step folded)

@@ -6,9 +6,12 @@ they skip (a CUDA kernel has no interpret mode). Run them on the card with
 Tolerance: the reads within ``max|kernel - plain| <= 1e-3 * (1 + max|plain|)``,
 and at finite ADC bit for bit (the two sum in the same order); K4's
 tensor-core body bit for bit against its plain version and against the dp4a
-body (K5) at every ADC; the update kernels bit for bit (``opa_fused`` on
-f32-exact operands, where every contraction order gives the same sums: its
-bf16 tensor-core body against its plain version and its CUDA-core body).
+body (K5) at every ADC; its decode body bit for bit against its plain
+version at every ADC (the ideal one on f32-exact digits), read after read,
+on two streams and replayed in a CUDA graph; the update kernels bit for bit
+(``opa_fused`` on f32-exact operands, where every contraction order gives
+the same sums: its bf16 tensor-core body against its plain version and its
+CUDA-core body).
 """
 from __future__ import annotations
 
@@ -546,7 +549,7 @@ def test_tensor_core_read_on_ragged_edges(card, monkeypatch, b, m, n, transpose,
     from repro_torch.kernels.sliced_mvm import ref
     from repro_torch.models.common import DeviceModel
 
-    monkeypatch.setattr(K, "DP4A_MAX_B", 0)
+    monkeypatch.setattr(K, "DECODE_MAX_B", 0)
     dev = DeviceModel(read_noise=0.01, stuck_seed=3) if noisy else None
     planes, x, xf = _read_case(card, m, n, b, transpose, 16, m + n + b)
     for adc in (9, None):
@@ -562,21 +565,141 @@ def test_tensor_core_read_on_ragged_edges(card, monkeypatch, b, m, n, transpose,
         assert torch.equal(got, want)
 
 
-def test_decode_reads_take_the_dp4a_body_by_shape(card):
+def test_decode_reads_take_the_decode_body_by_shape(card):
     from repro_torch.core.slicing import DEFAULT_SPEC
     from repro_torch.kernels.sliced_mvm import kernel as K
 
     g = torch.Generator(device=card).manual_seed(4)
     planes = torch.randint(-8, 8, (8, 256, 128), generator=g, device=card, dtype=torch.int8)
-    for b in (K.DP4A_MAX_B, K.DP4A_MAX_B + 1):
-        x_q, x, xf = _on_the_dac_grid(card, b, 256, 16, g)
-        name = K.instance_name(False, 16, dp4a=K.uses_dp4a(b))
-        before = K.mvm_sliced_fused.instances[name]
-        got = K.mvm_sliced_fused(planes, x, xf, spec=DEFAULT_SPEC, adc_bits=9)
+    for b in (K.DECODE_MAX_B, K.DECODE_MAX_B + 1):
+        for transpose in (False, True):
+            x_q, x, xf = _on_the_dac_grid(card, b, 128 if transpose else 256, 16, g)
+            name = K.instance_name(transpose, 16, body=K.body_for(b, transpose))
+            before = K.mvm_sliced_fused.instances[name]
+            got = K.mvm_sliced_fused(planes, x, xf, spec=DEFAULT_SPEC, adc_bits=9, transpose=transpose)
+            torch.cuda.synchronize()
+            assert K.mvm_sliced_fused.instances[name] == before + 1
+            assert torch.equal(got, K.mvm_sliced(planes, x_q, spec=DEFAULT_SPEC, adc_bits=9, transpose=transpose))
+    assert K.body_for(K.DECODE_MAX_B, False) == "decode" and K.body_for(K.DECODE_MAX_B, True) == "dp4a"
+    assert K.body_for(K.DECODE_MAX_B + 1, False) == K.body_for(K.DECODE_MAX_B + 1, True) == "mma"
+
+
+# gemma-2b's four read shapes and the edge shapes (a short last tile; a ragged N)
+DECODE_SHAPES = [(2048, 2560), (2048, 2048), (2048, 16384), (16384, 2048), (320, 2048), (256, 100)]
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+@pytest.mark.parametrize("adc", [9, None])
+@pytest.mark.parametrize("io_bits", [8, 12, 16])
+def test_decode_body_matches_plain(card, io_bits, adc, noisy):
+    # every decode instance, bit for bit, at 1-4 tokens; the ideal ADC on
+    # digits in [-2, 2], where the plain version's f32 sums are exact
+    from repro_torch.core.fixed_point import choose_frac_bits
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.kernels.sliced_mvm import ref
+    from repro_torch.models.common import DeviceModel
+
+    dev = DeviceModel(read_noise=0.01, stuck_seed=3) if noisy else None
+    name = K.instance_name(False, io_bits, noisy, body="decode")
+    g = torch.Generator(device=card).manual_seed(io_bits)
+    digit = 8 if adc is not None else 2
+    for m, n in DECODE_SHAPES:
+        planes = torch.randint(-digit, digit + 1, (8, m, n), generator=g, device=card, dtype=torch.int8)
+        for b in (1, 2, 3, 4):
+            x = torch.randn((b, m), generator=g, device=card)
+            xf = choose_frac_bits(x, word_bits=io_bits, margin_bits=1, clip_to_word=False).reshape(1)
+            before = K.mvm_sliced_fused.instances[name]
+            got = K.mvm_sliced_fused(planes, x, xf, spec=DEFAULT_SPEC, io_bits=io_bits, adc_bits=adc, dev=dev,
+                                     tile0=2, col0=5)
+            want = ref.mvm_sliced_fused_ref(planes, x, xf[0], DEFAULT_SPEC, io_bits, adc, device=dev, tile0=2,
+                                            col0=5)
+            torch.cuda.synchronize()
+            assert K.mvm_sliced_fused.instances[name] == before + 1
+            assert torch.equal(got, want), (m, n, b)
+
+
+def test_decode_reads_repeated_and_on_two_streams_give_the_same_bits(card):
+    # the tickets reset after every read, and two streams hold their own
+    from repro_torch.core.fixed_point import choose_frac_bits
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.kernels.sliced_mvm import ref
+
+    g = torch.Generator(device=card).manual_seed(18)
+    reads = []
+    for m, n in ((16384, 2048), (2048, 16384), (256, 100)):
+        planes = torch.randint(-8, 8, (8, m, n), generator=g, device=card, dtype=torch.int8)
+        x = torch.randn((4, m), generator=g, device=card)
+        xf = choose_frac_bits(x, word_bits=16, margin_bits=1, clip_to_word=False).reshape(1)
+        reads.append((planes, x, xf, ref.mvm_sliced_fused_ref(planes, x, xf[0], DEFAULT_SPEC, 16, 9)))
+    outs = [K.mvm_sliced_fused(p, x, xf, spec=DEFAULT_SPEC, adc_bits=9) for _ in range(3) for p, x, xf, _ in reads]
+    streams = [torch.cuda.Stream(card), torch.cuda.Stream(card)]
+    torch.cuda.synchronize()
+    on_streams = []
+    for _ in range(3):
+        for i, (p, x, xf, _) in enumerate(reads * 2):
+            with torch.cuda.stream(streams[i % 2]):
+                on_streams.append(K.mvm_sliced_fused(p, x, xf, spec=DEFAULT_SPEC, adc_bits=9))
+    torch.cuda.synchronize()
+    wants = [want for _, _, _, want in reads]
+    assert all(torch.equal(o, wants[i % 3]) for i, o in enumerate(outs))
+    assert all(torch.equal(o, (wants * 2)[i % 6]) for i, o in enumerate(on_streams))
+    assert all(int(t.abs().sum()) == 0 for t in K._TICKETS.values())
+
+
+def test_decode_reads_replay_in_a_cuda_graph(card):
+    # what a graph around the decode step needs of the decode body: one read
+    # on the capture stream beforehand makes its tickets and sets its
+    # shared-memory limit, so the capture only records the launch; every
+    # replay gives the eager read's bits and leaves the tickets at 0
+    from repro_torch.core.fixed_point import choose_frac_bits
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.models.common import DeviceModel
+
+    g = torch.Generator(device=card).manual_seed(6)
+    dev = DeviceModel(read_noise=0.01, stuck_seed=3)
+    reads = []
+    for (m, n), d in (((2048, 16384), None), ((16384, 2048), dev), ((320, 2048), None)):
+        planes = torch.randint(-8, 8, (8, m, n), generator=g, device=card, dtype=torch.int8)
+        x = torch.randn((4, m), generator=g, device=card)
+        xf = choose_frac_bits(x, word_bits=16, margin_bits=1, clip_to_word=False).reshape(1)
+        reads.append((planes, x, xf, d))
+
+    def run():
+        return [K.mvm_sliced_fused(p, x, xf, spec=DEFAULT_SPEC, adc_bits=9, dev=d, tile0=2, col0=5)
+                for p, x, xf, d in reads]
+
+    stream = torch.cuda.Stream(card)
+    stream.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(stream):
+        wants = run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = K.mvm_sliced_fused.instances["io16_decode"]
+    with torch.cuda.graph(graph, stream=stream):
+        outs = run()
+    assert K.mvm_sliced_fused.instances["io16_decode"] == before + 2  # counted once, at capture
+    for _ in range(3):
+        for o in outs:
+            o.fill_(float("nan"))
+        graph.replay()
         torch.cuda.synchronize()
-        assert K.mvm_sliced_fused.instances[name] == before + 1
-        assert torch.equal(got, K.mvm_sliced(planes, x_q, spec=DEFAULT_SPEC, adc_bits=9))
-    assert K.uses_dp4a(K.DP4A_MAX_B) and not K.uses_dp4a(K.DP4A_MAX_B + 1)
+        assert all(torch.equal(o, w) for o, w in zip(outs, wants))
+    assert all(int(t.abs().sum()) == 0 for t in K._TICKETS.values())
+
+
+def test_decode_read_refuses_fewer_tickets_than_column_blocks(card, monkeypatch):
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_mvm import kernel as K
+
+    planes = torch.zeros((8, 256, 100), device=card, dtype=torch.int8)
+    x = torch.ones((4, 256), device=card)
+    xf = torch.tensor([10], device=card, dtype=torch.int32)
+    monkeypatch.setattr(K, "_tickets", lambda device, stream, n: torch.zeros(n - 1, dtype=torch.int32, device=card))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        K.mvm_sliced_fused(planes, x, xf, spec=DEFAULT_SPEC, adc_bits=9)
 
 
 def test_tensor_core_instances_run_imma_and_no_dp4a(card):
@@ -595,6 +718,11 @@ def test_tensor_core_instances_run_imma_and_no_dp4a(card):
         assert "IMMA" in body and not idp4a.search(body), name
     dp4a = [body for name, body in funcs.items() if "mvm_sliced_kernel" in name]
     assert dp4a and all(idp4a.search(body) and "IMMA" not in body for body in dp4a)
+    # the decode body: io 8/12/16 x finite/ideal ADC x noise, all on __dp4a
+    decode = {name: body for name, body in funcs.items() if "mvm_decode_kernel" in name}
+    assert len(decode) == 12
+    for name, body in decode.items():
+        assert idp4a.search(body) and "IMMA" not in body, name
 
 
 # --------------------- K1's grid and hw rounding sources ---------------------
