@@ -14,8 +14,8 @@ Phases:
      lossless yardstick) at the decode (4) and prefill (128) token counts
      and at 1 and 5, with K4's three bodies side by side: the decode body
      (the wrapper's for forward reads of at most 4 tokens), the tensor-core
-     body (for more), and the dp4a body as K5 runs it on x_q; it prints the
-     fastest body at each token count;
+     body (for more), and the dp4a body as K5's dp4a instance runs it on
+     x_q, asked for by name; it prints the fastest body at each token count;
   3. serve gemma-2b at full width (d=2048, d_ff=16384, vocab 256000, bf16)
      through the adc9 finite-ADC plan: random weights from a seed, sliced into
      int8 digit planes, 4 prompts of 32 tokens prefilled and 16 tokens
@@ -24,9 +24,10 @@ Phases:
      and the decode steps' on the decode body, the logits must be finite and
      the adc9-vs-lossless gap finite;
   4. hold the update kernels and the transpose read against their plain
-     versions: ``crs`` and ``opa_deposit`` bit for bit at gemma-2b's four
-     (M, N), the 256000x2048 embedding and a ragged 320x100, on inputs that
-     hit every rail; ``opa_fused`` bit for bit on f32-exact operands at
+     versions: ``crs`` (planes at a 16-byte boundary and 5 bytes past
+     one) and ``opa_deposit`` bit for bit at gemma-2b's four (M, N),
+     the 256000x2048 embedding, a ragged 320x100 and a 33x47 whose M·N is off
+     the 16-element grid, on inputs that hit every rail; ``opa_fused`` bit for bit on f32-exact operands at
      gemma-2b's four (M, N) and the ragged 320x100, T in {1, 17, 100, 256},
      two (lr, F) settings, with and without key words: f32 operands on its
      CUDA-core body, bf16 operands on its tensor-core body (``mma.sync``,
@@ -37,8 +38,10 @@ Phases:
      finite ADC at tokens {1, 4, 5, 16, 256}, ADC {9, 6, ideal}, a short
      last column tile and a ragged M. Then time each at 256 tokens against
      its plain version, its library yardstick and its bound, K4 (forward
-     and MᵀVM) beside the dp4a body (K5 on x_q), and K1's tensor-core body
-     beside its CUDA-core body;
+     and MᵀVM) beside the dp4a body (K5's dp4a instance on x_q), and K1's
+     tensor-core body beside its CUDA-core body; and ``crs`` over one
+     layer's 5 blocks and over the embedding's block beside a
+     device-to-device copy of the same bytes (the attainable bandwidth);
   5. train gemma-2b at full width: random weights from a seed, synthetic
      bigram tokens at batch 4 x 64, lr 3e-2, CRS every 2 steps, counter
      stochastic rounding; 3 steps through the adc9 plan, then 2 lossless
@@ -55,12 +58,14 @@ Phases:
      stuck instance (the embedding
      included), K4/K4ᵀ with read noise, K4/K4ᵀ at io 8 and 12 and K5 forward
      and transposed at io 8, 12 and 16, each at ADC {9, 6, ideal} (K4 at 1 and
-     4 tokens on its decode body); then time
+     4 tokens on its decode body; K5 on the body its shape takes and on the
+     other, by name, bit for bit, also on out-of-range x_q); then time
      each at 256 tokens against its plain version, its library yardstick and
      its bound; then every K4 instance (forward and MᵀVM, io 8/12/16, finite
      and ideal ADC, with and without read noise) at 256 tokens beside the
-     dp4a body (K5 on x_q), the ideal-device ones bit for bit against K5 on
-     x = x_q·2^-10;
+     dp4a body (K5's dp4a instance on x_q) and K5 on the tensor-core body,
+     the ideal-device ones bit for bit against the dp4a body on x =
+     x_q·2^-10;
   7. train the same state on the non-ideal device (write noise 4e6 LSB,
      asymmetry 1.2/0.8, 2% stuck cells, read noise 1% of full scale): 2 adc9
      steps, then one adc9 step each at io 8 and 12 on the ideal device, every
@@ -69,7 +74,8 @@ Phases:
      device step that runs no CRS, then one more step of each kind under the
      profiler;
   8. drive K5's entry point, ``mvm_sliced_batched``, over every operand
-     block of the trained state, forward and transposed, at 4 x 64 tokens;
+     block of the trained state, forward and transposed, at 4 x 64 tokens
+     and io 16, 8 and 12: every read on K5's tensor-core instances;
   9. drive the update's entry point, ``opa_fused_update``, with f32 operands
      over every operand block of the trained state, on the ideal and on the
      non-ideal device: f32 operands take K1's CUDA-core instances, one
@@ -112,6 +118,7 @@ EDGE_SHAPES = ((320, 2048), (256, 100))  # short last tile; ragged N
 TOL = 1e-3  # |kernel - plain| <= TOL * (1 + max|plain|), as tests/test_kernels_mvm_fused.py
 EMBED_SHAPE = (256000, 2048)  # gemma-2b's embedding: the dense-gradient leaf
 RAGGED_SHAPE = (320, 100)
+ODD_SHAPE = (33, 47)  # M·N not a multiple of 16: every element on K3's per-element routine
 T_TRAIN = 256  # tokens per training step: batch 4 x seq 64
 T_EDGE_SHAPES = ((2048, 320), (100, 256))  # MᵀVM: short last column tile; ragged M
 T_OPA = (1, 17, 100, 256)  # K1's checks: one token, a ragged k-step, a ragged stage, the step's tokens
@@ -139,11 +146,31 @@ def ptxas_lines(log: str) -> list:
         elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
             spills[props] = m.groups()
         elif (m := re.search(r"Used (\d+) registers", line)) and fn:
-            args = ",".join(re.findall(r"L[ib](\d+)E", fn))
             st, ld = spills.get(fn, ("?", "?"))
-            out.append(f"{kernel_name(fn)}<{args}>: {m.group(1)} registers, spill stores {st} bytes, loads {ld} bytes")
+            name = kernel_name(fn)
+            out.append(f"{name}<{template_args(fn, name)}>: {m.group(1)} registers, spill stores {st} bytes, "
+                       f"loads {ld} bytes")
             fn = None
     return out
+
+
+def template_args(mangled: str, name: str) -> str:
+    """The template arguments of a kernel's mangled name: integer and bool
+    values, and the input type (``float``: K4, ``int``: K5)."""
+    i = mangled.find(f"{name}I")
+    if i < 0:
+        return ""
+    i += len(name) + 1
+    args = []
+    while i < len(mangled) and mangled[i] != "E":
+        if mangled[i] == "L":
+            j = mangled.index("E", i)
+            args.append(mangled[i + 2:j])
+            i = j + 1
+        else:
+            args.append({"f": "float", "i": "int"}.get(mangled[i], mangled[i]))
+            i += 1
+    return ",".join(args)
 
 
 def kernel_name(mangled: str) -> str:
@@ -216,8 +243,9 @@ def phase_kernels(torch, K, ref, fp, spec, gen):
             t = {"ms": cuda_time_ms(lambda: K.mvm_sliced_fused(planes, x, xf, spec=spec, adc_bits=9), reps),
                  "plain_ms": cuda_time_ms(lambda: ref.mvm_sliced_fused_ref(planes, x, xf[0], spec, 16, 9), 2, 1),
                  "library_ms": cuda_time_ms(lambda: torch.matmul(x, w), reps),
-                 # the dp4a body as K5 runs it on x_q: the same work
-                 "dp4a_ms": cuda_time_ms(lambda: K.mvm_sliced(planes, x_q, spec=spec, adc_bits=9), reps)}
+                 # K5's dp4a body, asked for by name, on x_q: the same work
+                 "dp4a_ms": cuda_time_ms(lambda: K.mvm_sliced(planes, x_q, spec=spec, adc_bits=9, body="dp4a"),
+                                         reps)}
             t["bound_ms"], t["bound_by"] = bound_ms(B, M, N, spec.n_slices, 16)
             # the same read forced onto the tensor-core body, and onto the
             # decode body where it takes the shape (S·B <= 64)
@@ -438,23 +466,41 @@ def plane_values(torch, planes):
     return acc
 
 
+def misaligned(torch, planes, offset):
+    """A contiguous copy of planes whose storage starts ``offset`` bytes past
+    a 16-byte boundary (a layer view of an odd-shaped stack), and its
+    buffer, zero around it."""
+    buf = torch.zeros(planes.numel() + 32, dtype=torch.int8, device=planes.device)
+    view = buf[offset:offset + planes.numel()].view(planes.shape)
+    view.copy_(planes)
+    return view, buf
+
+
 def phase_update_kernels(torch, spec, gen):
-    """crs and opa_deposit bit for bit against their plain versions."""
+    """crs (aligned and not) and opa_deposit bit for bit against their plain
+    versions."""
     from repro_torch.kernels.crs import kernel as KC
     from repro_torch.kernels.crs import ref as RC
     from repro_torch.kernels.sliced_opa import kernel as KO
     from repro_torch.kernels.sliced_opa import ref as RO
 
     checks = 0
-    for shape in (*SLICE_SHAPES, EMBED_SHAPE, RAGGED_SHAPE):
+    for shape in (*SLICE_SHAPES, EMBED_SHAPE, RAGGED_SHAPE, ODD_SHAPE):
         planes = random_planes(torch, spec, shape, gen)
         want = plain_by_rows(torch, lambda p: RC.crs_ref(p, spec), planes)
-        got = KC.crs(planes.clone(), spec=spec)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            bad = int((got != want).sum())
-            raise AssertionError(f"crs kernel vs plain at {shape}: {bad} plane cells differ")
-        del got, want
+        # at a 16-byte boundary and 5 bytes past one: the per-element head
+        # and tail beside the 16-byte groups
+        for offset in (0, 5):
+            got, buf = misaligned(torch, planes, offset)
+            KC.crs(got, spec=spec)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want) or bool(buf[:offset].any()) or bool(buf[offset + got.numel():].any()):
+                bad = int((got != want).sum())
+                raise AssertionError(f"crs kernel (offset {offset}) vs plain at {shape}: {bad} plane cells "
+                                     "differ, or it wrote outside its planes")
+            checks += 1
+            del got, buf
+        del want
         p_q = rail_updates(torch, spec, shape, gen)
         want = plain_by_rows(torch, lambda p, q: RO.opa_deposit_ref(p, q, spec), planes, p_q)
         got = KO.opa_deposit(planes.clone(), p_q, spec=spec)
@@ -462,11 +508,12 @@ def phase_update_kernels(torch, spec, gen):
         if not torch.equal(got, want):
             bad = int((got != want).sum())
             raise AssertionError(f"opa_deposit kernel vs plain at {shape}: {bad} plane cells differ")
-        checks += 2
+        checks += 1
         del planes, p_q, got, want
         torch.cuda.empty_cache()
-    print(f"crs, opa_deposit vs plain: {checks} cases bit-identical (gemma-2b layer shapes, "
-          f"embedding {EMBED_SHAPE}, ragged {RAGGED_SHAPE}; every rail hit)", flush=True)
+    print(f"crs (planes 0 and 5 bytes past a 16-byte boundary), opa_deposit vs "
+          f"plain: {checks} cases bit-identical (gemma-2b layer shapes, embedding {EMBED_SHAPE}, ragged "
+          f"{RAGGED_SHAPE}, {ODD_SHAPE} with M·N off the 16-element grid; every rail hit)", flush=True)
 
 
 def exact_operands(torch, T, M, N, dtype, gen):
@@ -619,17 +666,14 @@ def phase_transpose(torch, K, ref, fp, spec, gen):
 
 def time_update_kernels(torch, K, ref, spec, gen):
     """One layer's work at the training step's 256 tokens (the five operand
-    leaves) for opa_fused, the MᵀVM read and crs, and the embedding's deposit
-    for opa_deposit: kernel, plain version, library yardstick and bound."""
+    leaves) for opa_fused and the MᵀVM read, and the embedding's deposit for
+    opa_deposit: kernel, plain version, library yardstick and bound."""
     from repro_torch.core.slicing import dequantize_planes
-    from repro_torch.kernels.crs import kernel as KC
-    from repro_torch.kernels.crs import ref as RC
     from repro_torch.kernels.sliced_opa import kernel as KO
     from repro_torch.kernels.sliced_opa import ref as RO
 
     S, T = spec.n_slices, T_TRAIN
-    rows = {"opa_fused": [], "opa_fused_fma": [], "mvm_sliced_fused_transpose": [], "mvm_sliced_fused_256": [],
-            "crs": []}
+    rows = {"opa_fused": [], "opa_fused_fma": [], "mvm_sliced_fused_transpose": [], "mvm_sliced_fused_256": []}
     for name, M, N in SLICE_READS:
         planes = torch.randint(-8, 8, (S, M, N), generator=gen, device="cuda", dtype=torch.int8)
         frac = torch.tensor([30], dtype=torch.int32, device="cuda")
@@ -657,13 +701,9 @@ def time_update_kernels(torch, K, ref, spec, gen):
             p = cuda_time_ms(lambda: ref.mvm_sliced_fused_ref(planes, dy, xf[0], spec, 16, 9, transpose=transpose),
                              2, 1)
             lib = cuda_time_ms(lambda: torch.matmul(dy, w.T if transpose else w), 10)
-            d = cuda_time_ms(lambda: K.mvm_sliced(planes, x_q, spec=spec, adc_bits=9, transpose=transpose), 3)
+            d = cuda_time_ms(lambda: K.mvm_sliced(planes, x_q, spec=spec, adc_bits=9, transpose=transpose,
+                                                  body="dp4a"), 3)
             rows[key].append((k, p, lib, *b, d))
-        k = cuda_time_ms(lambda: KC.crs(planes, spec=spec), 10)
-        p = cuda_time_ms(lambda: RC.crs_ref(planes, spec), 3, 1)
-        # ~12 32-bit operations a plane cell: carry, digit, compare, rail select
-        b = bound_of(2 * S * M * N, 12.0 * S * M * N, CUDA_CORE_OPS_PER_S)
-        rows["crs"].append((k, p, None, *b))
         for key, r in rows.items():
             k, p, lib, b_ms, b_by, *other = r[-1]
             lib = "-" if lib is None else f"{lib:.4f}"
@@ -687,6 +727,46 @@ def time_update_kernels(torch, K, ref, spec, gen):
     out["opa_deposit"] = {"ms": k, "plain_ms": p, "library_ms": None, "bound_ms": b[0], "bound_by": b[1]}
     for key in ("mvm_sliced_fused_transpose", "mvm_sliced_fused_256", "opa_fused"):
         print_layer_total(key, out[key], T)
+    return out
+
+
+# the K3 bound's operations: the byte-lane carry chain, ~13 32-bit operations
+# a word of 4 elements and a slice (crs.cu's crs_words)
+CRS_OPS_PER_PLANE_CELL = 13 / 4
+
+
+def time_crs(torch, spec, gen):
+    """K3 over one layer's 5 blocks and over the embedding's block: the
+    kernel, the plain version, a device-to-device copy of the same bytes (the
+    attainable-bandwidth reference: not the same function, so not a library
+    yardstick) and the byte bound."""
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.crs import ref as RC
+
+    S = spec.n_slices
+    out = {}
+    for key, shapes in (("crs", [(m, n) for _, m, n in SLICE_READS]), ("crs_embedding", [EMBED_SHAPE])):
+        t = {"ms": 0.0, "plain_ms": 0.0, "copy_ms": 0.0, "library_ms": None}
+        cells = 0
+        for M, N in shapes:
+            planes = random_planes(torch, spec, (M, N), gen)
+            dst = torch.empty_like(planes)
+            reps = 10 if M * N < 2**26 else 5
+            # the kernel and the copy in turns (ABBA), each the mean of its two
+            timed = {"ms": lambda: KC.crs(planes, spec=spec), "copy_ms": lambda: dst.copy_(planes)}
+            for k in (*timed, *reversed(timed)):
+                t[k] += cuda_time_ms(timed[k], reps) / 2
+            t["plain_ms"] += cuda_time_ms(lambda: plain_by_rows(torch, lambda p: RC.crs_ref(p, spec), planes), 1, 1)
+            cells += S * M * N
+            del planes, dst
+            torch.cuda.empty_cache()
+        t["bound_ms"], t["bound_by"] = bound_of(2 * cells, CRS_OPS_PER_PLANE_CELL * cells, CUDA_CORE_OPS_PER_S)
+        out[key] = t
+        what = "one layer's 5 blocks" if key == "crs" else f"the embedding's block {EMBED_SHAPE}"
+        print(f"  {key}: {what}: kernel {t['ms']:.4f} ms, "
+              f"device-to-device copy of the same bytes {t['copy_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}); {100 * t['bound_ms'] / t['ms']:.1f}% of the bound, "
+              f"{100 * t['copy_ms'] / t['ms']:.1f}% of the copy", flush=True)
     return out
 
 
@@ -720,6 +800,33 @@ def snapshot(torch, sliced):
     from repro_torch import tree
 
     return {path: s.planes[..., :4, :].clone() for path, s in tree.leaves_with_path(sliced) if s is not None}
+
+
+class embedding_crs_launches:
+    """While inside, K3's launches on the embedding's leaf are counted (a
+    list of one int, yielded): the optimizer calls the CRS entry point
+    ``repro_torch.kernels.crs.crs`` once a leaf, and around the call on the
+    embedding's leaf the difference in the wrapper's own launch count is
+    added."""
+
+    def __enter__(self):
+        import repro_torch.kernels.crs as pkg
+        from repro_torch.kernels.crs import kernel as KC
+
+        self.pkg, self.saved, count = pkg, pkg.crs, [0]
+
+        def on_leaf(planes, spec):
+            before = KC.crs.launches
+            out = self.saved(planes, spec)
+            if tuple(planes.shape[-2:]) == EMBED_SHAPE:
+                count[0] += KC.crs.launches - before
+            return out
+
+        pkg.crs = on_leaf
+        return count
+
+    def __exit__(self, *exc):
+        self.pkg.crs = self.saved
 
 
 def phase_train(torch, gen):
@@ -773,6 +880,7 @@ def phase_train(torch, gen):
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     totals = dict.fromkeys(counters, 0)
+    totals["crs_embedding"] = 0
     before = snapshot(torch, state.sliced)
     torch.cuda.reset_peak_memory_stats()
     for step, mode in enumerate(("adc9", "adc9", "adc9", "lossless", "lossless")):
@@ -782,7 +890,8 @@ def phase_train(torch, gen):
         batch = ds.batch(step)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics = steps[mode](state, batch)
+        with embedding_crs_launches() as on_embedding:
+            state, metrics = steps[mode](state, batch)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
         got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
@@ -796,12 +905,16 @@ def phase_train(torch, gen):
               f"grad_norm {gnorm:.4f}, launches {got}", flush=True)
         if got != want:
             raise AssertionError(f"step {step} ({mode}): launches {got} != {want}")
+        # K3 once on the embedding's block, every CRS step
+        if on_embedding[0] != crs_step:
+            raise AssertionError(f"step {step} ({mode}): {on_embedding[0]} K3 launches on the embedding")
+        totals["crs_embedding"] += on_embedding[0]
         # bf16 operands: every block on K1's tensor-core instance, none on the CUDA-core ones
         if dict(KO.opa_fused.instances) != {"ideal": blocks["operand"]}:
             raise AssertionError(f"step {step} ({mode}): K1 instances {dict(KO.opa_fused.instances)}")
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             raise AssertionError(f"step {step}: loss {loss} or grad_norm {gnorm} not finite")
-        for k in totals:
+        for k in got:
             totals[k] += got[k]
     peak = torch.cuda.max_memory_allocated() / 2**30
     after = snapshot(torch, state.sliced)
@@ -947,6 +1060,7 @@ def phase_device_kernels(torch, spec, gen):
                         else:
                             got = K.mvm_sliced(planes, x_q, spec=spec, io_bits=io, adc_bits=adc, transpose=transpose)
                             want = ref.mvm_sliced_ref(planes, x_q, spec, io, adc, transpose=transpose)
+                            k5_bodies(torch, K, ref, planes, x_q, got, spec, io, adc, transpose, gen)
                         torch.cuda.synchronize()
                         d = float((got - want).abs().max())
                         worst = max(worst, d)
@@ -969,6 +1083,28 @@ def phase_device_kernels(torch, spec, gen):
                   f"apart; max |diff| {worst}", flush=True)
     torch.cuda.empty_cache()
     return err
+
+
+def k5_bodies(torch, K, ref, planes, x_q, got, spec, io, adc, transpose, gen):
+    """K5 on the body its shape takes (``got``) bit for bit against the other
+    body asked for by name, and both on an out-of-range x_q (+-2^15, +-2^20,
+    INT_MIN and any int32: the bits at and above io-1 are not streamed) bit
+    for bit against each other and, at finite ADC, the plain version."""
+    B = x_q.shape[0]
+    other = "dp4a" if K.body_for(B, transpose, fused=False) == "mma" else "mma"
+    wild = torch.randint(-2**31, 2**31, tuple(x_q.shape), generator=gen, device="cuda", dtype=torch.int64)
+    wild = wild.to(torch.int32)
+    wild[0, :5] = torch.tensor([2**15, -2**15, 2**20, -2**20, -2**31], dtype=torch.int32)
+    for x, what in ((x_q, "x_q"), (wild, "out-of-range x_q")):
+        a = got if x is x_q else K.mvm_sliced(planes, x, spec=spec, io_bits=io, adc_bits=adc, transpose=transpose)
+        b = K.mvm_sliced(planes, x, spec=spec, io_bits=io, adc_bits=adc, transpose=transpose, body=other)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"K5{'ᵀ' if transpose else ''} io{io} adc{adc} B={B} on {what}: the "
+                                 f"{K.body_for(B, transpose, fused=False)} body and the {other} body differ")
+        if x is wild and adc is not None and not torch.equal(a, ref.mvm_sliced_ref(planes, x, spec, io, adc,
+                                                                                    transpose=transpose)):
+            raise AssertionError(f"K5{'ᵀ' if transpose else ''} io{io} adc{adc} B={B} on {what} vs plain")
 
 
 def time_device_kernels(torch, spec, gen):
@@ -1014,26 +1150,38 @@ def time_device_kernels(torch, spec, gen):
             lib = cuda_time_ms(lambda: torch.matmul(xin, w.T if transpose else w), 10)
             lib_q = cuda_time_ms(lambda: torch.matmul(x_q.float(), w.T if transpose else w), 10)
             tag = "_transpose" if transpose else ""
-            # every K4 instance beside the dp4a body (K5 on x_q, the same work
-            # without the DAC and the read offsets); on x = x_q·2^-10, which
-            # the DAC maps back to x_q, the ideal-device instances equal K5
+            # every K4 instance beside the dp4a body (K5's dp4a instance on
+            # x_q, asked for by name: the same work without the DAC and the
+            # read offsets) and K5 on the tensor-core body; on x = x_q·2^-10,
+            # which the DAC maps back to x_q, the ideal-device instances
+            # equal K5
             for io in (8, 12, 16):
                 xq_io = ref.dac_quantize(xin, 10, io)
                 x_io = xq_io.float() * 2.0**-10
                 for adc in (9, None):
                     d_ms = cuda_time_ms(lambda: K.mvm_sliced(planes, xq_io, spec=spec, io_bits=io, adc_bits=adc,
-                                                             transpose=transpose), 3)
+                                                             transpose=transpose, body="dp4a"), 3)
+                    k5_ms = cuda_time_ms(lambda: K.mvm_sliced(planes, xq_io, spec=spec, io_bits=io, adc_bits=adc,
+                                                              transpose=transpose), 3)
                     for d in (None, dev):
                         got = K.mvm_sliced_fused(planes, x_io, xf, spec=spec, io_bits=io, adc_bits=adc,
                                                  transpose=transpose, dev=d)
                         if d is None and not torch.equal(
                                 got, K.mvm_sliced(planes, xq_io, spec=spec, io_bits=io, adc_bits=adc,
-                                                  transpose=transpose)):
+                                                  transpose=transpose, body="dp4a")):
                             raise AssertionError(f"K4{tag} io{io} adc{adc} vs the dp4a body (K5) at M={M} N={N}: "
                                                  "not bit-identical")
                         k_ms = cuda_time_ms(lambda: K.mvm_sliced_fused(planes, x_io, xf, spec=spec, io_bits=io,
                                                                        adc_bits=adc, transpose=transpose, dev=d), 3)
-                        add((transpose, io, adc, d is not None), k_ms, d_ms)
+                        add((transpose, io, adc, d is not None), k_ms, d_ms, k5_ms)
+                # K5 at adc9 on the body the step's 256 tokens take (the
+                # tensor-core body) beside its dp4a instance
+                key = f"mvm_sliced{tag}" + ("" if io == 16 else f"_io{io}")
+                p = cuda_time_ms(lambda: ref.mvm_sliced_ref(planes, xq_io, spec, io, 9, transpose=transpose),
+                                 2, 1)
+                k5, d5 = rows[(transpose, io, 9, False)][-1][2], rows[(transpose, io, 9, False)][-1][1]
+                add(key, k5, p, lib_q, *bound_of(S * M * N + 4 * T * (M + N), 2.0 * T * M * N * S * (io - 1),
+                                                 INT8_OPS_PER_S), d5)
                 del xq_io, x_io
             for key, io, d in ((f"mvm_sliced_fused{tag}_read_noise", 16, dev), (f"mvm_sliced_fused{tag}_io8", 8, None),
                                (f"mvm_sliced_fused{tag}_io12", 12, None)):
@@ -1043,10 +1191,6 @@ def time_device_kernels(torch, spec, gen):
                                                                   transpose=transpose, device=d), 2, 1)
                 add(key, k, p, lib, *bound_of(S * M * N + 4 * T * (M + N) + 4, 2.0 * T * M * N * S * (io - 1),
                                               INT8_OPS_PER_S), rows[(transpose, io, 9, False)][-1][1])
-            k = cuda_time_ms(lambda: K.mvm_sliced(planes, x_q, spec=spec, adc_bits=9, transpose=transpose), 3)
-            p = cuda_time_ms(lambda: ref.mvm_sliced_ref(planes, x_q, spec, 16, 9, transpose=transpose), 2, 1)
-            add(f"mvm_sliced{tag}", k, p, lib_q, *bound_of(S * M * N + 4 * T * (M + N), 2.0 * T * M * N * S * 15,
-                                                          INT8_OPS_PER_S))
         for key in rows:
             if not isinstance(key, str):
                 continue
@@ -1073,16 +1217,17 @@ def time_device_kernels(torch, spec, gen):
     del planes, p_q
     torch.cuda.empty_cache()
 
-    print(f"every K4 instance, one layer's 5 reads at {T} tokens (tensor-core body; the dp4a body is K5's time "
-          "on x_q; bit-identical to K5 on the ideal device):", flush=True)
+    print(f"every K4 instance, one layer's 5 reads at {T} tokens (tensor-core body; the dp4a body is K5's dp4a "
+          "instance on x_q; bit-identical to K5 on the ideal device), and K5 on the tensor-core body:", flush=True)
     for transpose in (False, True):
         for io in (8, 12, 16):
             for adc in (9, None):
                 for noisy in (False, True):
-                    k_ms, d_ms = instance_time(rows, transpose, io, adc, noisy)
+                    k_ms, d_ms, k5_ms = instance_time(rows, transpose, io, adc, noisy)
                     print(f"  K4{'ᵀ' if transpose else ' '} io{io:2d} adc {adc if adc else 'ideal':5} "
                           f"{'read noise' if noisy else 'ideal dev.':10s}: {k_ms:9.4f} ms   dp4a body {d_ms:9.4f} ms   "
-                          f"{d_ms / k_ms:5.2f}x", flush=True)
+                          f"{d_ms / k_ms:5.2f}x" + ("" if noisy else f"   K5 (tensor-core) {k5_ms:9.4f} ms   "
+                                                   f"dp4a/K5 {d_ms / k5_ms:5.2f}x"), flush=True)
     out = {key: layer_total(rs, key) for key, rs in rows.items() if isinstance(key, str)}
     out["opa_deposit_stuck"] = {"ms": k, "plain_ms": p, "library_ms": None, "bound_ms": b[0], "bound_by": b[1]}
     print_layer_total("opa_fused_device", out["opa_fused_device"], T)
@@ -1090,9 +1235,10 @@ def time_device_kernels(torch, spec, gen):
 
 
 def instance_time(rows, transpose, io, adc, noisy):
-    """(K4 ms, dp4a body ms) of one instance over one layer's 5 reads."""
+    """(K4 ms, dp4a body ms, K5 tensor-core ms) of one instance over one
+    layer's 5 reads."""
     rs = rows[(transpose, io, adc, noisy)]
-    return sum(r[0] for r in rs), sum(r[1] for r in rs)
+    return tuple(sum(r[i] for r in rs) for i in range(3))
 
 
 def stuck_sample(torch, sliced, dev, spec):
@@ -1209,8 +1355,9 @@ def phase_device_train(torch, state, ds, blocks, gen):
 def phase_k5_path(torch, state):
     """K5's entry point over gemma-2b's planes: every operand block read
     forward and transposed through ``mvm_sliced_batched`` on an input already
-    on the 16-bit DAC grid (batch 4 x 64), as the reference's unfused read
-    serves it. Returns the launch counts."""
+    on the DAC grid (batch 4 x 64), as the reference's unfused read serves
+    it, at io 16, 8 and 12: every read of these 256 tokens on the
+    tensor-core body. Returns the launch counts by kernels-line entry."""
     from repro_torch import tree
     from repro_torch.core.fixed_point import choose_frac_bits
     from repro_torch.core.slicing import DEFAULT_SPEC
@@ -1226,20 +1373,23 @@ def phase_k5_path(torch, state):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     finite = True
-    for path, planes in blocks:
-        for transpose in (False, True):
-            x = torch.randn((4, 64, planes.shape[2 if transpose else 1]), generator=g, device="cuda")
-            x_q = ref.dac_quantize(x, choose_frac_bits(x, word_bits=16, margin_bits=1, clip_to_word=False), 16)
-            out = mvm_sliced_batched(planes, x_q, DEFAULT_SPEC, adc_bits=9, transpose=transpose)
-            finite &= bool(torch.isfinite(out).all()) and tuple(out.shape[:2]) == (4, 64)
+    for io in (16, 8, 12):
+        for path, planes in blocks:
+            for transpose in (False, True):
+                x = torch.randn((4, 64, planes.shape[2 if transpose else 1]), generator=g, device="cuda")
+                x_q = ref.dac_quantize(x, choose_frac_bits(x, word_bits=io, margin_bits=1, clip_to_word=False), io)
+                out = mvm_sliced_batched(planes, x_q, DEFAULT_SPEC, io_bits=io, adc_bits=9, transpose=transpose)
+                finite &= bool(torch.isfinite(out).all()) and tuple(out.shape[:2]) == (4, 64)
     torch.cuda.synchronize()
     s = time.perf_counter() - t0
-    counts = (K.mvm_sliced.launches, K.mvm_sliced.transpose_launches)
-    print(f"K5 path: {len(blocks)} operand blocks read forward and transposed at 4 x 64 tokens, adc9, in {s:.2f} s; "
-          f"launches {counts}", flush=True)
-    if counts != (len(blocks), len(blocks)) or not finite:
-        raise AssertionError(f"K5 path: launches {counts} for {len(blocks)} blocks, finite {finite}")
-    return {"mvm_sliced": counts[0], "mvm_sliced_transpose": counts[1]}
+    counts = dict(K.mvm_sliced.instances)
+    want = {K.instance_name(t, io): len(blocks) for t in (False, True) for io in (8, 12, 16)}
+    print(f"K5 path: {len(blocks)} operand blocks read forward and transposed at 4 x 64 tokens, adc9, io 16, 8 "
+          f"and 12, in {s:.2f} s; launches by instance {counts}", flush=True)
+    if counts != want or not finite:
+        raise AssertionError(f"K5 path: launches {counts} for {len(blocks)} blocks (want {want}), finite {finite}")
+    return {f"mvm_sliced{'_transpose' if t else ''}{'' if io == 16 else f'_io{io}'}": counts[K.instance_name(t, io)]
+            for t in (False, True) for io in (8, 12, 16)}
 
 
 def phase_f32_update(torch, state):
@@ -1645,6 +1795,7 @@ def main() -> int:
     opa_err = phase_opa_fused(torch, DEFAULT_SPEC, gen)
     t_err = phase_transpose(torch, K, ref, fp, DEFAULT_SPEC, gen)
     train_timings = time_update_kernels(torch, K, ref, DEFAULT_SPEC, gen)
+    train_timings.update(time_crs(torch, DEFAULT_SPEC, gen))
     done("phase 4: update kernels and K4ᵀ")
     dev_err = phase_device_kernels(torch, DEFAULT_SPEC, gen)
     train_timings.update(time_device_kernels(torch, DEFAULT_SPEC, gen))
@@ -1693,6 +1844,8 @@ def main() -> int:
         entry("opa_deposit", "src/repro_torch/kernels/sliced_opa/csrc/opa_deposit.cu",
               "src/repro/kernels/sliced_opa/kernel.py:90", 0.0),
         entry("crs", "src/repro_torch/kernels/crs/csrc/crs.cu", "src/repro/kernels/crs/kernel.py:70", 0.0),
+        # the embedding's block alone: one of the K3 launches of every CRS step
+        entry("crs_embedding", "src/repro_torch/kernels/crs/csrc/crs.cu", "src/repro/kernels/crs/kernel.py:70", 0.0),
         entry("opa_fused_device", "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",
               "src/repro/kernels/sliced_opa/kernel.py:255", dev_err["opa_fused_device"]),
         entry("opa_fused_device_fma", "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",
@@ -1702,8 +1855,12 @@ def main() -> int:
         *(entry(f"mvm_sliced_fused{t}_{v}", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
                 "src/repro/kernels/sliced_mvm/kernel.py:367", dev_err[f"mvm_sliced_fused{t}_{v}"])
           for v in ("read_noise", "io8", "io12") for t in ("", "_transpose")),
-        *(entry(f"mvm_sliced{t}", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
-                "src/repro/kernels/sliced_mvm/kernel.py:233", dev_err[f"mvm_sliced{t}"]) for t in ("", "_transpose")),
+        # K5 on the tensor-core body (its dp4a instance's time beside it), one
+        # entry a width, each named with the instance it launched in phase 8
+        *({**entry(f"mvm_sliced{t}{v}", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
+                   "src/repro/kernels/sliced_mvm/kernel.py:233", dev_err[f"mvm_sliced{t}"]),
+           "instance": K.instance_name(t == "_transpose", int(v[3:]) if v else 16)}
+          for t in ("", "_transpose") for v in ("", "_io8", "_io12")),
         *(entry(rng_entry(mode, d, body), "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",
                 "src/repro/kernels/sliced_opa/kernel.py:255", rng_err[rng_entry(mode, d, body)])
           for mode in ("grid", "hw") for d in (False, True) for body in ("mma", "fma")),

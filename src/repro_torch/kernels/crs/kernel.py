@@ -2,9 +2,14 @@
 ``ctypes`` (port of the Pallas kernel ``repro.kernels.crs.kernel``).
 
 The kernel (``csrc/crs.cu``) rewrites one ``[S, M, N]`` block of digit
-planes in place; its source says what bounds it. The library builds at
-first use (``kernels.build``), never at import. The wrapper launches on the
-current stream and counts its launches in ``crs.launches``.
+planes in place, 4 elements a 32-bit word in byte lanes, ``S`` a template
+argument, the bytes moving by TMA bulk copies through a ring of
+shared-memory stages; its source says what bounds it. Where ``M·N`` is a
+multiple of 16 the elements before the planes' first 16-byte boundary and
+after their last take a per-element routine in the same launch; for other
+shapes every element does. The library builds at first use
+(``kernels.build``), never at import. The wrapper launches on the current
+stream and counts its launches in ``crs.launches``.
 """
 from __future__ import annotations
 
@@ -14,7 +19,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.core.slicing import SliceSpec, _digits_of
+from repro_torch.core.slicing import SliceSpec
 from repro_torch.kernels import build as _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "crs.cu"
@@ -28,8 +33,7 @@ def build_kernel() -> _build.Built:
 @functools.lru_cache(maxsize=1)
 def _entry():
     fn = ctypes.CDLL(str(build_kernel().path)).panther_crs
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -47,15 +51,10 @@ def crs(planes: torch.Tensor, *, spec: SliceSpec) -> torch.Tensor:
     mn = planes.shape[1] * planes.shape[2]
     if mn == 0:
         return planes
-    lim = spec.canonical_limit
-    pos = (ctypes.c_int * S)(*_digits_of(lim, S))
-    neg = (ctypes.c_int * S)(*_digits_of(-lim, S))
-    vec = int(mn % 4 == 0 and planes.data_ptr() % 4 == 0)
     fn = _entry()
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = fn(planes.data_ptr(), mn, S, ctypes.cast(pos, ctypes.c_void_p),
-                 ctypes.cast(neg, ctypes.c_void_p), vec, stream)
+        err = fn(planes.data_ptr(), mn, S, stream)
     if err != 0:
         raise RuntimeError(f"crs kernel launch failed (cudaError {err})")
     crs.launches += 1

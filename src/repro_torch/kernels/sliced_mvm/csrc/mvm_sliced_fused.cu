@@ -35,8 +35,10 @@
 //
 // Three bodies compute these numbers, chosen by shape only (the wrapper's
 // body_for; nothing falls back on an error): the decode body for forward K4
-// reads of at most 4 tokens (DECODE_MAX_B), the dp4a body for MᵀVM reads of
-// as few tokens and for K5, the tensor-core body for every K4 read of more.
+// reads of at most 4 tokens (DECODE_MAX_B), the dp4a body for MᵀVM K4 reads
+// and for K5 reads of as few tokens, the tensor-core body for every read of
+// more. K5's dp4a instances are also called by name: the same-work yardstick
+// of the old design.
 //
 // The tensor-core body (mvm_mma_kernel). The column currents of one tile are one
 // int8 product, exact in s32, on mma.sync.m16n8k32: A = the bit planes
@@ -79,10 +81,14 @@
 // rounds it. The slice terms and the tile sum use __fmul_rn/__fadd_rn, so
 // nothing is contracted into an FMA that the plain version does not do.
 // Blocks run the token blocks of one column block together, so each plane
-// tile is read from device memory once and from L2 B/BB times.
+// tile is read from device memory once and from L2 B/BB times. K5's
+// instances read x_q with int4 loads and no DAC; x_q is not clamped, so each
+// magnitude is cut to its D streamed bits before it is packed into a 16-bit
+// lane (the bits the dp4a body streams: K5's dp4a and tensor-core instances
+// agree bit for bit on any int32, INT_MIN included).
 //
-// The dp4a body (mvm_sliced_kernel: K5, and the MᵀVM reads of at most 4
-// tokens). A block owns 32 columns and up to 16 tokens and walks every
+// The dp4a body (mvm_sliced_kernel: the MᵀVM K4 reads and the K5 reads of
+// at most 4 tokens). A block owns 32 columns and up to 16 tokens and walks every
 // crossbar tile; a thread holds the (io-1)x4 currents of one token, slice
 // and 4 columns in registers and computes them with __dp4a (4 int8 MACs a
 // lane, exact in int32) from the same packed words; the slice fold runs
@@ -130,9 +136,9 @@
 // the int8 bound at 256 tokens: wgmma with TMA would buy little until the
 // epilogue shrinks. The 64-token blocks of 16 warps run at 128 registers a
 // thread and spill a few words, and still run faster than 8 warps of 32
-// tokens at 255 registers: hiding latency is worth more. Left for later:
-// K5 on this body, a cp.async ring for its plane tiles, and the MᵀVM reads
-// of at most 4 tokens on the decode body's split.
+// tokens at 255 registers: hiding latency is worth more. Left for later: a
+// cp.async ring for its plane tiles, and the MᵀVM reads of at most 4 tokens
+// on the decode body's split.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -455,8 +461,9 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
         "r"(c[3]));
 }
 
-// MI: m16 fragments (warps) along the tokens; BB = 16·MI tokens a block
-template <int MI, int D, bool FINITE, bool TRANS, bool NOISY>
+// MI: m16 fragments (warps) along the tokens; BB = 16·MI tokens a block.
+// XT: float (K4, the DAC in the prologue) or int (K5, x_q read as it is).
+template <int MI, int D, bool FINITE, bool TRANS, bool NOISY, typename XT>
 __global__ void __launch_bounds__(32 * MI * tc::WN, 1)
 mvm_mma_kernel(const ReadParams a) {
   constexpr int BB = 16 * MI, BN = tc::BN, NJ = tc::NJ, SP = tc::SP, NC16 = tc::NC16, THREADS = 32 * MI * tc::WN;
@@ -468,7 +475,7 @@ mvm_mma_kernel(const ReadParams a) {
   int* wb = smem;                      // [S][BN][R4] packed plane words, chunks swizzled
   int* xa = wb + S * BN * R4;          // [BB][XS] packed bit-plane words
   float* offs = reinterpret_cast<float*>(xa + BB * XS);  // [S][BN] read offsets of the tile (NOISY)
-  const float* __restrict__ x = static_cast<const float*>(a.x);
+  const XT* __restrict__ x = static_cast<const XT*>(a.x);
   const int8_t* __restrict__ planes = a.planes;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -478,7 +485,9 @@ mvm_mma_kernel(const ReadParams a) {
   const int bb = min(BB, B - b0);
   const bool active = 16 * mi < bb;    // warp-uniform: a warp past the last token only loads
 
-  const float scale = __int_as_float((a.frac_bits[0] + 127) << 23);  // exp2i(F)
+  float scale = 0.f;
+  if constexpr (std::is_same<XT, float>::value)
+    scale = __int_as_float((a.frac_bits[0] + 127) << 23);  // exp2i(F)
   const float lim = (float)((1 << (a.io_bits - 1)) - 1);
   const float lo = MAGIC_F - (float)a.adc_half, hi = MAGIC_F + (float)a.adc_half;
 
@@ -503,21 +512,40 @@ mvm_mma_kernel(const ReadParams a) {
     for (int task = tid; task < bb * R4; task += THREADS) {
       const int b = task / R4, r4 = task % R4;
       const int r = row0 + 4 * r4;
-      const float* xr = x + (size_t)(b0 + b) * K + r;
-      float v[4];
-      if (a.xvec && r + 3 < K) {
-        const float4 f = *reinterpret_cast<const float4*>(xr);
-        v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) v[i] = r + i < K ? xr[i] : 0.f;
-      }
+      const XT* xr = x + (size_t)(b0 + b) * K + r;
       uint32_t mag[4], nb = 0;
+      if constexpr (std::is_same<XT, float>::value) {
+        float v[4];
+        if (a.xvec && r + 3 < K) {
+          const float4 f = *reinterpret_cast<const float4*>(xr);
+          v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+        } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int q = (int)fminf(fmaxf(rintf(v[i] * scale), -lim), lim);
-        mag[i] = (uint32_t)abs(q);
-        nb |= (uint32_t)(q < 0) << (8 * i);
+          for (int i = 0; i < 4; ++i) v[i] = r + i < K ? xr[i] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int q = (int)fminf(fmaxf(rintf(v[i] * scale), -lim), lim);
+          mag[i] = (uint32_t)abs(q);
+          nb |= (uint32_t)(q < 0) << (8 * i);
+        }
+      } else {
+        // x_q as it is, unclamped: only the D streamed bits of |x_q| are
+        // kept (as the dp4a body streams them; |INT_MIN| wraps to 2^31, whose
+        // low bits are 0), so no magnitude spills into the next 16-bit lane
+        int q[4];
+        if (a.xvec && r + 3 < K) {
+          const int4 f = *reinterpret_cast<const int4*>(xr);
+          q[0] = f.x, q[1] = f.y, q[2] = f.z, q[3] = f.w;
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) q[i] = r + i < K ? xr[i] : 0;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mag[i] = (q[i] < 0 ? 0u - (uint32_t)q[i] : (uint32_t)q[i]) & ((1u << D) - 1u);
+          nb |= (uint32_t)(q[i] < 0) << (8 * i);
+        }
       }
       // magnitudes < 2^15 in 16-bit lanes: bit t of rows 0, 2 and of 1, 3
       const uint32_t m02 = mag[0] | (mag[2] << 16), m13 = mag[1] | (mag[3] << 16);
@@ -717,24 +745,24 @@ mvm_mma_kernel(const ReadParams a) {
   }
 }
 
-template <int MI, int D, bool FINITE, bool TRANS, bool NOISY>
+template <int MI, int D, bool FINITE, bool TRANS, bool NOISY, typename XT>
 cudaError_t launch_mma_mi(const ReadParams& a, cudaStream_t stream) {
   constexpr int BB = 16 * MI;
   const size_t smem = ((size_t)a.S * tc::BN * R4 + (size_t)BB * (D * R4 + 4) +
                        (NOISY ? (size_t)a.S * tc::BN : 0)) * sizeof(int);
   // token blocks fastest: the blocks of one column block run together
   const dim3 grid((a.B + BB - 1) / BB, (a.NO + tc::BN - 1) / tc::BN);
-  cudaError_t err = cudaFuncSetAttribute(mvm_mma_kernel<MI, D, FINITE, TRANS, NOISY>,
+  cudaError_t err = cudaFuncSetAttribute(mvm_mma_kernel<MI, D, FINITE, TRANS, NOISY, XT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  mvm_mma_kernel<MI, D, FINITE, TRANS, NOISY><<<grid, 32 * MI * tc::WN, smem, stream>>>(a);
+  mvm_mma_kernel<MI, D, FINITE, TRANS, NOISY, XT><<<grid, 32 * MI * tc::WN, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int D, bool FINITE, bool TRANS, bool NOISY>
+template <int D, bool FINITE, bool TRANS, bool NOISY, typename XT>
 cudaError_t launch_mma(const ReadParams& a, cudaStream_t stream) {
-  return a.B > tc::WIDE_B ? launch_mma_mi<4, D, FINITE, TRANS, NOISY>(a, stream)
-                          : launch_mma_mi<2, D, FINITE, TRANS, NOISY>(a, stream);
+  return a.B > tc::WIDE_B ? launch_mma_mi<4, D, FINITE, TRANS, NOISY, XT>(a, stream)
+                          : launch_mma_mi<2, D, FINITE, TRANS, NOISY, XT>(a, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1043,17 +1071,17 @@ cudaError_t launch_decode(const ReadParams& a, cudaStream_t stream) {
 enum Body { BODY_DP4A = 0, BODY_MMA = 1, BODY_DECODE = 2 };
 
 // K4 (float x): the tensor-core body, the decode body (forward only) or the
-// dp4a body (MᵀVM only); K5 (int x_q): the dp4a body
+// dp4a body (MᵀVM only); K5 (int x_q): the tensor-core or the dp4a body
 template <int D, bool FINITE, bool TRANS, bool NOISY, typename XT>
 cudaError_t launch_one(int body, const ReadParams& a, cudaStream_t stream) {
+  if (body == BODY_MMA) return launch_mma<D, FINITE, TRANS, NOISY, XT>(a, stream);
   if constexpr (std::is_same<XT, float>::value) {
-    if (body == BODY_MMA) return launch_mma<D, FINITE, TRANS, NOISY>(a, stream);
     if constexpr (TRANS)
       return body == BODY_DP4A ? launch_dp4a<D, FINITE, true, NOISY, float>(a, stream) : cudaErrorInvalidValue;
     else
       return body == BODY_DECODE ? launch_decode<D, FINITE, NOISY>(a, stream) : cudaErrorInvalidValue;
   } else {
-    return launch_dp4a<D, FINITE, TRANS, NOISY, XT>(a, stream);
+    return body == BODY_DP4A ? launch_dp4a<D, FINITE, TRANS, NOISY, XT>(a, stream) : cudaErrorInvalidValue;
   }
 }
 
@@ -1166,14 +1194,15 @@ extern "C" void panther_decode_geometry(int* bn, int* max_sb) {
   *max_sb = dec::MAX_THREADS / dec::NQ;
 }
 
-// K5. As K4 without the DAC and the read noise, on the dp4a body: x_q
-// int32 [B,M] ([B,N] when transpose) on the io_bits grid; the bits of |x_q|
-// at and above io_bits-1 are not streamed. Returns a cudaError_t.
+// K5. As K4 without the DAC and the read noise: x_q int32 [B,M] ([B,N]
+// when transpose) on the io_bits grid; the bits of |x_q| at and above
+// io_bits-1 are not streamed. body: 1 the tensor-core body, 0 the dp4a
+// body. Returns a cudaError_t.
 extern "C" int panther_mvm_sliced(const void* planes, const void* x_q, void* out, int B, int M, int N,
                                   int S, int io_bits, int adc_bits, const int* slice_bits, int vec,
-                                  int transpose, void* stream) {
+                                  int transpose, int body, void* stream) {
   ReadParams a;
   if (!read_params(a, planes, x_q, out, B, M, N, S, io_bits, adc_bits, slice_bits, vec, transpose))
     return (int)cudaErrorInvalidValue;
-  return (int)launch<false, int>(BODY_DP4A, adc_bits > 0, transpose != 0, a, static_cast<cudaStream_t>(stream));
+  return (int)launch<false, int>(body, adc_bits > 0, transpose != 0, a, static_cast<cudaStream_t>(stream));
 }

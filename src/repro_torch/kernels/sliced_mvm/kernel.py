@@ -18,15 +18,17 @@ Three bodies compute these reads, bit for bit the same numbers, chosen by
 shape only (``body_for``; nothing falls back on an error):
 
 * the tensor-core body (int8 ``mma.sync``, the ADC and both folds in
-  registers) for every K4 read of more than ``DECODE_MAX_B`` tokens (prefill,
-  training);
+  registers) for every read of more than ``DECODE_MAX_B`` tokens, K4's
+  (prefill, training) and K5's;
 * the decode body (CUDA-core ``__dp4a`` over a ``cp.async`` ring, split over
   crossbar tiles with a one-launch fold in ascending tile order) for forward
   K4 reads of at most ``DECODE_MAX_B`` tokens, the serving path's decode;
   ``decode_plan`` picks its columns and tiles a block per shape;
-* the dp4a body (CUDA-core ``__dp4a``, a block walking every tile) for MᵀVM
-  reads of at most ``DECODE_MAX_B`` tokens, and always for K5, which makes
-  K5 the same-work yardstick of the old design.
+* the dp4a body (CUDA-core ``__dp4a``, a block walking every tile) for K4's
+  MᵀVM reads and K5's reads of at most ``DECODE_MAX_B`` tokens. K5's dp4a
+  instances also run at any size when asked for by name
+  (``mvm_sliced(..., body="dp4a")``): the same-work yardstick the other
+  bodies are timed and checked against. Nothing on a path asks for it.
 
 The transpose reads the same row-major planes in place. The source comment
 says what bounds each body on the card and what is left for later.
@@ -35,8 +37,8 @@ The library builds at first use (``kernels.build``); nothing is compiled or
 loaded at import, so CPU-only machines import this module freely. The
 wrappers launch on the current stream and count their launches:
 ``launches`` (forward) and ``transpose_launches`` (MᵀVM) over every
-instance, and ``instances`` by instance name (``instance_name``; K4's
-decode-body reads end in ``"_decode"``, its dp4a-body reads in ``"_dp4a"``).
+instance, and ``instances`` by instance name (``instance_name``; decode-body
+reads end in ``"_decode"``, dp4a-body reads in ``"_dp4a"``).
 """
 from __future__ import annotations
 
@@ -56,8 +58,8 @@ from .ref import READ_SALT, READ_SALT_T, XBAR_ROWS, read_offset_scales
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mvm_sliced_fused.cu"
 IO_BITS_BUILT = (8, 12, 16)  # io widths the source instantiates (the fig9 io sweep reads at 8 and 12)
 MAX_SLICES = 16
-# K4 reads of at most this many tokens (decode): forward on the decode body,
-# MᵀVM on the dp4a body; larger reads on the tensor-core body
+# reads of at most this many tokens (decode): K4 forward on the decode body,
+# K4 MᵀVM and K5 on the dp4a body; larger reads on the tensor-core body
 DECODE_MAX_B = 4
 BODY_CODES = {"dp4a": 0, "mma": 1, "decode": 2}  # the C interface's body argument
 H100_SMS = 132  # streaming multiprocessors of the card the plan is tuned for (the planner's default)
@@ -80,7 +82,7 @@ def _lib():
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.panther_mvm_sliced.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     for fn in (lib.panther_mvm_sliced_fused, lib.panther_mvm_sliced):
         fn.restype = ctypes.c_int
     bn, max_sb = ctypes.c_int(), ctypes.c_int()
@@ -93,9 +95,8 @@ def _lib():
 
 def instance_name(transpose: bool, io_bits: int, noisy: bool = False, body: str = "mma") -> str:
     """The key of a read's instance in ``instances``: e.g. ``"io16"``,
-    ``"transpose_io8"``, ``"io16_read_noise"``; K4 reads on the decode body
-    end in ``"_decode"``, on the dp4a body in ``"_dp4a"`` (``body_for``); K5's
-    keys carry no body."""
+    ``"transpose_io8"``, ``"io16_read_noise"``; reads on the decode body
+    end in ``"_decode"``, on the dp4a body in ``"_dp4a"`` (``body_for``)."""
     suffix = "" if body == "mma" else f"_{body}"
     return f"{'transpose_' if transpose else ''}io{io_bits}{'_read_noise' if noisy else ''}{suffix}"
 
@@ -106,11 +107,12 @@ def uses_decode_body(n_tokens: int) -> bool:
     return n_tokens <= DECODE_MAX_B
 
 
-def body_for(n_tokens: int, transpose: bool) -> str:
-    """The body a K4 read runs: ``"decode"``, ``"dp4a"`` or ``"mma"``."""
+def body_for(n_tokens: int, transpose: bool, fused: bool = True) -> str:
+    """The body a read runs, K4's (``fused``) or K5's: ``"decode"``,
+    ``"dp4a"`` or ``"mma"``. The decode body takes float inputs only."""
     if not uses_decode_body(n_tokens):
         return "mma"
-    return "dp4a" if transpose else "decode"
+    return "dp4a" if transpose or not fused else "decode"
 
 
 class DecodePlan(NamedTuple):
@@ -272,20 +274,28 @@ def mvm_sliced(
     io_bits: int = 16,
     adc_bits: int | None = None,
     transpose: bool = False,
+    body: str | None = None,
 ) -> torch.Tensor:
     """planes int8 [S, M, N]; x_q int32 [B, M] ([B, N] when ``transpose``)
     on the ``io_bits`` DAC grid (``|x_q| <= 2^(io_bits-1) - 1``: the bits
     at and above ``io_bits - 1`` are not streamed) -> f32 [B, N] ([B, M])
-    on the product grid. CUDA tensors on one device, contiguous."""
+    on the product grid. CUDA tensors on one device, contiguous. ``body``:
+    None for the body the shape takes (``body_for``), or ``"dp4a"`` /
+    ``"mma"`` by name (``"dp4a"``: the same-work yardstick)."""
     _check_read(planes, x_q, torch.int32, spec, io_bits, adc_bits, transpose)
+    if body is None:
+        body = body_for(x_q.shape[0], transpose, fused=False)
+    if body not in ("dp4a", "mma"):
+        raise ValueError(f"mvm_sliced runs the 'mma' or the 'dp4a' body, not {body!r}")
     fn = _lib().panther_mvm_sliced
 
     def call(out, B, M, N, S, adc, bits, vec, trans, stream):
-        return fn(planes.data_ptr(), x_q.data_ptr(), out, B, M, N, S, io_bits, adc, bits, vec, trans, stream)
+        return fn(planes.data_ptr(), x_q.data_ptr(), out, B, M, N, S, io_bits, adc, bits, vec, trans,
+                  BODY_CODES[body], stream)
 
     out, launched = _run("mvm_sliced", planes, x_q, spec, adc_bits, transpose, call)
     if launched:
-        _count(mvm_sliced, transpose, io_bits)
+        _count(mvm_sliced, transpose, io_bits, body=body)
     return out
 
 

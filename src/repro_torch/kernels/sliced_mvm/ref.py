@@ -16,7 +16,11 @@ for tensors that lie on the CPU. ``adc_codes_exact`` and
 arithmetic in torch ops, so the CPU tests can hold it against JAX's ADC
 model. ``tile_terms`` and ``fold_tiles`` mirror the decode body's split over
 crossbar tiles and its ordered fold, so the CPU tests can show the split
-gives the plain version's numbers; nothing on the card path calls them.
+gives the plain version's numbers. ``int_prologue_words`` mirrors the
+tensor-core body's K5 prologue (the masked 16-bit lane packing of an
+unclamped ``x_q``) and ``streamed_input`` gives the int its words stream, so
+the CPU tests can hold it against JAX's bit planes and reads. Nothing on the
+card path calls these mirrors.
 
 A read-noisy ``DeviceModel`` adds its frozen per-(crossbar tile, slice,
 output column) offsets (``read_offsets_ref``) to the column currents: at
@@ -111,6 +115,43 @@ def dac_quantize(x: torch.Tensor, frac_bits, io_bits: int) -> torch.Tensor:
     scale = exp2i(frac_bits).to(x.device)
     y = torch.round(x.to(torch.float32) * scale)
     return torch.clamp(y, -lim, lim).to(torch.int32)
+
+
+def int_prologue_words(x_q: torch.Tensor, io_bits: int) -> torch.Tensor:
+    """The tensor-core body's K5 prologue in plain torch: x_q int32 [B, K]
+    -> its packed bit-plane words, int64 ``[io_bits-1, B, ceil(K/4)]``
+    holding uint32 words, byte ``i`` of word ``(t, b, r4)`` the int8
+    ``sgn·bit_t`` of ``x_q[b, 4·r4 + i]`` (rows past K read as 0). As the
+    kernel does: each magnitude is cut to its ``io_bits - 1`` streamed bits
+    (``|INT_MIN|`` wraps to ``2^31``, whose low bits are 0), two magnitudes
+    share a word in 16-bit lanes, bit ``t`` of each is moved to its byte, and
+    ``w += (w & sign bytes)·0xFE`` makes the negative ones ``0xFF``."""
+    T = io_bits - 1
+    x = torch.nn.functional.pad(x_q.to(torch.int64), (0, -x_q.shape[1] % 4))
+    mag = (torch.where(x < 0, -x, x) & ((1 << T) - 1)).reshape(x.shape[0], -1, 4)
+    neg = (x < 0).to(torch.int64).reshape(x.shape[0], -1, 4)
+    nb = neg[..., 0] | (neg[..., 1] << 8) | (neg[..., 2] << 16) | (neg[..., 3] << 24)
+    m02, m13 = mag[..., 0] | (mag[..., 2] << 16), mag[..., 1] | (mag[..., 3] << 16)
+    words = []
+    for t in range(T):
+        w = ((m02 >> t) & 0x00010001) | (((m13 >> t) & 0x00010001) << 8)
+        words.append((w + (w & nb) * 0xFE) & 0xFFFFFFFF)
+    return torch.stack(words)
+
+
+def word_bit_planes(words: torch.Tensor, K: int) -> torch.Tensor:
+    """Packed words ``[T, B, K4]`` -> int32 bit planes ``[T, B, K]`` of -1,
+    0 and +1 (each byte read as int8)."""
+    b = torch.stack([(words >> (8 * i)) & 0xFF for i in range(4)], dim=-1).reshape(*words.shape[:2], -1)
+    return torch.where(b >= 128, b - 256, b)[..., :K].to(torch.int32)
+
+
+def streamed_input(x_q: torch.Tensor, io_bits: int) -> torch.Tensor:
+    """The int32 input the tensor-core body's K5 words stream:
+    ``sum_t 2^t · plane_t``, i.e. ``sgn(x_q)·(|x_q| mod 2^(io_bits-1))``
+    (``x_q`` itself on the DAC grid)."""
+    bp = word_bit_planes(int_prologue_words(x_q, io_bits), x_q.shape[1])
+    return sum(bp[t] << t for t in range(bp.shape[0]))
 
 
 def _slice_scales(spec: SliceSpec, device) -> torch.Tensor:

@@ -6,12 +6,15 @@ they skip (a CUDA kernel has no interpret mode). Run them on the card with
 Tolerance: the reads within ``max|kernel - plain| <= 1e-3 * (1 + max|plain|)``,
 and at finite ADC bit for bit (the two sum in the same order); K4's
 tensor-core body bit for bit against its plain version and against the dp4a
-body (K5) at every ADC; its decode body bit for bit against its plain
-version at every ADC (the ideal one on f32-exact digits), read after read,
-on two streams and replayed in a CUDA graph; the update kernels bit for bit
-(``opa_fused`` on f32-exact operands, where every contraction order gives
-the same sums: its bf16 tensor-core body against its plain version and its
-CUDA-core body).
+body (K5's dp4a instance, asked for by name) at every ADC; its decode body
+bit for bit against its plain version at every ADC (the ideal one on
+f32-exact digits), read after read, on two streams and replayed in a CUDA
+graph; K5's tensor-core instances bit for bit against its dp4a instances at
+every ADC, on any int32 input, and against its plain version at finite ADC;
+the update kernels bit for bit (``opa_fused`` on f32-exact operands, where
+every contraction order gives the same sums: its bf16 tensor-core body
+against its plain version and its CUDA-core body; ``crs`` in place, at any
+alignment, on two streams and replayed in a CUDA graph).
 """
 from __future__ import annotations
 
@@ -114,6 +117,95 @@ def test_crs_and_opa_deposit_kernels_match_plain(card, m, n):
     p_q = torch.randint(-2**31, 2**31, (m, n), generator=g, device=card, dtype=torch.int64).to(torch.int32)
     want = RO.opa_deposit_ref(planes, p_q, DEFAULT_SPEC)
     assert torch.equal(KO.opa_deposit(planes.clone(), p_q, spec=DEFAULT_SPEC), want)
+
+
+def _misaligned(planes, offset):
+    """A contiguous copy of planes ``offset`` bytes past a 16-byte boundary,
+    and its buffer, zero around it."""
+    buf = torch.zeros(planes.numel() + 32, dtype=torch.int8, device=planes.device)
+    view = buf[offset:offset + planes.numel()].view(planes.shape)
+    view.copy_(planes)
+    return view, buf
+
+
+# gemma-2b's layer blocks, 2^24 cells of the embedding, M·N off the
+# 16-element grid, a ragged block, one shorter than a 16-byte group
+CRS_SHAPES = [(2048, 2560), (2048, 2048), (2048, 16384), (16384, 2048), (8192, 2048), (33, 47), (320, 100),
+              (3, 5)]
+
+
+@pytest.mark.parametrize("m,n", CRS_SHAPES)
+def test_crs_matches_plain_at_any_alignment(card, m, n):
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.crs import ref as RC
+
+    g = torch.Generator(device=card).manual_seed(m * n)
+    planes = _full_range_planes(card, (m, n), g)
+    want = RC.crs_ref(planes, DEFAULT_SPEC)
+    for offset in (0, 5, 15):
+        view, buf = _misaligned(planes, offset)
+        before = KC.crs.launches
+        out = KC.crs(view, spec=DEFAULT_SPEC)
+        torch.cuda.synchronize()
+        assert out is view and KC.crs.launches == before + 1  # in place, counted
+        assert torch.equal(view, want), (offset, int((view != want).sum()))
+        assert not buf[:offset].any() and not buf[offset + view.numel():].any()
+
+
+@pytest.mark.parametrize("S", range(1, 9))
+def test_crs_takes_every_slice_count(card, S):
+    # S from 1 to 8, narrow and wide slices, digits anywhere in int8
+    from repro_torch.core.slicing import SliceSpec
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.crs import ref as RC
+
+    g = torch.Generator(device=card).manual_seed(S)
+    for spec in (SliceSpec.uniform(4, S), SliceSpec.uniform(8, S)):
+        planes = torch.randint(-128, 128, (S, 97, 160), generator=g, device=card, dtype=torch.int32).to(torch.int8)
+        want = RC.crs_ref(planes, spec)
+        view, _ = _misaligned(planes, 3)
+        KC.crs(view, spec=spec)
+        torch.cuda.synchronize()
+        assert torch.equal(view, want), spec.bits
+
+
+def test_crs_on_two_streams_and_replayed_in_a_cuda_graph(card):
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.crs import ref as RC
+
+    g = torch.Generator(device=card).manual_seed(19)
+    blocks = [_full_range_planes(card, shape, g) for shape in ((2048, 2560), (320, 100), (33, 47))]
+    wants = [RC.crs_ref(p, DEFAULT_SPEC) for p in blocks]
+    # two streams, each block in place on its own copy
+    streams = [torch.cuda.Stream(card), torch.cuda.Stream(card)]
+    copies = [p.clone() for p in blocks * 2]
+    torch.cuda.synchronize()
+    for i, c in enumerate(copies):
+        with torch.cuda.stream(streams[i % 2]):
+            KC.crs(c, spec=DEFAULT_SPEC)
+    torch.cuda.synchronize()
+    assert all(torch.equal(c, (wants * 2)[i]) for i, c in enumerate(copies))
+    # a graph: one eager launch on the capture stream first sets the
+    # kernel's shared-memory limit; every replay canonicalizes the refilled
+    # buffers in place
+    work = [p.clone() for p in blocks]
+    stream = torch.cuda.Stream(card)
+    stream.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(stream):
+        KC.crs(blocks[0].clone(), spec=DEFAULT_SPEC)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for w in work:
+            KC.crs(w, spec=DEFAULT_SPEC)
+    for _ in range(3):
+        for w, p in zip(work, blocks):
+            w.copy_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(w, want) for w, want in zip(work, wants))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -530,9 +622,14 @@ def test_tensor_core_read_equals_the_dp4a_body(card, b, io_bits, adc, transpose)
     name = K.instance_name(transpose, io_bits)
     before = K.mvm_sliced_fused.instances[name]
     got = K.mvm_sliced_fused(planes, x, xf, spec=DEFAULT_SPEC, io_bits=io_bits, adc_bits=adc, transpose=transpose)
-    want = K.mvm_sliced(planes, x_q, spec=DEFAULT_SPEC, io_bits=io_bits, adc_bits=adc, transpose=transpose)
+    # the yardstick: K5's dp4a instance, asked for by name
+    dp4a = K.instance_name(transpose, io_bits, body="dp4a")
+    before_dp4a = K.mvm_sliced.instances[dp4a]
+    want = K.mvm_sliced(planes, x_q, spec=DEFAULT_SPEC, io_bits=io_bits, adc_bits=adc, transpose=transpose,
+                        body="dp4a")
     torch.cuda.synchronize()
     assert K.mvm_sliced_fused.instances[name] == before + 1
+    assert K.mvm_sliced.instances[dp4a] == before_dp4a + 1
     assert torch.equal(got, want)
 
 
@@ -565,6 +662,66 @@ def test_tensor_core_read_on_ragged_edges(card, monkeypatch, b, m, n, transpose,
         assert torch.equal(got, want)
 
 
+# ragged tokens, rows and columns: M and N multiples of neither the 128-row
+# tile nor the 64-column block (N = 100 also off the 16-byte loads)
+K5_CASES = [(2048, 2560, 40), (2048, 2560, 200), (300, 100, 17), (200, 2080, 33), (130, 36, 5)]
+
+
+@pytest.mark.parametrize("io_bits", [8, 12, 16])
+@pytest.mark.parametrize("adc", [9, 6, None])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_k5_tensor_core_body_matches_the_dp4a_body_and_plain(card, io_bits, adc, transpose):
+    # every K5 tensor-core instance, on x_q on the DAC grid and on any int32
+    # (+-2^15, +-2^20, INT_MIN, ...: the bits at and above io-1 are not
+    # streamed), bit for bit against the dp4a instance; at finite ADC also
+    # against the plain version
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.kernels.sliced_mvm import ref
+
+    g = torch.Generator(device=card).manual_seed(io_bits + 100 * transpose)
+    name = K.instance_name(transpose, io_bits)
+    for m, n, b in K5_CASES:
+        planes = torch.randint(-8, 8, (8, m, n), generator=g, device=card, dtype=torch.int8)
+        k = n if transpose else m
+        lim = 2 ** (io_bits - 1) - 1
+        x_q = torch.randint(-lim, lim + 1, (b, k), generator=g, device=card, dtype=torch.int32)
+        wild = torch.randint(-2**31, 2**31, (b, k), generator=g, device=card, dtype=torch.int64).to(torch.int32)
+        wild[0, :5] = torch.tensor([2**15, -2**15, 2**20, -2**20, -2**31], dtype=torch.int32)
+        for x in (x_q, wild):
+            before = K.mvm_sliced.instances[name]
+            got = K.mvm_sliced(planes, x, spec=DEFAULT_SPEC, io_bits=io_bits, adc_bits=adc, transpose=transpose)
+            dp4a = K.mvm_sliced(planes, x, spec=DEFAULT_SPEC, io_bits=io_bits, adc_bits=adc, transpose=transpose,
+                                body="dp4a")
+            torch.cuda.synchronize()
+            assert K.mvm_sliced.instances[name] == before + 1
+            assert tuple(got.shape) == (b, m if transpose else n)
+            assert torch.equal(got, dp4a), (m, n, b)
+            if adc is not None:
+                assert torch.equal(got, ref.mvm_sliced_ref(planes, x, DEFAULT_SPEC, io_bits, adc,
+                                                           transpose=transpose)), (m, n, b)
+
+
+def test_k5_reads_take_their_body_by_shape(card):
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_mvm import kernel as K
+
+    g = torch.Generator(device=card).manual_seed(5)
+    planes = torch.randint(-8, 8, (8, 256, 128), generator=g, device=card, dtype=torch.int8)
+    for b in (1, K.DECODE_MAX_B, K.DECODE_MAX_B + 1, 64):
+        for transpose in (False, True):
+            x_q = torch.randint(-32767, 32768, (b, 128 if transpose else 256), generator=g, device=card,
+                                dtype=torch.int32)
+            body = K.body_for(b, transpose, fused=False)
+            assert body == ("dp4a" if b <= K.DECODE_MAX_B else "mma")
+            name = K.instance_name(transpose, 16, body=body)
+            before = K.mvm_sliced.instances[name]
+            K.mvm_sliced(planes, x_q, spec=DEFAULT_SPEC, adc_bits=9, transpose=transpose)
+            assert K.mvm_sliced.instances[name] == before + 1
+    with pytest.raises(ValueError):
+        K.mvm_sliced(planes, x_q, spec=DEFAULT_SPEC, adc_bits=9, transpose=True, body="decode")
+
+
 def test_decode_reads_take_the_decode_body_by_shape(card):
     from repro_torch.core.slicing import DEFAULT_SPEC
     from repro_torch.kernels.sliced_mvm import kernel as K
@@ -579,7 +736,8 @@ def test_decode_reads_take_the_decode_body_by_shape(card):
             got = K.mvm_sliced_fused(planes, x, xf, spec=DEFAULT_SPEC, adc_bits=9, transpose=transpose)
             torch.cuda.synchronize()
             assert K.mvm_sliced_fused.instances[name] == before + 1
-            assert torch.equal(got, K.mvm_sliced(planes, x_q, spec=DEFAULT_SPEC, adc_bits=9, transpose=transpose))
+            assert torch.equal(got, K.mvm_sliced(planes, x_q, spec=DEFAULT_SPEC, adc_bits=9, transpose=transpose,
+                                                 body="dp4a"))
     assert K.body_for(K.DECODE_MAX_B, False) == "decode" and K.body_for(K.DECODE_MAX_B, True) == "dp4a"
     assert K.body_for(K.DECODE_MAX_B + 1, False) == K.body_for(K.DECODE_MAX_B + 1, True) == "mma"
 
@@ -711,8 +869,10 @@ def test_tensor_core_instances_run_imma_and_no_dp4a(card):
                           text=True, check=True).stdout
     funcs = {f.split("\n", 1)[0].strip(): f for f in re.split(r"\n\s*Function : ", sass)[1:]}
     mma = {name: body for name, body in funcs.items() if "mvm_mma_kernel" in name}
-    # 2 token heights x io 8/12/16 x finite/ideal ADC x forward/MᵀVM x noise
-    assert len(mma) == 48
+    # K4: 2 token heights x io 8/12/16 x finite/ideal ADC x forward/MᵀVM x
+    # noise; K5 (int x_q, the last template argument): as many, without noise
+    assert len(mma) == 48 + 24
+    assert sum(bool(re.search(r"mvm_mma_kernelI(L[ib]\d+E)+iEE", name)) for name in mma) == 24  # mangled
     idp4a = re.compile(r"\bIDP\.?4A")  # sm_90 SASS spells __dp4a IDP.4A
     for name, body in mma.items():
         assert "IMMA" in body and not idp4a.search(body), name

@@ -2,7 +2,11 @@
 ``adc_codes_exact``, ``ideal_slice_term``: the magic-constant arithmetic
 the CUDA body runs, in f32 torch ops) against ``torch.round``/``clamp`` and
 against the JAX package's ADC model ``repro.core.mvm._adc`` and tile body
-``repro.kernels.sliced_mvm.kernel._tile_compute``, on the CPU.
+``repro.kernels.sliced_mvm.kernel._tile_compute``, on the CPU; and its K5
+prologue (``int_prologue_words``: the masked 16-bit lane packing of an
+unclamped int32 ``x_q``) against JAX's bit planes ``repro.core.mvm.bit_planes``
+and its Pallas read ``repro.kernels.sliced_mvm.kernel.mvm_sliced`` in
+interpret mode, out-of-range ``x_q`` included.
 
 Tolerance: none. Every comparison is bit for bit: the steps are powers of
 two, so the products are exact and each result rounds once, half to even.
@@ -20,8 +24,9 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core.mvm import _adc  # noqa: E402
+from repro.core.mvm import bit_planes as jax_bit_planes  # noqa: E402
 from repro.core.slicing import DEFAULT_SPEC as JSPEC  # noqa: E402
-from repro.kernels.sliced_mvm.kernel import _tile_compute, read_offsets  # noqa: E402
+from repro.kernels.sliced_mvm.kernel import _tile_compute, mvm_sliced, read_offsets  # noqa: E402
 from repro.models.common import DeviceModel as JDevice  # noqa: E402
 from repro_torch.core.slicing import DEFAULT_SPEC as TSPEC  # noqa: E402
 from repro_torch.kernels.sliced_mvm import ref as TR  # noqa: E402
@@ -129,3 +134,64 @@ def test_ideal_slice_terms_fold_as_the_jax_tile_body(io_bits, noisy):
         term = TR.ideal_slice_term(z, None if offs is None else offs[s], io_bits, s)
         acc = term if acc is None else acc + term
     assert np.array_equal(acc.numpy(), want)
+
+
+# ----------------------- K5's int prologue (x_q as it is) -----------------------
+
+# out-of-range inputs: the DAC grid's edges, just past it, 2^15 and 2^20
+# (their low bits 0 and not), INT_MIN (no abs) and INT_MAX
+WILD = [2**15, -2**15, 2**15 + 5, -(2**15) - 3, 2**20, -(2**20), 2**20 + 77, -(2**31), 2**31 - 1, -(2**31) + 1]
+
+
+def _x_q(rng, b, k, io_bits, wild: bool):
+    lim = 2 ** (io_bits - 1) - 1
+    x = rng.integers(-lim, lim + 1, size=(b, k)).astype(np.int32)
+    if wild:
+        x[0, :len(WILD)] = WILD
+        x[1] = rng.integers(-(2**31), 2**31, size=k)
+        x[2, :2] = [lim + 1, -lim - 1]
+    return x
+
+
+@pytest.mark.parametrize("io_bits", [8, 12, 16])
+@pytest.mark.parametrize("k", [128, 130])  # a whole word group; a ragged last word
+def test_int_prologue_words_are_the_jax_bit_planes(io_bits, k):
+    # every byte of every packed word is JAX's sgn·bit_t of its row, on any
+    # int32: the magnitude cut to its io-1 streamed bits never reaches the
+    # neighbouring 16-bit lane
+    rng = np.random.default_rng(io_bits + k)
+    x = _x_q(rng, 6, k, io_bits, wild=True)
+    words = TR.int_prologue_words(torch.from_numpy(x), io_bits)
+    assert tuple(words.shape) == (io_bits - 1, 6, -(-k // 4)) and int(words.max()) < 2**32
+    got = TR.word_bit_planes(words, k).numpy()
+    assert np.array_equal(got, np.asarray(jax_bit_planes(jnp.asarray(x), io_bits)))
+    # on the DAC grid the words stream x_q itself; off it, sgn·(|x_q| mod 2^(io-1))
+    streamed = TR.streamed_input(torch.from_numpy(x), io_bits).numpy()
+    mag = np.abs(x.astype(np.int64)) % 2 ** (io_bits - 1)
+    assert np.array_equal(streamed, np.where(x < 0, -mag, mag))
+    assert np.array_equal(streamed[3:], x[3:])
+
+
+@pytest.mark.parametrize("io_bits", [8, 12, 16])
+@pytest.mark.parametrize("adc", [9, 6, None])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_read_of_the_streamed_input_matches_the_jax_kernel(io_bits, adc, transpose):
+    # K5 as the tensor-core body reads it (the plain read of the int its
+    # words stream) against the JAX Pallas read in interpret mode. At finite
+    # ADC JAX bit-streams x_q itself, so it takes the out-of-range x_q as it
+    # is; at the ideal ADC JAX contracts x_q whole, so it takes the streamed
+    # int. Digits in [-2, 2] keep every f32 column sum exact.
+    rng = np.random.default_rng(io_bits * 10 + (adc or 0) + transpose)
+    m, n, b = 256, 128, 6
+    planes = rng.integers(-2, 3, size=(JSPEC.n_slices, m, n)).astype(np.int8)
+    x = _x_q(rng, b, n if transpose else m, io_bits, wild=True)
+    streamed = TR.streamed_input(torch.from_numpy(x), io_bits)
+    got = TR.mvm_sliced_ref(torch.from_numpy(planes), streamed, TSPEC, io_bits, adc, transpose=transpose).numpy()
+    x_jax = x if adc is not None else streamed.numpy()
+    want = np.asarray(mvm_sliced(jnp.asarray(planes), jnp.asarray(x_jax), spec=JSPEC, io_bits=io_bits,
+                                 adc_bits=adc, interpret=True, transpose=transpose))
+    assert np.array_equal(got, want)
+    if adc is not None:  # the plain version streams the same bits of the raw x_q
+        raw = TR.mvm_sliced_ref(torch.from_numpy(planes), torch.from_numpy(x), TSPEC, io_bits, adc,
+                                transpose=transpose).numpy()
+        assert np.array_equal(raw, want)
