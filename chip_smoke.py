@@ -92,7 +92,29 @@ Phases:
      on the trained state one adc9 step and one non-ideal-device step under
      each mode (18 layers, launches by instance exact), a grid step under
      the profiler, the dense leaves' grid draw timed alone, and
-     ``opa_fused_update`` with f32 operands under each mode.
+     ``opa_fused_update`` with f32 operands under each mode;
+ 12. (run after 10, on its trained state) microbatches and the stash rule:
+     an adc9 step with ``microbatches=4`` (16 x 64 tokens as [4, 4, 64],
+     the stash rule on, seeing 256 tokens a microbatch and flipping
+     nothing): K4 and K4ᵀ 360 launches each, K1 90, all on its tensor-core
+     ideal instance at 1024 tokens, K2 3, K3 93 on a CRS step; then a
+     lossless ``stash_fallback`` step at 4 x 320 tokens, whose
+     ``plan_summary`` is printed and whose attn/wqkv and attn/wo flip to
+     dense gradients (K1 54, K2 39); each step's time and peak memory
+     beside phase 5's; then K1 at 1024 tokens over one layer's 5 blocks,
+     bit for bit against its plain version on f32-exact operands and timed
+     beside it, the library's ``xᵀ @ dh`` and the bound;
+ 11. the paper MLP: its kernels at its shapes (K2 and K3 on the three
+     crossbar leaves, K4's adc9 read at 512 tokens on short M = 64 tiles and
+     a ragged N = 10) against their plain versions and timed; then the
+     port's quickstart (two CRS periods and float SGD, 301 steps each),
+     Fig 9's ``run()`` (12 configurations x 400 steps) and
+     ``device_sweep(300)`` (8 records), every update's launches exact (K2
+     once a leaf, K3 once a leaf on CRS steps, no K1), the adc9 reads on
+     K4's tensor-core body; the paper claims true and the losses within
+     1e-3 of the in-process JAX reference (but the noisy rows the
+     reference itself does not reproduce, printed beside it); one Fig-9
+     step and one device step profiled (the device's busy share).
 
 It prints one JSON line with the kernels' numbers, the card's
 ``name, power.limit`` line, and last the device JSON line. Any failure exits
@@ -916,7 +938,9 @@ def phase_train(torch, gen):
             raise AssertionError(f"step {step}: loss {loss} or grad_norm {gnorm} not finite")
         for k in got:
             totals[k] += got[k]
-    peak = torch.cuda.max_memory_allocated() / 2**30
+        if step == 2:  # an adc9 step without CRS, after the first
+            info = {"ms": ms}
+    info["peak"] = peak = torch.cuda.max_memory_allocated() / 2**30
     after = snapshot(torch, state.sliced)
     moved = {path: float((after[path] != before[path]).float().mean()) for path in before}
     print(f"peak memory over the 5 steps: {peak:.1f} GiB; share of sampled plane cells changed per leaf: "
@@ -936,7 +960,7 @@ def phase_train(torch, gen):
         if sat is not None:
             print(f"  saturation {'/'.join(map(str, path)):24s} per plane (LSB first): "
                   + " ".join(f"{v:.2e}" for v in sat.tolist()))
-    return totals, state, ds, blocks
+    return totals, state, ds, blocks, info
 
 
 # ------------------ device physics, io widths 8/12, K5 ------------------------
@@ -1750,6 +1774,388 @@ def phase_rng_train(torch, state, ds, blocks):
     return launches, state
 
 
+# ------------------- the paper MLP (phase 11) ----------------------------------
+
+# The in-process reference's numbers (JAX 0.9.0 on the CPU: the reference's
+# own run(), device_sweep(300) and quickstart loop); PERF.md records them.
+JAX_LOSS_VS_SGD = {
+    (3, 64): 3.3118276137623033, (3, 1024): 3.3118276137623033, (3, 4096): 3.3118276137623033,
+    (4, 64): 2.7182284782952815, (4, 1024): 3.0438107466965953, (4, 4096): 3.0438107466965953,
+    (5, 64): 2.0031028751884716, (5, 1024): 2.8971806215246105, (5, 4096): 2.8971806215246105,
+    (6, 64): 1.5877245310931443, (6, 1024): 2.6577944833023217, (6, 4096): 2.6577944833023217,
+}
+JAX_SWEEP = {"dev_wn0": 0.204008087515831, "dev_ideal": 0.204008087515831, "dev_wn1e6": 0.2045062780380249,
+             "dev_wn1e6_tt": 0.11580809205770493, "dev_wn4e6": 1.2477335929870605,
+             "dev_wn4e6_tt": 0.18974363803863525, "dev_wn1e7": 0.8580390810966492,
+             "dev_wn1e7_tt": 0.43726858496665955}
+JAX_QUICKSTART = {1024: 0.45942264795303345, 25: 0.1068868562579155, "sgd": 0.05691220983862877}  # step 300
+# Final losses within RUN_RTOL of the reference (tests/test_torch_paper_mlp.py,
+# where the port's CPU run differs by 7e-6 at most). At write noise 4e6 and
+# 1e7 the reference is chaotic: a one-ulp nudge of one input or weight moves
+# its final loss by 9% to 11x (PERF.md), so those rows are printed beside it,
+# not held.
+RUN_RTOL = 1e-3
+HELD_SWEEP = ("dev_wn0", "dev_ideal", "dev_wn1e6", "dev_wn1e6_tt")
+# the quickstart rounds stochastically: its port on the CPU ends 6e-4 from the
+# reference at step 300 (a flipped draw compounds), held here within 1e-2
+QS_RTOL = 1e-2
+MLP_SHAPES = ((64, 256), (256, 128), (128, 10))  # fig9's three crossbar leaves
+T_MLP = 512  # fig9's rows: every step and the adc9 read take the whole batch
+
+
+class checked_updates:
+    """While inside, every ``optim.panther.update`` call is held to its
+    launches: K2 once a mapped leaf, K3 once a mapped leaf on CRS steps and
+    never otherwise, K1 never (the MLP's leaves have dense gradients).
+    ``crs`` sums K3's launches by (spec, crs_every); ``steps`` counts the
+    calls."""
+
+    def __enter__(self):
+        import repro_torch.optim.panther as P
+        from repro_torch import tree
+        from repro_torch.kernels.crs import kernel as KC
+        from repro_torch.kernels.sliced_opa import kernel as KO
+
+        self.P, self.saved, self.steps, self.crs = P, P.update, 0, {}
+
+        def update(grads, state, params, lr, cfg=P.PantherConfig(), rng=None, plan=None):
+            before = (KO.opa_deposit.launches, KC.crs.launches, KO.opa_fused.launches)
+            out = self.saved(grads, state, params, lr, cfg, rng, plan)
+            got = (KO.opa_deposit.launches - before[0], KC.crs.launches - before[1],
+                   KO.opa_fused.launches - before[2])
+            mapped = sum(s is not None for _, s in tree.leaves_with_path(state.sliced))
+            crs_step = state.step % cfg.crs_every == cfg.crs_every - 1
+            if got != (mapped, mapped if crs_step else 0, 0):
+                raise AssertionError(f"MLP update at step {state.step} (CRS every {cfg.crs_every}): launches "
+                                     f"K2/K3/K1 {got}, not {(mapped, mapped if crs_step else 0, 0)}")
+            key = (cfg.spec.name(), cfg.crs_every)
+            self.crs[key] = self.crs.get(key, 0) + got[1]
+            self.steps += 1
+            return out
+
+        P.update = update
+        return self
+
+    def __exit__(self, *exc):
+        self.P.update = self.saved
+
+
+def time_mlp_kernels(torch, gen):
+    """The MLP's kernels at its own shapes, each checked against its plain
+    version and timed beside it: K2 and K3 over the three leaves' blocks
+    (S = 8), K4's adc9 read of the three layers at 512 tokens on its
+    tensor-core body (M = 64 is a short crossbar tile, N = 10 ragged)."""
+    from repro_torch.core.slicing import DEFAULT_SPEC, dequantize_planes
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.crs import ref as RC
+    from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.kernels.sliced_mvm import ref
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+
+    spec, S = DEFAULT_SPEC, DEFAULT_SPEC.n_slices
+    rows = {"opa_deposit_mlp": [], "crs_mlp": [], "mvm_sliced_fused_mlp": []}
+    err = 0.0
+    xf = torch.tensor([10], dtype=torch.int32, device="cuda")
+    for M, N in MLP_SHAPES:
+        planes = random_planes(torch, spec, (M, N), gen)
+        p_q = rail_updates(torch, spec, (M, N), gen)
+        if not torch.equal(KO.opa_deposit(planes.clone(), p_q, spec=spec), RO.opa_deposit_ref(planes, p_q, spec)):
+            raise AssertionError(f"opa_deposit kernel vs plain at the MLP's {M}x{N}")
+        got = planes.clone()
+        KC.crs(got, spec=spec)
+        if not torch.equal(got, RC.crs_ref(planes, spec)):
+            raise AssertionError(f"crs kernel vs plain at the MLP's {M}x{N}")
+        k = cuda_time_ms(lambda: KO.opa_deposit(planes, p_q, spec=spec), 50)
+        p = cuda_time_ms(lambda: RO.opa_deposit_ref(planes, p_q, spec), 10)
+        rows["opa_deposit_mlp"].append((k, p, None, *bound_of((4 + 2 * S) * M * N, 8.0 * S * M * N,
+                                                               CUDA_CORE_OPS_PER_S)))
+        k = cuda_time_ms(lambda: KC.crs(planes, spec=spec), 50)
+        p = cuda_time_ms(lambda: RC.crs_ref(planes, spec), 10)
+        rows["crs_mlp"].append((k, p, None, *bound_of(2 * S * M * N, CRS_OPS_PER_PLANE_CELL * S * M * N,
+                                                       CUDA_CORE_OPS_PER_S)))
+        x = torch.randn((T_MLP, M), generator=gen, device="cuda")
+        got = K.mvm_sliced_fused(planes, x, xf, spec=spec, adc_bits=9)
+        want = ref.mvm_sliced_fused_ref(planes, x, xf[0], spec, 16, 9)
+        if not torch.equal(got, want):
+            raise AssertionError(f"mvm_sliced_fused kernel vs plain at the MLP's {M}x{N}, {T_MLP} tokens")
+        err = max(err, float((got - want).abs().max()))
+        w = dequantize_planes(planes, 30, spec)
+        k = cuda_time_ms(lambda: K.mvm_sliced_fused(planes, x, xf, spec=spec, adc_bits=9), 20)
+        p = cuda_time_ms(lambda: ref.mvm_sliced_fused_ref(planes, x, xf[0], spec, 16, 9), 3, 1)
+        lib = cuda_time_ms(lambda: torch.matmul(x, w), 50)
+        rows["mvm_sliced_fused_mlp"].append((k, p, lib, *bound_ms(T_MLP, M, N, S, 16)))
+        del planes, p_q, got, x, want, w
+    out = {key: layer_total(rs, key) for key, rs in rows.items()}
+    for key, t in out.items():
+        lib = "-" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        print(f"  {key}: the MLP's 3 blocks: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {lib}, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
+    return out, err
+
+
+def phase_mlp(torch, gen):
+    """The paper MLP end to end on the card (the port's quickstart, Fig 9's
+    ``run()`` and ``device_sweep(300)``), every update's launches held
+    (``checked_updates``), the adc9 reads' on K4's tensor-core body; the
+    results against the in-process reference. Returns the launch totals,
+    the timings and K4's max error."""
+    from repro_torch import plan as planlib
+    from repro_torch.benchmarks import fig9_slice_crs as F9
+    from repro_torch.core.slicing import SliceSpec
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.sliced_mvm import kernel as KM
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.models.common import DeviceModel, FidelityConfig
+    from repro_torch.optim import PantherConfig, panther
+
+    timings, k4_err = time_mlp_kernels(torch, gen)
+    counters = {"opa_deposit_mlp": (KO.opa_deposit, "launches"), "crs_mlp": (KC.crs, "launches"),
+                "mvm_sliced_fused_mlp": (KM.mvm_sliced_fused, "launches"),
+                "transpose": (KM.mvm_sliced_fused, "transpose_launches"), "opa_fused": (KO.opa_fused, "launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    KM.mvm_sliced_fused.instances.clear()
+    t0 = time.perf_counter()
+
+    with checked_updates() as qs:
+        out = quickstart.main(device="cuda")
+    spec = quickstart.SPEC.name()
+    if qs.steps != 2 * 301 or qs.crs != {(spec, 1024): 0, (spec, 25): 36}:
+        raise AssertionError(f"quickstart: {qs.steps} updates, K3 by run {qs.crs}")
+    finals = {c: out["panther"][c][0][-1] for c in quickstart.CRS_PERIODS} | {"sgd": out["sgd"][-1]}
+    for k, v in finals.items():
+        if not (math.isfinite(v) and abs(v - JAX_QUICKSTART[k]) <= QS_RTOL * JAX_QUICKSTART[k]):
+            raise AssertionError(f"quickstart {k}: loss {v} at step 300, reference {JAX_QUICKSTART[k]}")
+    print("quickstart: losses at step 300 (port / reference): " + ", ".join(
+        f"{k} {finals[k]:.6f} / {JAX_QUICKSTART[k]:.6f}" for k in finals) + f" ({time.perf_counter() - t0:.1f} s)",
+        flush=True)
+
+    t1 = time.perf_counter()
+    with checked_updates() as fig9:
+        rows = F9.run(device="cuda")
+    claims = F9.paper_claims(rows)
+    print(f"fig9 run(): paper claims {claims} ({time.perf_counter() - t1:.1f} s)", flush=True)
+    want_crs = {(f"{b}" * 8, c): 18 if c == 64 else 0 for b in F9.BITS for c in F9.CRS_PERIODS}
+    if fig9.steps != 12 * 400 or fig9.crs != want_crs:
+        raise AssertionError(f"fig9 run(): {fig9.steps} updates, K3 by configuration {fig9.crs}")
+    if not all(claims.values()):
+        raise AssertionError(f"fig9 paper claims {claims}")
+    for r in rows:
+        want = JAX_LOSS_VS_SGD[(r.bits, r.crs_every)]
+        print(f"  bits {r.bits} CRS {r.crs_every:4d}: loss_vs_sgd {r.loss_vs_sgd:.6f} (reference {want:.6f}), "
+              f"sat lo {r.sat_lo:.3f} hi {r.sat_hi:.3f}, adc9 loss {r.loss_adc9:.4f}, {r.us_per_step:.1f} us/step")
+        if not abs(r.loss_vs_sgd - want) <= RUN_RTOL * want or not math.isfinite(r.loss_adc9):
+            raise AssertionError(f"fig9 bits {r.bits} CRS {r.crs_every}: {r.loss_vs_sgd} vs reference {want}")
+
+    t2 = time.perf_counter()
+    with checked_updates() as dev:
+        sweep = F9.device_sweep(device="cuda")
+    print(f"fig9 device_sweep(300) ({time.perf_counter() - t2:.1f} s):", flush=True)
+    for tag, row in sweep.items():
+        held = "held" if tag in HELD_SWEEP else "printed only (chaotic in the reference)"
+        print(f"  {tag:13s} final loss {row['final_loss']:.6f} (reference {JAX_SWEEP[tag]:.6f}, {held}), "
+              f"{row['us_per_step']:.1f} us/step")
+        if not math.isfinite(row["final_loss"]):
+            raise AssertionError(f"device sweep {tag}: final loss {row['final_loss']}")
+    if sweep["dev_ideal"]["final_loss"] != sweep["dev_wn0"]["final_loss"]:
+        raise AssertionError("device sweep: dev_ideal differs from dev_wn0")
+    for tag in HELD_SWEEP:
+        if not abs(sweep[tag]["final_loss"] - JAX_SWEEP[tag]) <= RUN_RTOL * JAX_SWEEP[tag]:
+            raise AssertionError(f"device sweep {tag}: {sweep[tag]['final_loss']} vs reference {JAX_SWEEP[tag]}")
+    if not sweep["dev_wn1e6_tt"]["final_loss"] < sweep["dev_wn1e6"]["final_loss"]:
+        raise AssertionError("device sweep: Tiki-Taka not below SGD at write noise 1e6")
+    for sigma in ("4e6", "1e7"):
+        below = sweep[f"dev_wn{sigma}_tt"]["final_loss"] < sweep[f"dev_wn{sigma}"]["final_loss"]
+        print(f"  write noise {sigma}: Tiki-Taka {'below' if below else 'not below'} SGD in this run")
+    if dev.steps != 8 * 300 or any(dev.crs.values()):
+        raise AssertionError(f"device sweep: {dev.steps} updates, K3 {dev.crs}")
+
+    got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    want = {"opa_deposit_mlp": 3 * (qs.steps + fig9.steps + dev.steps), "crs_mlp": 36 + 4 * 18,
+            "mvm_sliced_fused_mlp": 3 * 12, "transpose": 0, "opa_fused": 0}
+    if got != want or dict(KM.mvm_sliced_fused.instances) != {KM.instance_name(False, 16): 36}:
+        raise AssertionError(f"the MLP phase's launches {got} (instances {dict(KM.mvm_sliced_fused.instances)}) "
+                             f"!= {want}")
+    print(f"MLP phase launches: {got}; {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {k: got[k] for k in timings}  # the MLP's kernels-line entries only
+
+    # where a step's time goes: one Fig-9 step and one device step, profiled
+    params0, batch = F9._task(0, torch.device("cuda"))
+    tt = panther.tiki_taka(PantherConfig(stochastic_round=False, crs_every=1 << 20))
+    fid = FidelityConfig(spec=tt.spec, device=DeviceModel(write_noise=4e6, asym_up=1.2, asym_down=0.8))
+    for what, cfg, plan in (
+            ("fig9 MLP step (4-bit, CRS 64)",
+             PantherConfig(spec=SliceSpec.uniform(4), crs_every=64, stochastic_round=False), None),
+            ("device-sweep MLP step (4e6, Tiki-Taka)", tt,
+             planlib.resolve_plan(params0, planlib.default_rules(tt, fidelity=fid)))):
+        state = panther.init(params0, cfg, plan=plan)
+        carry = {"p": panther.materialize(params0, state, cfg), "s": state}
+
+        def one(carry=carry, cfg=cfg, plan=plan):
+            carry["p"], carry["s"] = panther.update(F9._grad(carry["p"], batch), carry["s"], carry["p"], 0.03, cfg,
+                                                    plan=plan)
+
+        for _ in range(3):
+            one()
+        profile_step(torch, one, what)
+    return launches, timings, k4_err
+
+
+# ------------------ microbatches and the stash rule (phase 12) -----------------
+
+T_MICRO = 4 * 256  # the microbatched step's tokens a K1 launch: 4 microbatches of 4 x 64
+
+
+def time_opa_microbatch(torch, spec, gen):
+    """K1 at 1024 tokens over one layer's 5 blocks: bit for bit against its
+    plain version on f32-exact bf16 operands (the tensor-core body), then
+    timed beside the plain version, the library call ``xᵀ @ dh`` and the
+    bound. Returns the kernels-line timing and the max error."""
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+
+    S, T, rs, err = spec.n_slices, T_MICRO, [], 0
+    frac = torch.tensor([30], dtype=torch.int32, device="cuda")
+    for name, M, N in SLICE_READS:
+        planes = random_planes(torch, spec, (M, N), gen)
+        x, dh = exact_operands(torch, T, M, N, torch.bfloat16, gen)
+        f8 = torch.tensor([8], dtype=torch.int32, device="cuda")
+        want = RO.opa_fused_ref(planes, x, dh, 2.0**-4, f8[0], spec, (5, 6))
+        got = KO.opa_fused(planes.clone(), x, dh, 2.0**-4, f8, spec=spec, key_words=(5, 6))
+        if not torch.equal(got, want):
+            raise AssertionError(f"opa_fused at {T} tokens vs plain at {name}: planes differ")
+        err = max(err, int((plane_values(torch, got) - plane_values(torch, want)).abs().max()))
+        del got, want
+        x = torch.randn((T, M), generator=gen, device="cuda").to(torch.bfloat16)
+        dh = (torch.randn((T, N), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+        k = cuda_time_ms(lambda: KO.opa_fused(planes, x, dh, 3e-2, frac, spec=spec, key_words=(1, 2)), 10)
+        p = cuda_time_ms(lambda: RO.opa_fused_ref(planes, x, dh, 3e-2, frac[0], spec, (1, 2)), 2, 1)
+        lib = cuda_time_ms(lambda: torch.matmul(x.t(), dh), 10)
+        rs.append((k, p, lib, *bound_of(2 * S * M * N + 2 * T * (M + N) + 4, 2.0 * T * M * N, BF16_FLOPS_PER_S)))
+        print(f"  opa_fused_microbatch {name:11s} M={M:5d} N={N:5d} T={T}: kernel {k:.4f} ms  plain {p:.4f} ms  "
+              f"library {lib:.4f} ms  bound {rs[-1][3]:.4f} ms ({rs[-1][4]})", flush=True)
+        del planes, x, dh
+    torch.cuda.empty_cache()
+    t = layer_total(rs, "opa_fused_microbatch")
+    print(f"  opa_fused_microbatch: one layer's 5 blocks at {T} tokens: kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms", flush=True)
+    return t, err
+
+
+class k1_tokens:
+    """While inside, the token count of every K1 block update is recorded
+    (a list, yielded): the update's per-block entry ``ops.opa_fused``, which
+    ``opa_fused_update`` calls once a block, is wrapped; the kernel and its
+    launch counters are untouched."""
+
+    def __enter__(self):
+        from repro_torch.kernels.sliced_opa import ops
+
+        self.ops, self.saved, seen = ops, ops.opa_fused, []
+
+        def wrapped(planes, x, *a, **k):
+            seen.append(x.shape[0])
+            return self.saved(planes, x, *a, **k)
+
+        ops.opa_fused = wrapped
+        return seen
+
+    def __exit__(self, *exc):
+        self.ops.opa_fused = self.saved
+
+
+def phase_microbatch(torch, state, phase5, gen):
+    """gemma-2b at full width: one adc9 step with ``microbatches=4`` (16 x 64
+    tokens as [4, 4, 64], the stash rule on: it sees 256 tokens and flips
+    nothing) and one lossless step with ``stash_fallback=True`` at 4 x 320
+    tokens (attn/wqkv and attn/wo flip to dense gradients), launches exact;
+    then K1 at 1024 tokens timed. Returns the launches, the timing, the max
+    error and the state."""
+    import dataclasses
+
+    from repro_torch import configs, tree
+    from repro_torch import plan as planlib
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.sliced_mvm import kernel as KM
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.optim import PantherConfig
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train.step import make_train_step, param_shapes
+
+    cfg = configs.get("gemma_2b")
+    L = cfg.n_layers
+    opt_cfg = PantherConfig(crs_every=2, stochastic_round=True)
+    adc9 = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=opt_cfg.spec)
+    counters = {"opa_fused": (KO.opa_fused, "launches"), "opa_deposit": (KO.opa_deposit, "launches"),
+                "crs": (KC.crs, "launches"), "mvm_sliced_fused": (KM.mvm_sliced_fused, "launches"),
+                "mvm_sliced_fused_transpose": (KM.mvm_sliced_fused, "transpose_launches")}
+    mb = SyntheticLMDataset(cfg.vocab, 64, 16, seed=1, device="cuda").batch(0)
+    mb = {k: v.reshape(4, 4, 64) for k, v in mb.items()}
+    cases = (
+        ("adc9, microbatches=4", mb, 1024, make_train_step(
+            cfg, opt_cfg, constant(3e-2), microbatches=4,
+            plan_rules=planlib.default_rules(opt_cfg, fidelity=adc9, stash_fallback=True))),
+        ("lossless, stash_fallback", SyntheticLMDataset(cfg.vocab, 320, 4, seed=2, device="cuda").batch(0), 1280,
+         make_train_step(cfg, opt_cfg, constant(3e-2), stash_fallback=True)),
+    )
+    shapes = param_shapes(state.digital, state.sliced)
+    launches = {}
+    for what, batch, tokens, step in cases:
+        per_mb = batch["inputs"].shape[-2] * batch["inputs"].shape[-1]
+        plan = planlib.resolve_plan(shapes, planlib.default_rules(opt_cfg, stash_fallback=True), tokens=per_mb)
+        print(f"{what}: {tokens} tokens, the stash rule at {per_mb} tokens a microbatch:\n"
+              + planlib.plan_summary(plan), flush=True)
+        by = planlib.plan_by_path(plan)
+        flipped = sorted(p for p, pl in by.items() if pl.mapped and pl.grad == "dense"
+                         and planlib.operand_eligible_path(p))
+        want_flipped = ["groups/0/attn/wo", "groups/0/attn/wqkv"] if tokens == 1280 else []
+        if flipped != want_flipped:
+            raise AssertionError(f"{what}: the stash rule flipped {flipped}, not {want_flipped}")
+        operand = 5 * L - L * len(flipped)
+        dense = 3 + L * len(flipped)  # the embedding, the two norm-scale stacks, the flipped leaves
+        crs_step = state.step % opt_cfg.crs_every == opt_cfg.crs_every - 1
+        reads = 5 * L * 4 if tokens == 1024 else 0
+        want = {"opa_fused": operand, "opa_deposit": dense, "crs": operand + dense if crs_step else 0,
+                "mvm_sliced_fused": reads, "mvm_sliced_fused_transpose": reads}
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        KO.opa_fused.instances.clear()
+        before = snapshot(torch, state.sliced)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with k1_tokens() as seen:
+            state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        print(f"{what}: {ms:.1f} ms, {tokens / ms * 1e3:.0f} tokens/s, peak {peak:.1f} GiB (phase 5's 256-token "
+              f"adc9 step: {phase5['ms']:.1f} ms, peak {phase5['peak']:.1f} GiB over its 5 steps), loss {loss:.4f}, "
+              f"grad_norm {gnorm:.4f}, launches {got}, K1 tokens {sorted(set(seen))}", flush=True)
+        if got != want:
+            raise AssertionError(f"{what}: launches {got} != {want}")
+        if dict(KO.opa_fused.instances) != {"ideal": operand} or set(seen) != {tokens}:
+            raise AssertionError(f"{what}: K1 instances {dict(KO.opa_fused.instances)}, tokens {sorted(set(seen))}")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"{what}: loss {loss} or grad_norm {gnorm} not finite")
+        after = snapshot(torch, state.sliced)
+        if not all(bool((after[p] != before[p]).any()) for p in before):
+            raise AssertionError(f"{what}: some leaf's planes did not change")
+        if tokens == 1024:
+            launches["opa_fused_microbatch"] = got["opa_fused"]
+        del before, after, metrics
+        torch.cuda.empty_cache()
+    from repro_torch.core.slicing import DEFAULT_SPEC
+
+    timing, err = time_opa_microbatch(torch, DEFAULT_SPEC, gen)
+    return launches, {"opa_fused_microbatch": timing}, err, state
+
+
 def main() -> int:
     import torch
 
@@ -1800,7 +2206,7 @@ def main() -> int:
     dev_err = phase_device_kernels(torch, DEFAULT_SPEC, gen)
     train_timings.update(time_device_kernels(torch, DEFAULT_SPEC, gen))
     done("phase 6: device, io 8/12 and K5 kernels")
-    train_launches, state, ds, blocks = phase_train(torch, gen)
+    train_launches, state, ds, blocks, phase5 = phase_train(torch, gen)
     done("phase 5: training")
     dev_launches, state = phase_device_train(torch, state, ds, blocks, gen)
     train_launches.update(dev_launches)
@@ -1813,8 +2219,17 @@ def main() -> int:
     train_timings.update(time_rng_kernels(torch, DEFAULT_SPEC, gen))
     rng_launches, state = phase_rng_train(torch, state, ds, blocks)
     train_launches.update(rng_launches)
-    del state
     done("phase 10: K1 rounding sources")
+    mb_launches, mb_timings, mb_err, state = phase_microbatch(torch, state, phase5, gen)
+    train_launches.update(mb_launches)
+    train_timings.update(mb_timings)
+    del state
+    torch.cuda.empty_cache()
+    done("phase 12: microbatches and the stash rule")
+    mlp_launches, mlp_timings, mlp_err = phase_mlp(torch, gen)
+    train_launches.update(mlp_launches)
+    train_timings.update(mlp_timings)
+    done("phase 11: the paper MLP")
 
     # one layer's five reads: "mvm_sliced_fused" at the decode batch's 4
     # tokens on the decode body (the entry's meaning since the port began:
@@ -1864,7 +2279,19 @@ def main() -> int:
         *(entry(rng_entry(mode, d, body), "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",
                 "src/repro/kernels/sliced_opa/kernel.py:255", rng_err[rng_entry(mode, d, body)])
           for mode in ("grid", "hw") for d in (False, True) for body in ("mma", "fma")),
+        # K1 at the microbatched step's 1024 tokens (phase 12)
+        entry("opa_fused_microbatch", "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",
+              "src/repro/kernels/sliced_opa/kernel.py:255", float(mb_err)),
+        # the paper MLP's kernels at its shapes, launches over phase 11
+        entry("opa_deposit_mlp", "src/repro_torch/kernels/sliced_opa/csrc/opa_deposit.cu",
+              "src/repro/kernels/sliced_opa/kernel.py:90", 0.0),
+        entry("crs_mlp", "src/repro_torch/kernels/crs/csrc/crs.cu", "src/repro/kernels/crs/kernel.py:70", 0.0),
+        entry("mvm_sliced_fused_mlp", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
+              "src/repro/kernels/sliced_mvm/kernel.py:367", mlp_err),
     ]}
+    unlaunched = [e["name"] for e in line["kernels"] if e["launches"] <= 0]
+    if unlaunched:
+        raise AssertionError(f"kernels-line entries with no launch on their path: {unlaunched}")
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

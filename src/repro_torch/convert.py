@@ -12,7 +12,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.device import resolve
-from repro_torch.optim.panther import SlicedTensor
+from repro_torch.optim.panther import PantherState, SlicedTensor
 from repro_torch.train.step import TrainState
 
 
@@ -48,3 +48,12 @@ def train_state_from_jax(step, digital, sliced, rng, device=None) -> TrainState:
     words = tuple(int(w) for w in np.asarray(rng, dtype=np.uint32).reshape(-1)[:2])
     return TrainState(step=int(step), digital=params_from_jax(digital, device),
                       sliced=sliced_from_jax(sliced, device), rng=words)
+
+
+def panther_state_from_jax(state_numpy, device=None) -> PantherState:
+    """A JAX ``PantherState`` (numpy leaves) -> the port's: the step as a
+    host int, the sliced planes (``sliced_from_jax``) and the momentum
+    buffers."""
+    return PantherState(step=int(np.asarray(state_numpy.step)),
+                        sliced=sliced_from_jax(state_numpy.sliced, device),
+                        momentum=params_from_jax(state_numpy.momentum, device))

@@ -11,14 +11,20 @@ Python ints.
 * ``counter_key_scalars(key)`` is the two words bitcast to int32 (what the
   update kernels take as their key words).
 
-``uniform(key, shape)`` is the one draw made on tensors: the stream of
+* ``split(key, n)`` is ``jax.random.split``: key ``i`` is
+  ``threefry_2x32(key, [0, i])``, the same block as ``fold_in(key, i)``
+  under JAX's partitionable threefry.
+
+``uniform(key, shape)`` draws on tensors: the stream of
 ``jax.random.uniform(key, shape, float32)`` (the ``rng_mode="grid"``
 rounding draw), whose element at flat index ``n`` is a pure function of
 the key and ``n`` (JAX's partitionable threefry), so any window of it can
-be drawn alone.
+be drawn alone. ``normal(key, shape)`` is ``jax.random.normal``'s stream
+from it, through XLA's f32 ``ErfInv`` (``erfinv``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -54,6 +60,11 @@ def fold_in(key: tuple, data: int) -> tuple:
     return threefry2x32(key, 0, int(data) & _MASK)
 
 
+def split(key: tuple, n: int = 2) -> list:
+    """``jax.random.split(key, n)`` as ``n`` host keys."""
+    return [threefry2x32(key, 0, i) for i in range(n)]
+
+
 def counter_key_scalars(key: tuple) -> tuple:
     """The two key words bitcast to int32, as Python ints."""
     return tuple(w - (1 << 32) if w >= (1 << 31) else w for w in (key[0] & _MASK, key[1] & _MASK))
@@ -81,14 +92,15 @@ def threefry2x32_lanes(key: tuple, x0: torch.Tensor, x1: torch.Tensor) -> tuple:
     return x0, x1
 
 
-def uniform(key: tuple, shape: tuple, *, offset: int = 0, device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32)`` bit for bit, or the window
-    of that stream that starts at flat index ``offset`` (of a larger draw
-    under the same key). Element ``n`` is ``(b0 ^ b1) >> 9`` as the mantissa
-    of a float in [1, 2), minus 1 (multiples of 2^-23), with ``(b0, b1) =
-    threefry2x32(key, (n >> 32, n & 0xFFFFFFFF))``: JAX's
-    ``jax_threefry_partitionable`` stream. Drawn in chunks of 2^24
-    elements."""
+def uniform(key: tuple, shape: tuple, *, offset: int = 0, minval: float = 0.0, maxval: float = 1.0,
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` bit for
+    bit, or the window of that stream that starts at flat index ``offset``
+    (of a larger draw under the same key). Element ``n`` is ``(b0 ^ b1) >>
+    9`` as the mantissa of a float in [1, 2), minus 1 (multiples of 2^-23),
+    with ``(b0, b1) = threefry2x32(key, (n >> 32, n & 0xFFFFFFFF))``: JAX's
+    ``jax_threefry_partitionable`` stream; then ``max(minval, u · (maxval -
+    minval) + minval)``. Drawn in chunks of 2^24 elements."""
     shape = tuple(shape)
     out = torch.empty(shape, dtype=torch.float32, device=device)
     flat = out.view(-1)
@@ -97,4 +109,48 @@ def uniform(key: tuple, shape: tuple, *, offset: int = 0, device=None) -> torch.
         b0, b1 = threefry2x32_lanes(key, n >> 32, n & _MASK)
         bits = (b0.bitwise_xor_(b1) >> 9) | 0x3F800000
         flat[s:s + n.numel()] = bits.to(torch.int32).view(torch.float32) - 1.0
+    if (minval, maxval) != (0.0, 1.0):
+        # XLA contracts u · (maxval - minval) + minval into one FMA: the f64
+        # product is exact, so one rounding to f32 follows it here too
+        lo, hi = np.float32(minval), np.float32(maxval)
+        flat.copy_((flat.to(torch.float64) * float(hi - lo) + float(lo)).to(torch.float32)).clamp_(min=float(lo))
     return out
+
+
+# XLA's f32 ErfInv (Giles' single-precision approximation, as StableHLO
+# decomposes chlo.erf_inv): a degree-8 polynomial in w - 2.5 for w =
+# -log1p(-x²) < 5, in sqrt(w) - 3 above; highest coefficient first
+_ERFINV_W_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
+                 -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
+                 -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``erfinv`` the way XLA computes it (``torch.erfinv`` uses another
+    formula). XLA's CPU backend contracts each Horner step into one FMA:
+    here the step is exact in f64 (a 24×24-bit product) and rounded once to
+    f32, which differs from a true FMA only where the f64 sum lies on an f32
+    tie; the square root is correctly rounded through f64, as XLA's is
+    (torch's CPU one is not). ``torch.log1p`` and XLA's differ by up to 2
+    ulps, so the result can too (``tests/test_torch_paper_mlp.py`` counts
+    them)."""
+    w = -torch.log1p(-(x * x))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.to(torch.float64)).to(torch.float32) - 3.0).to(torch.float64)
+    lt_c = torch.tensor([float(np.float32(c)) for c in _ERFINV_W_LT5], dtype=torch.float64, device=x.device)
+    ge_c = torch.tensor([float(np.float32(c)) for c in _ERFINV_W_GE5], dtype=torch.float64, device=x.device)
+    p = torch.where(lt, lt_c[0], ge_c[0])
+    for i in range(1, len(_ERFINV_W_LT5)):
+        p = (torch.where(lt, lt_c[i], ge_c[i]) + p * w).to(torch.float32).to(torch.float64)
+    out = p.to(torch.float32) * x
+    return torch.where(x.abs() == 1.0, x * float("inf"), out)
+
+
+def normal(key: tuple, shape: tuple, *, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: ``sqrt(2) · erfinv(u)``
+    with ``u`` uniform over ``[nextafter(-1, 0), 1)``. The uniform draw is
+    bit for bit; ``erfinv`` within the ulps its docstring names."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, minval=lo, maxval=1.0, device=device)
+    return erfinv(u).mul_(float(np.float32(np.sqrt(2.0))))

@@ -1,3 +1,3 @@
-from .pipeline import SyntheticLMDataset
+from .pipeline import SyntheticLMDataset, TeacherStudentDataset
 
-__all__ = ["SyntheticLMDataset"]
+__all__ = ["SyntheticLMDataset", "TeacherStudentDataset"]

@@ -1,11 +1,14 @@
-"""Deterministic synthetic data (port of ``repro.data.pipeline``): every
-batch is a pure function of (seed, step, host id), made with numpy exactly
-as the reference makes it, and handed over as tensors on the chosen device."""
+"""Deterministic synthetic data (port of ``repro.data.pipeline``). The LM
+stream's batches are a pure function of (seed, step, host id), made with
+numpy exactly as the reference makes them; the teacher-student batches are
+drawn on the device from the reference's ``jax.random`` keys
+(``core.prng``). Both are handed over as tensors on the chosen device."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.device import resolve
 
 
@@ -43,3 +46,30 @@ class SyntheticLMDataset:
         the dataset's device."""
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in self.batch_numpy(step).items()}
+
+
+def fan_in_normal(key: tuple, shape: tuple, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape) / np.sqrt(shape[0])`` in f32: the
+    reference's teacher and MLP initializers. The divisor is a tensor on
+    the same device, so the card divides as the CPU does (a host scalar
+    divisor becomes a reciprocal multiply there)."""
+    w = prng.normal(key, shape, device=device)
+    return w / torch.tensor(float(np.float32(np.sqrt(shape[0]))), dtype=torch.float32, device=w.device)
+
+
+class TeacherStudentDataset:
+    """A fixed random-teacher regression batch (the Fig 9/10-style
+    experiments): ``y = relu(x @ w1) @ w2`` with a ``[d_in, 4·d_in]`` and a
+    ``[4·d_in, d_out]`` teacher and ``batch`` inputs, drawn under ``split(
+    PRNGKey(seed), 3)`` as the reference draws them."""
+
+    def __init__(self, d_in: int, d_out: int, batch: int, seed: int = 0, device=None):
+        dev = resolve(device)
+        k1, k2, k3 = prng.split(prng.PRNGKey(seed), 3)
+        self.w1 = fan_in_normal(k1, (d_in, 4 * d_in), device=dev)
+        self.w2 = fan_in_normal(k2, (4 * d_in, d_out), device=dev)
+        self.x = prng.normal(k3, (batch, d_in), device=dev)
+        self.y = torch.relu(self.x @ self.w1) @ self.w2
+
+    def batch(self, step: int = 0) -> tuple:
+        return self.x, self.y

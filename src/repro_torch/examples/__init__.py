@@ -1,0 +1,2 @@
+"""Runnable examples on the port (counterparts of the repo's
+``examples/``): ``quickstart``."""

@@ -1,6 +1,10 @@
 """PANTHER sliced SGD (port of ``repro.optim.panther``): slicing a param
 tree into int8 digit planes, reading it back, the fidelity wraps for serving
-(``fidelitize``) and training (``operandize``), and the split-state update.
+(``fidelitize``) and training (``operandize``), and the two forms of the
+update: ``init``/``materialize``/``update`` on a ``PantherState`` (params
+kept beside the planes, digital-VFU momentum and Tiki-Taka; the paper
+MLP's optimizer) and the split state of the LM trainer (``init_split``,
+``materialize_split``, ``update_split``).
 
 The update quantizes ``-lr · grad`` onto each leaf's ``2^-F`` grid with
 stochastic rounding (the ``rng_mode`` draw) and deposits it into the planes:
@@ -13,8 +17,9 @@ update makes no device sync.
 
 A leaf whose plan carries a write-nonideal ``DeviceModel`` writes through
 its physics: operand leaves in the fused update kernel, dense-gradient
-leaves through ``opa_device_update``. Not ported yet: momentum (and
-Tiki-Taka) and the ``im2col``/``expert`` operand kinds; each raises.
+leaves through ``opa_device_update``. Momentum lives in ``update`` only:
+``update_split`` refuses it (the reference's ignores it). Not ported yet:
+the ``im2col``/``expert`` operand kinds.
 
 Layout: a ``SlicedTensor``'s planes are ``[S, *stack, M, N]`` as in the
 reference, but a stacked leaf's storage is laid out ``[*stack, S, M, N]``
@@ -53,7 +58,7 @@ class PantherConfig:
     spec: SliceSpec = DEFAULT_SPEC
     crs_every: int = 1024
     stochastic_round: bool = True
-    momentum: float = 0.0  # digital-VFU momentum: not ported, > 0 raises
+    momentum: float = 0.0  # digital-VFU momentum (``update``; Tiki-Taka rides it)
     min_ndim: int = 2  # crossbar-map params with ndim >= this
     min_dim: int = 8  # ... and every matrix dim >= this
     variant: str = "v2"  # informational: v1 (SGD), v2 (mini-batch), v3 (large-batch)
@@ -71,6 +76,26 @@ class SlicedTensor(NamedTuple):
 
     planes: torch.Tensor  # int8 [S, *shape]
     frac_bits: torch.Tensor  # int32 0-d: weight grid = 2^-F
+
+
+class PantherState(NamedTuple):
+    """The non-split optimizer state: ``step`` a host int, ``sliced`` a
+    ``SlicedTensor`` (or None) per param leaf, ``momentum`` an f32 buffer
+    (or None) per param leaf."""
+
+    step: int
+    sliced: Any
+    momentum: Any
+
+
+def tiki_taka(cfg: PantherConfig = PantherConfig(), beta: float = 0.875) -> PantherConfig:
+    """Tiki-Taka-style noise-resilient training (Gokmen & Haensch): the
+    gradient accumulates in a digital momentum buffer and the averaged
+    update is what is written to the noisy device, so the per-write noise
+    averages down by ~sqrt(1/(1-beta)) while the signal accumulates. Rides
+    ``PantherConfig.momentum``; operand gradients materialize into the
+    buffer; the write keeps the full device physics."""
+    return dataclasses.replace(cfg, momentum=beta, variant="tiki-taka")
 
 
 def _default_plan(params, cfg: PantherConfig):
@@ -108,6 +133,24 @@ def init_split(params, cfg: PantherConfig = PantherConfig(), plan=None):
         params, plan,
     )
     return digital, sliced
+
+
+def init(params, cfg: PantherConfig = PantherConfig(), plan=None) -> PantherState:
+    """Planes for every mapped leaf (``plan``, default from ``cfg``), zero
+    momentum buffers for every leaf when ``cfg.momentum > 0``. Drive the
+    state with the same ``plan`` everywhere, as in the reference."""
+    if plan is None:
+        plan = _default_plan(params, cfg)
+    sliced = tree.map(lambda p, pl: _slice_leaf(p, pl.spec, cfg.margin_bits) if pl.mapped else None,
+                      params, plan)
+    mom = tree.map(lambda p: torch.zeros_like(p) if cfg.momentum > 0 else None, params)
+    return PantherState(step=0, sliced=sliced, momentum=mom)
+
+
+def materialize(params, state: PantherState, cfg: PantherConfig = PantherConfig()):
+    """The compute-dtype param tree: mapped leaves dequantized from their
+    planes with ``cfg.spec``, the others as they are."""
+    return materialize_split(params, state.sliced, cfg)
 
 
 def materialize_split(digital, sliced, cfg: PantherConfig = PantherConfig()):
@@ -213,13 +256,9 @@ def update_split(grads, digital, sliced, step: int, lr: float, cfg: PantherConfi
     ``opa_device_update``). CRS runs on every mapped leaf when ``step %
     crs_every == crs_every - 1``: a host branch; as in the reference, it
     does not hold stuck cells."""
-    from repro_torch.kernels.crs import crs
-    from repro_torch.kernels.sliced_opa import opa_deposit, opa_device_update, opa_fused_update
-
     if cfg.momentum > 0:
-        raise NotImplementedError("momentum (digital-VFU buffers, Tiki-Taka) is not ported yet")
-    # "hw" exists only inside the fused kernel: dense leaves take the counter draw
-    dense_mode = "counter" if cfg.rng_mode == "hw" else cfg.rng_mode
+        raise NotImplementedError("update_split takes no momentum: digital-VFU momentum and Tiki-Taka "
+                                  "live in panther.update (PantherState)")
     do_crs = step % cfg.crs_every == cfg.crs_every - 1
     base = prng.fold_in(rng if rng is not None else prng.PRNGKey(0), step)
     lr32 = float(np.float32(lr))
@@ -235,31 +274,82 @@ def update_split(grads, digital, sliced, step: int, lr: float, cfg: PantherConfi
             d = d_at[path]
             new_d[path] = (d - lr32 * g.to(d.dtype)).to(d.dtype)
             continue
-        pl = pl_at.get(path)
-        spec = pl.spec if pl is not None else cfg.spec
-        dev = _leaf_device(pl)
-        key = prng.fold_in(base, i)
-        if isinstance(g, OuterProductGrad):
-            opa_fused_update(s.planes, g.x, g.dh, lr32, s.frac_bits, spec,
-                             stochastic=cfg.stochastic_round, key=key, rng_mode=cfg.rng_mode, device=dev)
-        elif dev is not None:
-            opa_device_update(s.planes, g, lr32, s.frac_bits, spec, device=dev,
-                              stochastic=cfg.stochastic_round, key=key, rng_mode=dense_mode)
-        else:
-            upd = quantize(-lr32 * g.to(torch.float32), s.frac_bits,
-                           stochastic=cfg.stochastic_round, key=key, rng_mode=dense_mode)
-            opa_deposit(s.planes, upd, spec)
-            del upd
-        if do_crs:
-            crs(s.planes, spec)
+        _write_leaf(s, g, lr32, prng.fold_in(base, i), pl_at.get(path), cfg, do_crs)
     return tree.map_with_path(lambda path, d: new_d.get(path, d), digital), sliced
 
 
-def saturation_report(sliced, cfg: PantherConfig = PantherConfig(), plan=None):
+def _write_leaf(s: SlicedTensor, g, lr32: float, key: tuple, pl, cfg: PantherConfig, do_crs: bool) -> None:
+    """One mapped leaf's write, in place: operand gradients through the
+    fused update (K1), dense ones through ``opa_device_update`` on a
+    write-nonideal device, else ``quantize`` and the deposit (K2); then CRS
+    (K3) when ``do_crs``. The "hw" draw exists only inside the fused
+    kernel: dense leaves then take the counter draw, as in the reference."""
+    from repro_torch.kernels.crs import crs
+    from repro_torch.kernels.sliced_opa import opa_deposit, opa_device_update, opa_fused_update
+
+    spec = pl.spec if pl is not None else cfg.spec
+    dev = _leaf_device(pl)
+    dense_mode = "counter" if cfg.rng_mode == "hw" else cfg.rng_mode
+    if isinstance(g, OuterProductGrad):
+        opa_fused_update(s.planes, g.x, g.dh, lr32, s.frac_bits, spec,
+                         stochastic=cfg.stochastic_round, key=key, rng_mode=cfg.rng_mode, device=dev)
+    elif dev is not None:
+        opa_device_update(s.planes, g, lr32, s.frac_bits, spec, device=dev,
+                          stochastic=cfg.stochastic_round, key=key, rng_mode=dense_mode)
+    else:
+        upd = quantize(-lr32 * g.to(torch.float32), s.frac_bits,
+                       stochastic=cfg.stochastic_round, key=key, rng_mode=dense_mode)
+        opa_deposit(s.planes, upd, spec)
+        del upd
+    if do_crs:
+        crs(s.planes, spec)
+
+
+def update(grads, state: PantherState, params, lr: float, cfg: PantherConfig = PantherConfig(),
+           rng=None, plan=None):
+    """One PANTHER step on a ``PantherState``. Returns ``(params',
+    state')``: the planes update in place (``state'.sliced`` is
+    ``state.sliced``), the mapped leaves of ``params'`` are dequantized from
+    them at the leaf's dtype with ``cfg.spec``, the digital leaves take
+    float SGD. ``step`` is a host int, ``lr`` a host float, ``rng`` a host
+    key; leaf ``i`` (``jax.tree.flatten`` order) rounds under
+    ``fold_in(fold_in(rng, step), i)``. With ``cfg.momentum > 0`` every
+    leaf's gradient (an operand gradient materialized) goes through its
+    buffer ``m = momentum · m + g`` first, and the write takes ``m``."""
+    step = state.step
+    do_crs = step % cfg.crs_every == cfg.crs_every - 1
+    base = prng.fold_in(rng if rng is not None else prng.PRNGKey(0), step)
+    lr32 = float(np.float32(lr))
+    p_at = dict(tree.leaves_with_path(params))
+    s_at = dict(tree.leaves_with_path(state.sliced))
+    m_at = dict(tree.leaves_with_path(state.momentum))
+    pl_at = dict(tree.leaves_with_path(plan)) if plan is not None else {}
+    new_p, new_m = {}, {}
+    for i, (path, g) in enumerate(tree.leaves_sorted(grads)):
+        p, s, m = p_at[path], s_at[path], m_at[path]
+        momentum = cfg.momentum > 0 and m is not None
+        if isinstance(g, OuterProductGrad) and (s is None or momentum):
+            g = g.materialize()  # the VFU buffers are dense by nature
+        if momentum:
+            m = cfg.momentum * m + g
+            g = m
+        new_m[path] = m
+        if s is None:
+            new_p[path] = (p - lr32 * g).to(p.dtype)
+            continue
+        _write_leaf(s, g, lr32, prng.fold_in(base, i), pl_at.get(path), cfg, do_crs)
+        new_p[path] = dequantize_planes(s.planes, s.frac_bits, cfg.spec, dtype=p.dtype)
+    rebuild = lambda t, by: tree.map_with_path(lambda path, _: by[path], t)  # noqa: E731
+    return rebuild(params, new_p), PantherState(step + 1, state.sliced, rebuild(params, new_m))
+
+
+def saturation_report(state, cfg: PantherConfig = PantherConfig(), plan=None):
     """Per-leaf per-plane saturation fractions (the paper's Fig-9 metric),
-    f32 ``[S]``; one plane of one layer at a time, so no wide copy of a
-    whole leaf is made."""
+    f32 ``[S]``, of a ``PantherState`` or a sliced tree; one plane of one
+    layer at a time, so no wide copy of a whole leaf is made."""
     from repro_torch.kernels.common import layer_views
+
+    sliced = state.sliced if isinstance(state, PantherState) else state
 
     def rep(s, pl=None):
         if s is None:

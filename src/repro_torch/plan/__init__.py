@@ -9,9 +9,15 @@ earlier ones field by field. Rules match a glob over the '/'-joined leaf
 path plus an optional predicate over :class:`LeafInfo`; the paths are the
 JAX package's, so one rule list means the same thing on both trees.
 
+Token-dependent rules see ``LeafInfo.tokens``, the flattened tokens of one
+differentiated forward (one microbatch): ``operand_stash_rule`` flips a
+leaf whose operand stash outweighs its dense gradient to ``grad="dense"``
+(``default_rules(stash_fallback=True)``). ``plan_by_path`` and
+``plan_summary`` read a resolved plan.
+
 Not ported yet: shard hints, the operand group kinds (``im2col`` conv taps,
-MoE expert banks) and their per-expert fidelity, the operand-stash rule,
-``coverage_rules``, plan serialization and summaries.
+MoE expert banks) and their per-expert fidelity, ``coverage_rules`` and
+plan serialization.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ class LeafInfo(NamedTuple):
     path: str
     shape: tuple
     dtype: Any
+    tokens: int | None = None  # flattened tokens per differentiated forward, if known
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +66,13 @@ class LeafPlan:
     def __post_init__(self):
         if self.grad not in ("operand", "dense"):
             raise ValueError(f"LeafPlan.grad must be 'operand' or 'dense', got {self.grad!r}")
+
+    @property
+    def category(self) -> str:
+        """'digital' | 'operand' | 'dense': the three-way leaf partition."""
+        if not self.mapped:
+            return "digital"
+        return "operand" if self.grad == "operand" else "dense"
 
 
 _OVERRIDE_FIELDS = ("mapped", "spec", "grad", "fidelity")
@@ -110,11 +124,30 @@ def operand_eligible_path(path: str) -> bool:
     )
 
 
-def default_rules(cfg=None, fidelity: FidelityConfig | None = None) -> tuple:
+def stash_exceeds_dense(info: LeafInfo) -> bool:
+    """True when the operand stash (``T·(M+N)`` activations) would outweigh
+    the dense ``[M, N]`` gradient it replaces: ``tokens · (M + N) > M ·
+    N``. False while the tokens are unknown."""
+    if info.tokens is None or len(info.shape) < 2:
+        return False
+    m, n = info.shape[-2], info.shape[-1]
+    return info.tokens * (m + n) > m * n
+
+
+def operand_stash_rule() -> PlanRule:
+    """A leaf whose operand stash outweighs its dense gradient flips to
+    ``grad="dense"``: a memory lever, bit-compatible on the lossless path.
+    A flipped leaf sheds its read fidelity (``plan_summary`` shows it)."""
+    return PlanRule("*", where=stash_exceeds_dense, grad="dense")
+
+
+def default_rules(cfg=None, fidelity: FidelityConfig | None = None, stash_fallback: bool = False) -> tuple:
     """The reference's historical mapping: matrix-shaped float leaves map to
     planes at ``cfg.spec``, single-use attn/mlp matmul weights take operand
-    gradients, ``fidelity`` (if given) attaches to every operand leaf.
-    ``cfg`` is anything with ``spec``/``min_ndim``/``min_dim``."""
+    gradients, ``fidelity`` (if given) attaches to every operand leaf, and
+    with ``stash_fallback`` the ``operand_stash_rule`` comes last (it needs
+    ``tokens`` at resolution). ``cfg`` is anything with
+    ``spec``/``min_ndim``/``min_dim``."""
     spec = getattr(cfg, "spec", DEFAULT_SPEC)
     min_ndim = getattr(cfg, "min_ndim", 2)
     min_dim = getattr(cfg, "min_dim", 8)
@@ -125,6 +158,8 @@ def default_rules(cfg=None, fidelity: FidelityConfig | None = None) -> tuple:
     ]
     if fidelity is not None:
         rules.append(PlanRule("*", fidelity=fidelity))
+    if stash_fallback:
+        rules.append(operand_stash_rule())
     return tuple(rules)
 
 
@@ -169,20 +204,43 @@ def _normalize(plan: LeafPlan, path: str = "", warned: set | None = None) -> Lea
     return plan
 
 
-def resolve_leaf(path: str, shape, dtype, rules, warned: set | None = None) -> LeafPlan:
-    info = LeafInfo(path=path, shape=tuple(shape), dtype=dtype)
+def resolve_leaf(path: str, shape, dtype, rules, warned: set | None = None, tokens: int | None = None) -> LeafPlan:
+    info = LeafInfo(path=path, shape=tuple(shape), dtype=dtype, tokens=tokens)
     plan = LeafPlan()
     for r in rules:
         plan = r.apply(plan, info)
     return _normalize(plan, path, warned)
 
 
-def resolve_plan(params, rules):
+def resolve_plan(params, rules, tokens: int | None = None):
     """A tree of :class:`LeafPlan` mirroring ``params`` (only ``.shape`` and
-    ``.dtype`` of each leaf are read). Each demoted leaf warns once per
-    call."""
+    ``.dtype`` of each leaf are read). ``tokens``, the flattened tokens per
+    differentiated forward, feeds token-dependent rules. Each demoted leaf
+    warns once per call."""
     warned: set = set()
     return tree.map_with_path(
-        lambda p, leaf: resolve_leaf(path_str(p), leaf.shape, leaf.dtype, rules, warned),
+        lambda p, leaf: resolve_leaf(path_str(p), leaf.shape, leaf.dtype, rules, warned, tokens),
         params,
     )
+
+
+def plan_by_path(plan_tree) -> dict:
+    """``{'/'-joined path: LeafPlan}``, in ``jax.tree.flatten``'s order."""
+    return {path_str(p): pl for p, pl in tree.leaves_sorted(plan_tree)}
+
+
+def plan_summary(plan_tree) -> str:
+    """One line per distinct (category, spec, ADC) combination with its leaf
+    count, most frequent first: the reference's digest, line for line (the
+    port has no shard hints, so no ``shard=`` part)."""
+    combos: dict[tuple, int] = {}
+    for pl in plan_by_path(plan_tree).values():
+        fid = pl.fidelity
+        adc = None if fid is None else (fid.adc_bits_fwd, fid.adc_bits_bwd)
+        key = (pl.category, pl.spec.name() if pl.mapped else "-", adc)
+        combos[key] = combos.get(key, 0) + 1
+    lines = []
+    for (cat, spec, adc), n in sorted(combos.items(), key=lambda kv: -kv[1]):
+        extra = f" adc(fwd,bwd)={adc}" if adc is not None else ""
+        lines.append(f"  {n:4d} x {cat:8s} spec={spec}{extra}")
+    return "\n".join(lines)

@@ -19,10 +19,19 @@ back into them:
 dense gradient, quantized and deposited by ``opa_deposit``. The reference
 holds the two bit-compatible.
 
+``microbatches=G`` takes batch leaves shaped ``[G, B/G, S]`` and makes one
+update per global batch: the microbatches run forward and backward one
+after another, each one's activations freed before the next; dense leaves
+sum their gradients in ``grad_dtype``, then divide by G; operand leaves
+take each microbatch's ``(x, dh)`` out of their slots and concatenate them
+along the token axis, ``dh`` scaled by 1/G, so each block's update is one
+fused-update launch at G·T tokens. The plan is resolved per microbatch
+token count, so ``stash_fallback`` (``plan.operand_stash_rule``) sees the
+tokens of one microbatch, as in the reference.
+
 The state's step and rng are host values, and the learning-rate schedule is
 a host function, so nothing in the step waits on the device. Not ported:
-meshes and FSDP, microbatches, remat (activations are kept), the
-operand-stash fallback rule.
+meshes and FSDP, remat (activations are kept).
 """
 from __future__ import annotations
 
@@ -35,7 +44,7 @@ from repro_torch import tree
 from repro_torch.core import prng
 from repro_torch.core.slicing import dequantize_planes
 from repro_torch.models import lm
-from repro_torch.models.common import LMConfig, ShapeDtype, XbarWeight
+from repro_torch.models.common import LMConfig, OuterProductGrad, ShapeDtype, XbarWeight
 from repro_torch.optim import PantherConfig, panther
 
 
@@ -64,37 +73,43 @@ def param_shapes(digital, sliced):
 
 
 def make_train_step(cfg: LMConfig, opt_cfg: PantherConfig, lr_schedule, mesh=None,
-                    microbatches: int = 1, fsdp: bool = False, operand_grads: bool = True,
-                    plan=None, plan_rules=None):
+                    microbatches: int = 1, fsdp: bool = False, grad_dtype=torch.float32,
+                    operand_grads: bool = True, plan=None, plan_rules=None, stash_fallback: bool = False):
     """Returns ``train_step(state, batch) -> (state', metrics)``; ``metrics``
     holds ``loss`` and ``grad_norm`` (device scalars) and ``lr`` (a float).
 
     ``cfg.fidelity``, or per leaf ``plan``/``plan_rules``, turns on
     crossbar-in-the-loop training; it rides the operand pipeline. The
-    sliced state's planes are updated in place."""
+    sliced state's planes are updated in place. ``microbatches``,
+    ``grad_dtype`` and ``stash_fallback`` as in the module docstring;
+    ``stash_fallback`` only augments the default rules."""
     if mesh is not None or fsdp:
         raise NotImplementedError("meshes and FSDP are not ported yet (single device only)")
-    if microbatches != 1:
-        raise NotImplementedError("microbatches > 1 are not ported yet")
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     fidelity = cfg.fidelity
     if (plan is not None or plan_rules is not None) and fidelity is not None:
         raise ValueError("with an explicit plan, attach fidelity per leaf via PlanRule(fidelity=...) "
                          "instead of cfg.fidelity")
     if plan is not None and plan_rules is not None:
         raise ValueError("pass either a resolved plan or plan_rules, not both")
+    if stash_fallback and (plan is not None or plan_rules is not None):
+        raise ValueError("stash_fallback only augments the default rules; append "
+                         "plan.operand_stash_rule() to your plan_rules (or resolve it into your plan)")
     if fidelity is not None and fidelity.spec != opt_cfg.spec:
         raise ValueError(f"FidelityConfig.spec {fidelity.spec} must match the optimizer plane layout {opt_cfg.spec}")
-    rules = tuple(plan_rules) if plan_rules is not None else planlib.default_rules(opt_cfg, fidelity=fidelity)
-    resolved = []
+    rules = tuple(plan_rules) if plan_rules is not None else planlib.default_rules(
+        opt_cfg, fidelity=fidelity, stash_fallback=stash_fallback)
+    resolved = {}  # tokens per microbatch -> plan
 
-    def plan_of(state: TrainState):
-        if not resolved:
+    def plan_of(state: TrainState, tokens: int):
+        if tokens not in resolved:
             p = plan if plan is not None else planlib.resolve_plan(
-                param_shapes(state.digital, state.sliced), rules)
+                param_shapes(state.digital, state.sliced), rules, tokens=tokens)
             if not operand_grads and any(pl.fidelity is not None for _, pl in tree.leaves_with_path(p)):
                 raise ValueError("fidelity mode rides the operand pipeline (operand_grads=True)")
-            resolved.append(p)
-        return resolved[0]
+            resolved[tokens] = p
+        return resolved[tokens]
 
     def leaf_param(d, s, pl):
         """The differentiated copy of one leaf: a digital leaf, or a mapped
@@ -106,24 +121,60 @@ def make_train_step(cfg: LMConfig, opt_cfg: PantherConfig, lr_schedule, mesh=Non
         w = dequantize_planes(s.planes, s.frac_bits, pl.spec, dtype=opt_cfg.compute_dtype)
         return w.requires_grad_(not (operand_grads and pl.grad == "operand"))
 
-    def train_step(state: TrainState, batch):
-        plan_t = plan_of(state)
-        params = tree.map(leaf_param, state.digital, state.sliced, plan_t)
-        wrt = [(path, p) for path, p in tree.leaves_with_path(params)
-               if isinstance(p, torch.Tensor) and p.requires_grad]
+    def grads_of(params, wrt, sliced, plan_t, batch):
+        """One forward and backward: the loss and the gradient tree (dense
+        tensors; ``OuterProductGrad`` at operand leaves). Fresh slots each
+        call, so every microbatch's operands land in their own."""
         if operand_grads:
-            params = panther.operandize(params, state.sliced, plan_t)
+            params = panther.operandize(params, sliced, plan_t)
         loss = lm.loss_fn(cfg, params, batch)
         dense = dict(zip((path for path, _ in wrt), torch.autograd.grad(loss, [p for _, p in wrt])))
         grads = tree.map_with_path(
             lambda path, p: p.slot.grad() if isinstance(p, XbarWeight) else dense[path], params)
-        del params, wrt, dense  # the dense layer copies
+        return loss.detach(), grads
+
+    def train_step(state: TrainState, batch):
+        inp = batch["inputs"]
+        if microbatches > 1 and inp.shape[0] != microbatches:
+            raise ValueError(f"microbatches={microbatches} takes batch leaves shaped [G, B/G, S], "
+                             f"got inputs {tuple(inp.shape)}")
+        plan_t = plan_of(state, inp.shape[-2] * inp.shape[-1])
+        params = tree.map(leaf_param, state.digital, state.sliced, plan_t)
+        wrt = [(path, p) for path, p in tree.leaves_with_path(params)
+               if isinstance(p, torch.Tensor) and p.requires_grad]
+        if microbatches == 1:
+            loss, grads = grads_of(params, wrt, state.sliced, plan_t, batch)
+        else:
+            loss, dense, ops = None, {}, {}
+            for g in range(microbatches):
+                l_g, g_g = grads_of(params, wrt, state.sliced, plan_t, {k: v[g] for k, v in batch.items()})
+                loss = l_g if loss is None else loss + l_g
+                for path, x in tree.leaves_with_path(g_g):
+                    if isinstance(x, OuterProductGrad):
+                        ops.setdefault(path, []).append(x)
+                    else:
+                        x = x.to(grad_dtype)
+                        dense[path] = dense[path] + x if path in dense else x
+                del l_g, x
+            loss = loss / microbatches
+            grads = tree.map_with_path(lambda path, _: _merge_operands(ops[path], microbatches) if path in ops
+                                       else dense[path] / microbatches, g_g)
+            del g_g, ops, dense
+        del params, wrt  # the dense layer copies
         lr = lr_schedule(state.step)
         with torch.no_grad():
             digital, sliced = panther.update_split(grads, state.digital, state.sliced, state.step, lr,
                                                    opt_cfg, rng=state.rng, plan=plan_t)
             gnorm = panther.global_grad_norm(grads)
         new_state = TrainState(step=state.step + 1, digital=digital, sliced=sliced, rng=state.rng)
-        return new_state, {"loss": loss.detach(), "lr": lr, "grad_norm": gnorm}
+        return new_state, {"loss": loss, "lr": lr, "grad_norm": gnorm}
 
     return train_step
+
+
+def _merge_operands(ops: list, microbatches: int) -> OuterProductGrad:
+    """The microbatches' operands of one leaf as one gradient: token tiles
+    concatenated in microbatch order (``[*stack, G·T, d]``), ``dh`` scaled
+    by 1/G, so one fused update deposits the mean gradient."""
+    return OuterProductGrad(torch.cat([o.x for o in ops], dim=-2),
+                            torch.cat([o.dh for o in ops], dim=-2)).scale_dh(1.0 / microbatches)

@@ -1021,3 +1021,71 @@ def test_opa_fused_grid_and_hw_instances_run_hmma(card):
     # opa_mma_kernel<DEV, FAR = true>: the grid and hw instances, ideal and device
     far = [body for name, body in funcs.items() if "opa_mma_kernel" in name and "ELb1EEE" in name]
     assert len(far) == 2 and all("HMMA" in body for body in far)
+
+
+def test_paper_mlp_update_on_the_card_matches_the_cpu(card):
+    """The non-split update of the Fig-9 MLP under Tiki-Taka on a device
+    with asymmetry (no write noise, whose ``log1p``/``cos`` differ between
+    the card's and the CPU's libm), on given gradients: K2 once a mapped
+    leaf, and planes, params and momentum bit for bit with the CPU's plain
+    versions."""
+    from repro_torch import plan as planlib
+    from repro_torch import tree
+    from repro_torch.benchmarks import fig9_slice_crs as F9
+    from repro_torch.core import prng
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.models.common import DeviceModel, FidelityConfig
+    from repro_torch.optim import PantherConfig, panther
+
+    cfg = panther.tiki_taka(PantherConfig(stochastic_round=False))
+    fid = FidelityConfig(spec=cfg.spec, device=DeviceModel(asym_up=1.2, asym_down=0.8))
+    runs = {}
+    for dev in ("cpu", card):
+        params = F9._mlp(prng.PRNGKey(1), device="cpu")
+        params = {k: v.to(dev) for k, v in params.items()}
+        plan = planlib.resolve_plan(params, planlib.default_rules(cfg, fidelity=fid))
+        state = panther.init(params, cfg, plan=plan)
+        p = panther.materialize(params, state, cfg)
+        g = torch.Generator().manual_seed(3)
+        before = KO.opa_deposit.launches
+        for step in range(3):
+            grads = {k: (torch.randn(v.shape, generator=g) * 1e-2).to(dev) for k, v in params.items()}
+            p, state = panther.update(grads, state, p, 0.03, cfg, rng=prng.PRNGKey(11), plan=plan)
+        runs[str(dev)] = (p, state, KO.opa_deposit.launches - before)
+    (pc, sc, nc), (pg, sg, ng) = runs["cpu"], runs[str(card)]
+    assert nc == 0 and ng == 3 * 3
+    for k in pc:
+        assert torch.equal(pc[k], pg[k].cpu()), k
+        assert torch.equal(sc.momentum[k], sg.momentum[k].cpu()), k
+    for (path, a), (_, b) in zip(tree.leaves_with_path(sc.sliced), tree.leaves_with_path(sg.sliced)):
+        if a is not None:
+            assert torch.equal(a.planes, b.planes.cpu()), path
+
+
+def test_microbatched_step_on_the_card_updates_each_block_once_at_all_tokens(card, monkeypatch):
+    """A microbatched step of the f32 smoke config: one K1 launch a block,
+    each over the G·T tokens of all microbatches; the loss as the
+    full-batch step's within 1e-5."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ops
+    from repro_torch.optim import PantherConfig
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train.step import make_train_step, train_state_init
+
+    cfg = dataclasses.replace(configs.get_smoke("gemma_2b"), dtype=torch.float32)
+    opt = PantherConfig(stochastic_round=False, crs_every=1000)
+    batch = SyntheticLMDataset(cfg.vocab, 16, 8, seed=5, device=card).batch(0)
+    _, full = make_train_step(cfg, opt, constant(0.1))(train_state_init(cfg, opt, 0, device=card), batch)
+    tokens, real = [], ops.opa_fused
+    monkeypatch.setattr(ops, "opa_fused", lambda planes, x, *a, **k: (tokens.append(x.shape[0]),
+                                                                     real(planes, x, *a, **k))[1])
+    before = KO.opa_fused.launches
+    mb = {k: v.reshape(4, 2, 16) for k, v in batch.items()}
+    state, m = make_train_step(cfg, opt, constant(0.1), microbatches=4)(train_state_init(cfg, opt, 0, device=card), mb)
+    assert KO.opa_fused.launches - before == len(tokens) == 5 * cfg.n_layers and set(tokens) == {8 * 16}
+    assert abs(float(m["loss"]) - float(full["loss"])) <= 1e-5 * float(full["loss"])
+    assert state.step == 1

@@ -181,6 +181,34 @@ def test_training_entry_points_without_a_device_run_on_cuda_or_raise():
         launch.main(["--smoke", "--steps", "1"])
 
 
+def test_paper_mlp_entry_points_without_a_device_run_on_cuda_or_raise():
+    from repro_torch.benchmarks import fig9_slice_crs
+    from repro_torch.core import prng
+    from repro_torch.data import TeacherStudentDataset
+    from repro_torch.examples import quickstart
+    from repro_torch.optim import panther
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry points would run on it")
+    with pytest.raises(RuntimeError, match="cuda"):
+        TeacherStudentDataset(8, 2, 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fig9_slice_crs.run(steps=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fig9_slice_crs.device_sweep(steps=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fig9_slice_crs.main([])
+    with pytest.raises(RuntimeError, match="cuda"):
+        quickstart.main(steps=1)
+    # panther.init on params made on the default device: making them raises
+    with pytest.raises(RuntimeError, match="cuda"):
+        panther.init(fig9_slice_crs._mlp(prng.PRNGKey(0)))
+    # asked for the CPU, they run there
+    params = fig9_slice_crs._mlp(prng.PRNGKey(0), device="cpu")
+    assert panther.init(params).sliced["w0"].planes.device.type == "cpu"
+    assert TeacherStudentDataset(8, 2, 4, device="cpu").x.device.type == "cpu"
+
+
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: chip_smoke.py would run in full")

@@ -331,7 +331,7 @@ def test_adc9_step_reads_match_jax_read_by_read(lossless_runs, monkeypatch):
 
 def test_make_train_step_refuses_what_is_not_ported():
     sched = tsched.constant(LR)
-    for kw in ({"mesh": object()}, {"fsdp": True}, {"microbatches": 2}):
+    for kw in ({"mesh": object()}, {"fsdp": True}):
         with pytest.raises(NotImplementedError):
             tstep.make_train_step(CFG_T, TPC(), sched, **kw)
     fid_cfg = dataclasses.replace(CFG_T, fidelity=tconfigs.fidelity_presets()["adc9"])
