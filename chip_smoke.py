@@ -27,7 +27,15 @@ Phases:
      versions: ``crs`` (planes at a 16-byte boundary and 5 bytes past
      one) and ``opa_deposit`` bit for bit at gemma-2b's four (M, N),
      the 256000x2048 embedding, a ragged 320x100 and a 33x47 whose M·N is off
-     the 16-element grid, on inputs that hit every rail; ``opa_fused`` bit for bit on f32-exact operands at
+     the 16-element grid, on inputs that hit every rail; K2's dense write
+     (``opa_dense``: the gradient, the rounding draw and the deposit in one
+     pass) bit for bit with f32 and bf16 gradients under half to even,
+     counter and grid at the embedding, an [18, 2048] norm-scale stack, the
+     MLP's three leaves (128x10 ragged), 33x47 and misaligned planes, and
+     through ``opa_dense_update`` on an [18, 2048, 2560] stack against
+     ``quantize`` and the deposit; the int32 deposit's entry point
+     (``ops.opa_deposit``) driven at gemma-2b's dense leaves and the MLP's,
+     its launches the kernels line's; ``opa_fused`` bit for bit on f32-exact operands at
      gemma-2b's four (M, N) and the ragged 320x100, T in {1, 17, 100, 256},
      two (lr, F) settings, with and without key words: f32 operands on its
      CUDA-core body, bf16 operands on its tensor-core body (``mma.sync``,
@@ -42,13 +50,15 @@ Phases:
      tensor-core body beside its CUDA-core body; and ``crs`` over one
      layer's 5 blocks and over the embedding's block beside a
      device-to-device copy of the same bytes (the attainable bandwidth);
+     and every dense-write instance on the embedding;
   5. train gemma-2b at full width: random weights from a seed, synthetic
      bigram tokens at batch 4 x 64, lr 3e-2, CRS every 2 steps, counter
      stochastic rounding; 3 steps through the adc9 plan, then 2 lossless
      steps, then one more step of each under the profiler. Every kernel's
      launches per step must be exact (K1 per operand block, all on its
-     tensor-core instance and none on the CUDA-core ones, K2 per
-     dense-gradient block, K3 per mapped block on CRS steps, K4 and K4ᵀ per
+     tensor-core instance and none on the CUDA-core ones, K2's dense write
+     per dense-gradient block on its f32 counter instance and no int32
+     deposit, K3 per mapped block on CRS steps, K4 and K4ᵀ per
      adc9 read), the loss and the gradient norm finite, and the planes must
      change;
   6. (run before 5, on its own memory) hold the new kernel instances against
@@ -56,7 +66,9 @@ Phases:
      tokens {1, 100, 256} (the reads also at 4, K1 at 17): K1's device instance, both
      bodies, with each write-physics field alone and all together, K2's
      stuck instance (the embedding
-     included), K4/K4ᵀ with read noise, K4/K4ᵀ at io 8 and 12 and K5 forward
+     included), K2's dense-write device instances with each field alone and
+     all together under each rounding, f32 and bf16, the stuck mask written
+     by a first launch and read by a second, K4/K4ᵀ with read noise, K4/K4ᵀ at io 8 and 12 and K5 forward
      and transposed at io 8, 12 and 16, each at ADC {9, 6, ideal} (K4 at 1 and
      4 tokens on its decode body; K5 on the body its shape takes and on the
      other, by name, bit for bit, also on out-of-range x_q); then time
@@ -70,7 +82,7 @@ Phases:
      asymmetry 1.2/0.8, 2% stuck cells, read noise 1% of full scale): 2 adc9
      steps, then one adc9 step each at io 8 and 12 on the ideal device, every
      launch count exact (the device steps through K1's device instance, K2's
-     stuck instance and the noisy K4/K4ᵀ), stuck digits held across the
+     dense-write device instance and the noisy K4/K4ᵀ), stuck digits held across the
      device step that runs no CRS, then one more step of each kind under the
      profiler;
   8. drive K5's entry point, ``mvm_sliced_batched``, over every operand
@@ -91,26 +103,31 @@ Phases:
      instance timed over one layer's 5 blocks beside the counter one; then
      on the trained state one adc9 step and one non-ideal-device step under
      each mode (18 layers, launches by instance exact), a grid step under
-     the profiler, the dense leaves' grid draw timed alone, and
-     ``opa_fused_update`` with f32 operands under each mode;
+     the profiler, the dense leaves' plain grid draw timed alone (what the
+     dense write drew apart before K2 took it in), ``opa_fused_update``
+     with f32 operands under each mode, and ``opa_dense_update`` with f32
+     and bf16 gradients on the dense leaves under each rounding, ideal and
+     device (every instance of K2's dense write);
  12. (run after 10, on its trained state) microbatches and the stash rule:
      an adc9 step with ``microbatches=4`` (16 x 64 tokens as [4, 4, 64],
      the stash rule on, seeing 256 tokens a microbatch and flipping
      nothing): K4 and K4ᵀ 360 launches each, K1 90, all on its tensor-core
-     ideal instance at 1024 tokens, K2 3, K3 93 on a CRS step; then a
+     ideal instance at 1024 tokens, K2's dense write 3, K3 93 on a CRS step; then a
      lossless ``stash_fallback`` step at 4 x 320 tokens, whose
      ``plan_summary`` is printed and whose attn/wqkv and attn/wo flip to
      dense gradients (K1 54, K2 39); each step's time and peak memory
      beside phase 5's; then K1 at 1024 tokens over one layer's 5 blocks,
      bit for bit against its plain version on f32-exact operands and timed
      beside it, the library's ``xᵀ @ dh`` and the bound;
- 11. the paper MLP: its kernels at its shapes (K2 and K3 on the three
-     crossbar leaves, K4's adc9 read at 512 tokens on short M = 64 tiles and
+ 11. the paper MLP: its kernels at its shapes (K2, its dense write and its
+     int32 deposit, and K3 on the three crossbar leaves, one K2 write's host
+     and device time, the write before the redesign emulated in this tree
+     beside the dense write, K4's adc9 read at 512 tokens on short M = 64 tiles and
      a ragged N = 10) against their plain versions and timed; then the
      port's quickstart (two CRS periods and float SGD, 301 steps each),
      Fig 9's ``run()`` (12 configurations x 400 steps) and
-     ``device_sweep(300)`` (8 records), every update's launches exact (K2
-     once a leaf, K3 once a leaf on CRS steps, no K1), the adc9 reads on
+     ``device_sweep(300)`` (8 records), every update's launches exact (K2's
+     dense write once a leaf, counted under ``opa_dense_mlp`` alone, K3 once a leaf on CRS steps, no K1), the adc9 reads on
      K4's tensor-core body; the paper claims true and the losses within
      1e-3 of the in-process JAX reference (but the noisy rows the
      reference itself does not reproduce, printed beside it); one Fig-9
@@ -122,6 +139,8 @@ non-zero. Usage: ``python3 chip_smoke.py`` (no arguments).
 """
 from __future__ import annotations
 
+import collections
+import functools
 import json
 import math
 import subprocess
@@ -538,6 +557,271 @@ def phase_update_kernels(torch, spec, gen):
           f"{RAGGED_SHAPE}, {ODD_SHAPE} with M·N off the 16-element grid; every rail hit)", flush=True)
 
 
+# ------------------------ K2's dense write (opa_dense) ------------------------
+
+NORM_SHAPE = (18, 2048)  # gemma-2b's norm-scale stacks: 2-D leaves, one block each
+DENSE_DRAWS = ("rint", "counter", "grid")  # half to even, and the two dense rounding draws
+DENSE_LR, DENSE_F = 1e-2, 20
+DENSE_WORDS, DENSE_NOISE_WORDS = (0x2468ACE, -0x13579BD), (77, -99)
+# CUDA-core operations a cell of the dense write beside the deposit's 8 a
+# plane cell: the rounding (rint and a clip; the counter hash; threefry2x32's
+# 20 rounds and key injections) and, on the device instance, the write
+# noise's two hashes and Box-Muller (log1pf, sqrtf, cosf) and the gain; the
+# stuck mask's S hashes are STUCK_OPS_PER_PLANE_CELL a plane cell beside these
+DENSE_DRAW_OPS = {"rint": 4, "counter": 14, "grid": 100}
+DENSE_DEVICE_OPS = 110
+
+
+def dense_entry(torch, dtype, draw, dev):
+    """A dense-write instance's name in the kernels line."""
+    from repro_torch.kernels.sliced_opa import kernel as KO
+
+    return "opa_dense_" + KO.dense_instance(dtype, draw, dev)
+
+
+def dense_gradient(torch, shape, dtype, gen):
+    """A dense gradient whose updates at (DENSE_LR, DENSE_F) mostly fall
+    between grid points (the draw decides), 5% past the int32 rails, on
+    ``dtype``'s grid."""
+    x = torch.randn(shape, generator=gen, device="cuda")
+    x *= 10.0 ** (torch.rand(shape, generator=gen, device="cuda") * 4 - 6)
+    far = torch.rand(shape, generator=gen, device="cuda") < 0.05
+    x[far] = torch.randn(int(far.sum()), generator=gen, device="cuda") * 1e9
+    return x.to(dtype)
+
+
+def dense_plain(torch, planes, g, spec, draw, dev=None, offset=0, rows=8192):
+    """The dense write's plain version (``ref.opa_dense_ref``) by row
+    blocks, so the embedding fits beside its temporaries."""
+    from repro_torch.kernels.sliced_opa import ref as RO
+
+    words = None if draw == "rint" else DENSE_WORDS
+    out = torch.empty_like(planes)
+    for r0 in range(0, planes.shape[1], rows):
+        out[:, r0:r0 + rows] = RO.opa_dense_ref(planes[:, r0:r0 + rows], g[r0:r0 + rows], DENSE_LR, DENSE_F, spec,
+                                                words, dev, DENSE_NOISE_WORDS, rng_mode="grid" if draw == "grid"
+                                                else "counter", offset=offset, r0=r0)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def dense_frac():
+    """DENSE_F as the 1-element device tensor a launch reads, made once so
+    that no copy to the card is timed with a launch."""
+    import torch
+
+    return torch.tensor([DENSE_F], dtype=torch.int32, device="cuda")
+
+
+def dense_launch(torch, planes, g, spec, draw, dev=None, offset=0):
+    from repro_torch.kernels.sliced_opa import kernel as KO
+
+    frac = dense_frac()
+    return KO.opa_dense(planes, g, DENSE_LR, frac, spec=spec, key_words=None if draw == "rint" else DENSE_WORDS,
+                        rng_mode="grid" if draw == "grid" else "counter", offset=offset, dev=dev,
+                        noise_words=DENSE_NOISE_WORDS)
+
+
+def dense_case(torch, planes, g, spec, draw, dev=None, offset=0, what=""):
+    """One dense-write launch (on a copy of ``planes``) against its plain
+    version: bit for bit, but for the write noise's one-LSB flips, counted
+    (noise_flips). With stuck cells the launch runs twice, the first drawing
+    and writing the block's stuck mask, the second reading it: both the
+    same. Returns the flips."""
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+
+    want = dense_plain(torch, planes, g, spec, draw, dev, offset)
+    stuck = dev is not None and dev.stuck_frac > 0.0
+    if stuck:  # the first launch at this shape writes the mask
+        S, M, N = planes.shape
+        for key in [k for k in KO._STUCK_BITS if k[1:] == (dev.stuck_seed, float(torch.tensor(dev.stuck_frac)),
+                                                            S, M, N)]:
+            del KO._STUCK_BITS[key]
+    got = dense_launch(torch, planes.clone(), g, spec, draw, dev, offset)
+    if stuck and not torch.equal(dense_launch(torch, planes.clone(), g, spec, draw, dev, offset), got):
+        raise AssertionError(f"{what}: the launch that read the stuck mask differs from the one that wrote it")
+    torch.cuda.synchronize()
+    if torch.equal(got, want):
+        return 0
+    if dev is None or dev.write_noise == 0.0:
+        raise AssertionError(f"{what}: {int((got != want).sum())} plane cells differ from the plain version")
+    words = None if draw == "rint" else DENSE_WORDS
+    p_q = RO.write_rows(RO.dense_increment(g, DENSE_LR, DENSE_F, dev), dev, 0, DENSE_NOISE_WORDS, words,
+                        rng_mode="grid" if draw == "grid" else "counter", offset=offset)
+    mask = RO.stuck_rows(dev, spec, 0, *g.shape, "cuda") if stuck else None
+    return noise_flips(torch, got, want, planes, p_q, mask, spec, what)
+
+
+def phase_dense_kernels(torch, spec, gen):
+    """K2's dense write without device physics against its plain version,
+    bit for bit: f32 and bf16 gradients under each rounding at the
+    embedding, a [18, 2048] norm-scale stack, the MLP's three leaves (128x10
+    ragged), 33x47 (M·N off the 16-cell grid: the scalar body) and planes 5
+    bytes past a 16-byte boundary; then the entry point on a dense attn stack
+    [18, 2048, 2560] against the reference's composition (``quantize`` and
+    the deposit) on the card, one launch a layer."""
+    from repro_torch.core import prng
+    from repro_torch.core.fixed_point import quantize
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import opa_dense_update
+    from repro_torch.kernels.sliced_opa import ref as RO
+
+    cases = 0
+    for shape in (EMBED_SHAPE, NORM_SHAPE, *MLP_SHAPES, ODD_SHAPE):
+        planes = random_planes(torch, spec, shape, gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            g = dense_gradient(torch, shape, dtype, gen)
+            for draw in DENSE_DRAWS:
+                dense_case(torch, planes, g, spec, draw, offset=17 * shape[0] * shape[1] if draw == "grid" else 0,
+                           what=f"{dense_entry(torch, dtype, draw, False)} at {shape}")
+                cases += 1
+            del g
+        del planes
+        torch.cuda.empty_cache()
+    planes = random_planes(torch, spec, MLP_SHAPES[2], gen)
+    g = dense_gradient(torch, MLP_SHAPES[2], torch.float32, gen)
+    view, buf = misaligned(torch, planes, 5)
+    dense_launch(torch, view, g, spec, "counter")
+    torch.cuda.synchronize()
+    if not torch.equal(view, dense_plain(torch, planes, g, spec, "counter")) or bool(buf[:5].any()):
+        raise AssertionError("opa_dense on planes 5 bytes past a 16-byte boundary vs plain")
+    L, (M, N) = 18, SLICE_SHAPES[0]
+    store = torch.randint(-8, 8, (L, spec.n_slices, M, N), generator=gen, device="cuda", dtype=torch.int8)
+    g = torch.randn((L, M, N), generator=gen, device="cuda") * 1e-4
+    for mode in ("counter", "grid"):
+        key = prng.fold_in(prng.PRNGKey(5), 3)
+        want = RO.opa_deposit_ref(store.movedim(1, 0), quantize(-RO._lr32(3e-2) * g, 24, stochastic=True, key=key,
+                                                                  rng_mode=mode), spec)
+        got = store.clone().movedim(1, 0)  # layer-major, as optim.panther stores a stack
+        before = KO.opa_dense.launches
+        opa_dense_update(got, g, 3e-2, torch.tensor(24, dtype=torch.int32, device="cuda"), spec, stochastic=True,
+                         key=key, rng_mode=mode)
+        torch.cuda.synchronize()
+        if KO.opa_dense.launches - before != L or not torch.equal(got, want):
+            raise AssertionError(f"opa_dense_update on an [{L}, {M}, {N}] stack under {mode}: "
+                                 f"{KO.opa_dense.launches - before} launches, {int((got != want).sum())} cells off")
+        del want, got
+    del store, g
+    torch.cuda.empty_cache()
+    print(f"opa_dense (K2's dense write) vs plain: {cases} cases bit-identical (f32 and bf16 gradients, "
+          f"{DENSE_DRAWS}, embedding {EMBED_SHAPE}, {NORM_SHAPE}, the MLP's {MLP_SHAPES}, {ODD_SHAPE}), planes 5 "
+          f"bytes past a 16-byte boundary; an [{L}, {M}, {N}] stack through opa_dense_update, {L} launches, as "
+          "quantize and the deposit under counter and grid", flush=True)
+
+
+def drive_deposit_entry(torch, spec, gen):
+    """The reference's ``opa_deposit`` API through the port's entry point
+    (``ops.opa_deposit``: an int32 update already on the grid) at the
+    dense leaves of gemma-2b (the embedding and the two norm-scale stacks,
+    ideal and with stuck cells) and the MLP's three leaves, the counts set
+    to 0 before and read after. Returns the launches by kernels-line
+    entry."""
+    from repro_torch.core.fixed_point import quantize
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import opa_deposit
+    from repro_torch.models.common import DeviceModel
+
+    stuck = DeviceModel(**PHYSICS["stuck"])
+    KO.opa_deposit.launches = 0
+    KO.opa_deposit.instances.clear()
+    counts = {}
+    for entry, shapes, dev in (("opa_deposit", (EMBED_SHAPE, NORM_SHAPE, NORM_SHAPE), None),
+                               ("opa_deposit_stuck", (EMBED_SHAPE, NORM_SHAPE, NORM_SHAPE), stuck),
+                               ("opa_deposit_mlp", MLP_SHAPES, None)):
+        before = KO.opa_deposit.launches
+        for shape in shapes:
+            planes = torch.randint(-8, 8, (spec.n_slices, *shape), generator=gen, device="cuda", dtype=torch.int8)
+            upd = quantize(torch.randn(shape, generator=gen, device="cuda") * 1e-6, DENSE_F)
+            opa_deposit(planes, upd, spec, stuck=dev)
+            del planes, upd
+        counts[entry] = KO.opa_deposit.launches - before
+    torch.cuda.synchronize()
+    if dict(KO.opa_deposit.instances) != {"ideal": 6, "stuck": 3}:
+        raise AssertionError(f"opa_deposit entry point: instances {dict(KO.opa_deposit.instances)}")
+    torch.cuda.empty_cache()
+    print(f"opa_deposit entry point (the reference's API, int32 updates): launches {counts}", flush=True)
+    return counts
+
+
+def phase_dense_device_kernels(torch, spec, gen):
+    """K2's dense write on the non-ideal device against its plain version:
+    each write-physics field alone and all together, f32 and bf16 gradients,
+    each rounding, at a [18, 2048] norm-scale stack, the MLP's three leaves,
+    a 2048x2560 block and 33x47, and with all fields at the embedding; bit
+    for bit but for counted one-LSB write-noise flips, the stuck mask written
+    by a first launch and read by a second. Returns the flips by entry."""
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+    from repro_torch.models.common import DeviceModel
+
+    flips, cases = {}, 0
+    for shape in (NORM_SHAPE, *MLP_SHAPES, SLICE_SHAPES[0], ODD_SHAPE):
+        planes = random_planes(torch, spec, shape, gen)
+        for name, kw in PHYSICS.items():
+            dev = DeviceModel(**kw)
+            for dtype in (torch.float32, torch.bfloat16):
+                g = dense_gradient(torch, shape, dtype, gen)
+                for draw in DENSE_DRAWS:
+                    entry = dense_entry(torch, dtype, draw, True)
+                    flips[entry] = flips.get(entry, 0) + dense_case(
+                        torch, planes, g, spec, draw, dev, 5 * shape[0] * shape[1] if draw == "grid" else 0,
+                        f"{entry} ({name}) at {shape}")
+                    cases += 1
+            if dev.stuck_frac > 0.0:
+                key = (planes.device, dev.stuck_seed, float(torch.tensor(dev.stuck_frac)), *planes.shape)
+                if not torch.equal(KO._STUCK_BITS[key], RO.stuck_bits_ref(dev, spec, *shape, "cuda")):
+                    raise AssertionError(f"the dense write's stuck mask at {shape} vs stuck_bits_ref")
+        del planes
+    dev = DeviceModel(**PHYSICS["all"])
+    planes = random_planes(torch, spec, EMBED_SHAPE, gen)
+    for dtype, draw in ((torch.float32, "counter"), (torch.float32, "grid"), (torch.bfloat16, "rint")):
+        g = dense_gradient(torch, EMBED_SHAPE, dtype, gen)
+        entry = dense_entry(torch, dtype, draw, True)
+        flips[entry] = flips.get(entry, 0) + dense_case(torch, planes, g, spec, draw, dev, 0,
+                                                        f"{entry} (all) at the embedding")
+        cases += 1
+        del g
+    del planes
+    torch.cuda.empty_cache()
+    print(f"opa_dense device instances vs plain: {cases} cases (physics {list(PHYSICS)}, f32 and bf16, "
+          f"{DENSE_DRAWS}, {NORM_SHAPE}, the MLP's {MLP_SHAPES}, {SLICE_SHAPES[0]}, {ODD_SHAPE}, all physics at the "
+          "embedding; mask written, then read); elements that differ, each by one grid LSB: "
+          + ", ".join(f"{k} {v}" for k, v in flips.items()), flush=True)
+    return {k: float(v) for k, v in flips.items()}
+
+
+def time_dense_kernels(torch, spec, gen):
+    """Every dense-write instance on the 256000x2048 embedding (the device
+    ones with all write fields, the stuck mask cached as after a first
+    step): kernel, plain version and bound; no one library call computes
+    it."""
+    from repro_torch.models.common import DeviceModel
+
+    S, (V, D) = spec.n_slices, EMBED_SHAPE
+    dev = DeviceModel(**PHYSICS["all"])
+    planes = torch.randint(-8, 8, (S, V, D), generator=gen, device="cuda", dtype=torch.int8)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = dense_gradient(torch, EMBED_SHAPE, dtype, gen)
+        for d in (None, dev):
+            for draw in DENSE_DRAWS:
+                k = cuda_time_ms(lambda: dense_launch(torch, planes, g, spec, draw, d), 5)
+                p = cuda_time_ms(lambda: dense_plain(torch, planes, g, spec, draw, d), 1, 0)
+                nbytes = (g.element_size() + 2 * S) * V * D
+                ops = (8.0 * S + DENSE_DRAW_OPS[draw]
+                       + (DENSE_DEVICE_OPS + STUCK_OPS_PER_PLANE_CELL * S if d is not None else 0)) * V * D
+                b = bound_of(nbytes, ops, CUDA_CORE_OPS_PER_S)
+                entry = dense_entry(torch, dtype, draw, d is not None)
+                out[entry] = {"ms": k, "plain_ms": p, "library_ms": None, "bound_ms": b[0], "bound_by": b[1]}
+                print(f"  {entry:30s} embedding {V}x{D}: kernel {k:.4f} ms  plain {p:.4f} ms  bound {b[0]:.4f} ms "
+                      f"({b[1]}, {100 * b[0] / k:.0f}% of it)", flush=True)
+        del g
+    del planes
+    torch.cuda.empty_cache()
+    return out
+
+
 def exact_operands(torch, T, M, N, dtype, gen):
     """Operands whose f32 contraction is exact in any order: small integers
     on a power-of-two grid (|partial sum| <= 16 on a 2^-8 grid)."""
@@ -851,9 +1135,10 @@ class embedding_crs_launches:
         self.pkg.crs = self.saved
 
 
-def phase_train(torch, gen):
+def phase_train(torch, gen, dense):
     """gemma-2b at full width: 3 adc9 steps, then 2 lossless steps, with
-    every kernel's launches per step checked. Returns the launch totals, the
+    every kernel's launches per step checked (the dense write's added to
+    ``dense`` by instance). Returns the launch totals, the
     state, the data and the blocks a step updates by gradient path."""
     import dataclasses
 
@@ -896,8 +1181,9 @@ def phase_train(torch, gen):
                       if sl is not None and pl.grad == "dense") + ")", flush=True)
     if blocks["operand"] != 5 * L:
         raise AssertionError(f"{blocks['operand']} operand blocks, not 5 x {L} layers")
-    counters = {"opa_fused": (KO.opa_fused, "launches"), "opa_deposit": (KO.opa_deposit, "launches"),
-                "crs": (KC.crs, "launches"), "mvm_sliced_fused": (KM.mvm_sliced_fused, "launches"),
+    counters = {"opa_fused": (KO.opa_fused, "launches"), "opa_dense": (KO.opa_dense, "launches"),
+                "opa_deposit": (KO.opa_deposit, "launches"), "crs": (KC.crs, "launches"),
+                "mvm_sliced_fused": (KM.mvm_sliced_fused, "launches"),
                 "mvm_sliced_fused_transpose": (KM.mvm_sliced_fused, "transpose_launches")}
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
@@ -909,6 +1195,7 @@ def phase_train(torch, gen):
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
         KO.opa_fused.instances.clear()
+        KO.opa_dense.instances.clear()
         batch = ds.batch(step)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -918,7 +1205,7 @@ def phase_train(torch, gen):
         ms = 1e3 * (time.perf_counter() - t0)
         got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
         crs_step = step % opt_cfg.crs_every == opt_cfg.crs_every - 1
-        want = {"opa_fused": blocks["operand"], "opa_deposit": blocks["dense"],
+        want = {"opa_fused": blocks["operand"], "opa_dense": blocks["dense"], "opa_deposit": 0,
                 "crs": blocks["operand"] + blocks["dense"] if crs_step else 0,
                 "mvm_sliced_fused": 5 * L if mode == "adc9" else 0,
                 "mvm_sliced_fused_transpose": 5 * L if mode == "adc9" else 0}
@@ -934,12 +1221,17 @@ def phase_train(torch, gen):
         # bf16 operands: every block on K1's tensor-core instance, none on the CUDA-core ones
         if dict(KO.opa_fused.instances) != {"ideal": blocks["operand"]}:
             raise AssertionError(f"step {step} ({mode}): K1 instances {dict(KO.opa_fused.instances)}")
+        # f32 dense gradients: every dense block in one pass of K2's dense write
+        if dict(KO.opa_dense.instances) != {"f32_counter": blocks["dense"]}:
+            raise AssertionError(f"step {step} ({mode}): K2 instances {dict(KO.opa_dense.instances)}")
+        dense.update(KO.opa_dense.instances)
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             raise AssertionError(f"step {step}: loss {loss} or grad_norm {gnorm} not finite")
         for k in got:
             totals[k] += got[k]
         if step == 2:  # an adc9 step without CRS, after the first
             info = {"ms": ms}
+    del totals["opa_dense"], totals["opa_deposit"]  # K2's entries count by instance (dense), or in phase 4
     info["peak"] = peak = torch.cuda.max_memory_allocated() / 2**30
     after = snapshot(torch, state.sliced)
     moved = {path: float((after[path] != before[path]).float().mean()) for path in before}
@@ -979,7 +1271,8 @@ T_CHECK = (1, 4, 100, 256)  # token counts of the new kernels' checks (K4 at 1 a
 # 32-bit CUDA-core operations a cell that the write physics add to K1's
 # finalize (two hashes and a Box-Muller for the noise, S = 8 hashes for the
 # stuck mask), and that the stuck mask adds to K2 per plane cell (a hash and
-# a compare)
+# a compare): the mask is a pure function of the coordinates, so a bound
+# counts its hashes and not the byte a kernel may cache it in
 DEVICE_OPS_PER_CELL = 150
 STUCK_OPS_PER_PLANE_CELL = 13
 
@@ -1281,7 +1574,7 @@ def stuck_sample(torch, sliced, dev, spec):
     return out
 
 
-def phase_device_train(torch, state, ds, blocks, gen):
+def phase_device_train(torch, state, ds, blocks, gen, dense):
     """gemma-2b at full width on the non-ideal device: 2 adc9 steps (one of
     them a CRS step), then one adc9 step each at io 8 and 12 on the ideal
     device, every launch count exact; stuck digits held across the device
@@ -1305,7 +1598,7 @@ def phase_device_train(torch, state, ds, blocks, gen):
             "io12": FidelityConfig(io_bits=12, adc_bits_fwd=9, adc_bits_bwd=9, spec=opt_cfg.spec)}
     steps = {mode: make_train_step(cfg, opt_cfg, constant(3e-2), plan_rules=planlib.default_rules(opt_cfg, fidelity=f))
              for mode, f in fids.items()}
-    counted = (KO.opa_fused, KO.opa_deposit, KM.mvm_sliced_fused)
+    counted = (KO.opa_fused, KO.opa_dense, KO.opa_deposit, KM.mvm_sliced_fused)
     totals = {}
     before = snapshot(torch, state.sliced)
     torch.cuda.reset_peak_memory_stats()
@@ -1322,12 +1615,13 @@ def phase_device_train(torch, state, ds, blocks, gen):
         state, metrics = steps[mode](state, batch)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
-        got = {"opa_fused": dict(KO.opa_fused.instances), "opa_deposit": dict(KO.opa_deposit.instances),
-               "crs": KC.crs.launches, "mvm": dict(KM.mvm_sliced_fused.instances)}
+        got = {"opa_fused": dict(KO.opa_fused.instances), "opa_dense": dict(KO.opa_dense.instances),
+               "opa_deposit": KO.opa_deposit.launches, "crs": KC.crs.launches,
+               "mvm": dict(KM.mvm_sliced_fused.instances)}
         io = 16 if mode == "device" else int(mode[2:])
         noise = mode == "device"
         want = {"opa_fused": {"device" if noise else "ideal": blocks["operand"]},
-                "opa_deposit": {"stuck" if noise else "ideal": blocks["dense"]},
+                "opa_dense": {KO.dense_instance(torch.float32, "counter", noise): blocks["dense"]}, "opa_deposit": 0,
                 "crs": blocks["operand"] + blocks["dense"] if crs_step else 0,
                 "mvm": {KM.instance_name(False, io, noise): 5 * L, KM.instance_name(True, io, noise): 5 * L}}
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
@@ -1339,8 +1633,8 @@ def phase_device_train(torch, state, ds, blocks, gen):
             raise AssertionError(f"{mode} step: loss {loss} or grad_norm {gnorm} not finite")
         # the new instances' launches, by their entry names
         news = {"opa_fused_device": got["opa_fused"].get("device", 0),
-                "opa_deposit_stuck": got["opa_deposit"].get("stuck", 0),
                 **{"mvm_sliced_fused_" + k.replace("io16_", ""): v for k, v in got["mvm"].items()}}
+        dense.update(got["opa_dense"])
         for key, n in news.items():
             totals[key] = totals.get(key, 0) + n
         if sample is not None:
@@ -1668,7 +1962,7 @@ def time_rng_kernels(torch, spec, gen):
     return out
 
 
-def phase_rng_train(torch, state, ds, blocks):
+def phase_rng_train(torch, state, ds, blocks, dense):
     """gemma-2b at full width, 18 layers, under rng_mode "grid" and "hw": one
     adc9 step and one adc9 step on the non-ideal device each, every launch
     count exact by instance; one more grid step under the profiler; the
@@ -1702,9 +1996,9 @@ def phase_rng_train(torch, state, ds, blocks):
         for kind, fid in fids.items():
             steps[mode, kind] = step = make_train_step(cfg, opt_cfg, constant(3e-2),
                                                        plan_rules=planlib.default_rules(opt_cfg, fidelity=fid))
-            for fn in (KO.opa_fused, KO.opa_deposit, KM.mvm_sliced_fused, KC.crs):
+            for fn in (KO.opa_fused, KO.opa_dense, KO.opa_deposit, KM.mvm_sliced_fused, KC.crs):
                 fn.launches = 0
-            for fn in (KO.opa_fused, KO.opa_deposit, KM.mvm_sliced_fused):
+            for fn in (KO.opa_fused, KO.opa_dense, KM.mvm_sliced_fused):
                 fn.instances.clear()
             crs_step = state.step % opt_cfg.crs_every == opt_cfg.crs_every - 1
             batch = ds.batch(state.step)
@@ -1714,10 +2008,13 @@ def phase_rng_train(torch, state, ds, blocks):
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t0)
             noise = kind == "device"
-            got = {"opa_fused": dict(KO.opa_fused.instances), "opa_deposit": dict(KO.opa_deposit.instances),
-                   "crs": KC.crs.launches, "mvm": dict(KM.mvm_sliced_fused.instances)}
+            got = {"opa_fused": dict(KO.opa_fused.instances), "opa_dense": dict(KO.opa_dense.instances),
+                   "opa_deposit": KO.opa_deposit.launches, "crs": KC.crs.launches,
+                   "mvm": dict(KM.mvm_sliced_fused.instances)}
+            # dense leaves draw grid under grid, and counter under hw (no dense hw draw)
+            k2 = KO.dense_instance(torch.float32, "grid" if mode == "grid" else "counter", noise)
             want = {"opa_fused": {KO.instance_name(noise, "mma", mode): blocks["operand"]},
-                    "opa_deposit": {"stuck" if noise else "ideal": blocks["dense"]},
+                    "opa_dense": {k2: blocks["dense"]}, "opa_deposit": 0,
                     "crs": blocks["operand"] + blocks["dense"] if crs_step else 0,
                     "mvm": {KM.instance_name(False, 16, noise): 5 * L, KM.instance_name(True, 16, noise): 5 * L}}
             loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
@@ -1729,6 +2026,7 @@ def phase_rng_train(torch, state, ds, blocks):
             if not (math.isfinite(loss) and math.isfinite(gnorm)):
                 raise AssertionError(f"rng_mode {mode} {kind} step: loss {loss} or grad_norm {gnorm} not finite")
             launches[rng_entry(mode, noise, "mma")] = got["opa_fused"][KO.instance_name(noise, "mma", mode)]
+            dense.update(got["opa_dense"])
     out = {}
 
     def one_more():
@@ -1736,9 +2034,9 @@ def phase_rng_train(torch, state, ds, blocks):
 
     profile_step(torch, one_more, "adc9 train step under rng_mode grid")
     state = out["state"]
-    # the dense leaves' draws under grid (plain PyTorch, as the reference's is
-    # XLA's): the embedding and the two [18, 2048] norm-scale stacks, beside
-    # the counter draw of the same shapes
+    # the dense leaves' draws under grid and counter in plain PyTorch, as the
+    # dense write drew them before K2 took them in (the plain version's):
+    # the embedding and the two [18, 2048] norm-scale stacks
     key = prng.fold_in(prng.PRNGKey(7), 1)
     shapes = (EMBED_SHAPE, (L, cfg.d_model), (L, cfg.d_model))
     for mode in ("grid", "counter"):
@@ -1771,7 +2069,48 @@ def phase_rng_train(torch, state, ds, blocks):
             if got != {name: n_blocks}:
                 raise AssertionError(f"f32-operand update under {mode}: launches {got} for {n_blocks} blocks")
             launches[rng_entry(mode, d is not None, "fma")] = n_blocks
+    drive_dense_instances(torch, state, dense)
     return launches, state
+
+
+def drive_dense_instances(torch, state, dense):
+    """The dense write's entry point, ``opa_dense_update``, with f32 and
+    bf16 gradients (bf16: which no training path of the port makes, its
+    dense leaves differentiate f32 copies) on every dense leaf of the
+    trained state, under each rounding, on the ideal and on the non-ideal
+    device: one launch a block of every instance, the planes changed."""
+    from repro_torch import tree
+    from repro_torch.core import prng
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import opa_dense_update
+    from repro_torch.models.common import DeviceModel
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    leaves = [(path, s) for path, s in tree.leaves_with_path(state.sliced)
+              if s is not None and path[-1] not in ("wqkv", "wo", "wi_gate", "wi_up")]
+    n_blocks = sum(math.prod(s.planes.shape[1:-2]) for _, s in leaves)
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, d in enumerate((None, DeviceModel(**PHYSICS["all"]))):
+            for draw in DENSE_DRAWS:
+                KO.opa_dense.instances.clear()
+                for j, (path, s) in enumerate(leaves):
+                    grad = (torch.randn(s.planes.shape[1:], generator=g, device="cuda") * 1e-3).to(dtype)
+                    before = s.planes[:, ..., :4, :].clone()
+                    opa_dense_update(s.planes, grad, 3e-2, s.frac_bits, DEFAULT_SPEC, stochastic=draw != "rint",
+                                     key=prng.PRNGKey(100 * i + j), rng_mode="grid" if draw == "grid" else "counter",
+                                     device=d)
+                    if torch.equal(before, s.planes[:, ..., :4, :]):
+                        raise AssertionError(f"{dtype} dense write ({draw}, device {d}) did not move {path}")
+                got, want = dict(KO.opa_dense.instances), {KO.dense_instance(dtype, draw, d is not None): n_blocks}
+                if got != want:
+                    raise AssertionError(f"{dtype} dense write under {draw}: launches {got}, not {want}")
+                dense.update(got)
+    torch.cuda.synchronize()
+    print(f"dense write through opa_dense_update: {len(leaves)} dense leaves ({n_blocks} blocks), f32 and bf16 "
+          f"gradients under {DENSE_DRAWS}, ideal and non-ideal device, in {time.perf_counter() - t0:.2f} s; every "
+          f"instance {n_blocks} launches", flush=True)
 
 
 # ------------------- the paper MLP (phase 11) ----------------------------------
@@ -1805,8 +2144,9 @@ T_MLP = 512  # fig9's rows: every step and the adc9 read take the whole batch
 
 class checked_updates:
     """While inside, every ``optim.panther.update`` call is held to its
-    launches: K2 once a mapped leaf, K3 once a mapped leaf on CRS steps and
-    never otherwise, K1 never (the MLP's leaves have dense gradients).
+    launches: K2's dense write once a mapped leaf (and no int32 deposit),
+    K3 once a mapped leaf on CRS steps and never otherwise, K1 never (the
+    MLP's leaves have dense gradients).
     ``crs`` sums K3's launches by (spec, crs_every); ``steps`` counts the
     calls."""
 
@@ -1819,15 +2159,15 @@ class checked_updates:
         self.P, self.saved, self.steps, self.crs = P, P.update, 0, {}
 
         def update(grads, state, params, lr, cfg=P.PantherConfig(), rng=None, plan=None):
-            before = (KO.opa_deposit.launches, KC.crs.launches, KO.opa_fused.launches)
+            counted = (KO.opa_dense, KC.crs, KO.opa_fused, KO.opa_deposit)
+            before = [c.launches for c in counted]
             out = self.saved(grads, state, params, lr, cfg, rng, plan)
-            got = (KO.opa_deposit.launches - before[0], KC.crs.launches - before[1],
-                   KO.opa_fused.launches - before[2])
+            got = tuple(c.launches - b for c, b in zip(counted, before))
             mapped = sum(s is not None for _, s in tree.leaves_with_path(state.sliced))
             crs_step = state.step % cfg.crs_every == cfg.crs_every - 1
-            if got != (mapped, mapped if crs_step else 0, 0):
+            if got != (mapped, mapped if crs_step else 0, 0, 0):
                 raise AssertionError(f"MLP update at step {state.step} (CRS every {cfg.crs_every}): launches "
-                                     f"K2/K3/K1 {got}, not {(mapped, mapped if crs_step else 0, 0)}")
+                                     f"K2/K3/K1/int32 K2 {got}, not {(mapped, mapped if crs_step else 0, 0, 0)}")
             key = (cfg.spec.name(), cfg.crs_every)
             self.crs[key] = self.crs.get(key, 0) + got[1]
             self.steps += 1
@@ -1854,11 +2194,18 @@ def time_mlp_kernels(torch, gen):
     from repro_torch.kernels.sliced_opa import ref as RO
 
     spec, S = DEFAULT_SPEC, DEFAULT_SPEC.n_slices
-    rows = {"opa_deposit_mlp": [], "crs_mlp": [], "mvm_sliced_fused_mlp": []}
+    rows = {"opa_dense_mlp": [], "opa_deposit_mlp": [], "crs_mlp": [], "mvm_sliced_fused_mlp": []}
     err = 0.0
     xf = torch.tensor([10], dtype=torch.int32, device="cuda")
     for M, N in MLP_SHAPES:
         planes = random_planes(torch, spec, (M, N), gen)
+        # K2's dense write as Fig 9 runs it: f32 gradients, half to even
+        g = dense_gradient(torch, (M, N), torch.float32, gen)
+        dense_case(torch, planes, g, spec, "rint", what=f"opa_dense at the MLP's {M}x{N}")
+        k = cuda_time_ms(lambda: dense_launch(torch, planes, g, spec, "rint"), 50)
+        p = cuda_time_ms(lambda: dense_plain(torch, planes, g, spec, "rint"), 10)
+        rows["opa_dense_mlp"].append((k, p, None, *bound_of((4 + 2 * S) * M * N, (8.0 * S + DENSE_DRAW_OPS["rint"])
+                                                            * M * N, CUDA_CORE_OPS_PER_S)))
         p_q = rail_updates(torch, spec, (M, N), gen)
         if not torch.equal(KO.opa_deposit(planes.clone(), p_q, spec=spec), RO.opa_deposit_ref(planes, p_q, spec)):
             raise AssertionError(f"opa_deposit kernel vs plain at the MLP's {M}x{N}")
@@ -1885,13 +2232,64 @@ def time_mlp_kernels(torch, gen):
         p = cuda_time_ms(lambda: ref.mvm_sliced_fused_ref(planes, x, xf[0], spec, 16, 9), 3, 1)
         lib = cuda_time_ms(lambda: torch.matmul(x, w), 50)
         rows["mvm_sliced_fused_mlp"].append((k, p, lib, *bound_ms(T_MLP, M, N, S, 16)))
-        del planes, p_q, got, x, want, w
+        del planes, p_q, got, x, want, w, g
+    launch_split(torch, spec, gen)
     out = {key: layer_total(rs, key) for key, rs in rows.items()}
     for key, t in out.items():
         lib = "-" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         print(f"  {key}: the MLP's 3 blocks: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {lib}, "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
     return out, err
+
+
+def launch_split(torch, spec, gen, n=200):
+    """Where one K2 write of an MLP leaf (64x256, f32 gradient, Fig 9's half
+    to even) spends its time: host microseconds a write (the loop's wall
+    time over n writes, no sync inside, profiler off) against device
+    microseconds (the kernels' time in a torch.profiler trace of the same
+    loop), for the write before the redesign and after it
+    (``opa_dense_update``: one launch, the arrays cached). "Before" is an
+    emulation in this tree, not the earlier code: ``quantize`` in plain
+    PyTorch, then the int32 deposit through today's kernel, its host arrays
+    rebuilt every launch as the earlier wrapper did."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.fixed_point import quantize
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import opa_dense_update, opa_deposit
+    from repro_torch.kernels.sliced_opa import ref as RO
+
+    M, N = MLP_SHAPES[0]
+    planes = random_planes(torch, spec, (M, N), gen)
+    g = torch.randn((M, N), generator=gen, device="cuda") * 1e-3
+    frac = torch.tensor(28, dtype=torch.int32, device="cuda")
+
+    def before():
+        KO._plane_max.cache_clear()
+        opa_deposit(planes, quantize(-RO._lr32(0.03) * g, frac), spec)
+
+    def after():
+        opa_dense_update(planes, g, 0.03, frac, spec)
+
+    for what, fn in (("before, emulated (quantize + int32 deposit, arrays rebuilt)", before),
+                     ("after (opa_dense_update, arrays cached)", after)):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_us = sum(e.device_time_total for e in kernels) / n
+        print(f"  one K2 write of the MLP's {M}x{N} leaf, {what}: host {host_us:.1f} us, device {dev_us:.2f} us in "
+              f"{sum(e.count for e in kernels) / n:.0f} kernels a write", flush=True)
+    del planes, g
 
 
 def phase_mlp(torch, gen):
@@ -1911,12 +2309,13 @@ def phase_mlp(torch, gen):
     from repro_torch.optim import PantherConfig, panther
 
     timings, k4_err = time_mlp_kernels(torch, gen)
-    counters = {"opa_deposit_mlp": (KO.opa_deposit, "launches"), "crs_mlp": (KC.crs, "launches"),
+    counters = {"opa_dense_mlp": (KO.opa_dense, "launches"), "crs_mlp": (KC.crs, "launches"),
                 "mvm_sliced_fused_mlp": (KM.mvm_sliced_fused, "launches"),
                 "transpose": (KM.mvm_sliced_fused, "transpose_launches"), "opa_fused": (KO.opa_fused, "launches")}
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     KM.mvm_sliced_fused.instances.clear()
+    KO.opa_dense.instances.clear()
     t0 = time.perf_counter()
 
     with checked_updates() as qs:
@@ -1973,13 +2372,17 @@ def phase_mlp(torch, gen):
         raise AssertionError(f"device sweep: {dev.steps} updates, K3 {dev.crs}")
 
     got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
-    want = {"opa_deposit_mlp": 3 * (qs.steps + fig9.steps + dev.steps), "crs_mlp": 36 + 4 * 18,
+    want = {"opa_dense_mlp": 3 * (qs.steps + fig9.steps + dev.steps), "crs_mlp": 36 + 4 * 18,
             "mvm_sliced_fused_mlp": 3 * 12, "transpose": 0, "opa_fused": 0}
     if got != want or dict(KM.mvm_sliced_fused.instances) != {KM.instance_name(False, 16): 36}:
         raise AssertionError(f"the MLP phase's launches {got} (instances {dict(KM.mvm_sliced_fused.instances)}) "
                              f"!= {want}")
-    print(f"MLP phase launches: {got}; {time.perf_counter() - t0:.1f} s", flush=True)
-    launches = {k: got[k] for k in timings}  # the MLP's kernels-line entries only
+    # f32 gradients: the quickstart's counter draw, Fig 9's half to even, the sweep's device rows
+    k2 = dict(KO.opa_dense.instances)
+    if set(k2) != {"f32_counter", "f32_rint", "f32_rint_device"}:
+        raise AssertionError(f"the MLP phase's dense-write instances {k2}")
+    print(f"MLP phase launches: {got}, K2 by instance {k2}; {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {k: got[k] for k in timings if k in got}  # the MLP's kernels-line entries of this phase
 
     # where a step's time goes: one Fig-9 step and one device step, profiled
     params0, batch = F9._task(0, torch.device("cuda"))
@@ -2066,7 +2469,7 @@ class k1_tokens:
         self.ops.opa_fused = self.saved
 
 
-def phase_microbatch(torch, state, phase5, gen):
+def phase_microbatch(torch, state, phase5, gen, dense):
     """gemma-2b at full width: one adc9 step with ``microbatches=4`` (16 x 64
     tokens as [4, 4, 64], the stash rule on: it sees 256 tokens and flips
     nothing) and one lossless step with ``stash_fallback=True`` at 4 x 320
@@ -2089,8 +2492,9 @@ def phase_microbatch(torch, state, phase5, gen):
     L = cfg.n_layers
     opt_cfg = PantherConfig(crs_every=2, stochastic_round=True)
     adc9 = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=opt_cfg.spec)
-    counters = {"opa_fused": (KO.opa_fused, "launches"), "opa_deposit": (KO.opa_deposit, "launches"),
-                "crs": (KC.crs, "launches"), "mvm_sliced_fused": (KM.mvm_sliced_fused, "launches"),
+    counters = {"opa_fused": (KO.opa_fused, "launches"), "opa_dense": (KO.opa_dense, "launches"),
+                "opa_deposit": (KO.opa_deposit, "launches"), "crs": (KC.crs, "launches"),
+                "mvm_sliced_fused": (KM.mvm_sliced_fused, "launches"),
                 "mvm_sliced_fused_transpose": (KM.mvm_sliced_fused, "transpose_launches")}
     mb = SyntheticLMDataset(cfg.vocab, 64, 16, seed=1, device="cuda").batch(0)
     mb = {k: v.reshape(4, 4, 64) for k, v in mb.items()}
@@ -2115,14 +2519,16 @@ def phase_microbatch(torch, state, phase5, gen):
         if flipped != want_flipped:
             raise AssertionError(f"{what}: the stash rule flipped {flipped}, not {want_flipped}")
         operand = 5 * L - L * len(flipped)
-        dense = 3 + L * len(flipped)  # the embedding, the two norm-scale stacks, the flipped leaves
+        n_dense = 3 + L * len(flipped)  # the embedding, the two norm-scale stacks, the flipped leaves
         crs_step = state.step % opt_cfg.crs_every == opt_cfg.crs_every - 1
         reads = 5 * L * 4 if tokens == 1024 else 0
-        want = {"opa_fused": operand, "opa_deposit": dense, "crs": operand + dense if crs_step else 0,
-                "mvm_sliced_fused": reads, "mvm_sliced_fused_transpose": reads}
+        want = {"opa_fused": operand, "opa_dense": n_dense, "opa_deposit": 0,
+                "crs": operand + n_dense if crs_step else 0, "mvm_sliced_fused": reads,
+                "mvm_sliced_fused_transpose": reads}
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
         KO.opa_fused.instances.clear()
+        KO.opa_dense.instances.clear()
         before = snapshot(torch, state.sliced)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2141,6 +2547,10 @@ def phase_microbatch(torch, state, phase5, gen):
             raise AssertionError(f"{what}: launches {got} != {want}")
         if dict(KO.opa_fused.instances) != {"ideal": operand} or set(seen) != {tokens}:
             raise AssertionError(f"{what}: K1 instances {dict(KO.opa_fused.instances)}, tokens {sorted(set(seen))}")
+        # the flipped attn stacks and the embedding: f32 dense gradients, a launch a layer block
+        if dict(KO.opa_dense.instances) != {"f32_counter": n_dense}:
+            raise AssertionError(f"{what}: K2 instances {dict(KO.opa_dense.instances)}")
+        dense.update(KO.opa_dense.instances)
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             raise AssertionError(f"{what}: loss {loss} or grad_norm {gnorm} not finite")
         after = snapshot(torch, state.sliced)
@@ -2198,17 +2608,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     done("phase 3: serving")
     phase_update_kernels(torch, DEFAULT_SPEC, gen)
+    phase_dense_kernels(torch, DEFAULT_SPEC, gen)
+    deposit_launches = drive_deposit_entry(torch, DEFAULT_SPEC, gen)
     opa_err = phase_opa_fused(torch, DEFAULT_SPEC, gen)
     t_err = phase_transpose(torch, K, ref, fp, DEFAULT_SPEC, gen)
     train_timings = time_update_kernels(torch, K, ref, DEFAULT_SPEC, gen)
     train_timings.update(time_crs(torch, DEFAULT_SPEC, gen))
+    train_timings.update(time_dense_kernels(torch, DEFAULT_SPEC, gen))
     done("phase 4: update kernels and K4ᵀ")
     dev_err = phase_device_kernels(torch, DEFAULT_SPEC, gen)
+    dense_err = phase_dense_device_kernels(torch, DEFAULT_SPEC, gen)
     train_timings.update(time_device_kernels(torch, DEFAULT_SPEC, gen))
     done("phase 6: device, io 8/12 and K5 kernels")
-    train_launches, state, ds, blocks, phase5 = phase_train(torch, gen)
+    dense = collections.Counter()  # the dense write's launches on the main path, by instance
+    train_launches, state, ds, blocks, phase5 = phase_train(torch, gen, dense)
+    train_launches.update(deposit_launches)
     done("phase 5: training")
-    dev_launches, state = phase_device_train(torch, state, ds, blocks, gen)
+    dev_launches, state = phase_device_train(torch, state, ds, blocks, gen, dense)
     train_launches.update(dev_launches)
     done("phase 7: training on the non-ideal device and at io 8/12")
     train_launches.update(phase_k5_path(torch, state))
@@ -2217,10 +2633,10 @@ def main() -> int:
     done("phase 9: f32-operand update")
     rng_err = phase_rng_kernels(torch, DEFAULT_SPEC, gen)
     train_timings.update(time_rng_kernels(torch, DEFAULT_SPEC, gen))
-    rng_launches, state = phase_rng_train(torch, state, ds, blocks)
+    rng_launches, state = phase_rng_train(torch, state, ds, blocks, dense)
     train_launches.update(rng_launches)
     done("phase 10: K1 rounding sources")
-    mb_launches, mb_timings, mb_err, state = phase_microbatch(torch, state, phase5, gen)
+    mb_launches, mb_timings, mb_err, state = phase_microbatch(torch, state, phase5, gen, dense)
     train_launches.update(mb_launches)
     train_timings.update(mb_timings)
     del state
@@ -2230,6 +2646,8 @@ def main() -> int:
     train_launches.update(mlp_launches)
     train_timings.update(mlp_timings)
     done("phase 11: the paper MLP")
+    train_launches.update({"opa_dense_" + inst: n for inst, n in dense.items()})
+    print(f"K2's dense write, launches by instance over the main-path runs: {dict(dense)}", flush=True)
 
     # one layer's five reads: "mvm_sliced_fused" at the decode batch's 4
     # tokens on the decode body (the entry's meaning since the port began:
@@ -2267,6 +2685,11 @@ def main() -> int:
               "src/repro/kernels/sliced_opa/kernel.py:255", dev_err["opa_fused_device_fma"]),
         entry("opa_deposit_stuck", "src/repro_torch/kernels/sliced_opa/csrc/opa_deposit.cu",
               "src/repro/kernels/sliced_opa/kernel.py:90", dev_err["opa_deposit_stuck"]),
+        # K2's dense write on the embedding, every instance: f32 and bf16 gradients, ideal and device
+        # (the flips of the write noise's last bit counted in phase 6)
+        *(entry(dense_entry(torch, dt, draw, d), "src/repro_torch/kernels/sliced_opa/csrc/opa_deposit.cu",
+                "src/repro/kernels/sliced_opa/kernel.py:90", dense_err.get(dense_entry(torch, dt, draw, d), 0.0))
+          for dt in (torch.float32, torch.bfloat16) for d in (False, True) for draw in DENSE_DRAWS),
         *(entry(f"mvm_sliced_fused{t}_{v}", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
                 "src/repro/kernels/sliced_mvm/kernel.py:367", dev_err[f"mvm_sliced_fused{t}_{v}"])
           for v in ("read_noise", "io8", "io12") for t in ("", "_transpose")),
@@ -2282,7 +2705,9 @@ def main() -> int:
         # K1 at the microbatched step's 1024 tokens (phase 12)
         entry("opa_fused_microbatch", "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",
               "src/repro/kernels/sliced_opa/kernel.py:255", float(mb_err)),
-        # the paper MLP's kernels at its shapes, launches over phase 11
+        # the paper MLP's kernels at its shapes, launches over phase 11 (the int32 deposit's: phase 4's entry point)
+        entry("opa_dense_mlp", "src/repro_torch/kernels/sliced_opa/csrc/opa_deposit.cu",
+              "src/repro/kernels/sliced_opa/kernel.py:90", 0.0),
         entry("opa_deposit_mlp", "src/repro_torch/kernels/sliced_opa/csrc/opa_deposit.cu",
               "src/repro/kernels/sliced_opa/kernel.py:90", 0.0),
         entry("crs_mlp", "src/repro_torch/kernels/crs/csrc/crs.cu", "src/repro/kernels/crs/kernel.py:70", 0.0),

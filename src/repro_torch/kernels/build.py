@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR / "_build"
-HEADERS = (KERNELS_DIR / "deposit.cuh", KERNELS_DIR / "counter.cuh")  # shared by the kernels
+HEADERS = tuple(KERNELS_DIR / h for h in ("deposit.cuh", "counter.cuh", "finalize.cuh"))  # shared by the kernels
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

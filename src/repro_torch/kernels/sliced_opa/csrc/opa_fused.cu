@@ -34,7 +34,8 @@
 // __float2int_rz saturates 2^31 to INT32_MAX as XLA's convert does. The
 // ideal instances (DEV false) have none of the physics in their code. Both
 // bodies below share that finalize (increment_of, the draw, update_of or
-// update_far, then the deposit).
+// update_far, then the deposit: kernels/finalize.cuh, shared with
+// opa_deposit.cu's dense write).
 //
 // Two bodies compute the contraction; the gradient [M, N] never reaches
 // device memory in either.
@@ -83,6 +84,7 @@
 
 #include "../../counter.cuh"
 #include "../../deposit.cuh"
+#include "../../finalize.cuh"
 
 // OPA_PART 0 builds the whole kernel. kernels/sliced_opa/split.py builds
 // the parts apart to time them: 1 the mainloop alone (a checksum store in
@@ -95,18 +97,6 @@
 namespace {
 
 constexpr int MAX_S = PANTHER_MAX_DEPOSIT_S;
-
-// the rounding source (kernel.py's _RNG_CODES)
-enum Rng { RNG_NONE = 0, RNG_COUNTER = 1, RNG_GRID = 2, RNG_HW = 3 };
-
-// a write-nonideal device model (DeviceModel's write fields)
-struct DeviceParams {
-  int asym;                  // != 0: gain asym_up on y >= 0, asym_down on y < 0
-  float asym_up, asym_down;
-  float write_noise;         // > 0: sigma in grid LSB, drawn under (nk0, nk1)
-  int nk0, nk1;
-  StuckParams stuck;         // frac > 0: stuck digits keep their value
-};
 
 struct OpaParams {
   int8_t* planes;            // [S, M, N], rewritten in place
@@ -132,77 +122,15 @@ struct OpaParams {
   int hw4;                   // RNG_HW: bn % 4 == 0, so 4 aligned cells share one Philox block
 };
 
-// the grid or hw draws of the 4 cells (r, c..c + 3), c % 4 == 0 (cells past
-// N are drawn and never deposited). Under RNG_HW with bn % 4 == 0 the 4
-// cells are 4 aligned cells of one tile: one Philox block. Not inlined: one
-// call a group of 4 cells, as the write noise's counter_gauss is one call
-// a cell.
-__device__ __noinline__ float4 far_u4(int r, int c, int rng, int k0, int k1, unsigned long long offset, int N,
-                                      int bm, int bn, int tn, int hw4) {
-  if (rng == RNG_GRID) {
-    const unsigned long long i = offset + (unsigned long long)r * N + c;
-    return make_float4(threefry_u01(k0, k1, i), threefry_u01(k0, k1, i + 1), threefry_u01(k0, k1, i + 2),
-                       threefry_u01(k0, k1, i + 3));
-  }
-  const int tile_r = (r / bm) * tn, e_r = (r % bm) * bn;
-  if (hw4) return hw_u01(k0, k1, tile_r + c / bn, (uint32_t)(e_r + c % bn) >> 2);
-  float u[4];
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const int e = e_r + (c + b) % bn;
-    const float4 w = hw_u01(k0, k1, tile_r + (c + b) / bn, (uint32_t)e >> 2);
-    u[b] = (e & 3) == 0 ? w.x : (e & 3) == 1 ? w.y : (e & 3) == 2 ? w.z : w.w;
-  }
-  return make_float4(u[0], u[1], u[2], u[3]);
-}
-
 __device__ __forceinline__ float4 far_u4(int r, int c, const OpaParams& a) {
-  return far_u4(r, c, a.rng, a.k0, a.k1, a.offset, a.N, a.hw_bm, a.hw_bn, a.hw_tn, a.hw4);
+  return ::far_u4(r, c, a.rng, a.k0, a.k1, a.offset, a.N, a.hw_bm, a.hw_bn, a.hw_tn, a.hw4);
 }
-
-__device__ __forceinline__ float nth(const float4& v, int b) {
-  return b == 0 ? v.x : b == 1 ? v.y : b == 2 ? v.z : v.w;
-}
-
-// the increment on the weight grid of one cell at global (r, c) from its
-// f32 sum, before the rounding: the scale, then the device's write physics
-template <bool DEV>
-__device__ __forceinline__ float increment_of(float acc, float scale, int r, int c, const OpaParams& a) {
-  float y = __fmul_rn(acc, scale);
-  if (DEV) {
-    if (a.dv.asym) y = y >= 0.f ? __fmul_rn(y, a.dv.asym_up) : __fmul_rn(y, a.dv.asym_down);
-    if (a.dv.write_noise > 0.f)
-      y = __fadd_rn(y, __fmul_rn(a.dv.write_noise, counter_gauss(r, c, a.dv.nk0, a.dv.nk1)));
-  }
-  return y;
-}
-
-__device__ __forceinline__ int saturated(float y) {
-  y = fminf(fmaxf(y, -2147483648.f), 2147483648.f);
-  return __float2int_rz(y);
-}
-
-// the update on the weight grid of one cell at global (r, c) from its f32
-// sum under RNG_COUNTER (the draw inline) or RNG_NONE
-template <bool DEV>
-__device__ __forceinline__ int update_of(float acc, float scale, int r, int c, const OpaParams& a) {
-  const float y = increment_of<DEV>(acc, scale, r, c, a);
-  return saturated(a.rng == RNG_COUNTER ? floorf(__fadd_rn(y, counter_u01(r, c, a.k0, a.k1))) : rintf(y));
-}
-
-// the update under RNG_GRID or RNG_HW from the increment y and its draw u
-// (far_u4): a body draws after the write noise of the 4 cells
-__device__ __forceinline__ int update_far(float y, float u) { return saturated(floorf(__fadd_rn(y, u))); }
 
 // the deposit of update q into the S digits p of the cell at global (r, c)
 template <bool DEV>
 __device__ __forceinline__ void deposit_cell(int* p, int q, int r, int c, const OpaParams& a) {
   if (DEV && a.dv.stuck.frac > 0.f) deposit_stuck(p, q, a.dp, r, c, a.dv.stuck);
   else deposit_one(p, q, a.dp);
-}
-
-__device__ __forceinline__ float grid_scale(const OpaParams& a) {
-  return __fmul_rn(-a.lr, __int_as_float((a.frac_bits[0] + 127) << 23));
 }
 
 // ---------------------------------------------------------------------------
@@ -278,7 +206,7 @@ opa_fused_kernel(const OpaParams a) {
   }
 
   // finalize: scale, round, saturate, deposit into the S planes
-  const float scale = grid_scale(a);
+  const float scale = grid_scale(a.lr, a.frac_bits);
   const int c0 = n0 + tx * TN;
   const size_t plane = (size_t)M * N;
   const int S = a.dp.S;
@@ -302,13 +230,14 @@ opa_fused_kernel(const OpaParams a) {
       if (a.rng >= RNG_GRID) {
         float y[4];
 #pragma unroll
-        for (int b = 0; b < 4; ++b) y[b] = increment_of<DEV>(acc[i][j4 + b], scale, r, c0 + j4 + b, a);
+        for (int b = 0; b < 4; ++b) y[b] = increment_of<DEV>(acc[i][j4 + b], scale, r, c0 + j4 + b, a.dv);
         const float4 u = far_u4(r, c0 + j4, a);  // past N: drawn, never deposited
 #pragma unroll
         for (int b = 0; b < 4; ++b) q[j4 + b] = update_far(y[b], nth(u, b));
       } else {
 #pragma unroll
-        for (int b = 0; b < 4; ++b) q[j4 + b] = update_of<DEV>(acc[i][j4 + b], scale, r, c0 + j4 + b, a);
+        for (int b = 0; b < 4; ++b)
+          q[j4 + b] = update_of<DEV>(acc[i][j4 + b], scale, r, c0 + j4 + b, a.rng, a.k0, a.k1, a.dv);
       }
     }
     if (a.vec && c0 + TN <= N) {
@@ -549,7 +478,7 @@ opa_mma_kernel(const OpaParams a) {
   // finalize: a thread owns 16 contiguous columns of a row, 8 threads a row
   // (a warp moves 4 whole 128-byte plane rows an instruction), 4 row passes
   // over the tile
-  const float scale = grid_scale(a);
+  const float scale = grid_scale(a.lr, a.frac_bits);
   const size_t plane = (size_t)M * N;
   const int S = a.dp.S;
   const bool stuck = DEV && a.dv.stuck.frac > 0.f;
@@ -585,13 +514,14 @@ opa_mma_kernel(const OpaParams a) {
         float4 u;
         if (FAR) {
 #pragma unroll
-          for (int b = 0; b < 4; ++b) y[b] = increment_of<DEV>(vs[b], scale, r, c + 4 * j4 + b, a);
+          for (int b = 0; b < 4; ++b) y[b] = increment_of<DEV>(vs[b], scale, r, c + 4 * j4 + b, a.dv);
           u = far_u4(r, c + 4 * j4, a);
         }
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
           const int j = 4 * j4 + b;
-          const int q = FAR ? update_far(y[b], nth(u, b)) : update_of<DEV>(vs[b], scale, r, c + j, a);
+          const int q = FAR ? update_far(y[b], nth(u, b))
+                            : update_of<DEV>(vs[b], scale, r, c + j, a.rng, a.k0, a.k1, a.dv);
           int p[MAX_S];
 #pragma unroll
           for (int s = 0; s < MAX_S; ++s)
@@ -623,9 +553,9 @@ opa_mma_kernel(const OpaParams a) {
     } else if (OPA_PART != 3) {
       for (int j = 0; j < SEG && c + j < N; ++j) {
         const float acc = cs[cs_at(lr, SEG * seg + j)];
-        const int q = FAR ? update_far(increment_of<DEV>(acc, scale, r, c + j, a),
+        const int q = FAR ? update_far(increment_of<DEV>(acc, scale, r, c + j, a.dv),
                                        nth(far_u4(r, (c + j) & ~3, a), (c + j) & 3))
-                          : update_of<DEV>(acc, scale, r, c + j, a);
+                          : update_of<DEV>(acc, scale, r, c + j, a.rng, a.k0, a.k1, a.dv);
         int p[MAX_S];
 #pragma unroll
         for (int s = 0; s < MAX_S; ++s)

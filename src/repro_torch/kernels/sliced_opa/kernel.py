@@ -1,9 +1,15 @@
 """CUDA kernels for the sliced-OPA update on Hopper, bound through ``ctypes``
 (port of the Pallas kernels ``repro.kernels.sliced_opa.kernel``).
 
-* ``opa_deposit`` (``csrc/opa_deposit.cu``) deposits an int32 update on the
-  weight grid into one ``[S, M, N]`` block of digit planes, in place; its
-  ``stuck`` instance then keeps a device model's stuck digits.
+* ``opa_dense`` (``csrc/opa_deposit.cu``) writes a dense gradient ``g``
+  ``[M, N]`` (f32 or bf16) into one ``[S, M, N]`` block of digit planes, in
+  place, in one pass: ``-lr · g`` on the ``2^-F`` grid, rounded (half to
+  even, or by the counter or ``"grid"`` draw under key words) and
+  deposited; its ``device`` instances add a write-nonideal device model's
+  asymmetry, write noise and stuck cells. ``opa_deposit`` is the same
+  kernel on an int32 update already on the grid (the reference's
+  ``opa_deposit``); its ``stuck`` instance keeps a device model's stuck
+  digits.
 * ``opa_fused`` (``csrc/opa_fused.cu``) forms ``xᵀdh`` tile by tile, scales
   it by ``-lr · 2^F``, rounds it (stochastically under key words, by the
   draw of ``rng_mode``: the counter hash, the ``"grid"`` threefry stream
@@ -22,8 +28,10 @@ Each source says what bounds it. The libraries build at first use
 stream and count their launches: ``launches`` over every instance, and
 ``instances`` by instance (``instance_name``: ``"ideal"``, ``"device"``,
 with ``"_grid"``/``"_hw"`` for those draws and ``"_fma"`` for the
-CUDA-core body, for ``opa_fused``; ``"ideal"``, ``"stuck"`` for
-``opa_deposit``).
+CUDA-core body, for ``opa_fused``; ``dense_instance`` for ``opa_dense``;
+``"ideal"``, ``"stuck"`` for ``opa_deposit``). The stuck-cell mask is
+frozen: the device instances of both libraries cache it a byte a cell
+(``_STUCK_BITS``).
 """
 from __future__ import annotations
 
@@ -44,7 +52,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"opa_deposit": [CSRC / "opa_deposit.cu"], "opa_fused": [CSRC / "opa_fused.cu"]}
 MAX_SLICES = 8  # canonical_limit fits int32
 _OPERAND_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_RNG_CODES = {mode: 1 + i for i, mode in enumerate(RNG_MODES)}  # opa_fused.cu's Rng; 0: half to even
+_RNG_CODES = {mode: 1 + i for i, mode in enumerate(RNG_MODES)}  # finalize.cuh's Rng; 0: half to even
+_DENSE_INPUTS = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}  # opa_deposit.cu's Input
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def body_for(dtype: torch.dtype) -> str:
@@ -68,6 +78,14 @@ def instance_name(dev: bool, body: str, rng_mode: str = "counter") -> str:
     return ("device" if dev else "ideal") + draw + ("_fma" if body == "fma" else "")
 
 
+def dense_instance(dtype: torch.dtype, draw: str, dev: bool) -> str:
+    """The key of an ``opa_dense`` launch in ``opa_dense.instances``: the
+    gradient's dtype (``"f32"``, ``"bf16"``), the rounding (``"rint"`` half
+    to even, ``"counter"``, ``"grid"``), then ``"_device"`` for the
+    instance with the write physics."""
+    return f"{_DTYPE_NAMES[dtype]}_{draw}" + ("_device" if dev else "")
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(name: str):
     return _bind(_build.build(name, SOURCES[name]).path, name)
@@ -79,9 +97,10 @@ def _bind(path, name: str):
     lib = ctypes.CDLL(str(path))
     if name == "opa_deposit":
         fn = lib.panther_opa_deposit
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                       ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
+                       ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+            ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     else:
         fn = lib.panther_opa_fused
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
@@ -100,22 +119,43 @@ def _check_planes(planes: torch.Tensor, spec: SliceSpec) -> None:
         raise ValueError(f"planes S={S} vs spec S={spec.n_slices} (at most {MAX_SLICES})")
 
 
+# the host arrays a launch passes, built once per spec or device model: a
+# launch on a small leaf costs its host time
+@functools.lru_cache(maxsize=None)
 def _plane_max(spec: SliceSpec):
     return (ctypes.c_int * spec.n_slices)(*spec.plane_max)
 
 
-def _stuck_words(dev, spec: SliceSpec):
+@functools.lru_cache(maxsize=None)
+def _stuck_words(stuck_seed: int, S: int):
     """Host int[2·S]: the stuck-cell pattern's key words of each slice."""
-    words = [w for s in range(spec.n_slices) for w in device_pattern_words(dev.stuck_seed, s)]
+    words = [w for s in range(S) for w in device_pattern_words(stuck_seed, s)]
     return (ctypes.c_int * len(words))(*words)
 
 
-# the tensor-core body's stuck-cell masks, one byte of slice bits a cell
-# (ref.stuck_bits_ref), by (card, stuck_seed, f32 stuck_frac, S, M, N): the
-# mask is frozen, so the first launch at a block shape writes it and later
-# launches read it. A memo of a pure function of its key: which caller
-# fills an entry changes no result.
+@functools.lru_cache(maxsize=None)
+def _physics(asym_up: float, asym_down: float, write_noise: float, stuck_frac: float):
+    return (ctypes.c_float * 4)(asym_up, asym_down, write_noise, stuck_frac)
+
+
+# the stuck-cell masks, one byte of slice bits a cell (ref.stuck_bits_ref),
+# by (card, stuck_seed, f32 stuck_frac, S, M, N): the mask is frozen, so the
+# first launch at a block shape writes it and later launches read it. A memo
+# of a pure function of its key: which caller fills an entry changes no
+# result.
 _STUCK_BITS: dict = {}
+
+
+def _stuck_mask(planes: torch.Tensor, dev):
+    """``(key, mask, mask_mode)`` of the stuck-cell mask of a launch on
+    planes ``[S, M, N]``: mode 2 reads the cached mask, mode 1 has the
+    launch write a new one, to be stored under ``key`` once launched."""
+    S, M, N = planes.shape
+    key = (planes.device, dev.stuck_seed, float(np.float32(dev.stuck_frac)), S, M, N)
+    mask = _STUCK_BITS.get(key)
+    if mask is not None:
+        return key, mask, 2
+    return key, torch.empty((M, N), dtype=torch.uint8, device=planes.device), 1
 
 
 def _ptr(arr) -> ctypes.c_void_p:
@@ -131,6 +171,30 @@ def _launch(name: str, planes: torch.Tensor, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
 
 
+def _deposit_launch(planes: torch.Tensor, src: torch.Tensor, spec: SliceSpec, *, frac_bits=None, lr=0.0,
+                    rng: int = 0, key_words=None, offset: int = 0, physics=None, dev=None,
+                    noise_words=None) -> None:
+    """One launch of ``csrc/opa_deposit.cu`` on planes ``[S, M, N]`` and its
+    input ``src`` ``[M, N]`` (int32 p_q, f32 or bf16 g). ``physics``: None,
+    or the device instance's host float[4]; ``dev`` the DeviceModel whose
+    stuck cells it keeps."""
+    S, M, N = planes.shape
+    k0, k1 = (0, 0) if key_words is None else key_words
+    nk0, nk1 = (0, 0) if noise_words is None else noise_words
+    words = key = mask = None
+    mode = 0
+    if dev is not None and dev.stuck_frac > 0.0:
+        words = _stuck_words(dev.stuck_seed, S)
+        key, mask, mode = _stuck_mask(planes, dev)
+    vec = int(M * N % 16 == 0 and planes.data_ptr() % 16 == 0 and src.data_ptr() % 16 == 0)
+    _launch("opa_deposit", planes, planes.data_ptr(), src.data_ptr(), _DENSE_INPUTS[src.dtype],
+            None if frac_bits is None else frac_bits.data_ptr(), float(np.float32(lr)), M * N, N, S,
+            _ptr(_plane_max(spec)), spec.canonical_limit, rng, k0, k1, offset, vec, _ptr(physics), nk0, nk1,
+            _ptr(words), None if mask is None else mask.data_ptr(), mode)
+    if mode == 1:  # written by this launch, in stream order before any later one
+        _STUCK_BITS[key] = mask
+
+
 def opa_deposit(planes: torch.Tensor, p_q: torch.Tensor, *, spec: SliceSpec, stuck=None) -> torch.Tensor:
     """planes int8 [S, M, N] updated in place by p_q int32 [M, N], both
     contiguous on one CUDA device; returns ``planes``. ``stuck``: a
@@ -143,16 +207,54 @@ def opa_deposit(planes: torch.Tensor, p_q: torch.Tensor, *, spec: SliceSpec, stu
         raise ValueError(f"p_q must be contiguous int32 {tuple(planes.shape[1:])}, got {p_q.dtype} {tuple(p_q.shape)}")
     if stuck is not None and not stuck.stuck_frac > 0.0:
         raise ValueError("the stuck instance takes a DeviceModel with stuck_frac > 0")
-    mn = p_q.numel()
-    if mn == 0:
+    if p_q.numel() == 0:
         return planes
-    vec = int(mn % 4 == 0 and planes.data_ptr() % 4 == 0 and p_q.data_ptr() % 16 == 0)
-    words = None if stuck is None else _stuck_words(stuck, spec)
-    frac = 0.0 if stuck is None else float(np.float32(stuck.stuck_frac))
-    _launch("opa_deposit", planes, planes.data_ptr(), p_q.data_ptr(), mn, planes.shape[2], spec.n_slices,
-            _ptr(_plane_max(spec)), spec.canonical_limit, vec, frac, _ptr(words))
+    physics = None if stuck is None else _physics(1.0, 1.0, 0.0, stuck.stuck_frac)
+    _deposit_launch(planes, p_q, spec, physics=physics, dev=stuck)
     opa_deposit.launches += 1
     opa_deposit.instances["ideal" if stuck is None else "stuck"] += 1
+    return planes
+
+
+def opa_dense(planes: torch.Tensor, g: torch.Tensor, lr: float, frac_bits: torch.Tensor, *, spec: SliceSpec,
+              key_words=None, rng_mode: str = "counter", offset: int = 0, dev=None,
+              noise_words=None) -> torch.Tensor:
+    """planes int8 [S, M, N] updated in place by ``-lr · g`` on the ``2^-F``
+    grid, g [M, N] contiguous f32 or bf16 on the planes' CUDA device, read as
+    it is; frac_bits a 1-element int32 tensor read on the device; lr a host
+    float; key_words None (round half to even) or two int32 Python ints,
+    the key of the stochastic rounding's ``rng_mode`` draw: ``"counter"``
+    or ``"grid"`` (at flat index ``offset + row·N + col``); ``"hw"`` has no
+    dense draw and raises. ``dev``: None for the ideal instance, which
+    rounds ``(-lr · g) · 2^F`` as ``quantize`` does, or a write-nonideal
+    DeviceModel for the device instance, which rounds ``g · (2^F · -lr)``
+    with the physics as ``opa_device_update`` does, ``noise_words`` the
+    write-noise key words when ``dev.write_noise > 0``. Returns ``planes``."""
+    if not (planes.is_cuda and g.is_cuda and frac_bits.is_cuda):
+        raise ValueError("opa_dense kernel takes CUDA tensors only")
+    if not (planes.device == g.device == frac_bits.device):
+        raise ValueError("opa_dense: tensors on different devices")
+    _check_planes(planes, spec)
+    if g.dtype not in _DTYPE_NAMES or tuple(g.shape) != tuple(planes.shape[1:]) or not g.is_contiguous():
+        raise ValueError(f"g must be contiguous f32 or bf16 {tuple(planes.shape[1:])}, got {g.dtype} "
+                         f"{tuple(g.shape)}")
+    if frac_bits.dtype != torch.int32 or frac_bits.numel() != 1:
+        raise ValueError("frac_bits must be a 1-element int32 tensor")
+    if dev is not None and not dev.writes_nonideal():
+        raise ValueError("the device instance takes a write-nonideal DeviceModel (None for the ideal one)")
+    if dev is not None and dev.write_noise > 0.0 and noise_words is None:
+        raise ValueError("DeviceModel.write_noise requires write-noise key words")
+    draw = "rint" if key_words is None else check_rng_mode(rng_mode)
+    if not (0 <= offset and offset + g.numel() <= 2**64):
+        raise ValueError(f"opa_dense grid offset {offset} out of the 64-bit counter range")
+    if g.numel() == 0:
+        return planes
+    physics = None if dev is None else _physics(dev.asym_up, dev.asym_down, dev.write_noise, dev.stuck_frac)
+    _deposit_launch(planes, g, spec, frac_bits=frac_bits, lr=lr, rng=_RNG_CODES.get(draw, 0),
+                    key_words=key_words, offset=offset if draw == "grid" else 0, physics=physics, dev=dev,
+                    noise_words=noise_words)
+    opa_dense.launches += 1
+    opa_dense.instances[dense_instance(g.dtype, draw, dev is not None)] += 1
     return planes
 
 
@@ -206,27 +308,22 @@ def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float
     physics = stuck = None
     nk0 = nk1 = 0
     if dev is not None:
-        physics = (ctypes.c_float * 4)(dev.asym_up, dev.asym_down, dev.write_noise, dev.stuck_frac)
+        physics = _physics(dev.asym_up, dev.asym_down, dev.write_noise, dev.stuck_frac)
         if dev.write_noise > 0.0:
             nk0, nk1 = noise_words
         if dev.stuck_frac > 0.0:
-            stuck = _stuck_words(dev, spec)
+            stuck = _stuck_words(dev.stuck_seed, S)
     word = 16 if body == "mma" else 8  # bytes of a plane row a thread moves at once
     vec = int(N % word == 0 and planes.data_ptr() % word == 0)
     mask = key = None
-    fresh = False
+    mode = 0
     if stuck is not None and body == "mma":
-        key = (planes.device, dev.stuck_seed, float(np.float32(dev.stuck_frac)), S, M, N)
-        mask = _STUCK_BITS.get(key)
-        fresh = mask is None
-        if fresh:
-            mask = torch.empty((M, N), dtype=torch.uint8, device=planes.device)
+        key, mask, mode = _stuck_mask(planes, dev)
     _launch("opa_fused", planes, planes.data_ptr(), x.data_ptr(), dh.data_ptr(), frac_bits.data_ptr(),
             float(np.float32(lr)), x.shape[0], M, N, S, _ptr(_plane_max(spec)), spec.canonical_limit,
             _OPERAND_DTYPES[x.dtype], int(body == "mma"), rng, k0, k1, offset, bm, bn, vec,
-            _ptr(physics), nk0, nk1, _ptr(stuck), None if mask is None else mask.data_ptr(),
-            0 if mask is None else 1 if fresh else 2)
-    if fresh:  # written by this launch, in stream order before any later one
+            _ptr(physics), nk0, nk1, _ptr(stuck), None if mask is None else mask.data_ptr(), mode)
+    if mode == 1:  # written by this launch, in stream order before any later one
         _STUCK_BITS[key] = mask
     opa_fused.launches += 1
     opa_fused.instances[instance_name(dev is not None, body, rng_mode if rng else "counter")] += 1
@@ -235,5 +332,7 @@ def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float
 
 opa_deposit.launches = 0
 opa_deposit.instances = collections.Counter()
+opa_dense.launches = 0
+opa_dense.instances = collections.Counter()
 opa_fused.launches = 0
 opa_fused.instances = collections.Counter()

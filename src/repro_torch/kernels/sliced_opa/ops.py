@@ -23,22 +23,24 @@ update: asymmetry and write noise before the rounding, the stuck-cell mask
 after the deposit. The write noise draws under ``fold_in(key,
 WRITE_NOISE_FOLD)``, with the same per-layer ``fold_in(·, l)``. An
 all-ideal model runs the ideal update, bit for bit.
+
+Dense gradients (``opa_dense_update``, ``opa_device_update``) write in one
+kernel launch a layer block on CUDA planes: the gradient in, the rounding
+draw, the physics and the deposit in one pass, with no update tensor in
+device memory. Their plain version, on CPU planes, is ``ref.opa_dense_ref``
+a layer block: the reference's ``quantize`` and deposit, or its device
+finalize, deposit and stuck mask.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.fixed_point import WRITE_NOISE_FOLD, check_rng_mode, exp2i
+from repro_torch.core.fixed_point import WRITE_NOISE_FOLD, check_rng_mode
 from repro_torch.core.prng import fold_in
 from repro_torch.core.slicing import SliceSpec
 from repro_torch.kernels.common import layer_views
 from . import kernel as _k
 from . import ref as _ref
-
-# elements of the dense gradient finalized per chunk: bounds the f32 and
-# int32 temporaries of the device physics on the 256000 x 2048 embedding
-_ROW_CHUNK = 1 << 24
-
 
 def _normalize_device(device):
     """None unless some write-path field is non-ideal: an all-ideal
@@ -120,34 +122,49 @@ def opa_fused_update(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr
     return planes
 
 
+def opa_dense_update(planes: torch.Tensor, g: torch.Tensor, lr: float, frac_bits, spec: SliceSpec, *,
+                     stochastic: bool = False, key=None, rng_mode: str = "counter", device=None) -> torch.Tensor:
+    """The PANTHER update from a dense gradient: planes ``[S, *stack, M,
+    N]``, g ``[*stack, M, N]``; ``lr`` a host float; ``key`` a host key;
+    ``rng_mode`` the rounding draw, ``"counter"`` or ``"grid"`` (``"hw"``
+    has no dense draw and raises, as in the reference); ``device`` a
+    DeviceModel or None. Without write physics it is the reference's
+    ``opa_deposit(planes, quantize(-lr · g, F, stochastic, key,
+    rng_mode))``, with them its ``opa_device_update``. On CUDA planes one
+    ``opa_dense`` launch a layer block (f32 and bf16 gradients read as they
+    are, other dtypes widened to f32 first). In place; returns ``planes``."""
+    device = _normalize_device(device)
+    _check_keys(device, stochastic, key, rng_mode, plain=True)
+    stacked = planes.dim() > 3
+    M, N = planes.shape[-2:]
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        g = g.to(torch.float32)
+    g3 = g.reshape(-1, M, N)
+    dk = fold_in(key, WRITE_NOISE_FOLD) if device is not None and device.write_noise > 0.0 else None
+    if not planes.is_cuda and planes.device.type != "cpu":
+        raise ValueError(f"no OPA implementation for device {planes.device}")
+    frac = torch.as_tensor(frac_bits, dtype=torch.int32, device=planes.device).reshape(1)
+    for l, block in enumerate(layer_views(planes)):
+        words, offset = _ref.layer_rounding(key if stochastic else None, l, stacked, rng_mode, M, N)
+        noise_words = _ref.layer_key_words(dk, l, stacked)
+        if planes.is_cuda:
+            _k.opa_dense(block, g3[l].contiguous(), lr, frac, spec=spec, key_words=words, rng_mode=rng_mode,
+                         offset=offset, dev=device, noise_words=noise_words)
+        else:
+            block.copy_(_ref.opa_dense_ref(block, g3[l], lr, frac_bits, spec, words, device, noise_words,
+                                           rng_mode=rng_mode, offset=offset))
+    return planes
+
+
 def opa_device_update(planes: torch.Tensor, g: torch.Tensor, lr: float, frac_bits, spec: SliceSpec, *,
                       device, stochastic: bool = False, key=None, rng_mode: str = "counter") -> torch.Tensor:
     """The dense-gradient update under a write-nonideal ``device``: the
     physics of ``opa_fused_update`` (asymmetry, write noise, rounding,
     deposit, stuck mask) on a materialized gradient ``g`` ``[*stack, M,
     N]``, for the plan leaves whose gradient is dense (the embedding, the
-    norm-scale stacks). The finalize is plain elementwise PyTorch, as the
-    reference's is jnp, run in row chunks at global row coordinates (under
-    ``"grid"``, at flat offset ``(l·M + r0)·N``); the deposit and the stuck
-    mask are the deposit kernel's, in place. ``"hw"`` has no dense draw and
-    raises, as in the reference. Returns ``planes``."""
+    norm-scale stacks): ``opa_dense_update`` with ``device``. ``"hw"`` has
+    no dense draw and raises, as in the reference. Returns ``planes``."""
     if not device.writes_nonideal():
         raise ValueError("opa_device_update takes a write-nonideal DeviceModel")
-    _check_keys(device, stochastic, key, rng_mode, plain=True)
-    stacked = planes.dim() > 3
-    M, N = planes.shape[-2:]
-    g3 = g.reshape(-1, M, N)
-    scale = exp2i(torch.as_tensor(frac_bits, dtype=torch.int32)).to(planes.device) * -_ref._lr32(lr)
-    dk = fold_in(key, WRITE_NOISE_FOLD) if device.write_noise > 0.0 else None
-    rows = max(1, _ROW_CHUNK // max(N, 1))
-    for l, block in enumerate(layer_views(planes)):
-        noise_words = _ref.layer_key_words(dk, l, stacked)
-        words, offset = _ref.layer_rounding(key if stochastic else None, l, stacked, rng_mode, M, N)
-        p_q = torch.empty((M, N), dtype=torch.int32, device=planes.device)
-        for r0 in range(0, M, rows):
-            y = g3[l, r0:r0 + rows].to(torch.float32) * scale
-            p_q[r0:r0 + rows] = _ref.write_rows(y, device, r0, noise_words, words, rng_mode=rng_mode,
-                                                offset=offset)
-        opa_deposit(block, p_q, spec, stuck=device)
-        del p_q
-    return planes
+    return opa_dense_update(planes, g, lr, frac_bits, spec, stochastic=stochastic, key=key, rng_mode=rng_mode,
+                            device=device)

@@ -13,9 +13,10 @@ cells keep their old digit). ``u`` is the draw of ``rng_mode``
 (``rounding_u``): the counter hash at (row, col), the ``"grid"`` stream of
 ``jax.random.uniform`` at the flat index, or the ``"hw"`` Philox stream of
 the port's kernel (``hw_uniform_ref``). Each product and sum rounds to f32 on its own,
-as in the reference's source and its jnp oracle. The CPU tests run these
-versions, and ``chip_smoke.py`` holds the CUDA kernels against them on the
-card.
+as in the reference's source and its jnp oracle. ``opa_dense_ref`` is the
+dense write's (the reference's ``quantize`` and ``opa_deposit``, or its
+``opa_device_update``) on one block. The CPU tests run these versions, and
+``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
 from __future__ import annotations
 
@@ -238,6 +239,37 @@ def opa_fused_ref(planes, x, dh, lr, frac_bits, spec: SliceSpec, key_words=None,
     if device is not None and device.stuck_frac > 0.0:
         return deposit_keep_ref(planes, p_q, stuck_bits_ref(device, spec, *acc.shape, acc.device), spec)
     return opa_batched(planes, p_q, spec)
+
+
+def dense_increment(g: torch.Tensor, lr, frac_bits, device=None) -> torch.Tensor:
+    """The grid-scaled increment of a dense gradient, f32: ``(-lr · g) ·
+    2^F`` for the ideal write, rounded twice as the reference's dense path
+    (``quantize(-lr · g, F)``) rounds it; ``g · (2^F · -lr)`` with a
+    write-nonideal ``device``, once, as its ``opa_device_update``. They
+    differ only where ``-lr · g`` is subnormal."""
+    p2f = exp2i(torch.as_tensor(frac_bits, dtype=torch.int32)).to(g.device)
+    if device is None:
+        return (-_lr32(lr) * g.to(torch.float32)) * p2f
+    return g.to(torch.float32) * (p2f * -_lr32(lr))
+
+
+def opa_dense_ref(planes, g, lr, frac_bits, spec: SliceSpec, key_words=None, device=None, noise_words=None, *,
+                  rng_mode: str = "counter", offset: int = 0, r0: int = 0):
+    """The dense write of rows ``r0..`` of one ``[M, N]`` block: planes int8
+    ``[S, rows, N]``, g ``[rows, N]`` (any float dtype); ``lr`` a host
+    float; ``frac_bits`` F; ``key_words`` None (round half to even) or the
+    int32 words of the ``rng_mode`` draw (``"counter"``, or ``"grid"`` at
+    flat offset ``offset``); ``device`` a write-nonideal DeviceModel or
+    None, ``noise_words`` its write-noise key words -> new int8 planes: the
+    finalize (``write_rows`` of ``dense_increment``), the deposit and, on a
+    device with stuck cells, the stuck mask. ``kernel.opa_dense``'s plain
+    version."""
+    y = dense_increment(g, lr, frac_bits, device)
+    p_q = write_rows(y, device, r0, noise_words, key_words, rng_mode=rng_mode, offset=offset)
+    new = opa_batched(planes, p_q, spec)
+    if device is not None and device.stuck_frac > 0.0:
+        new = torch.where(stuck_rows(device, spec, r0, *y.shape, y.device), planes, new)
+    return new
 
 
 def opa_fused_update_ref(planes, x, dh, lr, frac_bits, spec: SliceSpec, *,

@@ -9,17 +9,18 @@ MLP's optimizer) and the split state of the LM trainer (``init_split``,
 The update quantizes ``-lr · grad`` onto each leaf's ``2^-F`` grid with
 stochastic rounding (the ``rng_mode`` draw) and deposits it into the planes:
 operand-form gradients through the fused update kernel (``opa_fused``),
-dense gradients through ``quantize`` and the deposit kernel
-(``opa_deposit``). Every ``crs_every`` steps the CRS kernel canonicalizes
-every mapped leaf. The planes update in place. Vector leaves take plain
-float SGD. Keys, the step and the learning rate are host values, so the
-update makes no device sync.
+dense gradients through the dense-write kernel (``opa_dense``: the
+reference's ``quantize`` and ``opa_deposit`` in one pass). Every
+``crs_every`` steps the CRS kernel canonicalizes every mapped leaf. The
+planes update in place. Vector leaves take plain float SGD. Keys, the
+step and the learning rate are host values, so the update makes no device
+sync.
 
 A leaf whose plan carries a write-nonideal ``DeviceModel`` writes through
 its physics: operand leaves in the fused update kernel, dense-gradient
-leaves through ``opa_device_update``. Momentum lives in ``update`` only:
-``update_split`` refuses it (the reference's ignores it). Not ported yet:
-the ``im2col``/``expert`` operand kinds.
+leaves in the dense write's device instance. Momentum lives in
+``update`` only: ``update_split`` refuses it (the reference's ignores
+it). Not ported yet: the ``im2col``/``expert`` operand kinds.
 
 Layout: a ``SlicedTensor``'s planes are ``[S, *stack, M, N]`` as in the
 reference, but a stacked leaf's storage is laid out ``[*stack, S, M, N]``
@@ -252,8 +253,8 @@ def update_split(grads, digital, sliced, step: int, lr: float, cfg: PantherConfi
     ``l·M·N``. So the operand and dense pipelines, and the reference, draw
     the same bits.
     A leaf whose plan carries a write-nonideal device model updates through
-    its physics (operand leaves in K1, dense leaves in
-    ``opa_device_update``). CRS runs on every mapped leaf when ``step %
+    its physics (operand leaves in K1, dense leaves in K2's device
+    instance). CRS runs on every mapped leaf when ``step %
     crs_every == crs_every - 1``: a host branch; as in the reference, it
     does not hold stuck cells."""
     if cfg.momentum > 0:
@@ -280,27 +281,22 @@ def update_split(grads, digital, sliced, step: int, lr: float, cfg: PantherConfi
 
 def _write_leaf(s: SlicedTensor, g, lr32: float, key: tuple, pl, cfg: PantherConfig, do_crs: bool) -> None:
     """One mapped leaf's write, in place: operand gradients through the
-    fused update (K1), dense ones through ``opa_device_update`` on a
-    write-nonideal device, else ``quantize`` and the deposit (K2); then CRS
-    (K3) when ``do_crs``. The "hw" draw exists only inside the fused
-    kernel: dense leaves then take the counter draw, as in the reference."""
+    fused update (K1), dense ones through the dense write (K2,
+    ``opa_dense_update``: the quantize and the deposit, or on a
+    write-nonideal device its physics, in one pass); then CRS (K3) when
+    ``do_crs``. The "hw" draw exists only inside the fused kernel: dense
+    leaves then take the counter draw, as in the reference."""
     from repro_torch.kernels.crs import crs
-    from repro_torch.kernels.sliced_opa import opa_deposit, opa_device_update, opa_fused_update
+    from repro_torch.kernels.sliced_opa import opa_dense_update, opa_fused_update
 
     spec = pl.spec if pl is not None else cfg.spec
     dev = _leaf_device(pl)
-    dense_mode = "counter" if cfg.rng_mode == "hw" else cfg.rng_mode
     if isinstance(g, OuterProductGrad):
         opa_fused_update(s.planes, g.x, g.dh, lr32, s.frac_bits, spec,
                          stochastic=cfg.stochastic_round, key=key, rng_mode=cfg.rng_mode, device=dev)
-    elif dev is not None:
-        opa_device_update(s.planes, g, lr32, s.frac_bits, spec, device=dev,
-                          stochastic=cfg.stochastic_round, key=key, rng_mode=dense_mode)
     else:
-        upd = quantize(-lr32 * g.to(torch.float32), s.frac_bits,
-                       stochastic=cfg.stochastic_round, key=key, rng_mode=dense_mode)
-        opa_deposit(s.planes, upd, spec)
-        del upd
+        opa_dense_update(s.planes, g, lr32, s.frac_bits, spec, stochastic=cfg.stochastic_round, key=key,
+                         rng_mode="counter" if cfg.rng_mode == "hw" else cfg.rng_mode, device=dev)
     if do_crs:
         crs(s.planes, spec)
 

@@ -346,14 +346,19 @@ def test_training_step_on_the_card_goes_through_every_kernel(card):
     opt = PantherConfig(crs_every=1)
     rules = planlib.default_rules(opt, fidelity=configs.fidelity_presets()["adc9"])
     state = train_state_init(cfg, opt, 0)
-    counters = (K.mvm_sliced_fused, KO.opa_fused, KO.opa_deposit, KC.crs)
+    counters = (K.mvm_sliced_fused, KO.opa_fused, KO.opa_dense, KC.crs)
     before = [c.launches for c in counters] + [K.mvm_sliced_fused.transpose_launches]
-    ideal_before = dict(KO.opa_fused.instances)
+    ideal_before, dense_before = dict(KO.opa_fused.instances), dict(KO.opa_dense.instances)
+    deposit_before = KO.opa_deposit.launches
     state, metrics = make_train_step(cfg, opt, constant(1e-2), plan_rules=rules)(
         state, SyntheticLMDataset(cfg.vocab, 8, 2).batch(0))
     after = [c.launches for c in counters] + [K.mvm_sliced_fused.transpose_launches]
     reads = 5 * cfg.n_layers
     assert [a - b for a, b in zip(after, before)] == [reads, reads, 1, reads + 1, reads]
+    # the dense leaf's f32 gradient in one pass, no int32 update deposited apart
+    assert {k: v - dense_before.get(k, 0) for k, v in KO.opa_dense.instances.items()
+            if v != dense_before.get(k, 0)} == {"f32_counter": 1}
+    assert KO.opa_deposit.launches == deposit_before
     # bf16 operands: every block on the tensor-core body, none on the CUDA-core one
     assert {k: v - ideal_before.get(k, 0) for k, v in KO.opa_fused.instances.items()
             if v != ideal_before.get(k, 0)} == {"ideal": reads}
@@ -585,7 +590,7 @@ def test_device_training_step_on_the_card_goes_through_every_kernel(card):
     dev = DeviceModel(write_noise=4e6, asym_up=1.2, asym_down=0.8, stuck_frac=0.02, stuck_seed=3, read_noise=0.01)
     fid = dataclasses.replace(configs.fidelity_presets()["adc9"], device=dev)
     state = train_state_init(cfg, opt, 0)
-    before = {c: dict(c.instances) for c in (K.mvm_sliced_fused, KO.opa_fused, KO.opa_deposit)}
+    before = {c: dict(c.instances) for c in (K.mvm_sliced_fused, KO.opa_fused, KO.opa_dense)}
     crs_before = KC.crs.launches
     state, metrics = make_train_step(cfg, opt, constant(1e-2), plan_rules=planlib.default_rules(opt, fidelity=fid))(
         state, SyntheticLMDataset(cfg.vocab, 8, 2).batch(0))
@@ -594,7 +599,7 @@ def test_device_training_step_on_the_card_goes_through_every_kernel(card):
            for c in before}
     assert got[K.mvm_sliced_fused] == {"io16_read_noise": reads, "transpose_io16_read_noise": reads}
     assert got[KO.opa_fused] == {"device": reads}
-    assert got[KO.opa_deposit] == {"stuck": 1}
+    assert got[KO.opa_dense] == {"f32_counter_device": 1}
     assert KC.crs.launches == crs_before + reads + 1
     assert bool(torch.isfinite(metrics["loss"])) and bool(torch.isfinite(metrics["grad_norm"]))
 
@@ -1026,8 +1031,8 @@ def test_opa_fused_grid_and_hw_instances_run_hmma(card):
 def test_paper_mlp_update_on_the_card_matches_the_cpu(card):
     """The non-split update of the Fig-9 MLP under Tiki-Taka on a device
     with asymmetry (no write noise, whose ``log1p``/``cos`` differ between
-    the card's and the CPU's libm), on given gradients: K2 once a mapped
-    leaf, and planes, params and momentum bit for bit with the CPU's plain
+    the card's and the CPU's libm), on given gradients: K2's dense write
+    once a mapped leaf, and planes, params and momentum bit for bit with the CPU's plain
     versions."""
     from repro_torch import plan as planlib
     from repro_torch import tree
@@ -1047,11 +1052,11 @@ def test_paper_mlp_update_on_the_card_matches_the_cpu(card):
         state = panther.init(params, cfg, plan=plan)
         p = panther.materialize(params, state, cfg)
         g = torch.Generator().manual_seed(3)
-        before = KO.opa_deposit.launches
+        before = KO.opa_dense.launches
         for step in range(3):
             grads = {k: (torch.randn(v.shape, generator=g) * 1e-2).to(dev) for k, v in params.items()}
             p, state = panther.update(grads, state, p, 0.03, cfg, rng=prng.PRNGKey(11), plan=plan)
-        runs[str(dev)] = (p, state, KO.opa_deposit.launches - before)
+        runs[str(dev)] = (p, state, KO.opa_dense.launches - before)
     (pc, sc, nc), (pg, sg, ng) = runs["cpu"], runs[str(card)]
     assert nc == 0 and ng == 3 * 3
     for k in pc:
@@ -1089,3 +1094,144 @@ def test_microbatched_step_on_the_card_updates_each_block_once_at_all_tokens(car
     assert KO.opa_fused.launches - before == len(tokens) == 5 * cfg.n_layers and set(tokens) == {8 * 16}
     assert abs(float(m["loss"]) - float(full["loss"])) <= 1e-5 * float(full["loss"])
     assert state.step == 1
+
+
+# ------------------------- K2's dense write (opa_dense) ----------------------
+# Each instance against its plain version (ref.opa_dense_ref) bit for bit,
+# the write noise held as above (the card's plain version and kernel call
+# the same libm: bit for bit but for counted one-LSB flips); on a ragged
+# MLP leaf, a norm-scale stack's [18, 2048], a block whose M·N is off the
+# 16-cell grid, and planes or gradients off a 16-byte boundary (the scalar
+# body).
+
+DENSE_SHAPES = [(128, 10), (18, 2048), (33, 47), (320, 100)]
+
+
+def _dense_gradient(card, shape, dtype, g):
+    """Updates between grid points at (lr 1e-2, F 20), a share past the
+    int32 rails, on ``dtype``'s grid."""
+    x = torch.randn(shape, generator=g, device=card) * 10.0 ** (torch.rand(shape, generator=g, device=card) * 4 - 6)
+    far = torch.rand(shape, generator=g, device=card) < 0.05
+    return torch.where(far, torch.randn(shape, generator=g, device=card) * 1e9, x).to(dtype)
+
+
+def _offset_copy(t, elems):
+    """A contiguous copy of ``t`` starting ``elems`` elements past its
+    allocation's start (off a 16-byte boundary for elems % 16 != 0 bytes)."""
+    buf = torch.zeros(t.numel() + elems, dtype=t.dtype, device=t.device)
+    view = buf[elems:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("m,n", DENSE_SHAPES)
+@pytest.mark.parametrize("draw", ["rint", "counter", "grid"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_opa_dense_matches_plain(card, dtype, draw, m, n):
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+
+    g = torch.Generator(device=card).manual_seed(m * n)
+    planes = _full_range_planes(card, (m, n), g)
+    grad = _dense_gradient(card, (m, n), dtype, g)
+    frac = torch.tensor([20], dtype=torch.int32, device=card)
+    words = None if draw == "rint" else (0x2468ACE, -0x13579BD)
+    mode = "grid" if draw == "grid" else "counter"
+    offset = 17 * m * n  # a layer of a stack: a wrong offset passes at 0
+    want = RO.opa_dense_ref(planes, grad, 1e-2, 20, DEFAULT_SPEC, words, rng_mode=mode, offset=offset)
+    name = KO.dense_instance(dtype, draw, False)
+    for p_off, g_off in ((0, 0), (5, 0), (0, 1)):  # aligned, planes 5 bytes past, g an element past
+        before = KO.opa_dense.instances[name]
+        got = _offset_copy(planes, p_off)
+        KO.opa_dense(got, _offset_copy(grad, g_off), 1e-2, frac, spec=DEFAULT_SPEC, key_words=words, rng_mode=mode,
+                     offset=offset)
+        torch.cuda.synchronize()
+        assert KO.opa_dense.instances[name] == before + 1
+        assert torch.equal(got, want), (p_off, g_off, int((got != want).sum()))
+
+
+@pytest.mark.parametrize("m,n", [(18, 2048), (320, 100), (33, 47)])
+@pytest.mark.parametrize("draw", ["rint", "counter", "grid"])
+@pytest.mark.parametrize("physics", list(PHYSICS))
+def test_opa_dense_device_instance_matches_plain(card, physics, draw, m, n):
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+    from repro_torch.models.common import DeviceModel
+
+    dev = DeviceModel(**PHYSICS[physics])
+    g = torch.Generator(device=card).manual_seed(m + n)
+    planes = _canonical_planes(card, (m, n), g)
+    frac = torch.tensor([20], dtype=torch.int32, device=card)
+    words = None if draw == "rint" else (12345, -678)
+    mode = "grid" if draw == "grid" else "counter"
+    for name in list(KO._STUCK_BITS):  # the first launch at this shape draws and writes the mask
+        if name[1:] == (dev.stuck_seed, float(torch.tensor(dev.stuck_frac)), 8, m, n):
+            del KO._STUCK_BITS[name]
+    for dtype in (torch.float32, torch.bfloat16):
+        grad = _dense_gradient(card, (m, n), dtype, g)
+        want = RO.opa_dense_ref(planes, grad, 3e-2, 20, DEFAULT_SPEC, words, dev, (77, -99), rng_mode=mode,
+                                offset=5 * m * n)
+        for launch in range(2):  # mask written, then read
+            got = KO.opa_dense(planes.clone(), grad, 3e-2, frac, spec=DEFAULT_SPEC, key_words=words, rng_mode=mode,
+                               offset=5 * m * n, dev=dev, noise_words=(77, -99))
+            torch.cuda.synchronize()
+            d = (_plane_values(got) - _plane_values(want)).abs()
+            print(f"{physics} {draw} {dtype} launch {launch}: {int((d > 0).sum())} of {d.numel()} elements differ")
+            assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+            if dev.write_noise == 0.0:
+                assert torch.equal(got, want)
+    if dev.stuck_frac > 0:
+        key = (planes.device, dev.stuck_seed, float(torch.tensor(dev.stuck_frac)), 8, m, n)
+        assert torch.equal(KO._STUCK_BITS[key], RO.stuck_bits_ref(dev, DEFAULT_SPEC, m, n, card))
+
+
+@pytest.mark.parametrize("rng_mode", ["counter", "grid"])
+@pytest.mark.parametrize("device", [None, "asym", "stuck"])
+def test_opa_dense_update_on_the_card_matches_the_cpu(card, rng_mode, device):
+    """A [3, M, N] stack: one launch a layer, each with its layer's keys
+    and grid offset; the planes as the CPU's plain composition (quantize
+    and the deposit, or the device finalize), bit for bit."""
+    from repro_torch.core import prng
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels import sliced_opa as ops
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.models.common import DeviceModel
+
+    dev = None if device is None else DeviceModel(**PHYSICS[device])
+    g = torch.Generator(device=card).manual_seed(21)
+    planes = _canonical_planes(card, (3, 96, 80), g)
+    grad = torch.randn((3, 96, 80), generator=g, device=card) * 1e-4
+    before = KO.opa_dense.launches
+    got = ops.opa_dense_update(planes.clone(), grad, 3e-2, 24, DEFAULT_SPEC, stochastic=True, key=prng.PRNGKey(3),
+                               rng_mode=rng_mode, device=dev)
+    want = ops.opa_dense_update(planes.cpu(), grad.cpu(), 3e-2, 24, DEFAULT_SPEC, stochastic=True,
+                                key=prng.PRNGKey(3), rng_mode=rng_mode, device=dev)
+    assert KO.opa_dense.launches == before + 3
+    assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="hw"):
+        ops.opa_dense_update(planes, grad, 3e-2, 24, DEFAULT_SPEC, stochastic=True, key=prng.PRNGKey(3),
+                             rng_mode="hw", device=dev)
+
+
+@pytest.mark.parametrize("m,n", [(33, 47), (128, 10)])
+def test_opa_deposit_on_odd_and_misaligned_blocks(card, m, n):
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+    from repro_torch.models.common import DeviceModel
+
+    g = torch.Generator(device=card).manual_seed(m * n + 1)
+    planes = _full_range_planes(card, (m, n), g)
+    p_q = torch.randint(-2**31, 2**31, (m, n), generator=g, device=card, dtype=torch.int64).to(torch.int32)
+    dev = DeviceModel(stuck_frac=0.3, stuck_seed=5)
+    for stuck in (None, dev):
+        want = RO.opa_deposit_ref(planes, p_q, DEFAULT_SPEC)
+        if stuck is not None:
+            want = torch.where(RO.stuck_mask_ref(dev, DEFAULT_SPEC, planes.shape, card), planes, want)
+        for p_off, q_off in ((0, 0), (5, 0), (0, 3)):
+            got = _offset_copy(planes, p_off)
+            KO.opa_deposit(got, _offset_copy(p_q, q_off), spec=DEFAULT_SPEC, stuck=stuck)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (stuck is not None, p_off, q_off)

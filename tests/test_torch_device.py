@@ -236,16 +236,13 @@ def test_opa_fused_update_with_device_matches_jax_oracle(physics, stochastic):
 
 @pytest.mark.parametrize("stochastic", [False, True])
 @pytest.mark.parametrize("physics", list(PHYSICS))
-def test_opa_device_update_matches_jax_oracle(physics, stochastic, monkeypatch):
+def test_opa_device_update_matches_jax_oracle(physics, stochastic):
     planes, x, dh = _opa_case(4)
     g = np.einsum("ltm,ltn->lmn", x.astype(np.float64), dh.astype(np.float64)).astype(np.float32)  # exact
     jd, td = _devices(**PHYSICS[physics])
     want = np.asarray(jopa.opa_device_update(jnp.asarray(planes), jnp.asarray(g), jnp.float32(1e-2), 12, JSPEC,
                                              device=jd, stochastic=stochastic, key=jax.random.PRNGKey(5),
                                              use_kernel=False))
-    from repro_torch.kernels.sliced_opa import ops as topa_ops
-
-    monkeypatch.setattr(topa_ops, "_ROW_CHUNK", 100 * 192)  # ragged row chunks: 100 + 100 + 56
     pt = _layer_major(planes)
     out = topa.opa_device_update(pt, _t(g), 1e-2, 12, SPEC, device=td, stochastic=stochastic,
                                  key=prng.PRNGKey(5))

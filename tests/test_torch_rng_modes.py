@@ -50,7 +50,6 @@ from repro_torch.core import prng  # noqa: E402
 from repro_torch.core import slicing as TS  # noqa: E402
 from repro_torch.data import SyntheticLMDataset as TData  # noqa: E402
 from repro_torch.kernels import sliced_opa as topa  # noqa: E402
-from repro_torch.kernels.sliced_opa import ops as topa_ops  # noqa: E402
 from repro_torch.kernels.sliced_opa import ref as topa_ref  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.models.common import DeviceModel as TDev  # noqa: E402
@@ -211,14 +210,13 @@ def test_grid_layer_draws_from_the_leaf_stream_at_its_offset():
 
 
 @pytest.mark.parametrize("physics", list(PHYSICS)[1:])
-def test_opa_device_update_grid_matches_the_reference(physics, monkeypatch):
+def test_opa_device_update_grid_matches_the_reference(physics):
     planes, x, dh = _opa_case(11, (2,), m=200, n=64)
     g = np.einsum("ltm,ltn->lmn", x.astype(np.float64), dh.astype(np.float64)).astype(np.float32)  # exact
     jd, td = _devices(**PHYSICS[physics])
     want = np.asarray(jopa.opa_device_update(jnp.asarray(planes), jnp.asarray(g), jnp.float32(2.0**-6), 12, JSPEC,
                                              device=jd, stochastic=True, key=jax.random.PRNGKey(6),
                                              rng_mode="grid", use_kernel=False))
-    monkeypatch.setattr(topa_ops, "_ROW_CHUNK", 80 * 64)  # ragged row chunks: 80 + 80 + 40
     pt = _layer_major(planes)
     topa.opa_device_update(pt, _t(g), 2.0**-6, 12, SPEC, device=td, stochastic=True, key=prng.PRNGKey(6),
                            rng_mode="grid")
