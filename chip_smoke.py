@@ -131,7 +131,32 @@ Phases:
      K4's tensor-core body; the paper claims true and the losses within
      1e-3 of the in-process JAX reference (but the noisy rows the
      reference itself does not reproduce, printed beside it); one Fig-9
-     step and one device step profiled (the device's busy share).
+     step and one device step profiled (the device's busy share);
+ 13. checkpoints at full width (after 12 and 11 free their states; the
+     disk must hold 2.2 x a gemma-2b state, two commits at once): the
+     launcher (``launch.train.main``) trains gemma-2b 2 adc9 steps with
+     ``--ckpt-dir`` (CRS every 3, a checkpoint every 2), then resumes to 3
+     steps, printing ``resumed from step 1`` and taking step 2, a CRS step,
+     on the restored planes (every launch count exact); an uninterrupted
+     3-step witness of the same code must equal it bit for bit (step 2's
+     loss and grad norm, and every leaf of the last commit, compared a leaf
+     at a time on the card); a restore under another spec for one leaf
+     must refuse (``check_plan_compat``); bytes, save and restore seconds
+     and GB/s, and the resumed step's time are printed;
+ 14. Fig 10: K2's dense write and K4's 6- and 9-bit reads at each of its
+     nine specs on the MLP's shapes against their plain versions; then
+     ``spec_sweep()`` and ``io_sweep()`` uncut (400 steps each, every
+     update's launches held), each row within 1e-3 of the in-process JAX
+     reference's (its ``JAX_FIG10_*`` constants), the energy columns exact
+     and the paper's claims equal; ``hetero_plan_demo()`` at the
+     reference's size (40 steps) within the bounds its CPU test measured;
+     the heterogeneous plan at full width (gemma-2b, bf16, two groups of
+     9, group 0 at 66666666 behind adc9 reads, group 1 at 44466555 behind
+     adc6): 3 steps at 8 x 32 tokens, lr 0.3, and a prefill through
+     ``fidelity_params``, K1 and K4/K4ᵀ launches counted by spec, then K1
+     and K4/K4ᵀ at 66666666 on group 0's layer-0 blocks against their plain
+     versions and timed; last, the streamed OPA once on the card against
+     its CPU result.
 
 It prints one JSON line with the kernels' numbers, the card's
 ``name, power.limit`` line, and last the device JSON line. Any failure exits
@@ -2447,26 +2472,27 @@ def time_opa_microbatch(torch, spec, gen):
     return t, err
 
 
-class k1_tokens:
-    """While inside, the token count of every K1 block update is recorded
-    (a list, yielded): the update's per-block entry ``ops.opa_fused``, which
-    ``opa_fused_update`` calls once a block, is wrapped; the kernel and its
-    launch counters are untouched."""
+class calls_by:
+    """While inside, the calls of ``module.name`` are counted by key (a
+    Counter, yielded): ``key(args, kwargs)``. The wrapped function and its
+    kernel's launch counters are untouched."""
+
+    def __init__(self, module, name, key):
+        self.module, self.name, self.key = module, name, key
 
     def __enter__(self):
-        from repro_torch.kernels.sliced_opa import ops
+        self.saved, seen = getattr(self.module, self.name), collections.Counter()
+        saved, key = self.saved, self.key
 
-        self.ops, self.saved, seen = ops, ops.opa_fused, []
+        def wrapped(*a, **k):
+            seen[key(a, k)] += 1
+            return saved(*a, **k)
 
-        def wrapped(planes, x, *a, **k):
-            seen.append(x.shape[0])
-            return self.saved(planes, x, *a, **k)
-
-        ops.opa_fused = wrapped
+        setattr(self.module, self.name, wrapped)
         return seen
 
     def __exit__(self, *exc):
-        self.ops.opa_fused = self.saved
+        setattr(self.module, self.name, self.saved)
 
 
 def phase_microbatch(torch, state, phase5, gen, dense):
@@ -2484,6 +2510,7 @@ def phase_microbatch(torch, state, phase5, gen, dense):
     from repro_torch.kernels.crs import kernel as KC
     from repro_torch.kernels.sliced_mvm import kernel as KM
     from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ops
     from repro_torch.optim import PantherConfig
     from repro_torch.optim.schedules import constant
     from repro_torch.train.step import make_train_step, param_shapes
@@ -2533,7 +2560,7 @@ def phase_microbatch(torch, state, phase5, gen, dense):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with k1_tokens() as seen:
+        with calls_by(ops, "opa_fused", lambda a, k: a[1].shape[0]) as seen:  # K1's tokens a block update
             state, metrics = step(state, batch)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
@@ -2564,6 +2591,481 @@ def phase_microbatch(torch, state, phase5, gen, dense):
 
     timing, err = time_opa_microbatch(torch, DEFAULT_SPEC, gen)
     return launches, {"opa_fused_microbatch": timing}, err, state
+
+
+# ------------------ checkpoints at full width (phase 13) ----------------------
+
+# the launcher's run: gemma-2b, adc9 reads, CRS every 3 steps, a checkpoint
+# every 2; run 1 takes steps 0-1 and commits step 1, run 2 resumes and takes
+# step 2, a CRS step, so K3 runs on the restored planes
+CKPT_ARGS = ["--arch", "gemma-2b", "--batch", "4", "--seq", "64", "--fidelity", "adc9", "--crs-every", "3",
+             "--ckpt-every", "2", "--log-every", "1", "--device", "cuda"]
+CKPT_DISK_FACTOR = 2.2  # two commits on disk at once, and margin
+
+
+class tee:
+    """While inside, what is printed goes to the terminal and into a
+    buffer (yielded)."""
+
+    def __enter__(self):
+        import io
+
+        self.saved, self.buf = sys.stdout, io.StringIO()
+        buf, saved = self.buf, self.saved
+
+        class _Tee:
+            def write(self, text):
+                buf.write(text)
+                return saved.write(text)
+
+            def flush(self):
+                saved.flush()
+
+        sys.stdout = _Tee()
+        return self.buf
+
+    def __exit__(self, *exc):
+        sys.stdout = self.saved
+
+
+def state_bytes(cfg, opt_cfg):
+    """Bytes of a train state's checkpoint at ``cfg``: S bytes a mapped
+    cell, 4 a digital one (f32), from the param shapes."""
+    from repro_torch import plan as planlib
+    from repro_torch import tree
+    from repro_torch.models import lm
+
+    shapes = lm.param_shapes(cfg)
+    plan = planlib.resolve_plan(shapes, planlib.default_rules(opt_cfg))
+    return sum(math.prod(sd.shape) * (pl.spec.n_slices if pl.mapped else 4)
+               for (_, sd), (_, pl) in zip(tree.leaves_with_path(shapes), tree.leaves_with_path(plan)))
+
+
+def compare_commit(torch, commit, state):
+    """Every leaf of the committed checkpoint ``commit`` against ``state``
+    bit for bit, one leaf at a time on the card (a plane of a stack at a
+    time), never a second state. Returns the leaves compared."""
+    import numpy as np
+
+    from repro_torch.checkpoint.manager import _flatten_with_paths
+    from repro_torch.optim.panther import SlicedTensor
+
+    with open(Path(commit) / "manifest.json") as f:
+        manifest = json.load(f)
+    mine = dict(_flatten_with_paths(state))
+    if set(mine) != {m["path"] for m in manifest["leaves"]}:
+        raise AssertionError(f"checkpoint paths differ from the state's: {sorted(set(mine) ^ {m['path'] for m in manifest['leaves']})}")
+
+    def load(i):
+        return np.load(Path(commit) / f"arr_{i:06d}.npy", mmap_mode="r")
+
+    n = 0
+    for meta in manifest["leaves"]:
+        leaf, path = mine[meta["path"]], meta["path"]
+        if meta["kind"] == "__none__":
+            ok = leaf is None
+        elif meta["kind"] == "__sliced_tensor__":
+            planes, frac = load(meta["files"][0]), load(meta["files"][1])
+            ok = isinstance(leaf, SlicedTensor) and tuple(planes.shape) == tuple(leaf.planes.shape) \
+                and int(frac) == int(leaf.frac_bits) \
+                and all(torch.equal(torch.from_numpy(np.array(planes[s])).cuda(), leaf.planes[s])
+                        for s in range(planes.shape[0]))
+        elif isinstance(leaf, torch.Tensor):
+            arr = load(meta["files"][0])
+            ok = torch.equal(torch.from_numpy(np.array(arr)).cuda(), leaf)
+        else:  # the host step and rng words
+            ok = np.array_equal(np.asarray(load(meta["files"][0])).reshape(-1), np.asarray(leaf).reshape(-1))
+        if not ok:
+            raise AssertionError(f"checkpoint leaf {path} differs from the uninterrupted run's")
+        n += 1
+    return n
+
+
+def phase_checkpoint(torch):
+    """gemma-2b at full width through the launcher's checkpoints: 2 adc9
+    steps committed, a resumed run that takes step 2 (a CRS step) on the
+    restored state, against an uninterrupted 3-step witness bit for bit
+    (step 2's loss and grad norm, every leaf of the last commit); then a
+    restore under another slice spec for one leaf, which must refuse."""
+    import dataclasses
+    import re
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch import plan as planlib
+    from repro_torch.checkpoint import list_checkpoints, restore_latest
+    from repro_torch.core.slicing import SliceSpec
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.sliced_mvm import kernel as KM
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.launch import train as launcher
+    from repro_torch.optim import PantherConfig
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train.step import make_train_step, param_shapes, train_state_init
+
+    cfg = configs.get("gemma_2b")
+    opt_cfg = PantherConfig(crs_every=3, stochastic_round=True)
+    need = state_bytes(cfg, opt_cfg)
+    root = tempfile.mkdtemp(prefix="panther_ckpt_")
+    free = shutil.disk_usage(root).free
+    print(f"checkpoint: a gemma-2b state is {need} bytes; {free} bytes free under {root} (need "
+          f"{CKPT_DISK_FACTOR} x: two commits at once)", flush=True)
+    if free < CKPT_DISK_FACTOR * need:
+        shutil.rmtree(root)
+        raise AssertionError(f"phase 13: {free} bytes free, {CKPT_DISK_FACTOR * need:.0f} needed for full depth")
+    d = str(Path(root) / "ck")
+    try:
+        with tee() as out1:
+            t0 = time.perf_counter()
+            first = launcher.main(CKPT_ARGS + ["--steps", "2", "--ckpt-dir", d])
+            run1_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        if list_checkpoints(d) != [1]:
+            raise AssertionError(f"run 1 committed {list_checkpoints(d)}, not [1]")
+        counters = {"opa_fused": (KO.opa_fused, "launches"), "opa_dense": (KO.opa_dense, "launches"),
+                    "crs": (KC.crs, "launches"), "mvm_sliced_fused": (KM.mvm_sliced_fused, "launches"),
+                    "mvm_sliced_fused_transpose": (KM.mvm_sliced_fused, "transpose_launches")}
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        with tee() as out2:
+            t0 = time.perf_counter()
+            resumed = launcher.main(CKPT_ARGS + ["--steps", "3", "--ckpt-dir", d])
+            run2_s = time.perf_counter() - t0
+        got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        torch.cuda.empty_cache()
+        L = cfg.n_layers
+        want = {"opa_fused": 5 * L, "opa_dense": 3, "crs": 5 * L + 3, "mvm_sliced_fused": 5 * L,
+                "mvm_sliced_fused_transpose": 5 * L}
+        if "resumed from step 1" not in out2.getvalue().splitlines() or len(resumed) != 1 or got != want:
+            raise AssertionError(f"run 2: {len(resumed)} steps, launches {got} (want {want}); it printed:\n"
+                                 + out2.getvalue())
+        if list_checkpoints(d) != [1, 2]:
+            raise AssertionError(f"run 2 left commits {list_checkpoints(d)}, not [1, 2]")
+        saves = [(int(m[1]), int(m[2]), float(m[3])) for m in
+                 re.finditer(r"checkpoint: step (\d+): (\d+) bytes in \S+ \(([\d.]+) s\)", out1.getvalue() + out2.getvalue())]
+        restore_s = float(re.search(r"restored step 1 from \S+ in ([\d.]+) s", out2.getvalue())[1])
+
+        # the witness: the same code, uninterrupted
+        state = train_state_init(cfg, opt_cfg, 0, device="cuda")
+        fid = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=opt_cfg.spec)
+        rules = planlib.default_rules(opt_cfg, fidelity=fid)
+        step_fn = make_train_step(cfg, opt_cfg, constant(3e-2), plan_rules=rules)
+        ds = SyntheticLMDataset(cfg.vocab, 64, 4, device="cuda")
+        for step in range(3):
+            state, metrics = step_fn(state, ds.batch(step))
+        witness = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}
+        mine = {k: resumed[0][k] for k in witness}
+        print(f"step 2 (CRS) resumed: loss {mine['loss']!r}, grad_norm {mine['grad_norm']!r}; uninterrupted: "
+              f"loss {witness['loss']!r}, grad_norm {witness['grad_norm']!r}", flush=True)
+        if mine != witness:
+            raise AssertionError(f"the resumed step 2 {mine} differs from the uninterrupted run's {witness}")
+        commit = Path(d) / "step_000000002"
+        t0 = time.perf_counter()
+        n = compare_commit(torch, commit, state)
+        print(f"every leaf of {commit.name} ({n}) equals the uninterrupted run's final state bit for bit "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        # a restore under another slice spec for one leaf refuses before loading anything
+        other = planlib.resolve_plan(param_shapes(state.digital, state.sliced), rules + (
+            planlib.PlanRule("embed", spec=SliceSpec.uniform(6)),))
+        try:
+            restore_latest(d, state, plan=other)
+        except ValueError as e:
+            if "embed" not in str(e):
+                raise AssertionError(f"the plan mismatch names another leaf: {e}") from e
+            print(f"restore under another spec for embed refused: {str(e).splitlines()[0]}", flush=True)
+        else:
+            raise AssertionError("a restore under another slice spec for embed did not refuse")
+        del state, metrics
+
+        times = [r["time_s"] for r in first]
+        steps_ms = [1e3 * t for t in (times[0], times[1] - times[0], resumed[0]["time_s"])]
+        for step, nbytes, secs in saves:
+            print(f"checkpoint save of step {step}: {nbytes} bytes in {secs:.2f} s, {nbytes / secs / 1e9:.2f} GB/s",
+                  flush=True)
+        print(f"checkpoint restore of step 1: {saves[0][1]} bytes in {restore_s:.2f} s, "
+              f"{saves[0][1] / restore_s / 1e9:.2f} GB/s; the launcher's steps 0, 1 and the resumed CRS step 2: "
+              f"{', '.join(f'{m:.1f}' for m in steps_ms)} ms (host clock, each ending in its log's sync); "
+              f"run 1 {run1_s:.1f} s, run 2 {run2_s:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+# ---------------------------- Fig 10 (phase 14) -------------------------------
+
+# The in-process reference's numbers (JAX 0.9.0 on the CPU: the reference's
+# own spec_sweep(400), io_sweep(400) and hetero_plan_demo(40)); PERF.md
+# records them. Rows as (loss, loss_adc6, loss_adc9).
+JAX_FIG10_SPEC = {
+    "44444444": (0.22592826187610626, 0.24719662964344025, 0.246607705950737),
+    "55555555": (0.21504457294940948, 0.26487836241722107, 0.27321383357048035),
+    "66666666": (0.1972760260105133, 0.29666122794151306, 0.2851378917694092),
+    "44466555": (0.20144210755825043, 0.2705255448818207, 0.2560124397277832),
+    "44455566": (0.21743272244930267, 0.25507092475891113, 0.24990907311439514),
+    "66655444": (0.212186798453331, 0.28662312030792236, 0.27828750014305115),
+    "44444555": (0.2259252816438675, 0.24658413231372833, 0.24645593762397766),
+    "33344455": (0.24023060500621796, 0.27194052934646606, 0.23781338334083557),
+    "43333334": (0.24582193791866302, 0.27215272188186646, 0.2567799389362335),
+}
+JAX_FIG10_ENERGY_X = {"44444444": 2.0, "55555555": 2.8284271247461903, "66666666": 4.0, "44466555": 4.0, "44455566": 4.0, "66655444": 4.0, "44444555": 2.8284271247461903, "33344455": 2.8284271247461903, "43333334": 2.0}
+JAX_FIG10_IO = {8: (0.2619117796421051, 6.847679485852733, 46.666666666666664), 12: (0.25740888714790344, 10.760639192054294, 73.33333333333333), 16: (0.2560124397277832, 14.673598898255856, 100.0)}  # (loss, mvm_tile_nj, mvm_tile_ns)
+JAX_FIG10_CLAIMS = {"3bit_always_worst": True, "hetero_beats_uniform4": True}
+JAX_FIG10_HETERO = (4.866611480712891, 4.833367824554443, 4.778995513916016, 4.709864616394043, 4.6840715408325195, 4.687353134155273, 4.701846122741699, 4.6423211097717285, 4.640377521514893, 4.542319297790527, 4.464871883392334, 4.47584342956543, 4.337571144104004, 4.257309913635254, 4.32137393951416, 4.237386226654053, 4.23861837387085, 4.153906345367432, 4.132732391357422, 4.080392837524414, 4.037062644958496, 3.9772720336914062, 3.9346470832824707, 3.931504249572754, 3.8932857513427734, 3.742276191711426, 3.774592876434326, 3.7268266677856445, 3.754971981048584, 3.480132579803467, 3.628476619720459, 3.522874355316162, 3.440855026245117, 3.4035582542419434, 3.3485183715820312, 3.4103405475616455, 3.274585485458374, 3.2157535552978516, 3.2595691680908203, 3.1882238388061523)
+JAX_FIG10_SERVE = (3.2959117889404297, 4.544851779937744)  # hetero, lossless
+# Rows within FIG10_ATOL of the reference (absolute): the port's CPU run is
+# within 5e-6 relative on the losses and 4.2e-4 absolute on the ADC reads,
+# which are discontinuous in their input (tests/test_torch_fig10.py).
+FIG10_ATOL = 1e-3
+# The heterogeneous demo trains through adc9 and adc6 reads from the
+# reference's initial weights (within prng.normal's ulps): its first loss
+# within HETERO_FIRST_RTOL of the reference's, every step within
+# HETERO_TRACK_RTOL (tests/test_torch_fig10.py: 4.8e-4 and 2.9e-2 on the CPU)
+HETERO_FIRST_RTOL, HETERO_TRACK_RTOL = 2e-3, 5e-2
+FULL_HETERO_STEPS = 3
+
+
+def fig10_kernels(torch, gen):
+    """K2's dense write (half to even) and K4's 6- and 9-bit reads at the
+    MLP's shapes, at each of Fig 10's nine specs, bit for bit against their
+    plain versions: the specs the sweep runs them at."""
+    from repro_torch.benchmarks import fig10_hetero as F10
+    from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.kernels.sliced_mvm import ref
+
+    xf = torch.tensor([10], dtype=torch.int32, device="cuda")
+    for name in F10.CONFIGS:
+        spec = F10._spec(name)
+        for M, N in MLP_SHAPES:
+            planes = random_planes(torch, spec, (M, N), gen)
+            dense_case(torch, planes, dense_gradient(torch, (M, N), torch.float32, gen), spec, "rint",
+                       what=f"opa_dense at {name}, {M}x{N}")
+            x = torch.randn((T_MLP, M), generator=gen, device="cuda")
+            for adc in (6, 9):
+                got = K.mvm_sliced_fused(planes, x, xf, spec=spec, adc_bits=adc)
+                if not torch.equal(got, ref.mvm_sliced_fused_ref(planes, x, xf[0], spec, 16, adc)):
+                    raise AssertionError(f"mvm_sliced_fused at {name}, {M}x{N}, adc {adc} vs plain")
+    print(f"Fig 10's kernels at its nine specs ({', '.join(F10.CONFIGS)}), the MLP's shapes: K2's dense write "
+          "(half to even) and K4 at adc 6 and 9 bit for bit against their plain versions", flush=True)
+
+
+def uniform6_kernels(torch, state, spec, gen):
+    """K1 (half to even) and K4/K4ᵀ (adc9) at 66666666 on group 0's layer-0
+    blocks of the full-width heterogeneous state, bit for bit against their
+    plain versions (K1 on f32-exact bf16 operands), then timed at 256 tokens
+    beside the plain version, the library call and the bound. Returns the
+    two kernels-line timings and the max errors."""
+    from repro_torch.core.slicing import dequantize_planes
+    from repro_torch.kernels.common import layer_views
+    from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.kernels.sliced_mvm import ref
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+
+    S, T = spec.n_slices, T_TRAIN
+    rows = {"opa_fused_uniform6": [], "mvm_sliced_fused_uniform6": []}
+    err = {"opa_fused_uniform6": 0, "mvm_sliced_fused_uniform6": 0.0}
+    group0 = state.sliced["groups"][0]
+    for name, M, N in SLICE_READS:
+        sub, leaf = name.split("/")
+        planes = layer_views(group0[sub][leaf].planes)[0]
+        frac = group0[sub][leaf].frac_bits.reshape(1)
+        x, dh = exact_operands(torch, T, M, N, torch.bfloat16, gen)
+        f8 = torch.tensor([8], dtype=torch.int32, device="cuda")
+        want = RO.opa_fused_ref(planes, x, dh, 2.0**-4, f8[0], spec, None)
+        got = KO.opa_fused(planes.clone(), x, dh, 2.0**-4, f8, spec=spec)
+        if not torch.equal(got, want):
+            raise AssertionError(f"opa_fused at 66666666 vs plain at {name}")
+        err["opa_fused_uniform6"] = max(err["opa_fused_uniform6"],
+                                        int((plane_values(torch, got) - plane_values(torch, want)).abs().max()))
+        x = torch.randn((T, M), generator=gen, device="cuda").to(torch.bfloat16)
+        dh = (torch.randn((T, N), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+        work = planes.clone()  # the timed launches update a copy: the state stays as trained
+        k = cuda_time_ms(lambda: KO.opa_fused(work, x, dh, 0.3, frac, spec=spec), 10)
+        p = cuda_time_ms(lambda: RO.opa_fused_ref(planes, x, dh, 0.3, frac[0], spec, None), 3, 1)
+        lib = cuda_time_ms(lambda: torch.matmul(x.t(), dh), 10)
+        rows["opa_fused_uniform6"].append((k, p, lib, *bound_of(2 * S * M * N + 2 * T * (M + N) + 4,
+                                                                     2.0 * T * M * N, BF16_FLOPS_PER_S)))
+        w = dequantize_planes(planes, frac[0], spec)
+        xf = torch.tensor([10], dtype=torch.int32, device="cuda")
+        r = [0.0] * 3
+        for transpose in (False, True):
+            v = torch.randn((T, N if transpose else M), generator=gen, device="cuda")
+            got = K.mvm_sliced_fused(planes, v, xf, spec=spec, adc_bits=9, transpose=transpose)
+            want = ref.mvm_sliced_fused_ref(planes, v, xf[0], spec, 16, 9, transpose=transpose)
+            if not torch.equal(got, want):
+                raise AssertionError(f"mvm_sliced_fused (transpose={transpose}) at 66666666 vs plain at {name}")
+            r[0] += cuda_time_ms(lambda: K.mvm_sliced_fused(planes, v, xf, spec=spec, adc_bits=9,
+                                                            transpose=transpose), 5)
+            r[1] += cuda_time_ms(lambda: ref.mvm_sliced_fused_ref(planes, v, xf[0], spec, 16, 9,
+                                                                  transpose=transpose), 2, 1)
+            r[2] += cuda_time_ms(lambda: torch.matmul(v, w.T if transpose else w), 10)
+        b = bound_of(S * M * N + 4 * T * (M + N) + 4, 2.0 * T * M * N * S * 15, INT8_OPS_PER_S)
+        rows["mvm_sliced_fused_uniform6"].append((*r, 2 * b[0], b[1]))
+        for key, rs in rows.items():
+            k, p, lib, b_ms, b_by = rs[-1]
+            print(f"  {key:26s} {name:11s} M={M:5d} N={N:5d} T={T}: kernel {k:.4f} ms  plain {p:.4f} ms  "
+                  f"library {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+        del x, dh, w, v, got, want, work
+    torch.cuda.empty_cache()
+    out = {key: layer_total(rs, key) for key, rs in rows.items()}
+    for key, t in out.items():
+        print(f"  {key}: group 0's layer-0 blocks at {T} tokens: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
+    return out, err
+
+
+def phase_hetero_full(torch, gen):
+    """The heterogeneous plan at full width: gemma-2b (d 2048, d_ff 16384,
+    vocab 256000, bf16) in two groups of 9 layers, group 0 at 66666666 with
+    adc9 reads, group 1 at 44466555 with adc6; 3 steps at 8 x 32 tokens, lr
+    0.3, then a prefill through ``fidelity_params``; K1 and K4/K4ᵀ launches
+    counted by spec; then K1 and K4/K4ᵀ at 66666666 against their plain
+    versions and timed. Returns the launches, the timings and the errors."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.benchmarks import fig10_hetero as F10
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.sliced_mvm import kernel as KM
+    from repro_torch.kernels.sliced_mvm import ops as MO
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ops as OO
+    from repro_torch.models import lm
+    from repro_torch.optim import panther
+    from repro_torch.optim.schedules import constant
+    from repro_torch.serve.step import fidelity_params
+    from repro_torch.train.step import make_train_step, train_state_init
+
+    cfg = dataclasses.replace(configs.get("gemma_2b"), pattern=(("dense", 9), ("dense", 9)))
+    opt, plan = F10.hetero_plan(cfg)
+    spec6 = F10._spec("66666666")
+    t0 = time.perf_counter()
+    state = train_state_init(cfg, opt, gen, plan=plan, device="cuda")
+    torch.cuda.synchronize()
+    print(f"heterogeneous gemma-2b, {cfg.dtype}, groups {cfg.pattern}: init+slice {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    ds = SyntheticLMDataset(cfg.vocab, 32, 8, seed=3, device="cuda")
+    step = make_train_step(cfg, opt, constant(0.3), plan=plan)
+    counters = {"opa_fused": (KO.opa_fused, "launches"), "opa_dense": (KO.opa_dense, "launches"),
+                "crs": (KC.crs, "launches"), "mvm_sliced_fused": (KM.mvm_sliced_fused, "launches"),
+                "mvm_sliced_fused_transpose": (KM.mvm_sliced_fused, "transpose_launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    spec_of = lambda a, k: a[5].name()  # noqa: E731  (ops.opa_fused(planes, x, dh, lr, frac_bits, spec, ...))
+    read_of = lambda a, k: (a[3].name(), k["transpose"])  # noqa: E731  (ops.mvm_sliced_fused(planes, x, frac, spec, ...))
+    ms = []
+    torch.cuda.reset_peak_memory_stats()
+    with calls_by(OO, "opa_fused", spec_of) as k1, calls_by(MO, "mvm_sliced_fused", read_of) as k4:
+        for i in range(FULL_HETERO_STEPS):
+            batch = ds.batch(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            ms.append(1e3 * (time.perf_counter() - t0))
+            print(f"heterogeneous step {i}: {ms[-1]:.1f} ms, loss {loss:.4f}, grad_norm {gnorm:.4f}", flush=True)
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                raise AssertionError(f"heterogeneous step {i}: loss {loss}, grad_norm {gnorm}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        train = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        params = panther.materialize_split(state.digital, state.sliced, opt)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            logits, _ = lm.prefill(cfg, fidelity_params(params, state.sliced, plan), ds.batch(FULL_HETERO_STEPS)["inputs"])
+            torch.cuda.synchronize()
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("heterogeneous prefill: logits not finite")
+        del params, logits
+    n = FULL_HETERO_STEPS
+    want_k1 = {"66666666": 45 * n, "44466555": 45 * n}
+    want_k4 = {(s, t): 45 * (n + (not t)) for s in want_k1 for t in (False, True)}
+    print(f"heterogeneous steps: {', '.join(f'{m:.1f}' for m in ms)} ms (phase 5 prints the adc9 step at 4 x 64 "
+          f"tokens), peak {peak:.1f} GiB; prefill {prefill_ms:.1f} ms; launches over the steps "
+          f"{train}; K1 by spec {dict(k1)}, K4 by (spec, transpose) {dict(k4)}", flush=True)
+    if dict(k1) != want_k1 or dict(k4) != want_k4 or train["opa_fused"] != 90 * n \
+            or train["crs"] != 0 or train["opa_dense"] != 5 * n:
+        raise AssertionError(f"heterogeneous launches: K1 {dict(k1)} (want {want_k1}), K4 {dict(k4)} "
+                             f"(want {want_k4}), totals {train}")
+    launches = {"opa_fused_uniform6": k1["66666666"],
+                "mvm_sliced_fused_uniform6": k4[("66666666", False)] + k4[("66666666", True)]}
+    timings, err = uniform6_kernels(torch, state, spec6, gen)
+    del state
+    torch.cuda.empty_cache()
+    return launches, timings, err
+
+
+def phase_fig10(torch, gen):
+    """Fig 10 on the card: both sweeps uncut against the in-process
+    reference's rows, the heterogeneous demo at its own size against the
+    reference's losses as far as they agree, the heterogeneous plan at full
+    width, and the streamed OPA once. Returns the launches, the timings
+    and the errors of the two 66666666 entries."""
+    from repro_torch.benchmarks import fig10_hetero as F10
+    from repro_torch.core import opa
+    from repro_torch.core.slicing import SliceSpec, slice_weights
+
+    t0 = time.perf_counter()
+    fig10_kernels(torch, gen)
+    with checked_updates() as sweep:
+        rows = F10.spec_sweep(device="cuda")
+        io = F10.io_sweep(device="cuda")
+    if sweep.steps != 10 * 400 or any(sweep.crs.values()):
+        raise AssertionError(f"Fig 10 sweeps: {sweep.steps} updates, K3 {sweep.crs}")
+    for name, (loss, a6, a9) in JAX_FIG10_SPEC.items():
+        r = rows[name]
+        got = (r["loss"], r["loss_adc6"], r["loss_adc9"])
+        print(f"  {name}: loss {got[0]:.6f} / {loss:.6f}, adc6 {got[1]:.6f} / {a6:.6f}, adc9 {got[2]:.6f} / {a9:.6f} "
+              f"(port / reference), mvm_energy_x {r['mvm_energy_x']!r}, {r['us_per_step']:.1f} us/step")
+        if not all(abs(g - w) <= FIG10_ATOL for g, w in zip(got, (loss, a6, a9))) \
+                or r["mvm_energy_x"] != JAX_FIG10_ENERGY_X[name]:
+            raise AssertionError(f"fig10 {name}: {r} vs reference {(loss, a6, a9)}, {JAX_FIG10_ENERGY_X[name]}")
+    for io_bits, (loss, nj, ns) in JAX_FIG10_IO.items():
+        r = io[f"io{io_bits}"]
+        print(f"  io{io_bits}: loss {r['loss']:.6f} / {loss:.6f}, mvm_tile_nj {r['mvm_tile_nj']!r}, "
+              f"mvm_tile_ns {r['mvm_tile_ns']!r}")
+        if abs(r["loss"] - loss) > FIG10_ATOL or (r["mvm_tile_nj"], r["mvm_tile_ns"]) != (nj, ns):
+            raise AssertionError(f"fig10 io{io_bits}: {r} vs reference {(loss, nj, ns)}")
+    claims = F10.paper_claims(rows)
+    if {k: claims[k] for k in JAX_FIG10_CLAIMS} != JAX_FIG10_CLAIMS:
+        raise AssertionError(f"fig10 paper claims {claims}, the reference's {JAX_FIG10_CLAIMS}")
+    print(f"fig10 sweeps ({time.perf_counter() - t0:.1f} s): rows within {FIG10_ATOL} of the reference, energy exact, "
+          f"paper claims {claims}", flush=True)
+
+    t1 = time.perf_counter()
+    demo = F10.hetero_plan_demo(device="cuda")
+    losses = demo["train_losses"]
+    first = abs(losses[0] - JAX_FIG10_HETERO[0]) / JAX_FIG10_HETERO[0]
+    track = [abs(a - b) / b for a, b in zip(losses, JAX_FIG10_HETERO)]
+    serve = [abs(a - b) / b for a, b in zip((demo["serve_loss_hetero"], demo["serve_loss_lossless"]), JAX_FIG10_SERVE)]
+    print(f"fig10 hetero demo ({time.perf_counter() - t1:.1f} s), against the reference's {len(JAX_FIG10_HETERO)} "
+          f"steps: first loss {losses[0]:.6f} / {JAX_FIG10_HETERO[0]:.6f} ({first:.2e}), last {losses[-1]:.6f} / "
+          f"{JAX_FIG10_HETERO[-1]:.6f}, every step within {max(track):.2e}, served within {max(serve):.2e} relative",
+          flush=True)
+    if demo["n_distinct_specs"] < 2 or demo["n_distinct_adc"] < 2 or len(losses) != len(JAX_FIG10_HETERO) \
+            or first > HETERO_FIRST_RTOL or max(track + serve) > HETERO_TRACK_RTOL:
+        raise AssertionError(f"fig10 hetero demo: {demo}")
+
+    launches, timings, err = phase_hetero_full(torch, gen)
+
+    # the streamed OPA once on the card against its CPU result
+    g = torch.Generator().manual_seed(5)
+    spec = SliceSpec.uniform(8)
+    planes = slice_weights(torch.randint(-2**20, 2**20, (12, 10), generator=g, dtype=torch.int32), spec)
+    x = torch.randint(-2**10, 2**10, (6, 12), generator=g, dtype=torch.int32)
+    a = torch.randint(-2**10, 2**10, (6, 10), generator=g, dtype=torch.int32)
+    big = torch.full((3, 4), 2**30, dtype=torch.int32)
+    if not (torch.equal(opa.opa_stream_batch(planes.cuda(), x.cuda(), a.cuda(), spec).cpu(),
+                        opa.opa_stream_batch(planes, x, a, spec))
+            and torch.equal(opa.outer_product_int(big.cuda(), big.cuda()).cpu(), opa.outer_product_int(big, big))):
+        raise AssertionError("the streamed OPA or the int32 outer product differs between the card and the CPU")
+    print("streamed OPA (opa_stream_batch, 6 x 12 x 10) and a wrapping outer_product_int: the card equals the CPU",
+          flush=True)
+    return launches, timings, err
 
 
 def main() -> int:
@@ -2646,6 +3148,12 @@ def main() -> int:
     train_launches.update(mlp_launches)
     train_timings.update(mlp_timings)
     done("phase 11: the paper MLP")
+    phase_checkpoint(torch)
+    done("phase 13: checkpoints at full width")
+    f10_launches, f10_timings, f10_err = phase_fig10(torch, gen)
+    train_launches.update(f10_launches)
+    train_timings.update(f10_timings)
+    done("phase 14: Fig 10")
     train_launches.update({"opa_dense_" + inst: n for inst, n in dense.items()})
     print(f"K2's dense write, launches by instance over the main-path runs: {dict(dense)}", flush=True)
 
@@ -2713,6 +3221,11 @@ def main() -> int:
         entry("crs_mlp", "src/repro_torch/kernels/crs/csrc/crs.cu", "src/repro/kernels/crs/kernel.py:70", 0.0),
         entry("mvm_sliced_fused_mlp", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
               "src/repro/kernels/sliced_mvm/kernel.py:367", mlp_err),
+        # the heterogeneous model's group 0 at 66666666, full width (phase 14): K1 half to even, K4 and K4ᵀ at adc9
+        entry("opa_fused_uniform6", "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",
+              "src/repro/kernels/sliced_opa/kernel.py:255", float(f10_err["opa_fused_uniform6"])),
+        entry("mvm_sliced_fused_uniform6", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
+              "src/repro/kernels/sliced_mvm/kernel.py:367", f10_err["mvm_sliced_fused_uniform6"]),
     ]}
     unlaunched = [e["name"] for e in line["kernels"] if e["launches"] <= 0]
     if unlaunched:

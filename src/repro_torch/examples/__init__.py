@@ -1,2 +1,2 @@
 """Runnable examples on the port (counterparts of the repo's
-``examples/``): ``quickstart``."""
+``examples/``): ``quickstart``, ``train_lm``."""

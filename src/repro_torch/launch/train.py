@@ -4,16 +4,26 @@
 Trains on the card (``--device cuda``, the default; without one it raises)
 or, for a check at the reduced size, on the CPU with the plain versions
 (``--smoke --device cpu``). Random weights from seed 0, synthetic
-bigram tokens, the PANTHER update with counter-hash stochastic rounding and
+bigram tokens (step-indexed, so a resumed run sees the batches it would
+have seen), the PANTHER update with counter-hash stochastic rounding and
 CRS every ``--crs-every`` steps; ``--fidelity`` trains through the
-finite-ADC reads. Checkpoints and meshes are not ported: ``--ckpt-dir`` and
-``--mesh`` raise.
+finite-ADC reads.
+
+``--ckpt-dir`` checkpoints the train state (``repro_torch.checkpoint``,
+the reference's format, with the resolved plan in every manifest): it
+restores the newest commit at start, saves every ``--ckpt-every`` steps and
+once at the end. A resumed run continues at the step after the one its
+checkpoint holds (``rstep + 1``, the state's own count), so it equals the
+run that was never interrupted. Meshes are not ported: ``--mesh`` raises.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
+
+import torch
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -31,26 +41,32 @@ def build_parser() -> argparse.ArgumentParser:
                     help="crossbar-in-the-loop preset: train through the finite-ADC reads")
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--ckpt-dir", default=None, help="not ported: raises")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--mesh", default="none", help="not ported: anything but 'none' raises")
     return ap
 
 
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
 def main(argv=None) -> list:
-    """Run the launcher; returns the per-step metrics (floats)."""
+    """Run the launcher; returns the metrics of the steps it ran (floats,
+    and ``time_s``, the host clock at the end of the step since the loop
+    began: a device sync only where the step logs)."""
     args = build_parser().parse_args(argv)
-    if args.ckpt_dir is not None:
-        raise NotImplementedError("checkpoints are not ported yet (--ckpt-dir)")
     if args.mesh != "none":
         raise NotImplementedError("meshes are not ported yet (--mesh)")
 
     from repro_torch import configs
     from repro_torch import plan as planlib
+    from repro_torch.checkpoint import CheckpointManager, list_checkpoints, save_checkpoint
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.device import resolve
     from repro_torch.optim import PantherConfig
     from repro_torch.optim.schedules import constant, cosine, wsd
-    from repro_torch.train.step import make_train_step, train_state_init
+    from repro_torch.train.step import make_train_step, param_shapes, train_state_init
 
     device = resolve(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
@@ -70,16 +86,50 @@ def main(argv=None) -> list:
     ds = SyntheticLMDataset(cfg.vocab, args.seq, args.batch, device=device)
     step_fn = make_train_step(cfg, opt_cfg, sched, plan_rules=rules)
     state = train_state_init(cfg, opt_cfg, 0, device=device)
+
+    ckpt, start = None, 0
+    if args.ckpt_dir:
+        # the resolved plan rides every manifest: a restore under another
+        # layout or write physics fails instead of misreading the planes
+        plan = planlib.resolve_plan(param_shapes(state.digital, state.sliced),
+                                    rules if rules is not None else planlib.default_rules(opt_cfg))
+        ckpt = CheckpointManager(args.ckpt_dir, every=args.ckpt_every, plan=plan)
+        t0 = time.perf_counter()
+        restored, rstep = ckpt.restore(state)
+        if restored is not None:
+            state, start = restored, rstep + 1
+            _sync(device)
+            print(f"checkpoint: restored step {rstep} from {args.ckpt_dir} in {time.perf_counter() - t0:.3f} s")
+            print(f"resumed from step {rstep}", flush=True)
+
+    def save(step, fn):
+        if step in list_checkpoints(ckpt.directory):  # a re-save keeps the first commit
+            return
+        t0 = time.perf_counter()
+        path = fn(step)
+        if path is not None:
+            print(f"checkpoint: step {step}: {_dir_bytes(path)} bytes in {path} "
+                  f"({time.perf_counter() - t0:.3f} s)", flush=True)
+
     history = []
     t0 = time.perf_counter()
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         state, metrics = step_fn(state, ds.batch(step))
-        history.append(metrics)
         if step % args.log_every == 0 or step == args.steps - 1:  # the only device syncs
             print(f"step {step:5d} loss {float(metrics['loss']):.4f} lr {metrics['lr']:.2e} "
                   f"gnorm {float(metrics['grad_norm']):.3f} ({time.perf_counter() - t0:.1f}s)", flush=True)
+        history.append({**metrics, "time_s": time.perf_counter() - t0})
+        if ckpt:
+            save(step, lambda s: ckpt.maybe_save(s, state))
+    if ckpt:
+        save(args.steps - 1, lambda s: save_checkpoint(ckpt.directory, s, state, ckpt.keep_last, plan=ckpt.plan))
     print("done")
     return [{k: float(v) for k, v in m.items()} for m in history]
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 if __name__ == "__main__":

@@ -91,6 +91,17 @@ def init_params(cfg: LMConfig, gen, device=None) -> dict:
     return params
 
 
+def param_shapes(cfg: LMConfig) -> dict:
+    """The param tree of ``init_params`` as ``ShapeDtype`` leaves, nothing
+    allocated (the reference's ``jax.eval_shape`` of its init): what a plan
+    resolves against before the state exists."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        params = init_params(cfg, 0, device="cpu")
+    return tree.map(lambda p: ShapeDtype(tuple(p.shape), p.dtype), params)
+
+
 def _table(cfg: LMConfig, params):
     """The embedding cast once to the activation dtype (None without one).
     A step reads it for both the gather and the tied head, as the reference

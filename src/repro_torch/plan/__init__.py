@@ -15,9 +15,14 @@ leaf whose operand stash outweighs its dense gradient to ``grad="dense"``
 (``default_rules(stash_fallback=True)``). ``plan_by_path`` and
 ``plan_summary`` read a resolved plan.
 
+Serialization (checkpoint manifests): ``plan_manifest`` writes a resolved
+plan in the reference's format, key for key, so each package reads the
+other's manifests; ``check_plan_compat`` refuses a restore whose stored
+planes were laid out or written under another plan.
+
 Not ported yet: shard hints, the operand group kinds (``im2col`` conv taps,
-MoE expert banks) and their per-expert fidelity, ``coverage_rules`` and
-plan serialization.
+MoE expert banks) and their per-expert fidelity, ``coverage_rules``. A
+manifest that uses them fails to load (``leaf_plan_from_dict``).
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core.slicing import DEFAULT_SPEC, SliceSpec
-from repro_torch.models.common import OPERAND_LINEAR_KEYS, FidelityConfig, path_str
+from repro_torch.models.common import OPERAND_LINEAR_KEYS, DeviceModel, FidelityConfig, path_str
 
 
 class _Unset:
@@ -244,3 +249,116 @@ def plan_summary(plan_tree) -> str:
         extra = f" adc(fwd,bwd)={adc}" if adc is not None else ""
         lines.append(f"  {n:4d} x {cat:8s} spec={spec}{extra}")
     return "\n".join(lines)
+
+
+# ----------------------- serialization (checkpoints) ------------------------
+#
+# The reference's manifest format. The port's LeafPlan has no ``shard``,
+# ``group`` or ``expert_groups`` and its FidelityConfig no ``use_kernel``,
+# ``interpret``, ``shard_dim`` or ``expert_groups``: they are written at the
+# reference's defaults. On reading, ``use_kernel``/``interpret`` (JAX runtime
+# switches) are ignored, and a set value of any of the others raises.
+
+_FIDELITY_DEFAULTS = {"use_kernel": None, "interpret": None, "shard_dim": None, "expert_groups": None}
+_FIDELITY_RUNTIME = ("use_kernel", "interpret")
+
+
+def _fidelity_to_dict(fid: FidelityConfig) -> dict:
+    d = {f.name: getattr(fid, f.name) for f in dataclasses.fields(fid)}
+    d.update(_FIDELITY_DEFAULTS, spec=fid.spec.name(),
+             device=None if fid.device is None else dataclasses.asdict(fid.device))
+    return d
+
+
+def _unported(path, what: str):
+    raise NotImplementedError(f"plan manifest leaf {path!r}: {what} is not ported yet")
+
+
+def _fidelity_from_dict(d: dict, path=None) -> FidelityConfig:
+    d = {k: v for k, v in d.items() if k not in _FIDELITY_RUNTIME}
+    for k in ("shard_dim", "expert_groups"):
+        if d.pop(k, None) is not None:
+            _unported(path, f"fidelity.{k}")
+    d["spec"] = SliceSpec(tuple(int(c) for c in d["spec"]))
+    if d.get("device") is not None:
+        d["device"] = DeviceModel(**d["device"])
+    return FidelityConfig(**d)
+
+
+def leaf_plan_to_dict(pl: LeafPlan) -> dict:
+    """JSON-safe form (specs as their '44466555' names), the reference's
+    keys: what checkpoint manifests persist."""
+    return {
+        "mapped": pl.mapped,
+        "spec": pl.spec.name(),
+        "grad": pl.grad,
+        "fidelity": None if pl.fidelity is None else _fidelity_to_dict(pl.fidelity),
+        "shard": None,
+        "group": None,
+        "expert_groups": None,
+    }
+
+
+def leaf_plan_from_dict(d: dict, path=None) -> LeafPlan:
+    """The inverse of ``leaf_plan_to_dict`` (reads the reference's
+    manifests too); a set ``shard``, ``group`` or ``expert_groups`` raises
+    ``NotImplementedError`` naming ``path``."""
+    for k in ("shard", "group", "expert_groups"):
+        if d.get(k) is not None:
+            _unported(path, k)
+    return LeafPlan(
+        mapped=bool(d["mapped"]),
+        spec=SliceSpec(tuple(int(c) for c in d["spec"])),
+        grad=d["grad"],
+        fidelity=None if d.get("fidelity") is None else _fidelity_from_dict(d["fidelity"], path),
+    )
+
+
+def plan_manifest(plan_tree) -> dict:
+    """``{path: leaf_plan_to_dict(...)}`` for a resolved plan tree."""
+    return {p: leaf_plan_to_dict(pl) for p, pl in plan_by_path(plan_tree).items()}
+
+
+# DeviceModel fields that make stored planes physically device-specific:
+# planes deposited under write noise / asymmetry / stuck cells are not the
+# planes an ideal deposit would have produced. Read-path fields (read_noise)
+# and ADC settings stay runtime choices.
+_DEVICE_WRITE_FIELDS = ("write_noise", "asym_up", "asym_down", "stuck_frac", "stuck_seed")
+_DEVICE_WRITE_IDEAL = {"write_noise": 0.0, "asym_up": 1.0, "asym_down": 1.0, "stuck_frac": 0.0, "stuck_seed": 0}
+
+
+def _device_write_sig(fid) -> tuple:
+    """The write-physics signature of a fidelity entry (a FidelityConfig or
+    a manifest dict, either may be None). An ideal device equals none."""
+    dev = fid.get("device") if isinstance(fid, dict) else None if fid is None else fid.device
+    if isinstance(dev, dict):
+        return tuple(dev.get(f, _DEVICE_WRITE_IDEAL[f]) for f in _DEVICE_WRITE_FIELDS)
+    if dev is not None:
+        return tuple(getattr(dev, f) for f in _DEVICE_WRITE_FIELDS)
+    return tuple(_DEVICE_WRITE_IDEAL[f] for f in _DEVICE_WRITE_FIELDS)
+
+
+def check_plan_compat(saved: dict, plan_tree, context: str = "checkpoint") -> None:
+    """Raise ``ValueError`` when a persisted plan manifest and the current
+    plan disagree on storage layout (mapped, slice spec) or on write physics
+    (the ``DeviceModel`` write fields) for any shared path. ``grad``, ADC and
+    read-noise settings are runtime choices and may differ."""
+    errors = []
+    for path, pl in plan_by_path(plan_tree).items():
+        meta = saved.get(path)
+        if meta is None:
+            continue  # a new or renamed leaf: the restore's path matching handles it
+        if bool(meta["mapped"]) != pl.mapped:
+            errors.append(f"  {path}: saved mapped={meta['mapped']} vs current mapped={pl.mapped}")
+        elif pl.mapped and meta["spec"] != pl.spec.name():
+            errors.append(f"  {path}: saved spec={meta['spec']} vs current spec={pl.spec.name()}")
+        elif pl.mapped:
+            ssig, csig = _device_write_sig(meta.get("fidelity")), _device_write_sig(pl.fidelity)
+            if ssig != csig:
+                errors.append(f"  {path}: saved device write physics {dict(zip(_DEVICE_WRITE_FIELDS, ssig))} "
+                              f"vs current {dict(zip(_DEVICE_WRITE_FIELDS, csig))}")
+    if errors:
+        raise ValueError(
+            f"{context} plan is layout-incompatible with the current plan ({len(errors)} leaves): restoring "
+            "would misread the stored digit planes. Re-resolve with the saved plan or migrate the "
+            "checkpoint:\n" + "\n".join(errors))

@@ -1,0 +1,177 @@
+"""Fig 10 on the port (``repro_torch.benchmarks.fig10_hetero``) against the
+in-process reference (``benchmarks/fig10_hetero.py``, JAX on the CPU), and
+``examples.train_lm``'s plans against ``examples/train_lm.py``'s.
+
+Tolerances, and why:
+* ``spec_sweep`` / ``io_sweep`` at ``STEPS`` steps, row by row: the final
+  loss within ``LOSS_RTOL`` = 1e-4 relative (the MLP's draws come from the
+  reference's keys; f32 gradients that differ in ulps round some
+  deterministic deposits a grid LSB apart: 5e-6 at 400 steps, measured);
+  the 6- and 9-bit reads of the trained planes within ``FIG10_ATOL`` = 1e-3
+  absolute (those reads are discontinuous in their input: 4.2e-4 at 400
+  steps, measured); the energy columns and ``total_bits`` exactly (host
+  arithmetic); the paper's claims equal.
+* ``hetero_plan_demo``: it trains through adc9 and adc6 reads, which are
+  discontinuous (ROADMAP Queue 3), from the reference's initial weights
+  drawn in the port (``_lm_params``: ``NORMAL_ULPS`` = 4 ulps, at most
+  ``NORMAL_SHARE`` = 2% of the draws off, as the paper MLP's draws). The
+  two agree this far: the first loss (the initial planes read at adc9 and
+  adc6) within ``HETERO_FIRST_RTOL`` = 2e-3 relative (4.8e-4 measured; from
+  the reference's exact weights 7.8e-5), and from the second step on the
+  trajectories part by a few 1e-3 a step and track within
+  ``HETERO_TRACK_RTOL`` = 5e-2 (2.9e-2 over the reference's 40 steps,
+  measured), the served losses too; ``chip_smoke.py`` holds the card's run
+  to the same bounds over the 40 steps.
+* The plans of ``examples.train_lm``: equal manifests and summaries.
+"""
+from __future__ import annotations
+
+import dataclasses
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the reference's benchmarks/ and examples/
+
+from benchmarks import fig10_hetero as JF10  # noqa: E402
+from repro import plan as jplan  # noqa: E402
+from repro.core import SliceSpec as JSpec  # noqa: E402
+from repro.models import common as jcommon  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.optim import PantherConfig as JPC  # noqa: E402
+from repro_torch import plan as tplan  # noqa: E402
+from repro_torch import tree  # noqa: E402
+from repro_torch.benchmarks import fig10_hetero as TF10  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
+from repro_torch.examples import train_lm as TL  # noqa: E402
+from repro_torch.optim import PantherConfig as TPC  # noqa: E402
+
+STEPS = 30
+LOSS_RTOL, FIG10_ATOL = 1e-4, 1e-3
+HETERO_FIRST_RTOL, HETERO_TRACK_RTOL, HETERO_STEPS = 2e-3, 5e-2, 8
+NORMAL_ULPS, NORMAL_SHARE = 4, 0.02
+
+
+def _jax_claims(results):
+    """The reference's printed claims, as its ``spec_sweep`` computes them."""
+    paper_pick = results["44466555"]["loss"]
+    best_3bit = min(results[k]["loss"] for k in results if "3" in k)
+    worst_non3 = max(results[k]["loss"] for k in results if "3" not in k)
+    return {"3bit_always_worst": best_3bit > worst_non3, "hetero_beats_uniform4": paper_pick < results["44444444"]["loss"]}
+
+
+def test_spec_sweep_matches_jax_row_by_row():
+    want = JF10.spec_sweep(steps=STEPS)
+    got = TF10.spec_sweep(steps=STEPS, device="cpu")
+    assert list(got) == list(want) == TF10.CONFIGS
+    for name, w in want.items():
+        g = got[name]
+        assert abs(g["loss"] - w["loss"]) <= LOSS_RTOL * w["loss"], (name, g, w)
+        assert abs(g["loss_adc6"] - w["loss_adc6"]) <= FIG10_ATOL and abs(g["loss_adc9"] - w["loss_adc9"]) <= FIG10_ATOL
+        assert (g["mvm_energy_x"], g["total_bits"]) == (w["mvm_energy_x"], w["total_bits"]), name
+        assert TF10._adc_energy_factor(TF10._spec(name)) == JF10._adc_energy_factor(JSpec(TF10._spec(name).bits))
+    claims = TF10.paper_claims(got)
+    assert {k: claims[k] for k in ("3bit_always_worst", "hetero_beats_uniform4")} == _jax_claims(want)
+
+
+def test_io_sweep_matches_jax_row_by_row():
+    want = JF10.io_sweep(steps=STEPS)
+    got = TF10.io_sweep(steps=STEPS, device="cpu")
+    assert list(got) == list(want)
+    for k, w in want.items():
+        g = got[k]
+        assert abs(g["loss"] - w["loss"]) <= FIG10_ATOL, (k, g, w)
+        assert {f: g[f] for f in ("io_bits", "adc_bits", "mvm_tile_nj", "mvm_tile_ns")} == \
+            {f: w[f] for f in ("io_bits", "adc_bits", "mvm_tile_nj", "mvm_tile_ns")}
+
+
+def _ulps(a, b):
+    ia = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    ib = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    ia = np.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = np.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return np.abs(ia - ib)
+
+
+def test_hetero_demo_draws_the_reference_s_initial_weights():
+    jcfg = dataclasses.replace(_jax_smoke(), dtype=jnp.float32, pattern=(("dense", 2), ("dense", 2)), n_layers=4)
+    want = jlm.init_params(jcfg, jax.random.PRNGKey(0))
+    got = TF10._lm_params(TF10.hetero_smoke_config(), prng.PRNGKey(0), torch.device("cpu"))
+    flat = {"/".join(str(getattr(k, "key", getattr(k, "idx", ""))) for k in p): v
+            for p, v in jax.tree_util.tree_flatten_with_path(want)[0]}
+    assert set(flat) == {"/".join(map(str, p)) for p, _ in tree.leaves_with_path(got)}
+    for path, leaf in tree.leaves_with_path(got):
+        d = _ulps(flat["/".join(map(str, path))], leaf.numpy())
+        assert d.max() <= NORMAL_ULPS and (d > 0).mean() <= NORMAL_SHARE, (path, int(d.max()), (d > 0).mean())
+
+
+def _jax_smoke():
+    from repro.configs import get_smoke
+
+    return get_smoke("gemma_2b")
+
+
+def test_hetero_plan_demo_tracks_jax_and_keeps_its_contract():
+    want = JF10.hetero_plan_demo(steps=HETERO_STEPS)
+    got = TF10.hetero_plan_demo(steps=HETERO_STEPS, device="cpu")
+    assert (got["n_distinct_specs"], got["n_distinct_adc"]) == (want["n_distinct_specs"], want["n_distinct_adc"]) == (2, 2)
+    assert (got["specs"], got["adc"]) == (want["specs"], want["adc"])
+    lj, lt = want["train_losses"], got["train_losses"]
+    assert len(lt) == HETERO_STEPS and all(np.isfinite(lt))
+    assert abs(lt[0] - lj[0]) <= HETERO_FIRST_RTOL * lj[0], (lt[0], lj[0])
+    track = [abs(a - b) / b for a, b in zip(lt, lj)]
+    print(f"hetero demo, {HETERO_STEPS} steps: first loss {track[0]:.2e}, every step within {max(track):.2e}")
+    assert max(track) <= HETERO_TRACK_RTOL
+    for k in ("serve_loss_hetero", "serve_loss_lossless"):
+        assert np.isfinite(got[k]) and abs(got[k] - want[k]) <= HETERO_TRACK_RTOL * want[k], (k, got[k], want[k])
+
+
+def test_hetero_plan_is_the_reference_s():
+    jcfg = dataclasses.replace(_jax_smoke(), dtype=jnp.float32, pattern=(("dense", 2), ("dense", 2)), n_layers=4)
+    jp = jplan.resolve_plan(jax.eval_shape(lambda: jlm.init_params(jcfg, jax.random.PRNGKey(0))),
+                            JF10._hetero_rules(JPC(stochastic_round=False, crs_every=1 << 20)))
+    _, tp = TF10.hetero_plan(TF10.hetero_smoke_config())
+    assert tplan.plan_manifest(tp) == jplan.plan_manifest(jp)
+    assert tplan.plan_summary(tp) == jplan.plan_summary(jp)
+
+
+def _jax_train_lm_plan(which):
+    """``examples/train_lm.py``'s plan for ``--plan which``, as its ``main``
+    resolves it."""
+    from examples import train_lm as JL
+
+    cfg = JL.config_100m()
+    opt = JPC(stochastic_round=True, crs_every=1024)
+    if which == "hetero":
+        cfg = dataclasses.replace(cfg, dtype=jnp.float32, pattern=(("dense", 6), ("dense", 6)))
+        rules = jplan.default_rules(opt) + (
+            jplan.PlanRule("groups/0/*", spec=JSpec.uniform(6),
+                           fidelity=jcommon.FidelityConfig(adc_bits_fwd=9, adc_bits_bwd=9)),
+            jplan.PlanRule("groups/1/*", fidelity=jcommon.FidelityConfig(adc_bits_fwd=6, adc_bits_bwd=6)),
+        )
+    else:
+        rules = jplan.default_rules(opt, fidelity=cfg.fidelity)
+    return jplan.resolve_plan(jax.eval_shape(lambda: jlm.init_params(cfg, jax.random.PRNGKey(0))), rules)
+
+
+@pytest.mark.parametrize("which", ["default", "hetero"])
+def test_train_lm_plans_are_the_reference_s(which):
+    jp = _jax_train_lm_plan(which)
+    cfg, tp = TL.build_plan(TL.config_100m(), TPC(stochastic_round=True, crs_every=1024), which, False)
+    assert tplan.plan_summary(tp) == jplan.plan_summary(jp)
+    assert tplan.plan_manifest(tp) == jplan.plan_manifest(jp)
+    assert cfg.pattern == ((("dense", 6), ("dense", 6)) if which == "hetero" else (("dense", 12),))
+
+
+def test_train_lm_refuses_what_is_not_ported():
+    with pytest.raises(NotImplementedError, match="MoE"):
+        TL.build_plan(TL.config_100m(), TPC(), "moe-hetero", False)
+    with pytest.raises(SystemExit):
+        TL.build_plan(TL.config_100m(), TPC(), "hetero", True)
