@@ -7,12 +7,13 @@ Phases:
      per library, all started together, ``sm_90a``), print each kernel's
      ptxas registers and spills, and the card's name and power limit;
   2. hold the kernel against its plain PyTorch version at every (M, N) the
-     gemma-2b serving path reads, at tokens {1, 4, 5, 16, 128, 256} and ADC
-     {9, 6, ideal} (bit for bit at finite ADC), plus a short last crossbar
-     tile and a ragged N at tokens {1, 4, 5, 16}, and time the kernel, the
-     plain version and ``torch.matmul`` on the dequantized weights (the
-     lossless yardstick) at the decode (4) and prefill (128) token counts
-     and at 1 and 5, with K4's three bodies side by side: the decode body
+     gemma-2b serving path reads, at tokens {1, 2, 3, 4, 5, 6, 7, 8, 16, 128,
+     256} and ADC {9, 6, ideal} (bit for bit at finite ADC), plus a short
+     last crossbar tile and a ragged N at tokens {1, 4, 5, 16}, and time the
+     kernel, the plain version and ``torch.matmul`` on the dequantized
+     weights (the lossless yardstick) at the decode (4), engine round (8)
+     and prefill (128) token counts and at 1 and 5, with K4's three bodies
+     side by side: the decode body
      (the wrapper's for forward reads of at most 4 tokens), the tensor-core
      body (for more), and the dp4a body as K5's dp4a instance runs it on
      x_q, asked for by name; it prints the fastest body at each token count;
@@ -23,6 +24,25 @@ Phases:
      (1 prefill + 15 decode steps), the prefill's on the tensor-core body
      and the decode steps' on the decode body, the logits must be finite and
      the adc9-vs-lossless gap finite;
+ 15. (run after 3) the continuous-batching engine on gemma-2b at full width
+     (``serve.engine``/``scheduler`` through ``launch.serve``'s helpers):
+     (a) the reference bench's trace (32 requests at 1e4/s, prompts 8/16/32,
+     outputs 4 or 120 at 3:1; 8 slots, page 16, chunk 16, max_seq 160)
+     under ``continuous`` and ``static`` through the adc9 tree on one cost
+     table; (b) tokens/s, p50/p99 inter-token latency and TTFT of each, and
+     K4's launches equal to 5 reads x 18 layers x the model passes
+     (prefills, chunks and round steps, calibrations included), all on the
+     tensor-core body (every read has 8 tokens or more), counted by tokens
+     a read; (c) the continuous run again on fresh engines over the same
+     costs, its tokens and token_times bit for bit; (d) one round of 8 slots
+     (2 dead, 2 exhausted mid-round) on the page pools against dense
+     per-slot caches gathered from them, logits and tokens bit for bit;
+     (g) one round step under the profiler; (e) the lossless tree under
+     ``continuous``, the share of tokens equal to solo serving printed
+     (not gated), and a 32-token prefill as 2 chunks of 16 against the
+     single-shot one; (f) the two SLA tiers (premium/adc9, bulk/adc6 over
+     the same planes, 4 slots: K4's decode body), every request on its
+     tier and premium's inter-token latency above bulk's;
   4. hold the update kernels and the transpose read against their plain
      versions: ``crs`` (planes at a 16-byte boundary and 5 bytes past
      one) and ``opa_deposit`` bit for bit at gemma-2b's four (M, N),
@@ -286,7 +306,7 @@ def phase_kernels(torch, K, ref, fp, spec, gen):
     dev = torch.device("cuda")
     max_err, worst = 0.0, 0.0
     timings = {}
-    shapes = [(m, n, b) for (m, n) in SLICE_SHAPES for b in (1, 4, 5, 16, 128, T_TRAIN)]
+    shapes = [(m, n, b) for (m, n) in SLICE_SHAPES for b in (*T_ROUNDS, 1, 4, 5, 16, 128, T_TRAIN)]
     shapes += [(m, n, b) for (m, n) in EDGE_SHAPES for b in (1, 4, 5, 16)]
     for M, N, B in shapes:
         planes = torch.randint(-8, 8, (spec.n_slices, M, N), generator=gen, device=dev, dtype=torch.int8)
@@ -348,7 +368,8 @@ def phase_kernels(torch, K, ref, fp, spec, gen):
 
 # K4's bodies as phase 2 times them, by their key in the timings
 BODY_NAMES = {"decode_ms": "decode body", "mma_ms": "tensor-core body", "dp4a_ms": "dp4a body (K5)"}
-T_BODIES = (1, 4, 5, 128)  # phase 2's timed token counts: decode (4) and its neighbours, the prefill (128)
+T_BODIES = (1, 4, 5, 8, 128)  # phase 2's timed token counts: decode (4) and its neighbours, a round (8), the prefill (128)
+T_ROUNDS = (2, 3, 6, 7, 8)  # the widths an engine round reads: 8 (phase 15's 8 slots) and other slot grids
 
 
 def layer_timings(timings, B):
@@ -3068,6 +3089,224 @@ def phase_fig10(torch, gen):
     return launches, timings, err
 
 
+# ------------------ the serving engine at full width (phase 15) -----------------
+
+ENGINE_REQUESTS = 32  # the reference bench's trace (src/repro/launch/serve.py:70-79)
+# (d): one round's step budgets over the 8 slots; slots 6 and 7 hold no request
+DENSE_CHECK_STEPS = (8, 8, 3, 8, 1, 8, 0, 0)
+
+
+def served_equal(a, b) -> bool:
+    """Two ``run_trace`` results with the same tokens and ``token_times``,
+    request by request, bit for bit."""
+    return [(r.rid, r.tokens, r.token_times) for r in a["requests"]] == \
+        [(r.rid, r.tokens, r.token_times) for r in b["requests"]]
+
+
+def print_summary(what, s):
+    print(f"  {what}: {s['tokens']} tokens in {s['makespan_s']:.3f} s virtual, {s['tokens_per_sec']:.2f} tokens/s; "
+          f"inter-token p50 {s['per_token_p50_ms']:.2f} / p99 {s['per_token_p99_ms']:.2f} ms; TTFT p50 "
+          f"{s['ttft_p50_ms']:.1f} / p99 {s['ttft_p99_ms']:.1f} ms", flush=True)
+
+
+def solo_tokens(torch, cfg, params, req):
+    """Greedy tokens of single-request serving: batch 1, dense caches,
+    scalar positions (``serve.step``)."""
+    from repro_torch.models import lm
+    from repro_torch.serve import kv_pages
+    from repro_torch.serve.step import make_decode_step, make_prefill
+
+    L = len(req.tokens)
+    logits, caches = make_prefill(cfg)(params, torch.as_tensor(req.tokens, device="cuda").long()[None])
+    caches = kv_pages.grow_caches(cfg, lm.unstack_caches(cfg, caches), L + req.out_len)
+    tok = torch.argmax(logits, dim=-1)
+    out, decode = [tok], make_decode_step(cfg)
+    for i in range(req.out_len - 1):
+        tok, _, caches = decode(params, tok.long(), caches, L + i)
+        out.append(tok)
+    return [int(t) for t in torch.cat(out).cpu()]
+
+
+def paged_against_dense(torch, cfg, params, trace, costs):
+    """(d): one round of 8 slots (6 requests, 2 dead slots, 2 exhausted
+    mid-round) on the engine's page pools, then the same steps on dense
+    per-slot caches gathered from the pools before the round, at the same
+    vector positions and width: every step's logits and tokens equal bit
+    for bit. Returns the engine (its slots still admitted)."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.models import lm
+    from repro_torch.models.common import paged_gather
+    from repro_torch.serve.engine import Engine
+
+    eng = Engine(cfg, params, n_slots=8, max_seq=160, page=16, chunk_size=16, costs=costs, device="cuda")
+    for req in trace[:6]:
+        job = eng.start(req.tokens)
+        while not job.finished:
+            eng.prefill_step(job)
+        eng.admit(job)
+    steps = np.asarray(DENSE_CHECK_STEPS)
+    T = int(steps.max())
+    before = tree.map(lambda t: t.clone(), eng.caches)
+    seen, decode_step = [], lm.decode_step
+
+    def recorded(cfg_, params_, tok, caches, pos):
+        logits, caches = decode_step(cfg_, params_, tok, caches, pos)
+        seen.append((tok.clone(), pos.clone(), logits.clone()))
+        return logits, caches
+
+    lm.decode_step = recorded
+    try:
+        toks, _ = eng.decode_round(T, steps)
+    finally:
+        lm.decode_step = decode_step
+    # a dead slot reads page P - 1 wherever its table holds the sentinel;
+    # that page held by no slot, nothing writes it during the round
+    if (eng.alloc.table == eng.spec.num_pages - 1).any() or len(seen) != T:
+        raise AssertionError(f"(d): page {eng.spec.num_pages - 1} allocated, or {len(seen)} steps for T={T}")
+    table = eng.alloc.device_table("cuda")
+    dense = tree.map(lambda pool: paged_gather(pool, table), before)
+    live_rows = torch.as_tensor(steps > 0, device="cuda")
+    for i, (tok, pos, logits_paged) in enumerate(seen):
+        with torch.no_grad():
+            logits, _ = decode_step(cfg, params, tok, dense, pos)
+        live = torch.as_tensor(steps > i, device="cuda")
+        nxt = torch.where(live, torch.argmax(logits, dim=-1), tok)
+        if not (torch.equal(logits[live_rows], logits_paged[live_rows]) and torch.equal(logits, logits_paged)
+                and (nxt.cpu().numpy() == toks[i]).all()):
+            diff = float((logits.float() - logits_paged.float()).abs().max())
+            raise AssertionError(f"(d) step {i}: dense vs paged logits max |diff| {diff}, tokens "
+                                 f"{nxt.cpu().tolist()} vs the engine's {toks[i].tolist()}")
+    print(f"  (d) one round, paged vs dense: {T} steps x 8 slots (budgets {steps.tolist()}), logits and tokens "
+          f"bit for bit", flush=True)
+    return eng
+
+
+def phase_engine(torch, K, gen):
+    """gemma-2b at full width through the continuous-batching engine."""
+    import contextlib
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch import plan as planlib
+    from repro_torch.kernels.sliced_mvm import ops as KOPS
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import lm
+    from repro_torch.optim import PantherConfig, panther
+    from repro_torch.serve import scheduler as sch
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.step import fidelity_params
+
+    cfg = configs.get("gemma_2b")
+    layers = cfg.n_layers
+    t0 = time.perf_counter()
+    opt_cfg = PantherConfig()
+    params0 = lm.init_params(cfg, gen, device="cuda")
+    digital, sliced = panther.init_split(params0, opt_cfg)
+    del params0
+    dense = panther.materialize_split(digital, sliced, opt_cfg)
+    adc9 = configs.fidelity_presets()["adc9"]
+    params = fidelity_params(dense, sliced, plan=planlib.resolve_plan(
+        dense, planlib.default_rules(opt_cfg, fidelity=adc9)))
+    trace = LS.bench_trace(cfg, ENGINE_REQUESTS, seed=0, rate=1e4)
+    print(f"engine: gemma-2b state {time.perf_counter() - t0:.1f} s; trace of {len(trace)} requests, prompts "
+          f"{sorted(collections.Counter(len(r.tokens) for r in trace).items())}, outputs "
+          f"{sorted(collections.Counter(r.out_len for r in trace).items())}; {LS.N_SLOTS} slots, page {LS.PAGE}, "
+          f"chunk {LS.CHUNK}, max_seq {LS.MAX_SEQ}", flush=True)
+
+    # (a)/(b): both policies through the adc9 tree on one cost table; every
+    # model pass counted (calibration runs too), K4's launches by token count
+    costs = {}
+    K.mvm_sliced_fused.launches = 0
+    K.mvm_sliced_fused.instances.clear()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        prefills = stack.enter_context(calls_by(Engine, "_prefill_fn", lambda a, k: len(a[1][0])))
+        chunks = stack.enter_context(calls_by(Engine, "_cont_fn", lambda a, k: len(a[1][0])))
+        rounds = stack.enter_context(calls_by(Engine, "_round_fn", lambda a, k: a[1]))
+        # K4's entry point: one launch a call on the card (the wrapper's own
+        # counts, read below, are by instance only)
+        by_tokens = stack.enter_context(calls_by(KOPS, "mvm_sliced_fused", lambda a, k: a[1].shape[0]))
+        runs, costs = LS.run_policies(cfg, params, trace, "cuda", costs)
+    wall = time.perf_counter() - t0
+    passes = sum(prefills.values()) + sum(chunks.values()) + sum(T * n for T, n in rounds.items())
+    want = 5 * layers * passes
+    bodies = {K.instance_name(False, 16, body=K.body_for(n, False)) for n in by_tokens}
+    print(f"  (a) both policies: wall {wall:.1f} s; prefills by length {dict(prefills)}, chunks {dict(chunks)}, "
+          f"rounds by T {dict(rounds)} (calibrations included); {len(costs)} costs calibrated: "
+          + ", ".join(f"{k}: {1e3 * v:.1f} ms" for k, v in sorted(costs.items(), key=str)), flush=True)
+    print(f"  (b) K4 launches {K.mvm_sliced_fused.launches} by instance {dict(K.mvm_sliced_fused.instances)}, "
+          f"by tokens a read {dict(sorted(by_tokens.items()))}", flush=True)
+    if (K.mvm_sliced_fused.launches != want or dict(K.mvm_sliced_fused.instances) != {"io16": want}
+            or sum(by_tokens.values()) != want or bodies != {"io16"}):
+        raise AssertionError(f"(b) K4 launches {K.mvm_sliced_fused.launches} ({dict(K.mvm_sliced_fused.instances)}) "
+                             f"!= 5 reads x {layers} layers x {passes} passes = {want}, all on the tensor-core body")
+    summaries = {p: sch.summarize(r) for p, r in runs.items()}
+    for policy, s in summaries.items():
+        print_summary(policy, s)
+    ratio = summaries["continuous"]["tokens_per_sec"] / summaries["static"]["tokens_per_sec"]
+    print(f"  continuous/static: {ratio:.3f}x tokens/s", flush=True)
+
+    # (c): the continuous run again on fresh engines over the same costs
+    again, _ = LS.run_policies(cfg, params, trace, "cuda", costs, policies=("continuous",))
+    if not served_equal(again["continuous"], runs["continuous"]):
+        raise AssertionError("(c) the repeated continuous run's tokens or token_times differ")
+    print("  (c) repeat run: tokens and token_times bit for bit", flush=True)
+
+    # (d): one round paged against dense
+    eng = paged_against_dense(torch, cfg, params, trace, costs)
+
+    # (g): one decode round step under the profiler
+    profile_step(torch, lambda: eng.decode_round(1), what="engine round step (8 slots, adc9)")
+    del eng
+
+    # (e): the lossless tree: the share of tokens equal to solo serving (not
+    # gated: cuBLAS may round a batch-8 and a batch-1 bf16 product apart),
+    # and one chunked prefill against the single-shot one
+    ll, ll_costs = LS.run_policies(cfg, dense, trace, "cuda", policies=("continuous",))
+    print_summary("lossless continuous", sch.summarize(ll["continuous"]))
+    same = total = 0
+    for r in ll["continuous"]["requests"]:
+        solo = solo_tokens(torch, cfg, dense, trace[r.rid])
+        same += sum(a == b for a, b in zip(r.tokens, solo))
+        total += len(solo)
+    long_prompt = next(r.tokens for r in trace if len(r.tokens) > LS.CHUNK)
+    eng = Engine(cfg, dense, n_slots=LS.N_SLOTS, max_seq=LS.MAX_SEQ, page=LS.PAGE, chunk_size=LS.CHUNK,
+                 costs=ll_costs, device="cuda")
+    job = eng.start(long_prompt)
+    while not job.finished:
+        eng.prefill_step(job)
+    with torch.no_grad():
+        single, _ = lm.prefill(cfg, dense, torch.as_tensor(long_prompt, device="cuda").long()[None])
+    chunk_gap = float((job.logits.float() - single.float()).abs().max())
+    print(f"  (e) lossless: {same} of {total} tokens ({100 * same / total:.1f}%) equal to solo serving; a "
+          f"{len(long_prompt)}-token prefill as {len(long_prompt) // LS.CHUNK} chunks of {LS.CHUNK} vs single-shot: "
+          f"max |logit diff| {chunk_gap} (max |logit| {float(single.float().abs().max())})", flush=True)
+    del eng, job
+
+    # (f): the two tiers over the same planes (4 slots: K4's decode body)
+    engines, _ = LS.tier_engines(cfg, dense, sliced, opt_cfg, "cuda")
+    ttrace = LS.tier_trace(cfg, ENGINE_REQUESTS, seed=0, rate=1e4)
+    t0 = time.perf_counter()
+    tiers = sch.run_trace(engines, ttrace, policy="continuous")
+    itl, mean = {}, {}
+    for tier in engines:
+        got = [r for r in tiers["requests"] if r.tier == tier]
+        s = sch.summarize({"requests": got})
+        itl[tier] = s["per_token_p50_ms"]
+        mean[tier] = 1e3 * float(np.mean([np.diff(r.token_times).mean() for r in got]))
+        print_summary(f"tier {tier} ({LS.TIER_DEFS[tier]}, {len(got)} requests)", s)
+    routed = sorted((r.rid, r.tier) for r in tiers["requests"]) == sorted((r.rid, r.tier) for r in ttrace)
+    print(f"  (f) tiers: wall {time.perf_counter() - t0:.1f} s, every request on its tier: {routed}; inter-token "
+          f"p50 premium {itl['premium']:.2f} ms, bulk {itl['bulk']:.2f} ms (the mean of each request's mean: "
+          f"{mean['premium']:.2f}, {mean['bulk']:.2f} ms)", flush=True)
+    if not routed or not itl["premium"] > itl["bulk"]:
+        raise AssertionError(f"(f) routing {routed}, inter-token p50 premium {itl['premium']} vs bulk {itl['bulk']}")
+    return {"round_launches": by_tokens[LS.N_SLOTS], "summaries": summaries}
+
+
 def main() -> int:
     import torch
 
@@ -3109,6 +3348,9 @@ def main() -> int:
     serving = phase_slice(torch, K, gen)
     torch.cuda.empty_cache()
     done("phase 3: serving")
+    engine = phase_engine(torch, K, gen)
+    torch.cuda.empty_cache()
+    done("phase 15: the serving engine")
     phase_update_kernels(torch, DEFAULT_SPEC, gen)
     phase_dense_kernels(torch, DEFAULT_SPEC, gen)
     deposit_launches = drive_deposit_entry(torch, DEFAULT_SPEC, gen)
@@ -3176,6 +3418,10 @@ def main() -> int:
     line = {"kernels": [
         serving_entry("mvm_sliced_fused", 4, K.body_for(4, False), ("mma_ms",)),
         serving_entry("mvm_sliced_fused_prefill", 128, K.body_for(128, False), ()),
+        # the engine's 8-slot decode round on the tensor-core body (phase 15;
+        # its launches: every 8-token read there, rounds and 8-token prefills)
+        {**serving_entry("mvm_sliced_fused_round", 8, K.body_for(8, False), ("mma_ms", "decode_ms")),
+         "launches": engine["round_launches"]},
         entry("mvm_sliced_fused_transpose", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
               "src/repro/kernels/sliced_mvm/kernel.py:367", t_err),
         entry("opa_fused", "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",

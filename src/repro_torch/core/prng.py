@@ -20,7 +20,9 @@ Python ints.
 rounding draw), whose element at flat index ``n`` is a pure function of
 the key and ``n`` (JAX's partitionable threefry), so any window of it can
 be drawn alone. ``normal(key, shape)`` is ``jax.random.normal``'s stream
-from it, through XLA's f32 ``ErfInv`` (``erfinv``).
+from it, through XLA's f32 ``ErfInv`` (``erfinv``); ``gumbel(key, shape)``
+is ``jax.random.gumbel``'s, and ``categorical(key, logits)`` the Gumbel-max
+draw of ``jax.random.categorical`` (sampled decoding).
 """
 from __future__ import annotations
 
@@ -154,3 +156,19 @@ def normal(key: tuple, shape: tuple, *, device=None) -> torch.Tensor:
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, minval=lo, maxval=1.0, device=device)
     return erfinv(u).mul_(float(np.float32(np.sqrt(2.0))))
+
+
+def gumbel(key: tuple, shape: tuple, *, device=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` (its default "low" mode):
+    ``-log(-log(u))`` with ``u`` uniform over ``[tiny, 1)``. The uniform draw
+    is bit for bit; torch's and XLA's f32 ``log`` differ by ulps, so the
+    noise can too (``tests/test_torch_serve_engine.py`` bounds them)."""
+    u = uniform(key, shape, minval=float(np.finfo(np.float32).tiny), maxval=1.0, device=device)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key: tuple, logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=dim)``: the index of the
+    largest ``logits + gumbel(key, logits.shape)`` along ``dim``, in f32."""
+    g = gumbel(key, tuple(logits.shape), device=logits.device)
+    return torch.argmax(g + logits.to(torch.float32), dim=dim)

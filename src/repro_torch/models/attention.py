@@ -1,11 +1,13 @@
 """Attention block (port of the dense GQA/MQA core of
 ``repro.models.attention``): RoPE, optional qk-norm, sandwich norm, logit
-softcap, an explicit additive mask, and a dense K/V cache for decode.
+softcap, an explicit additive mask, and a K/V cache for decode, dense or
+paged (a page pool per leaf read through a slot page table), at a scalar
+position or at one position a slot; the chunked-prefill continuation
+(``attn_cont``) processes a chunk of a prompt against a dense cache.
 
-Not ported yet: sliding windows, MLA, the chunked online-softmax path (the
-reference takes it above ``CHUNK_THRESHOLD`` keys; here longer sequences
-raise), chunked-prefill continuation, paged caches and per-slot vector
-positions.
+Not ported yet: sliding windows, MLA, and the chunked online-softmax path
+(the reference takes it above ``CHUNK_THRESHOLD`` keys; here longer
+sequences raise).
 """
 from __future__ import annotations
 
@@ -18,8 +20,12 @@ from .common import (
     ShapeDtype,
     apply_rope,
     dense_init,
+    is_paged_cache,
+    paged_gather,
+    paged_scatter,
     rms_norm,
     rms_norm_init,
+    seq_scatter,
     softcap,
     xbar_linear,
 )
@@ -28,9 +34,10 @@ from .mlp import mlp_apply, mlp_init
 CHUNK_THRESHOLD = 2048  # the reference switches to chunked attention above this
 
 
-def causal_mask(s_q: int, s_k: int, device=None):
-    """[s_q, s_k] additive causal mask."""
-    qpos = torch.arange(s_q, device=device)[:, None]
+def causal_mask(s_q: int, s_k: int, device=None, q_offset: int = 0):
+    """[s_q, s_k] additive causal mask; ``q_offset`` is the absolute
+    position of query 0 (a prefill continuation's chunk start)."""
+    qpos = torch.arange(s_q, device=device)[:, None] + q_offset
     kpos = torch.arange(s_k, device=device)[None, :]
     ok = kpos <= qpos
     zero = torch.zeros((), dtype=torch.float32, device=device)
@@ -71,8 +78,9 @@ def _qkv(cfg: LMConfig, p, h_in: torch.Tensor, positions: torch.Tensor):
 
 
 def _sdpa(cfg: LMConfig, q, k, v, mask):
-    """q [B,Sq,H,hd]; k/v [B,Sk,KV,hd]; mask [Sq,Sk] additive. Query heads
-    group as [B, Sq, KV, groups, hd]; logits and softmax in f32."""
+    """q [B,Sq,H,hd]; k/v [B,Sk,KV,hd]; mask additive, [Sq,Sk] or per slot
+    [B,1,1,1,Sk]. Query heads group as [B, Sq, KV, groups, hd]; logits and
+    softmax in f32."""
     B, Sq, H, hd = q.shape
     kv = k.shape[2]
     groups = H // kv
@@ -132,30 +140,72 @@ def _cache_load(entry: dict, dtype) -> torch.Tensor:
     return (entry["q"].to(torch.float32) * entry["s"]).to(dtype)
 
 
-def decode_posmask(pos: int, S: int, device=None) -> torch.Tensor:
-    """Additive ``[1, S]`` decode mask over ``S`` cached positions for a
-    scalar position ``pos``."""
-    ok = torch.arange(S, device=device) <= pos
+def decode_posmask(pos, S: int, device=None) -> torch.Tensor:
+    """Additive decode mask over ``S`` cached positions: ``[1, S]`` for a
+    scalar ``pos``, ``[B, S]`` per slot for a vector ``pos [B]`` (a dead
+    slot at the out-of-range sentinel sees every position, garbage only it
+    consumes)."""
+    kpos = torch.arange(S, device=device)
+    if is_vector(pos):
+        ok = kpos[None, :] <= pos[:, None]
+    else:
+        ok = (kpos <= pos)[None, :]
     zero = torch.zeros((), dtype=torch.float32, device=device)
-    return torch.where(ok, zero, torch.full_like(zero, -1e30))[None, :]
+    return torch.where(ok, zero, torch.full_like(zero, -1e30))
 
 
-def attn_decode(cfg: LMConfig, p, h, cache, pos: int):
-    """One-token decode against a dense cache ``{k, v: {q: [B, Smax, KV, hd]
-    (, s)}}`` at scalar position ``pos``. The new K/V are written into the
-    cache tensors in place (the reference returns updated copies; writing in
-    place keeps one resident cache)."""
+def is_vector(pos) -> bool:
+    """Whether a decode ``pos`` is one position a slot (``[B]``)."""
+    return isinstance(pos, torch.Tensor) and pos.dim() == 1
+
+
+def _entry_write(entry: dict, new: dict, pos, table=None) -> dict:
+    """Write a decoded token's stored K or V leaves (``_cache_store``) into
+    a cache entry in place: a paged scatter when a page ``table`` rides
+    along, a per-slot scatter for a vector ``pos``, a slice for a scalar
+    one."""
+    for leaf, val in new.items():
+        if table is not None:
+            paged_scatter(entry[leaf], table, val, pos)
+        elif is_vector(pos):
+            seq_scatter(entry[leaf], val, pos)
+        else:
+            entry[leaf][:, pos:pos + 1] = val
+    return entry
+
+
+def attn_decode(cfg: LMConfig, p, h, cache, pos):
+    """One-token decode. h [B,1,d]; ``pos`` a scalar (an int) or one
+    position a slot (``[B]``, on the device). ``cache`` is dense ``{k, v:
+    {q: [B, Smax, KV, hd] (, s)}}`` or paged ``{table, k, v}``, each leaf a
+    page pool ``[P + 1, page, KV, hd]`` read through ``table [B,
+    max_pages]`` (``models.common.paged_gather``). The new K/V are written
+    into the cache tensors in place (the reference returns updated copies;
+    writing in place keeps one resident cache); a dead slot's write lands
+    on the write-only page or is dropped, and its reads are masked."""
     _no_window(cfg)
     x = rms_norm(p["ln"], h, cfg.norm_eps)
-    positions = torch.arange(pos, pos + 1, device=h.device)  # made on the device: no host copy
+    vec = is_vector(pos)
+    if vec:
+        positions = pos[:, None]
+    else:
+        pos = int(pos)
+        positions = torch.arange(pos, pos + 1, device=h.device)  # made on the device: no host copy
     q, k_new, v_new = _qkv(cfg, p, x, positions)
     cdtype = cache["k"]["q"].dtype
-    for name, new in (("k", k_new), ("v", v_new)):
-        for leaf, val in _cache_store(new, cdtype).items():
-            cache[name][leaf][:, pos:pos + 1] = val
-    S = cache["k"]["q"].shape[1]
-    mask = decode_posmask(pos, S, device=h.device)
-    o = _sdpa(cfg, q, _cache_load(cache["k"], q.dtype), _cache_load(cache["v"], q.dtype), mask)
+    table = cache["table"] if is_paged_cache(cache) else None
+    wpos = pos if (table is None or vec) else torch.full((h.shape[0],), pos, device=h.device)
+    _entry_write(cache["k"], _cache_store(k_new, cdtype), wpos, table)
+    _entry_write(cache["v"], _cache_store(v_new, cdtype), wpos, table)
+    if table is not None:
+        kd = {leaf: paged_gather(c, table) for leaf, c in cache["k"].items()}
+        vd = {leaf: paged_gather(c, table) for leaf, c in cache["v"].items()}
+    else:
+        kd, vd = cache["k"], cache["v"]
+    mask = decode_posmask(pos, kd["q"].shape[1], device=h.device)
+    if vec:
+        mask = mask[:, None, None, None, :]  # [B,S] -> broadcast vs [B,kv,g,q,s]
+    o = _sdpa(cfg, q, _cache_load(kd, q.dtype), _cache_load(vd, q.dtype), mask)
     o = xbar_linear(o.reshape(*o.shape[:2], -1), p["wo"], h.dtype)
     if cfg.post_norm:
         o = rms_norm(p["post_ln"], o, cfg.norm_eps)
@@ -195,4 +245,36 @@ def block_prefill(cfg: LMConfig, p, h, positions):
 
 def block_decode(cfg: LMConfig, p, h, cache, pos):
     h, cache = attn_decode(cfg, p["attn"], h, cache, pos)
+    return mlp_apply(cfg, p["mlp"], h), cache
+
+
+# ------------------------ chunked-prefill continuation -----------------------
+# A chunk of C prompt tokens at absolute positions ``start .. start+C``
+# against a dense cache that already holds the first ``start`` positions
+# (zeros beyond, masked). The serving engine prefills long prompts a chunk
+# at a time this way, so decode slots never wait more than one chunk.
+
+
+def attn_cont(cfg: LMConfig, p, h, cache, positions, start: int):
+    """Prefill continuation of the GQA core. h [B,C,d]; ``positions`` [C]
+    absolute; ``start`` the chunk's first position; ``cache`` dense [B,
+    Stot, ...], written in place."""
+    _no_window(cfg)
+    x = rms_norm(p["ln"], h, cfg.norm_eps)
+    q, k_new, v_new = _qkv(cfg, p, x, positions)
+    cdtype = cache["k"]["q"].dtype
+    C = q.shape[1]
+    for name, new in (("k", k_new), ("v", v_new)):
+        for leaf, val in _cache_store(new, cdtype).items():
+            cache[name][leaf][:, start:start + C] = val
+    mask = causal_mask(C, cache["k"]["q"].shape[1], device=h.device, q_offset=start)
+    o = _sdpa(cfg, q, _cache_load(cache["k"], q.dtype), _cache_load(cache["v"], q.dtype), mask)
+    o = xbar_linear(o.reshape(*o.shape[:2], -1), p["wo"], h.dtype)
+    if cfg.post_norm:
+        o = rms_norm(p["post_ln"], o, cfg.norm_eps)
+    return h + o, cache
+
+
+def block_cont(cfg: LMConfig, p, h, cache, positions, start: int):
+    h, cache = attn_cont(cfg, p["attn"], h, cache, positions, start)
     return mlp_apply(cfg, p["mlp"], h), cache

@@ -410,3 +410,59 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, scale: float | None 
 def embed_init(gen: torch.Generator, vocab: int, d: int, *, device=None) -> torch.Tensor:
     w = torch.randn((vocab, d), generator=gen, dtype=torch.float32, device=device)
     return w.mul_(0.02)
+
+
+# ----------------------- paged KV-cache primitives ---------------------------
+# The serving engine (``repro_torch.serve``) keeps seq-axis cache leaves in a
+# shared page pool ``[P + 1, page, *tail]`` with a per-slot page table
+# ``table [n_slots, max_pages]`` (int32) mapping a logical page to a physical
+# one. The sentinel ``P`` marks unallocated and evicted entries. Pages
+# ``0..P-1`` hold data; page ``P`` is write-only: a write through the
+# sentinel lands there and nothing reads it as data, so a dead slot is inert
+# without a branch or a host sync (the reference drops such writes with
+# ``mode="drop"``, which torch's ``index_put_`` has no counterpart of; an
+# out-of-range index would be a device-side assert on the card, and clamping
+# the sentinel to ``P - 1`` would race a live slot's write to that page).
+# Reads clip the sentinel to page ``P - 1``, as the reference does: garbage,
+# masked by every consumer. Blocks detect a paged cache by the ``"table"``
+# key beside the leaves (``attention.attn_decode``).
+
+
+def is_paged_cache(cache) -> bool:
+    return isinstance(cache, dict) and "table" in cache
+
+
+def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The dense logical view ``[n_slots, max_pages*page, *tail]`` of a paged
+    leaf; sentinel entries read page ``P - 1``."""
+    P, page = pool.shape[0] - 1, pool.shape[1]
+    g = pool[table.clamp(0, P - 1)]  # [n_slots, max_pages, page, *tail]
+    return g.reshape(table.shape[0], table.shape[1] * page, *pool.shape[2:])
+
+
+def paged_scatter(pool: torch.Tensor, table: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Write one token a slot into ``pool`` in place at logical position
+    ``pos [n_slots]``; ``new [n_slots, 1, *tail]``. A slot whose logical
+    page is the sentinel (a dead slot, or ``pos`` past its pages) writes
+    the write-only page ``P``. Returns ``pool``."""
+    n_slots, max_pages = table.shape
+    P, page = pool.shape[0] - 1, pool.shape[1]
+    page_idx = torch.div(pos, page, rounding_mode="floor")
+    rows = torch.arange(n_slots, device=table.device)
+    phys = torch.where(page_idx < max_pages, table[rows, page_idx.clamp(0, max_pages - 1)].long(), P)
+    pool.index_put_((phys, torch.remainder(pos, page).long()), new[:, 0].to(pool.dtype))
+    return pool
+
+
+def seq_scatter(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Per-slot one-token write into a dense seq-axis leaf in place:
+    ``cache [B, S, *tail]``, ``new [B, 1, *tail]``, ``pos [B]``. A position
+    out of range (the dead-slot sentinel) is dropped: that row writes its
+    own old value back, and no other row shares it. Returns ``cache``."""
+    B, S = cache.shape[0], cache.shape[1]
+    rows = torch.arange(B, device=cache.device)
+    ok = (pos >= 0) & (pos < S)
+    at = pos.clamp(0, S - 1).long()
+    keep = ok.reshape(B, *([1] * (cache.dim() - 2)))
+    cache[rows, at] = torch.where(keep, new[:, 0].to(cache.dtype), cache[rows, at])
+    return cache

@@ -1,6 +1,7 @@
 """Transformer LM orchestrator (port of ``repro.models.lm``): pattern-driven
-block groups, the training forward and its loss, prefill with caches and
-single-token decode.
+block groups, the training forward and its loss, prefill with caches (and its
+chunked continuation), and single-token decode at a scalar position or one
+position a slot.
 
 A config's ``pattern`` is an ordered tuple of ``(block_name, count)``
 groups; a counted group keeps its params stacked on a leading ``[count,
@@ -29,6 +30,10 @@ class BlockDef(NamedTuple):
     prefill: Callable  # (cfg, params, h, ctx) -> (h, cache)
     decode: Callable  # (cfg, params, h, cache, ctx) -> (h, cache)
     cache_spec: Callable  # (cfg, B, S, dtype) -> tree of ShapeDtype
+    # chunked-prefill continuation: (cfg, params, h, cache, ctx) -> (h,
+    # cache), ctx["positions"] absolute, against a dense cache holding the
+    # positions below ctx["start"]. None: single-shot prefill only.
+    cont: Callable | None = None
 
 
 def _dense_init(cfg, gen, *, stack=(), device=None):
@@ -47,8 +52,13 @@ def _dense_decode(cfg, p, h, cache, ctx):
     return att.block_decode(cfg, p, h, cache, ctx["pos"])
 
 
+def _dense_cont(cfg, p, h, cache, ctx):
+    return att.block_cont(cfg, p, h, cache, ctx["positions"], ctx["start"])
+
+
 BLOCKS: dict[str, BlockDef] = {
-    "dense": BlockDef(_dense_init, _dense_apply, _dense_prefill, _dense_decode, att.attn_cache_spec),
+    "dense": BlockDef(_dense_init, _dense_apply, _dense_prefill, _dense_decode, att.attn_cache_spec,
+                      _dense_cont),
 }
 
 
@@ -188,15 +198,19 @@ def loss_fn(cfg: LMConfig, params, batch) -> torch.Tensor:
     return _nll_of_chunk(cfg, params, h, labels, table).sum() / float(B * S)
 
 
-def cache_specs(cfg: LMConfig, batch: int, max_seq: int, dtype=None):
-    """Cache specs in the stacked layout prefill returns: ``[count, ...]``
-    per counted group."""
+def cache_specs(cfg: LMConfig, batch: int, max_seq: int, dtype=None, layout: str = "stacked"):
+    """Cache specs. ``layout="stacked"``: ``[count, ...]`` per counted group,
+    the layout prefill returns; ``"list"``: one tree a layer, the decode
+    layout."""
     dtype = dtype or cfg.dtype
     specs = []
     for name, count in cfg.pattern:
         spec = _block(name).cache_spec(cfg, batch, max_seq, dtype)
         if count > 1:
-            spec = tree.map(lambda s: ShapeDtype((count, *s.shape), s.dtype), spec)
+            if layout == "stacked":
+                spec = tree.map(lambda s: ShapeDtype((count, *s.shape), s.dtype), spec)
+            else:
+                spec = [spec for _ in range(count)]
         specs.append(spec)
     return specs
 
@@ -215,16 +229,32 @@ def init_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None, device=None)
                     cache_specs(cfg, batch, max_seq, dtype))
 
 
-def prefill(cfg: LMConfig, params, inputs: torch.Tensor):
+def prefill(cfg: LMConfig, params, inputs: torch.Tensor, caches=None, start: int = 0):
     """Full-sequence prefill. Returns (last-position logits [B, V], caches in
-    the stacked layout)."""
+    the stacked layout).
+
+    Chunked continuation: pass ``caches`` (the stacked layout, from a
+    previous call or zeros at the full prompt length) and ``start``, the
+    absolute position of ``inputs[:, 0]``; each block's ``cont`` processes
+    the chunk against the cache, which is written in place and returned.
+    Every block of the pattern needs a ``cont`` (``supports_chunked_prefill``)."""
     table = _table(cfg, params)
     h = _embed_in(cfg, params, inputs, table)
-    ctx = {"positions": torch.arange(h.shape[1], device=h.device)}
+    start = int(start)
+    ctx = {"positions": torch.arange(start, start + h.shape[1], device=h.device), "start": start}
     out_caches = []
-    for (name, count), gparams in zip(cfg.pattern, params["groups"]):
+    for gi, ((name, count), gparams) in enumerate(zip(cfg.pattern, params["groups"])):
         block = _block(name)
-        if count == 1:
+        if caches is not None:
+            if block.cont is None:
+                raise NotImplementedError(f"block {name!r} does not support chunked prefill (no cont)")
+            cache = caches[gi]
+            if count == 1:
+                h, cache = block.cont(cfg, gparams, h, cache, ctx)
+            else:
+                for i in range(count):  # each layer writes its view of the stacked cache
+                    h, _ = block.cont(cfg, layer(gparams, i), h, tree.map(lambda x: x[i], cache), ctx)
+        elif count == 1:
             h, cache = block.prefill(cfg, gparams, h, ctx)
         else:
             per_layer = []
@@ -237,14 +267,21 @@ def prefill(cfg: LMConfig, params, inputs: torch.Tensor):
     return _head_out(cfg, params, h[:, -1:], table)[:, 0], out_caches
 
 
-def decode_step(cfg: LMConfig, params, token: torch.Tensor, caches, pos: int):
-    """One decode step. token [B] ids; caches in the list layout; ``pos`` the
-    scalar position of ``token``. Returns (logits [B, V], caches), the caches
-    updated in place."""
+def supports_chunked_prefill(cfg: LMConfig) -> bool:
+    """Whether every block of ``cfg.pattern`` has a prefill continuation
+    (``BlockDef.cont``); the serving engine prefills single-shot otherwise."""
+    return all(_block(name).cont is not None for name, _ in cfg.pattern)
+
+
+def decode_step(cfg: LMConfig, params, token: torch.Tensor, caches, pos):
+    """One decode step. token [B] ids; caches in the list layout, dense or
+    paged (``serve.kv_pages.with_tables``); ``pos`` the scalar position of
+    ``token`` (an int) or one position a slot (``[B]`` on the device).
+    Returns (logits [B, V], caches), the caches updated in place."""
     inp = token[:, None] if cfg.input_mode == "tokens" else token
     table = _table(cfg, params)
     h = _embed_in(cfg, params, inp, table)
-    ctx = {"pos": int(pos)}
+    ctx = {"pos": pos if att.is_vector(pos) else int(pos)}
     new_caches = []
     for (name, count), gparams, cache in zip(cfg.pattern, params["groups"], caches):
         block = _block(name)

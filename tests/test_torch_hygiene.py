@@ -216,3 +216,76 @@ def test_chip_smoke_fails_without_a_card():
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_serving_entry_points_without_a_device_run_on_cuda_or_raise():
+    from repro_torch import configs
+    from repro_torch.examples import serve_batched
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry points would run on it")
+    cfg = configs.get_smoke("gemma_2b")
+    params = lm.init_params(cfg, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Engine(cfg, params, n_slots=2, max_seq=16, page=4)
+    for argv in (["--smoke", "--tokens", "2"], ["--smoke", "--trace"]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            launch_serve.main(argv)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_batched.main([])
+    # asked for the CPU, the engine keeps its pools and slot state there
+    eng = Engine(cfg, params, n_slots=2, max_seq=16, page=4, device="cpu")
+    assert eng.caches[0][0]["k"]["q"].device.type == eng.tok.device.type == "cpu"
+
+
+@pytest.mark.cuda
+def test_one_engine_round_on_the_card_matches_the_cpu():
+    """One decode round of the engine on the card against the same round on
+    the CPU (the plain versions), from the same weights: on a lossless f32
+    tree the tokens are equal; through an adc9 tree every read of the round
+    launches K4 on its decode body (2 slots), 5 reads a layer a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs, tree
+    from repro_torch import plan as planlib
+    from repro_torch.kernels.sliced_mvm import kernel as K
+    from repro_torch.models import lm
+    from repro_torch.optim import PantherConfig, panther
+    from repro_torch.serve import Engine, fidelity_params
+
+    cfg = dataclasses.replace(configs.get_smoke("gemma_2b"), dtype=torch.float32)
+    opt = PantherConfig()
+    prompts = [np.arange(5, dtype=np.int32) * 7 % cfg.vocab, np.arange(3, dtype=np.int32) * 5 % cfg.vocab]
+    T = 4
+
+    def one_round(device, fidelity=None):
+        params0 = tree.map(lambda t: t.to(device), lm.init_params(cfg, 0, device="cpu"))
+        digital, sliced = panther.init_split(params0, opt)
+        params = panther.materialize_split(digital, sliced, opt)
+        if fidelity is not None:
+            plan = planlib.resolve_plan(params, planlib.default_rules(opt, fidelity=fidelity))
+            params = fidelity_params(params, sliced, plan=plan)
+        costs = {("prefill", len(p)): 0.0 for p in prompts} | {("round", T): 0.0}
+        eng = Engine(cfg, params, n_slots=2, max_seq=16, page=4, device=device, costs=costs)
+        for p in prompts:
+            job = eng.start(p)
+            eng.prefill_step(job)
+            eng.admit(job)
+        toks, _ = eng.decode_round(T)
+        return toks
+
+    assert (one_round("cuda") == one_round("cpu")).all()
+    K.mvm_sliced_fused.launches = 0
+    K.mvm_sliced_fused.instances.clear()
+    toks = one_round("cuda", configs.fidelity_presets()["adc9"])
+    assert ((0 <= toks) & (toks < cfg.vocab)).all()
+    layers = sum(count for _, count in cfg.pattern)
+    on_decode = T + sum(K.body_for(len(p), False) == "decode" for p in prompts)  # the 3-token prefill too
+    assert K.mvm_sliced_fused.instances[K.instance_name(False, 16, body="decode")] == 5 * layers * on_decode
