@@ -43,6 +43,24 @@ Phases:
      single-shot one; (f) the two SLA tiers (premium/adc9, bulk/adc6 over
      the same planes, 4 slots: K4's decode body), every request on its
      tier and premium's inter-token latency above bulk's;
+ 16. (run after 15, on its state) the engine on the crossbar-cycle clock:
+     (a) ``IsaClock.from_plan`` over the adc9 plan the tree serves, at 8
+     slots (``s_per_token`` equal to ``token_latency_ns`` of
+     ``lm.param_shapes`` · 1e-9), phase 15's trace under ``continuous``
+     and ``static`` on it with ``Engine._calibrate`` refused: the
+     crossbar-clock summaries, passes by kind, K4's launches equal to 5
+     reads x 18 layers x the passes, all on the tensor-core body; (b) the
+     same trace (tokens mapped into its vocabulary) and clock through the
+     ``launch.serve`` bench's narrow model: summaries and every request's
+     ``token_times`` equal (a)'s; (c) ``launch.serve --trace --isa-clock``
+     on the card: its ``crossbar_clock`` and tier tokens/s equal to
+     ``BENCH_serve.json``'s exactly, the tiers reading through K4 at adc9
+     and adc6, their 4-slot rounds on the decode body; (d) the first K4 read
+     of (a)'s first round against its plain version, bit for bit; (e)
+     gemma-2b's compiled training step (``compile_plan`` over
+     ``lm.param_shapes`` at 256 tokens, the default plan), its instruction
+     count and host seconds, ``systems_summary`` within 1e-12 of the
+     reference's ratios;
   4. hold the update kernels and the transpose read against their plain
      versions: ``crs`` (planes at a 16-byte boundary and 5 bytes past
      one) and ``opa_deposit`` bit for bit at gemma-2b's four (M, N),
@@ -3208,8 +3226,8 @@ def phase_engine(torch, K, gen):
     del params0
     dense = panther.materialize_split(digital, sliced, opt_cfg)
     adc9 = configs.fidelity_presets()["adc9"]
-    params = fidelity_params(dense, sliced, plan=planlib.resolve_plan(
-        dense, planlib.default_rules(opt_cfg, fidelity=adc9)))
+    adc9_plan = planlib.resolve_plan(dense, planlib.default_rules(opt_cfg, fidelity=adc9))
+    params = fidelity_params(dense, sliced, plan=adc9_plan)
     trace = LS.bench_trace(cfg, ENGINE_REQUESTS, seed=0, rate=1e4)
     print(f"engine: gemma-2b state {time.perf_counter() - t0:.1f} s; trace of {len(trace)} requests, prompts "
           f"{sorted(collections.Counter(len(r.tokens) for r in trace).items())}, outputs "
@@ -3304,7 +3322,209 @@ def phase_engine(torch, K, gen):
           f"{mean['premium']:.2f}, {mean['bulk']:.2f} ms)", flush=True)
     if not routed or not itl["premium"] > itl["bulk"]:
         raise AssertionError(f"(f) routing {routed}, inter-token p50 premium {itl['premium']} vs bulk {itl['bulk']}")
-    return {"round_launches": by_tokens[LS.N_SLOTS], "summaries": summaries}
+    return {"round_launches": by_tokens[LS.N_SLOTS], "summaries": summaries,
+            "state": {"cfg": cfg, "dense": dense, "params": params, "plan": adc9_plan, "trace": trace}}
+
+
+# ---------------- the engine on the crossbar-cycle clock (phase 16) --------------
+
+# the reference's serving record on the crossbar clock (BENCH_serve.json,
+# written by ``python -m repro.launch.serve --trace --isa-clock``), held exactly
+SERVE_RECORD = "BENCH_serve.json"
+# gemma-2b at full width, the default (lossless) plan, one compiled training
+# step of 256 tokens: the in-process reference's systems_summary (JAX 0.9.0
+# on the CPU), held to GEMMA_SUMMARY_RTOL
+GEMMA_SUMMARY = {"vs_digital": 7.4005738284279206, "vs_serial_write": 1.227212538270422}
+GEMMA_SUMMARY_RTOL = 1e-12
+
+
+class first_round_read:
+    """While inside, keeps the inputs of the first K4 read
+    (``ops.mvm_sliced_fused``) made inside an engine decode round
+    (``Engine._round_fn``): ``(args, kwargs)`` with ``x`` cloned."""
+
+    def __init__(self, torch, Engine, KOPS):
+        self.torch, self.Engine, self.KOPS = torch, Engine, KOPS
+
+    def __enter__(self):
+        self.saved = self.Engine._round_fn, self.KOPS.mvm_sliced_fused
+        round_fn, read = self.saved
+        kept, depth = [], [0]
+
+        def in_round(*a, **k):
+            depth[0] += 1
+            try:
+                return round_fn(*a, **k)
+            finally:
+                depth[0] -= 1
+
+        def reading(*a, **k):
+            if depth[0] and not kept:
+                kept.append(((a[0], a[1].clone(), *a[2:]), dict(k)))
+            return read(*a, **k)
+
+        self.Engine._round_fn, self.KOPS.mvm_sliced_fused = in_round, reading
+        return kept
+
+    def __exit__(self, *exc):
+        self.Engine._round_fn, self.KOPS.mvm_sliced_fused = self.saved
+
+
+class no_calibration:
+    """While inside, ``Engine._calibrate`` raises: a clock that prices every
+    key leaves nothing to calibrate, and host timing never stands in for it."""
+
+    def __init__(self, Engine):
+        self.Engine = Engine
+
+    def __enter__(self):
+        self.saved = self.Engine._calibrate
+
+        def refused(*a, **k):
+            raise AssertionError("Engine._calibrate called under the crossbar clock")
+
+        self.Engine._calibrate = refused
+
+    def __exit__(self, *exc):
+        self.Engine._calibrate = self.saved
+
+
+def timings_equal(a, b) -> bool:
+    """Two ``run_trace`` results with the same ``token_times``, request by
+    request (the tokens depend on the model)."""
+    return [(r.rid, r.token_times) for r in a["requests"]] == [(r.rid, r.token_times) for r in b["requests"]]
+
+
+def phase_isa_clock(torch, K, ref, state):
+    """The serving engine on the crossbar-cycle clock and the ISA pipeline:
+    gemma-2b at full width through the adc9 tree (a), the bench's narrow
+    model on the same clock (b), the reference's serving record (c), one
+    round's K4 read against its plain version (d), gemma-2b's compiled
+    training step (e)."""
+    import contextlib
+    import dataclasses
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch import plan as planlib
+    from repro_torch.isa import plan_compile as pc
+    from repro_torch.kernels.sliced_mvm import ops as KOPS
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import lm
+    from repro_torch.optim import PantherConfig
+    from repro_torch.serve import scheduler as sch
+    from repro_torch.serve.engine import Engine
+
+    cfg, trace = state["cfg"], state["trace"]
+    layers = sum(n for _, n in cfg.pattern)
+
+    # (a): the clock of the adc9 plan the tree serves, at 8 slots; both
+    # policies on it, every model pass counted, nothing calibrated
+    clock = sch.IsaClock.from_plan(state["dense"], state["plan"], n_slots=LS.N_SLOTS)
+    want_s = pc.token_latency_ns(lm.param_shapes(cfg), state["plan"]) * 1e-9
+    print(f"isa clock: gemma-2b adc9, {LS.N_SLOTS} slots: s_per_token {clock.s_per_token!r} (token_latency_ns · "
+          f"1e-9 of lm.param_shapes: {want_s!r})", flush=True)
+    if clock.s_per_token != want_s or not clock.s_per_token > 0:
+        raise AssertionError(f"(a) s_per_token {clock.s_per_token!r} != {want_s!r}")
+    K.mvm_sliced_fused.launches = 0
+    K.mvm_sliced_fused.instances.clear()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(no_calibration(Engine))
+        prefills = stack.enter_context(calls_by(Engine, "_prefill_fn", lambda a, k: len(a[1][0])))
+        chunks = stack.enter_context(calls_by(Engine, "_cont_fn", lambda a, k: len(a[1][0])))
+        rounds = stack.enter_context(calls_by(Engine, "_round_fn", lambda a, k: a[1]))
+        by_tokens = stack.enter_context(calls_by(KOPS, "mvm_sliced_fused", lambda a, k: a[1].shape[0]))
+        kept = stack.enter_context(first_round_read(torch, Engine, KOPS))
+        runs, _ = LS.run_policies(cfg, state["params"], trace, "cuda", clock)
+    wall = time.perf_counter() - t0
+    launches, instances = K.mvm_sliced_fused.launches, dict(K.mvm_sliced_fused.instances)
+    passes = sum(prefills.values()) + sum(chunks.values()) + sum(T * n for T, n in rounds.items())
+    want = 5 * layers * passes
+    summaries = {p: sch.summarize(r) for p, r in runs.items()}
+    for policy, s in summaries.items():
+        print_summary(f"crossbar clock, {policy}", s)
+    speedup = summaries["continuous"]["tokens_per_sec"] / summaries["static"]["tokens_per_sec"]
+    print(f"  (a) both policies: wall {wall:.1f} s; tokens/s continuous {summaries['continuous']['tokens_per_sec']!r}, "
+          f"static {summaries['static']['tokens_per_sec']!r}, speedup {speedup!r}; prefills by length "
+          f"{dict(prefills)}, chunks {dict(chunks)}, rounds by T {dict(rounds)}: {passes} passes; K4 launches "
+          f"{launches} by instance {instances}, by tokens a read {dict(sorted(by_tokens.items()))}; nothing "
+          f"calibrated", flush=True)
+    if launches != want or instances != {"io16": want} or sum(by_tokens.values()) != want or not kept:
+        raise AssertionError(f"(a) K4 launches {launches} ({instances}) != 5 reads x {layers} layers x {passes} "
+                             f"passes = {want} on the tensor-core body, or no round read kept")
+
+    # (b): the bench's narrow model on the same clock object: the same
+    # schedule (tokens mapped into its vocabulary)
+    ncfg = LS.bench_config("gemma-2b")
+    nparams, _, _ = LS._weights(ncfg, torch.device("cuda"))
+    ntrace = [dataclasses.replace(r, tokens=r.tokens % ncfg.vocab) for r in trace]
+    t0 = time.perf_counter()
+    with no_calibration(Engine):
+        nruns, _ = LS.run_policies(ncfg, nparams, ntrace, "cuda", clock)
+    for policy in runs:
+        same = sch.summarize(nruns[policy]) == summaries[policy] and timings_equal(nruns[policy], runs[policy])
+        if not same:
+            raise AssertionError(f"(b) {policy}: the narrow model's schedule differs from gemma-2b's on one clock")
+    print(f"  (b) the narrow model (d {ncfg.d_model}, {sum(n for _, n in ncfg.pattern)} layers) on the same "
+          f"clock: wall {time.perf_counter() - t0:.1f} s; summaries and every request's token_times equal (a)'s",
+          flush=True)
+    del nparams
+
+    # (c): the reference's serving record, through the launcher on the card
+    record = json.loads((Path(__file__).resolve().parent / SERVE_RECORD).read_text())
+    K.mvm_sliced_fused.instances.clear()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, no_calibration(Engine), \
+            calls_by(KOPS, "mvm_sliced_fused", lambda a, k: (a[1].shape[0], k.get("adc_bits"))) as tier_reads:
+        out = LS.main(["--trace", "--isa-clock", "--out", str(Path(tmp) / "serve.json")])
+        written = json.loads((Path(tmp) / "serve.json").read_text())
+    tier_instances = dict(K.mvm_sliced_fused.instances)
+    tps = {t: out["tiers"][t]["tokens_per_sec"] for t in LS.TIER_DEFS}
+    print(f"  (c) launch.serve --trace --isa-clock: wall {time.perf_counter() - t0:.1f} s; crossbar_clock "
+          f"{ {k: v for k, v in out['crossbar_clock'].items() if k != 'note'} }; tiers tokens/s {tps}; K4 reads by "
+          f"(tokens, adc) {dict(sorted(tier_reads.items(), key=str))}, by instance {tier_instances}", flush=True)
+    if (out["crossbar_clock"] != record["crossbar_clock"] or written != json.loads(json.dumps(out))
+            or any(tps[t] != record["tiers"][t]["tokens_per_sec"] for t in tps)
+            or not out["_meta"]["isa_clock"]):
+        raise AssertionError(f"(c) the record differs from {SERVE_RECORD}: {out['crossbar_clock']} vs "
+                             f"{record['crossbar_clock']}, tiers {tps}")
+    adcs = {adc for (_, adc) in tier_reads}
+    if adcs != {9, 6} or not any(n <= LS.TIER_SLOTS for n, _ in tier_reads) \
+            or not any(k.endswith("_decode") for k in tier_instances):
+        raise AssertionError(f"(c) tier reads {dict(tier_reads)}, instances {tier_instances}: adc9 and adc6 reads "
+                             f"expected, the 4-slot rounds on the decode body")
+
+    # (d): the kept 8-slot round read against its plain version, bit for bit
+    (planes, x, frac, spec), kw = kept[0][0][:4], kept[0][1]
+    frac = torch.as_tensor(frac, dtype=torch.int32, device=planes.device).reshape(1)
+    dev = KOPS._normalize_read_device(kw.get("device"))
+    read = dict(io_bits=kw.get("io_bits", 16), adc_bits=kw.get("adc_bits"), transpose=kw.get("transpose", False),
+                tile0=kw.get("tile0", 0), col0=kw.get("col0", 0))
+    got = K.mvm_sliced_fused(planes, x.float().contiguous(), frac, spec=spec, dev=dev, **read)
+    plain = ref.mvm_sliced_fused_ref(planes, x.float(), frac[0], spec, device=dev, **read)
+    err = float((got - plain).abs().max())
+    print(f"  (d) the first round's first K4 read ({tuple(x.shape)} x planes {tuple(planes.shape)}, adc "
+          f"{kw.get('adc_bits')}): kernel vs plain max |diff| {err}, bit for bit {torch.equal(got, plain)}",
+          flush=True)
+    if not torch.equal(got, plain) or x.shape[0] != LS.N_SLOTS:
+        raise AssertionError(f"(d) kernel vs plain on the round read: max |diff| {err}")
+
+    # (e): gemma-2b's compiled training step at full width (host arithmetic)
+    t0 = time.perf_counter()
+    shapes = lm.param_shapes(configs.get("gemma_2b"))
+    prog = pc.compile_plan(shapes, planlib.resolve_plan(shapes, planlib.default_rules(PantherConfig())), tokens=256)
+    t_compile = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary = pc.systems_summary(prog)
+    t_summary = time.perf_counter() - t0
+    print(f"  (e) gemma-2b compile_plan(tokens=256): {len(prog.meta['leaves'])} mapped leaves, "
+          f"{sum(v['tiles'] for v in prog.meta['leaves'].values())} tiles, {prog.total_instrs()} instructions in "
+          f"{t_compile:.1f} host s; systems_summary in {t_summary:.1f} host s: {summary}", flush=True)
+    for k, v in GEMMA_SUMMARY.items():
+        if not abs(summary[k] - v) <= GEMMA_SUMMARY_RTOL * v:
+            raise AssertionError(f"(e) {k} {summary[k]!r} vs the reference's {v!r}")
+    return {"launches": launches, "max_abs_err": err, "summaries": summaries}
 
 
 def main() -> int:
@@ -3349,8 +3569,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     done("phase 3: serving")
     engine = phase_engine(torch, K, gen)
-    torch.cuda.empty_cache()
     done("phase 15: the serving engine")
+    isa_clock = phase_isa_clock(torch, K, ref, engine.pop("state"))
+    torch.cuda.empty_cache()
+    done("phase 16: the crossbar-cycle clock and the ISA pipeline")
     phase_update_kernels(torch, DEFAULT_SPEC, gen)
     phase_dense_kernels(torch, DEFAULT_SPEC, gen)
     deposit_launches = drive_deposit_entry(torch, DEFAULT_SPEC, gen)
@@ -3422,6 +3644,11 @@ def main() -> int:
         # its launches: every 8-token read there, rounds and 8-token prefills)
         {**serving_entry("mvm_sliced_fused_round", 8, K.body_for(8, False), ("mma_ms", "decode_ms")),
          "launches": engine["round_launches"]},
+        # the engine on the crossbar clock (phase 16 (a)): every K4 launch
+        # of its two policies; the time fields are the 8-token entry's above
+        # (the same read, timed in phase 2 of this run), the error (d)'s
+        {**serving_entry("mvm_sliced_fused_isa_clock", 8, K.body_for(8, False), ("mma_ms", "decode_ms")),
+         "launches": isa_clock["launches"], "max_abs_err": isa_clock["max_abs_err"]},
         entry("mvm_sliced_fused_transpose", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
               "src/repro/kernels/sliced_mvm/kernel.py:367", t_err),
         entry("opa_fused", "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",

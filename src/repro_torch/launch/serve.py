@@ -16,14 +16,23 @@ latency (~2x sample cost per +2 bits, the trend ``benchmarks.fig10_hetero``
 prices energy with). The results are written as JSON only to ``--out
 PATH``; without it nothing is written.
 
+``--isa-clock`` prices the virtual clock in compiled crossbar cycles
+(``serve.scheduler.IsaClock.from_plan``) instead of host calibration: the
+headline clock from the lossless plan at ``N_SLOTS``, each tier's from its
+own plan at ``TIER_SLOTS`` (its ADC factor composing through
+``cost_scale``), and the record gains a ``crossbar_clock`` section. Nothing
+is calibrated then, so every tokens/s of the record is the reference's
+exactly, on any device and for any weights; only the tiers' losses depend
+on the weights.
+
 Runs on the card (``--device cuda``, the default; without one it raises) or
 on the CPU with the plain versions (``--device cpu``). Random weights from
 seed 0 (torch's generator: the reference's draws come from
-``jax.random``). ``--isa-clock`` needs ``isa.plan_compile`` and raises
-until it is ported.
+``jax.random``).
 
 ``python -m repro_torch.launch.serve --smoke --device cpu --tokens 8``
 ``python -m repro_torch.launch.serve --trace --smoke --device cpu --out serve.json``
+``python -m repro_torch.launch.serve --trace --isa-clock --device cpu --out serve.json``
 """
 from __future__ import annotations
 
@@ -56,6 +65,19 @@ OUT_CHOICES = ((4, 0.75), (120, 0.25))  # bimodal: chat turns + long generations
 N_SLOTS, PAGE, CHUNK, MAX_SEQ = 8, 16, 16, 160
 TIER_DEFS = {"premium": "adc9", "bulk": "adc6"}
 TIER_SLOTS, TIER_MAX_SEQ, TIER_PAGE = 4, 48, 16
+
+
+def bench_config(arch: str, smoke: bool = False):
+    """The trace bench's model: the smoke config, or (the default) the
+    reference's CPU-sized one (d_model 256, 4 layers, vocab 512), which
+    isolates the scheduling policy and the tier frontier."""
+    from repro_torch import configs
+
+    cfg = configs.get_smoke(arch)
+    if smoke:
+        return cfg
+    return dataclasses.replace(cfg, d_model=256, n_heads=8, n_kv_heads=2, head_dim=32, d_ff=512, vocab=512,
+                               pattern=(("dense", 4),))
 
 
 def bench_trace(cfg, n_requests: int, seed: int, rate: float):
@@ -93,12 +115,14 @@ def run_policies(cfg, params, trace, device, costs=None, policies=("continuous",
     return results, costs
 
 
-def tier_engines(cfg, params, sliced, opt_cfg, device, costs=None):
+def tier_engines(cfg, params, sliced, opt_cfg, device, isa_clock: bool = False):
     """The two SLA tiers' param trees over the same sliced planes and their
     engines (4 slots, ``max_seq`` 48), each tier's cost scaled by its ADC
-    resolution; without ``costs`` each engine calibrates its own keys."""
+    resolution. Each engine calibrates its own keys, or with ``isa_clock``
+    runs on its own ``IsaClock`` from its tier plan at ``TIER_SLOTS``."""
     from repro_torch import configs
     from repro_torch import plan as planlib
+    from repro_torch.serve import scheduler as sch
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.step import fidelity_params
 
@@ -107,6 +131,7 @@ def tier_engines(cfg, params, sliced, opt_cfg, device, costs=None):
     for tier, adc in TIER_DEFS.items():
         tier_plan = planlib.resolve_plan(params, planlib.default_rules(opt_cfg, fidelity=presets[adc]))
         trees[tier] = fidelity_params(params, sliced, plan=tier_plan)
+        costs = sch.IsaClock.from_plan(params, tier_plan, n_slots=TIER_SLOTS) if isa_clock else None
         engines[tier] = Engine(cfg, trees[tier], n_slots=TIER_SLOTS, max_seq=TIER_MAX_SEQ, page=TIER_PAGE,
                                costs=costs, cost_scale=adc_latency_factor(presets[adc].adc_bits_fwd),
                                device=device)
@@ -127,22 +152,23 @@ def _weights(cfg, device):
 
 def run_trace_bench(args, device):
     from repro_torch import configs
+    from repro_torch import plan as planlib
     from repro_torch.models import lm
     from repro_torch.serve import scheduler as sch
 
-    cfg = configs.get_smoke(args.arch)
-    if not args.smoke:
-        # the bench's CPU-sized model (the reference's): it isolates the
-        # scheduling policy and the tier frontier
-        cfg = dataclasses.replace(cfg, d_model=256, n_heads=8, n_kv_heads=2, head_dim=32, d_ff=512, vocab=512,
-                                  pattern=(("dense", 4),))
+    cfg = bench_config(args.arch, args.smoke)
     params, sliced, opt_cfg = _weights(cfg, device)
     n_requests = args.requests or (24 if args.smoke else 32)
     trace = bench_trace(cfg, n_requests, args.seed, args.rate)
 
     # headline: static barrier vs continuous batching, lossless params, on
-    # one shared cost table
-    runs, _ = run_policies(cfg, params, trace, device)
+    # one shared cost table: calibrated, or the crossbar clock of the
+    # lossless plan
+    costs = None
+    if args.isa_clock:
+        serve_plan = planlib.resolve_plan(params, planlib.default_rules(opt_cfg))
+        costs = sch.IsaClock.from_plan(params, serve_plan, n_slots=N_SLOTS)
+    runs, _ = run_policies(cfg, params, trace, device, costs)
     results = {p: sch.summarize(r) for p, r in runs.items()}
     speedup = results["continuous"]["tokens_per_sec"] / results["static"]["tokens_per_sec"]
     print(f"continuous/static speedup: {speedup:.2f}x")
@@ -153,7 +179,7 @@ def run_trace_bench(args, device):
     batch = {k: torch.randint(0, cfg.vocab, (2, 32), generator=gen, device=device) for k in ("inputs", "labels")}
     with torch.no_grad():
         lossless_loss = float(lm.loss_fn(cfg, params, batch))
-    engines, trees = tier_engines(cfg, params, sliced, opt_cfg, device)
+    engines, trees = tier_engines(cfg, params, sliced, opt_cfg, device, isa_clock=args.isa_clock)
     t0 = time.time()
     tier_res = sch.run_trace(engines, ttrace, policy="continuous")
     print(f"tier trace wall {time.time() - t0:.0f}s")
@@ -174,8 +200,10 @@ def run_trace_bench(args, device):
         "_meta": {
             "smoke": bool(args.smoke), "arch": args.arch, "backend": backend, "seed": args.seed,
             "n_requests": n_requests, "rate": args.rate, "n_slots": N_SLOTS, "page": PAGE, "chunk": CHUNK,
-            "max_seq": MAX_SEQ, "isa_clock": False,
-            "note": "virtual clock from per-shape calibrated device costs; tier latency priced by ADC resolution",
+            "max_seq": MAX_SEQ, "isa_clock": bool(args.isa_clock),
+            "note": ("virtual clock priced in compiled crossbar cycles (repro.isa.plan_compile); tier latency "
+                     "scaled by ADC resolution") if args.isa_clock else
+                    "virtual clock from per-shape calibrated device costs; tier latency priced by ADC resolution",
         },
         "static": results["static"],
         "continuous": results["continuous"],
@@ -183,6 +211,16 @@ def run_trace_bench(args, device):
         "lossless_loss": lossless_loss,
         "tiers": tiers,
     }
+    if args.isa_clock:
+        # the headline summaries above already ran on the crossbar clock;
+        # this section restates them by name, as the reference's record does
+        out["crossbar_clock"] = {
+            "static_tokens_per_sec": results["static"]["tokens_per_sec"],
+            "continuous_tokens_per_sec": results["continuous"]["tokens_per_sec"],
+            "speedup": speedup,
+            "note": "tokens/sec priced in compiled crossbar cycles (repro.isa.plan_compile schedules), not host "
+                    "wall time",
+        }
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1, sort_keys=True)
@@ -231,16 +269,14 @@ def main(argv=None):
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--trace", action="store_true", help="run the continuous-batching trace bench")
     ap.add_argument("--isa-clock", action="store_true",
-                    help="price the virtual clock in compiled crossbar cycles (needs isa.plan_compile: "
-                    "not ported yet, raises)")
+                    help="price the virtual clock in compiled crossbar cycles (isa.plan_compile) instead of host "
+                    "calibration")
     ap.add_argument("--requests", type=int, default=0, help="trace length (0 = mode default)")
     ap.add_argument("--rate", type=float, default=1e4, help="open-loop Poisson arrival rate (requests/sec)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="write the trace bench's JSON here (nothing is written without it)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.isa_clock:
-        raise NotImplementedError("--isa-clock needs isa.plan_compile, not ported yet: ROADMAP Queue 1 item 2")
 
     from repro_torch.device import resolve
 

@@ -31,11 +31,14 @@ an adc9 ``fidelity_params`` tree, ``bulk`` adc6, both over the same sliced
 planes); requests carry a ``tier`` tag and are routed to their tier's
 engine, all engines sharing the one virtual clock (the device is serial).
 
-Opt-in, the clock can be priced per token instead of calibrated: pass an
-:class:`IsaClock` as ``Engine(costs=...)`` and every prefill chunk / decode
-round costs its token count times ``s_per_token``. Building that price from
-a compiled crossbar plan (``IsaClock.from_plan``) needs ``isa.plan_compile``,
-which is not ported yet.
+Opt-in, the clock can be priced in *compiled crossbar cycles* instead of
+calibrated: pass an :class:`IsaClock` as ``Engine(costs=...)`` and every
+prefill chunk / decode round costs its token count times the plan-compiled
+per-token crossbar latency (``IsaClock.from_plan``, from
+``repro_torch.isa.plan_compile``). Under such a clock the engine never
+calibrates, so the schedule and every number of ``summarize`` depend only
+on the trace, the clock and the engine's geometry: not on the weights, the
+model's width or the host.
 """
 from __future__ import annotations
 
@@ -77,10 +80,16 @@ class IsaClock(dict):
 
     @classmethod
     def from_plan(cls, params, plan, n_slots: int, em=None, scale: float = 1.0):
-        """The clock priced by the plan-compiled forward crossbar latency
-        (``repro.isa.plan_compile.token_latency_ns`` in the reference)."""
-        raise NotImplementedError(
-            "IsaClock.from_plan needs isa.plan_compile, not ported yet: ROADMAP Queue 1 item 2")
+        """Build the clock from a resolved plan over ``params`` (tensors or
+        ``ShapeDtype`` leaves: only shapes are read): per-token seconds =
+        the plan-compiled forward crossbar latency (packed bit-plane rounds,
+        depth-serial leaves) times ``scale`` (SLA-tier ADC factors compose
+        here or via ``Engine(cost_scale=...)``)."""
+        from repro_torch.isa.energy import DEFAULT_ENERGY
+        from repro_torch.isa.plan_compile import token_latency_ns
+
+        ns = token_latency_ns(params, plan, em or DEFAULT_ENERGY)
+        return cls(ns * 1e-9 * scale, n_slots)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -236,6 +236,33 @@ def test_engine_equals_the_reference_end_to_end(models, policy):
     assert sch.summarize(res_t) == jsch.summarize(res_j)
 
 
+ISA_TRACE = dict(seed=5, n_requests=8, rate=2e3, prompt_lens=(4, 6, 12), out_choices=((2, 0.5), (9, 0.5)))
+
+
+@pytest.mark.parametrize("policy", ["continuous", "static"])
+def test_engine_on_the_crossbar_clock_equals_the_reference(models, policy):
+    """Each engine on the ``IsaClock.from_plan`` its own package compiled
+    from its own lossless plan over the same weights: the same per-token
+    price, so the same tokens, ``token_times`` and summary, exactly, with
+    nothing calibrated."""
+    from repro import plan as jplan
+    from repro_torch import plan as tplan
+
+    cfg_j, cfg_t, pj, pt = models["attn"]
+    clk_j = jsch.IsaClock.from_plan(pj, jplan.resolve_plan(pj, jplan.default_rules()), n_slots=GRID["n_slots"])
+    clk_t = sch.IsaClock.from_plan(pt, tplan.resolve_plan(pt, tplan.default_rules()), n_slots=GRID["n_slots"])
+    assert clk_t.s_per_token == clk_j.s_per_token > 0
+    eng_j = jengine.Engine(cfg_j, pj, costs=clk_j, **GRID)
+    res_j = jsch.run_trace({"default": eng_j}, jtrace.synth_trace(vocab=cfg_j.vocab, **ISA_TRACE), policy=policy)
+    eng_t = _engine(cfg_t, pt, costs=clk_t, **GRID)
+    res_t = sch.run_trace({"default": eng_t}, ttrace.synth_trace(vocab=cfg_t.vocab, **ISA_TRACE), policy=policy)
+    assert not dict.keys(clk_t)  # every key priced: nothing calibrated
+    assert len(res_t["requests"]) == ISA_TRACE["n_requests"] and res_t["clock"] == res_j["clock"]
+    for rt, rj in zip(res_t["requests"], res_j["requests"], strict=True):
+        assert (rt.rid, rt.tokens, rt.token_times, rt.ttft) == (rj.rid, rj.tokens, rj.token_times, rj.ttft)
+    assert sch.summarize(res_t) == jsch.summarize(res_j)
+
+
 def _rel(got: torch.Tensor, want) -> float:
     want = np.asarray(want)
     return float(np.abs(got.numpy() - want).max() / np.abs(want).max())
