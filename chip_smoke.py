@@ -25,12 +25,14 @@ Phases:
      and the decode steps' on the decode body, the logits must be finite and
      the adc9-vs-lossless gap finite;
  15. (run after 3) the continuous-batching engine on gemma-2b at full width
-     (``serve.engine``/``scheduler`` through ``launch.serve``'s helpers):
+     and half its depth (9 of its 18 layers, ``ENGINE_LAYERS``: the
+     script's time limit) (``serve.engine``/``scheduler`` through
+     ``launch.serve``'s helpers):
      (a) the reference bench's trace (32 requests at 1e4/s, prompts 8/16/32,
      outputs 4 or 120 at 3:1; 8 slots, page 16, chunk 16, max_seq 160)
      under ``continuous`` and ``static`` through the adc9 tree on one cost
      table; (b) tokens/s, p50/p99 inter-token latency and TTFT of each, and
-     K4's launches equal to 5 reads x 18 layers x the model passes
+     K4's launches equal to 5 reads x 9 layers x the model passes
      (prefills, chunks and round steps, calibrations included), all on the
      tensor-core body (every read has 8 tokens or more), counted by tokens
      a read; (c) the continuous run again on fresh engines over the same
@@ -49,7 +51,7 @@ Phases:
      ``lm.param_shapes`` · 1e-9), phase 15's trace under ``continuous``
      and ``static`` on it with ``Engine._calibrate`` refused: the
      crossbar-clock summaries, passes by kind, K4's launches equal to 5
-     reads x 18 layers x the passes, all on the tensor-core body; (b) the
+     reads x 9 layers x the passes, all on the tensor-core body; (b) the
      same trace (tokens mapped into its vocabulary) and clock through the
      ``launch.serve`` bench's narrow model: summaries and every request's
      ``token_times`` equal (a)'s; (c) ``launch.serve --trace --isa-clock``
@@ -194,7 +196,28 @@ Phases:
      ``fidelity_params``, K1 and K4/K4ᵀ launches counted by spec, then K1
      and K4/K4ᵀ at 66666666 on group 0's layer-0 blocks against their plain
      versions and timed; last, the streamed OPA once on the card against
-     its CPU result.
+     its CPU result;
+ 17. the MoE family: granite-moe-1b-a400m at full width (d 1024, 24 layers,
+     32 experts top-8 of d_ff 512, vocab 49155, bf16, seed weights in
+     44466555 planes): (a) every expert of one bank read through K4 at
+     adc9, forward and MᵀVM at the training capacity (80 rows) and forward
+     at decode's 8, the router forward and MᵀVM at 256 tokens, K1 on an
+     expert tile at 80 tokens and K2 on an expert block, each bit for bit
+     against its plain version on the card; then one layer's 96 expert
+     reads, its 96 K1 tile updates and one dense bank's 768 K2 writes timed
+     beside their plain versions, a library yardstick (one ``torch.bmm`` a
+     bank) and the bound; (b) 3 training steps at 4 x 64 tokens under
+     ``coverage_rules`` with adc9 (router and experts operand leaves, the
+     banks ``group="expert"``; CRS every 2, counter draw), one more under
+     the profiler, one under ``default_rules`` (the banks dense: K2 over
+     768 blocks a bank) and one under the moe-hetero analogue (experts 0-7
+     at adc9, 8-31 at adc6): losses and aux terms finite, every kernel's
+     work held to the plan at its entry point and to the wrappers' launch
+     counts, by K4 token count and ADC; (c) layer 0's ``moe_apply`` through
+     the kernels bit for bit against the plain reads, 4 x 32 prompts and 16
+     greedy tokens through the adc9 coverage plan (2376 K4 reads a decode
+     step), and the engine on the bench's trace cut to its first 3 requests,
+     continuous, 8 slots: tokens/s and K4 reads by tokens.
 
 It prints one JSON line with the kernels' numbers, the card's
 ``name, power.limit`` line, and last the device JSON line. Any failure exits
@@ -425,12 +448,21 @@ def profile_step(torch, step, what="decode step"):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (the kernels themselves, not the aten ops that
-    # launched them, whose device time would count the same kernels twice)
-    rows = sorted(((e.device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    # launched them, whose device time would count the same kernels twice),
+    # summed by name straight from the trace: key_averages() builds the whole
+    # event tree first, which takes minutes at 10^5 kernels
+    t0 = time.perf_counter()
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            row = by_name[e.name()]
+            row[0] += e.duration_ns() / 1e6
+            row[1] += 1
+    rows = sorted(((ms, n, key) for key, (ms, n) in by_name.items()), reverse=True)
     busy = sum(r[0] for r in rows)
     print(f"profiled {what}: wall {wall_ms:.1f} ms (profiler on), device busy {busy:.1f} ms "
-          f"({100 * busy / wall_ms:.0f}%), {sum(r[1] for r in rows)} kernels", flush=True)
+          f"({100 * busy / wall_ms:.0f}%), {sum(r[1] for r in rows)} kernels; the trace read in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for ms, n, key in rows[:10]:
         print(f"  {ms:9.3f} ms  x{n:<5d} {key[:100]}")
 
@@ -2513,18 +2545,19 @@ def time_opa_microbatch(torch, spec, gen):
 
 class calls_by:
     """While inside, the calls of ``module.name`` are counted by key (a
-    Counter, yielded): ``key(args, kwargs)``. The wrapped function and its
+    Counter, yielded): ``key(args, kwargs)``, each call adding
+    ``weight(args, kwargs)`` (1 without one). The wrapped function and its
     kernel's launch counters are untouched."""
 
-    def __init__(self, module, name, key):
-        self.module, self.name, self.key = module, name, key
+    def __init__(self, module, name, key, weight=None):
+        self.module, self.name, self.key, self.weight = module, name, key, weight
 
     def __enter__(self):
         self.saved, seen = getattr(self.module, self.name), collections.Counter()
-        saved, key = self.saved, self.key
+        saved, key, weight = self.saved, self.key, self.weight
 
         def wrapped(*a, **k):
-            seen[key(a, k)] += 1
+            seen[key(a, k)] += 1 if weight is None else weight(a, k)
             return saved(*a, **k)
 
         setattr(self.module, self.name, wrapped)
@@ -3110,6 +3143,9 @@ def phase_fig10(torch, gen):
 # ------------------ the serving engine at full width (phase 15) -----------------
 
 ENGINE_REQUESTS = 32  # the reference bench's trace (src/repro/launch/serve.py:70-79)
+# phases 15-16 serve gemma-2b at full width and half its depth: the whole
+# script must finish inside its time limit on a slow host (PERF.md §4)
+ENGINE_LAYERS = 9
 # (d): one round's step budgets over the 8 slots; slots 6 and 7 hold no request
 DENSE_CHECK_STEPS = (8, 8, 3, 8, 1, 8, 0, 0)
 
@@ -3202,8 +3238,10 @@ def paged_against_dense(torch, cfg, params, trace, costs):
 
 
 def phase_engine(torch, K, gen):
-    """gemma-2b at full width through the continuous-batching engine."""
+    """gemma-2b at full width, ENGINE_LAYERS deep, through the
+    continuous-batching engine."""
     import contextlib
+    import dataclasses
 
     import numpy as np
 
@@ -3217,7 +3255,7 @@ def phase_engine(torch, K, gen):
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.step import fidelity_params
 
-    cfg = configs.get("gemma_2b")
+    cfg = dataclasses.replace(configs.get("gemma_2b"), n_layers=ENGINE_LAYERS, pattern=(("dense", ENGINE_LAYERS),))
     layers = cfg.n_layers
     t0 = time.perf_counter()
     opt_cfg = PantherConfig()
@@ -3229,7 +3267,8 @@ def phase_engine(torch, K, gen):
     adc9_plan = planlib.resolve_plan(dense, planlib.default_rules(opt_cfg, fidelity=adc9))
     params = fidelity_params(dense, sliced, plan=adc9_plan)
     trace = LS.bench_trace(cfg, ENGINE_REQUESTS, seed=0, rate=1e4)
-    print(f"engine: gemma-2b state {time.perf_counter() - t0:.1f} s; trace of {len(trace)} requests, prompts "
+    print(f"engine: gemma-2b state ({layers} layers) {time.perf_counter() - t0:.1f} s; trace of {len(trace)} "
+          f"requests, prompts "
           f"{sorted(collections.Counter(len(r.tokens) for r in trace).items())}, outputs "
           f"{sorted(collections.Counter(r.out_len for r in trace).items())}; {LS.N_SLOTS} slots, page {LS.PAGE}, "
           f"chunk {LS.CHUNK}, max_seq {LS.MAX_SEQ}", flush=True)
@@ -3527,6 +3566,554 @@ def phase_isa_clock(torch, K, ref, state):
     return {"launches": launches, "max_abs_err": err, "summaries": summaries}
 
 
+# ---------------- the MoE family at full width (phase 17) ---------------------
+
+MOE_ARCH = "granite_moe_1b_a400m"
+MOE_BATCH, MOE_SEQ = 4, 64  # training tokens a step: 4 x 64
+# the bench's trace cut to its first 3 requests: the 4th asks for 120 tokens,
+# 120 round steps at ~1.5 s a step (PERF.md §4)
+MOE_ENGINE_REQUESTS = 3
+MOE_BANKS = ("experts_gate", "experts_up", "experts_down")
+MOE_HETERO = ((8, 9), (24, 6))  # the granite analogue of --plan moe-hetero: (experts, ADC bits) in order
+MOE_SERVE_PROMPT, MOE_SERVE_TOKENS = 32, 16
+
+
+class plain_reads:
+    """While inside, K4's entry point runs the plain version
+    (``ref.mvm_sliced_fused_ref``) on the card, on the arguments the kernel
+    would have had; nothing launches and no kernel count moves."""
+
+    def __enter__(self):
+        from repro_torch.kernels.sliced_mvm import ops, ref
+
+        class plain:
+            @staticmethod
+            def mvm_sliced_fused(planes, xf, frac, *, spec, io_bits, adc_bits, transpose, dev, tile0, col0):
+                return ref.mvm_sliced_fused_ref(planes, xf, frac[0], spec, io_bits, adc_bits, transpose=transpose,
+                                                device=dev, tile0=tile0, col0=col0)
+
+        self.ops, self.saved = ops, ops._k
+        ops._k = plain
+
+    def __exit__(self, *exc):
+        self.ops._k = self.saved
+
+
+def moe_shapes(cfg) -> dict:
+    """(M, N) of each crossbar read of a MoE layer -> its name."""
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    return {(d, (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim): "wqkv", (cfg.n_heads * cfg.head_dim, d): "wo",
+            (d, cfg.moe.n_experts): "router", (d, f): "expert", (f, d): "expert"}
+
+
+def moe_expected(cfg, shapes, plan, tokens):
+    """What one training step of ``tokens`` flattened tokens launches under
+    the resolved ``plan`` over the param ``shapes``: K4 reads by (MᵀVM,
+    tokens, read, ADC bits), K1 blocks by (tokens, read), K2 and K3 blocks
+    (one a layer, or a (layer, expert), of each mapped leaf)."""
+    from repro_torch import tree
+    from repro_torch.train.step import expert_tokens
+
+    reads, k1, dense, mapped = collections.Counter(), collections.Counter(), 0, 0
+    t_e = expert_tokens(cfg, tokens)
+    for (path, pl), (_, shape) in zip(tree.leaves_with_path(plan), tree.leaves_with_path(shapes)):
+        if not pl.mapped:
+            continue
+        key = str(path[-1])
+        name = "expert" if key.startswith("experts_") else key
+        n = math.prod(shape.shape[:-2])
+        layers = math.prod(shape.shape[:-3]) if name == "expert" else n
+        mapped += n
+        if pl.grad != "operand":
+            dense += n
+            continue
+        t = t_e if name == "expert" else tokens
+        k1[(t, name)] += n
+        fid = pl.fidelity
+        if fid is None:
+            continue
+        segs = fid.group_slices(cfg.moe.n_experts) if name == "expert" else [(0, 1, fid)]
+        for a, b, g in segs:
+            for transpose, on in ((False, fid.fwd), (True, fid.bwd)):
+                if on:
+                    reads[(transpose, t, name, g.adc_bits_bwd if transpose else g.adc_bits_fwd)] += layers * (b - a)
+    return reads, k1, dense, mapped
+
+
+class moe_counts:
+    """While inside, the main path's kernel work is counted at the entry
+    points (a dict of Counters, yielded): K4 reads by (direction, tokens a
+    read, read, ADC bits), K1 blocks by (tokens, read), K2's dense-write
+    blocks and K3's blocks by read. On the card the kernel wrappers' own
+    counts must equal them (``check_kernel_counts``)."""
+
+    def __init__(self, cfg):
+        self.names = moe_shapes(cfg)
+
+    def __enter__(self):
+        import contextlib
+
+        import repro_torch.kernels.crs as KCP
+        import repro_torch.kernels.sliced_opa as OPK
+        from repro_torch.kernels.sliced_mvm import ops as KOPS
+        from repro_torch.kernels.sliced_opa import ops as OO
+
+        names = self.names
+        blocks = lambda a, k: math.prod(a[0].shape[1:-2])  # noqa: E731
+        name_of = lambda planes: names.get(tuple(planes.shape[-2:]), "other")  # noqa: E731
+        self.stack = contextlib.ExitStack()
+        return {
+            "k4": self.stack.enter_context(calls_by(KOPS, "mvm_sliced_fused", lambda a, k: (
+                k["transpose"], a[1].shape[0], name_of(a[0]), k["adc_bits"]))),
+            "k1": self.stack.enter_context(calls_by(OO, "opa_fused", lambda a, k: (a[1].shape[0], name_of(a[0])))),
+            "k2": self.stack.enter_context(calls_by(OPK, "opa_dense_update", lambda a, k: name_of(a[0]), blocks)),
+            "k3": self.stack.enter_context(calls_by(KCP, "crs", lambda a, k: name_of(a[0]), blocks)),
+        }
+
+    def __exit__(self, *exc):
+        self.stack.close()
+
+
+def zero_kernel_counts():
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.sliced_mvm import kernel as KM
+    from repro_torch.kernels.sliced_opa import kernel as KO
+
+    KM.mvm_sliced_fused.launches = KM.mvm_sliced_fused.transpose_launches = 0
+    KM.mvm_sliced_fused.instances.clear()
+    for fn in (KO.opa_fused, KO.opa_dense):
+        fn.launches = 0
+        fn.instances.clear()
+    KO.opa_deposit.launches = KC.crs.launches = 0
+
+
+def check_kernel_counts(torch, seen, what):
+    """The kernel wrappers' launch counts since ``zero_kernel_counts``
+    against the entry-point counts ``seen`` (``moe_counts``): one launch a
+    call (a block for K2 and K3); prints them by instance."""
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.sliced_mvm import kernel as KM
+    from repro_torch.kernels.sliced_opa import kernel as KO
+
+    got = {"K4": KM.mvm_sliced_fused.launches, "K4T": KM.mvm_sliced_fused.transpose_launches,
+           "K1": KO.opa_fused.launches, "K2": KO.opa_dense.launches, "K3": KC.crs.launches}
+    want = {"K4": sum(n for key, n in seen["k4"].items() if not key[0]),
+            "K4T": sum(n for key, n in seen["k4"].items() if key[0]), "K1": sum(seen["k1"].values()),
+            "K2": sum(seen["k2"].values()), "K3": sum(seen["k3"].values())}
+    if got != want or KO.opa_deposit.launches:
+        raise AssertionError(f"{what}: kernel launches {got} (int32 deposit {KO.opa_deposit.launches}) != the entry "
+                             f"points' {want}")
+    print(f"    launches {got}; by instance: K4 {dict(KM.mvm_sliced_fused.instances)}, K1 "
+          f"{dict(KO.opa_fused.instances)}, K2 {dict(KO.opa_dense.instances)}", flush=True)
+
+
+def moe_state(torch, gen, device="cuda", cfg=None):
+    """granite-moe-1b-a400m's train state at full width (or ``cfg``): the
+    default plan's layout, which every plan of this phase shares (the same
+    leaves map, at one spec)."""
+    from repro_torch import configs
+    from repro_torch.optim import PantherConfig
+    from repro_torch.train.step import train_state_init
+
+    cfg = cfg or configs.get(MOE_ARCH)
+    opt_cfg = PantherConfig(crs_every=2, stochastic_round=True)
+    t0 = time.perf_counter()
+    state = train_state_init(cfg, opt_cfg, gen, device=device)
+    planes = sum(s.planes.numel() for s in _leaves(state.sliced))
+    print(f"{cfg.arch_id}: d {cfg.d_model}, {cfg.n_layers} layers, {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k} of d_ff {cfg.moe.d_ff_expert}, vocab {cfg.vocab}, {cfg.dtype}; init + slice "
+          f"{time.perf_counter() - t0:.1f} s, {planes / opt_cfg.spec.n_slices:.0f} parameters in "
+          f"{opt_cfg.spec.name()} planes ({planes / 1e9:.2f} GB)", flush=True)
+    return cfg, opt_cfg, state
+
+
+def _leaves(t):
+    from repro_torch import tree
+
+    return [x for _, x in tree.leaves_with_path(t) if x is not None]
+
+
+def moe_train(torch, cfg, opt_cfg, state, device="cuda"):
+    """Phase 17 (b): 3 coverage adc9 steps (the second a CRS step) and one
+    profiled, one default-rules step, one moe-hetero step; every step's
+    kernel work counted and held to the plan. Returns the state and what
+    the kernels line reads."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import plan as planlib
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models.common import FidelityConfig
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train.step import make_train_step, param_shapes
+
+    T = MOE_BATCH * MOE_SEQ
+    adc9 = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=opt_cfg.spec)
+    hetero = tuple((n, FidelityConfig(adc_bits_fwd=b, adc_bits_bwd=b, spec=opt_cfg.spec)) for n, b in MOE_HETERO)
+    rules = {"coverage": planlib.coverage_rules(opt_cfg, fidelity=adc9),
+             "default": planlib.default_rules(opt_cfg, fidelity=adc9),
+             "hetero": planlib.coverage_rules(opt_cfg) + (planlib.PlanRule("*/experts_*", expert_groups=hetero),)}
+    shapes = param_shapes(state.digital, state.sliced)
+    plans = {k: planlib.resolve_plan(shapes, r, tokens=T) for k, r in rules.items()}
+    steps = {k: make_train_step(cfg, opt_cfg, constant(3e-2), plan_rules=r) for k, r in rules.items()}
+    for k, pl in plans.items():
+        print(f"  plan {k}:\n" + planlib.plan_summary(pl), flush=True)
+    ds = SyntheticLMDataset(cfg.vocab, MOE_SEQ, MOE_BATCH, seed=0, device=device)
+    totals = {"k4": collections.Counter(), "k1": collections.Counter(), "k2": collections.Counter()}
+    info = {"ms": {}, "loss": [], "aux": []}
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for step, mode in enumerate(("coverage", "coverage", "coverage", "default", "hetero")):
+        zero_kernel_counts()
+        batch = ds.batch(step)
+        crs_step = state.step % opt_cfg.crs_every == opt_cfg.crs_every - 1
+        with moe_counts(cfg) as seen:
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = steps[mode](state, batch)
+            loss, aux, gnorm = float(m["loss"]), float(m["aux"]), float(m["grad_norm"])
+            ms = 1e3 * (time.perf_counter() - t0)
+        reads, k1, dense, mapped = moe_expected(cfg, shapes, plans[mode], T)
+        want = {"k4": reads, "k1": k1, "k2": dense, "k3": mapped if crs_step else 0}
+        got = {"k4": dict(seen["k4"]), "k1": dict(seen["k1"]), "k2": sum(seen["k2"].values()),
+               "k3": sum(seen["k3"].values())}
+        print(f"  step {step} ({mode}{', CRS' if crs_step else ''}): {ms:.1f} ms, {T / ms * 1e3:.0f} tokens/s, "
+              f"loss {loss:.4f}, aux {aux:.4f}, grad_norm {gnorm:.4f}", flush=True)
+        print(f"    K4 reads by (MᵀVM, tokens, read, ADC): {dict(sorted(seen['k4'].items(), key=str))}; K1 blocks "
+              f"by (tokens, read): {dict(sorted(seen['k1'].items(), key=str))}; K2 blocks {dict(seen['k2'])}; "
+              f"K3 blocks {sum(seen['k3'].values())}", flush=True)
+        if got != {k: (dict(v) if isinstance(v, collections.Counter) else v) for k, v in want.items()}:
+            raise AssertionError(f"step {step} ({mode}): kernel work {got} != the plan's {want}")
+        if cuda:
+            check_kernel_counts(torch, seen, f"step {step} ({mode})")
+        if not (math.isfinite(loss) and math.isfinite(aux) and math.isfinite(gnorm) and aux > 0):
+            raise AssertionError(f"step {step}: loss {loss}, aux {aux} or grad_norm {gnorm} not finite")
+        for k in totals:
+            totals[k].update(seen[k])
+        info["ms"][f"{mode}{'_crs' if crs_step else ''}"] = ms
+        info["loss"].append(loss)
+        info["aux"].append(aux)
+        if step == 2 and cuda:
+            info["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            out = {}
+
+            def one_more():
+                out["state"], _ = steps["coverage"](state, ds.batch(5))
+
+            profile_step(torch, one_more, "granite coverage adc9 train step")
+            state = out["state"]
+    adc_split = collections.Counter()
+    for (transpose, t, name, adc), n in seen["k4"].items():
+        adc_split[(name, adc)] += n
+    print(f"  (b) peak memory over the coverage steps {info.get('peak_gib', float('nan')):.1f} GiB; the hetero step's "
+          f"K4 reads by (read, ADC bits): {dict(sorted(adc_split.items(), key=str))}", flush=True)
+    return state, totals, info
+
+
+def moe_serving_tree(cfg, opt_cfg, state, plan):
+    """The served tree over the state's planes: operand leaves read through
+    ``plan``'s fidelity (no dense copy), the rest dequantized."""
+    from repro_torch import tree
+    from repro_torch.core.slicing import dequantize_planes
+    from repro_torch.optim import panther
+
+    def leaf(d, s, pl):
+        if s is None:
+            return d
+        if not panther.needs_dense(s, pl):
+            return None
+        return dequantize_planes(s.planes, s.frac_bits, pl.spec, dtype=opt_cfg.compute_dtype)
+
+    return panther.fidelitize(tree.map(leaf, state.digital, state.sliced, plan), state.sliced, plan)
+
+
+def moe_serve(torch, cfg, opt_cfg, state, gen, device="cuda"):
+    """Phase 17 (c): layer 0's ``moe_apply`` through the kernels against the
+    plain reads, bit for bit; batch 4 x 32 prompts, 16 greedy tokens through
+    the adc9 coverage plan (router and experts on K4); the engine on the
+    bench's trace cut to MOE_ENGINE_REQUESTS, continuous, 8 slots."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import plan as planlib
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import lm
+    from repro_torch.models.mlp import moe_apply
+    from repro_torch.serve import scheduler as sch
+    from repro_torch.serve.kv_pages import grow_caches
+    from repro_torch.train.step import expert_tokens, param_shapes
+
+    cuda = device == "cuda"
+    adc9 = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=opt_cfg.spec)
+    shapes = param_shapes(state.digital, state.sliced)
+    plan = planlib.resolve_plan(shapes, planlib.coverage_rules(opt_cfg, adc9))
+    params = moe_serving_tree(cfg, opt_cfg, state, plan)
+    B, P, N = MOE_BATCH, MOE_SERVE_PROMPT, MOE_SERVE_TOKENS
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=device)
+    out = {}
+    with torch.no_grad():
+        h = lm._embed_in(cfg, params, prompts)
+        p0 = lm.layer(params["groups"][0], 0)["moe"]
+        got = moe_apply(cfg, p0, h)
+        with plain_reads():
+            want = moe_apply(cfg, p0, h)
+        if not torch.equal(got, want):
+            raise AssertionError(f"(a) layer 0's moe_apply through K4 vs the plain reads: max |diff| "
+                                 f"{float((got.float() - want.float()).abs().max())}")
+        print(f"  (a) layer 0's moe_apply on {B} x {P} tokens (the router and every expert read at adc9): through "
+              "the kernels bit for bit with the plain reads", flush=True)
+        zero_kernel_counts()
+        with moe_counts(cfg) as seen:
+            t0 = time.perf_counter()
+            logits, caches = lm.prefill(cfg, params, prompts)
+            caches = grow_caches(cfg, lm.unstack_caches(cfg, caches), P + N)
+            tok = torch.argmax(logits, dim=-1)
+            if cuda:
+                torch.cuda.synchronize()
+            out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            toks = [tok]
+            for i in range(N - 1):
+                logits, caches = lm.decode_step(cfg, params, tok, caches, P + i)
+                tok = torch.argmax(logits, dim=-1)
+                toks.append(tok)
+            if cuda:
+                torch.cuda.synchronize()
+            out["decode_ms"] = 1e3 * (time.perf_counter() - t0) / (N - 1)
+        # the plan's forward reads: one prefill of B x P tokens, N - 1 decode steps of B
+        want = collections.Counter()
+        for tokens, times in ((B * P, 1), (B, N - 1)):
+            for key, n in moe_expected(cfg, shapes, plan, tokens)[0].items():
+                if not key[0]:
+                    want[key] += n * times
+        print(f"  (c) serving {B} x {P} prompts, {N} greedy tokens, adc9: prefill {out['prefill_ms']:.1f} ms, decode "
+              f"{out['decode_ms']:.1f} ms a step; K4 reads by (MᵀVM, tokens, read, ADC) "
+              f"{dict(sorted(seen['k4'].items(), key=str))}", flush=True)
+        if dict(seen["k4"]) != dict(want) or not bool(torch.isfinite(logits.float()).all()):
+            raise AssertionError(f"(c) K4 reads {dict(seen['k4'])} != {dict(want)}, or logits not finite")
+        if cuda:
+            check_kernel_counts(torch, seen, "(c) serving")
+            profile_step(torch, lambda: lm.decode_step(cfg, params, tok, caches, P + N - 1),
+                         "granite decode step (batch 4, adc9)")
+        out["decode_reads"] = seen["k4"][(False, expert_tokens(cfg, B), "expert", 9)]
+        print("    sample:", torch.stack(toks, 1)[0].tolist(), flush=True)
+
+    trace = LS.bench_trace(cfg, 32, seed=0, rate=1e4)[:MOE_ENGINE_REQUESTS]
+    zero_kernel_counts()
+    with moe_counts(cfg) as seen:
+        t0 = time.perf_counter()
+        runs, costs = LS.run_policies(cfg, params, trace, device, {}, policies=("continuous",))
+        wall = time.perf_counter() - t0
+    s = sch.summarize(runs["continuous"])
+    by_tokens = collections.Counter()
+    for (transpose, t, name, adc), n in seen["k4"].items():
+        by_tokens[(name, t)] += n
+    print(f"  (c) engine: the bench's trace cut to {len(trace)} requests (prompts "
+          f"{sorted(collections.Counter(len(r.tokens) for r in trace).items())}, outputs "
+          f"{sorted(collections.Counter(r.out_len for r in trace).items())}), continuous, {LS.N_SLOTS} slots: wall "
+          f"{wall:.1f} s; {len(costs)} costs calibrated", flush=True)
+    print_summary("granite continuous", s)
+    print(f"    K4 reads by (read, tokens a read): {dict(sorted(by_tokens.items(), key=str))}", flush=True)
+    if len(runs["continuous"]["requests"]) != len(trace) or s["tokens_per_sec"] <= 0:
+        raise AssertionError(f"(c) engine served {len(runs['continuous']['requests'])} of {len(trace)} requests")
+    if cuda:
+        check_kernel_counts(torch, seen, "(c) engine")
+    out["engine_tokens_per_sec"] = s["tokens_per_sec"]
+    out["engine_reads"] = by_tokens[("expert", expert_tokens(cfg, LS.N_SLOTS))]
+    return out
+
+
+def moe_kernel_times(torch, K, cfg, opt_cfg, state, gen):
+    """Phase 17 (a): one expert bank's grouped read (K4 forward and MᵀVM at
+    adc9, 80 rows; forward at 8) bit for bit against each expert's plain
+    read, the router's at 256 tokens, K1 on an expert tile at 80 tokens and
+    K2 on an expert block bit for bit against their plain versions; then
+    one layer's 96 expert reads, one layer's 96 K1 tile updates and one
+    dense bank's 768 K2 writes timed beside their plain versions, the
+    library yardstick and the bound. Returns (errors, timings)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core.fixed_point import choose_frac_bits
+    from repro_torch.core.mvm import fidelity_read
+    from repro_torch.core.slicing import dequantize_planes
+    from repro_torch.kernels.sliced_mvm import ref
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+    from repro_torch.models import common as C
+    from repro_torch.train.step import expert_tokens
+
+    spec = opt_cfg.spec
+    S, E, L = spec.n_slices, cfg.moe.n_experts, cfg.n_layers
+    adc9 = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=spec)
+    T, rows = MOE_BATCH * MOE_SEQ, expert_tokens(cfg, MOE_BATCH * MOE_SEQ)
+    moe0 = state.sliced["groups"][0]["moe"]
+    banks = {b: moe0[b].planes.movedim(0, 2)[0] for b in MOE_BANKS}  # layer 0: [E, S, M, N]
+    fracs = {b: moe0[b].frac_bits for b in MOE_BANKS}
+    # bit for bit: every expert of one bank, each direction, and the router
+    checks = 0
+    for transpose, n in ((False, rows), (True, rows), (False, expert_tokens(cfg, MOE_BATCH))):
+        planes = banks["experts_gate"]
+        ww = C.XbarWeight(None, planes, fracs["experts_gate"].expand(E), adc9)
+        v = torch.randn((E, n, planes.shape[-1] if transpose else planes.shape[-2]), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        got = C._grouped_fid_read(ww, v, transpose)
+        with plain_reads():
+            want = C._grouped_fid_read(ww, v, transpose)
+        if not torch.equal(got, want):
+            raise AssertionError(f"(a) the grouped read ({'MᵀVM' if transpose else 'forward'}, {n} rows) vs the "
+                                 f"plain reads: max |diff| {float((got - want).abs().max())}")
+        checks += E
+    router = state.sliced["groups"][0]["moe"]["router"]
+    rp = router.planes.movedim(0, 1)[0]
+    for transpose in (False, True):
+        v = torch.randn((T, rp.shape[-1] if transpose else rp.shape[-2]), generator=gen, device="cuda")
+        got = fidelity_read(rp, router.frac_bits, v, adc9, transpose=transpose)
+        with plain_reads():
+            want = fidelity_read(rp, router.frac_bits, v, adc9, transpose=transpose)
+        if not torch.equal(got, want):
+            raise AssertionError(f"(a) the router read (transpose={transpose}) vs plain")
+        checks += 1
+    tile = banks["experts_gate"][0].clone()
+    M, N = tile.shape[-2:]
+    for lr, F in ((2.0**-4, 8), (4.0, 28)):
+        frac = torch.tensor([F], dtype=torch.int32, device="cuda")
+        x, dh = exact_operands(torch, rows, M, N, torch.bfloat16, gen)
+        want = RO.opa_fused_ref(tile, x, dh, lr, frac[0], spec, (5, 7))
+        got = KO.opa_fused(tile.clone(), x, dh, lr, frac, spec=spec, key_words=(5, 7))
+        if not torch.equal(got, want):
+            raise AssertionError(f"(a) K1 on an expert tile at {rows} tokens vs plain (lr {lr}, F {F})")
+        checks += 1
+    g = dense_gradient(torch, (M, N), torch.float32, gen)
+    if dense_case(torch, tile, g, spec, "counter", what="(a) K2 on an expert block"):
+        raise AssertionError("(a) K2 on an expert block vs plain")
+    print(f"  (a) {checks + 1} kernel-vs-plain cases bit for bit: {E} experts' reads forward and MᵀVM at {rows} rows "
+          f"and forward at {expert_tokens(cfg, MOE_BATCH)}, the router forward and MᵀVM at {T} tokens, K1 on an "
+          f"expert tile at {rows} tokens (two lr/F), K2's dense write on an expert block", flush=True)
+
+    out = {}
+    # one layer's 96 expert reads: the kernel (DAC exponents chosen once,
+    # outside the timed loop), the plain reads, one torch.bmm a bank over
+    # the experts' f32 weights, and the bound
+    for key, transpose, n in (("mvm_sliced_fused_expert", False, rows),
+                              ("mvm_sliced_fused_expert_transpose", True, rows),
+                              ("mvm_sliced_fused_expert_decode", False, expert_tokens(cfg, MOE_BATCH))):
+        work = []
+        for b in MOE_BANKS:
+            planes = banks[b]
+            Mb, Nb = planes.shape[-2:]
+            v = torch.randn((E, n, Nb if transpose else Mb), generator=gen, device="cuda")
+            xf = [choose_frac_bits(v[e], word_bits=16, margin_bits=1, clip_to_word=False).reshape(1) for e in range(E)]
+            w = dequantize_planes(planes.movedim(1, 0), fracs[b], spec)  # [E, M, N] f32
+            work.append((planes, v, xf, w, Mb, Nb))
+
+        def kernel():
+            for planes, v, xf, _, _, _ in work:
+                for e in range(E):
+                    K.mvm_sliced_fused(planes[e], v[e], xf[e], spec=spec, adc_bits=9, transpose=transpose)
+
+        def plain():
+            for planes, v, xf, _, _, _ in work:
+                for e in range(E):
+                    ref.mvm_sliced_fused_ref(planes[e], v[e], xf[e][0], spec, 16, 9, transpose=transpose)
+
+        def library():
+            for _, v, _, w, _, _ in work:
+                torch.bmm(v, w.transpose(1, 2) if transpose else w)
+
+        bms = [bound_ms(n, Mb, Nb, S, 16) for _, _, _, _, Mb, Nb in work]
+        out[key] = {"ms": cuda_time_ms(kernel, 5), "plain_ms": cuda_time_ms(plain, 1, 0),
+                    "library_ms": cuda_time_ms(library, 10), "bound_ms": E * sum(b[0] for b in bms),
+                    "bound_by": "bytes" if all(b[1] == "bytes" for b in bms) else "operations"}
+        del work
+    # K1 over one layer's 96 expert tiles at the capacity rows, bf16
+    # training-like operands, on copies; library: one bf16 xᵀ @ dh bmm a bank
+    work = []
+    for b in MOE_BANKS:
+        planes = banks[b].clone()
+        Mb, Nb = planes.shape[-2:]
+        x = torch.randn((E, rows, Mb), generator=gen, device="cuda").to(torch.bfloat16)
+        dh = (torch.randn((E, rows, Nb), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+        work.append((planes, x, dh, fracs[b].reshape(1), Mb, Nb))
+
+    def k1():
+        for planes, x, dh, frac, _, _ in work:
+            for e in range(E):
+                KO.opa_fused(planes[e], x[e], dh[e], 3e-2, frac, spec=spec, key_words=(1, 2))
+
+    def k1_plain():
+        for planes, x, dh, frac, _, _ in work:
+            for e in range(E):
+                RO.opa_fused_ref(planes[e], x[e], dh[e], 3e-2, frac[0], spec, (1, 2))
+
+    def k1_lib():
+        for _, x, dh, _, _, _ in work:
+            torch.bmm(x.transpose(1, 2), dh)
+
+    bs = [bound_of(2 * S * Mb * Nb + 2 * rows * (Mb + Nb) + 4, 2.0 * rows * Mb * Nb, BF16_FLOPS_PER_S)
+          for *_, Mb, Nb in work]
+    out["opa_fused_expert"] = {"ms": cuda_time_ms(k1, 5), "plain_ms": cuda_time_ms(k1_plain, 1, 0),
+                               "library_ms": cuda_time_ms(k1_lib, 10), "bound_ms": E * sum(b[0] for b in bs),
+                               "bound_by": "bytes" if all(b[1] == "bytes" for b in bs) else "operations"}
+    del work
+    # K2's dense write over one dense expert bank: L x E blocks, f32
+    # gradient, counter draw, as the default-rules step writes them
+    Mb, Nb = banks["experts_gate"].shape[-2:]
+    planes = torch.randint(-8, 8, (L * E, S, Mb, Nb), generator=gen, device="cuda", dtype=torch.int8)
+    g = dense_gradient(torch, (L * E, Mb, Nb), torch.float32, gen)
+    k2 = cuda_time_ms(lambda: [dense_launch(torch, planes[i], g[i], spec, "counter") for i in range(L * E)], 3)
+    k2_plain = cuda_time_ms(lambda: [dense_plain(torch, planes[i], g[i], spec, "counter") for i in range(L * E)], 1, 0)
+    b = bound_of((4 + 2 * S) * L * E * Mb * Nb, (8.0 * S + DENSE_DRAW_OPS["counter"]) * L * E * Mb * Nb,
+                 CUDA_CORE_OPS_PER_S)
+    out["opa_dense_expert"] = {"ms": k2, "plain_ms": k2_plain, "library_ms": None, "bound_ms": b[0], "bound_by": b[1]}
+    del planes, g
+    torch.cuda.empty_cache()
+    for key, t in out.items():
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        print(f"  {key:34s} kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  library {lib}  bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.0f}% of it)", flush=True)
+    return out
+
+
+def phase_moe(torch, K, gen):
+    """Phase 17: granite-moe-1b-a400m at full width, bf16, seed weights in
+    44466555 planes: (a) the kernels on its shapes, (b) training, (c)
+    serving and the engine."""
+    from repro_torch.train.step import expert_tokens
+
+    t = [time.perf_counter()]
+    cfg, opt_cfg, state = moe_state(torch, gen)
+    timings = moe_kernel_times(torch, K, cfg, opt_cfg, state, gen)
+    t.append(time.perf_counter())
+    state, totals, info = moe_train(torch, cfg, opt_cfg, state)
+    t.append(time.perf_counter())
+    serving = moe_serve(torch, cfg, opt_cfg, state, gen)
+    t.append(time.perf_counter())
+    print(f"phase 17 wall: state and (a) {t[1] - t[0]:.1f} s, (b) training {t[2] - t[1]:.1f} s, (c) serving and "
+          f"the engine {t[3] - t[2]:.1f} s", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    rows = expert_tokens(cfg, MOE_BATCH * MOE_SEQ)
+    dec = expert_tokens(cfg, MOE_BATCH)
+    k4 = totals["k4"]
+    launches = {
+        "mvm_sliced_fused_expert": sum(n for (t, r, name, _), n in k4.items() if not t and r == rows
+                                       and name == "expert"),
+        "mvm_sliced_fused_expert_transpose": sum(n for (t, r, name, _), n in k4.items() if t and r == rows
+                                                 and name == "expert"),
+        "mvm_sliced_fused_expert_decode": serving["decode_reads"] + serving["engine_reads"],
+        "opa_fused_expert": totals["k1"][(rows, "expert")],
+        "opa_dense_expert": totals["k2"]["expert"],
+    }
+    print(f"phase 17 summary: train ms {info['ms']}, losses {info['loss']}, aux {info['aux']}; serving prefill "
+          f"{serving['prefill_ms']:.1f} ms, decode {serving['decode_ms']:.1f} ms a step, engine "
+          f"{serving['engine_tokens_per_sec']:.2f} tokens/s; main-path launches {launches} (expert reads at {rows} "
+          f"rows in training, {dec} in decode)", flush=True)
+    return launches, timings
+
+
 def main() -> int:
     import torch
 
@@ -3618,6 +4205,10 @@ def main() -> int:
     train_launches.update(f10_launches)
     train_timings.update(f10_timings)
     done("phase 14: Fig 10")
+    moe_launches, moe_timings = phase_moe(torch, K, gen)
+    train_launches.update(moe_launches)
+    train_timings.update(moe_timings)
+    done("phase 17: the MoE family (granite-moe-1b-a400m at full width)")
     train_launches.update({"opa_dense_" + inst: n for inst, n in dense.items()})
     print(f"K2's dense write, launches by instance over the main-path runs: {dict(dense)}", flush=True)
 
@@ -3699,6 +4290,18 @@ def main() -> int:
               "src/repro/kernels/sliced_opa/kernel.py:255", float(f10_err["opa_fused_uniform6"])),
         entry("mvm_sliced_fused_uniform6", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
               "src/repro/kernels/sliced_mvm/kernel.py:367", f10_err["mvm_sliced_fused_uniform6"]),
+        # granite-moe-1b-a400m (phase 17): one layer's 96 expert reads at the
+        # training capacity (80 rows) forward and MᵀVM, and at decode (8
+        # rows); K1 on one layer's 96 expert tiles at 80 tokens; K2 over one
+        # dense expert bank (24 x 32 blocks). Launches: the phase's runs.
+        *(entry(name, "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
+                "src/repro/kernels/sliced_mvm/kernel.py:367", 0.0)
+          for name in ("mvm_sliced_fused_expert", "mvm_sliced_fused_expert_transpose",
+                       "mvm_sliced_fused_expert_decode")),
+        entry("opa_fused_expert", "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",
+              "src/repro/kernels/sliced_opa/kernel.py:255", 0.0),
+        entry("opa_dense_expert", "src/repro_torch/kernels/sliced_opa/csrc/opa_deposit.cu",
+              "src/repro/kernels/sliced_opa/kernel.py:90", 0.0),
     ]}
     unlaunched = [e["name"] for e in line["kernels"] if e["launches"] <= 0]
     if unlaunched:

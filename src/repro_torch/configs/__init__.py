@@ -1,20 +1,53 @@
 """Architecture registry (port of ``repro.configs``): ``get(arch_id)`` for the
-full config, ``get_smoke(arch_id)`` for the reduced same-family one. Only
-gemma-2b is ported; the other nine architectures raise until their blocks
-land."""
+full config, ``get_smoke(arch_id)`` for the reduced same-family one, the
+shape cells, and the finite-ADC presets. Six architectures are ported: the
+dense-block ones (gemma-2b, minicpm-2b, phi4-mini-3.8b, chameleon-34b,
+musicgen-large) and the MoE one (granite-moe-1b-a400m). The other four raise
+``NotImplementedError`` until their blocks land."""
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
-ARCH_IDS = ["gemma_2b"]
+ARCH_IDS = [
+    "musicgen_large",
+    "granite_moe_1b_a400m",
+    "minicpm_2b",
+    "gemma_2b",
+    "phi4_mini_3p8b",
+    "chameleon_34b",
+]
 
-ALIASES = {"gemma-2b": "gemma_2b"}
+# the reference's architectures whose blocks are not ported yet
+UNPORTED = ["zamba2_1p2b", "deepseek_v2_lite_16b", "xlstm_125m", "gemma2_9b"]
+
+# canonical hyphenated names -> module ids
+ALIASES = {
+    "musicgen-large": "musicgen_large",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "minicpm-2b": "minicpm_2b",
+    "gemma-2b": "gemma_2b",
+    "phi4-mini-3.8b": "phi4_mini_3p8b",
+    "chameleon-34b": "chameleon_34b",
+    "zamba2-1.2b": "zamba2_1p2b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "xlstm-125m": "xlstm_125m",
+    "gemma2-9b": "gemma2_9b",
+}
+
+SHAPES = {
+    "train_4k": {"kind": "train", "seq_len": 4096, "global_batch": 256},
+    "prefill_32k": {"kind": "prefill", "seq_len": 32768, "global_batch": 32},
+    "decode_32k": {"kind": "decode", "seq_len": 32768, "global_batch": 128},
+    "long_500k": {"kind": "decode", "seq_len": 524288, "global_batch": 1},
+}
 
 
 def _module(arch_id: str):
     arch_id = ALIASES.get(arch_id, arch_id)
     if arch_id not in ARCH_IDS:
-        raise NotImplementedError(f"architecture {arch_id!r} is not ported yet (ported: {ARCH_IDS})")
+        raise NotImplementedError(f"architecture {arch_id!r} is not ported yet (ported: {ARCH_IDS}; "
+                                  f"not ported: {UNPORTED})")
     return importlib.import_module(f"repro_torch.configs.{arch_id}")
 
 
@@ -24,6 +57,14 @@ def get(arch_id: str):
 
 def get_smoke(arch_id: str):
     return _module(arch_id).SMOKE
+
+
+def shape_cells(arch_id: str):
+    """The shape cells this arch participates in."""
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if get(arch_id).supports_long_context:
+        cells.append("long_500k")
+    return cells
 
 
 def fidelity_presets():
@@ -37,3 +78,9 @@ def fidelity_presets():
         "adc6_bwd": FidelityConfig(adc_bits_fwd=None, adc_bits_bwd=6),
         "adc6_fwd": FidelityConfig(adc_bits_fwd=6, adc_bits_bwd=None),
     }
+
+
+def with_fidelity(cfg, preset):
+    """``cfg`` with a fidelity preset (a name or a FidelityConfig) attached."""
+    fid = fidelity_presets()[preset] if isinstance(preset, str) else preset
+    return dataclasses.replace(cfg, fidelity=fid)

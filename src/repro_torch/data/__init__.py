@@ -1,3 +1,3 @@
-from .pipeline import SyntheticLMDataset, TeacherStudentDataset
+from .pipeline import FrameStub, SyntheticLMDataset, TeacherStudentDataset
 
-__all__ = ["SyntheticLMDataset", "TeacherStudentDataset"]
+__all__ = ["FrameStub", "SyntheticLMDataset", "TeacherStudentDataset"]

@@ -48,6 +48,22 @@ class SyntheticLMDataset:
                 for k, v in self.batch_numpy(step).items()}
 
 
+class FrameStub:
+    """The stand-in frontend of an ``input_mode="embeddings"`` model
+    (musicgen-large's EnCodec frames): a fixed N(0, 1) table ``[vocab, d]``
+    from ``seed``, so a token stream becomes frame embeddings ``[..., d]``
+    and a decoded codebook token the next step's frame. The reference's
+    launchers have no frontend; the port's use this one."""
+
+    def __init__(self, vocab: int, d_model: int, seed: int = 0, device=None):
+        dev = resolve(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        self.table = torch.randn((vocab, d_model), generator=gen, dtype=torch.float32, device=dev)
+
+    def __call__(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.table[tokens]
+
+
 def fan_in_normal(key: tuple, shape: tuple, device=None) -> torch.Tensor:
     """``jax.random.normal(key, shape) / np.sqrt(shape[0])`` in f32: the
     reference's teacher and MLP initializers. The divisor is a tensor on

@@ -13,9 +13,14 @@ newest checkpoint's.
 ``--plan default`` resolves and prints the behaviour-preserving plan;
 ``--plan hetero`` splits the 12 layers into two groups, gives group 0
 uniform-6 slices read through a 9-bit ADC and group 1 the paper's spec at 6
-bits (two slice specs and two ADC resolutions in one model). The plan rides
-every checkpoint manifest, so a restore under another layout fails.
-``--plan moe-hetero`` needs the MoE block, which is not ported yet.
+bits (two slice specs and two ADC resolutions in one model);
+``--plan moe-hetero`` swaps in a granite-style MoE variant (12 MoE layers,
+16 experts top-4, expert d_ff 512), maps the expert banks as grouped
+crossbar tiles (``coverage_rules``: ``group="expert"``) and reads the first
+4 experts of every bank through a 9-bit ADC and the other 12 through a
+6-bit one (``expert_groups``: Fig 10's heterogeneity within one leaf). The
+plan rides every checkpoint manifest, so a restore under another layout
+fails.
 """
 from __future__ import annotations
 
@@ -56,9 +61,18 @@ def build_plan(cfg, opt_cfg, which: str, fidelity: bool):
     if fidelity and which in ("hetero", "moe-hetero"):
         raise SystemExit(f"--plan {which} attaches per-leaf fidelity itself; drop --fidelity")
     if which == "moe-hetero":
-        raise NotImplementedError("--plan moe-hetero needs the MoE block and the expert operand group, "
-                                  "which are not ported yet")
-    if which == "hetero":
+        from repro_torch.models.common import MoECfg
+        from repro_torch.plan import coverage_rules
+
+        cfg = dataclasses.replace(cfg, arch_id="gemma-moe-100m", dtype=torch.float32, pattern=(("moe", 12),),
+                                  d_ff=512, moe=MoECfg(n_experts=16, top_k=4, d_ff_expert=512))
+        rules = coverage_rules(opt_cfg) + (
+            PlanRule("*/experts_*", expert_groups=(
+                (4, FidelityConfig(adc_bits_fwd=9, adc_bits_bwd=9)),
+                (12, FidelityConfig(adc_bits_fwd=6, adc_bits_bwd=6)),
+            )),
+        )
+    elif which == "hetero":
         # two groups, so that rules can give each its own crossbar configuration
         cfg = dataclasses.replace(cfg, dtype=torch.float32, pattern=(("dense", 6), ("dense", 6)))
         rules = default_rules(opt_cfg) + (
@@ -70,6 +84,26 @@ def build_plan(cfg, opt_cfg, which: str, fidelity: bool):
         rules = default_rules(opt_cfg, fidelity=cfg.fidelity)
         cfg = dataclasses.replace(cfg, fidelity=None)  # rides the plan now
     return cfg, resolve_plan(lm.param_shapes(cfg), rules)
+
+
+def expert_segments(plan) -> list:
+    """One line a leaf whose fidelity splits its expert axis: the path and
+    each segment's experts and ADC (fwd, bwd)."""
+    from repro_torch.plan import plan_by_path
+
+    lines = []
+    for path, pl in plan_by_path(plan).items():
+        fid = pl.fidelity
+        if fid is None or fid.expert_groups is None:
+            continue
+        segs = []
+        start = 0
+        for n, g in fid.expert_groups:
+            g = g if g is not None else fid
+            segs.append(f"experts {start}-{start + n - 1} adc(fwd,bwd)=({g.adc_bits_fwd}, {g.adc_bits_bwd})")
+            start += n
+        lines.append(f"  {path}: " + "; ".join(segs))
+    return lines
 
 
 def main(argv=None) -> float:
@@ -94,7 +128,8 @@ def main(argv=None) -> float:
                          "the backward MᵀVM read the live planes at finite ADC resolution")
     ap.add_argument("--plan", default=None, choices=["default", "hetero", "moe-hetero"],
                     help="per-leaf mapping plan: 'default' resolves and prints the behaviour-preserving plan; "
-                         "'hetero' two slice specs and two ADC resolutions in one model; 'moe-hetero' not ported")
+                         "'hetero' two slice specs and two ADC resolutions in one model; 'moe-hetero' a MoE "
+                         "variant whose expert banks read at 9 bits (4 experts) and 6 bits (12)")
     ap.add_argument("--device", default=None, help="torch device (default cuda)")
     args = ap.parse_args(argv)
     device = resolve(args.device)
@@ -109,6 +144,8 @@ def main(argv=None) -> float:
     if args.plan:
         cfg, plan = build_plan(cfg, opt_cfg, args.plan, bool(args.fidelity))
         print(f"--plan {args.plan} resolved:\n{plan_summary(plan)}")
+        for line in expert_segments(plan):
+            print(line)
     n_params = cfg.vocab * cfg.d_model + cfg.n_layers * (
         2 * cfg.d_model * cfg.n_heads * cfg.head_dim + 2 * cfg.d_model * cfg.n_kv_heads * cfg.head_dim
         + 3 * cfg.d_model * cfg.d_ff)

@@ -234,11 +234,18 @@ def run_legacy(args, device):
     from repro_torch.serve import kv_pages
     from repro_torch.serve.step import make_decode_step, make_prefill
 
+    from repro_torch.data import FrameStub
+
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
     params, _, _ = _weights(cfg, device)
     max_seq = args.prompt_len + args.tokens
     gen = torch.Generator(device=device).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen, device=device)
+    # a model on frame embeddings reads its prompt and each decoded codebook
+    # token through the stand-in frontend
+    frames = FrameStub(cfg.vocab, cfg.d_model, device=device) if cfg.input_mode != "tokens" else None
+    if frames is not None:
+        prompts = frames(prompts)
 
     t0 = time.time()
     logits, caches = make_prefill(cfg)(params, prompts)
@@ -250,7 +257,8 @@ def run_legacy(args, device):
     out = [tok]
     t0 = time.time()
     for i in range(args.tokens - 1):
-        tok, logits, caches = decode(params, tok.long(), caches, args.prompt_len + i)
+        inp = tok.long() if frames is None else frames(tok.long())[:, None]
+        tok, logits, caches = decode(params, inp, caches, args.prompt_len + i)
         out.append(tok)
     toks = torch.stack(out, dim=1).cpu()
     dt = time.time() - t0

@@ -7,7 +7,11 @@ or, for a check at the reduced size, on the CPU with the plain versions
 bigram tokens (step-indexed, so a resumed run sees the batches it would
 have seen), the PANTHER update with counter-hash stochastic rounding and
 CRS every ``--crs-every`` steps; ``--fidelity`` trains through the
-finite-ADC reads.
+finite-ADC reads. Every ported architecture trains (``--arch
+granite-moe-1b-a400m`` through its MoE blocks, with the load-balance term
+in the loss, logged as ``aux``), under the default rules as in the
+reference's launcher; a model on frame embeddings (musicgen-large) reads
+the token stream through ``data.FrameStub``.
 
 ``--ckpt-dir`` checkpoints the train state (``repro_torch.checkpoint``,
 the reference's format, with the resolved plan in every manifest): it
@@ -62,7 +66,7 @@ def main(argv=None) -> list:
     from repro_torch import configs
     from repro_torch import plan as planlib
     from repro_torch.checkpoint import CheckpointManager, list_checkpoints, save_checkpoint
-    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.data import FrameStub, SyntheticLMDataset
     from repro_torch.device import resolve
     from repro_torch.optim import PantherConfig
     from repro_torch.optim.schedules import constant, cosine, wsd
@@ -84,6 +88,11 @@ def main(argv=None) -> list:
         rules = planlib.default_rules(opt_cfg, fidelity=fid)
 
     ds = SyntheticLMDataset(cfg.vocab, args.seq, args.batch, device=device)
+    frames = FrameStub(cfg.vocab, cfg.d_model, device=device) if cfg.input_mode != "tokens" else None
+
+    def batch_of(step):
+        b = ds.batch(step)
+        return b if frames is None else {**b, "inputs": frames(b["inputs"])}
     step_fn = make_train_step(cfg, opt_cfg, sched, plan_rules=rules)
     state = train_state_init(cfg, opt_cfg, 0, device=device)
 
@@ -114,9 +123,10 @@ def main(argv=None) -> list:
     history = []
     t0 = time.perf_counter()
     for step in range(start, args.steps):
-        state, metrics = step_fn(state, ds.batch(step))
+        state, metrics = step_fn(state, batch_of(step))
         if step % args.log_every == 0 or step == args.steps - 1:  # the only device syncs
-            print(f"step {step:5d} loss {float(metrics['loss']):.4f} lr {metrics['lr']:.2e} "
+            aux = f" aux {float(metrics['aux']):.4f}" if cfg.moe is not None else ""
+            print(f"step {step:5d} loss {float(metrics['loss']):.4f}{aux} lr {metrics['lr']:.2e} "
                   f"gnorm {float(metrics['grad_norm']):.3f} ({time.perf_counter() - t0:.1f}s)", flush=True)
         history.append({**metrics, "time_s": time.perf_counter() - t0})
         if ckpt:

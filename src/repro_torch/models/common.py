@@ -82,19 +82,28 @@ class OuterProductGrad:
 
 class OperandSlot:
     """Where the backward of a train-side wrap leaves each layer's operands.
-    ``stack`` is the wrap's layer-stack shape (``()`` for an unstacked
-    leaf). A slot written twice in one backward raises: operand gradients do
-    not sum, and each ``OPERAND_LINEAR_KEYS`` weight is used once per layer."""
+    ``stack`` is the wrap's stack shape (``()`` for an unstacked leaf). A
+    grouped slot (an MoE expert bank, ``grouped=True``) keeps its last stack
+    dim, the expert axis, inside each entry: a layer's backward puts ``x
+    [E, T_e, M]`` / ``dh [E, T_e, N]`` at once, and ``layers`` are the stack
+    dims before it; ``tokens``, when given, is the token count each entry
+    must have (an expert bank's capacity rows, the reference's exact
+    cotangent shape). A slot written twice in one backward raises: operand
+    gradients do not sum, and each operand weight is used once per layer."""
 
-    __slots__ = ("stack", "x", "dh")
+    __slots__ = ("stack", "layers", "tokens", "x", "dh")
 
-    def __init__(self, stack: tuple = ()):
+    def __init__(self, stack: tuple = (), grouped: bool = False, tokens: int | None = None):
         self.stack = tuple(stack)
-        n = math.prod(self.stack)
+        self.layers = self.stack[:-1] if grouped else self.stack
+        self.tokens = tokens
+        n = math.prod(self.layers)
         self.x = [None] * n
         self.dh = [None] * n
 
     def put(self, i: int, x: torch.Tensor, dh: torch.Tensor) -> None:
+        if self.tokens is not None and x.shape[-2] != self.tokens:
+            raise RuntimeError(f"operands of {x.shape[-2]} tokens a tile, expected {self.tokens}")
         if self.x[i] is not None:
             raise RuntimeError(f"operand slot of layer {i} written twice in one backward: "
                                "an operand-form weight must be used once per layer")
@@ -104,11 +113,11 @@ class OperandSlot:
         """The operands as one ``OuterProductGrad`` (layers stacked)."""
         if any(v is None for v in self.x):
             raise RuntimeError("operand slot not filled: a layer's weight was never read")
-        if not self.stack:
+        if not self.layers:
             return OuterProductGrad(self.x[0], self.dh[0])
         x, dh = torch.stack(self.x), torch.stack(self.dh)
-        return OuterProductGrad(x.reshape(*self.stack, *x.shape[1:]),
-                                dh.reshape(*self.stack, *dh.shape[1:]))
+        return OuterProductGrad(x.reshape(*self.layers, *x.shape[1:]),
+                                dh.reshape(*self.layers, *dh.shape[1:]))
 
 
 # ------------------------ fidelity (finite-ADC) mode -------------------------
@@ -174,6 +183,24 @@ class FidelityConfig:
     spec: SliceSpec = DEFAULT_SPEC
     margin_bits: int = 1
     device: DeviceModel | None = None
+    # per-expert-group ADC of a grouped (MoE expert) leaf: ``((count,
+    # FidelityConfig | None), ...)`` segments over the expert axis in order,
+    # None reading at this config; None = every expert at this config
+    expert_groups: tuple | None = None
+
+    def group_slices(self, n_experts: int):
+        """``(start, stop, fid)`` per expert segment, covering ``[0,
+        n_experts)``: the declared segments, then the tail at the base
+        config (this one, ``expert_groups`` cleared)."""
+        base = dataclasses.replace(self, expert_groups=None)
+        start = 0
+        for count, gfid in self.expert_groups or ():
+            stop = min(start + int(count), n_experts)
+            if stop > start:
+                yield start, stop, (gfid if gfid is not None else base)
+            start = stop
+        if start < n_experts:
+            yield start, n_experts, base
 
 
 class XbarWeight:
@@ -201,7 +228,7 @@ class XbarWeight:
         self.index = index
 
     def __getitem__(self, i) -> "XbarWeight":
-        if self.slot is not None and len(self.slot.stack) != 1:
+        if self.slot is not None and len(self.slot.layers) != 1:
             raise IndexError("only a wrap with one layer-stack dim can be indexed")
         pick = lambda t: None if t is None else t[i]  # noqa: E731
         return XbarWeight(pick(self.w), pick(self.planes), pick(self.frac_bits), self.fid,
@@ -270,6 +297,75 @@ def xbar_linear(x: torch.Tensor, w, dtype=None) -> torch.Tensor:
             return _XbarLinear.apply(x, w)
         return _xbar_read(x, w, transpose=False)
     return x @ w.to(dtype if dtype is not None else x.dtype)
+
+
+# ------------------- grouped (per-expert) crossbar linears -------------------
+#
+# Each MoE expert is its own crossbar tile: ``y[e] = x[e] @ w[e]`` over the
+# per-expert capacity buffers ``x [E, T_e, d]``. The weight gradient keeps
+# the expert axis as a stack dim (``x [E, T_e, M]``, ``dh [E, T_e, N]``), so
+# the update deposits each expert's own outer product, one block an expert.
+
+
+def _grouped_fid_read(ww: XbarWeight, v: torch.Tensor, transpose: bool) -> torch.Tensor:
+    """Finite-ADC read of every expert tile: one ``fidelity_read`` an
+    expert, in expert order, each at its segment's config of
+    ``fid.group_slices``, on its own ``[S, M, N]`` planes, with its own
+    ``frac_bits`` and its own DAC exponent over its capacity buffer."""
+    from repro_torch.core.mvm import fidelity_read  # lazy: core stays model-free
+
+    E = v.shape[0]
+    fb = torch.as_tensor(ww.frac_bits, dtype=torch.int32, device=v.device).expand(E)
+    outs = [fidelity_read(ww.planes[e], fb[e], v[e], gfid, transpose=transpose)
+            for start, stop, gfid in ww.fid.group_slices(E) for e in range(start, stop)]
+    return torch.stack(outs)
+
+
+def _grouped_read(v: torch.Tensor, ww: XbarWeight, transpose: bool) -> torch.Tensor:
+    """``v[e] @ w[e]`` (``v[e] @ w[e]ᵀ`` when ``transpose``) in ``v``'s
+    dtype: through the grouped finite-ADC read where the wrap's fidelity
+    reads that direction, else through the dense copy."""
+    fid = ww.fid
+    if fid is not None and (fid.bwd if transpose else fid.fwd):
+        return _grouped_fid_read(ww, v, transpose).to(v.dtype)
+    w = ww.w.to(v.dtype)
+    return torch.einsum("ecf,edf->ecd", v, w) if transpose else torch.einsum("ecd,edf->ecf", v, w)
+
+
+class _XbarGrouped(torch.autograd.Function):
+    """``x[e] @ w[e]`` whose backward returns ``dx`` and leaves the weight's
+    gradient in operand form with the expert axis kept: ``(x, dy)`` ``[E,
+    T_e, ·]`` go into the wrap's grouped slot."""
+
+    @staticmethod
+    def forward(ctx, x, ww):
+        ctx.ww = ww
+        ctx.save_for_backward(x)
+        return _grouped_read(x, ww, transpose=False)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        ww = ctx.ww
+        dx = _grouped_read(dy, ww, transpose=True) if ctx.needs_input_grad[0] else None
+        ww.slot.put(ww.index, x.detach(), dy)
+        return dx, None
+
+
+def xbar_grouped_linear(x: torch.Tensor, w, dtype=None) -> torch.Tensor:
+    """Per-expert batched linear ``y[e] = x[e] @ w[e]`` (``ecd,edf->ecf``),
+    ``w`` a plain ``[E, d, f]`` tensor or an ``XbarWeight``: a plain tensor
+    takes one batched product with a dense gradient; a train-side wrap
+    ``_XbarGrouped``; a serving wrap reads forward only, through the
+    grouped finite-ADC read (honouring ``fid.expert_groups``) or the dense
+    copy."""
+    if isinstance(w, XbarWeight):
+        if dtype is not None:
+            x = x.to(dtype)
+        if w.slot is not None:
+            return _XbarGrouped.apply(x, w)
+        return _grouped_read(x, w, transpose=False)
+    return torch.einsum("ecd,edf->ecf", x, w.to(dtype if dtype is not None else x.dtype))
 
 
 # ------------------------------- configs -------------------------------------

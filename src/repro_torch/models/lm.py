@@ -6,10 +6,13 @@ position a slot.
 A config's ``pattern`` is an ordered tuple of ``(block_name, count)``
 groups; a counted group keeps its params stacked on a leading ``[count,
 ...]`` axis and runs as a Python loop over layers (the reference's
-``lax.scan``). Only the ``"dense"`` attention + MLP block is ported; the
-other block types raise. The reference rematerializes each layer in the
-backward; that saves memory and does not change the numbers, and the port
-keeps the activations instead.
+``lax.scan``). Ported blocks: ``"dense"`` (attention + gated MLP) and
+``"moe"`` (attention + the capacity-bounded MoE layer); the other block
+types raise. A block's training ``apply`` returns ``(h, aux)``, ``aux`` its
+MoE load-balance term (zero for ``"dense"``); ``hidden`` sums it over the
+layers and ``loss_fn`` adds ``aux_weight`` times it. The reference
+rematerializes each layer in the backward; that saves memory and does not
+change the numbers, and the port keeps the activations instead.
 """
 from __future__ import annotations
 
@@ -22,11 +25,12 @@ from repro_torch import tree
 from repro_torch.device import resolve
 from . import attention as att
 from .common import LMConfig, ShapeDtype, XbarWeight, dense_init, embed_init, rms_norm, rms_norm_init, softcap
+from .mlp import moe_apply, moe_init
 
 
 class BlockDef(NamedTuple):
     init: Callable  # (cfg, gen, *, stack, device) -> params
-    apply: Callable  # (cfg, params, h, ctx) -> h (training forward)
+    apply: Callable  # (cfg, params, h, ctx) -> (h, aux) (training forward)
     prefill: Callable  # (cfg, params, h, ctx) -> (h, cache)
     decode: Callable  # (cfg, params, h, cache, ctx) -> (h, cache)
     cache_spec: Callable  # (cfg, B, S, dtype) -> tree of ShapeDtype
@@ -40,8 +44,12 @@ def _dense_init(cfg, gen, *, stack=(), device=None):
     return att.block_init(cfg, gen, stack=stack, device=device)
 
 
+def _no_aux(h):
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
 def _dense_apply(cfg, p, h, ctx):
-    return att.block_apply(cfg, p, h, ctx["positions"])
+    return _no_aux(att.block_apply(cfg, p, h, ctx["positions"]))
 
 
 def _dense_prefill(cfg, p, h, ctx):
@@ -56,9 +64,41 @@ def _dense_cont(cfg, p, h, cache, ctx):
     return att.block_cont(cfg, p, h, cache, ctx["positions"], ctx["start"])
 
 
+# ------------------------------ MoE block -----------------------------------
+# The attention half is the dense block's, so it caches, pages and chunks
+# like "dense"; the MLP half is ``mlp.moe_apply``.
+
+
+def _moe_init(cfg, gen, *, stack=(), device=None):
+    return {"attn": att.attn_init(cfg, gen, stack=stack, device=device),
+            "moe": moe_init(cfg, gen, stack=stack, device=device)}
+
+
+def _moe_apply(cfg, p, h, ctx):
+    h = att.attn_apply(cfg, p["attn"], h, ctx["positions"])
+    # one router read a step: the aux loss shares moe_apply's logits
+    return moe_apply(cfg, p["moe"], h, with_aux=True)
+
+
+def _moe_prefill(cfg, p, h, ctx):
+    h, cache = att.attn_apply(cfg, p["attn"], h, ctx["positions"], with_cache=True)
+    return moe_apply(cfg, p["moe"], h), cache
+
+
+def _moe_decode(cfg, p, h, cache, ctx):
+    h, cache = att.attn_decode(cfg, p["attn"], h, cache, ctx["pos"])
+    return moe_apply(cfg, p["moe"], h), cache
+
+
+def _moe_cont(cfg, p, h, cache, ctx):
+    h, cache = att.attn_cont(cfg, p["attn"], h, cache, ctx["positions"], ctx["start"])
+    return moe_apply(cfg, p["moe"], h), cache
+
+
 BLOCKS: dict[str, BlockDef] = {
     "dense": BlockDef(_dense_init, _dense_apply, _dense_prefill, _dense_decode, att.attn_cache_spec,
                       _dense_cont),
+    "moe": BlockDef(_moe_init, _moe_apply, _moe_prefill, _moe_decode, att.attn_cache_spec, _moe_cont),
 }
 
 
@@ -142,24 +182,26 @@ def _head_out(cfg: LMConfig, params, h: torch.Tensor, table=None) -> torch.Tenso
     return softcap(logits, cfg.softcap_final)
 
 
-def hidden(cfg: LMConfig, params, inputs: torch.Tensor, table=None) -> torch.Tensor:
-    """Backbone training forward without the LM head: h [B, S, d]."""
+def hidden(cfg: LMConfig, params, inputs: torch.Tensor, table=None):
+    """Backbone training forward without the LM head: ``(h [B, S, d],
+    aux)``, ``aux`` the f32 sum of the blocks' load-balance terms in layer
+    order."""
     h = _embed_in(cfg, params, inputs, table)
     ctx = {"positions": torch.arange(h.shape[1], device=h.device)}
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for (name, count), gparams in zip(cfg.pattern, params["groups"]):
         block = _block(name)
-        if count == 1:
-            h = block.apply(cfg, gparams, h, ctx)
-        else:
-            for i in range(count):
-                h = block.apply(cfg, layer(gparams, i), h, ctx)
-    return h
+        for i in range(count):
+            h, aux = block.apply(cfg, gparams if count == 1 else layer(gparams, i), h, ctx)
+            aux_total = aux_total + aux
+    return h, aux_total
 
 
-def forward(cfg: LMConfig, params, inputs: torch.Tensor) -> torch.Tensor:
-    """Training forward: logits [B, S, V]."""
+def forward(cfg: LMConfig, params, inputs: torch.Tensor):
+    """Training forward: ``(logits [B, S, V], aux)``."""
     table = _table(cfg, params)
-    return _head_out(cfg, params, hidden(cfg, params, inputs, table), table)
+    h, aux = hidden(cfg, params, inputs, table)
+    return _head_out(cfg, params, h, table), aux
 
 
 def _nll_of_chunk(cfg: LMConfig, params, h_c, labels_c, table=None) -> torch.Tensor:
@@ -176,26 +218,36 @@ def _nll_of_chunk(cfg: LMConfig, params, h_c, labels_c, table=None) -> torch.Ten
 LOSS_CHUNK = 1024
 
 
-def loss_fn(cfg: LMConfig, params, batch) -> torch.Tensor:
-    """Mean next-token cross entropy. batch: {inputs, labels, mask?}. Above
-    ``LOSS_CHUNK`` tokens a sequence is summed chunk by chunk, in the
-    reference's order."""
+def loss_parts(cfg: LMConfig, params, batch):
+    """``(nll, aux)``: the mean next-token cross entropy and the summed MoE
+    load-balance term. batch: {inputs, labels, mask?}. Above ``LOSS_CHUNK``
+    tokens a sequence is summed chunk by chunk, in the reference's order."""
     table = _table(cfg, params)
-    h = hidden(cfg, params, batch["inputs"], table)
+    h, aux = hidden(cfg, params, batch["inputs"], table)
     labels = batch["labels"]
     mask = batch.get("mask")
     B, S, _ = h.shape
     C = min(LOSS_CHUNK, S)
     if mask is not None:
         nll = _nll_of_chunk(cfg, params, h, labels, table) * mask
-        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0), aux
     if S % C == 0 and S > C:
         total = torch.zeros((), dtype=torch.float32, device=h.device)
         for q in range(S // C):
             sl = slice(q * C, (q + 1) * C)
             total = total + _nll_of_chunk(cfg, params, h[:, sl], labels[:, sl], table).sum()
-        return total / float(B * S)
-    return _nll_of_chunk(cfg, params, h, labels, table).sum() / float(B * S)
+        return total / float(B * S), aux
+    return _nll_of_chunk(cfg, params, h, labels, table).sum() / float(B * S), aux
+
+
+AUX_WEIGHT = 0.01  # the MoE load-balance term's weight in the loss
+
+
+def loss_fn(cfg: LMConfig, params, batch, aux_weight: float = AUX_WEIGHT) -> torch.Tensor:
+    """Next-token cross entropy plus ``aux_weight`` times the MoE
+    load-balance term (``loss_parts``)."""
+    nll, aux = loss_parts(cfg, params, batch)
+    return nll + aux_weight * aux
 
 
 def cache_specs(cfg: LMConfig, batch: int, max_seq: int, dtype=None, layout: str = "stacked"):

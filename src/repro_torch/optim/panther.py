@@ -20,7 +20,10 @@ A leaf whose plan carries a write-nonideal ``DeviceModel`` writes through
 its physics: operand leaves in the fused update kernel, dense-gradient
 leaves in the dense write's device instance. Momentum lives in
 ``update`` only: ``update_split`` refuses it (the reference's ignores
-it). Not ported yet: the ``im2col``/``expert`` operand kinds.
+it). An MoE expert bank under ``group="expert"`` is an operand leaf whose
+stack is ``(layers, experts)``: its operands carry the expert axis
+(``x [L, E, T_e, M]``), and the update writes one block a (layer, expert)
+through the same stacked path. Not ported yet: the ``im2col`` kind.
 
 Layout: a ``SlicedTensor``'s planes are ``[S, *stack, M, N]`` as in the
 reference, but a stacked leaf's storage is laid out ``[*stack, S, M, N]``
@@ -46,7 +49,7 @@ from repro_torch.core.slicing import (
     dequantize_planes,
     slice_weights,
 )
-from repro_torch.models.common import OperandSlot, OuterProductGrad, XbarWeight
+from repro_torch.models.common import OperandSlot, OuterProductGrad, XbarWeight, path_str
 from repro_torch.plan import default_rules, resolve_plan
 
 # elements sliced per chunk: bounds the int32 temporaries of slicing a large
@@ -176,13 +179,15 @@ def fidelitize(params, sliced, plan):
     """Forward-only fidelity wrap for serving: each operand-eligible leaf with
     a resolved ``plan.fidelity`` becomes ``XbarWeight(None, planes,
     frac_bits, fid)`` so prefill/decode read the crossbar through the
-    finite-ADC engine; leaves without one stay dense. The dense copy of a
-    wrapped leaf is dropped unless ``fid.fwd`` is off."""
+    finite-ADC engine (an MoE expert bank through the grouped read, each
+    expert segment at its own ADC); leaves without one stay dense. The
+    dense copy of a wrapped leaf is dropped unless ``fid.fwd`` is off, and
+    ``params`` may hold None there (``needs_dense``)."""
     def wrap(path, p, s, pl):
         fid = pl.fidelity if pl.grad == "operand" else None
         if s is None or fid is None:
             return p
-        planes, frac = _fid_leaves(s, tuple(p.shape[:-2]))
+        planes, frac = _fid_leaves(s, tuple(s.planes.shape[1:-2]))
         return XbarWeight(None if fid.fwd else p, planes, frac, fid)
 
     return tree.map_with_path(wrap, params, sliced, plan)
@@ -199,21 +204,30 @@ def needs_dense(s, pl) -> bool:
     return s is not None and not (fid is not None and fid.fwd and fid.bwd)
 
 
-def operandize(params, sliced, plan):
+def operandize(params, sliced, plan, expert_tokens: int | None = None):
     """Wrap each operand leaf of a param tree (``plan.grad == "operand"``,
     mapped) in a train-side ``XbarWeight`` with an ``OperandSlot``: the
     model's backward then leaves ``(x, dh)`` there instead of a dense
     gradient. A leaf with a ``plan.fidelity`` also carries its planes, so
     its forward and its ``dx`` read them through the finite-ADC engine.
-    ``params`` may hold None where ``needs_dense`` is False."""
+    An expert leaf (``plan.group == "expert"``) gets a grouped slot whose
+    last stack dim is the expert axis; ``expert_tokens``, the MoE capacity
+    tokens a forward (``G · C``), is the token count each expert's operands
+    must have (checked as the backward writes the slot). ``params`` may hold None
+    where ``needs_dense`` is False."""
     def wrap(path, p, s, pl):
         if s is None or pl.grad != "operand":
             return p
+        if pl.group == "im2col":
+            raise NotImplementedError(f"leaf {path_str(path)!r}: the im2col operand kind (depthwise conv "
+                                      "taps) is not ported yet")
         stack = tuple(s.planes.shape[1:-2])
+        grouped = pl.group == "expert"
+        slot = OperandSlot(stack, grouped=grouped, tokens=expert_tokens if grouped else None)
         if pl.fidelity is None:
-            return XbarWeight(p, None, None, None, OperandSlot(stack))
+            return XbarWeight(p, None, None, None, slot)
         planes, frac = _fid_leaves(s, stack)
-        return XbarWeight(p, planes, frac, pl.fidelity, OperandSlot(stack))
+        return XbarWeight(p, planes, frac, pl.fidelity, slot)
 
     return tree.map_with_path(wrap, params, sliced, plan)
 

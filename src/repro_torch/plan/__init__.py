@@ -2,8 +2,13 @@
 
 A :class:`LeafPlan` says how one parameter leaf maps to hardware: ``mapped``
 (int8 digit planes vs digital), its ``spec``, its ``grad`` path
-(``"operand"`` | ``"dense"``) and an optional ``fidelity`` for finite-ADC
-reads. An ordered list of :class:`PlanRule` s resolves one
+(``"operand"`` | ``"dense"``), an optional ``fidelity`` for finite-ADC
+reads, the operand ``group`` kind (``None`` for a matmul, ``"im2col"`` for
+depthwise-conv taps, ``"expert"`` for an MoE bank whose expert axis rides
+the operand stack) and ``expert_groups`` (``((count, FidelityConfig |
+None), ...)`` segments giving contiguous experts their own read fidelity,
+folded into ``fidelity.expert_groups`` at resolution). An ordered list of
+:class:`PlanRule` s resolves one
 plan per leaf: every matching rule applies in order, later rules overriding
 earlier ones field by field. Rules match a glob over the '/'-joined leaf
 path plus an optional predicate over :class:`LeafInfo`; the paths are the
@@ -12,7 +17,10 @@ JAX package's, so one rule list means the same thing on both trees.
 Token-dependent rules see ``LeafInfo.tokens``, the flattened tokens of one
 differentiated forward (one microbatch): ``operand_stash_rule`` flips a
 leaf whose operand stash outweighs its dense gradient to ``grad="dense"``
-(``default_rules(stash_fallback=True)``). ``plan_by_path`` and
+(``default_rules(stash_fallback=True)``). ``coverage_rules`` layers the
+generalized operand mapping on the default rules: routers and the
+structured matmul keys flow operands, expert banks map as ``group=
+"expert"`` tiles, conv taps as ``"im2col"``. ``plan_by_path`` and
 ``plan_summary`` read a resolved plan.
 
 Serialization (checkpoint manifests): ``plan_manifest`` writes a resolved
@@ -20,9 +28,9 @@ plan in the reference's format, key for key, so each package reads the
 other's manifests; ``check_plan_compat`` refuses a restore whose stored
 planes were laid out or written under another plan.
 
-Not ported yet: shard hints, the operand group kinds (``im2col`` conv taps,
-MoE expert banks) and their per-expert fidelity, ``coverage_rules``. A
-manifest that uses them fails to load (``leaf_plan_from_dict``).
+Not ported yet: shard hints (a manifest that sets one fails to load,
+``leaf_plan_from_dict``). An ``im2col`` leaf resolves, but the optimizer
+refuses it until the blocks with conv taps land.
 """
 from __future__ import annotations
 
@@ -59,6 +67,9 @@ class LeafInfo(NamedTuple):
     tokens: int | None = None  # flattened tokens per differentiated forward, if known
 
 
+GROUP_KINDS = (None, "im2col", "expert")
+
+
 @dataclasses.dataclass(frozen=True)
 class LeafPlan:
     """How one parameter leaf maps to hardware. See module docstring."""
@@ -67,10 +78,16 @@ class LeafPlan:
     spec: SliceSpec = DEFAULT_SPEC
     grad: str = "dense"  # "operand" | "dense"
     fidelity: FidelityConfig | None = None
+    group: str | None = None  # operand group kind: None (matmul) | "im2col" | "expert"
+    expert_groups: tuple | None = None  # ((count, FidelityConfig | None), ...)
 
     def __post_init__(self):
         if self.grad not in ("operand", "dense"):
             raise ValueError(f"LeafPlan.grad must be 'operand' or 'dense', got {self.grad!r}")
+        if self.group not in GROUP_KINDS:
+            raise ValueError(f"LeafPlan.group must be one of {GROUP_KINDS}, got {self.group!r}")
+        if self.expert_groups is not None:
+            object.__setattr__(self, "expert_groups", tuple((int(n), g) for n, g in self.expert_groups))
 
     @property
     def category(self) -> str:
@@ -80,7 +97,7 @@ class LeafPlan:
         return "operand" if self.grad == "operand" else "dense"
 
 
-_OVERRIDE_FIELDS = ("mapped", "spec", "grad", "fidelity")
+_OVERRIDE_FIELDS = ("mapped", "spec", "grad", "fidelity", "group", "expert_groups")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +110,8 @@ class PlanRule:
     spec: Any = UNSET
     grad: Any = UNSET
     fidelity: Any = UNSET
+    group: Any = UNSET
+    expert_groups: Any = UNSET
 
     def matches(self, info: LeafInfo) -> bool:
         if not fnmatch.fnmatchcase(info.path, self.pattern):
@@ -168,6 +187,48 @@ def default_rules(cfg=None, fidelity: FidelityConfig | None = None, stash_fallba
     return tuple(rules)
 
 
+# Single-use matmul projections beyond the attn/mlp set, the reference's
+# list: mamba2's input heads and out-projection, xLSTM's mLSTM projections
+# and its sLSTM FFN. Their blocks are not ported, so no ported config has
+# them; the rules are here so that one rule list means the same on both trees.
+_STRUCTURED_MATMUL_KEYS = (
+    "w_z", "w_x", "w_B", "w_C", "w_dt", "w_out",  # mamba2
+    "wq", "wk", "wv", "w_if", "w_up", "w_gate", "w_down",  # xlstm mlstm
+    "ffn_up", "ffn_down",  # xlstm slstm FFN
+)
+
+
+def coverage_rules(cfg=None, fidelity: FidelityConfig | None = None) -> tuple:
+    """``default_rules`` plus the generalized operand mapping: every
+    structurally eligible matmul weight flows operands, the MoE router
+    reads once a step as an operand leaf, expert banks map as ``group=
+    "expert"`` grouped tiles, depthwise conv taps as ``group="im2col"``
+    ``[K, C]`` tiles (only the channel count must clear ``min_dim``).
+    ``shared`` subtrees, the embedding and sLSTM's ``r`` stay dense."""
+    spec = getattr(cfg, "spec", DEFAULT_SPEC)
+    min_ndim = getattr(cfg, "min_ndim", 2)
+    min_dim = getattr(cfg, "min_dim", 8)
+
+    def eligible(i: LeafInfo) -> bool:
+        return crossbar_eligible(i.shape, i.dtype, min_ndim, min_dim) and "shared" not in i.path.split("/")
+
+    def conv_eligible(i: LeafInfo) -> bool:
+        return (len(i.shape) >= 2 and i.shape[-1] >= min_dim and i.dtype in _FLOAT_DTYPES
+                and "shared" not in i.path.split("/"))
+
+    rules = list(default_rules(cfg, fidelity=fidelity))
+    for key in _STRUCTURED_MATMUL_KEYS:
+        rules.append(PlanRule(f"*/{key}", where=eligible, grad="operand"))
+    # the router: one crossbar read a step (moe_apply(with_aux=True) takes
+    # the load-balance loss from the same logits)
+    rules.append(PlanRule("*/router", where=eligible, grad="operand"))
+    rules.append(PlanRule("*/conv_w", where=conv_eligible, mapped=True, spec=spec, grad="operand",
+                          group="im2col"))
+    for key in ("experts_gate", "experts_up", "experts_down"):
+        rules.append(PlanRule(f"*/{key}", where=eligible, grad="operand", group="expert"))
+    return tuple(rules)
+
+
 # ------------------------------- resolution ---------------------------------
 
 # Leaf keys the operand pipeline can never serve (gather / recurrent reads);
@@ -184,10 +245,25 @@ def _operand_unmappable(path: str) -> str | None:
     return None
 
 
+def _sync_fid_spec(fid: FidelityConfig, spec: SliceSpec) -> FidelityConfig:
+    """``fid`` with its spec, and every expert segment's, equal to the
+    leaf's plane layout (the engine must read the planes the optimizer
+    writes)."""
+    groups = fid.expert_groups
+    if groups is not None:
+        groups = tuple((n, g if g is None or g.spec == spec else dataclasses.replace(g, spec=spec))
+                       for n, g in groups)
+    if fid.spec == spec and groups == fid.expert_groups:
+        return fid
+    return dataclasses.replace(fid, spec=spec, expert_groups=groups)
+
+
 def _normalize(plan: LeafPlan, path: str = "", warned: set | None = None) -> LeafPlan:
-    """Demote unmappable operand leaves; drop a fidelity that cannot apply
-    (unmapped leaf, or a non-operand leaf without a device model); sync an
-    attached fidelity's spec to the leaf's plane layout."""
+    """Demote unmappable operand leaves; drop ``group``/``expert_groups``
+    off non-operand leaves and fold an operand leaf's ``expert_groups`` into
+    its fidelity; drop a fidelity that cannot apply (unmapped leaf, or a
+    non-operand leaf without a device model); sync an attached fidelity's
+    spec, and its segments', to the leaf's plane layout."""
     if plan.grad == "operand" and path:
         reason = _operand_unmappable(path)
         if reason is not None:
@@ -201,11 +277,17 @@ def _normalize(plan: LeafPlan, path: str = "", warned: set | None = None) -> Lea
                     stacklevel=3,
                 )
             plan = dataclasses.replace(plan, grad="dense")
+    if plan.grad != "operand" and (plan.group is not None or plan.expert_groups is not None):
+        plan = dataclasses.replace(plan, group=None, expert_groups=None)
+    if plan.expert_groups is not None:
+        base = plan.fidelity if plan.fidelity is not None else FidelityConfig(spec=plan.spec)
+        plan = dataclasses.replace(plan, fidelity=dataclasses.replace(base, expert_groups=plan.expert_groups))
     if plan.fidelity is not None:
         if not plan.mapped or (plan.grad != "operand" and plan.fidelity.device is None):
             return dataclasses.replace(plan, fidelity=None)
-        if plan.fidelity.spec != plan.spec:
-            return dataclasses.replace(plan, fidelity=dataclasses.replace(plan.fidelity, spec=plan.spec))
+        synced = _sync_fid_spec(plan.fidelity, plan.spec)
+        if synced is not plan.fidelity:
+            return dataclasses.replace(plan, fidelity=synced)
     return plan
 
 
@@ -253,20 +335,34 @@ def plan_summary(plan_tree) -> str:
 
 # ----------------------- serialization (checkpoints) ------------------------
 #
-# The reference's manifest format. The port's LeafPlan has no ``shard``,
-# ``group`` or ``expert_groups`` and its FidelityConfig no ``use_kernel``,
-# ``interpret``, ``shard_dim`` or ``expert_groups``: they are written at the
-# reference's defaults. On reading, ``use_kernel``/``interpret`` (JAX runtime
-# switches) are ignored, and a set value of any of the others raises.
+# The reference's manifest format. The port's LeafPlan has no ``shard`` and
+# its FidelityConfig no ``use_kernel``, ``interpret`` or ``shard_dim``: they
+# are written at the reference's defaults. On reading,
+# ``use_kernel``/``interpret`` (JAX runtime switches) are ignored, and a set
+# ``shard`` or ``shard_dim`` raises. Expert segments are ``[[count,
+# fidelity dict | None], ...]``, at the leaf and inside a fidelity.
 
-_FIDELITY_DEFAULTS = {"use_kernel": None, "interpret": None, "shard_dim": None, "expert_groups": None}
+_FIDELITY_DEFAULTS = {"use_kernel": None, "interpret": None, "shard_dim": None}
 _FIDELITY_RUNTIME = ("use_kernel", "interpret")
+
+
+def _expert_groups_to_list(groups) -> list | None:
+    if groups is None:
+        return None
+    return [[int(n), None if g is None else _fidelity_to_dict(g)] for n, g in groups]
+
+
+def _expert_groups_from_list(raw, path=None) -> tuple | None:
+    if raw is None:
+        return None
+    return tuple((int(n), None if g is None else _fidelity_from_dict(g, path)) for n, g in raw)
 
 
 def _fidelity_to_dict(fid: FidelityConfig) -> dict:
     d = {f.name: getattr(fid, f.name) for f in dataclasses.fields(fid)}
     d.update(_FIDELITY_DEFAULTS, spec=fid.spec.name(),
-             device=None if fid.device is None else dataclasses.asdict(fid.device))
+             device=None if fid.device is None else dataclasses.asdict(fid.device),
+             expert_groups=_expert_groups_to_list(fid.expert_groups))
     return d
 
 
@@ -276,12 +372,12 @@ def _unported(path, what: str):
 
 def _fidelity_from_dict(d: dict, path=None) -> FidelityConfig:
     d = {k: v for k, v in d.items() if k not in _FIDELITY_RUNTIME}
-    for k in ("shard_dim", "expert_groups"):
-        if d.pop(k, None) is not None:
-            _unported(path, f"fidelity.{k}")
+    if d.pop("shard_dim", None) is not None:
+        _unported(path, "fidelity.shard_dim")
     d["spec"] = SliceSpec(tuple(int(c) for c in d["spec"]))
     if d.get("device") is not None:
         d["device"] = DeviceModel(**d["device"])
+    d["expert_groups"] = _expert_groups_from_list(d.get("expert_groups"), path)
     return FidelityConfig(**d)
 
 
@@ -294,23 +390,24 @@ def leaf_plan_to_dict(pl: LeafPlan) -> dict:
         "grad": pl.grad,
         "fidelity": None if pl.fidelity is None else _fidelity_to_dict(pl.fidelity),
         "shard": None,
-        "group": None,
-        "expert_groups": None,
+        "group": pl.group,
+        "expert_groups": _expert_groups_to_list(pl.expert_groups),
     }
 
 
 def leaf_plan_from_dict(d: dict, path=None) -> LeafPlan:
     """The inverse of ``leaf_plan_to_dict`` (reads the reference's
-    manifests too); a set ``shard``, ``group`` or ``expert_groups`` raises
-    ``NotImplementedError`` naming ``path``."""
-    for k in ("shard", "group", "expert_groups"):
-        if d.get(k) is not None:
-            _unported(path, k)
+    manifests too); a set ``shard`` raises ``NotImplementedError`` naming
+    ``path``."""
+    if d.get("shard") is not None:
+        _unported(path, "shard")
     return LeafPlan(
         mapped=bool(d["mapped"]),
         spec=SliceSpec(tuple(int(c) for c in d["spec"])),
         grad=d["grad"],
         fidelity=None if d.get("fidelity") is None else _fidelity_from_dict(d["fidelity"], path),
+        group=d.get("group"),
+        expert_groups=_expert_groups_from_list(d.get("expert_groups"), path),
     )
 
 

@@ -8,10 +8,13 @@ back into them:
   or, for an operand leaf with a finite-ADC plan, through the fidelity
   engine in both directions (forward MVM, backward MᵀVM ``dx``), with no
   dense copy at all;
-* operand leaves (``OPERAND_LINEAR_KEYS`` under ``attn``/``mlp``) return
-  their weight gradient as operands ``(x, dh)``, which the fused update
-  kernel deposits without forming ``[M, N]``; every other leaf (the
-  embedding and the vector leaves) gets a dense gradient;
+* operand leaves (``OPERAND_LINEAR_KEYS`` under ``attn``/``mlp``, and
+  under ``plan.coverage_rules`` the MoE router and the expert banks)
+  return their weight gradient as operands ``(x, dh)``, which the fused
+  update kernel deposits without forming ``[M, N]``; an expert bank's
+  operands keep the expert axis (``x [L, E, G·C, M]``, ``G·C`` the MoE
+  capacity tokens); every other leaf (the embedding and the vector
+  leaves) gets a dense gradient;
 * ``optim.panther.update_split`` quantizes and deposits the update in
   place, and runs CRS every ``crs_every`` steps.
 
@@ -28,6 +31,10 @@ along the token axis, ``dh`` scaled by 1/G, so each block's update is one
 fused-update launch at G·T tokens. The plan is resolved per microbatch
 token count, so ``stash_fallback`` (``plan.operand_stash_rule``) sees the
 tokens of one microbatch, as in the reference.
+
+The loss is ``lm.loss_fn``'s: the cross entropy plus ``lm.AUX_WEIGHT``
+times the MoE load-balance term; ``metrics["aux"]`` is that term, zero for
+dense models.
 
 The state's step and rng are host values, and the learning-rate schedule is
 a host function, so nothing in the step waits on the device. Not ported:
@@ -76,7 +83,8 @@ def make_train_step(cfg: LMConfig, opt_cfg: PantherConfig, lr_schedule, mesh=Non
                     microbatches: int = 1, fsdp: bool = False, grad_dtype=torch.float32,
                     operand_grads: bool = True, plan=None, plan_rules=None, stash_fallback: bool = False):
     """Returns ``train_step(state, batch) -> (state', metrics)``; ``metrics``
-    holds ``loss`` and ``grad_norm`` (device scalars) and ``lr`` (a float).
+    holds ``loss``, ``aux`` and ``grad_norm`` (device scalars) and ``lr`` (a
+    float).
 
     ``cfg.fidelity``, or per leaf ``plan``/``plan_rules``, turns on
     crossbar-in-the-loop training; it rides the operand pipeline. The
@@ -121,34 +129,39 @@ def make_train_step(cfg: LMConfig, opt_cfg: PantherConfig, lr_schedule, mesh=Non
         w = dequantize_planes(s.planes, s.frac_bits, pl.spec, dtype=opt_cfg.compute_dtype)
         return w.requires_grad_(not (operand_grads and pl.grad == "operand"))
 
-    def grads_of(params, wrt, sliced, plan_t, batch):
-        """One forward and backward: the loss and the gradient tree (dense
-        tensors; ``OuterProductGrad`` at operand leaves). Fresh slots each
-        call, so every microbatch's operands land in their own."""
+    def grads_of(params, wrt, sliced, plan_t, batch, tokens):
+        """One forward and backward: the loss, the aux term and the gradient
+        tree (dense tensors; ``OuterProductGrad`` at operand leaves). Fresh
+        slots each call, so every microbatch's operands land in their own."""
         if operand_grads:
-            params = panther.operandize(params, sliced, plan_t)
-        loss = lm.loss_fn(cfg, params, batch)
+            params = panther.operandize(params, sliced, plan_t, expert_tokens=expert_tokens(cfg, tokens))
+        nll, aux = lm.loss_parts(cfg, params, batch)
+        loss = nll + lm.AUX_WEIGHT * aux
         dense = dict(zip((path for path, _ in wrt), torch.autograd.grad(loss, [p for _, p in wrt])))
         grads = tree.map_with_path(
             lambda path, p: p.slot.grad() if isinstance(p, XbarWeight) else dense[path], params)
-        return loss.detach(), grads
+        return loss.detach(), aux.detach(), grads
 
     def train_step(state: TrainState, batch):
         inp = batch["inputs"]
         if microbatches > 1 and inp.shape[0] != microbatches:
             raise ValueError(f"microbatches={microbatches} takes batch leaves shaped [G, B/G, S], "
                              f"got inputs {tuple(inp.shape)}")
-        plan_t = plan_of(state, inp.shape[-2] * inp.shape[-1])
+        lead = inp.shape if cfg.input_mode == "tokens" else inp.shape[:-1]  # embeddings: [..., B, S, d]
+        tokens = lead[-2] * lead[-1]
+        plan_t = plan_of(state, tokens)
         params = tree.map(leaf_param, state.digital, state.sliced, plan_t)
         wrt = [(path, p) for path, p in tree.leaves_with_path(params)
                if isinstance(p, torch.Tensor) and p.requires_grad]
         if microbatches == 1:
-            loss, grads = grads_of(params, wrt, state.sliced, plan_t, batch)
+            loss, aux, grads = grads_of(params, wrt, state.sliced, plan_t, batch, tokens)
         else:
-            loss, dense, ops = None, {}, {}
+            loss, aux, dense, ops = None, None, {}, {}
             for g in range(microbatches):
-                l_g, g_g = grads_of(params, wrt, state.sliced, plan_t, {k: v[g] for k, v in batch.items()})
+                l_g, a_g, g_g = grads_of(params, wrt, state.sliced, plan_t, {k: v[g] for k, v in batch.items()},
+                                         tokens)
                 loss = l_g if loss is None else loss + l_g
+                aux = a_g if aux is None else aux + a_g
                 for path, x in tree.leaves_with_path(g_g):
                     if isinstance(x, OuterProductGrad):
                         ops.setdefault(path, []).append(x)
@@ -156,7 +169,7 @@ def make_train_step(cfg: LMConfig, opt_cfg: PantherConfig, lr_schedule, mesh=Non
                         x = x.to(grad_dtype)
                         dense[path] = dense[path] + x if path in dense else x
                 del l_g, x
-            loss = loss / microbatches
+            loss, aux = loss / microbatches, aux / microbatches
             grads = tree.map_with_path(lambda path, _: _merge_operands(ops[path], microbatches) if path in ops
                                        else dense[path] / microbatches, g_g)
             del g_g, ops, dense
@@ -167,9 +180,22 @@ def make_train_step(cfg: LMConfig, opt_cfg: PantherConfig, lr_schedule, mesh=Non
                                                    opt_cfg, rng=state.rng, plan=plan_t)
             gnorm = panther.global_grad_norm(grads)
         new_state = TrainState(step=state.step + 1, digital=digital, sliced=sliced, rng=state.rng)
-        return new_state, {"loss": loss, "lr": lr, "grad_norm": gnorm}
+        return new_state, {"loss": loss, "aux": aux, "lr": lr, "grad_norm": gnorm}
 
     return train_step
+
+
+def expert_tokens(cfg: LMConfig, tokens: int) -> int | None:
+    """The capacity tokens an expert's operands have in one forward of
+    ``tokens`` flattened tokens: ``G · C`` (``G = tokens // sg`` dispatch
+    groups of ``sg = min(MOE_GROUP, tokens)``, ``C`` slots an expert a
+    group); None without MoE."""
+    if cfg.moe is None:
+        return None
+    from repro_torch.models.mlp import MOE_GROUP, moe_capacity
+
+    sg = min(MOE_GROUP, tokens)
+    return (tokens // sg) * moe_capacity(cfg.moe, sg)
 
 
 def _merge_operands(ops: list, microbatches: int) -> OuterProductGrad:

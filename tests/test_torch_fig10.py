@@ -171,7 +171,11 @@ def test_train_lm_plans_are_the_reference_s(which):
 
 
 def test_train_lm_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TL.build_plan(TL.config_100m(), TPC(), "moe-hetero", False)
-    with pytest.raises(SystemExit):
-        TL.build_plan(TL.config_100m(), TPC(), "hetero", True)
+    """``--plan moe-hetero`` is ported (``tests/test_torch_moe.py`` holds its
+    plan); the per-leaf plans refuse ``--fidelity`` beside them, as the
+    reference's ``main`` does."""
+    cfg, _ = TL.build_plan(TL.config_100m(), TPC(), "moe-hetero", False)
+    assert cfg.pattern == (("moe", 12),)
+    for which in ("hetero", "moe-hetero"):
+        with pytest.raises(SystemExit):
+            TL.build_plan(TL.config_100m(), TPC(), which, True)

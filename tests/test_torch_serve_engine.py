@@ -6,8 +6,11 @@ layers, f32), JAX weights carried across by ``repro_torch.convert``.
 * Scheduling is invisible: every request decodes the tokens it would have
   decoded served solo (dense caches, scalar positions), however requests
   pack into slots, rounds bucket, neighbours come and go, or a long prompt
-  prefills chunked. The block kinds are ``"attn"`` only: the MLA and mamba2
-  blocks are not ported yet (ROADMAP Queue 1 item 3).
+  prefills chunked. The block kinds are ``"attn"`` (the dense block) and
+  ``"moe"`` (granite-moe-1b-a400m's SMOKE config, capacity factor 8: no
+  expert ever overflows, so a token's experts do not depend on its
+  neighbours); the MLA and mamba2 blocks are not ported yet (ROADMAP Queue
+  1 item 3).
 * End to end: both engines on the same weights and the same trace, each
   with its own package's ``IsaClock(s_per_token, n_slots)`` as the cost
   table (it prices every key, so neither calibrates), give the same tokens,
@@ -31,6 +34,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro import configs as jconfigs  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.serve import engine as jengine  # noqa: E402
@@ -38,6 +42,7 @@ from repro.serve import kv_pages as jkv  # noqa: E402
 from repro.serve import scheduler as jsch  # noqa: E402
 from repro.serve import trace as jtrace  # noqa: E402
 from repro.serve.step import make_decode_step as jmake_decode_step  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch import tree  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
@@ -54,7 +59,8 @@ GUMBEL_ULPS = 2  # |Δg| <= GUMBEL_ULPS · ulp(max(|g|, 1))
 S_PER_TOKEN = 1e-3  # the IsaClock's price, seconds a token
 
 BASE = dict(arch_id="serve-test", d_model=48, n_layers=2, vocab=96, n_heads=4, n_kv_heads=2, head_dim=12, d_ff=96)
-PATTERNS = {"attn": (("dense", 2),)}  # "mla", "mamba2": with ROADMAP Queue 1 item 3
+PATTERNS = {"attn": (("dense", 2),), "moe": (("moe", 2),)}  # "mla", "mamba2": with ROADMAP Queue 1 item 3
+MOE_ARCH = "granite_moe_1b_a400m"  # its SMOKE config serves the "moe" kind
 
 
 @pytest.fixture(scope="module")
@@ -62,8 +68,13 @@ def models():
     """kind -> (JAX cfg, port cfg, JAX params, port params)."""
     out = {}
     for kind, pattern in PATTERNS.items():
-        cfg_j = jcommon.LMConfig(dtype=jnp.float32, pattern=pattern, **BASE)
-        cfg_t = tcommon.LMConfig(dtype=torch.float32, pattern=pattern, **BASE)
+        if kind == "moe":
+            cfg_j = dataclasses.replace(jconfigs.get_smoke(MOE_ARCH), dtype=jnp.float32)
+            cfg_t = dataclasses.replace(tconfigs.get_smoke(MOE_ARCH), dtype=torch.float32)
+            assert cfg_t.pattern == pattern and cfg_t.moe.capacity_factor == 8.0
+        else:
+            cfg_j = jcommon.LMConfig(dtype=jnp.float32, pattern=pattern, **BASE)
+            cfg_t = tcommon.LMConfig(dtype=torch.float32, pattern=pattern, **BASE)
         pj = jlm.init_params(cfg_j, jax.random.PRNGKey(0))
         out[kind] = cfg_j, cfg_t, pj, convert.params_from_jax(jax.tree.map(np.asarray, pj), device="cpu")
     return out
@@ -217,7 +228,19 @@ def test_engine_equals_the_reference_end_to_end(models, policy):
     engines on the same weights, each priced by its package's ``IsaClock``:
     the same tokens, ``token_times``, clock and summary, exactly (the long
     prompts prefill chunked, the rounds run with dead and exhausted slots)."""
-    cfg_j, cfg_t, pj, pt = models["attn"]
+    _engines_agree(models["attn"], policy)
+
+
+@pytest.mark.parametrize("policy", ["continuous", "static"])
+def test_moe_engine_equals_the_reference_end_to_end(models, policy):
+    """As above, on the MoE block: its attention half pages and chunks like
+    the dense block's, and its expert buffers route each round's live and
+    dead slots as the reference's do."""
+    _engines_agree(models["moe"], policy)
+
+
+def _engines_agree(model, policy):
+    cfg_j, cfg_t, pj, pt = model
     trace_j = jtrace.synth_trace(vocab=cfg_j.vocab, **TRACE)
     trace_t = ttrace.synth_trace(vocab=cfg_t.vocab, **TRACE)
     for rj, rt in zip(trace_j, trace_t, strict=True):

@@ -361,7 +361,7 @@ def test_training_forward_and_loss_match_jax(start):
     params_t = tpan.materialize_split(_state_from_jax(start).digital, _state_from_jax(start).sliced, TPC())
     bj, bt = JData(CFG_J.vocab, SEQ, B).batch(0), TData(CFG_T.vocab, SEQ, B, device="cpu").batch(0)
     want = np.asarray(jlm.forward(CFG_J, params_j, bj["inputs"], remat=False)[0])
-    got = _np(tlm.forward(CFG_T, params_t, bt["inputs"]))
+    got = _np(tlm.forward(CFG_T, params_t, bt["inputs"])[0])
     assert float(np.abs(want - got).max()) <= LOSS_RTOL * float(np.abs(want).max())
     lj = float(jlm.loss_fn(CFG_J, params_j, bj, remat=False))
     assert abs(float(tlm.loss_fn(CFG_T, params_t, bt)) - lj) <= LOSS_RTOL * lj
