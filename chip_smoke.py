@@ -3,9 +3,10 @@
 Hopper card and check it.
 
 Phases:
-  1. build the CUDA kernels from the sources in this checkout (one ``nvcc``
-     per library, all started together, ``sm_90a``), print each kernel's
-     ptxas registers and spills, and the card's name and power limit;
+  1. build the CUDA kernels from the sources in this checkout (five
+     libraries, one ``nvcc`` each, all started together, ``sm_90a``),
+     print each kernel's ptxas registers and spills, and the card's name
+     and power limit;
   2. hold the kernel against its plain PyTorch version at every (M, N) the
      gemma-2b serving path reads, at tokens {1, 2, 3, 4, 5, 6, 7, 8, 16, 128,
      256} and ADC {9, 6, ideal} (bit for bit at finite ADC), plus a short
@@ -217,7 +218,29 @@ Phases:
      the kernels bit for bit against the plain reads, 4 x 32 prompts and 16
      greedy tokens through the adc9 coverage plan (2376 K4 reads a decode
      step), and the engine on the bench's trace cut to its first 3 requests,
-     continuous, 8 slots: tokens/s and K4 reads by tokens.
+     continuous, 8 slots: tokens/s and K4 reads by tokens;
+ 18. the SSM family (last): (a) the im2col entry (``opa_im2col``: K1's
+     function on a conv-tap block, one launch a layer block) at C 1536
+     (xlstm) and 4224 (zamba2), 256 tokens, under the counter draw and
+     half to even, bit for bit against its plain version and against the
+     per-tile K1 launches on the same block; K3 on a conv block; K4 and
+     K4ᵀ on the narrow tiles w_if 1536x8 and w_B 2048x64 at adc9; each
+     timed beside its plain version, its library yardstick and its bound;
+     then for xlstm-125m (d 768, 12 blocks, vocab 50304) and zamba2-1.2b
+     (d 2048, 38 mamba2 layers and 6 shared-block calls, vocab 32000) at
+     full width, bf16, seed weights in 44466555 planes: its first mLSTM
+     or mamba2 layer at adc9 forward and backward through the kernels bit
+     for bit against the plain reads; (b) 3 training steps at 4 x 64
+     tokens under ``coverage_rules`` with adc9 (projections operand leaves
+     on K4/K1, ``conv_w`` im2col leaves on the im2col entry; CRS every 2,
+     counter draw), one more under the profiler, the plain dwconv reads'
+     and the scans' device ms, each step's kernel work held to the plan
+     and to the wrappers' counts; (c) 4 x 32 prompts and 16 greedy tokens
+     through the adc9 coverage plan, the engine on the bench's trace cut
+     to its first 6 requests (continuous, 8 slots) through the adc9 tree,
+     then through the lossless tree with every request's tokens equal to
+     its solo serving's; last one step under ``default_rules`` (every
+     mapped leaf dense on K2, ``conv_w`` digital).
 
 It prints one JSON line with the kernels' numbers, the card's
 ``name, power.limit`` line, and last the device JSON line. Any failure exits
@@ -438,7 +461,8 @@ class forced_body:
 
 def profile_step(torch, step, what="decode step"):
     """One more step under torch.profiler: device time by kernel and the
-    device's busy share of the step's wall time (profiler on)."""
+    device's busy share of the step's wall time (profiler on), which it
+    returns."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -465,6 +489,7 @@ def profile_step(torch, step, what="decode step"):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for ms, n, key in rows[:10]:
         print(f"  {ms:9.3f} ms  x{n:<5d} {key[:100]}")
+    return busy / wall_ms
 
 
 def phase_slice(torch, K, gen):
@@ -3640,15 +3665,16 @@ def moe_expected(cfg, shapes, plan, tokens):
     return reads, k1, dense, mapped
 
 
-class moe_counts:
+class entry_counts:
     """While inside, the main path's kernel work is counted at the entry
     points (a dict of Counters, yielded): K4 reads by (direction, tokens a
-    read, read, ADC bits), K1 blocks by (tokens, read), K2's dense-write
-    blocks and K3's blocks by read. On the card the kernel wrappers' own
-    counts must equal them (``check_kernel_counts``)."""
+    read, read, ADC bits), K1 blocks by (tokens, read), and the im2col
+    entry's, K2's dense-write and K3's blocks by read. A read is named by
+    ``names`` ((M, N) -> name), or is its (M, N) without it. On the card the
+    kernel wrappers' own counts must equal them (``check_kernel_counts``)."""
 
-    def __init__(self, cfg):
-        self.names = moe_shapes(cfg)
+    def __init__(self, names=None):
+        self.names = names
 
     def __enter__(self):
         import contextlib
@@ -3660,14 +3686,17 @@ class moe_counts:
 
         names = self.names
         blocks = lambda a, k: math.prod(a[0].shape[1:-2])  # noqa: E731
-        name_of = lambda planes: names.get(tuple(planes.shape[-2:]), "other")  # noqa: E731
+        name_of = lambda planes: (tuple(planes.shape[-2:]) if names is None  # noqa: E731
+                                  else names.get(tuple(planes.shape[-2:]), "other"))
+        read = lambda a, k: name_of(a[0])  # noqa: E731
         self.stack = contextlib.ExitStack()
         return {
             "k4": self.stack.enter_context(calls_by(KOPS, "mvm_sliced_fused", lambda a, k: (
                 k["transpose"], a[1].shape[0], name_of(a[0]), k["adc_bits"]))),
             "k1": self.stack.enter_context(calls_by(OO, "opa_fused", lambda a, k: (a[1].shape[0], name_of(a[0])))),
-            "k2": self.stack.enter_context(calls_by(OPK, "opa_dense_update", lambda a, k: name_of(a[0]), blocks)),
-            "k3": self.stack.enter_context(calls_by(KCP, "crs", lambda a, k: name_of(a[0]), blocks)),
+            "im2col": self.stack.enter_context(calls_by(OPK, "opa_im2col_update", read, blocks)),
+            "k2": self.stack.enter_context(calls_by(OPK, "opa_dense_update", read, blocks)),
+            "k3": self.stack.enter_context(calls_by(KCP, "crs", read, blocks)),
         }
 
     def __exit__(self, *exc):
@@ -3684,27 +3713,33 @@ def zero_kernel_counts():
     for fn in (KO.opa_fused, KO.opa_dense):
         fn.launches = 0
         fn.instances.clear()
-    KO.opa_deposit.launches = KC.crs.launches = 0
+    KO.opa_deposit.launches = KC.crs.launches = KO.opa_im2col.launches = 0
+    KO.opa_im2col.instances.clear()
 
 
 def check_kernel_counts(torch, seen, what):
     """The kernel wrappers' launch counts since ``zero_kernel_counts``
-    against the entry-point counts ``seen`` (``moe_counts``): one launch a
-    call (a block for K2 and K3); prints them by instance."""
+    against the entry-point counts ``seen`` (``entry_counts``): one launch a
+    call (a block for the im2col entry, K2 and K3), the im2col entry's in
+    its bf16 instance; prints them by instance."""
     from repro_torch.kernels.crs import kernel as KC
     from repro_torch.kernels.sliced_mvm import kernel as KM
     from repro_torch.kernels.sliced_opa import kernel as KO
 
     got = {"K4": KM.mvm_sliced_fused.launches, "K4T": KM.mvm_sliced_fused.transpose_launches,
-           "K1": KO.opa_fused.launches, "K2": KO.opa_dense.launches, "K3": KC.crs.launches}
+           "K1": KO.opa_fused.launches, "im2col": KO.opa_im2col.launches, "K2": KO.opa_dense.launches,
+           "K3": KC.crs.launches}
     want = {"K4": sum(n for key, n in seen["k4"].items() if not key[0]),
             "K4T": sum(n for key, n in seen["k4"].items() if key[0]), "K1": sum(seen["k1"].values()),
-            "K2": sum(seen["k2"].values()), "K3": sum(seen["k3"].values())}
+            "im2col": sum(seen["im2col"].values()), "K2": sum(seen["k2"].values()), "K3": sum(seen["k3"].values())}
     if got != want or KO.opa_deposit.launches:
         raise AssertionError(f"{what}: kernel launches {got} (int32 deposit {KO.opa_deposit.launches}) != the entry "
                              f"points' {want}")
+    if KO.opa_im2col.launches and set(KO.opa_im2col.instances) != {"bf16"}:
+        raise AssertionError(f"{what}: im2col launches by instance {dict(KO.opa_im2col.instances)}, expected bf16")
     print(f"    launches {got}; by instance: K4 {dict(KM.mvm_sliced_fused.instances)}, K1 "
-          f"{dict(KO.opa_fused.instances)}, K2 {dict(KO.opa_dense.instances)}", flush=True)
+          f"{dict(KO.opa_fused.instances)}, im2col {dict(KO.opa_im2col.instances)}, K2 {dict(KO.opa_dense.instances)}",
+          flush=True)
 
 
 def moe_state(torch, gen, device="cuda", cfg=None):
@@ -3768,7 +3803,7 @@ def moe_train(torch, cfg, opt_cfg, state, device="cuda"):
         zero_kernel_counts()
         batch = ds.batch(step)
         crs_step = state.step % opt_cfg.crs_every == opt_cfg.crs_every - 1
-        with moe_counts(cfg) as seen:
+        with entry_counts(moe_shapes(cfg)) as seen:
             if cuda:
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3812,21 +3847,12 @@ def moe_train(torch, cfg, opt_cfg, state, device="cuda"):
     return state, totals, info
 
 
-def moe_serving_tree(cfg, opt_cfg, state, plan):
+def serving_tree(opt_cfg, state, plan):
     """The served tree over the state's planes: operand leaves read through
     ``plan``'s fidelity (no dense copy), the rest dequantized."""
-    from repro_torch import tree
-    from repro_torch.core.slicing import dequantize_planes
     from repro_torch.optim import panther
 
-    def leaf(d, s, pl):
-        if s is None:
-            return d
-        if not panther.needs_dense(s, pl):
-            return None
-        return dequantize_planes(s.planes, s.frac_bits, pl.spec, dtype=opt_cfg.compute_dtype)
-
-    return panther.fidelitize(tree.map(leaf, state.digital, state.sliced, plan), state.sliced, plan)
+    return panther.fidelitize(dense_tree(opt_cfg, state, plan), state.sliced, plan)
 
 
 def moe_serve(torch, cfg, opt_cfg, state, gen, device="cuda"):
@@ -3849,7 +3875,7 @@ def moe_serve(torch, cfg, opt_cfg, state, gen, device="cuda"):
     adc9 = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=opt_cfg.spec)
     shapes = param_shapes(state.digital, state.sliced)
     plan = planlib.resolve_plan(shapes, planlib.coverage_rules(opt_cfg, adc9))
-    params = moe_serving_tree(cfg, opt_cfg, state, plan)
+    params = serving_tree(opt_cfg, state, plan)
     B, P, N = MOE_BATCH, MOE_SERVE_PROMPT, MOE_SERVE_TOKENS
     prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=device)
     out = {}
@@ -3865,7 +3891,7 @@ def moe_serve(torch, cfg, opt_cfg, state, gen, device="cuda"):
         print(f"  (a) layer 0's moe_apply on {B} x {P} tokens (the router and every expert read at adc9): through "
               "the kernels bit for bit with the plain reads", flush=True)
         zero_kernel_counts()
-        with moe_counts(cfg) as seen:
+        with entry_counts(moe_shapes(cfg)) as seen:
             t0 = time.perf_counter()
             logits, caches = lm.prefill(cfg, params, prompts)
             caches = grow_caches(cfg, lm.unstack_caches(cfg, caches), P + N)
@@ -3902,7 +3928,7 @@ def moe_serve(torch, cfg, opt_cfg, state, gen, device="cuda"):
 
     trace = LS.bench_trace(cfg, 32, seed=0, rate=1e4)[:MOE_ENGINE_REQUESTS]
     zero_kernel_counts()
-    with moe_counts(cfg) as seen:
+    with entry_counts(moe_shapes(cfg)) as seen:
         t0 = time.perf_counter()
         runs, costs = LS.run_policies(cfg, params, trace, device, {}, policies=("continuous",))
         wall = time.perf_counter() - t0
@@ -4114,6 +4140,566 @@ def phase_moe(torch, K, gen):
     return launches, timings
 
 
+# ------------------- phase 18: the SSM family at full width -------------------
+
+SSM_ARCHS = ("xlstm_125m", "zamba2_1p2b")
+SSM_BATCH, SSM_SEQ = 4, 64  # training tokens a step: 4 x 64
+SSM_SERVE_PROMPT, SSM_SERVE_TOKENS = 32, 16
+# the bench's trace cut to its first requests (PERF.md §4): a 120-token
+# request is 120 round steps, and the lossless check serves each request
+# twice more
+SSM_ENGINE_REQUESTS = 6
+IM2COL_T = 256  # the training step's tokens a conv-tap block: 4 x 64
+# the narrow crossbar tiles the SSM blocks read: (name, arch, M, N)
+NARROW_READS = (("w_if", "xlstm_125m", 1536, 8), ("w_B", "zamba2_1p2b", 2048, 64))
+
+
+def im2col_operands(torch, C, T, K, gen, device="cuda"):
+    """bf16 im2col operands ``x [C, T, K]``, ``dh [C, T, 1]`` whose f32 sums
+    are exact in any order (``exact_operands``' grid)."""
+    x = torch.randint(-4, 5, (C, T, K), generator=gen, device=device).to(torch.float32) * 0.125
+    dh = torch.randint(-4, 5, (C, T, 1), generator=gen, device=device).to(torch.float32) * 2.0**-5
+    return x.to(torch.bfloat16), dh.to(torch.bfloat16)
+
+
+def ssm_kernel_checks(torch, K, spec, gen):
+    """Phase 18 (a), the kernels at the SSM family's shapes: the im2col
+    entry at C = 1536 (xlstm) and 4224 (zamba2), 256 tokens, under the
+    counter draw and half to even, bit for bit against its plain version
+    and the per-tile K1 launches on the same block; K3 on a conv leaf's
+    block; K4 forward and MᵀVM on the narrow tiles at adc9; each timed
+    beside its plain version, its library yardstick and its bound. Returns
+    the timings by kernels-line name."""
+    from repro_torch.core import prng
+    from repro_torch.core.fixed_point import choose_frac_bits
+    from repro_torch.core.slicing import dequantize_planes
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.crs import ref as RC
+    from repro_torch.kernels.sliced_mvm import ref
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ops as OO
+    from repro_torch.kernels.sliced_opa import ref as RO
+
+    S, Kw = spec.n_slices, 4
+    out, checks = {}, 0
+    for arch, C in (("xlstm_125m", 1536), ("zamba2_1p2b", 4224)):
+        name = "opa_im2col" if arch == "xlstm_125m" else "opa_im2col_zamba"
+        planes = random_planes(torch, spec, (Kw, C), gen)
+        # the plain version takes a Python loop over the channels (1-5 s
+        # here): two cases a width, one under each rounding
+        for lr, F, key in ((2.0**-4, 8, prng.fold_in(prng.PRNGKey(7), 11)), (4.0, 28, None)):
+            frac = torch.tensor([F], dtype=torch.int32, device="cuda")
+            x, dh = im2col_operands(torch, C, IM2COL_T, Kw, gen)
+            want = RO.opa_im2col_ref(planes, x, dh, lr, frac[0], spec, key, 3)
+            got = KO.opa_im2col(planes.clone(), x, dh, lr, frac, spec=spec, key=key, layer=3)
+            tiles = OO.im2col_tiles(planes.clone(), x, dh, lr, frac, spec, 3, key)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(tiles, want)) or torch.equal(want, planes):
+                raise AssertionError(f"(a) the im2col entry at C {C} (lr {lr}, F {F}, key {key}): "
+                                     f"{int((got != want).sum())} cells differ from plain, "
+                                     f"{int((tiles != want).sum())} from the per-tile K1 launches")
+            checks += 1
+        # timed on training-like operands, the counter draw, on copies
+        x = torch.randn((C, IM2COL_T, Kw), generator=gen, device="cuda").to(torch.bfloat16)
+        dh = (torch.randn((C, IM2COL_T, 1), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+        frac = torch.tensor([20], dtype=torch.int32, device="cuda")
+        key = prng.PRNGKey(3)
+        work = planes.clone()
+        x32, dh32 = x.float(), dh[..., 0].float()
+        b = bound_of(2 * S * Kw * C + 2 * C * IM2COL_T * (Kw + 1) + 4, 2.0 * C * IM2COL_T * Kw, CUDA_CORE_OPS_PER_S)
+        out[name] = {
+            "ms": cuda_time_ms(lambda: KO.opa_im2col(work, x, dh, 3e-2, frac, spec=spec, key=key, layer=0), 20),
+            "plain_ms": cuda_time_ms(lambda: RO.opa_im2col_ref(work, x, dh, 3e-2, frac[0], spec, key, 0), 1, 0),
+            "tile_ms": cuda_time_ms(lambda: OO.im2col_tiles(work, x, dh, 3e-2, frac, spec, 0, key), 1, 1),
+            "library_ms": cuda_time_ms(lambda: torch.einsum("ctk,ct->kc", x32, dh32), 20),
+            "bound_ms": b[0], "bound_by": b[1]}
+        # K3 on the conv leaf's block
+        if name == "opa_im2col":
+            cplanes = random_planes(torch, spec, (Kw, C), gen)
+            want = RC.crs_ref(cplanes, spec)
+            got = KC.crs(cplanes.clone(), spec=spec)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"(a) K3 on a conv block [{S}, {Kw}, {C}] vs plain")
+            checks += 1
+            cb = bound_of(2 * S * Kw * C, CRS_OPS_PER_PLANE_CELL * S * Kw * C, CUDA_CORE_OPS_PER_S)
+            out["crs_conv"] = {"ms": cuda_time_ms(lambda: KC.crs(cplanes, spec=spec), 20),
+                               "plain_ms": cuda_time_ms(lambda: RC.crs_ref(cplanes, spec), 5),
+                               "library_ms": None, "bound_ms": cb[0], "bound_by": cb[1]}
+        del planes, work, x, dh
+    # K4 on the narrow tiles at adc9, forward and MᵀVM, 256 tokens
+    for rname, _, M, N in NARROW_READS:
+        planes = random_planes(torch, spec, (M, N), gen)
+        w = dequantize_planes(planes, 20, spec)
+        for transpose in (False, True):
+            key = f"mvm_sliced_fused_{rname}" + ("_transpose" if transpose else "")
+            v = torch.randn((IM2COL_T, N if transpose else M), generator=gen, device="cuda")
+            xf = choose_frac_bits(v, word_bits=16, margin_bits=1, clip_to_word=False).reshape(1)
+            got = K.mvm_sliced_fused(planes, v, xf, spec=spec, adc_bits=9, transpose=transpose)
+            want = ref.mvm_sliced_fused_ref(planes, v, xf[0], spec, 16, 9, transpose=transpose)
+            if not torch.equal(got, want):
+                raise AssertionError(f"(a) K4 on {rname} ({M}x{N}, transpose={transpose}) vs plain at adc9")
+            checks += 1
+            bms = bound_ms(IM2COL_T, M, N, S, 16)
+            out[key] = {"ms": cuda_time_ms(lambda: K.mvm_sliced_fused(planes, v, xf, spec=spec, adc_bits=9,
+                                                                      transpose=transpose), 20),
+                        "plain_ms": cuda_time_ms(lambda: ref.mvm_sliced_fused_ref(planes, v, xf[0], spec, 16, 9,
+                                                                                  transpose=transpose), 3),
+                        "library_ms": cuda_time_ms(lambda: v @ (w.T if transpose else w), 20),
+                        "bound_ms": bms[0], "bound_by": bms[1]}
+    torch.cuda.empty_cache()
+    print(f"  (a) {checks} kernel-vs-plain cases bit for bit: the im2col entry at C 1536 and 4224 ({IM2COL_T} "
+          f"tokens, the counter draw and half to even) against its plain version and the per-tile K1 "
+          f"launches, K3 on a conv block, K4 and K4ᵀ on w_if 1536x8 and w_B 2048x64 at adc9", flush=True)
+    for key, t in out.items():
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        tile = f"  per-tile K1 {t['tile_ms']:.4f} ms" if "tile_ms" in t else ""
+        print(f"  {key:34s} kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms{tile}  library {lib}  bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f}% of it)", flush=True)
+    return out
+
+
+def dense_tree(opt_cfg, state, plan):
+    """The param tree a step or a server reads before its wraps: digital
+    leaves, mapped leaves dequantized, None where the fidelity reads need no
+    dense copy (``panther.needs_dense``)."""
+    from repro_torch import tree
+    from repro_torch.core.slicing import dequantize_planes
+    from repro_torch.optim import panther
+
+    def leaf(d, s, pl):
+        if s is None:
+            return d
+        if not panther.needs_dense(s, pl):
+            return None
+        return dequantize_planes(s.planes, s.frac_bits, pl.spec, dtype=opt_cfg.compute_dtype)
+
+    return tree.map(leaf, state.digital, state.sliced, plan)
+
+
+def ssm_state(torch, arch, gen, device="cuda", cfg=None):
+    """The arch's train state at full width (or ``cfg``), bf16, seed weights
+    in 44466555 planes, the default plan's layout (every plan of this
+    phase maps the same leaves but ``conv_w``, which the coverage plan
+    maps: so the coverage layout)."""
+    from repro_torch import configs
+    from repro_torch import plan as planlib
+    from repro_torch.models import lm
+    from repro_torch.optim import PantherConfig
+    from repro_torch.train.step import train_state_init
+
+    cfg = cfg or configs.get(arch)
+    opt_cfg = PantherConfig(crs_every=2, stochastic_round=True)
+    t0 = time.perf_counter()
+    plan = planlib.resolve_plan(lm.param_shapes(cfg), planlib.coverage_rules(opt_cfg))
+    state = train_state_init(cfg, opt_cfg, gen, plan=plan, device=device)
+    planes = sum(s.planes.numel() for s in _leaves(state.sliced))
+    params = planes / opt_cfg.spec.n_slices + sum(d.numel() for d in _leaves(state.digital))
+    print(f"{cfg.arch_id}: d {cfg.d_model}, {cfg.n_layers} layers, pattern {cfg.pattern}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}; init + slice {time.perf_counter() - t0:.1f} s, {params / 1e6:.1f} M parameters, "
+          f"{planes / opt_cfg.spec.n_slices / 1e6:.1f} M in {opt_cfg.spec.name()} planes ({planes / 1e9:.2f} GB)",
+          flush=True)
+    return cfg, opt_cfg, state
+
+
+def ssm_expected(shapes, plan, tokens):
+    """What one pass of ``tokens`` flattened tokens launches under ``plan``
+    over the param ``shapes``: K4 reads by (MᵀVM, tokens, (M, N), ADC), K1
+    blocks, im2col blocks, K2 blocks, K3 blocks (every mapped block)."""
+    from repro_torch import tree
+
+    reads, k1, im2col, dense, mapped = collections.Counter(), 0, 0, 0, 0
+    for (path, pl), (_, shape) in zip(tree.leaves_with_path(plan), tree.leaves_with_path(shapes)):
+        if not pl.mapped:
+            continue
+        n = math.prod(shape.shape[:-2])
+        mapped += n
+        if pl.grad != "operand":
+            dense += n
+        elif pl.group == "im2col":
+            im2col += n
+        else:
+            k1 += n
+            fid = pl.fidelity
+            if fid is not None:
+                for transpose, on in ((False, fid.fwd), (True, fid.bwd)):
+                    if on:
+                        reads[(transpose, tokens, tuple(shape.shape[-2:]),
+                               fid.adc_bits_bwd if transpose else fid.adc_bits_fwd)] += n
+    return reads, k1, im2col, dense, mapped
+
+
+def ssm_scan_times(torch, cfg, opt_cfg, state, gen):
+    """Device ms of the plain PyTorch pieces of the step at its shapes, per
+    layer and per step (x layers): the dwconv's finite-ADC reads (forward
+    and transposed, adc9, on layer 0's taps), the SSD scan (zamba2) and the
+    mLSTM and sLSTM recurrences (xlstm), each forward and forward+backward."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import tree
+    from repro_torch.models import common as C
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models import xlstm as xl
+
+    B, L = SSM_BATCH, SSM_SEQ
+    adc9 = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=opt_cfg.spec)
+    conv = [(p, s) for p, s in tree.leaves_with_path(state.sliced) if s is not None and p[-1] == "conv_w"]
+    n_conv = sum(math.prod(s.planes.shape[1:-2]) for _, s in conv)
+    planes = conv[0][1].planes.reshape(opt_cfg.spec.n_slices, -1, *conv[0][1].planes.shape[-2:])[:, 0]
+    frac = conv[0][1].frac_bits
+    Kw, Cc = planes.shape[-2:]
+    xp = torch.randn((B, L + Kw - 1, Cc), generator=gen, device="cuda").to(cfg.dtype)
+    dy = torch.randn((B, L, Cc), generator=gen, device="cuda").to(cfg.dtype)
+    out = {"dwconv_fwd": (cuda_time_ms(lambda: C._dwconv_fidelity_read(planes, frac, xp, adc9), 5), n_conv),
+           "dwconv_transpose": (cuda_time_ms(lambda: C._dwconv_fidelity_read(planes, frac, dy, adc9, transpose=True),
+                                             3), n_conv)}
+
+    def fwd_bwd(fn, *args):
+        args = [a.detach().requires_grad_(a.is_floating_point()) for a in args]
+        y = fn(*args)
+        y = y[0] if isinstance(y, tuple) else y
+        y.float().sum().backward()
+
+    if cfg.ssm is not None:
+        d_inner, H = m2._dims(cfg)
+        ds = cfg.ssm.d_state
+        x = torch.randn((B, L, d_inner), generator=gen, device="cuda").to(cfg.dtype)
+        Bs, Cs = (torch.randn((B, L, ds), generator=gen, device="cuda").to(cfg.dtype) for _ in range(2))
+        dt = torch.rand((B, L, H), generator=gen, device="cuda") * 0.2
+        A_log, D = torch.zeros(H, device="cuda"), torch.ones(H, device="cuda")
+        n = cfg.n_layers
+        out["ssd_scan"] = (cuda_time_ms(lambda: m2.ssd_scan(cfg, x, Bs, Cs, dt, A_log, D), 5), n)
+        out["ssd_scan_fwd_bwd"] = (cuda_time_ms(lambda: fwd_bwd(lambda *a: m2.ssd_scan(cfg, *a), x, Bs, Cs, dt,
+                                                                A_log, D), 3), n)
+    if cfg.xlstm is not None:
+        d_up, H, hd = xl._dims(cfg)
+        q, k, v = (torch.randn((B, L, H, hd), generator=gen, device="cuda") for _ in range(3))
+        i_pre, logf = torch.randn((B, L, H), generator=gen, device="cuda"), -torch.rand((B, L, H), generator=gen,
+                                                                                          device="cuda")
+        n_m = sum(c for name, c in cfg.pattern if name == "mlstm")
+        n_s = sum(c for name, c in cfg.pattern if name == "slstm")
+        out["mlstm_scan"] = (cuda_time_ms(lambda: xl.mlstm_scan(q, k, v, i_pre, logf, L), 5), n_m)
+        out["mlstm_scan_fwd_bwd"] = (cuda_time_ms(lambda: fwd_bwd(lambda *a: xl.mlstm_scan(*a, L), q, k, v, i_pre,
+                                                                  logf), 3), n_m)
+        sp = {"r": torch.randn((H, cfg.d_model // H, 4 * cfg.d_model // H), generator=gen, device="cuda") * 0.05}
+        xg = torch.randn((B, L, 4 * cfg.d_model), generator=gen, device="cuda")
+        out["slstm_scan"] = (cuda_time_ms(lambda: xl.slstm_scan(cfg, sp, xg), 3), n_s)
+        out["slstm_scan_fwd_bwd"] = (cuda_time_ms(lambda: fwd_bwd(lambda a, r: xl.slstm_scan(cfg, {"r": r}, a)[0],
+                                                                  xg, sp["r"]), 2), n_s)
+    print("    plain PyTorch pieces at the step's shapes, device ms a layer (x layers a step): " + ", ".join(
+        f"{k} {ms:.3f} (x{n} = {ms * n:.1f})" for k, (ms, n) in out.items()), flush=True)
+    return {k: {"ms_layer": ms, "layers": n, "ms_step": ms * n} for k, (ms, n) in out.items()}
+
+
+def ssm_layer_check(torch, cfg, opt_cfg, state, gen, device="cuda"):
+    """Phase 18 (a): the first mLSTM (xlstm) or mamba2 (zamba2) layer at
+    adc9 under ``coverage_rules``, forward and backward through the kernels
+    (K4 and K4ᵀ) and then through their plain versions on the same device:
+    output, input gradient and every slot's operands bit for bit."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import plan as planlib
+    from repro_torch import tree
+    from repro_torch.models import lm
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models import xlstm as xl
+    from repro_torch.models.common import XbarWeight
+    from repro_torch.optim import panther
+    from repro_torch.train.step import param_shapes
+
+    adc9 = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=opt_cfg.spec)
+    T = SSM_BATCH * SSM_SEQ
+    plan = planlib.resolve_plan(param_shapes(state.digital, state.sliced), planlib.coverage_rules(opt_cfg, adc9),
+                                tokens=T)
+    h = torch.randn((SSM_BATCH, SSM_SEQ, cfg.d_model), generator=gen, device=device).to(cfg.dtype)
+    co = torch.randn(h.shape, generator=gen, device=device).to(cfg.dtype)
+
+    def run():
+        params = panther.operandize(dense_tree(opt_cfg, state, plan), state.sliced, plan, tokens=T)
+        if cfg.xlstm is not None:
+            p0, fn = lm.layer(params["groups"][0], 0), xl.mlstm_apply
+        else:
+            p0, fn = lm.layer(lm.layer(params["groups"][0], 0)["mamba"], 0), m2.mamba2_apply
+        hh = h.detach().requires_grad_(True)
+        y = fn(cfg, p0, hh)
+        y.backward(co)
+        ops = [(w.slot.x[w.index], w.slot.dh[w.index]) for _, w in tree.leaves_with_path(p0)
+               if isinstance(w, XbarWeight) and w.slot is not None]
+        return y.detach(), hh.grad, ops
+
+    got = run()
+    if device == "cuda":
+        with plain_reads():
+            want = run()
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and len(got[2]) == len(want[2]) and all(
+            torch.equal(a, c) and torch.equal(b, d) for (a, b), (c, d) in zip(got[2], want[2]))
+        if not same:
+            raise AssertionError(f"(a) {cfg.arch_id} layer 0 through the kernels vs the plain reads: max |dy| "
+                                 f"{float((got[0].float() - want[0].float()).abs().max())}, max |dx| "
+                                 f"{float((got[1].float() - want[1].float()).abs().max())}")
+    print(f"  (a) {cfg.arch_id}'s first {'mLSTM' if cfg.xlstm is not None else 'mamba2'} layer at adc9, forward and "
+          f"backward on {SSM_BATCH} x {SSM_SEQ} tokens: output, input gradient and the {len(got[2])} operand pairs "
+          f"through the kernels bit for bit with the plain reads", flush=True)
+
+
+def ssm_train(torch, cfg, opt_cfg, state, gen, device="cuda", modes=("coverage",) * 3):
+    """Phase 18 (b): adc9 steps under ``modes``: 3 coverage steps (the
+    second a CRS step) and one profiled after the third, or one
+    default-rules step (on ``default_layout``'s state); every step's kernel
+    work counted at the entry points, held to the plan and to the wrappers'
+    counts. Returns the state, the counts and what the summary prints."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import plan as planlib
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train.step import make_train_step, param_shapes
+
+    T = SSM_BATCH * SSM_SEQ
+    adc9 = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=opt_cfg.spec)
+    rules = {"coverage": planlib.coverage_rules(opt_cfg, fidelity=adc9),
+             "default": planlib.default_rules(opt_cfg, fidelity=adc9)}
+    shapes = param_shapes(state.digital, state.sliced)
+    plans = {k: planlib.resolve_plan(shapes, r, tokens=T) for k, r in rules.items()}
+    steps = {k: make_train_step(cfg, opt_cfg, constant(3e-2), plan_rules=r) for k, r in rules.items()}
+    ds = SyntheticLMDataset(cfg.vocab, SSM_SEQ, SSM_BATCH, seed=0, device=device)
+    cuda = device == "cuda"
+    totals = {k: collections.Counter() for k in ("k4", "k1", "im2col", "k2", "k3")}
+    info = {"ms": {}, "loss": [], "launches": {}}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    print(f"  plan {modes[0]}:\n" + planlib.plan_summary(plans[modes[0]]), flush=True)
+    for mode in modes:
+        zero_kernel_counts()
+        step = state.step
+        crs_step = step % opt_cfg.crs_every == opt_cfg.crs_every - 1
+        batch = ds.batch(step)
+        with entry_counts() as seen:
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = steps[mode](state, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            ms = 1e3 * (time.perf_counter() - t0)
+        reads, k1, im2col, dense, mapped = ssm_expected(shapes, plans[mode], T)
+        want = {"k4": dict(reads), "k1": k1, "im2col": im2col, "k2": dense, "k3": mapped if crs_step else 0}
+        got = {"k4": dict(seen["k4"]), **{k: sum(seen[k].values()) for k in ("k1", "im2col", "k2", "k3")}}
+        print(f"  step {step} ({mode}{', CRS' if crs_step else ''}): {ms:.1f} ms, {T / ms * 1e3:.0f} tokens/s, loss "
+              f"{loss:.4f}, grad_norm {gnorm:.4f}; K4 reads {sum(seen['k4'].values())}, K1 {got['k1']}, im2col "
+              f"{got['im2col']} blocks, K2 {got['k2']}, K3 {got['k3']}", flush=True)
+        if got != want:
+            raise AssertionError(f"step {step} ({mode}): kernel work {got} != the plan's {want}")
+        if cuda:
+            check_kernel_counts(torch, seen, f"step {step} ({mode})")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"step {step}: loss {loss} or grad_norm {gnorm} not finite")
+        for k in totals:
+            totals[k].update(seen[k])
+        info["ms"][f"{mode}{'_crs' if crs_step else ''}"] = ms
+        info["loss"].append(loss)
+        info["launches"][f"step {step} ({mode})"] = {k: v for k, v in got.items() if k != "k4"}
+        if step == 2 and mode == "coverage" and cuda:
+            info["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            info["scans"] = ssm_scan_times(torch, cfg, opt_cfg, state, gen)
+            out = {}
+
+            def one_more():
+                out["state"], _ = steps["coverage"](state, ds.batch(5))
+
+            info["busy"] = profile_step(torch, one_more, f"{cfg.arch_id} coverage adc9 train step")
+            state = out["state"]
+    if "peak_gib" in info:
+        print(f"  (b) peak memory over the coverage steps {info['peak_gib']:.1f} GiB", flush=True)
+    return state, totals, info
+
+
+def default_layout(opt_cfg, state):
+    """The state in the default plan's layout: the leaves it leaves digital
+    (the conv taps, whose K = 4 is under ``min_dim``) dequantized from their
+    planes into digital leaves; every other leaf shared with ``state``."""
+    from repro_torch import plan as planlib
+    from repro_torch import tree
+    from repro_torch.core.slicing import dequantize_planes
+    from repro_torch.train.step import TrainState, param_shapes
+
+    plan = planlib.resolve_plan(param_shapes(state.digital, state.sliced), planlib.default_rules(opt_cfg))
+    digital = tree.map(lambda d, s, pl: dequantize_planes(s.planes, s.frac_bits, opt_cfg.spec)
+                       if s is not None and not pl.mapped else d, state.digital, state.sliced, plan)
+    sliced = tree.map(lambda s, pl: s if pl.mapped else None, state.sliced, plan)
+    return TrainState(step=state.step, digital=digital, sliced=sliced, rng=state.rng)
+
+
+def replicated_solo_tokens(torch, cfg, params, req, width, device="cuda"):
+    """Greedy tokens of ``serve.step`` serving the request alone: prefilled
+    at batch 1 (as the engine prefills), then decoded with its caches
+    replicated to ``width`` rows (every row the same request), dense and
+    grown to the engine's ``max_seq``, scalar positions: every matmul has a
+    decode round's shape, so its algorithm is the engine's (a batch-1 decode
+    may sum in another order)."""
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import lm
+    from repro_torch.serve import kv_pages
+    from repro_torch.serve.step import make_decode_step, make_prefill
+
+    L = len(req.tokens)
+    logits, caches = make_prefill(cfg)(params, torch.as_tensor(req.tokens, device=device).long()[None])
+    caches = kv_pages.grow_caches(cfg, lm.unstack_caches(cfg, caches), LS.MAX_SEQ)
+    lay = kv_pages.cache_layouts(cfg)
+    caches = kv_pages._map_layers(lambda ly, c: torch.repeat_interleave(c, width, dim=ly.batch_axis).contiguous(),
+                                  cfg, lay, caches)
+    tok = torch.argmax(logits, dim=-1).expand(width).contiguous()
+    out, decode = [int(tok[0])], make_decode_step(cfg)
+    for i in range(req.out_len - 1):
+        tok, _, caches = decode(params, tok.long(), caches, L + i)
+        if not bool((tok == tok[0]).all()):
+            raise AssertionError("replicated rows of one request decoded different tokens")
+        out.append(int(tok[0]))
+    return out
+
+
+def ssm_serve(torch, cfg, opt_cfg, state, gen, device="cuda"):
+    """Phase 18 (c): 4 x 32 prompts and 16 greedy tokens through the adc9
+    coverage plan; the engine on the bench's trace cut to
+    SSM_ENGINE_REQUESTS, continuous, 8 slots, through the adc9 tree; then
+    the lossless tree through the engine, each request's tokens equal to
+    its solo serving's."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import plan as planlib
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import lm
+    from repro_torch.optim import panther
+    from repro_torch.serve import scheduler as sch
+    from repro_torch.serve.kv_pages import grow_caches
+    from repro_torch.train.step import param_shapes
+
+    cuda = device == "cuda"
+    adc9 = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=opt_cfg.spec)
+    shapes = param_shapes(state.digital, state.sliced)
+    plan = planlib.resolve_plan(shapes, planlib.coverage_rules(opt_cfg, adc9))
+    params = serving_tree(opt_cfg, state, plan)
+    B, P, N = SSM_BATCH, SSM_SERVE_PROMPT, SSM_SERVE_TOKENS
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=device)
+    out = {}
+    zero_kernel_counts()
+    with torch.no_grad(), entry_counts() as seen:
+        t0 = time.perf_counter()
+        logits, caches = lm.prefill(cfg, params, prompts)
+        caches = grow_caches(cfg, lm.unstack_caches(cfg, caches), P + N)
+        tok = torch.argmax(logits, dim=-1)
+        if cuda:
+            torch.cuda.synchronize()
+        out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        toks = [tok]
+        for i in range(N - 1):
+            logits, caches = lm.decode_step(cfg, params, tok, caches, P + i)
+            tok = torch.argmax(logits, dim=-1)
+            toks.append(tok)
+        if cuda:
+            torch.cuda.synchronize()
+        out["decode_ms"] = 1e3 * (time.perf_counter() - t0) / (N - 1)
+    want = collections.Counter()
+    for tokens, times in ((B * P, 1), (B, N - 1)):
+        for key, n in ssm_expected(shapes, plan, tokens)[0].items():
+            if not key[0]:
+                want[key] += n * times
+    print(f"  (c) serving {B} x {P} prompts, {N} greedy tokens, adc9: prefill {out['prefill_ms']:.1f} ms, decode "
+          f"{out['decode_ms']:.1f} ms a step; K4 reads {sum(seen['k4'].values())} ({sum(want.values()) // (N)} "
+          f"a pass)", flush=True)
+    if dict(seen["k4"]) != dict(want) or not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"(c) K4 reads {dict(seen['k4'])} != {dict(want)}, or logits not finite")
+    if cuda:
+        check_kernel_counts(torch, seen, "(c) serving")
+    out["k4"] = collections.Counter(seen["k4"])
+    print("    sample:", torch.stack(toks, 1)[0].tolist(), flush=True)
+
+    trace = LS.bench_trace(cfg, 32, seed=0, rate=1e4)[:SSM_ENGINE_REQUESTS]
+    print(f"  (c) the bench's trace cut to {len(trace)} requests: prompts "
+          f"{sorted(collections.Counter(len(r.tokens) for r in trace).items())}, outputs "
+          f"{sorted(collections.Counter(r.out_len for r in trace).items())}", flush=True)
+    zero_kernel_counts()
+    with entry_counts() as seen:
+        t0 = time.perf_counter()
+        runs, costs = LS.run_policies(cfg, params, trace, device, {}, policies=("continuous",))
+        wall = time.perf_counter() - t0
+    s = sch.summarize(runs["continuous"])
+    print(f"    adc9 engine, continuous, {LS.N_SLOTS} slots: wall {wall:.1f} s; {len(costs)} costs calibrated; "
+          f"K4 reads {sum(seen['k4'].values())}", flush=True)
+    print_summary(f"{cfg.arch_id} continuous (adc9)", s)
+    if len(runs["continuous"]["requests"]) != len(trace) or s["tokens_per_sec"] <= 0:
+        raise AssertionError(f"(c) engine served {len(runs['continuous']['requests'])} of {len(trace)} requests")
+    if cuda:
+        check_kernel_counts(torch, seen, "(c) engine")
+    out["k4"].update(seen["k4"])
+    out["engine_tokens_per_sec"] = s["tokens_per_sec"]
+
+    # the lossless tree: every mapped leaf dequantized, no wrap
+    lossless = panther.materialize_split(state.digital, state.sliced, opt_cfg)
+    t0 = time.perf_counter()
+    runs, _ = LS.run_policies(cfg, lossless, trace, device, {}, policies=("continuous",))
+    by_rid = {r.rid: r.tokens for r in runs["continuous"]["requests"]}
+    with torch.no_grad():
+        solo = {r.rid: replicated_solo_tokens(torch, cfg, lossless, r, LS.N_SLOTS, device) for r in trace}
+    equal = sum(by_rid[rid] == toks for rid, toks in solo.items())
+    print(f"    lossless engine vs solo serving: {equal} of {len(trace)} requests' tokens equal "
+          f"({sum(len(t) for t in solo.values())} tokens; {time.perf_counter() - t0:.1f} s)", flush=True)
+    if equal != len(trace):
+        bad = [rid for rid, toks in solo.items() if by_rid[rid] != toks]
+        raise AssertionError(f"(c) lossless engine tokens differ from solo serving for requests {bad}")
+    del lossless
+    return out
+
+
+def phase_ssm(torch, K, gen):
+    """Phase 18: the SSM family at full width, bf16, seed weights in
+    44466555 planes: (a) the kernels at its shapes, then for xlstm-125m and
+    zamba2-1.2b (b) training and (c) serving and the engine."""
+    t = [time.perf_counter()]
+    from repro_torch.core.slicing import DEFAULT_SPEC
+
+    timings = ssm_kernel_checks(torch, K, DEFAULT_SPEC, gen)
+    t.append(time.perf_counter())
+    summary, launches = {}, collections.Counter()
+    for arch in SSM_ARCHS:
+        cfg, opt_cfg, state = ssm_state(torch, arch, gen)
+        ssm_layer_check(torch, cfg, opt_cfg, state, gen)
+        state, totals, info = ssm_train(torch, cfg, opt_cfg, state, gen)
+        serving = ssm_serve(torch, cfg, opt_cfg, state, gen)
+        _, default_totals, default_info = ssm_train(torch, cfg, opt_cfg, default_layout(opt_cfg, state), gen,
+                                                    modes=("default",))
+        for k in totals:
+            totals[k].update(default_totals[k])
+        info["ms"].update(default_info["ms"])
+        info["loss"] += default_info["loss"]
+        info["launches"].update(default_info["launches"])
+        del state
+        torch.cuda.empty_cache()
+        t.append(time.perf_counter())
+        summary[arch] = {"train_ms": info["ms"], "losses": info["loss"], "peak_gib": info.get("peak_gib"),
+                         "busy": info.get("busy"), "launches": info["launches"],
+                         "scans_ms_a_step": {k: round(v["ms_step"], 3) for k, v in info.get("scans", {}).items()},
+                         "prefill_ms": serving["prefill_ms"], "decode_ms": serving["decode_ms"],
+                         "engine_tokens_per_sec": serving["engine_tokens_per_sec"]}
+        k4 = totals["k4"] + serving["k4"]
+        launches["opa_im2col" if arch == "xlstm_125m" else "opa_im2col_zamba"] += sum(totals["im2col"].values())
+        if arch == "xlstm_125m":
+            launches["crs_conv"] += totals["k3"][(4, 1536)]
+        for rname, rarch, M, N in NARROW_READS:
+            if rarch == arch:
+                for transpose in (False, True):
+                    launches[f"mvm_sliced_fused_{rname}" + ("_transpose" if transpose else "")] += sum(
+                        n for (tr, _, mn, _), n in k4.items() if tr == transpose and mn == (M, N))
+        print(f"phase 18 {arch} summary: {json.dumps(summary[arch])}", flush=True)
+    print(f"phase 18 wall: (a) {t[1] - t[0]:.1f} s, xlstm-125m {t[2] - t[1]:.1f} s, zamba2-1.2b {t[3] - t[2]:.1f} s; "
+          f"main-path launches {dict(launches)}", flush=True)
+    return launches, timings
+
+
 def main() -> int:
     import torch
 
@@ -4209,6 +4795,10 @@ def main() -> int:
     train_launches.update(moe_launches)
     train_timings.update(moe_timings)
     done("phase 17: the MoE family (granite-moe-1b-a400m at full width)")
+    ssm_launches, ssm_timings = phase_ssm(torch, K, gen)
+    train_launches.update(ssm_launches)
+    train_timings.update(ssm_timings)
+    done("phase 18: the SSM family (xlstm-125m and zamba2-1.2b at full width)")
     train_launches.update({"opa_dense_" + inst: n for inst, n in dense.items()})
     print(f"K2's dense write, launches by instance over the main-path runs: {dict(dense)}", flush=True)
 
@@ -4302,6 +4892,17 @@ def main() -> int:
               "src/repro/kernels/sliced_opa/kernel.py:255", 0.0),
         entry("opa_dense_expert", "src/repro_torch/kernels/sliced_opa/csrc/opa_deposit.cu",
               "src/repro/kernels/sliced_opa/kernel.py:90", 0.0),
+        # the SSM family (phase 18): the im2col entry on one conv-tap block
+        # at xlstm's C 1536 and zamba2's 4224 (256 tokens; "tile_ms": the
+        # per-tile K1 launches on the same block), K3 on xlstm's conv block,
+        # K4 and K4ᵀ on the narrow tiles w_if 1536x8 and w_B 2048x64 at
+        # adc9. Launches: the phase's runs.
+        *(entry(name, "src/repro_torch/kernels/sliced_opa/csrc/opa_im2col.cu",
+                "src/repro/kernels/sliced_opa/kernel.py:255", 0.0) for name in ("opa_im2col", "opa_im2col_zamba")),
+        entry("crs_conv", "src/repro_torch/kernels/crs/csrc/crs.cu", "src/repro/kernels/crs/kernel.py:70", 0.0),
+        *(entry(f"mvm_sliced_fused_{r}{t}", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
+                "src/repro/kernels/sliced_mvm/kernel.py:367", 0.0)
+          for r, *_ in NARROW_READS for t in ("", "_transpose")),
     ]}
     unlaunched = [e["name"] for e in line["kernels"] if e["launches"] <= 0]
     if unlaunched:

@@ -1,17 +1,20 @@
 """Architecture registry (port of ``repro.configs``): ``get(arch_id)`` for the
 full config, ``get_smoke(arch_id)`` for the reduced same-family one, the
-shape cells, and the finite-ADC presets. Six architectures are ported: the
+shape cells, and the finite-ADC presets. Eight architectures are ported: the
 dense-block ones (gemma-2b, minicpm-2b, phi4-mini-3.8b, chameleon-34b,
-musicgen-large) and the MoE one (granite-moe-1b-a400m). The other four raise
-``NotImplementedError`` until their blocks land."""
+musicgen-large), the MoE one (granite-moe-1b-a400m) and the SSM ones
+(xlstm-125m, zamba2-1.2b). The other two (gemma2-9b, deepseek-v2-lite-16b)
+raise ``NotImplementedError`` until their blocks land."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
 ARCH_IDS = [
+    "zamba2_1p2b",
     "musicgen_large",
     "granite_moe_1b_a400m",
+    "xlstm_125m",
     "minicpm_2b",
     "gemma_2b",
     "phi4_mini_3p8b",
@@ -19,7 +22,7 @@ ARCH_IDS = [
 ]
 
 # the reference's architectures whose blocks are not ported yet
-UNPORTED = ["zamba2_1p2b", "deepseek_v2_lite_16b", "xlstm_125m", "gemma2_9b"]
+UNPORTED = ["deepseek_v2_lite_16b", "gemma2_9b"]
 
 # canonical hyphenated names -> module ids
 ALIASES = {

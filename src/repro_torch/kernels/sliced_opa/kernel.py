@@ -22,6 +22,13 @@
   run on the bf16 tensor cores (``mma.sync``), f32 operands on the CUDA
   cores (``fma``). Where the f32 sums are exact, the two give the same
   bits.
+* ``opa_im2col`` (``csrc/opa_im2col.cu``) is ``opa_fused``'s function on a
+  depthwise conv's taps: one ``[S, K, C]`` layer block of planes updated in
+  place from the im2col operands ``x [C, T, K]`` / ``dh [C, T, 1]``, one
+  launch a layer block where the reference runs one ``[K, 1]`` tile a
+  channel; each channel tile rounds under ``fold_in(key, layer·C + c)``,
+  derived in the kernel. Counter draw or half to even, ideal write; its
+  instances are by operand dtype (``"bf16"``, ``"f32"``).
 
 Each source says what bounds it. The libraries build at first use
 (``kernels.build``), never at import. The wrappers launch on the current
@@ -49,7 +56,8 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels.common import hw_tiles
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"opa_deposit": [CSRC / "opa_deposit.cu"], "opa_fused": [CSRC / "opa_fused.cu"]}
+SOURCES = {"opa_deposit": [CSRC / "opa_deposit.cu"], "opa_fused": [CSRC / "opa_fused.cu"],
+           "opa_im2col": [CSRC / "opa_im2col.cu"]}
 MAX_SLICES = 8  # canonical_limit fits int32
 _OPERAND_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _RNG_CODES = {mode: 1 + i for i, mode in enumerate(RNG_MODES)}  # finalize.cuh's Rng; 0: half to even
@@ -101,6 +109,10 @@ def _bind(path, name: str):
                        ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
             ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    elif name == "opa_im2col":
+        fn = lib.panther_opa_im2col
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] + [
+            ctypes.c_int] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_void_p]
     else:
         fn = lib.panther_opa_fused
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
@@ -330,9 +342,48 @@ def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float
     return planes
 
 
+def opa_im2col(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float, frac_bits: torch.Tensor, *,
+               spec: SliceSpec, key=None, layer: int = 0) -> torch.Tensor:
+    """planes int8 [S, K, C] (one layer block of a conv-tap leaf) updated in
+    place by ``-lr · xᵀdh`` of each channel on the ``2^-F`` grid: x [C, T,
+    K] and dh [C, T, 1] contiguous f32 or bf16 (one dtype) on the planes'
+    CUDA device; frac_bits a 1-element int32 tensor read on the device; lr a
+    host float; key None (round half to even) or the leaf's host key
+    (``core.prng``), channel c rounding by the counter draw under
+    ``fold_in(key, layer·C + c)`` at its tile's cell (k, 0); ``layer`` the
+    block's flat index in the leaf's stack. Returns ``planes``."""
+    if not (planes.is_cuda and x.is_cuda and dh.is_cuda and frac_bits.is_cuda):
+        raise ValueError("opa_im2col kernel takes CUDA tensors only")
+    if not (planes.device == x.device == dh.device == frac_bits.device):
+        raise ValueError("opa_im2col: tensors on different devices")
+    _check_planes(planes, spec)
+    S, K, C = planes.shape
+    if x.dtype not in _OPERAND_DTYPES or dh.dtype != x.dtype:
+        raise ValueError(f"x and dh must share a dtype in {list(_OPERAND_DTYPES)}, got {x.dtype}, {dh.dtype}")
+    if x.dim() != 3 or tuple(x.shape[::2]) != (C, K) or tuple(dh.shape) != (C, x.shape[1], 1):
+        raise ValueError(f"x {tuple(x.shape)} / dh {tuple(dh.shape)} do not match planes {tuple(planes.shape)}")
+    if not (x.is_contiguous() and dh.is_contiguous()):
+        raise ValueError("x and dh must be contiguous")
+    if frac_bits.dtype != torch.int32 or frac_bits.numel() != 1:
+        raise ValueError("frac_bits must be a 1-element int32 tensor")
+    if K > 8 or not 0 <= layer * C < 2**32:
+        raise ValueError(f"opa_im2col takes K <= 8 taps and a flat tile index under 2^32 (K {K}, layer {layer})")
+    if K == 0 or C == 0:
+        return planes
+    k0, k1 = (0, 0) if key is None else (key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF)
+    _launch("opa_im2col", planes, planes.data_ptr(), x.data_ptr(), dh.data_ptr(), frac_bits.data_ptr(),
+            float(np.float32(lr)), x.shape[1], K, C, S, _ptr(_plane_max(spec)), spec.canonical_limit,
+            _OPERAND_DTYPES[x.dtype], 0 if key is None else _RNG_CODES["counter"], k0, k1, layer)
+    opa_im2col.launches += 1
+    opa_im2col.instances[_DTYPE_NAMES[x.dtype]] += 1
+    return planes
+
+
 opa_deposit.launches = 0
 opa_deposit.instances = collections.Counter()
 opa_dense.launches = 0
 opa_dense.instances = collections.Counter()
 opa_fused.launches = 0
 opa_fused.instances = collections.Counter()
+opa_im2col.launches = 0
+opa_im2col.instances = collections.Counter()

@@ -24,6 +24,16 @@ after the deposit. The write noise draws under ``fold_in(key,
 WRITE_NOISE_FOLD)``, with the same per-layer ``fold_in(·, l)``. An
 all-ideal model runs the ideal update, bit for bit.
 
+A depthwise conv's taps (``opa_im2col_update``) take im2col operands:
+planes ``[S, *lead, K, C]``, ``x [*lead, C, T, K]``, ``dh [*lead, C, T,
+1]``. Channel c of layer block l is the ``[K, 1]`` tile of the reference's
+channel-as-stack view ``[S, *lead, C, K, 1]``, at flat stack index ``l·C +
+c``: its keys derive from that index. Under the counter draw or half to
+even on the ideal write, CUDA planes take ``kernel.opa_im2col``, one launch
+a layer block; the other draws and a write-nonideal device take one
+``opa_fused`` launch a channel tile on a channel-major copy of the block
+(correct, and slow). CPU planes run ``ref.opa_im2col_ref`` a block.
+
 Dense gradients (``opa_dense_update``, ``opa_device_update``) write in one
 kernel launch a layer block on CUDA planes: the gradient in, the rounding
 draw, the physics and the deposit in one pass, with no update tensor in
@@ -120,6 +130,54 @@ def opa_fused_update(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr
         opa_fused(block, x3[l], dh3[l], lr, frac_bits, spec, key_words=words, rng_mode=rng_mode, offset=offset,
                   device=device, noise_words=_ref.layer_key_words(dk, l, stacked))
     return planes
+
+
+def opa_im2col_update(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float, frac_bits,
+                      spec: SliceSpec, *, stochastic: bool = False, key=None, rng_mode: str = "counter",
+                      device=None) -> torch.Tensor:
+    """The PANTHER update of a conv-tap leaf from its im2col operands
+    (module docstring): planes ``[S, *lead, K, C]``, x ``[*lead, C, T,
+    K]``, dh ``[*lead, C, T, 1]``; ``lr``, ``key``, ``rng_mode`` and
+    ``device`` as in ``opa_fused_update``. In place; returns ``planes``."""
+    device = _normalize_device(device)
+    _check_keys(device, stochastic, key, rng_mode, plain=not planes.is_cuda)
+    if not planes.is_cuda and planes.device.type != "cpu":
+        raise ValueError(f"no OPA implementation for device {planes.device}")
+    K, C = planes.shape[-2:]
+    T = x.shape[-2]
+    x4 = x.reshape(-1, C, T, K)
+    dh4 = dh.reshape(-1, C, T, 1)
+    rkey = key if stochastic else None
+    dk = fold_in(key, WRITE_NOISE_FOLD) if device is not None and device.write_noise > 0.0 else None
+    entry = device is None and (rkey is None or rng_mode == "counter")
+    for l, block in enumerate(layer_views(planes)):
+        if entry and planes.is_cuda:
+            frac = torch.as_tensor(frac_bits, dtype=torch.int32, device=planes.device).reshape(1)
+            _k.opa_im2col(block, x4[l].contiguous(), dh4[l].contiguous(), lr, frac, spec=spec, key=rkey, layer=l)
+        elif not planes.is_cuda:
+            block.copy_(_ref.opa_im2col_ref(block, x4[l], dh4[l], lr, frac_bits, spec, rkey, l, rng_mode=rng_mode,
+                                            device=device, noise_key=dk))
+        else:
+            im2col_tiles(block, x4[l], dh4[l], lr, frac_bits, spec, l, rkey, rng_mode=rng_mode, device=device,
+                         noise_key=dk)
+    return planes
+
+
+def im2col_tiles(block: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float, frac_bits, spec: SliceSpec,
+                 layer: int, key=None, *, rng_mode: str = "counter", device=None, noise_key=None) -> torch.Tensor:
+    """One ``[S, K, C]`` layer block of a conv-tap leaf (x ``[C, T, K]``, dh
+    ``[C, T, 1]``) the reference's way on the card: one ``opa_fused`` launch
+    a channel tile, tile c keyed by its flat index ``layer·C + c`` as in
+    ``ref.opa_im2col_ref``, each tile ``[S, K, 1]`` contiguous in a
+    channel-major copy of the block. Any draw and device model; in place."""
+    K, C = block.shape[-2:]
+    tiles = block.permute(2, 0, 1).contiguous()  # [C, S, K]
+    for c in range(C):
+        i = layer * C + c
+        words, offset = _ref.layer_rounding(key, i, True, rng_mode, K, 1)
+        opa_fused(tiles[c].unsqueeze(-1), x[c].contiguous(), dh[c].contiguous(), lr, frac_bits, spec, key_words=words,
+                  rng_mode=rng_mode, offset=offset, device=device, noise_words=_ref.layer_key_words(noise_key, i, True))
+    return block.copy_(tiles.permute(1, 2, 0))
 
 
 def opa_dense_update(planes: torch.Tensor, g: torch.Tensor, lr: float, frac_bits, spec: SliceSpec, *,

@@ -241,6 +241,26 @@ def opa_fused_ref(planes, x, dh, lr, frac_bits, spec: SliceSpec, key_words=None,
     return opa_batched(planes, p_q, spec)
 
 
+def opa_im2col_ref(planes, x, dh, lr, frac_bits, spec: SliceSpec, key=None, layer: int = 0, *,
+                   rng_mode: str = "counter", device=None, noise_key=None):
+    """The reference's route for a conv-tap layer block: planes int8 ``[S,
+    K, C]``, x ``[C, T, K]``, dh ``[C, T, 1]`` -> new int8 planes. Channel
+    c is the ``[K, 1]`` tile ``planes[:, :, c]`` of the channel-as-stack
+    view, flat stack index ``i = layer·C + c``, updated by ``opa_fused_ref``
+    with ``layer_rounding(key, i)``'s draw (``key`` None: half to even) and,
+    with a write-nonideal ``device``, the write noise under
+    ``fold_in(noise_key, i)``. ``kernel.opa_im2col``'s plain version (the
+    counter draw and half to even on the ideal write)."""
+    K, C = planes.shape[-2:]
+    out = planes.clone()
+    for c in range(C):
+        i = layer * C + c
+        words, offset = layer_rounding(key, i, True, rng_mode, K, 1)
+        out[:, :, c:c + 1] = opa_fused_ref(planes[:, :, c:c + 1], x[c], dh[c], lr, frac_bits, spec, words, device,
+                                           layer_key_words(noise_key, i, True), rng_mode=rng_mode, offset=offset)
+    return out
+
+
 def dense_increment(g: torch.Tensor, lr, frac_bits, device=None) -> torch.Tensor:
     """The grid-scaled increment of a dense gradient, f32: ``(-lr · g) ·
     2^F`` for the ideal write, rounded twice as the reference's dense path

@@ -39,64 +39,92 @@ class ShapeDtype(NamedTuple):
 
 
 class OuterProductGrad:
-    """A weight gradient in operand form, ``dW = xᵀ·dh`` unmaterialized
-    (matmul kind): ``x`` ``[*stack, T, M]`` layer inputs, ``dh`` ``[*stack,
-    T, N]`` output gradients, leading stack dims one crossbar tile per
-    stacked layer."""
+    """A weight gradient in operand form, ``dW = xᵀ·dh`` unmaterialized.
+    ``kind`` names how the pair folds into the crossbar layout:
 
-    __slots__ = ("x", "dh")
+    * ``"matmul"``: ``x`` ``[*stack, T, M]`` layer inputs, ``dh`` ``[*stack,
+      T, N]`` output gradients, leading stack dims one crossbar tile per
+      stacked layer (or expert);
+    * ``"im2col"``: a depthwise conv's taps, ``x`` ``[*stack, C, T, K]``
+      the windowed input patches of each channel, ``dh`` ``[*stack, C, T,
+      1]`` its output gradients; the dense gradient is the conv weight's
+      ``[*stack, K, C]`` (the channel axis joins the stack: one ``[K, 1]``
+      outer product a channel).
+
+    The token axis is -2 for both kinds."""
+
+    __slots__ = ("x", "dh", "kind")
     SQ_NORM_CHUNK = 2048  # token rows per Gram block in sq_norm
+    GRAM_ELEMENTS = 1 << 26  # f32 elements of a Gram block in sq_norm (256 MB)
 
-    def __init__(self, x: torch.Tensor, dh: torch.Tensor):
+    def __init__(self, x: torch.Tensor, dh: torch.Tensor, kind: str = "matmul"):
         self.x = x
         self.dh = dh
+        self.kind = kind
 
     @property
     def shape(self) -> tuple:
-        """Shape of the (virtual) dense gradient."""
+        """Shape of the (virtual) dense gradient, in the weight's layout."""
+        if self.kind == "im2col":
+            return (*self.x.shape[:-3], self.x.shape[-1], self.x.shape[-3])
         return (*self.x.shape[:-2], self.x.shape[-1], self.dh.shape[-1])
 
     def materialize(self, dtype=None) -> torch.Tensor:
-        """The dense gradient (f32 accumulation), for the dense fallback."""
+        """The dense gradient (f32 accumulation) in the weight's layout, for
+        the dense fallback."""
         g = torch.einsum("...tm,...tn->...mn", self.x.to(torch.float32), self.dh.to(torch.float32))
+        if self.kind == "im2col":
+            g = g[..., 0].transpose(-1, -2)  # [*stack, C, K] -> the conv weight's [*stack, K, C]
         return g if dtype is None else g.to(dtype)
 
     def scale_dh(self, c: float) -> "OuterProductGrad":
         """dW is linear in dh: fold a scalar into it."""
-        return OuterProductGrad(self.x, (self.dh.to(torch.float32) * c).to(self.dh.dtype))
+        return OuterProductGrad(self.x, (self.dh.to(torch.float32) * c).to(self.dh.dtype), self.kind)
 
     def sq_norm(self) -> torch.Tensor:
         """``||xᵀdh||_F^2`` by the Gram identity ``<x xᵀ, dh dhᵀ>_F``,
         without the [M, N] product; token rows in blocks of
-        ``SQ_NORM_CHUNK``."""
-        x = self.x.to(torch.float32)
-        dh = self.dh.to(torch.float32)
+        ``SQ_NORM_CHUNK``, and the stack entries (the im2col channels are
+        stack entries too: thousands of ``[T, T]`` Grams a layer) in blocks
+        of at most ``GRAM_ELEMENTS`` Gram elements."""
+        T = self.x.shape[-2]
+        x = self.x.to(torch.float32).reshape(-1, T, self.x.shape[-1])
+        dh = self.dh.to(torch.float32).reshape(-1, T, self.dh.shape[-1])
         total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for t0 in range(0, x.shape[-2], self.SQ_NORM_CHUNK):
-            xi, dhi = x[..., t0:t0 + self.SQ_NORM_CHUNK, :], dh[..., t0:t0 + self.SQ_NORM_CHUNK, :]
-            gx = torch.einsum("...tm,...sm->...ts", xi, x)
-            gh = torch.einsum("...tn,...sn->...ts", dhi, dh)
-            total = total + torch.sum(gx * gh)
+        rows = max(1, min(T, self.SQ_NORM_CHUNK))
+        per = max(1, self.GRAM_ELEMENTS // (rows * max(1, T)))
+        for l0 in range(0, x.shape[0], per):
+            xl, dl = x[l0:l0 + per], dh[l0:l0 + per]
+            for t0 in range(0, T, rows):
+                gx = torch.einsum("ltm,lsm->lts", xl[:, t0:t0 + rows], xl)
+                gh = torch.einsum("ltn,lsn->lts", dl[:, t0:t0 + rows], dl)
+                total = total + torch.sum(gx * gh)
         return total
 
 
 class OperandSlot:
     """Where the backward of a train-side wrap leaves each layer's operands.
-    ``stack`` is the wrap's stack shape (``()`` for an unstacked leaf). A
-    grouped slot (an MoE expert bank, ``grouped=True``) keeps its last stack
-    dim, the expert axis, inside each entry: a layer's backward puts ``x
-    [E, T_e, M]`` / ``dh [E, T_e, N]`` at once, and ``layers`` are the stack
-    dims before it; ``tokens``, when given, is the token count each entry
-    must have (an expert bank's capacity rows, the reference's exact
-    cotangent shape). A slot written twice in one backward raises: operand
-    gradients do not sum, and each operand weight is used once per layer."""
+    ``stack`` is the wrap's stack shape (``()`` for an unstacked leaf); a
+    nested stack (zamba's ``[units, layers]`` mamba leaves) has one entry a
+    (unit, layer), in row-major order. A grouped slot (an MoE expert bank,
+    ``grouped=True``) keeps its last stack dim, the expert axis, inside each
+    entry: a layer's backward puts ``x [E, T_e, M]`` / ``dh [E, T_e, N]`` at
+    once, and ``layers`` are the stack dims before it. ``kind`` is the
+    operands' (``OuterProductGrad.kind``): an ``"im2col"`` entry is ``x [C,
+    T, K]`` / ``dh [C, T, 1]``. ``tokens``, when given, is the token count
+    each entry must have (an expert bank's capacity rows, the reference's
+    exact cotangent shape). A slot written twice in one backward raises:
+    operand gradients do not sum, and each operand weight is used once per
+    layer."""
 
-    __slots__ = ("stack", "layers", "tokens", "x", "dh")
+    __slots__ = ("stack", "layers", "tokens", "kind", "x", "dh")
 
-    def __init__(self, stack: tuple = (), grouped: bool = False, tokens: int | None = None):
+    def __init__(self, stack: tuple = (), grouped: bool = False, tokens: int | None = None,
+                 kind: str = "matmul"):
         self.stack = tuple(stack)
         self.layers = self.stack[:-1] if grouped else self.stack
         self.tokens = tokens
+        self.kind = kind
         n = math.prod(self.layers)
         self.x = [None] * n
         self.dh = [None] * n
@@ -114,10 +142,10 @@ class OperandSlot:
         if any(v is None for v in self.x):
             raise RuntimeError("operand slot not filled: a layer's weight was never read")
         if not self.layers:
-            return OuterProductGrad(self.x[0], self.dh[0])
+            return OuterProductGrad(self.x[0], self.dh[0], self.kind)
         x, dh = torch.stack(self.x), torch.stack(self.dh)
         return OuterProductGrad(x.reshape(*self.layers, *x.shape[1:]),
-                                dh.reshape(*self.layers, *dh.shape[1:]))
+                                dh.reshape(*self.layers, *dh.shape[1:]), self.kind)
 
 
 # ------------------------ fidelity (finite-ADC) mode -------------------------
@@ -213,26 +241,45 @@ class XbarWeight:
       over the stack, and the ``FidelityConfig`` of the finite-ADC reads
       (all None for a lossless train-side wrap);
     * ``slot``: the ``OperandSlot`` of a train-side wrap (None when
-      serving), and ``index`` the layer this wrap writes in it.
+      serving), and ``index`` the entry this wrap writes in it.
 
-    Indexing selects one layer of a stacked group."""
+    Indexing selects one layer of a stacked group; a nested stack is
+    indexed one dim at a time (unit, then layer), and ``index`` is then the
+    row-major flat index over the slot's ``layers``, the order the
+    reference flattens a stack in for its per-layer keys. ``depth`` counts
+    the stack dims indexed so far: a train-side wrap reads only once every
+    layer dim is indexed."""
 
-    __slots__ = ("w", "planes", "frac_bits", "fid", "slot", "index")
+    __slots__ = ("w", "planes", "frac_bits", "fid", "slot", "index", "depth")
 
-    def __init__(self, w, planes, frac_bits, fid, slot=None, index=0):
+    def __init__(self, w, planes, frac_bits, fid, slot=None, index=0, depth=0):
         self.w = w
         self.planes = planes
         self.frac_bits = frac_bits
         self.fid = fid
         self.slot = slot
         self.index = index
+        self.depth = depth
 
     def __getitem__(self, i) -> "XbarWeight":
-        if self.slot is not None and len(self.slot.layers) != 1:
-            raise IndexError("only a wrap with one layer-stack dim can be indexed")
+        index = i
+        if self.slot is not None:
+            if self.depth >= len(self.slot.layers):
+                raise IndexError("every layer-stack dim of this wrap is indexed already")
+            index = self.index * self.slot.layers[self.depth] + i
         pick = lambda t: None if t is None else t[i]  # noqa: E731
         return XbarWeight(pick(self.w), pick(self.planes), pick(self.frac_bits), self.fid,
-                          self.slot, i)
+                          self.slot, index, self.depth + 1)
+
+    def check_indexed(self) -> None:
+        """A train-side wrap reads one layer: every layer dim indexed."""
+        if self.depth != len(self.slot.layers):
+            raise RuntimeError(f"a wrap indexed over {self.depth} of its {len(self.slot.layers)} stack dims was "
+                               "read: index every layer dim first")
+
+    def put(self, x: torch.Tensor, dh: torch.Tensor) -> None:
+        """The backward's operands into this wrap's slot entry."""
+        self.slot.put(self.index, x, dh)
 
 
 def path_str(path) -> str:
@@ -268,6 +315,7 @@ class _XbarLinear(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, ww):
+        ww.check_indexed()
         ctx.ww = ww
         ctx.save_for_backward(x)
         return _xbar_read(x, ww, transpose=False)
@@ -277,7 +325,7 @@ class _XbarLinear(torch.autograd.Function):
         (x,) = ctx.saved_tensors
         ww = ctx.ww
         dx = _xbar_read(dy, ww, transpose=True) if ctx.needs_input_grad[0] else None
-        ww.slot.put(ww.index, x.detach().reshape(-1, x.shape[-1]), dy.reshape(-1, dy.shape[-1]))
+        ww.put(x.detach().reshape(-1, x.shape[-1]), dy.reshape(-1, dy.shape[-1]))
         return dx, None
 
 
@@ -339,6 +387,7 @@ class _XbarGrouped(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, ww):
+        ww.check_indexed()
         ctx.ww = ww
         ctx.save_for_backward(x)
         return _grouped_read(x, ww, transpose=False)
@@ -348,7 +397,7 @@ class _XbarGrouped(torch.autograd.Function):
         (x,) = ctx.saved_tensors
         ww = ctx.ww
         dx = _grouped_read(dy, ww, transpose=True) if ctx.needs_input_grad[0] else None
-        ww.slot.put(ww.index, x.detach(), dy)
+        ww.put(x.detach(), dy)
         return dx, None
 
 
@@ -366,6 +415,155 @@ def xbar_grouped_linear(x: torch.Tensor, w, dtype=None) -> torch.Tensor:
             return _XbarGrouped.apply(x, w)
         return _grouped_read(x, w, transpose=False)
     return torch.einsum("ecd,edf->ecf", x, w.to(dtype if dtype is not None else x.dtype))
+
+
+# ------------------- depthwise conv on the crossbar (im2col) -----------------
+#
+# A depthwise causal conv ``out[b, t, c] = Σ_k xp[b, t + k, c] · w[k, c]``
+# maps onto a crossbar as K rows a column (one column a channel). Its weight
+# gradient is a sum of per-channel ``[K, 1]`` outer products of the windowed
+# input patches and the output gradient: the im2col operand form, deposited
+# one channel tile at a time without forming the dense ``[K, C]`` gradient.
+
+
+def _dwconv_val(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv: ``out[b, t, c] = Σ_k xp[b, t + k, c] · w[k,
+    c]`` with ``xp`` left-padded ``[B, L + K - 1, C]`` and ``w [K, C]``,
+    summed over k in order."""
+    K = w.shape[0]
+    L = xp.shape[1] - K + 1
+    out = xp[:, 0:L] * w[0]
+    for k in range(1, K):
+        out = out + xp[:, k:k + L] * w[k]
+    return out
+
+
+def _dwconv_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Input gradient of the depthwise conv: ``dxp[b, t + k, c] += dy[b, t,
+    c] · w[k, c]`` over k in order, in ``dy``'s dtype."""
+    K = w.shape[0]
+    B, L, C = dy.shape
+    dxp = torch.zeros((B, L + K - 1, C), dtype=dy.dtype, device=dy.device)
+    for k in range(K):
+        dxp[:, k:k + L] += dy * w[k]
+    return dxp
+
+
+def _dwconv_operands(xp: torch.Tensor, dy: torch.Tensor) -> tuple:
+    """The conv's weight gradient in im2col operand form: patches ``x [C,
+    B·L, K]`` (``x[c, (b, t), k] = xp[b, t + k, c]``) against ``dh [C, B·L,
+    1]``; ``OuterProductGrad(x, dh, "im2col").materialize()`` is the dense
+    ``[K, C]`` gradient."""
+    B, L, C = dy.shape
+    K = xp.shape[1] - L + 1
+    pat = torch.stack([xp[:, k:k + L] for k in range(K)], dim=-1)  # [B, L, C, K]
+    return pat.permute(2, 0, 1, 3).reshape(C, B * L, K), dy.permute(2, 0, 1).reshape(C, B * L, 1)
+
+
+def _dwconv_fidelity_read(planes: torch.Tensor, frac_bits, v: torch.Tensor, fid,
+                          transpose: bool = False) -> torch.Tensor:
+    """Finite-ADC crossbar read of the depthwise conv (the im2col mapping),
+    in plain PyTorch on ``core.mvm``'s ADC, bit planes and shift-and-add
+    scales. ``planes`` int8 ``[S, K, C]``.
+
+    Forward: ``v`` the padded input ``[B, L + K - 1, C]``; each output (t, c)
+    is the analog sum of the K cells of channel c's column driven by the
+    windowed input bits, so the ADC full scale is ``K · plane_max`` (the
+    MVM's ``n_rows`` rule). Transposed (the layer-gradient read): ``v`` is
+    ``dy [B, L, C]``; each (k, c) cell is driven from its one output column
+    (``n_rows = 1``) and the digitized per-cell products scatter-add back
+    over the K taps, one bit cycle at a time (the ``[B, L, S, K, C]``
+    intermediate of a cycle, not of all of them). With ``adc_bits=None``
+    both directions are exact in f32. -> f32 ``[B, L, C]`` or ``[B, L + K -
+    1, C]``."""
+    from repro_torch.core.fixed_point import choose_frac_bits, exp2i, quantize
+    from repro_torch.core.mvm import _adc, bit_planes, shift_add_scales
+    from repro_torch.core.slicing import LOGICAL_BITS
+
+    spec = fid.spec
+    adc_bits = fid.adc_bits_bwd if transpose else fid.adc_bits_fwd
+    xf = choose_frac_bits(v, word_bits=fid.io_bits, margin_bits=fid.margin_bits, clip_to_word=False)
+    v_q = quantize(v, xf, fid.io_bits)
+    w = planes.to(torch.float32)  # [S, K, C]
+    K = planes.shape[-2]
+    dev = v.device
+    pm = torch.tensor(spec.plane_max, dtype=torch.float32, device=dev)  # [S]
+    s_scale = torch.tensor([float(2 ** (LOGICAL_BITS * s)) for s in range(spec.n_slices)], dtype=torch.float32,
+                           device=dev)
+    if not transpose:
+        L = v.shape[1] - K + 1
+        if adc_bits is None:
+            win = torch.stack([v_q[:, k:k + L] for k in range(K)], dim=2).to(torch.float32)  # [B, L, K, C]
+            acc = torch.einsum("btsc,s->btc", torch.einsum("btkc,skc->btsc", win, w), s_scale)
+        else:
+            bp = bit_planes(v_q, fid.io_bits).to(torch.float32)  # [T, B, L + K - 1, C]
+            bw = torch.stack([bp[:, :, k:k + L] for k in range(K)], dim=3)  # [T, B, L, K, C]
+            cols = _adc(torch.einsum("tblkc,skc->tblsc", bw, w), (K * pm)[:, None], adc_bits)
+            acc = torch.einsum("tblsc,ts->blc", cols, shift_add_scales(spec, fid.io_bits, dev))
+    else:
+        B, L, C = v.shape
+        if adc_bits is None:
+            g = torch.einsum("btc,skc->btskc", v_q.to(torch.float32), w)
+            g = torch.einsum("btskc,s->btkc", g, s_scale)
+        else:
+            bp = bit_planes(v_q, fid.io_bits).to(torch.float32)  # [T, B, L, C]
+            scales = shift_add_scales(spec, fid.io_bits, dev)
+            g = torch.zeros((B, L, K, C), dtype=torch.float32, device=dev)
+            for t in range(bp.shape[0]):
+                cols = _adc(torch.einsum("blc,skc->blskc", bp[t], w), pm[:, None, None], adc_bits)
+                g += torch.einsum("blskc,s->blkc", cols, scales[t])
+        acc = torch.zeros((B, L + K - 1, C), dtype=torch.float32, device=dev)
+        for k in range(K):
+            acc[:, k:k + L] += g[:, :, k]
+    f = torch.as_tensor(frac_bits, dtype=torch.int32, device=dev)
+    return acc * exp2i(-(xf + f))
+
+
+def _dwconv_read(xp: torch.Tensor, ww: XbarWeight, transpose: bool) -> torch.Tensor:
+    """The conv (``transpose``: its input gradient ``dxp`` from ``xp = dy``)
+    in ``xp``'s dtype: through the finite-ADC im2col read where the wrap's
+    fidelity reads that direction, else through the dense copy."""
+    fid = ww.fid
+    if fid is not None and (fid.bwd if transpose else fid.fwd):
+        return _dwconv_fidelity_read(ww.planes, ww.frac_bits, xp, fid, transpose=transpose).to(xp.dtype)
+    w = ww.w.to(xp.dtype)
+    return _dwconv_dx(xp, w) if transpose else _dwconv_val(xp, w)
+
+
+class _XbarDwconv(torch.autograd.Function):
+    """The depthwise conv whose backward returns ``dxp`` and leaves the
+    weight's gradient in im2col operand form in the wrap's slot."""
+
+    @staticmethod
+    def forward(ctx, xp, ww):
+        ww.check_indexed()
+        ctx.ww = ww
+        ctx.save_for_backward(xp)
+        return _dwconv_read(xp, ww, transpose=False)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (xp,) = ctx.saved_tensors
+        ww = ctx.ww
+        dxp = _dwconv_read(dy, ww, transpose=True) if ctx.needs_input_grad[0] else None
+        ww.put(*_dwconv_operands(xp.detach(), dy))
+        return dxp, None
+
+
+def xbar_dwconv(xp: torch.Tensor, w, dtype=None) -> torch.Tensor:
+    """Depthwise causal conv of the left-padded ``xp [B, L + K - 1, C]``
+    with ``w [K, C]`` -> ``[B, L, C]``. A plain tensor takes the windowed
+    sum with a dense gradient; a train-side ``XbarWeight`` takes
+    ``_XbarDwconv`` (forward and ``dxp`` through the finite-ADC im2col read
+    or the dense copy, the weight gradient as im2col operands in the slot);
+    a serving wrap reads forward only."""
+    if isinstance(w, XbarWeight):
+        if dtype is not None:
+            xp = xp.to(dtype)
+        if w.slot is not None:
+            return _XbarDwconv.apply(xp, w)
+        return _dwconv_read(xp, w, transpose=False)
+    return _dwconv_val(xp, w.to(dtype if dtype is not None else xp.dtype))
 
 
 # ------------------------------- configs -------------------------------------

@@ -6,13 +6,22 @@ position a slot.
 A config's ``pattern`` is an ordered tuple of ``(block_name, count)``
 groups; a counted group keeps its params stacked on a leading ``[count,
 ...]`` axis and runs as a Python loop over layers (the reference's
-``lax.scan``). Ported blocks: ``"dense"`` (attention + gated MLP) and
-``"moe"`` (attention + the capacity-bounded MoE layer); the other block
-types raise. A block's training ``apply`` returns ``(h, aux)``, ``aux`` its
-MoE load-balance term (zero for ``"dense"``); ``hidden`` sums it over the
-layers and ``loss_fn`` adds ``aux_weight`` times it. The reference
-rematerializes each layer in the backward; that saves memory and does not
-change the numbers, and the port keeps the activations instead.
+``lax.scan``). Ported blocks: ``"dense"`` (attention + gated MLP),
+``"moe"`` (attention + the capacity-bounded MoE layer), the SSM blocks
+``"mamba2"``, ``"mlstm"`` and ``"slstm"``, and ``"zamba_unit"`` (N mamba2
+layers, then one call of the zamba shared attention + MLP block, whose
+params live at the top level, ``params["shared"]``, over ``concat(h,
+x0)``); the other block types raise. A block's training ``apply`` returns
+``(h, aux)``, ``aux`` its MoE load-balance term (zero for the others);
+``hidden`` sums it over the layers and ``loss_fn`` adds ``aux_weight``
+times it. The reference rematerializes each layer in the backward; that
+saves memory and does not change the numbers, and the port keeps the
+activations instead.
+
+Caches are written in place at decode (and by a prefill continuation): the
+K/V rows of the attention blocks, and the state leaves of the SSM blocks
+(no sequence axis: one row a sequence), which the blocks overwrite with
+their new state.
 """
 from __future__ import annotations
 
@@ -24,7 +33,22 @@ import torch
 from repro_torch import tree
 from repro_torch.device import resolve
 from . import attention as att
-from .common import LMConfig, ShapeDtype, XbarWeight, dense_init, embed_init, rms_norm, rms_norm_init, softcap
+from . import mamba2 as m2
+from . import xlstm as xl
+from .common import (
+    LMConfig,
+    ShapeDtype,
+    XbarWeight,
+    apply_rope,
+    dense_init,
+    embed_init,
+    gelu,
+    is_paged_cache,
+    paged_gather,
+    rms_norm,
+    rms_norm_init,
+    softcap,
+)
 from .mlp import moe_apply, moe_init
 
 
@@ -95,10 +119,152 @@ def _moe_cont(cfg, p, h, cache, ctx):
     return moe_apply(cfg, p["moe"], h), cache
 
 
+# ------------------------------ SSM blocks ----------------------------------
+# Their caches are state leaves: decode and the continuation overwrite them
+# in place with the block's new state.
+
+
+def _write_state(cache: dict, new: dict) -> dict:
+    for k, v in new.items():
+        cache[k].copy_(v)
+    return cache
+
+
+def _mamba_cont(cfg, p, h, cache, ctx):
+    h, st = m2.mamba2_apply(cfg, p, h, with_state=True, state=cache)
+    return h, _write_state(cache, st)
+
+
+def _in_place(decode):
+    """A block's decode that overwrites the cache with its new state."""
+    def run(cfg, p, h, cache, ctx):
+        h, st = decode(cfg, p, h, cache, ctx["pos"])
+        return h, _write_state(cache, st)
+
+    return run
+
+
+# ------------------------------ zamba2 unit ---------------------------------
+# N mamba2 layers (stacked ``[N, ...]`` inside the unit; a group of units is
+# ``[units, N, ...]``), then one call of the *shared* attention + MLP block,
+# whose params live at the top level (``ctx["shared"]``), over concat(h, x0),
+# x0 the embedded input. The shared block's matrices are read through plain
+# matmuls, once a unit: dense-gradient leaves.
+
+
+def _zamba_unit_init(cfg, gen, *, stack=(), device=None):
+    return {"mamba": m2.mamba2_init(cfg, gen, stack=(*stack, cfg.zamba.share_every), device=device)}
+
+
+def zamba_shared_init(cfg: LMConfig, gen: torch.Generator, device=None) -> dict:
+    """The shared transformer block: attention + MLP over concat(h, x0)."""
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    return {
+        "ln": rms_norm_init(2 * d, device=device),
+        "wq": dense_init(gen, 2 * d, H * hd, device=device),
+        "wk": dense_init(gen, 2 * d, cfg.n_kv_heads * hd, device=device),
+        "wv": dense_init(gen, 2 * d, cfg.n_kv_heads * hd, device=device),
+        "wo": dense_init(gen, H * hd, d, device=device),
+        "mlp_ln": rms_norm_init(2 * d, device=device),
+        "mlp_up": dense_init(gen, 2 * d, cfg.d_ff, device=device),
+        "mlp_down": dense_init(gen, cfg.d_ff, d, device=device),
+    }
+
+
+def _zamba_shared_apply(cfg, sp, h, x0, positions=None, cache=None, pos=None):
+    """The shared block over the whole sequence (``positions``, returning
+    its K/V as the cache) or one decode token at ``pos`` (a scalar or one
+    position a slot) against ``cache``, dense or paged, written in place."""
+    B = h.shape[0]
+    H, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = rms_norm(sp["ln"], torch.cat([h, x0], dim=-1), cfg.norm_eps)
+    S = x.shape[1]
+    q = (x @ sp["wq"].to(x.dtype)).reshape(B, S, H, hd)
+    k = (x @ sp["wk"].to(x.dtype)).reshape(B, S, kv, hd)
+    v = (x @ sp["wv"].to(x.dtype)).reshape(B, S, kv, hd)
+    if cache is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        mask = att.causal_mask(S, S, device=h.device)
+        new_cache = {"k": {"q": k}, "v": {"q": v}}
+    else:
+        vec = att.is_vector(pos)
+        if not vec:
+            pos = int(pos)
+        rpos = pos[:, None] if vec else torch.arange(pos, pos + 1, device=h.device)
+        q = apply_rope(q, rpos, cfg.rope_theta)
+        k = apply_rope(k, rpos, cfg.rope_theta)
+        cdtype = cache["k"]["q"].dtype
+        table = cache["table"] if is_paged_cache(cache) else None
+        wpos = pos if (table is None or vec) else torch.full((B,), pos, device=h.device)
+        att._entry_write(cache["k"], att._cache_store(k, cdtype), wpos, table)
+        att._entry_write(cache["v"], att._cache_store(v, cdtype), wpos, table)
+        if table is not None:
+            kd = {leaf: paged_gather(c, table) for leaf, c in cache["k"].items()}
+            vd = {leaf: paged_gather(c, table) for leaf, c in cache["v"].items()}
+        else:
+            kd, vd = cache["k"], cache["v"]
+        mask = att.decode_posmask(pos, kd["q"].shape[1], device=h.device)
+        if vec:
+            mask = mask[:, None, None, None, :]
+        k, v = att._cache_load(kd, q.dtype), att._cache_load(vd, q.dtype)
+        new_cache = cache
+    o = att._sdpa(cfg, q, k, v, mask)
+    h = h + o.reshape(B, -1, H * hd) @ sp["wo"].to(h.dtype)
+    xm = rms_norm(sp["mlp_ln"], torch.cat([h, x0], dim=-1), cfg.norm_eps)
+    h = h + gelu(xm @ sp["mlp_up"].to(h.dtype)) @ sp["mlp_down"].to(h.dtype)
+    return h, new_cache
+
+
+def _zamba_unit_apply(cfg, p, h, ctx):
+    for j in range(cfg.zamba.share_every):
+        h = m2.mamba2_apply(cfg, layer(p["mamba"], j), h)
+    h, _ = _zamba_shared_apply(cfg, ctx["shared"], h, ctx["x0"], ctx["positions"])
+    return _no_aux(h)
+
+
+def _zamba_unit_prefill(cfg, p, h, ctx):
+    states = []
+    for j in range(cfg.zamba.share_every):
+        h, st = m2.mamba2_apply(cfg, layer(p["mamba"], j), h, with_state=True)
+        states.append(st)
+    h, scache = _zamba_shared_apply(cfg, ctx["shared"], h, ctx["x0"], ctx["positions"])
+    return h, {"mamba": tree.map(lambda *xs: torch.stack(xs), *states), "shared": scache}
+
+
+def _zamba_unit_decode(cfg, p, h, cache, ctx):
+    for j in range(cfg.zamba.share_every):
+        cj = tree.map(lambda x: x[j], cache["mamba"])  # views: written in place
+        h, st = m2.mamba2_decode(cfg, layer(p["mamba"], j), h, cj, ctx["pos"])
+        _write_state(cj, st)
+    h, _ = _zamba_shared_apply(cfg, ctx["shared"], h, ctx["x0"], cache=cache["shared"], pos=ctx["pos"])
+    return h, cache
+
+
+def _zamba_unit_cache_spec(cfg, b, s, dt):
+    n = cfg.zamba.share_every
+    mspec = tree.map(lambda x: ShapeDtype((n, *x.shape), x.dtype), m2.mamba2_cache_spec(cfg, b, s, dt))
+    return {"mamba": mspec, "shared": att.attn_cache_spec(cfg, b, s, dt)}
+
+
 BLOCKS: dict[str, BlockDef] = {
     "dense": BlockDef(_dense_init, _dense_apply, _dense_prefill, _dense_decode, att.attn_cache_spec,
                       _dense_cont),
     "moe": BlockDef(_moe_init, _moe_apply, _moe_prefill, _moe_decode, att.attn_cache_spec, _moe_cont),
+    "mamba2": BlockDef(m2.mamba2_init, lambda cfg, p, h, ctx: _no_aux(m2.mamba2_apply(cfg, p, h)),
+                       lambda cfg, p, h, ctx: m2.mamba2_apply(cfg, p, h, with_state=True),
+                       _in_place(m2.mamba2_decode),
+                       m2.mamba2_cache_spec, _mamba_cont),
+    "mlstm": BlockDef(xl.mlstm_init, lambda cfg, p, h, ctx: _no_aux(xl.mlstm_apply(cfg, p, h)),
+                      lambda cfg, p, h, ctx: xl.mlstm_apply(cfg, p, h, with_state=True),
+                      _in_place(xl.mlstm_decode),
+                      xl.mlstm_cache_spec),
+    "slstm": BlockDef(xl.slstm_init, lambda cfg, p, h, ctx: _no_aux(xl.slstm_apply(cfg, p, h)),
+                      lambda cfg, p, h, ctx: xl.slstm_apply(cfg, p, h, with_state=True),
+                      _in_place(xl.slstm_decode),
+                      xl.slstm_cache_spec),
+    "zamba_unit": BlockDef(_zamba_unit_init, _zamba_unit_apply, _zamba_unit_prefill, _zamba_unit_decode,
+                           _zamba_unit_cache_spec),
 }
 
 
@@ -125,8 +291,6 @@ def init_params(cfg: LMConfig, gen, device=None) -> dict:
     dev = resolve(device)
     if isinstance(gen, int):
         gen = torch.Generator(device=dev).manual_seed(gen)
-    if cfg.zamba is not None:
-        raise NotImplementedError("zamba shared blocks are not ported yet")
     params: dict = {"final_ln": rms_norm_init(cfg.d_model, device=dev)}
     if cfg.input_mode == "tokens":
         params["embed"] = embed_init(gen, cfg.vocab, cfg.d_model, device=dev)
@@ -138,6 +302,8 @@ def init_params(cfg: LMConfig, gen, device=None) -> dict:
         _block(name).init(cfg, gen, stack=() if count == 1 else (count,), device=dev)
         for name, count in cfg.pattern
     ]
+    if cfg.zamba is not None:
+        params["shared"] = zamba_shared_init(cfg, gen, device=dev)
     return params
 
 
@@ -187,7 +353,7 @@ def hidden(cfg: LMConfig, params, inputs: torch.Tensor, table=None):
     aux)``, ``aux`` the f32 sum of the blocks' load-balance terms in layer
     order."""
     h = _embed_in(cfg, params, inputs, table)
-    ctx = {"positions": torch.arange(h.shape[1], device=h.device)}
+    ctx = {"positions": torch.arange(h.shape[1], device=h.device), "x0": h, "shared": params.get("shared")}
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for (name, count), gparams in zip(cfg.pattern, params["groups"]):
         block = _block(name)
@@ -293,7 +459,8 @@ def prefill(cfg: LMConfig, params, inputs: torch.Tensor, caches=None, start: int
     table = _table(cfg, params)
     h = _embed_in(cfg, params, inputs, table)
     start = int(start)
-    ctx = {"positions": torch.arange(start, start + h.shape[1], device=h.device), "start": start}
+    ctx = {"positions": torch.arange(start, start + h.shape[1], device=h.device), "start": start, "x0": h,
+           "shared": params.get("shared")}
     out_caches = []
     for gi, ((name, count), gparams) in enumerate(zip(cfg.pattern, params["groups"])):
         block = _block(name)
@@ -333,7 +500,7 @@ def decode_step(cfg: LMConfig, params, token: torch.Tensor, caches, pos):
     inp = token[:, None] if cfg.input_mode == "tokens" else token
     table = _table(cfg, params)
     h = _embed_in(cfg, params, inp, table)
-    ctx = {"pos": pos if att.is_vector(pos) else int(pos)}
+    ctx = {"pos": pos if att.is_vector(pos) else int(pos), "x0": h, "shared": params.get("shared")}
     new_caches = []
     for (name, count), gparams, cache in zip(cfg.pattern, params["groups"], caches):
         block = _block(name)

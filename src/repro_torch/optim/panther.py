@@ -23,7 +23,12 @@ leaves in the dense write's device instance. Momentum lives in
 it). An MoE expert bank under ``group="expert"`` is an operand leaf whose
 stack is ``(layers, experts)``: its operands carry the expert axis
 (``x [L, E, T_e, M]``), and the update writes one block a (layer, expert)
-through the same stacked path. Not ported yet: the ``im2col`` kind.
+through the same stacked path. A depthwise conv's taps under
+``group="im2col"`` are an operand leaf whose operands are im2col patches
+(``x [*lead, C, T, K]``, ``dh [*lead, C, T, 1]``): the update deposits
+each channel's ``[K, 1]`` outer product into the stored ``[S, *lead, K,
+C]`` planes (``opa_im2col_update``: one launch a layer block), and CRS runs
+on that stored layout.
 
 Layout: a ``SlicedTensor``'s planes are ``[S, *stack, M, N]`` as in the
 reference, but a stacked leaf's storage is laid out ``[*stack, S, M, N]``
@@ -204,7 +209,7 @@ def needs_dense(s, pl) -> bool:
     return s is not None and not (fid is not None and fid.fwd and fid.bwd)
 
 
-def operandize(params, sliced, plan, expert_tokens: int | None = None):
+def operandize(params, sliced, plan, expert_tokens: int | None = None, tokens: int | None = None):
     """Wrap each operand leaf of a param tree (``plan.grad == "operand"``,
     mapped) in a train-side ``XbarWeight`` with an ``OperandSlot``: the
     model's backward then leaves ``(x, dh)`` there instead of a dense
@@ -213,17 +218,19 @@ def operandize(params, sliced, plan, expert_tokens: int | None = None):
     An expert leaf (``plan.group == "expert"``) gets a grouped slot whose
     last stack dim is the expert axis; ``expert_tokens``, the MoE capacity
     tokens a forward (``G · C``), is the token count each expert's operands
-    must have (checked as the backward writes the slot). ``params`` may hold None
-    where ``needs_dense`` is False."""
+    must have (checked as the backward writes the slot). A conv-tap leaf
+    (``plan.group == "im2col"``) gets an im2col slot, ``tokens`` (the
+    flattened tokens of one forward, ``B·L``) the token count of its
+    patches. ``params`` may hold None where ``needs_dense`` is False."""
     def wrap(path, p, s, pl):
         if s is None or pl.grad != "operand":
             return p
-        if pl.group == "im2col":
-            raise NotImplementedError(f"leaf {path_str(path)!r}: the im2col operand kind (depthwise conv "
-                                      "taps) is not ported yet")
         stack = tuple(s.planes.shape[1:-2])
-        grouped = pl.group == "expert"
-        slot = OperandSlot(stack, grouped=grouped, tokens=expert_tokens if grouped else None)
+        if pl.group == "im2col":
+            slot = OperandSlot(stack, tokens=tokens, kind="im2col")
+        else:
+            grouped = pl.group == "expert"
+            slot = OperandSlot(stack, grouped=grouped, tokens=expert_tokens if grouped else None)
         if pl.fidelity is None:
             return XbarWeight(p, None, None, None, slot)
         planes, frac = _fid_leaves(s, stack)
@@ -295,17 +302,21 @@ def update_split(grads, digital, sliced, step: int, lr: float, cfg: PantherConfi
 
 def _write_leaf(s: SlicedTensor, g, lr32: float, key: tuple, pl, cfg: PantherConfig, do_crs: bool) -> None:
     """One mapped leaf's write, in place: operand gradients through the
-    fused update (K1), dense ones through the dense write (K2,
+    fused update (K1; a conv-tap leaf's im2col operands through its im2col
+    entry), dense ones through the dense write (K2,
     ``opa_dense_update``: the quantize and the deposit, or on a
     write-nonideal device its physics, in one pass); then CRS (K3) when
     ``do_crs``. The "hw" draw exists only inside the fused kernel: dense
     leaves then take the counter draw, as in the reference."""
     from repro_torch.kernels.crs import crs
-    from repro_torch.kernels.sliced_opa import opa_dense_update, opa_fused_update
+    from repro_torch.kernels.sliced_opa import opa_dense_update, opa_fused_update, opa_im2col_update
 
     spec = pl.spec if pl is not None else cfg.spec
     dev = _leaf_device(pl)
-    if isinstance(g, OuterProductGrad):
+    if isinstance(g, OuterProductGrad) and g.kind == "im2col":
+        opa_im2col_update(s.planes, g.x, g.dh, lr32, s.frac_bits, spec, stochastic=cfg.stochastic_round, key=key,
+                          rng_mode=cfg.rng_mode, device=dev)
+    elif isinstance(g, OuterProductGrad):
         opa_fused_update(s.planes, g.x, g.dh, lr32, s.frac_bits, spec,
                          stochastic=cfg.stochastic_round, key=key, rng_mode=cfg.rng_mode, device=dev)
     else:

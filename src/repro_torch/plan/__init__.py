@@ -29,8 +29,7 @@ other's manifests; ``check_plan_compat`` refuses a restore whose stored
 planes were laid out or written under another plan.
 
 Not ported yet: shard hints (a manifest that sets one fails to load,
-``leaf_plan_from_dict``). An ``im2col`` leaf resolves, but the optimizer
-refuses it until the blocks with conv taps land.
+``leaf_plan_from_dict``).
 """
 from __future__ import annotations
 

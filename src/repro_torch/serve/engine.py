@@ -221,7 +221,7 @@ class Engine:
         L = job.length
         self.alloc.ensure(slot, L)
         solo = lm.unstack_caches(self.cfg, job.caches)
-        kv_pages.admit_caches(self.cfg, self.caches, self.spec, self.alloc.table[slot], solo, L)
+        kv_pages.admit_caches(self.cfg, self.caches, self.spec, self.alloc.table[slot], slot, solo, L)
         first = int(torch.argmax(job.logits[0]))
         self.tok[slot] = first
         self.pos[slot] = L

@@ -7,8 +7,10 @@ page, *tail]`` shared by all decode slots, read through ONE page table
 ``table [n_slots, max_pages]`` (int32) common to every layer and leaf: a
 slot's logical cache structure is the same in every layer, so one table row
 says where all of its pages live. *State* leaves (no sequence axis: the
-reference's mamba2 and xLSTM blocks, which store them a dense row a slot)
-come with those blocks, not ported yet.
+mamba2 and xLSTM recurrent states, zamba's stacked mamba states ``[N, B,
+...]`` with the batch on axis 1) are not paged: each keeps ``n_slots``
+dense rows along its batch axis, and a request's admission overwrites its
+slot's row.
 
 The sentinel ``P`` (the number of data pages) marks unallocated and evicted
 table entries. Pages ``0..P-1`` hold data; the extra page ``P`` is
@@ -46,6 +48,11 @@ class LeafLayout:
     seq_axis: int | None
     shape: tuple  # per-layer shape at the probe (batch, seq) sizes
     dtype: object
+
+    @property
+    def is_paged(self) -> bool:
+        """Sequence-axis leaves live in page pools; state leaves do not."""
+        return self.seq_axis is not None
 
 
 def _probe_caches(cfg, batch: int, seq: int):
@@ -128,15 +135,20 @@ def pool_spec(n_slots: int, max_seq: int, page: int = 16, num_pages: int | None 
 
 
 def make_paged_caches(cfg, spec: PoolSpec, device=None):
-    """Zeroed cache trees in the decode list layout: every leaf a pool
-    ``[P + 1, page, *tail]`` (the data pages and the write-only one)."""
+    """Zeroed cache trees in the decode list layout: every paged leaf a pool
+    ``[P + 1, page, *tail]`` (the data pages and the write-only one), every
+    state leaf ``n_slots`` dense rows along its batch axis."""
     dev = resolve(device)
 
     def one(lay: LeafLayout):
+        if not lay.is_paged:
+            shape = list(lay.shape)
+            shape[lay.batch_axis] = spec.n_slots
+            return torch.zeros(tuple(shape), dtype=lay.dtype, device=dev)
         if (lay.batch_axis, lay.seq_axis) != (0, 1):
             raise NotImplementedError(
                 f"paged leaves must be [B, S, ...]; got batch axis {lay.batch_axis}, seq axis {lay.seq_axis} "
-                f"for {lay.shape} (state leaves come with their blocks: ROADMAP Queue 1 item 3)")
+                f"for {lay.shape}")
         return torch.zeros((spec.num_pages + 1, spec.page) + tuple(lay.shape[2:]), dtype=lay.dtype, device=dev)
 
     out = []
@@ -146,8 +158,9 @@ def make_paged_caches(cfg, spec: PoolSpec, device=None):
 
 
 # The cache dicts the blocks read at decode: the page table rides beside the
-# leaf entries of each attention unit dict ({"k", "v"}; MLA's {"c_kv",
-# "k_rope"} joins with its block).
+# leaf entries of each attention unit dict ({"k", "v"}, also zamba's shared
+# block's, nested beside its mamba states; MLA's {"c_kv", "k_rope"} joins
+# with its block).
 _UNIT_KEYS = (frozenset({"k", "v"}),)
 
 
@@ -224,13 +237,17 @@ class PageAllocator:
 # ----------------------------- admit scatter --------------------------------
 
 
-def admit_caches(cfg, caches, spec: PoolSpec, table_row: np.ndarray, solo_caches, length: int):
+def admit_caches(cfg, caches, spec: PoolSpec, table_row: np.ndarray, slot: int, solo_caches, length: int):
     """Scatter a solo-prefilled request's caches (batch 1, seq ``length``,
-    decode list layout) onto the pages ``table_row`` assigns, in place.
+    decode list layout) into slot ``slot``, in place: paged leaves onto the
+    pages ``table_row`` assigns, state leaves over the slot's dense row.
     Returns ``caches``."""
     npages = -(-length // spec.page)
 
     def one(lay: LeafLayout, pool, solo):
+        if not lay.is_paged:
+            pool.select(lay.batch_axis, slot).copy_(solo.select(lay.batch_axis, 0))
+            return pool
         rows = torch.as_tensor(table_row[:npages].astype(np.int64), device=pool.device)
         pad = npages * spec.page - length
         if pad:

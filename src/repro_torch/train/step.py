@@ -13,8 +13,11 @@ back into them:
   return their weight gradient as operands ``(x, dh)``, which the fused
   update kernel deposits without forming ``[M, N]``; an expert bank's
   operands keep the expert axis (``x [L, E, G·C, M]``, ``G·C`` the MoE
-  capacity tokens); every other leaf (the embedding and the vector
-  leaves) gets a dense gradient;
+  capacity tokens), and a depthwise conv's taps (``conv_w`` under
+  ``coverage_rules``, ``group="im2col"``) return im2col patches of the
+  step's B·L tokens (``x [*lead, C, B·L, K]``); every other leaf (the
+  embedding, sLSTM's ``r``, the zamba shared block's matrices and the
+  vector leaves) gets a dense gradient;
 * ``optim.panther.update_split`` quantizes and deposits the update in
   place, and runs CRS every ``crs_every`` steps.
 
@@ -134,7 +137,8 @@ def make_train_step(cfg: LMConfig, opt_cfg: PantherConfig, lr_schedule, mesh=Non
         tree (dense tensors; ``OuterProductGrad`` at operand leaves). Fresh
         slots each call, so every microbatch's operands land in their own."""
         if operand_grads:
-            params = panther.operandize(params, sliced, plan_t, expert_tokens=expert_tokens(cfg, tokens))
+            params = panther.operandize(params, sliced, plan_t, expert_tokens=expert_tokens(cfg, tokens),
+                                        tokens=tokens)
         nll, aux = lm.loss_parts(cfg, params, batch)
         loss = nll + lm.AUX_WEIGHT * aux
         dense = dict(zip((path for path, _ in wrt), torch.autograd.grad(loss, [p for _, p in wrt])))
@@ -200,7 +204,8 @@ def expert_tokens(cfg: LMConfig, tokens: int) -> int | None:
 
 def _merge_operands(ops: list, microbatches: int) -> OuterProductGrad:
     """The microbatches' operands of one leaf as one gradient: token tiles
-    concatenated in microbatch order (``[*stack, G·T, d]``), ``dh`` scaled
-    by 1/G, so one fused update deposits the mean gradient."""
-    return OuterProductGrad(torch.cat([o.x for o in ops], dim=-2),
-                            torch.cat([o.dh for o in ops], dim=-2)).scale_dh(1.0 / microbatches)
+    concatenated in microbatch order along the token axis, -2 for every
+    kind (``[*stack, G·T, d]``), ``dh`` scaled by 1/G, so one fused update
+    deposits the mean gradient."""
+    return OuterProductGrad(torch.cat([o.x for o in ops], dim=-2), torch.cat([o.dh for o in ops], dim=-2),
+                            ops[0].kind).scale_dh(1.0 / microbatches)

@@ -1,7 +1,8 @@
-"""The port's architecture registry against the JAX package: the six ported
+"""The port's architecture registry against the JAX package: the eight ported
 architectures (the dense-block gemma-2b, minicpm-2b, phi4-mini-3.8b,
 chameleon-34b with qk-norm and an untied head, musicgen-large on frame
-embeddings, and the MoE granite-moe-1b-a400m), mirroring
+embeddings, the MoE granite-moe-1b-a400m, and the SSM xlstm-125m and
+zamba2-1.2b), mirroring
 ``tests/test_arch_smoke.py`` and ``tests/test_plan.py``'s category counts.
 
 Tolerances:
@@ -11,7 +12,9 @@ Tolerances:
   relative;
 * prefill then one decode step against the forward's last logits (the
   port's own paths): the reference test's bounds, ``1e-3`` in f32 and
-  ``5e-2`` in bf16.
+  ``5e-2`` in bf16. The prefill's caches grow along their sequence axes
+  only (``serve.kv_pages.grow_caches``): the SSM blocks' state leaves have
+  none.
 """
 from __future__ import annotations
 
@@ -32,9 +35,9 @@ from repro.optim import PantherConfig as JPC  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch import plan as tplan  # noqa: E402
-from repro_torch import tree  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.optim import PantherConfig as TPC  # noqa: E402
+from repro_torch.serve.kv_pages import grow_caches  # noqa: E402
 
 ARCHS = tconfigs.ARCH_IDS
 LOGIT_RTOL = 1e-5
@@ -42,6 +45,8 @@ B, S = 2, 32
 
 # tests/test_plan.py's golden partitions of the ported architectures
 GOLDEN_PARTITION = {
+    "zamba2_1p2b": {"digital": 17, "dense": 19, "operand": 0},
+    "xlstm_125m": {"digital": 17, "dense": 23, "operand": 0},
     "musicgen_large": {"digital": 1, "dense": 3, "operand": 5},
     "granite_moe_1b_a400m": {"digital": 1, "dense": 7, "operand": 2},
     "minicpm_2b": {"digital": 1, "dense": 3, "operand": 5},
@@ -50,6 +55,8 @@ GOLDEN_PARTITION = {
     "chameleon_34b": {"digital": 1, "dense": 6, "operand": 5},
 }
 GOLDEN_COVERAGE = {
+    "zamba2_1p2b": {"digital": 15, "dense": 7, "operand": 14, "im2col": 2, "expert": 0},
+    "xlstm_125m": {"digital": 15, "dense": 3, "operand": 22, "im2col": 2, "expert": 0},
     "musicgen_large": {"digital": 1, "dense": 3, "operand": 5, "im2col": 0, "expert": 0},
     "granite_moe_1b_a400m": {"digital": 1, "dense": 3, "operand": 6, "im2col": 0, "expert": 3},
     "minicpm_2b": {"digital": 1, "dense": 3, "operand": 5, "im2col": 0, "expert": 0},
@@ -160,7 +167,6 @@ def test_prefill_decode_matches_forward(arch, dtype, tol):
         prefix = inp[:, :S - 1]
         last = inp[:, S - 1] if cfg.input_mode == "tokens" else inp[:, S - 1:]
         _, caches = tlm.prefill(cfg, params, prefix)
-        grown = tree.map(lambda c: torch.cat([c, torch.zeros_like(c[:, :1])], dim=1),
-                         tlm.unstack_caches(cfg, caches))
+        grown = grow_caches(cfg, tlm.unstack_caches(cfg, caches), S)
         dec, _ = tlm.decode_step(cfg, params, last, grown, S - 1)
     np.testing.assert_allclose(_np(dec), _np(full[:, -1]), rtol=tol, atol=tol)

@@ -1235,3 +1235,67 @@ def test_opa_deposit_on_odd_and_misaligned_blocks(card, m, n):
             KO.opa_deposit(got, _offset_copy(p_q, q_off), spec=DEFAULT_SPEC, stuck=stuck)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (stuck is not None, p_off, q_off)
+
+
+def _im2col_operands(card, g, C, T, K, dtype):
+    """Operands whose f32 sums are exact in any order (small integers on a
+    power-of-two grid) in the im2col layout: x [C, T, K], dh [C, T, 1]."""
+    x = torch.randint(-4, 5, (C, T, K), generator=g, device=card).to(torch.float32) * 0.125
+    dh = torch.randint(-4, 5, (C, T, 1), generator=g, device=card).to(torch.float32) * 2.0**-5
+    return x.to(dtype), dh.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("keyed", [False, True])
+@pytest.mark.parametrize("c,t,layer", [(1536, 256, 0), (4224, 256, 5), (33, 17, 2)])
+def test_opa_im2col_matches_plain_and_the_tile_launches(card, dtype, keyed, c, t, layer):
+    """The im2col entry on one [S, 4, C] block bit for bit against its plain
+    version (the reference's per-channel route) and against one K1 launch a
+    channel tile on the same block, under the counter draw keyed by the
+    flat tile index (layer·C + c) and under half to even."""
+    from repro_torch.core import prng
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ops, ref
+
+    g = torch.Generator(device=card).manual_seed(c + t)
+    planes = torch.randint(-8, 8, (8, 4, c), generator=g, device=card, dtype=torch.int8)
+    x, dh = _im2col_operands(card, g, c, t, 4, getattr(torch, dtype))
+    frac = torch.tensor([12], dtype=torch.int32, device=card)
+    key = prng.fold_in(prng.PRNGKey(7), 3) if keyed else None
+    want = ref.opa_im2col_ref(planes, x, dh, 0.25, frac[0], DEFAULT_SPEC, key, layer)
+    before = KO.opa_im2col.launches
+    got = KO.opa_im2col(planes.clone(), x, dh, 0.25, frac, spec=DEFAULT_SPEC, key=key, layer=layer)
+    tiles = ops.im2col_tiles(planes.clone(), x, dh, 0.25, frac, DEFAULT_SPEC, layer, key)
+    torch.cuda.synchronize()
+    assert KO.opa_im2col.launches == before + 1
+    assert not torch.equal(want, planes)
+    assert torch.equal(got, want) and torch.equal(tiles, want)
+
+
+def test_im2col_update_takes_one_launch_a_layer_block(card):
+    """``opa_im2col_update`` on a nested [2, 3, 4, C] leaf (zamba's conv
+    taps): one entry launch a block under the counter draw, bit for bit with
+    the CPU's plain version of the whole leaf; the grid draw takes the
+    per-tile K1 launches, also equal to the CPU's."""
+    from repro_torch.core import prng
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import opa_im2col_update
+
+    g = torch.Generator(device=card).manual_seed(11)
+    C, T = 96, 40
+    planes = torch.randint(-8, 8, (2, 3, 8, 4, C), generator=g, device=card, dtype=torch.int8).movedim(2, 0)
+    x, dh = _im2col_operands(card, g, 6 * C, T, 4, torch.bfloat16)
+    x, dh = x.reshape(2, 3, C, T, 4), dh.reshape(2, 3, C, T, 1)
+    for mode in ("counter", "grid"):
+        cpu = planes.cpu()
+        opa_im2col_update(cpu, x.cpu(), dh.cpu(), 0.25, 12, DEFAULT_SPEC, stochastic=True, key=prng.PRNGKey(4),
+                          rng_mode=mode)
+        entry, tile = KO.opa_im2col.launches, KO.opa_fused.launches
+        got = opa_im2col_update(planes.clone(), x, dh, 0.25, 12, DEFAULT_SPEC, stochastic=True,
+                                key=prng.PRNGKey(4), rng_mode=mode)
+        torch.cuda.synchronize()
+        launched = (KO.opa_im2col.launches - entry, KO.opa_fused.launches - tile)
+        assert launched == ((6, 0) if mode == "counter" else (0, 6 * C))
+        assert torch.equal(got.cpu(), cpu)

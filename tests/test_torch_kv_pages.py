@@ -59,16 +59,28 @@ def test_cache_layouts_attn():
 
 
 def test_cache_layouts_mamba2_state_is_not_paged():
-    """The reference's mamba2 state leaves have no sequence axis; the port
-    has no mamba2 block yet (ROADMAP Queue 1 item 3) and says so."""
+    """The mamba2 state leaves (``ssd``, ``conv``) have no sequence axis:
+    the same layouts as the reference's, none paged; the pools keep them
+    as ``n_slots`` dense rows, and zamba's stacked states ``[N, B, ...]``
+    carry the batch on axis 1."""
     ssm = dict(d_state=16, d_conv=4, expand=2, head_dim=8, chunk=8)
     cfg_j = dataclasses.replace(_cfgs()[0], pattern=(("mamba2", 2),), ssm=jcommon.SSMCfg(**ssm))
-    (lay_j,) = jkv.cache_layouts(cfg_j)
-    for leaf in jax.tree.leaves(lay_j, is_leaf=lambda x: isinstance(x, jkv.LeafLayout)):
-        assert leaf.seq_axis is None and leaf.batch_axis is not None
     cfg_t = dataclasses.replace(_cfgs()[1], pattern=(("mamba2", 2),), ssm=tcommon.SSMCfg(**ssm))
-    with pytest.raises(NotImplementedError, match="mamba2"):
-        tkv.cache_layouts(cfg_t)
+    (lay_j,), (lay_t,) = jkv.cache_layouts(cfg_j), tkv.cache_layouts(cfg_t)
+    leaves_j = jax.tree.leaves(lay_j, is_leaf=lambda x: isinstance(x, jkv.LeafLayout))
+    leaves_t = [leaf for _, leaf in tree.leaves_sorted(lay_t)]
+    assert len(leaves_t) == len(leaves_j) == 2
+    for lj, lt in zip(leaves_j, leaves_t):
+        _same_layout(lj, lt)
+        assert lt.seq_axis is None and lt.batch_axis is not None and not lt.is_paged
+    spec = tkv.pool_spec(3, 16, page=4)
+    for c in tkv.make_paged_caches(cfg_t, spec, device="cpu")[0]:
+        assert c["ssd"].shape == (3, 8, 8, 16) and c["conv"].shape == (3, 3, 96)
+    cfg_z = dataclasses.replace(cfg_t, pattern=(("zamba_unit", 2),), zamba=tcommon.ZambaCfg(share_every=3))
+    (lay_z,) = tkv.cache_layouts(cfg_z)
+    assert lay_z["mamba"]["ssd"].batch_axis == 1 and lay_z["shared"]["k"]["q"].is_paged
+    ((unit, _),) = tkv.make_paged_caches(cfg_z, spec, device="cpu")
+    assert unit["mamba"]["ssd"].shape == (3, 3, 8, 8, 16) and unit["shared"]["k"]["q"].shape == (13, 4, 2, 8)
 
 
 @pytest.fixture(scope="module")

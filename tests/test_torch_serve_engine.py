@@ -6,11 +6,13 @@ layers, f32), JAX weights carried across by ``repro_torch.convert``.
 * Scheduling is invisible: every request decodes the tokens it would have
   decoded served solo (dense caches, scalar positions), however requests
   pack into slots, rounds bucket, neighbours come and go, or a long prompt
-  prefills chunked. The block kinds are ``"attn"`` (the dense block) and
+  prefills chunked. The block kinds are ``"attn"`` (the dense block),
   ``"moe"`` (granite-moe-1b-a400m's SMOKE config, capacity factor 8: no
   expert ever overflows, so a token's experts do not depend on its
-  neighbours); the MLA and mamba2 blocks are not ported yet (ROADMAP Queue
-  1 item 3).
+  neighbours), ``"mamba2"`` (state rows a slot, its prompts prefilled in
+  chunks) and ``"zamba"`` (zamba2-1.2b's SMOKE config: stacked mamba state
+  rows beside the shared block's paged K/V, single-shot prefill); the MLA
+  block is not ported yet.
 * End to end: both engines on the same weights and the same trace, each
   with its own package's ``IsaClock(s_per_token, n_slots)`` as the cost
   table (it prices every key, so neither calibrates), give the same tokens,
@@ -59,8 +61,10 @@ GUMBEL_ULPS = 2  # |Δg| <= GUMBEL_ULPS · ulp(max(|g|, 1))
 S_PER_TOKEN = 1e-3  # the IsaClock's price, seconds a token
 
 BASE = dict(arch_id="serve-test", d_model=48, n_layers=2, vocab=96, n_heads=4, n_kv_heads=2, head_dim=12, d_ff=96)
-PATTERNS = {"attn": (("dense", 2),), "moe": (("moe", 2),)}  # "mla", "mamba2": with ROADMAP Queue 1 item 3
-MOE_ARCH = "granite_moe_1b_a400m"  # its SMOKE config serves the "moe" kind
+PATTERNS = {"attn": (("dense", 2),), "moe": (("moe", 2),), "mamba2": (("mamba2", 2),),
+            "zamba": (("zamba_unit", 2), ("mamba2", 1))}  # "mla": with its block
+SMOKE_ARCHS = {"moe": "granite_moe_1b_a400m", "zamba": "zamba2_1p2b"}  # their SMOKE configs serve these kinds
+SSM = dict(d_state=16, d_conv=4, expand=2, head_dim=12, chunk=8)  # the reference test's mamba2 kind
 
 
 @pytest.fixture(scope="module")
@@ -68,13 +72,15 @@ def models():
     """kind -> (JAX cfg, port cfg, JAX params, port params)."""
     out = {}
     for kind, pattern in PATTERNS.items():
-        if kind == "moe":
-            cfg_j = dataclasses.replace(jconfigs.get_smoke(MOE_ARCH), dtype=jnp.float32)
-            cfg_t = dataclasses.replace(tconfigs.get_smoke(MOE_ARCH), dtype=torch.float32)
-            assert cfg_t.pattern == pattern and cfg_t.moe.capacity_factor == 8.0
+        if kind in SMOKE_ARCHS:
+            cfg_j = dataclasses.replace(jconfigs.get_smoke(SMOKE_ARCHS[kind]), dtype=jnp.float32)
+            cfg_t = dataclasses.replace(tconfigs.get_smoke(SMOKE_ARCHS[kind]), dtype=torch.float32)
+            assert cfg_t.pattern == pattern and (cfg_t.moe is None or cfg_t.moe.capacity_factor == 8.0)
         else:
-            cfg_j = jcommon.LMConfig(dtype=jnp.float32, pattern=pattern, **BASE)
-            cfg_t = tcommon.LMConfig(dtype=torch.float32, pattern=pattern, **BASE)
+            ssm = {"ssm": (jcommon.SSMCfg(**SSM), tcommon.SSMCfg(**SSM))} if kind == "mamba2" else {}
+            cfg_j = jcommon.LMConfig(dtype=jnp.float32, pattern=pattern, **BASE, **{k: v[0] for k, v in ssm.items()})
+            cfg_t = tcommon.LMConfig(dtype=torch.float32, pattern=pattern, **BASE,
+                                     **{k: v[1] for k, v in ssm.items()})
         pj = jlm.init_params(cfg_j, jax.random.PRNGKey(0))
         out[kind] = cfg_j, cfg_t, pj, convert.params_from_jax(jax.tree.map(np.asarray, pj), device="cpu")
     return out
@@ -239,6 +245,16 @@ def test_moe_engine_equals_the_reference_end_to_end(models, policy):
     _engines_agree(models["moe"], policy)
 
 
+@pytest.mark.parametrize("policy", ["continuous", "static"])
+@pytest.mark.parametrize("kind", ["mamba2", "zamba"])
+def test_ssm_engine_equals_the_reference_end_to_end(models, kind, policy):
+    """As above, on the SSM kinds: each slot's state rows admitted over its
+    predecessor's and updated in place by every round (the mamba2 kind's
+    long prompts prefill chunked through its state; zamba prefills
+    single-shot, its shared block's K/V paged beside the states)."""
+    _engines_agree(models[kind], policy)
+
+
 def _engines_agree(model, policy):
     cfg_j, cfg_t, pj, pt = model
     trace_j = jtrace.synth_trace(vocab=cfg_j.vocab, **TRACE)
@@ -247,6 +263,7 @@ def _engines_agree(model, policy):
         assert (rt.rid, rt.arrival, rt.out_len, rt.tier) == (rj.rid, rj.arrival, rj.out_len, rj.tier)
         np.testing.assert_array_equal(rt.tokens, rj.tokens)
     assert len({len(r.tokens) for r in trace_t}) > 1 and any(len(r.tokens) > GRID["chunk_size"] for r in trace_t)
+    assert tlm.supports_chunked_prefill(cfg_t) == jlm.supports_chunked_prefill(cfg_j)
 
     eng_j = jengine.Engine(cfg_j, pj, costs=jsch.IsaClock(S_PER_TOKEN, GRID["n_slots"]), **GRID)
     res_j = jsch.run_trace({"default": eng_j}, trace_j, policy=policy)
