@@ -237,10 +237,30 @@ Phases:
      and the scans' device ms, each step's kernel work held to the plan
      and to the wrappers' counts; (c) 4 x 32 prompts and 16 greedy tokens
      through the adc9 coverage plan, the engine on the bench's trace cut
-     to its first 6 requests (continuous, 8 slots) through the adc9 tree,
+     to its first 3 requests (continuous, 8 slots) through the adc9 tree,
      then through the lossless tree with every request's tokens equal to
      its solo serving's; last one step under ``default_rules`` (every
-     mapped leaf dense on K2, ``conv_w`` digital).
+     mapped leaf dense on K2, ``conv_w`` digital);
+ 19. the last two architectures at full width, bf16, seed weights in
+     44466555 planes, their depth cut (PERF.md §4): gemma2-9b (d 3584, 16
+     heads / 8 KV of 256, d_ff 14336, window 4096, 4 of its 21 local/global
+     pairs) and deepseek-v2-lite-16b (d 2048, MLA rank 512, 64 experts top-6
+     of 1408 and 2 shared, ``mla_dense`` x 1 + ``mla_moe`` x 2): (a) K4
+     forward and MᵀVM and K1 on gemma2's five tiles and on the ragged
+     ``wq_dkv`` 2048x3648 at 256 rows, K4 on ``w_uk``/``w_uv`` at a decode
+     step's 192 cache rows, each bit for bit against its plain version at
+     adc9 and timed; (b) ``_sdpa_chunked`` against the explicit mask in f32
+     over 5120 keys at gemma2's heads (window 4096 and none, softcap 50)
+     and at MLA's 192/128 widths, within 2e-5, each timed; then for each
+     arch: deepseek's expert tiles as phase 17 (a) reads granite's; 3
+     coverage adc9 steps at 4 x 64 tokens and one profiled, every step's
+     kernel work held to the plan (``plan_expected``) and the wrappers'
+     counts; on gemma2 one 5120-token prompt on the lossless tree through
+     the chunked path and 8 decode steps through the window, held to the
+     forward's logits; 4 x 32 prompts and 16 greedy tokens at adc9, the
+     engine on the bench's trace cut to 3 requests, the lossless engine's
+     tokens equal to solo serving (deepseek's with no capacity drop); one
+     ``default_rules`` step; the plain decode attention's device ms.
 
 It prints one JSON line with the kernels' numbers, the card's
 ``name, power.limit`` line, and last the device JSON line. Any failure exits
@@ -3951,14 +3971,15 @@ def moe_serve(torch, cfg, opt_cfg, state, gen, device="cuda"):
     return out
 
 
-def moe_kernel_times(torch, K, cfg, opt_cfg, state, gen):
+def moe_kernel_times(torch, K, cfg, opt_cfg, state, gen, gi=0, suffix=""):
     """Phase 17 (a): one expert bank's grouped read (K4 forward and MᵀVM at
     adc9, 80 rows; forward at 8) bit for bit against each expert's plain
     read, the router's at 256 tokens, K1 on an expert tile at 80 tokens and
     K2 on an expert block bit for bit against their plain versions; then
     one layer's 96 expert reads, one layer's 96 K1 tile updates and one
     dense bank's 768 K2 writes timed beside their plain versions, the
-    library yardstick and the bound. Returns (errors, timings)."""
+    library yardstick and the bound. ``gi``: the pattern group whose layer 0
+    is read; ``suffix`` ends the timings' names. Returns the timings."""
     import dataclasses
 
     from repro_torch import configs
@@ -3972,10 +3993,11 @@ def moe_kernel_times(torch, K, cfg, opt_cfg, state, gen):
     from repro_torch.train.step import expert_tokens
 
     spec = opt_cfg.spec
-    S, E, L = spec.n_slices, cfg.moe.n_experts, cfg.n_layers
+    S, E = spec.n_slices, cfg.moe.n_experts
     adc9 = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=spec)
     T, rows = MOE_BATCH * MOE_SEQ, expert_tokens(cfg, MOE_BATCH * MOE_SEQ)
-    moe0 = state.sliced["groups"][0]["moe"]
+    moe0 = state.sliced["groups"][gi]["moe"]
+    L = math.prod(moe0["experts_gate"].planes.shape[1:-3])  # the group's MoE layers
     banks = {b: moe0[b].planes.movedim(0, 2)[0] for b in MOE_BANKS}  # layer 0: [E, S, M, N]
     fracs = {b: moe0[b].frac_bits for b in MOE_BANKS}
     # bit for bit: every expert of one bank, each direction, and the router
@@ -3992,7 +4014,7 @@ def moe_kernel_times(torch, K, cfg, opt_cfg, state, gen):
             raise AssertionError(f"(a) the grouped read ({'MᵀVM' if transpose else 'forward'}, {n} rows) vs the "
                                  f"plain reads: max |diff| {float((got - want).abs().max())}")
         checks += E
-    router = state.sliced["groups"][0]["moe"]["router"]
+    router = moe0["router"]
     rp = router.planes.movedim(0, 1)[0]
     for transpose in (False, True):
         v = torch.randn((T, rp.shape[-1] if transpose else rp.shape[-2]), generator=gen, device="cuda")
@@ -4023,9 +4045,9 @@ def moe_kernel_times(torch, K, cfg, opt_cfg, state, gen):
     # one layer's 96 expert reads: the kernel (DAC exponents chosen once,
     # outside the timed loop), the plain reads, one torch.bmm a bank over
     # the experts' f32 weights, and the bound
-    for key, transpose, n in (("mvm_sliced_fused_expert", False, rows),
-                              ("mvm_sliced_fused_expert_transpose", True, rows),
-                              ("mvm_sliced_fused_expert_decode", False, expert_tokens(cfg, MOE_BATCH))):
+    for key, transpose, n in ((f"mvm_sliced_fused_expert{suffix}", False, rows),
+                              (f"mvm_sliced_fused_expert{suffix}_transpose", True, rows),
+                              (f"mvm_sliced_fused_expert{suffix}_decode", False, expert_tokens(cfg, MOE_BATCH))):
         work = []
         for b in MOE_BANKS:
             planes = banks[b]
@@ -4080,7 +4102,7 @@ def moe_kernel_times(torch, K, cfg, opt_cfg, state, gen):
 
     bs = [bound_of(2 * S * Mb * Nb + 2 * rows * (Mb + Nb) + 4, 2.0 * rows * Mb * Nb, BF16_FLOPS_PER_S)
           for *_, Mb, Nb in work]
-    out["opa_fused_expert"] = {"ms": cuda_time_ms(k1, 5), "plain_ms": cuda_time_ms(k1_plain, 1, 0),
+    out[f"opa_fused_expert{suffix}"] = {"ms": cuda_time_ms(k1, 5), "plain_ms": cuda_time_ms(k1_plain, 1, 0),
                                "library_ms": cuda_time_ms(k1_lib, 10), "bound_ms": E * sum(b[0] for b in bs),
                                "bound_by": "bytes" if all(b[1] == "bytes" for b in bs) else "operations"}
     del work
@@ -4093,7 +4115,8 @@ def moe_kernel_times(torch, K, cfg, opt_cfg, state, gen):
     k2_plain = cuda_time_ms(lambda: [dense_plain(torch, planes[i], g[i], spec, "counter") for i in range(L * E)], 1, 0)
     b = bound_of((4 + 2 * S) * L * E * Mb * Nb, (8.0 * S + DENSE_DRAW_OPS["counter"]) * L * E * Mb * Nb,
                  CUDA_CORE_OPS_PER_S)
-    out["opa_dense_expert"] = {"ms": k2, "plain_ms": k2_plain, "library_ms": None, "bound_ms": b[0], "bound_by": b[1]}
+    out[f"opa_dense_expert{suffix}"] = {"ms": k2, "plain_ms": k2_plain, "library_ms": None, "bound_ms": b[0],
+                                        "bound_by": b[1]}
     del planes, g
     torch.cuda.empty_cache()
     for key, t in out.items():
@@ -4145,10 +4168,11 @@ def phase_moe(torch, K, gen):
 SSM_ARCHS = ("xlstm_125m", "zamba2_1p2b")
 SSM_BATCH, SSM_SEQ = 4, 64  # training tokens a step: 4 x 64
 SSM_SERVE_PROMPT, SSM_SERVE_TOKENS = 32, 16
-# the bench's trace cut to its first requests (PERF.md §4): a 120-token
-# request is 120 round steps, and the lossless check serves each request
-# twice more
-SSM_ENGINE_REQUESTS = 6
+# the bench's trace cut to its first requests (PERF.md §4): the 4th asks
+# for 120 tokens, 120 round steps, and the lossless check serves each
+# request twice more (cut from 6 when phase 19 came: the script had run
+# 1033 s of its 1200 on an H100, PERF.md §4)
+SSM_ENGINE_REQUESTS = 3
 IM2COL_T = 256  # the training step's tokens a conv-tap block: 4 x 64
 # the narrow crossbar tiles the SSM blocks read: (name, arch, M, N)
 NARROW_READS = (("w_if", "xlstm_125m", 1536, 8), ("w_B", "zamba2_1p2b", 2048, 64))
@@ -4302,11 +4326,15 @@ def ssm_state(torch, arch, gen, device="cuda", cfg=None):
     return cfg, opt_cfg, state
 
 
-def ssm_expected(shapes, plan, tokens):
+def plan_expected(cfg, shapes, plan, tokens, cache_rows=None):
     """What one pass of ``tokens`` flattened tokens launches under ``plan``
-    over the param ``shapes``: K4 reads by (MᵀVM, tokens, (M, N), ADC), K1
-    blocks, im2col blocks, K2 blocks, K3 blocks (every mapped block)."""
+    over the param ``shapes``: K4 reads by (MᵀVM, rows, (M, N), ADC), K1
+    blocks, im2col blocks, K2 blocks, K3 blocks (every mapped block). An
+    expert bank (``group="expert"``) reads ``expert_tokens`` rows a (layer,
+    expert), a segment of its ``expert_groups`` at that segment's ADC; MLA's
+    ``w_uk``/``w_uv`` read the cache's ``cache_rows`` (B·Sk) at decode."""
     from repro_torch import tree
+    from repro_torch.train.step import expert_tokens
 
     reads, k1, im2col, dense, mapped = collections.Counter(), 0, 0, 0, 0
     for (path, pl), (_, shape) in zip(tree.leaves_with_path(plan), tree.leaves_with_path(shapes)):
@@ -4321,11 +4349,19 @@ def ssm_expected(shapes, plan, tokens):
         else:
             k1 += n
             fid = pl.fidelity
-            if fid is not None:
+            if fid is None:
+                continue
+            rows, layers, segs = tokens, n, [(0, 1, fid)]
+            if pl.group == "expert":
+                rows, layers = expert_tokens(cfg, tokens), math.prod(shape.shape[:-3])
+                segs = fid.group_slices(cfg.moe.n_experts)
+            elif str(path[-1]) in ("w_uk", "w_uv") and cache_rows is not None:
+                rows = cache_rows
+            for a, b, g in segs:
                 for transpose, on in ((False, fid.fwd), (True, fid.bwd)):
                     if on:
-                        reads[(transpose, tokens, tuple(shape.shape[-2:]),
-                               fid.adc_bits_bwd if transpose else fid.adc_bits_fwd)] += n
+                        reads[(transpose, rows, tuple(shape.shape[-2:]),
+                               g.adc_bits_bwd if transpose else g.adc_bits_fwd)] += layers * (b - a)
     return reads, k1, im2col, dense, mapped
 
 
@@ -4444,12 +4480,14 @@ def ssm_layer_check(torch, cfg, opt_cfg, state, gen, device="cuda"):
           f"through the kernels bit for bit with the plain reads", flush=True)
 
 
-def ssm_train(torch, cfg, opt_cfg, state, gen, device="cuda", modes=("coverage",) * 3):
-    """Phase 18 (b): adc9 steps under ``modes``: 3 coverage steps (the
-    second a CRS step) and one profiled after the third, or one
-    default-rules step (on ``default_layout``'s state); every step's kernel
-    work counted at the entry points, held to the plan and to the wrappers'
-    counts. Returns the state, the counts and what the summary prints."""
+def train_steps(torch, cfg, opt_cfg, state, gen, device="cuda", modes=("coverage",) * 3, plain_times=None):
+    """Phases 18 (b) and 19: adc9 steps under ``modes``: 3 coverage steps
+    (the second a CRS step) and one profiled after the third (and
+    ``plain_times(torch, cfg, opt_cfg, state, gen)``, the plain pieces'
+    device ms, before it), or one default-rules step (on ``default_layout``'s
+    state); every step's kernel work counted at the entry points, held to
+    the plan and to the wrappers' counts. Returns the state, the counts and
+    what the summary prints."""
     import dataclasses
 
     from repro_torch import configs
@@ -4484,7 +4522,7 @@ def ssm_train(torch, cfg, opt_cfg, state, gen, device="cuda", modes=("coverage",
             state, m = steps[mode](state, batch)
             loss, gnorm = float(m["loss"]), float(m["grad_norm"])
             ms = 1e3 * (time.perf_counter() - t0)
-        reads, k1, im2col, dense, mapped = ssm_expected(shapes, plans[mode], T)
+        reads, k1, im2col, dense, mapped = plan_expected(cfg, shapes, plans[mode], T)
         want = {"k4": dict(reads), "k1": k1, "im2col": im2col, "k2": dense, "k3": mapped if crs_step else 0}
         got = {"k4": dict(seen["k4"]), **{k: sum(seen[k].values()) for k in ("k1", "im2col", "k2", "k3")}}
         print(f"  step {step} ({mode}{', CRS' if crs_step else ''}): {ms:.1f} ms, {T / ms * 1e3:.0f} tokens/s, loss "
@@ -4503,7 +4541,8 @@ def ssm_train(torch, cfg, opt_cfg, state, gen, device="cuda", modes=("coverage",
         info["launches"][f"step {step} ({mode})"] = {k: v for k, v in got.items() if k != "k4"}
         if step == 2 and mode == "coverage" and cuda:
             info["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-            info["scans"] = ssm_scan_times(torch, cfg, opt_cfg, state, gen)
+            if plain_times is not None:
+                info["scans"] = plain_times(torch, cfg, opt_cfg, state, gen)
             out = {}
 
             def one_more():
@@ -4560,12 +4599,12 @@ def replicated_solo_tokens(torch, cfg, params, req, width, device="cuda"):
     return out
 
 
-def ssm_serve(torch, cfg, opt_cfg, state, gen, device="cuda"):
-    """Phase 18 (c): 4 x 32 prompts and 16 greedy tokens through the adc9
-    coverage plan; the engine on the bench's trace cut to
-    SSM_ENGINE_REQUESTS, continuous, 8 slots, through the adc9 tree; then
-    the lossless tree through the engine, each request's tokens equal to
-    its solo serving's."""
+def serve_and_engine(torch, cfg, opt_cfg, state, gen, device="cuda", requests=None, lossless_cfg=None):
+    """Phases 18 (c) and 19: 4 x 32 prompts and 16 greedy tokens through the
+    adc9 coverage plan; the engine on the bench's trace cut to ``requests``
+    (SSM_ENGINE_REQUESTS), continuous, 8 slots, through the adc9 tree; then
+    the lossless tree through the engine under ``lossless_cfg`` (``cfg``),
+    each request's tokens equal to its solo serving's."""
     import dataclasses
 
     from repro_torch import configs
@@ -4604,8 +4643,8 @@ def ssm_serve(torch, cfg, opt_cfg, state, gen, device="cuda"):
             torch.cuda.synchronize()
         out["decode_ms"] = 1e3 * (time.perf_counter() - t0) / (N - 1)
     want = collections.Counter()
-    for tokens, times in ((B * P, 1), (B, N - 1)):
-        for key, n in ssm_expected(shapes, plan, tokens)[0].items():
+    for tokens, cache_rows, times in ((B * P, B * P, 1), (B, B * (P + N), N - 1)):
+        for key, n in plan_expected(cfg, shapes, plan, tokens, cache_rows)[0].items():
             if not key[0]:
                 want[key] += n * times
     print(f"  (c) serving {B} x {P} prompts, {N} greedy tokens, adc9: prefill {out['prefill_ms']:.1f} ms, decode "
@@ -4618,7 +4657,7 @@ def ssm_serve(torch, cfg, opt_cfg, state, gen, device="cuda"):
     out["k4"] = collections.Counter(seen["k4"])
     print("    sample:", torch.stack(toks, 1)[0].tolist(), flush=True)
 
-    trace = LS.bench_trace(cfg, 32, seed=0, rate=1e4)[:SSM_ENGINE_REQUESTS]
+    trace = LS.bench_trace(cfg, 32, seed=0, rate=1e4)[:requests or SSM_ENGINE_REQUESTS]
     print(f"  (c) the bench's trace cut to {len(trace)} requests: prompts "
           f"{sorted(collections.Counter(len(r.tokens) for r in trace).items())}, outputs "
           f"{sorted(collections.Counter(r.out_len for r in trace).items())}", flush=True)
@@ -4640,11 +4679,12 @@ def ssm_serve(torch, cfg, opt_cfg, state, gen, device="cuda"):
 
     # the lossless tree: every mapped leaf dequantized, no wrap
     lossless = panther.materialize_split(state.digital, state.sliced, opt_cfg)
+    lcfg = lossless_cfg or cfg
     t0 = time.perf_counter()
-    runs, _ = LS.run_policies(cfg, lossless, trace, device, {}, policies=("continuous",))
+    runs, _ = LS.run_policies(lcfg, lossless, trace, device, {}, policies=("continuous",))
     by_rid = {r.rid: r.tokens for r in runs["continuous"]["requests"]}
     with torch.no_grad():
-        solo = {r.rid: replicated_solo_tokens(torch, cfg, lossless, r, LS.N_SLOTS, device) for r in trace}
+        solo = {r.rid: replicated_solo_tokens(torch, lcfg, lossless, r, LS.N_SLOTS, device) for r in trace}
     equal = sum(by_rid[rid] == toks for rid, toks in solo.items())
     print(f"    lossless engine vs solo serving: {equal} of {len(trace)} requests' tokens equal "
           f"({sum(len(t) for t in solo.values())} tokens; {time.perf_counter() - t0:.1f} s)", flush=True)
@@ -4668,9 +4708,9 @@ def phase_ssm(torch, K, gen):
     for arch in SSM_ARCHS:
         cfg, opt_cfg, state = ssm_state(torch, arch, gen)
         ssm_layer_check(torch, cfg, opt_cfg, state, gen)
-        state, totals, info = ssm_train(torch, cfg, opt_cfg, state, gen)
-        serving = ssm_serve(torch, cfg, opt_cfg, state, gen)
-        _, default_totals, default_info = ssm_train(torch, cfg, opt_cfg, default_layout(opt_cfg, state), gen,
+        state, totals, info = train_steps(torch, cfg, opt_cfg, state, gen, plain_times=ssm_scan_times)
+        serving = serve_and_engine(torch, cfg, opt_cfg, state, gen)
+        _, default_totals, default_info = train_steps(torch, cfg, opt_cfg, default_layout(opt_cfg, state), gen,
                                                     modes=("default",))
         for k in totals:
             totals[k].update(default_totals[k])
@@ -4697,6 +4737,327 @@ def phase_ssm(torch, K, gen):
         print(f"phase 18 {arch} summary: {json.dumps(summary[arch])}", flush=True)
     print(f"phase 18 wall: (a) {t[1] - t[0]:.1f} s, xlstm-125m {t[2] - t[1]:.1f} s, zamba2-1.2b {t[3] - t[2]:.1f} s; "
           f"main-path launches {dict(launches)}", flush=True)
+    return launches, timings
+
+
+# -------- phase 19: gemma2-9b and deepseek-v2-lite-16b at full width --------
+
+GEMMA2_PAIRS = 4  # of 21: 8 of 42 layers, ~20 GB of planes (PERF.md §4)
+DEEPSEEK_PATTERN = (("mla_dense", 1), ("mla_moe", 2))  # 3 of 27 layers, ~13.4 GB of planes
+# the bench's trace cut to its first requests (PERF.md §4): the 4th asks for
+# 120 tokens, 120 round steps, and the lossless check serves each request
+# twice more
+NEW_ENGINE_REQUESTS = 3
+LONG_PROMPT, LONG_DECODE = 5120, 8  # the chunked prefill (5 query chunks), then decodes through the window
+# tests/test_torch_arch_smoke.py::test_prefill_decode_matches_forward's bounds
+LONG_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+CHUNKED_TOL = 2e-5  # tests/test_chunked_paths.py's bound
+T_NEW = 256  # the training step's tokens: 4 x 64
+
+
+def new_arch_cfgs():
+    """The two configs at full width, their depth cut (PERF.md §4)."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    g = configs.get("gemma2_9b")
+    d = configs.get("deepseek_v2_lite_16b")
+    return (dataclasses.replace(g, n_layers=2 * GEMMA2_PAIRS, pattern=(("gemma2_pair", GEMMA2_PAIRS),)),
+            dataclasses.replace(d, n_layers=sum(n for _, n in DEEPSEEK_PATTERN), pattern=DEEPSEEK_PATTERN))
+
+
+def gemma2_tiles(cfg) -> dict:
+    """A gemma2 layer's five crossbar reads: name -> (M, N)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    return {"wqkv": (d, (cfg.n_heads + 2 * cfg.n_kv_heads) * hd), "wo": (cfg.n_heads * hd, d),
+            "wi_gate": (d, cfg.d_ff), "wi_up": (d, cfg.d_ff), "mlp_wo": (cfg.d_ff, d)}
+
+
+def mla_tiles(cfg) -> dict:
+    m, H = cfg.mla, cfg.n_heads
+    return {"wq_dkv": (cfg.d_model, H * (m.qk_nope_dim + m.qk_rope_dim) + m.kv_lora_rank + m.qk_rope_dim),
+            "w_uk": (m.kv_lora_rank, H * m.qk_nope_dim), "w_uv": (m.kv_lora_rank, H * m.v_head_dim)}
+
+
+def tile_kernel_times(torch, K, spec, tiles, rows, gen, directions=(False, True), k1=True):
+    """K4 at adc9 (forward and MᵀVM, at ``rows`` rows) and K1 (bf16 operands
+    at ``rows`` tokens) on random planes of each ``tiles`` (M, N), each bit
+    for bit against its plain version (K1 on f32-exact operands), timed
+    beside it, the library yardstick (``v @ w`` on the dequantized f32
+    weights; bf16 ``xᵀ @ dh`` for K1) and the bound. Returns the sums over
+    the tiles by direction: {"fwd", "mtvm", "k1"} -> timings."""
+    from repro_torch.core.fixed_point import choose_frac_bits
+    from repro_torch.core.slicing import dequantize_planes
+    from repro_torch.kernels.sliced_mvm import ref
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+
+    S = spec.n_slices
+    parts = collections.defaultdict(list)
+    for name, (M, N) in tiles.items():
+        planes = random_planes(torch, spec, (M, N), gen)
+        w = dequantize_planes(planes, 20, spec)
+        for transpose in directions:
+            v = torch.randn((rows, N if transpose else M), generator=gen, device="cuda")
+            xf = choose_frac_bits(v, word_bits=16, margin_bits=1, clip_to_word=False).reshape(1)
+            got = K.mvm_sliced_fused(planes, v, xf, spec=spec, adc_bits=9, transpose=transpose)
+            want = ref.mvm_sliced_fused_ref(planes, v, xf[0], spec, 16, 9, transpose=transpose)
+            if not torch.equal(got, want):
+                raise AssertionError(f"(a) K4 on {name} ({M}x{N}, {rows} rows, transpose={transpose}) vs plain")
+            del got, want
+            bms = bound_ms(rows, M, N, S, 16)
+            parts["mtvm" if transpose else "fwd"].append({
+                "ms": cuda_time_ms(lambda: K.mvm_sliced_fused(planes, v, xf, spec=spec, adc_bits=9,
+                                                              transpose=transpose), 10),
+                "plain_ms": cuda_time_ms(lambda: ref.mvm_sliced_fused_ref(planes, v, xf[0], spec, 16, 9,
+                                                                          transpose=transpose), 1, 1),
+                "library_ms": cuda_time_ms(lambda: v @ (w.T if transpose else w), 10),
+                "bound_ms": bms[0], "bound_by": bms[1]})
+        if k1:
+            frac = torch.tensor([20], dtype=torch.int32, device="cuda")
+            x, dh = exact_operands(torch, rows, M, N, torch.bfloat16, gen)
+            want = RO.opa_fused_ref(planes, x, dh, 2.0**-4, frac[0], spec, (5, 7))
+            got = KO.opa_fused(planes.clone(), x, dh, 2.0**-4, frac, spec=spec, key_words=(5, 7))
+            if not torch.equal(got, want):
+                raise AssertionError(f"(a) K1 on {name} ({M}x{N}) at {rows} tokens vs plain")
+            del got, want
+            x = torch.randn((rows, M), generator=gen, device="cuda").to(torch.bfloat16)
+            dh = (torch.randn((rows, N), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+            b = bound_of(2 * S * M * N + 2 * rows * (M + N) + 4, 2.0 * rows * M * N, BF16_FLOPS_PER_S)
+            parts["k1"].append({
+                "ms": cuda_time_ms(lambda: KO.opa_fused(planes, x, dh, 3e-2, frac, spec=spec, key_words=(1, 2)), 5),
+                "plain_ms": cuda_time_ms(lambda: RO.opa_fused_ref(planes, x, dh, 3e-2, frac[0], spec, (1, 2)), 1, 1),
+                "library_ms": cuda_time_ms(lambda: x.T @ dh, 10), "bound_ms": b[0], "bound_by": b[1]})
+        del planes, w
+        torch.cuda.empty_cache()
+    return {k: {"ms": sum(p["ms"] for p in ps), "plain_ms": sum(p["plain_ms"] for p in ps),
+                "library_ms": sum(p["library_ms"] for p in ps), "bound_ms": sum(p["bound_ms"] for p in ps),
+                "bound_by": "bytes" if all(p["bound_by"] == "bytes" for p in ps) else "operations"}
+            for k, ps in parts.items()}
+
+
+def chunked_attention_checks(torch, gen):
+    """Phase 19 (b): ``_sdpa_chunked`` against ``_sdpa`` under the explicit
+    mask, f32, over 5120 keys: gemma2-9b's heads (16 / 8 of 256) under
+    softcap 50, windowed at 4096 and not; MLA's widths (16 heads of 192,
+    values of 128). Within CHUNKED_TOL; each timed beside the explicit one.
+    Returns the device ms by case."""
+    import dataclasses
+
+    from repro_torch.models import attention as att
+
+    g, d = new_arch_cfgs()
+    out = {}
+    for name, cfg, H, KV, hd, hd_v, window in (
+            ("gemma2_window", dataclasses.replace(g, dtype=torch.float32), 16, 8, 256, 256, g.window),
+            ("gemma2_global", dataclasses.replace(g, dtype=torch.float32), 16, 8, 256, 256, None),
+            ("mla", dataclasses.replace(d, dtype=torch.float32), 16, 16, 192, 128, None)):
+        S = LONG_PROMPT
+        q = torch.randn((1, S, H, hd), generator=gen, device="cuda")
+        k = torch.randn((1, S, KV, hd), generator=gen, device="cuda")
+        v = torch.randn((1, S, KV, hd_v), generator=gen, device="cuda")
+        got = att._sdpa_chunked(cfg, q, k, v, window)
+        mask = att.causal_mask(S, S, window, device="cuda")
+        want = att._sdpa(cfg, q, k, v, mask)
+        err = float((got - want).abs().max())
+        bad = int(((got - want).abs() > CHUNKED_TOL + CHUNKED_TOL * want.abs()).sum())
+        del want
+        out[name] = {"chunked_ms": cuda_time_ms(lambda: att._sdpa_chunked(cfg, q, k, v, window), 2, 1),
+                     "explicit_ms": cuda_time_ms(lambda: att._sdpa(cfg, q, k, v, mask), 2, 1), "max_abs_err": err}
+        print(f"  (b) {name}: {H} heads / {KV} of {hd} (values {hd_v}), {S} keys, window {window}, softcap "
+              f"{cfg.softcap_attn}: chunked vs explicit mask max |diff| {err:.3g} ({bad} beyond {CHUNKED_TOL} "
+              f"abs + rel); chunked {out[name]['chunked_ms']:.2f} ms, explicit {out[name]['explicit_ms']:.2f} ms",
+              flush=True)
+        if bad:
+            raise AssertionError(f"(b) {name}: the chunked attention off the explicit mask's by {err}")
+        del q, k, v, got, mask
+        torch.cuda.empty_cache()
+    return out
+
+
+def decode_attention_times(torch, cfg, B, Sk, gen):
+    """Device ms of a decode step's plain attention pieces, bf16, at ``B``
+    slots over ``Sk`` cached positions: gemma2's ring mask and ``_sdpa``
+    (one local layer), MLA's ``_mla_attend`` with its two up-projection
+    reads on plain weights (one layer)."""
+    from repro_torch.models import attention as att
+    from repro_torch.models import lm
+
+    bf = torch.bfloat16
+    if cfg.mla is None:
+        q = torch.randn((B, 1, cfg.n_heads, cfg.head_dim), generator=gen, device="cuda").to(bf)
+        kv = [torch.randn((B, Sk, cfg.n_kv_heads, cfg.head_dim), generator=gen, device="cuda").to(bf)
+              for _ in range(2)]
+        pos = torch.full((B,), Sk - 1, device="cuda")
+        return cuda_time_ms(lambda: att._sdpa(cfg, q, *kv, lm.ring_mask(pos, Sk, cfg.window, device="cuda")), 20)
+    m, H = cfg.mla, cfg.n_heads
+    p = {"w_uk": torch.randn((m.kv_lora_rank, H * m.qk_nope_dim), generator=gen, device="cuda").to(bf),
+         "w_uv": torch.randn((m.kv_lora_rank, H * m.v_head_dim), generator=gen, device="cuda").to(bf)}
+    qn = torch.randn((B, 1, H, m.qk_nope_dim), generator=gen, device="cuda").to(bf)
+    qr = torch.randn((B, 1, H, m.qk_rope_dim), generator=gen, device="cuda").to(bf)
+    c = torch.randn((B, Sk, m.kv_lora_rank), generator=gen, device="cuda").to(bf)
+    kr = torch.randn((B, Sk, 1, m.qk_rope_dim), generator=gen, device="cuda").to(bf)
+    mask = att.decode_posmask(Sk - 1, Sk, device="cuda")
+    return cuda_time_ms(lambda: att._mla_attend(cfg, p, qn, qr, c, kr, mask, bf), 20)
+
+
+def long_prompt_check(torch, cfg, opt_cfg, state, gen, device="cuda", L=LONG_PROMPT):
+    """Phase 19 (c): on the lossless tree, one 5120-token prompt through the
+    chunked path (every layer: 5 x 5 chunk pairs; the local layers' window
+    of 4096 masks the last 1024 queries' oldest keys), then 8 decode steps
+    through the window, the logits against the forward's (the explicit
+    mask over 5128 keys) at those positions: in f32 within LONG_TOL[f32]
+    (the gate), and in bf16 against LONG_TOL[bf16], the count beyond it
+    printed (on an H100, 4-7 of 2304000 logits, by at most 0.063: PERF.md §7)."""
+    import dataclasses
+
+    from repro_torch.models import attention as att
+    from repro_torch.models import lm
+    from repro_torch.optim import panther
+    from repro_torch.serve.kv_pages import grow_caches
+
+    lossless = panther.materialize_split(state.digital, state.sliced, opt_cfg)
+    N = LONG_DECODE
+    x = torch.randint(0, cfg.vocab, (1, L + N), generator=gen, device=device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    calls = []
+    chunked = att._sdpa_chunked
+    att._sdpa_chunked = lambda *a: calls.append(a[1].shape[1]) or chunked(*a)
+    out = {}
+    try:
+        for dtype in (torch.bfloat16, torch.float32):
+            c = dataclasses.replace(cfg, dtype=dtype)
+            with torch.no_grad():
+                sync()
+                t0 = time.perf_counter()
+                logits, caches = lm.prefill(c, lossless, x[:, :L])
+                sync()
+                prefill_ms = 1e3 * (time.perf_counter() - t0)
+                got = [logits[0].float()]
+                caches = grow_caches(c, lm.unstack_caches(c, caches), L + N)
+                t0 = time.perf_counter()
+                for i in range(N):
+                    logits, caches = lm.decode_step(c, lossless, x[:, L + i], caches, L + i)
+                    got.append(logits[0].float())
+                sync()
+                decode_ms = 1e3 * (time.perf_counter() - t0) / N
+                del caches
+                full, _ = lm.forward(c, lossless, x)
+                want = full[0, L - 1:].float()
+                del full
+            got = torch.stack(got)
+            tol = LONG_TOL[str(dtype).split(".")[-1]]
+            bad = int(((got - want).abs() > tol + tol * want.abs()).sum())
+            err = float((got - want).abs().max())
+            name = str(dtype).split(".")[-1]
+            out[name] = {"prefill_ms": prefill_ms, "decode_ms": decode_ms, "max_abs_err": err, "beyond_tol": bad}
+            print(f"  (c) one {L}-token prompt on the lossless tree, {name}: prefill {prefill_ms:.1f} ms, {N} decode "
+                  f"steps {decode_ms:.1f} ms a step; logits at positions {L - 1}..{L + N - 1} against the "
+                  f"forward's: max |diff| {err:.3g}, {bad} of {got.numel()} beyond {tol} abs + rel", flush=True)
+            if not bool(torch.isfinite(got).all()) or (dtype == torch.float32 and bad):
+                raise AssertionError(f"(c) the long prompt in {name}: {bad} logits off the forward's")
+            del got, want
+    finally:
+        att._sdpa_chunked = chunked
+    print(f"    {len(calls)} chunked attention calls over {sorted(set(calls))} keys", flush=True)
+    if calls != [L] * (2 * cfg.n_layers):
+        raise AssertionError(f"(c) the prefills took the chunked path {len(calls)} times, not {2 * cfg.n_layers}")
+    return out
+
+
+def phase_new_archs(torch, K, gen):
+    """Phase 19: gemma2-9b (4 of 21 pairs) and deepseek-v2-lite-16b
+    (``mla_dense`` x 1 + ``mla_moe`` x 2) at full width, bf16, seed weights
+    in 44466555 planes: (a) the kernels at their new shapes, (b) the chunked
+    attention on the card, then each arch's training, serving and engine."""
+    import dataclasses
+
+    from repro_torch.core.slicing import DEFAULT_SPEC
+
+    t = [time.perf_counter()]
+    g_cfg, d_cfg = new_arch_cfgs()
+    spec = DEFAULT_SPEC
+    timings = {}
+    gt = tile_kernel_times(torch, K, spec, gemma2_tiles(g_cfg), T_NEW, gen)
+    timings.update({"mvm_sliced_fused_gemma2": gt["fwd"], "mvm_sliced_fused_gemma2_transpose": gt["mtvm"],
+                    "opa_fused_gemma2": gt["k1"]})
+    mt = mla_tiles(d_cfg)
+    wt = tile_kernel_times(torch, K, spec, {"wq_dkv": mt["wq_dkv"]}, T_NEW, gen)
+    timings.update({"mvm_sliced_fused_wq_dkv": wt["fwd"], "mvm_sliced_fused_wq_dkv_transpose": wt["mtvm"],
+                    "opa_fused_wq_dkv": wt["k1"]})
+    # the up-projections at a decode step of serve_and_engine: B x (P + N) cache rows
+    up_rows = SSM_BATCH * (SSM_SERVE_PROMPT + SSM_SERVE_TOKENS)
+    ut = tile_kernel_times(torch, K, spec, {k: mt[k] for k in ("w_uk", "w_uv")}, up_rows, gen,
+                           directions=(False,), k1=False)
+    timings["mvm_sliced_fused_mla_up"] = ut["fwd"]
+    print(f"  (a) bit for bit against plain at adc9: K4 forward and MᵀVM and K1 on gemma2-9b's five tiles "
+          f"{list(gemma2_tiles(g_cfg).values())} and on wq_dkv {mt['wq_dkv']} at {T_NEW} rows; K4 on w_uk/w_uv "
+          f"{mt['w_uk']} at a decode step's {up_rows} cache rows", flush=True)
+    attn = chunked_attention_checks(torch, gen)
+    t.append(time.perf_counter())
+
+    summary, launches = {}, collections.Counter()
+    for cfg in (g_cfg, d_cfg):
+        arch = "gemma2_9b" if cfg.mla is None else "deepseek_v2_lite_16b"
+        cfg, opt_cfg, state = ssm_state(torch, arch, gen, cfg=cfg)
+        if cfg.moe is not None:
+            timings.update(moe_kernel_times(torch, K, cfg, opt_cfg, state, gen, gi=1, suffix="64"))
+        state, totals, info = train_steps(torch, cfg, opt_cfg, state, gen)
+        long = long_prompt_check(torch, cfg, opt_cfg, state, gen) if cfg.mla is None else None
+        # at deepseek's capacity factor 1.25 a token's experts depend on its
+        # batch (ROADMAP Queue 3): the scheduling-invariance check of the
+        # paged c_kv/k_rope pools runs the same weights with no capacity drop
+        no_drop = None if cfg.moe is None else dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=2.0 * cfg.moe.n_experts / cfg.moe.top_k))
+        serving = serve_and_engine(torch, cfg, opt_cfg, state, gen, requests=NEW_ENGINE_REQUESTS,
+                                   lossless_cfg=no_drop)
+        _, default_totals, default_info = train_steps(torch, cfg, opt_cfg, default_layout(opt_cfg, state), gen,
+                                                      modes=("default",))
+        for k in totals:
+            totals[k].update(default_totals[k])
+        info["ms"].update(default_info["ms"])
+        info["loss"] += default_info["loss"]
+        info["launches"].update(default_info["launches"])
+        del state
+        torch.cuda.empty_cache()
+        t.append(time.perf_counter())
+        k4 = totals["k4"] + serving["k4"]
+        summary[arch] = {"train_ms": info["ms"], "losses": info["loss"], "peak_gib": info.get("peak_gib"),
+                         "busy": info.get("busy"), "launches": info["launches"],
+                         "prefill_ms": serving["prefill_ms"], "decode_ms": serving["decode_ms"],
+                         "engine_tokens_per_sec": serving["engine_tokens_per_sec"],
+                         "decode_attention_ms_a_layer": decode_attention_times(
+                             torch, cfg, SSM_BATCH, SSM_SERVE_PROMPT + SSM_SERVE_TOKENS, gen)}
+        if long is not None:
+            summary[arch]["long_prompt"] = long
+        if cfg.mla is None:
+            shapes = set(gemma2_tiles(cfg).values())
+            launches["mvm_sliced_fused_gemma2"] += sum(n for (tr, r, mn, _), n in k4.items()
+                                                       if not tr and r == T_NEW and mn in shapes)
+            launches["mvm_sliced_fused_gemma2_transpose"] += sum(n for (tr, r, mn, _), n in k4.items()
+                                                                 if tr and r == T_NEW and mn in shapes)
+            launches["opa_fused_gemma2"] += sum(n for (r, mn), n in totals["k1"].items() if mn in shapes)
+        else:
+            from repro_torch.train.step import expert_tokens
+
+            rows, dec = expert_tokens(cfg, T_NEW), expert_tokens(cfg, SSM_BATCH)
+            eshape = (cfg.d_model, cfg.moe.d_ff_expert)
+            expert = {(cfg.d_model, cfg.moe.d_ff_expert), (cfg.moe.d_ff_expert, cfg.d_model)}
+            for name, tr, r, mns in (("mvm_sliced_fused_wq_dkv", False, T_NEW, {mt["wq_dkv"]}),
+                                     ("mvm_sliced_fused_wq_dkv_transpose", True, T_NEW, {mt["wq_dkv"]}),
+                                     ("mvm_sliced_fused_mla_up", False, up_rows, {mt["w_uk"]}),
+                                     ("mvm_sliced_fused_expert64", False, rows, expert),
+                                     ("mvm_sliced_fused_expert64_transpose", True, rows, expert),
+                                     ("mvm_sliced_fused_expert64_decode", False, dec, expert)):
+                launches[name] += sum(n for (t_, r_, mn, _), n in k4.items() if t_ == tr and r_ == r and mn in mns)
+            launches["opa_fused_wq_dkv"] += sum(n for (r, mn), n in totals["k1"].items() if mn == mt["wq_dkv"])
+            launches["opa_fused_expert64"] += sum(n for (r, mn), n in totals["k1"].items()
+                                                  if r == rows and mn in expert)
+            launches["opa_dense_expert64"] += sum(n for mn, n in totals["k2"].items() if mn == eshape)
+        print(f"phase 19 {arch} summary: {json.dumps(summary[arch])}", flush=True)
+    print(f"phase 19 wall: (a)+(b) {t[1] - t[0]:.1f} s, gemma2-9b {t[2] - t[1]:.1f} s, deepseek-v2-lite-16b "
+          f"{t[3] - t[2]:.1f} s; attention {json.dumps(attn)}; main-path launches {dict(launches)}", flush=True)
     return launches, timings
 
 
@@ -4799,6 +5160,10 @@ def main() -> int:
     train_launches.update(ssm_launches)
     train_timings.update(ssm_timings)
     done("phase 18: the SSM family (xlstm-125m and zamba2-1.2b at full width)")
+    new_launches, new_timings = phase_new_archs(torch, K, gen)
+    train_launches.update(new_launches)
+    train_timings.update(new_timings)
+    done("phase 19: gemma2-9b and deepseek-v2-lite-16b at full width")
     train_launches.update({"opa_dense_" + inst: n for inst, n in dense.items()})
     print(f"K2's dense write, launches by instance over the main-path runs: {dict(dense)}", flush=True)
 
@@ -4903,6 +5268,21 @@ def main() -> int:
         *(entry(f"mvm_sliced_fused_{r}{t}", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
                 "src/repro/kernels/sliced_mvm/kernel.py:367", 0.0)
           for r, *_ in NARROW_READS for t in ("", "_transpose")),
+        # gemma2-9b and deepseek-v2-lite-16b (phase 19): K4 forward and MᵀVM
+        # and K1 over one gemma2 layer's five tiles and on deepseek's wq_dkv
+        # 2048x3648 (ragged) at 256 rows; K4 on w_uk + w_uv at a decode
+        # step's 4 x 48 cache rows; deepseek's 64 x 3 expert tiles as
+        # granite's (30 rows in training, 6 at decode). Launches: the phase's runs.
+        *(entry(name, "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
+                "src/repro/kernels/sliced_mvm/kernel.py:367", 0.0)
+          for name in ("mvm_sliced_fused_gemma2", "mvm_sliced_fused_gemma2_transpose", "mvm_sliced_fused_wq_dkv",
+                       "mvm_sliced_fused_wq_dkv_transpose", "mvm_sliced_fused_mla_up", "mvm_sliced_fused_expert64",
+                       "mvm_sliced_fused_expert64_transpose", "mvm_sliced_fused_expert64_decode")),
+        *(entry(name, "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",
+                "src/repro/kernels/sliced_opa/kernel.py:255", 0.0)
+          for name in ("opa_fused_gemma2", "opa_fused_wq_dkv", "opa_fused_expert64")),
+        entry("opa_dense_expert64", "src/repro_torch/kernels/sliced_opa/csrc/opa_deposit.cu",
+              "src/repro/kernels/sliced_opa/kernel.py:90", 0.0),
     ]}
     unlaunched = [e["name"] for e in line["kernels"] if e["launches"] <= 0]
     if unlaunched:

@@ -1,10 +1,11 @@
 """Architecture registry (port of ``repro.configs``): ``get(arch_id)`` for the
 full config, ``get_smoke(arch_id)`` for the reduced same-family one, the
-shape cells, and the finite-ADC presets. Eight architectures are ported: the
-dense-block ones (gemma-2b, minicpm-2b, phi4-mini-3.8b, chameleon-34b,
-musicgen-large), the MoE one (granite-moe-1b-a400m) and the SSM ones
-(xlstm-125m, zamba2-1.2b). The other two (gemma2-9b, deepseek-v2-lite-16b)
-raise ``NotImplementedError`` until their blocks land."""
+shape cells, and the finite-ADC presets. All ten of the reference's
+architectures are ported, in its order: the dense-block ones (gemma-2b,
+minicpm-2b, phi4-mini-3.8b, chameleon-34b, musicgen-large), gemma2-9b's
+local/global pairs, the MoE one (granite-moe-1b-a400m), deepseek-v2-lite-16b
+(MLA and MoE with shared experts) and the SSM ones (xlstm-125m,
+zamba2-1.2b). ``UNPORTED`` is empty."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,16 +14,18 @@ import importlib
 ARCH_IDS = [
     "zamba2_1p2b",
     "musicgen_large",
+    "deepseek_v2_lite_16b",
     "granite_moe_1b_a400m",
     "xlstm_125m",
     "minicpm_2b",
+    "gemma2_9b",
     "gemma_2b",
     "phi4_mini_3p8b",
     "chameleon_34b",
 ]
 
-# the reference's architectures whose blocks are not ported yet
-UNPORTED = ["deepseek_v2_lite_16b", "gemma2_9b"]
+# the reference's architectures whose blocks are not ported (none)
+UNPORTED: list = []
 
 # canonical hyphenated names -> module ids
 ALIASES = {
@@ -49,8 +52,7 @@ SHAPES = {
 def _module(arch_id: str):
     arch_id = ALIASES.get(arch_id, arch_id)
     if arch_id not in ARCH_IDS:
-        raise NotImplementedError(f"architecture {arch_id!r} is not ported yet (ported: {ARCH_IDS}; "
-                                  f"not ported: {UNPORTED})")
+        raise KeyError(f"unknown architecture {arch_id!r} (known: {ARCH_IDS})")
     return importlib.import_module(f"repro_torch.configs.{arch_id}")
 
 

@@ -6,25 +6,32 @@ position a slot.
 A config's ``pattern`` is an ordered tuple of ``(block_name, count)``
 groups; a counted group keeps its params stacked on a leading ``[count,
 ...]`` axis and runs as a Python loop over layers (the reference's
-``lax.scan``). Ported blocks: ``"dense"`` (attention + gated MLP),
-``"moe"`` (attention + the capacity-bounded MoE layer), the SSM blocks
-``"mamba2"``, ``"mlstm"`` and ``"slstm"``, and ``"zamba_unit"`` (N mamba2
-layers, then one call of the zamba shared attention + MLP block, whose
-params live at the top level, ``params["shared"]``, over ``concat(h,
-x0)``); the other block types raise. A block's training ``apply`` returns
-``(h, aux)``, ``aux`` its MoE load-balance term (zero for the others);
-``hidden`` sums it over the layers and ``loss_fn`` adds ``aux_weight``
-times it. The reference rematerializes each layer in the backward; that
-saves memory and does not change the numbers, and the port keeps the
-activations instead.
+``lax.scan``). The blocks: ``"dense"`` (attention + gated MLP),
+``"local"`` (the same under the sliding window, decoding on a ring buffer),
+``"gemma2_pair"`` (a local layer then a global one, caches ``{"local",
+"global"}``), ``"moe"`` (attention + the capacity-bounded MoE layer),
+``"mla_dense"`` and ``"mla_moe"`` (MLA, then a gated MLP of width
+``dense_ff_prefix`` or the MoE layer), the SSM blocks ``"mamba2"``,
+``"mlstm"`` and ``"slstm"``, and ``"zamba_unit"`` (N mamba2 layers, then
+one call of the zamba shared attention + MLP block, whose params live at the
+top level, ``params["shared"]``, over ``concat(h, x0)``). A block's training
+``apply`` returns ``(h, aux)``, ``aux`` its MoE load-balance term (zero for
+the others); ``hidden`` sums it over the layers and ``loss_fn`` adds
+``aux_weight`` times it. The reference rematerializes each layer in the
+backward; that saves memory and does not change the numbers, and the port
+keeps the activations instead.
 
 Caches are written in place at decode (and by a prefill continuation): the
-K/V rows of the attention blocks, and the state leaves of the SSM blocks
-(no sequence axis: one row a sequence), which the blocks overwrite with
-their new state.
+K/V rows of the attention blocks, MLA's ``c_kv``/``k_rope`` rows, and the
+state leaves of the SSM blocks (no sequence axis: one row a sequence),
+which the blocks overwrite with their new state. Prefill returns every
+sequence-axis cache at the prompt's length (``prefill_cache_specs``); a
+windowed layer's ``cache_spec`` asks for at most ``window`` positions, a
+ring its decode wraps around.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, NamedTuple
 
@@ -44,12 +51,11 @@ from .common import (
     embed_init,
     gelu,
     is_paged_cache,
-    paged_gather,
     rms_norm,
     rms_norm_init,
     softcap,
 )
-from .mlp import moe_apply, moe_init
+from .mlp import mlp_apply, mlp_init, moe_apply, moe_init
 
 
 class BlockDef(NamedTuple):
@@ -88,6 +94,93 @@ def _dense_cont(cfg, p, h, cache, ctx):
     return att.block_cont(cfg, p, h, cache, ctx["positions"], ctx["start"])
 
 
+# ------------------------ sliding window: local blocks ----------------------
+# A local layer attends to the last ``cfg.window`` positions. Its decode
+# stores position ``pos`` at ring slot ``pos % W``, W the cache's length
+# (``table.shape[1] · page`` on pages), and masks by the window: the slot's
+# stored position ``pos - ((pos - slot) mod W)`` must be in ``(pos - window,
+# pos]``. A cache of ``window`` positions wraps; a longer one (prefill's,
+# grown) holds every position and the window alone masks.
+
+
+def _local_apply(cfg, p, h, ctx):
+    return _no_aux(att.block_apply(cfg, p, h, ctx["positions"], cfg.window))
+
+
+def _local_prefill(cfg, p, h, ctx):
+    return att.block_prefill(cfg, p, h, ctx["positions"], cfg.window)
+
+
+def _local_cont(cfg, p, h, cache, ctx):
+    return att.block_cont(cfg, p, h, cache, ctx["positions"], ctx["start"], cfg.window)
+
+
+def _local_cache_spec(cfg, b, s, dt):
+    return att.attn_cache_spec(cfg, b, min(s, cfg.window) if cfg.window else s, dt)
+
+
+def ring_mask(pos, W: int, window: int, device=None) -> torch.Tensor:
+    """Additive mask over a ring of ``W`` slots holding positions ``<= pos``
+    at ``position % W``: ``[1, W]`` for a scalar ``pos``, ``[B, 1, 1, 1,
+    W]`` for one a slot. Python's and ``torch.remainder``'s modulo (never
+    negative), as the reference's."""
+    slot = torch.arange(W, device=device)[None, :]
+    posb = pos[:, None] if att.is_vector(pos) else pos
+    age = posb - torch.remainder(posb - slot, W)  # the position stored in each slot
+    mask = att._additive((age >= 0) & (age > posb - window))
+    return mask[:, None, None, None, :] if att.is_vector(pos) else mask
+
+
+def _local_decode(cfg, p, h, cache, ctx):
+    pa = p["attn"]
+    x = rms_norm(pa["ln"], h, cfg.norm_eps)
+    pos, positions = att.decode_positions(ctx["pos"], h.device)
+    q, k_new, v_new = att._qkv(cfg, pa, x, positions)
+    page = cache["k"]["q"].shape[1]
+    W = cache["table"].shape[1] * page if is_paged_cache(cache) else page
+    kd, vd = att.kv_write_read(cache, k_new, v_new, pos % W)
+    mask = ring_mask(pos, W, cfg.window, device=h.device)
+    o = att._sdpa(cfg, q, att._cache_load(kd, q.dtype), att._cache_load(vd, q.dtype), mask)
+    return mlp_apply(cfg, p["mlp"], att._out(cfg, pa, h, o)), cache
+
+
+# ------------------------------ gemma2 pair ---------------------------------
+# A local (windowed) layer then a global one, their params and caches under
+# "local" and "global".
+
+
+def _pair_init(cfg, gen, *, stack=(), device=None):
+    return {"local": att.block_init(cfg, gen, stack=stack, device=device),
+            "global": att.block_init(cfg, gen, stack=stack, device=device)}
+
+
+def _pair_apply(cfg, p, h, ctx):
+    h = att.block_apply(cfg, p["local"], h, ctx["positions"], cfg.window)
+    return _no_aux(att.block_apply(cfg, p["global"], h, ctx["positions"]))
+
+
+def _pair_prefill(cfg, p, h, ctx):
+    h, c1 = att.block_prefill(cfg, p["local"], h, ctx["positions"], cfg.window)
+    h, c2 = att.block_prefill(cfg, p["global"], h, ctx["positions"])
+    return h, {"local": c1, "global": c2}
+
+
+def _pair_decode(cfg, p, h, cache, ctx):
+    h, _ = _local_decode(cfg, p["local"], h, cache["local"], ctx)
+    h, _ = att.block_decode(cfg, p["global"], h, cache["global"], ctx["pos"])
+    return h, cache
+
+
+def _pair_cache_spec(cfg, b, s, dt):
+    return {"local": _local_cache_spec(cfg, b, s, dt), "global": att.attn_cache_spec(cfg, b, s, dt)}
+
+
+def _pair_cont(cfg, p, h, cache, ctx):
+    h, _ = _local_cont(cfg, p["local"], h, cache["local"], ctx)
+    h, _ = att.block_cont(cfg, p["global"], h, cache["global"], ctx["positions"], ctx["start"])
+    return h, cache
+
+
 # ------------------------------ MoE block -----------------------------------
 # The attention half is the dense block's, so it caches, pages and chunks
 # like "dense"; the MLP half is ``mlp.moe_apply``.
@@ -117,6 +210,52 @@ def _moe_decode(cfg, p, h, cache, ctx):
 def _moe_cont(cfg, p, h, cache, ctx):
     h, cache = att.attn_cont(cfg, p["attn"], h, cache, ctx["positions"], ctx["start"])
     return moe_apply(cfg, p["moe"], h), cache
+
+
+# ------------------------------ MLA blocks ----------------------------------
+# MLA attention, then a gated MLP (layer 0 of deepseek: width
+# ``dense_ff_prefix``) or the MoE layer with its shared experts.
+
+
+def _mla_dense_init(cfg, gen, *, stack=(), device=None):
+    return {"attn": att.mla_init(cfg, gen, stack=stack, device=device),
+            "mlp": mlp_init(cfg, gen, cfg.dense_ff_prefix or cfg.d_ff, stack=stack, device=device)}
+
+
+def _mla_moe_init(cfg, gen, *, stack=(), device=None):
+    return {"attn": att.mla_init(cfg, gen, stack=stack, device=device),
+            "moe": moe_init(cfg, gen, stack=stack, device=device)}
+
+
+def _mla_block(init, ffn, with_aux: bool) -> BlockDef:
+    """The MLA block whose second half is ``ffn(cfg, p, h)`` (the gated MLP
+    under "mlp" or the MoE layer under "moe"). The MoE's training apply
+    returns its aux term from the same router read."""
+    def apply(cfg, p, h, ctx):
+        h = att.mla_apply(cfg, p["attn"], h, ctx["positions"])
+        return ffn(cfg, p, h, with_aux=True) if with_aux else _no_aux(ffn(cfg, p, h))
+
+    def prefill(cfg, p, h, ctx):
+        h, cache = att.mla_apply(cfg, p["attn"], h, ctx["positions"], with_cache=True)
+        return ffn(cfg, p, h), cache
+
+    def decode(cfg, p, h, cache, ctx):
+        h, cache = att.mla_decode(cfg, p["attn"], h, cache, ctx["pos"])
+        return ffn(cfg, p, h), cache
+
+    def cont(cfg, p, h, cache, ctx):
+        h, cache = att.mla_cont(cfg, p["attn"], h, cache, ctx["positions"], ctx["start"])
+        return ffn(cfg, p, h), cache
+
+    return BlockDef(init, apply, prefill, decode, att.mla_cache_spec, cont)
+
+
+def _mla_mlp(cfg, p, h):
+    return mlp_apply(cfg, p["mlp"], h)
+
+
+def _mla_moe(cfg, p, h, with_aux=False):
+    return moe_apply(cfg, p["moe"], h, with_aux=with_aux)
 
 
 # ------------------------------ SSM blocks ----------------------------------
@@ -188,24 +327,12 @@ def _zamba_shared_apply(cfg, sp, h, x0, positions=None, cache=None, pos=None):
         mask = att.causal_mask(S, S, device=h.device)
         new_cache = {"k": {"q": k}, "v": {"q": v}}
     else:
-        vec = att.is_vector(pos)
-        if not vec:
-            pos = int(pos)
-        rpos = pos[:, None] if vec else torch.arange(pos, pos + 1, device=h.device)
+        pos, rpos = att.decode_positions(pos, h.device)
         q = apply_rope(q, rpos, cfg.rope_theta)
         k = apply_rope(k, rpos, cfg.rope_theta)
-        cdtype = cache["k"]["q"].dtype
-        table = cache["table"] if is_paged_cache(cache) else None
-        wpos = pos if (table is None or vec) else torch.full((B,), pos, device=h.device)
-        att._entry_write(cache["k"], att._cache_store(k, cdtype), wpos, table)
-        att._entry_write(cache["v"], att._cache_store(v, cdtype), wpos, table)
-        if table is not None:
-            kd = {leaf: paged_gather(c, table) for leaf, c in cache["k"].items()}
-            vd = {leaf: paged_gather(c, table) for leaf, c in cache["v"].items()}
-        else:
-            kd, vd = cache["k"], cache["v"]
+        kd, vd = att.kv_write_read(cache, k, v, pos)
         mask = att.decode_posmask(pos, kd["q"].shape[1], device=h.device)
-        if vec:
+        if att.is_vector(pos):
             mask = mask[:, None, None, None, :]
         k, v = att._cache_load(kd, q.dtype), att._cache_load(vd, q.dtype)
         new_cache = cache
@@ -250,7 +377,11 @@ def _zamba_unit_cache_spec(cfg, b, s, dt):
 BLOCKS: dict[str, BlockDef] = {
     "dense": BlockDef(_dense_init, _dense_apply, _dense_prefill, _dense_decode, att.attn_cache_spec,
                       _dense_cont),
+    "local": BlockDef(_dense_init, _local_apply, _local_prefill, _local_decode, _local_cache_spec, _local_cont),
+    "gemma2_pair": BlockDef(_pair_init, _pair_apply, _pair_prefill, _pair_decode, _pair_cache_spec, _pair_cont),
     "moe": BlockDef(_moe_init, _moe_apply, _moe_prefill, _moe_decode, att.attn_cache_spec, _moe_cont),
+    "mla_dense": _mla_block(_mla_dense_init, _mla_mlp, False),
+    "mla_moe": _mla_block(_mla_moe_init, _mla_moe, True),
     "mamba2": BlockDef(m2.mamba2_init, lambda cfg, p, h, ctx: _no_aux(m2.mamba2_apply(cfg, p, h)),
                        lambda cfg, p, h, ctx: m2.mamba2_apply(cfg, p, h, with_state=True),
                        _in_place(m2.mamba2_decode),
@@ -266,12 +397,6 @@ BLOCKS: dict[str, BlockDef] = {
     "zamba_unit": BlockDef(_zamba_unit_init, _zamba_unit_apply, _zamba_unit_prefill, _zamba_unit_decode,
                            _zamba_unit_cache_spec),
 }
-
-
-def _block(name: str) -> BlockDef:
-    if name not in BLOCKS:
-        raise NotImplementedError(f"block {name!r} is not ported yet (ported: {sorted(BLOCKS)})")
-    return BLOCKS[name]
 
 
 def layer(group, i: int):
@@ -299,7 +424,7 @@ def init_params(cfg: LMConfig, gen, device=None) -> dict:
     else:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, device=dev)
     params["groups"] = [
-        _block(name).init(cfg, gen, stack=() if count == 1 else (count,), device=dev)
+        BLOCKS[name].init(cfg, gen, stack=() if count == 1 else (count,), device=dev)
         for name, count in cfg.pattern
     ]
     if cfg.zamba is not None:
@@ -356,7 +481,7 @@ def hidden(cfg: LMConfig, params, inputs: torch.Tensor, table=None):
     ctx = {"positions": torch.arange(h.shape[1], device=h.device), "x0": h, "shared": params.get("shared")}
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for (name, count), gparams in zip(cfg.pattern, params["groups"]):
-        block = _block(name)
+        block = BLOCKS[name]
         for i in range(count):
             h, aux = block.apply(cfg, gparams if count == 1 else layer(gparams, i), h, ctx)
             aux_total = aux_total + aux
@@ -416,6 +541,13 @@ def loss_fn(cfg: LMConfig, params, batch, aux_weight: float = AUX_WEIGHT) -> tor
     return nll + aux_weight * aux
 
 
+def prefill_cache_specs(cfg: LMConfig, batch: int, seq: int, dtype=None):
+    """The stacked cache specs of ``prefill`` on ``seq`` tokens (and of the
+    zeros a chunked continuation fills): every sequence axis at ``seq``,
+    windowed layers' too (``cache_specs`` caps those at the window)."""
+    return cache_specs(dataclasses.replace(cfg, window=None), batch, seq, dtype)
+
+
 def cache_specs(cfg: LMConfig, batch: int, max_seq: int, dtype=None, layout: str = "stacked"):
     """Cache specs. ``layout="stacked"``: ``[count, ...]`` per counted group,
     the layout prefill returns; ``"list"``: one tree a layer, the decode
@@ -423,7 +555,7 @@ def cache_specs(cfg: LMConfig, batch: int, max_seq: int, dtype=None, layout: str
     dtype = dtype or cfg.dtype
     specs = []
     for name, count in cfg.pattern:
-        spec = _block(name).cache_spec(cfg, batch, max_seq, dtype)
+        spec = BLOCKS[name].cache_spec(cfg, batch, max_seq, dtype)
         if count > 1:
             if layout == "stacked":
                 spec = tree.map(lambda s: ShapeDtype((count, *s.shape), s.dtype), spec)
@@ -463,7 +595,7 @@ def prefill(cfg: LMConfig, params, inputs: torch.Tensor, caches=None, start: int
            "shared": params.get("shared")}
     out_caches = []
     for gi, ((name, count), gparams) in enumerate(zip(cfg.pattern, params["groups"])):
-        block = _block(name)
+        block = BLOCKS[name]
         if caches is not None:
             if block.cont is None:
                 raise NotImplementedError(f"block {name!r} does not support chunked prefill (no cont)")
@@ -489,7 +621,7 @@ def prefill(cfg: LMConfig, params, inputs: torch.Tensor, caches=None, start: int
 def supports_chunked_prefill(cfg: LMConfig) -> bool:
     """Whether every block of ``cfg.pattern`` has a prefill continuation
     (``BlockDef.cont``); the serving engine prefills single-shot otherwise."""
-    return all(_block(name).cont is not None for name, _ in cfg.pattern)
+    return all(BLOCKS[name].cont is not None for name, _ in cfg.pattern)
 
 
 def decode_step(cfg: LMConfig, params, token: torch.Tensor, caches, pos):
@@ -503,7 +635,7 @@ def decode_step(cfg: LMConfig, params, token: torch.Tensor, caches, pos):
     ctx = {"pos": pos if att.is_vector(pos) else int(pos), "x0": h, "shared": params.get("shared")}
     new_caches = []
     for (name, count), gparams, cache in zip(cfg.pattern, params["groups"], caches):
-        block = _block(name)
+        block = BLOCKS[name]
         if count == 1:
             h, c = block.decode(cfg, gparams, h, cache, ctx)
         else:

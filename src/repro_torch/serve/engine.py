@@ -164,7 +164,7 @@ class Engine:
     def _zero_caches(self, L: int):
         """Stacked-layout zero caches of a length-``L`` solo prefill."""
         return tree.map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=self.device),
-                        lm.cache_specs(self.cfg, 1, L))
+                        lm.prefill_cache_specs(self.cfg, 1, L))
 
     # ------------------------------- prefill --------------------------------
 

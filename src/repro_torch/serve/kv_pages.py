@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from repro_torch import tree
 from repro_torch.device import resolve
 from repro_torch.models import lm
+from repro_torch.models.common import ShapeDtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,9 +57,10 @@ class LeafLayout:
 
 
 def _probe_caches(cfg, batch: int, seq: int):
-    """Per-layer cache specs of ``lm.prefill``'s output: each block's cache
-    spec at the activation dtype (prefill stores K/V as computed)."""
-    return [lm._block(name).cache_spec(cfg, batch, seq, cfg.dtype) for name, _ in cfg.pattern]
+    """Per-layer cache specs of ``lm.prefill``'s output
+    (``lm.prefill_cache_specs``, the stacked axis dropped)."""
+    return [spec if count == 1 else tree.map(lambda s: ShapeDtype(s.shape[1:], s.dtype), spec)
+            for (_, count), spec in zip(cfg.pattern, lm.prefill_cache_specs(cfg, batch, seq))]
 
 
 @functools.lru_cache(maxsize=None)
@@ -158,10 +160,10 @@ def make_paged_caches(cfg, spec: PoolSpec, device=None):
 
 
 # The cache dicts the blocks read at decode: the page table rides beside the
-# leaf entries of each attention unit dict ({"k", "v"}, also zamba's shared
-# block's, nested beside its mamba states; MLA's {"c_kv", "k_rope"} joins
-# with its block).
-_UNIT_KEYS = (frozenset({"k", "v"}),)
+# leaf entries of each attention unit dict ({"k", "v"}: also each half of a
+# gemma2 pair, and zamba's shared block's, nested beside its mamba states;
+# MLA's {"c_kv", "k_rope"}).
+_UNIT_KEYS = (frozenset({"k", "v"}), frozenset({"c_kv", "k_rope"}))
 
 
 def with_tables(cache, table):

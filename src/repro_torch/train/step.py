@@ -141,7 +141,11 @@ def make_train_step(cfg: LMConfig, opt_cfg: PantherConfig, lr_schedule, mesh=Non
                                         tokens=tokens)
         nll, aux = lm.loss_parts(cfg, params, batch)
         loss = nll + lm.AUX_WEIGHT * aux
-        dense = dict(zip((path for path, _ in wrt), torch.autograd.grad(loss, [p for _, p in wrt])))
+        # a leaf the loss never reads (the shared experts' norm scale: the
+        # reference's shared MLP has one, and its moe_apply skips it) gets a
+        # zero gradient, as under jax.grad
+        gs = torch.autograd.grad(loss, [p for _, p in wrt], allow_unused=True)
+        dense = {path: torch.zeros_like(p) if g is None else g for (path, p), g in zip(wrt, gs)}
         grads = tree.map_with_path(
             lambda path, p: p.slot.grad() if isinstance(p, XbarWeight) else dense[path], params)
         return loss.detach(), aux.detach(), grads

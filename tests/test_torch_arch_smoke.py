@@ -1,8 +1,9 @@
-"""The port's architecture registry against the JAX package: the eight ported
+"""The port's architecture registry against the JAX package: all ten
 architectures (the dense-block gemma-2b, minicpm-2b, phi4-mini-3.8b,
 chameleon-34b with qk-norm and an untied head, musicgen-large on frame
-embeddings, the MoE granite-moe-1b-a400m, and the SSM xlstm-125m and
-zamba2-1.2b), mirroring
+embeddings, gemma2-9b's windowed local/global pairs, the MoE
+granite-moe-1b-a400m, deepseek-v2-lite-16b's MLA with shared experts, and
+the SSM xlstm-125m and zamba2-1.2b), mirroring
 ``tests/test_arch_smoke.py`` and ``tests/test_plan.py``'s category counts.
 
 Tolerances:
@@ -43,9 +44,11 @@ ARCHS = tconfigs.ARCH_IDS
 LOGIT_RTOL = 1e-5
 B, S = 2, 32
 
-# tests/test_plan.py's golden partitions of the ported architectures
+# tests/test_plan.py's golden partitions
 GOLDEN_PARTITION = {
     "zamba2_1p2b": {"digital": 17, "dense": 19, "operand": 0},
+    "deepseek_v2_lite_16b": {"digital": 4, "dense": 13, "operand": 11},
+    "gemma2_9b": {"digital": 1, "dense": 9, "operand": 10},
     "xlstm_125m": {"digital": 17, "dense": 23, "operand": 0},
     "musicgen_large": {"digital": 1, "dense": 3, "operand": 5},
     "granite_moe_1b_a400m": {"digital": 1, "dense": 7, "operand": 2},
@@ -56,6 +59,8 @@ GOLDEN_PARTITION = {
 }
 GOLDEN_COVERAGE = {
     "zamba2_1p2b": {"digital": 15, "dense": 7, "operand": 14, "im2col": 2, "expert": 0},
+    "deepseek_v2_lite_16b": {"digital": 4, "dense": 9, "operand": 15, "im2col": 0, "expert": 3},
+    "gemma2_9b": {"digital": 1, "dense": 9, "operand": 10, "im2col": 0, "expert": 0},
     "xlstm_125m": {"digital": 15, "dense": 3, "operand": 22, "im2col": 2, "expert": 0},
     "musicgen_large": {"digital": 1, "dense": 3, "operand": 5, "im2col": 0, "expert": 0},
     "granite_moe_1b_a400m": {"digital": 1, "dense": 3, "operand": 6, "im2col": 0, "expert": 3},
@@ -93,7 +98,7 @@ def _fields(cfg) -> dict:
 
 
 def test_registry_matches_the_reference():
-    assert set(ARCHS) | set(tconfigs.UNPORTED) == set(jconfigs.ARCH_IDS)
+    assert ARCHS == jconfigs.ARCH_IDS and tconfigs.UNPORTED == []
     assert {k: v for k, v in jconfigs.ALIASES.items()} == tconfigs.ALIASES
     assert tconfigs.SHAPES == jconfigs.SHAPES
     for arch in ARCHS:
@@ -101,10 +106,9 @@ def test_registry_matches_the_reference():
             assert _fields(get_t(arch)) == _fields(get_j(arch)), arch
         assert tconfigs.shape_cells(arch) == jconfigs.shape_cells(arch)
     alias = {v: k for k, v in tconfigs.ALIASES.items()}
-    for arch in tconfigs.UNPORTED:
-        for name in (arch, alias[arch]):
-            with pytest.raises(NotImplementedError, match=arch):
-                tconfigs.get(name)
+    for arch in ARCHS:  # the canonical names resolve to the same configs
+        if arch in alias:
+            assert tconfigs.get(alias[arch]) == tconfigs.get(arch)
     cfg = tconfigs.with_fidelity(tconfigs.get_smoke("granite-moe-1b-a400m"), "adc9")
     assert cfg.fidelity == tconfigs.fidelity_presets()["adc9"]
 
@@ -170,3 +174,24 @@ def test_prefill_decode_matches_forward(arch, dtype, tol):
         grown = grow_caches(cfg, tlm.unstack_caches(cfg, caches), S)
         dec, _ = tlm.decode_step(cfg, params, last, grown, S - 1)
     np.testing.assert_allclose(_np(dec), _np(full[:, -1]), rtol=tol, atol=tol)
+
+
+def test_local_blocks_match_the_reference():
+    # the "local" block (no config's pattern uses it alone): gemma2-9b's
+    # SMOKE widths as two windowed layers; the forward against the
+    # reference's, prefill + decode against the forward
+    cfg_j = dataclasses.replace(jconfigs.get_smoke("gemma2_9b"), dtype=jnp.float32, pattern=(("local", 2),))
+    cfg_t = dataclasses.replace(tconfigs.get_smoke("gemma2_9b"), dtype=torch.float32, pattern=(("local", 2),))
+    assert cfg_t.window < S
+    pj = jlm.init_params(cfg_j, jax.random.PRNGKey(0))
+    pt = convert.params_from_jax(jax.tree.map(np.asarray, pj), device="cpu")
+    inp = _inputs(cfg_t)
+    lj, _ = jlm.forward(cfg_j, pj, jnp.asarray(inp), remat=False)
+    with torch.no_grad():
+        lt, _ = tlm.forward(cfg_t, pt, _t(inp))
+        _, caches = tlm.prefill(cfg_t, pt, _t(inp[:, :S - 1]))
+        dec, _ = tlm.decode_step(cfg_t, pt, _t(inp[:, S - 1]), grow_caches(cfg_t, tlm.unstack_caches(cfg_t, caches), S),
+                                 S - 1)
+    lj = np.asarray(lj)
+    assert np.abs(_np(lt) - lj).max() <= LOGIT_RTOL * np.abs(lj).max()
+    np.testing.assert_allclose(_np(dec), _np(lt[:, -1]), rtol=1e-3, atol=1e-3)

@@ -531,3 +531,29 @@ def test_energy_record_equals_the_reference_and_the_committed_one(tmp_path, monk
                        json.loads((ROOT / "BENCH_energy.json").read_text()))
     sgd = got["configs"]["mlp"]["tokens"]["1"]
     assert round(sgd["vs_digital"], 4) == 7.7415 and round(sgd["vs_serial_write"], 3) == 51.329
+
+
+@pytest.mark.parametrize("rules", ["default_rules", "coverage_rules"])
+@pytest.mark.parametrize("arch", ["gemma2_9b", "deepseek_v2_lite_16b"])
+def test_last_two_archs_compile_like_the_reference(arch, rules):
+    """gemma2-9b's pairs (leaves nested under ``local``/``global``) and
+    deepseek-v2-lite-16b's MLA and expert leaves at SMOKE size: the
+    captured leaves and the compiled step equal the reference's, stream and
+    meta (the port's plans have no shard field)."""
+    import jax
+
+    from repro import configs as jconfigs
+    from repro.models import lm as jlm
+    from repro_torch import configs as tconfigs
+    from repro_torch import plan as tplan
+    from repro_torch.models import lm as tlm
+
+    shapes_j = jax.eval_shape(lambda: jlm.init_params(jconfigs.get_smoke(arch), jax.random.PRNGKey(0)))
+    shapes_t = tlm.param_shapes(tconfigs.get_smoke(arch))
+    plan_j = jplan.resolve_plan(shapes_j, getattr(jplan, rules)(JPantherConfig()))
+    plan_t = resolve_plan(shapes_t, getattr(tplan, rules)(PantherConfig()))
+    (mt, dt), (mj, dj) = pc.capture_leaves(shapes_t, plan_t), jpc.capture_leaves(shapes_j, plan_j)
+    assert [(m.path, m.stack, m.rows, m.cols, m.plan.grad, m.plan.group) for m in mt] == \
+        [(m.path, m.stack, m.rows, m.cols, m.plan.grad, m.plan.group) for m in mj]
+    assert dt == dj
+    _same_program(pc.compile_plan(shapes_t, plan_t, tokens=64), jpc.compile_plan(shapes_j, plan_j, tokens=64))

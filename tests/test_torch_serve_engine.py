@@ -10,9 +10,11 @@ layers, f32), JAX weights carried across by ``repro_torch.convert``.
   ``"moe"`` (granite-moe-1b-a400m's SMOKE config, capacity factor 8: no
   expert ever overflows, so a token's experts do not depend on its
   neighbours), ``"mamba2"`` (state rows a slot, its prompts prefilled in
-  chunks) and ``"zamba"`` (zamba2-1.2b's SMOKE config: stacked mamba state
-  rows beside the shared block's paged K/V, single-shot prefill); the MLA
-  block is not ported yet.
+  chunks), ``"zamba"`` (zamba2-1.2b's SMOKE config: stacked mamba state
+  rows beside the shared block's paged K/V, single-shot prefill),
+  ``"gemma2"`` (gemma2-9b's SMOKE config: local/global pairs, window 16,
+  the local layers decoding on their pages as a ring of ``max_seq``) and
+  ``"mla"`` (the reference test's MLA config: paged ``c_kv``/``k_rope``).
 * End to end: both engines on the same weights and the same trace, each
   with its own package's ``IsaClock(s_per_token, n_slots)`` as the cost
   table (it prices every key, so neither calibrates), give the same tokens,
@@ -62,9 +64,12 @@ S_PER_TOKEN = 1e-3  # the IsaClock's price, seconds a token
 
 BASE = dict(arch_id="serve-test", d_model=48, n_layers=2, vocab=96, n_heads=4, n_kv_heads=2, head_dim=12, d_ff=96)
 PATTERNS = {"attn": (("dense", 2),), "moe": (("moe", 2),), "mamba2": (("mamba2", 2),),
-            "zamba": (("zamba_unit", 2), ("mamba2", 1))}  # "mla": with its block
-SMOKE_ARCHS = {"moe": "granite_moe_1b_a400m", "zamba": "zamba2_1p2b"}  # their SMOKE configs serve these kinds
+            "zamba": (("zamba_unit", 2), ("mamba2", 1)), "gemma2": (("gemma2_pair", 2),),
+            "mla": (("mla_dense", 2),)}
+# their SMOKE configs serve these kinds
+SMOKE_ARCHS = {"moe": "granite_moe_1b_a400m", "zamba": "zamba2_1p2b", "gemma2": "gemma2_9b"}
 SSM = dict(d_state=16, d_conv=4, expand=2, head_dim=12, chunk=8)  # the reference test's mamba2 kind
+MLA = dict(kv_lora_rank=24, qk_nope_dim=12, qk_rope_dim=8, v_head_dim=12)  # the reference test's "mla" kind
 
 
 @pytest.fixture(scope="module")
@@ -77,7 +82,8 @@ def models():
             cfg_t = dataclasses.replace(tconfigs.get_smoke(SMOKE_ARCHS[kind]), dtype=torch.float32)
             assert cfg_t.pattern == pattern and (cfg_t.moe is None or cfg_t.moe.capacity_factor == 8.0)
         else:
-            ssm = {"ssm": (jcommon.SSMCfg(**SSM), tcommon.SSMCfg(**SSM))} if kind == "mamba2" else {}
+            ssm = ({"ssm": (jcommon.SSMCfg(**SSM), tcommon.SSMCfg(**SSM))} if kind == "mamba2" else
+                   {"mla": (jcommon.MLACfg(**MLA), tcommon.MLACfg(**MLA))} if kind == "mla" else {})
             cfg_j = jcommon.LMConfig(dtype=jnp.float32, pattern=pattern, **BASE, **{k: v[0] for k, v in ssm.items()})
             cfg_t = tcommon.LMConfig(dtype=torch.float32, pattern=pattern, **BASE,
                                      **{k: v[1] for k, v in ssm.items()})
@@ -252,6 +258,16 @@ def test_ssm_engine_equals_the_reference_end_to_end(models, kind, policy):
     predecessor's and updated in place by every round (the mamba2 kind's
     long prompts prefill chunked through its state; zamba prefills
     single-shot, its shared block's K/V paged beside the states)."""
+    _engines_agree(models[kind], policy)
+
+
+@pytest.mark.parametrize("policy", ["continuous", "static"])
+@pytest.mark.parametrize("kind", ["gemma2", "mla"])
+def test_gemma2_and_mla_engines_equal_the_reference_end_to_end(models, kind, policy):
+    """As above, on gemma2-9b's pairs (the long prompts chunked through the
+    local layers' windowed continuation, the rounds decoding past the
+    window of 16 on the local layers' pages) and on MLA's paged
+    ``c_kv``/``k_rope`` pools (chunked through ``mla_cont``)."""
     _engines_agree(models[kind], policy)
 
 

@@ -306,14 +306,23 @@ def test_grow_caches_pads_seq_axis_only():
     assert tuple(grown[0][1]["k"]["q"].shape) == (6, 10, 1, 32)
 
 
-def test_sliding_window_raises_until_ported():
-    # a window config must not silently get full causal attention
-    cfg = dataclasses.replace(CFG_T, window=4)
-    pt = tatt.attn_init(cfg, torch.Generator().manual_seed(0), device="cpu")
-    h = torch.zeros((1, 6, 128))
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        tatt.attn_apply(cfg, pt, h, torch.arange(6))
-    cache = tree.map(lambda sd: torch.zeros(sd.shape, dtype=sd.dtype),
-                     tatt.attn_cache_spec(cfg, 1, 8, torch.float32))
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        tatt.attn_decode(cfg, pt, h[:, :1], cache, 0)
+def test_sliding_window_matches_jax():
+    # a window config gets windowed attention, not full causal attention:
+    # the prefill and decodes past the window against the reference's
+    cfg_j, cfg_t = dataclasses.replace(CFG_J, window=4), dataclasses.replace(CFG_T, window=4)
+    pj = jatt.attn_init(cfg_j, jax.random.PRNGKey(2))
+    pt = convert.params_from_jax(jax.tree.map(np.asarray, pj), device="cpu")
+    rng = np.random.default_rng(9)
+    h = rng.normal(size=(1, 6, 128)).astype(np.float32)
+    want, cj = jatt.attn_apply(cfg_j, pj, jnp.asarray(h), jnp.arange(6), 4, with_cache=True)
+    got, ct = tatt.attn_apply(cfg_t, pt, _t(h), torch.arange(6), 4, with_cache=True)
+    _close(want, got, lambda m: LOSSLESS_RTOL * m)
+    full = tatt.attn_apply(cfg_t, pt, _t(h), torch.arange(6))
+    assert not torch.allclose(full, got)  # the window changed the answer
+    cj = jax.tree.map(lambda a: jnp.pad(a, ((0, 0), (0, 2), (0, 0), (0, 0))), cj)
+    ct = tree.map(lambda a: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, 2)), ct)
+    for pos in (6, 7):
+        x = rng.normal(size=(1, 1, 128)).astype(np.float32)
+        want, cj = jatt.attn_decode(cfg_j, pj, jnp.asarray(x), cj, jnp.int32(pos), 4)
+        got, ct = tatt.attn_decode(cfg_t, pt, _t(x), ct, pos, 4)
+        _close(want, got, lambda m: LOSSLESS_RTOL * m)
