@@ -219,7 +219,7 @@ Phases:
      greedy tokens through the adc9 coverage plan (2376 K4 reads a decode
      step), and the engine on the bench's trace cut to its first 3 requests,
      continuous, 8 slots: tokens/s and K4 reads by tokens;
- 18. the SSM family (last): (a) the im2col entry (``opa_im2col``: K1's
+ 18. the SSM family: (a) the im2col entry (``opa_im2col``: K1's
      function on a conv-tap block, one launch a layer block) at C 1536
      (xlstm) and 4224 (zamba2), 256 tokens, under the counter draw and
      half to even, bit for bit against its plain version and against the
@@ -237,7 +237,7 @@ Phases:
      and the scans' device ms, each step's kernel work held to the plan
      and to the wrappers' counts; (c) 4 x 32 prompts and 16 greedy tokens
      through the adc9 coverage plan, the engine on the bench's trace cut
-     to its first 3 requests (continuous, 8 slots) through the adc9 tree,
+     to its first 2 requests (continuous, 8 slots) through the adc9 tree,
      then through the lossless tree with every request's tokens equal to
      its solo serving's; last one step under ``default_rules`` (every
      mapped leaf dense on K2, ``conv_w`` digital);
@@ -258,9 +258,30 @@ Phases:
      counts; on gemma2 one 5120-token prompt on the lossless tree through
      the chunked path and 8 decode steps through the window, held to the
      forward's logits; 4 x 32 prompts and 16 greedy tokens at adc9, the
-     engine on the bench's trace cut to 3 requests, the lossless engine's
+     engine on the bench's trace cut to 2 requests, the lossless engine's
      tokens equal to solo serving (deepseek's with no capacity drop); one
-     ``default_rules`` step; the plain decode attention's device ms.
+     ``default_rules`` step; the plain decode attention's device ms;
+ 20. the mesh (last; ``torch.distributed``, one process a mesh
+     coordinate): (b) K1 and K2 on each block of a 2x2 split at its origin
+     (gemma-2b's wi_gate 2048x16384 at 256 tokens under the counter, grid
+     and hw draws; the embedding 256000x2048 under half to even, counter
+     and grid; ideal and device) and K3 on the blocks, bit for bit against
+     the same block of the whole-leaf kernel, K1 at an origin against its
+     plain version; a rank's K4, K5, K1, K2 and K3 on its block timed
+     beside the whole read, the plain version, the library yardstick and
+     the bound; then a 2x2 world of four processes sharing the card over
+     gloo (the backend rule's choice printed): (a) ``mvm_sliced_sharded``
+     on gemma-2b's full-width tiles at 256 tokens, shard_dim None/0/1,
+     both directions, K4 and K5, bit for bit against the single-process
+     read at ideal ADC and within 1e-6 at adc9; (c) gemma-2b at full width
+     on 2 of its 18 layers in f32, two adc9 coverage steps plain and FSDP
+     and one ideal-ADC step, against rank 0's single-process steps (losses
+     within 1e-3 / 5e-3; the ideal step's weights within 1e-5 of max|w|;
+     the adc9 weights printed), each step's launches held to the plan; (e)
+     the FSDP state saved on the mesh, restored on one process; (d) prefill
+     and decode through adc9 reads on the mesh against one process; then
+     the engine on a 1x2 mesh over the trace's first 3 requests, adc9 and
+     lossless (tokens equal to solo serving).
 
 It prints one JSON line with the kernels' numbers, the card's
 ``name, power.limit`` line, and last the device JSON line. Any failure exits
@@ -4171,8 +4192,8 @@ SSM_SERVE_PROMPT, SSM_SERVE_TOKENS = 32, 16
 # the bench's trace cut to its first requests (PERF.md §4): the 4th asks
 # for 120 tokens, 120 round steps, and the lossless check serves each
 # request twice more (cut from 6 when phase 19 came: the script had run
-# 1033 s of its 1200 on an H100, PERF.md §4)
-SSM_ENGINE_REQUESTS = 3
+# 1033 s of its 1200 on an H100; to 2 when phase 20 came, PERF.md §4)
+SSM_ENGINE_REQUESTS = 2
 IM2COL_T = 256  # the training step's tokens a conv-tap block: 4 x 64
 # the narrow crossbar tiles the SSM blocks read: (name, arch, M, N)
 NARROW_READS = (("w_if", "xlstm_125m", 1536, 8), ("w_B", "zamba2_1p2b", 2048, 64))
@@ -4746,8 +4767,8 @@ GEMMA2_PAIRS = 4  # of 21: 8 of 42 layers, ~20 GB of planes (PERF.md §4)
 DEEPSEEK_PATTERN = (("mla_dense", 1), ("mla_moe", 2))  # 3 of 27 layers, ~13.4 GB of planes
 # the bench's trace cut to its first requests (PERF.md §4): the 4th asks for
 # 120 tokens, 120 round steps, and the lossless check serves each request
-# twice more
-NEW_ENGINE_REQUESTS = 3
+# twice more (cut from 3 when phase 20 came, PERF.md §4)
+NEW_ENGINE_REQUESTS = 2
 LONG_PROMPT, LONG_DECODE = 5120, 8  # the chunked prefill (5 query chunks), then decodes through the window
 # tests/test_torch_arch_smoke.py::test_prefill_decode_matches_forward's bounds
 LONG_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
@@ -5061,6 +5082,787 @@ def phase_new_archs(torch, K, gen):
     return launches, timings
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the mesh (torch.distributed, one process a mesh coordinate)
+
+MESH_SHAPE = (2, 2)  # the reference's debug mesh: (data, model)
+MESH_LAYERS = 2  # gemma-2b's 18 layers cut to 2: the phase's share of the script's time limit
+MESH_TILES = (("attn/wqkv", 2048, 2560), ("attn/wo", 2048, 2048), ("mlp/wi_gate", 2048, 16384),
+              ("mlp/wo", 16384, 2048))  # gemma-2b's crossbar tiles
+MESH_RTOL = 1e-6  # adc9: |sharded - single| <= MESH_RTOL * max|single| (tests/test_distributed.py)
+MESH_LOSS_TOL = (1e-3, 5e-3)  # |loss| steps 1 and 2, times (1 + |loss|): the reference's mesh test
+MESH_WEIGHT_TOL = 1e-5  # |w_mesh - w_one| <= MESH_WEIGHT_TOL * max|w|: f32 sums in another order
+MESH_SERVE_TOL = 1e-3  # logits on the mesh vs one process, relative to max|logit|: batch-shaped matmuls
+MESH_ADC9_OF_MOVE = 0.5  # adc9 steps: a crossbar leaf's |w_mesh - w_one| within this share of |w_one - w_0|
+# (L2 over rank 0's block). A block written at a wrong origin or from wrong operands is ~1-1.4 of its move;
+# the code flips that an f32 sum in another order sets off stay below it (0.42 after two steps on an H100)
+MESH_ADC9_ARGMAX = 0.9  # adc9 serving: the share of positions whose argmax equals one process's
+MESH_ENGINE_REQUESTS = 3  # the bench's trace cut to its first 3 requests, as phases 17-19
+MESH_TIMEOUT = 900
+MESH_LR = 1e-2  # the CPU mesh tests' rate
+
+
+def mesh_cfg():
+    """gemma-2b at full width, MESH_LAYERS deep, in f32: bf16 gradients
+    summed over data shards round apart from the single-process sums (the
+    reference's mesh test runs f32 too)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+
+    cfg = configs.get("gemma_2b")
+    return dataclasses.replace(cfg, n_layers=MESH_LAYERS, pattern=(("dense", MESH_LAYERS),), dtype=torch.float32)
+
+
+def mesh_counts():
+    """The kernels' launch counters the mesh phase reads (K4 and K5 forward
+    and MᵀVM together)."""
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.sliced_mvm import kernel as KM
+    from repro_torch.kernels.sliced_opa import kernel as KO
+
+    return {"mvm_sliced_fused": KM.mvm_sliced_fused.launches + KM.mvm_sliced_fused.transpose_launches,
+            "mvm_sliced": KM.mvm_sliced.launches + KM.mvm_sliced.transpose_launches,
+            "opa_fused": KO.opa_fused.launches, "opa_dense": KO.opa_dense.launches, "crs": KC.crs.launches}
+
+
+def mesh_reads(torch, mesh, spec):
+    """(a) ``mvm_sliced_sharded`` on gemma-2b's full-width tiles at 256
+    tokens (128 a data rank), shard_dim None/0/1, forward and MᵀVM, through
+    K4 (fused, float x and the global DAC exponent) and K5 (unfused, int
+    x_q), against the single-process kernel read of the rank's rows: bit for
+    bit at ``adc_bits=None`` (integer inputs whose every sum is exact in
+    f32), within MESH_RTOL at adc9. Then the fold-order witness, on
+    weights over all 32 bits and Gaussian float inputs at adc9 with the
+    contraction split over 'model': the sharded read equals, bit for bit,
+    the single-process K4 reads of the two contraction blocks (each at its
+    ``tile0``) added in f32 (``mvm_sliced_folded``), and differs from the
+    whole read only by that fold's rounding (within MESH_RTOL).
+    Returns the worst adc9 error, the witness and the sharded reads'
+    launches by kernel."""
+    from repro_torch.core.fixed_point import choose_frac_bits
+    from repro_torch.core.slicing import slice_weights
+    from repro_torch.distributed import blocks
+    from repro_torch.kernels.sliced_mvm import mvm_sliced_batched, mvm_sliced_fused_batched, mvm_sliced_sharded
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    rows = blocks.block_slices((("data",),), (T_TRAIN,), mesh)[0]
+    worst, launches = 0.0, collections.Counter()
+    witness = {"cases": 0, "differ": 0, "outputs": 0, "max_rel": 0.0}
+    for name, M, N in MESH_TILES:
+        planes = slice_weights(torch.randint(-64, 65, (M, N), generator=gen, device="cuda", dtype=torch.int32), spec)
+        for transpose in (False, True):
+            contract = N if transpose else M
+            xi = torch.randint(-30, 31, (T_TRAIN, contract), generator=gen, device="cuda", dtype=torch.int32)
+            xf = xi.float()
+            xf[0, 0] = 2.0**13  # the DAC exponent 1: every x_q = 2·x, exact
+            frac = choose_frac_bits(xf, word_bits=16, margin_bits=1, clip_to_word=False)
+            for adc in (None, 9):
+                want_i = mvm_sliced_batched(planes, xi, spec, adc_bits=adc, transpose=transpose)[rows]
+                want_f = mvm_sliced_fused_batched(planes, xf, frac, spec, adc_bits=adc, transpose=transpose)[rows]
+                for sd in (None, 0, 1):
+                    pspec = (None, None, None) if sd is None else (None, "model", None) if sd == 0 else \
+                        (None, None, "model")
+                    local = blocks.local_block(planes, pspec, mesh)
+                    kw = dict(mesh=mesh, data_axes=("data",), model_axis="model", shard_dim=sd, adc_bits=adc,
+                              transpose=transpose)
+                    c0 = mesh_counts()
+                    got_i = mvm_sliced_sharded(local, xi[rows], spec, **kw)
+                    got_f = mvm_sliced_sharded(local, xf[rows], spec, frac_bits=frac, **kw)
+                    c1 = mesh_counts()
+                    launches.update({k: c1[k] - c0[k] for k in ("mvm_sliced", "mvm_sliced_fused")})
+                    for what, got, want in (("K5", got_i, want_i), ("K4", got_f, want_f)):
+                        if adc is None and not torch.equal(got, want):
+                            raise AssertionError(f"(a) {what} {name} transpose={transpose} shard_dim={sd} adc None: "
+                                                 "the sharded read differs from the single-process read")
+                        err = float((got - want).abs().max() / want.abs().max())
+                        if adc is not None and not err <= MESH_RTOL:
+                            raise AssertionError(f"(a) {what} {name} transpose={transpose} shard_dim={sd} adc9: "
+                                                 f"error {err:.3g} > {MESH_RTOL}")
+                        worst = max(worst, err)
+                    del local
+            del xi, xf
+        del planes
+        planes = slice_weights(torch.randint(-2**30, 2**30, (M, N), generator=gen, device="cuda", dtype=torch.int32),
+                               spec)  # every digit plane in use, as in a trained leaf
+        for transpose in (False, True):
+            fold_witness(torch, planes, spec, mesh, rows, transpose, gen, witness)
+        del planes
+        empty_cache(torch)
+    return worst, witness, dict(launches)
+
+
+def fold_witness(torch, planes, spec, mesh, rows, transpose, gen, witness):
+    """One case of (a)'s fold-order witness (``mesh_reads``), on whole
+    ``planes`` [S, M, N]: Gaussian x, adc9, the contraction split over
+    'model'. Raises where the sharded read differs from the folded
+    single-process reads; adds the gap to the whole read to ``witness``."""
+    from repro_torch.core.fixed_point import choose_frac_bits
+    from repro_torch.distributed import blocks
+    from repro_torch.kernels.sliced_mvm import mvm_sliced_folded, mvm_sliced_fused_batched, mvm_sliced_sharded
+
+    msize = mesh.shape["model"]
+    sd = 1 if transpose else 0
+    contract = planes.shape[1 + sd]
+    if contract % (msize * 128):  # the guard reads the whole planes: nothing folds apart
+        return
+    x = torch.randn((T_TRAIN, contract), generator=gen, device="cuda")
+    frac = choose_frac_bits(x, word_bits=16, margin_bits=1, clip_to_word=False)
+    spec_p = (None, "model", None) if sd == 0 else (None, None, "model")
+    got = mvm_sliced_sharded(blocks.local_block(planes, spec_p, mesh), x[rows], spec, mesh=mesh, data_axes=("data",),
+                             model_axis="model", shard_dim=sd, adc_bits=9, transpose=transpose, frac_bits=frac)
+    folded = mvm_sliced_folded(planes, x[rows], frac, spec, parts=msize, shard_dim=sd, adc_bits=9,
+                               transpose=transpose)  # two parts: tile_psum's one f32 add
+    whole = mvm_sliced_fused_batched(planes, x, frac, spec, adc_bits=9, transpose=transpose)[rows]
+    if not torch.equal(got, folded):
+        raise AssertionError(f"(a) witness transpose={transpose}: the sharded adc9 read differs from the "
+                             "single-process reads folded at the rank boundary")
+    rel = float((got - whole).abs().max() / whole.abs().max())
+    if not rel <= MESH_RTOL:
+        raise AssertionError(f"(a) witness transpose={transpose}: the sharded adc9 read is {rel:.3g} from the whole "
+                             f"read, beyond {MESH_RTOL}")
+    witness["cases"] += 1
+    witness["differ"] += int((got != whole).sum())
+    witness["outputs"] += got.numel()
+    witness["max_rel"] = max(witness["max_rel"], rel)
+
+
+def empty_cache(torch):
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def mesh_rel(torch, a, b, opt_cfg) -> float:
+    """max |w_a - w_b| over every leaf of two states' dequantized weights,
+    over the model's max|w_b|; one leaf at a time."""
+    from repro_torch import tree
+    from repro_torch.core.slicing import dequantize_planes
+
+    diff = top = 0.0
+    for (_, x), (_, y) in zip(tree.leaves_sorted(a.sliced), tree.leaves_sorted(b.sliced)):
+        if x is None:
+            continue
+        wx = dequantize_planes(x.planes, x.frac_bits, opt_cfg.spec)
+        wy = dequantize_planes(y.planes, y.frac_bits, opt_cfg.spec)
+        diff, top = max(diff, float((wx - wy).abs().max())), max(top, float(wy.abs().max()))
+        del wx, wy
+    for (_, x), (_, y) in zip(tree.leaves_sorted(a.digital), tree.leaves_sorted(b.digital)):
+        if x is not None:
+            diff, top = max(diff, float((x - y).abs().max())), max(top, float(y.abs().max()))
+    return diff / top
+
+
+MESH_VARIANTS = (("adc9", "adc9", False, 2), ("adc9_fsdp", "adc9", True, 2), ("ideal", "ideal", False, 2),
+                 ("ideal_fsdp", "ideal", True, 2))
+
+
+def word_ints(torch, planes):
+    """Planes [S, ...] as the integers of their words (int64, exact for
+    dirty digits too): a weight is this times 2^-frac_bits."""
+    from repro_torch.core.slicing import RADIX
+
+    acc = planes[-1].long()
+    for s in range(planes.shape[0] - 2, -1, -1):
+        acc = acc * RADIX + planes[s].long()
+    return acc
+
+
+def mesh_leaf_gaps(torch, local, whole, init, specs, mesh):
+    """Rank 0's blocks of the mesh state's crossbar leaves against the same
+    blocks of the single-process state, in units of the word's last bit
+    (2^-frac_bits): per leaf the largest gap, the cells that differ, the
+    cells, and the largest change the steps so far made to the block
+    (``init``: rank 0's planes before the first step, by path)."""
+    from repro_torch import tree
+    from repro_torch.distributed import blocks
+
+    out = {}
+    for (path, x), (_, y), (_, sp) in zip(tree.leaves_sorted(local.sliced), tree.leaves_sorted(whole.sliced),
+                                          tree.leaves_sorted(specs.sliced)):
+        if x is None:
+            continue
+        if not torch.equal(x.frac_bits.to(y.frac_bits.device), y.frac_bits):
+            raise AssertionError(f"(c) {path}: the mesh and the single process scaled the leaf apart (frac_bits)")
+        wy = word_ints(torch, y.planes[blocks.block_slices(sp.planes, tuple(y.planes.shape), mesh)])
+        gap = (word_ints(torch, x.planes) - wy).abs()
+        moved = (wy - word_ints(torch, init[path])).abs()
+        out["/".join(map(str, path))] = {
+            "max_lsb": int(gap.max()), "cells_differ": int((gap != 0).sum()), "cells": gap.numel(),
+            "max_update_lsb": int(moved.max()),
+            "of_update": float(gap.double().norm() / moved.double().norm().clamp_min(1.0))}
+        del wy, gap, moved
+    return out
+
+
+def mesh_block_rel(torch, local, whole, specs, mesh, opt_cfg) -> float:
+    """max |w_local - w_whole| over this rank's blocks of every leaf (the
+    dequantized weights), over the whole model's max|w_whole|."""
+    from repro_torch import tree
+    from repro_torch.core.slicing import dequantize_planes
+    from repro_torch.distributed import blocks
+
+    diff = top = 0.0
+    for (_, x), (_, y), (_, sp) in zip(tree.leaves_sorted(local.sliced), tree.leaves_sorted(whole.sliced),
+                                       tree.leaves_sorted(specs.sliced)):
+        if x is None:
+            continue
+        wy = dequantize_planes(y.planes, y.frac_bits, opt_cfg.spec)
+        top = max(top, float(wy.abs().max()))
+        wy = wy[blocks.block_slices(sp.planes[1:], tuple(wy.shape), mesh)]
+        diff = max(diff, float((dequantize_planes(x.planes, x.frac_bits, opt_cfg.spec) - wy).abs().max()))
+        del wy
+    for (_, x), (_, y), (_, sp) in zip(tree.leaves_sorted(local.digital), tree.leaves_sorted(whole.digital),
+                                       tree.leaves_sorted(specs.digital)):
+        if x is not None:
+            top = max(top, float(y.abs().max()))
+            diff = max(diff, float((x - y[blocks.block_slices(sp, tuple(y.shape), mesh)]).abs().max()))
+    return diff / top
+
+
+MESH_MODEL_VARIANTS = (("adc9_model", "adc9", False, 2),)  # the 1x2 world's: the tile blocks without data shards
+
+
+def mesh_train(torch, mesh, root, directory, variants=MESH_VARIANTS, fold=False):
+    """(c) gemma-2b at full width (MESH_LAYERS deep, f32) from the seed
+    weights and batches: the ``variants``' steps on the mesh against the
+    single-process steps (rank 0), coverage rules, two steps each: adc9 and
+    ideal ADC, plain and FSDP. Rank 0 compares after each step the losses,
+    its blocks' weights over the model's max|w| (``mesh_block_rel``) and its
+    crossbar cells in units of a word's last bit (``mesh_leaf_gaps``); each
+    step's ms on this rank and its launches. ``fold``: the single-process
+    step starts each time from the mesh's own state before it (gathered),
+    its reads folded at the mesh's rank boundary
+    (``distributed.fidelity.FoldCtx``, the mesh's plan). (e) The adc9 FSDP run's state saved on the mesh, restored on one
+    process, rank 0's blocks equal bit for bit."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch import plan as planlib
+    from repro_torch import tree
+    from repro_torch.checkpoint import restore_latest, save_checkpoint
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.distributed import fidelity as dist_fid
+    from repro_torch.optim import PantherConfig
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train import step as S
+
+    dev = "cuda"
+    cfg = mesh_cfg()
+    opt_cfg = PantherConfig(crs_every=2, stochastic_round=True)
+    ds = SyntheticLMDataset(cfg.vocab, 64, 4, device=dev)
+    out = {"launches": collections.Counter(), "step_ms": []}
+    for name, preset, fsdp, steps in variants:
+        fid = dataclasses.replace(configs.fidelity_presets()[preset], spec=opt_cfg.spec)
+        rules = planlib.coverage_rules(opt_cfg, fid)
+        step = S.make_train_step(cfg, opt_cfg, constant(MESH_LR), mesh=mesh, fsdp=fsdp, plan_rules=rules)
+        one = S.make_train_step(cfg, opt_cfg, constant(MESH_LR), **({"plan": step.plan} if fold else
+                                                                     {"plan_rules": rules}))
+        res = {"mesh_loss": [], "one_loss": [], "rel": [], "leaves": [], "steps": steps, "fold": fold}
+        ref = S.train_state_init(cfg, opt_cfg, 0, device=dev) if root and not fold else None
+        state = S.shard_state(S.train_state_init(cfg, opt_cfg, 0, device=dev), step.specs, mesh)
+        init = {p: s.planes.clone() for p, s in tree.leaves_with_path(state.sliced) if s is not None} if root else None
+        empty_cache(torch)
+        for k in range(steps):
+            if fold:
+                ref = S.gather_state(state, step.specs, mesh)  # a collective: every rank
+                ref = ref if root else None
+            c0 = mesh_counts()
+            sync(torch)
+            t0 = time.perf_counter()
+            state, m = step(state, ds.batch(k))
+            loss = float(m["loss"])
+            sync(torch)
+            out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            c1 = mesh_counts()
+            out["launches"].update({key: c1[key] - c0[key] for key in c1})
+            res["mesh_loss"].append(loss)
+            dist.barrier()  # rank 0's witness below launches nothing the counts read
+            if root:
+                with dist_fid.use_sharded_fidelity(dist_fid.FoldCtx(mesh.shape["model"]) if fold else None):
+                    ref, m1 = one(ref, ds.batch(k))
+                res["one_loss"].append(float(m1["loss"]))
+                res["rel"].append(mesh_block_rel(torch, state, ref, step.specs, mesh, opt_cfg))
+                res["leaves"].append(mesh_leaf_gaps(torch, state, ref, init, step.specs, mesh))
+                worst = max(res["leaves"][-1].items(), key=lambda kv: kv[1]["of_update"])
+                print(f"    (c) {name} step {k + 1}: loss {loss:.6f} (one process {res['one_loss'][k]:.6f}), "
+                      f"{out['step_ms'][-1]:.1f} ms on rank 0; rank 0's blocks within {res['rel'][-1]:.3g} of "
+                      f"max|w|; the worst crossbar leaf {worst[0]}: {worst[1]}", flush=True)
+            if fold:
+                ref = None
+            dist.barrier()
+        if name == "adc9_fsdp":  # (e)
+            t0 = time.perf_counter()
+            save_checkpoint(directory, steps - 1, state, plan=step.plan, mesh=mesh, specs=step.specs)
+            res["ckpt_save_s"] = time.perf_counter() - t0
+            if root:
+                t0 = time.perf_counter()
+                restored, rstep = restore_latest(directory, S.train_state_init(cfg, opt_cfg, 0, device=dev),
+                                                 device=dev)
+                res["ckpt_restore_s"] = time.perf_counter() - t0
+                res["ckpt_equal"] = rstep == steps - 1 and mesh_block_rel(torch, state, restored, step.specs, mesh,
+                                                                          opt_cfg) == 0.0
+                del restored
+            dist.barrier()
+        out[name] = res
+        del state, ref, init
+        empty_cache(torch)
+    out["launches"] = dict(out["launches"])
+    return out
+
+
+def mesh_serve(torch, mesh, root):
+    """(d) prefill 4 x 32 and 4 decode steps on the mesh (each rank its 2
+    prompts) against one process (rank 0): on the lossless tree, logits
+    within MESH_SERVE_TOL of max|logit| (f32 matmuls of another batch
+    shape); through the adc9 reads on each rank's tile blocks, finite
+    logits whose argmax equals one process's at MESH_ADC9_ARGMAX of the
+    positions or more (the gap printed: the reads fold their tiles' f32
+    partials in another order, and a later DAC or ADC code flips); K4's
+    launches."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import plan as planlib
+    from repro_torch.models import lm
+    from repro_torch.optim import PantherConfig, panther
+    from repro_torch.serve import kv_pages
+    from repro_torch.serve.step import fidelity_params, make_decode_step, make_prefill
+    from repro_torch.train import step as S
+
+    dev = "cuda"
+    cfg = mesh_cfg()
+    opt_cfg = PantherConfig()
+    state = S.train_state_init(cfg, opt_cfg, 0, device=dev)
+    fid = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=opt_cfg.spec)
+    plan = planlib.resolve_plan(S.param_shapes(state.digital, state.sliced), planlib.default_rules(opt_cfg, fid))
+    specs = S.storage_specs(cfg, opt_cfg, mesh, plan=plan)
+    params = panther.materialize_split(state.digital, state.sliced, opt_cfg)
+    served = {"mesh": fidelity_params(params, S.shard_state(state, specs, mesh).sliced, plan, mesh=mesh,
+                                      specs=specs.sliced), "lossless_mesh": params}
+    if root:
+        served["one"] = fidelity_params(params, state.sliced, plan)
+        served["lossless_one"] = params
+    del state
+    gen = torch.Generator(device=dev).manual_seed(21)
+    prompts = torch.randint(0, cfg.vocab, (4, 32), generator=gen, device=dev)
+    logits, counts = {}, {}
+    for key, p in served.items():
+        m = mesh if key.endswith("mesh") else None
+        prefill, decode = make_prefill(cfg, mesh=m), make_decode_step(cfg, mesh=m)
+        c0 = mesh_counts()
+        sync(torch)
+        t0 = time.perf_counter()
+        lg, caches = prefill(p, prompts)
+        caches = kv_pages.grow_caches(cfg, lm.unstack_caches(cfg, caches), 32 + 4)
+        seq, tok = [lg], torch.argmax(lg, dim=-1)
+        for i in range(4):
+            tok, lg, caches = decode(p, tok, caches, 32 + i)
+            seq.append(lg)
+        sync(torch)
+        logits[key] = (torch.stack(seq), 1e3 * (time.perf_counter() - t0))
+        c1 = mesh_counts()
+        counts[key] = c1["mvm_sliced_fused"] - c0["mvm_sliced_fused"]
+    out = {"launches": counts["mesh"], "ms": logits["mesh"][1]}
+    if root:
+        for tree_, (a, b) in (("adc9", (logits["mesh"][0], logits["one"][0])),
+                              ("lossless", (logits["lossless_mesh"][0], logits["lossless_one"][0]))):
+            out[tree_] = {"max_rel": float((a - b).abs().max() / b.abs().max()),
+                          "argmax_equal": float((a.argmax(-1) == b.argmax(-1)).float().mean()),
+                          "finite": bool(torch.isfinite(a).all())}
+        out["one_ms"] = logits["one"][1]
+    return out
+
+
+def mesh_world(rank, directory):
+    """The 2x2 world's work on one rank: (a), (c), (e), (d). Returns this
+    rank's results."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.launch import mesh as M
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")  # four ranks share the card
+    backend, dev = M.init_world("cuda")
+    mesh = M.init_mesh(MESH_SHAPE)
+    root = dist.get_rank() == 0
+    out = {"backend": backend, "device": str(dev), "coordinate": mesh.coordinate}
+    t0 = time.perf_counter()
+    out["reads_err"], out["witness"], out["reads_launches"] = mesh_reads(torch, mesh, DEFAULT_SPEC)
+    out["reads_s"] = time.perf_counter() - t0
+    if root:
+        print(f"    (a) done on rank 0 in {out['reads_s']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    out["train"] = mesh_train(torch, mesh, root, directory)
+    out["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["serve"] = mesh_serve(torch, mesh, root)
+    out["serve_s"] = time.perf_counter() - t0
+    if root:
+        print(f"    (d) serving done on rank 0 in {out['serve_s']:.1f} s", flush=True)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def engine_world(rank, requests):
+    """The 1x2 world: (c) the MESH_MODEL_VARIANTS' steps (``mesh_train``);
+    (d) the engine on the 1x2 mesh over the bench's trace cut to
+    ``requests``: through the adc9 tree (tokens/s, K4 launches), and the
+    lossless tree's tokens against solo serving (rank 0)."""
+    import dataclasses
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch import plan as planlib
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve as LS
+    from repro_torch.optim import PantherConfig, panther
+    from repro_torch.serve import scheduler as sch
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.step import fidelity_params
+    from repro_torch.train import step as S
+
+    dev = "cuda"
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    M.init_world(dev)
+    mesh = M.init_mesh((1, 2))
+    out = {"train": mesh_train(torch, mesh, dist.get_rank() == 0, None, MESH_MODEL_VARIANTS, fold=True)}
+    cfg = mesh_cfg()
+    opt_cfg = PantherConfig()
+    state = S.train_state_init(cfg, opt_cfg, 0, device=dev)
+    fid = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=opt_cfg.spec)
+    plan = planlib.resolve_plan(S.param_shapes(state.digital, state.sliced), planlib.default_rules(opt_cfg, fid))
+    specs = S.storage_specs(cfg, opt_cfg, mesh, plan=plan)
+    lossless = panther.materialize_split(state.digital, state.sliced, opt_cfg)
+    adc9 = fidelity_params(lossless, S.shard_state(state, specs, mesh).sliced, plan, mesh=mesh, specs=specs.sliced)
+    del state
+    trace = LS.bench_trace(cfg, 32, seed=0, rate=1e4)[:requests]
+    for name, params in (("adc9", adc9), ("lossless", lossless)):
+        eng = Engine(cfg, params, n_slots=LS.N_SLOTS, max_seq=LS.MAX_SEQ, page=LS.PAGE, chunk_size=LS.CHUNK,
+                     mesh=mesh, device=dev)
+        c0 = mesh_counts()
+        t0 = time.perf_counter()
+        res = sch.run_trace({"default": eng}, trace, policy="continuous")
+        out[name] = {"wall_s": time.perf_counter() - t0, "tokens_per_sec": sch.summarize(res)["tokens_per_sec"],
+                     "launches": mesh_counts()["mvm_sliced_fused"] - c0["mvm_sliced_fused"],
+                     "tokens": {r.rid: list(r.tokens) for r in res["requests"]}, "clock": res["clock"]}
+    if dist.get_rank() == 0:
+        with torch.no_grad():
+            solo = {r.rid: replicated_solo_tokens(torch, cfg, lossless, r, LS.N_SLOTS, dev) for r in trace}
+        out["lossless_equal"] = sum(out["lossless"]["tokens"][rid] == t for rid, t in solo.items())
+    return out
+
+
+def mesh_block_checks(torch, spec, gen):
+    """(b) K1 and K2 on each block of a 2x2 split at its origin, and K3 on
+    the block, bit for bit against the same block of the whole-leaf kernel:
+    K1 on gemma-2b's wi_gate 2048x16384 (256 tokens, bf16) under the
+    counter, grid and hw draws, ideal and device; K2 on the embedding
+    256000x2048 (f32 gradient) under half to even, counter and grid, ideal
+    and device; K3 on the embedding's blocks. Returns the cases checked."""
+    from repro_torch.core import prng
+    from repro_torch.kernels.common import Origin
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+    from repro_torch.models.common import DeviceModel
+
+    dev = DeviceModel(**{k: v for k, v in DEVICE.items() if k != "read_noise"})
+    frac = torch.tensor([30], dtype=torch.int32, device="cuda")
+    cases = 0
+    M, N = 2048, 16384
+    whole = random_planes(torch, spec, (M, N), gen)
+    x = torch.randn((T_TRAIN, M), generator=gen, device="cuda").to(torch.bfloat16)
+    dh = (torch.randn((T_TRAIN, N), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+    for mode in ("counter", "grid", "hw"):
+        for d in (None, dev):
+            key = (123, -45)
+            nw = (7, 8) if d is not None else None
+            want = whole.clone()
+            KO.opa_fused(want, x, dh, 3e-2, frac, spec=spec, key_words=key, rng_mode=mode, offset=5 * M * N, dev=d,
+                         noise_words=nw)
+            for r0 in (0, M // 2):
+                for c0 in (0, N // 2):
+                    blk = whole[:, r0:r0 + M // 2, c0:c0 + N // 2].contiguous()
+                    KO.opa_fused(blk, x[:, r0:r0 + M // 2].contiguous(), dh[:, c0:c0 + N // 2].contiguous(), 3e-2,
+                                 frac, spec=spec, key_words=key, rng_mode=mode, offset=5 * M * N, dev=d,
+                                 noise_words=nw, origin=Origin(r0, c0, M, N))
+                    if not torch.equal(blk, want[:, r0:r0 + M // 2, c0:c0 + N // 2]):
+                        raise AssertionError(f"(b) K1 {mode} {'device' if d else 'ideal'}: the block at ({r0}, {c0}) "
+                                             "differs from the whole leaf's")
+                    cases += 1
+            del want
+    del whole, x, dh
+    torch.cuda.empty_cache()
+    V, D = EMBED_SHAPE
+    whole = random_planes(torch, spec, (V, D), gen)
+    g = torch.randn((V, D), generator=gen, device="cuda") * 1e-3
+    for draw in ("rint", "counter", "grid"):
+        for d in (None, dev):
+            key = None if draw == "rint" else (31, 41)
+            nw = (7, 8) if d is not None else None
+            want = whole.clone()
+            KO.opa_dense(want, g, 3e-2, frac, spec=spec, key_words=key, rng_mode="counter" if draw == "rint" else draw,
+                         offset=3 * V * D, dev=d, noise_words=nw)
+            for r0 in (0, V // 2):
+                for c0 in (0, D // 2):
+                    blk = whole[:, r0:r0 + V // 2, c0:c0 + D // 2].contiguous()
+                    KO.opa_dense(blk, g[r0:r0 + V // 2, c0:c0 + D // 2].contiguous(), 3e-2, frac, spec=spec,
+                                 key_words=key, rng_mode="counter" if draw == "rint" else draw, offset=3 * V * D,
+                                 dev=d, noise_words=nw, origin=Origin(r0, c0, V, D))
+                    if not torch.equal(blk, want[:, r0:r0 + V // 2, c0:c0 + D // 2]):
+                        raise AssertionError(f"(b) K2 {draw} {'device' if d else 'ideal'}: the block at ({r0}, {c0}) "
+                                             "differs from the whole leaf's")
+                    cases += 1
+                    del blk
+            del want
+    want = whole.clone()
+    KC.crs(want, spec=spec)
+    for r0 in (0, V // 2):
+        for c0 in (0, D // 2):
+            blk = whole[:, r0:r0 + V // 2, c0:c0 + D // 2].contiguous()
+            KC.crs(blk, spec=spec)
+            if not torch.equal(blk, want[:, r0:r0 + V // 2, c0:c0 + D // 2]):
+                raise AssertionError(f"(b) K3: the block at ({r0}, {c0}) differs from the whole leaf's")
+            cases += 1
+    del whole, g, want
+    torch.cuda.empty_cache()
+    # K1 against its plain version at a block origin, hw draw, device physics, on operands whose f32
+    # contraction is exact in any order (the tensor cores sum in another order than the plain version)
+    p = random_planes(torch, spec, (256, 512), gen)
+    xs, ds = exact_operands(torch, 17, 256, 512, torch.bfloat16, gen)
+    o = Origin(128, 256, 512, 1024)
+    for d in (None, dev):
+        nw = (7, 8) if d is not None else None
+        a = KO.opa_fused(p.clone(), xs, ds, 3e-2, frac, spec=spec, key_words=(5, 6), rng_mode="hw", origin=o, dev=d,
+                         noise_words=nw)
+        b = RO.opa_fused_ref(p, xs, ds, 3e-2, frac[0], spec, (5, 6), d, nw, rng_mode="hw", origin=o)
+        if not torch.equal(a, b):
+            raise AssertionError(f"(b) K1 hw {'device' if d else 'ideal'} at a block origin differs from its plain "
+                                 "version")
+        cases += 1
+    return cases
+
+
+def mesh_block_timings(torch, K, ref, spec, gen):
+    """A rank's kernels on its block (the 2x2 mesh's): K4 and K5 on
+    wi_gate's column block 2048x8192 at 256 tokens (the whole 2048x16384
+    read beside it), K1 on that block, K2 on the embedding's row block
+    128000x2048 (f32, counter), K3 on it: kernel, plain version, library
+    yardstick, bound."""
+    from repro_torch.core.slicing import dequantize_planes
+    from repro_torch.kernels.common import Origin
+    from repro_torch.kernels.crs import kernel as KC
+    from repro_torch.kernels.crs import ref as RC
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+
+    S, T = spec.n_slices, T_TRAIN
+    out = {}
+    M, N = 2048, 16384
+    planes = torch.randint(-8, 8, (S, M, N // 2), generator=gen, device="cuda", dtype=torch.int8)
+    whole = torch.randint(-8, 8, (S, M, N), generator=gen, device="cuda", dtype=torch.int8)
+    xf = torch.randn((T, M), generator=gen, device="cuda")
+    frac = torch.tensor([10], dtype=torch.int32, device="cuda")
+    x_q = ref.dac_quantize(xf, 10, 16)
+    w = dequantize_planes(planes, 30, spec)
+    b = bound_ms(T, M, N // 2, S, 16)
+    lib = cuda_time_ms(lambda: torch.matmul(xf, w), 10)
+    out["mvm_sliced_fused_sharded"] = {
+        "ms": cuda_time_ms(lambda: K.mvm_sliced_fused(planes, xf, frac, spec=spec, adc_bits=9, col0=N // 2), 5),
+        "whole_ms": cuda_time_ms(lambda: K.mvm_sliced_fused(whole, xf, frac, spec=spec, adc_bits=9), 5),
+        "plain_ms": cuda_time_ms(lambda: ref.mvm_sliced_fused_ref(planes, xf, frac[0], spec, 16, 9, col0=N // 2), 2, 1),
+        "bound_ms": b[0], "bound_by": b[1], "library_ms": lib}
+    out["mvm_sliced_sharded"] = {
+        "ms": cuda_time_ms(lambda: K.mvm_sliced(planes, x_q, spec=spec, adc_bits=9), 5),
+        "plain_ms": cuda_time_ms(lambda: ref.mvm_sliced_ref(planes, x_q, spec, 16, 9), 2, 1),
+        "bound_ms": b[0], "bound_by": b[1], "library_ms": lib}
+    del whole, w
+    fr = torch.tensor([30], dtype=torch.int32, device="cuda")
+    xb = torch.randn((T, M), generator=gen, device="cuda").to(torch.bfloat16)
+    dhb = (torch.randn((T, N // 2), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+    o = Origin(0, N // 2, M, N)
+    b = bound_of(2 * S * M * (N // 2) + 2 * T * (M + N // 2) + 4, 2.0 * T * M * (N // 2), BF16_FLOPS_PER_S)
+    out["opa_fused_block"] = {
+        "ms": cuda_time_ms(lambda: KO.opa_fused(planes, xb, dhb, 3e-2, fr, spec=spec, key_words=(1, 2), origin=o), 10),
+        "plain_ms": cuda_time_ms(lambda: RO.opa_fused_ref(planes, xb, dhb, 3e-2, fr[0], spec, (1, 2), origin=o), 3, 1),
+        "library_ms": cuda_time_ms(lambda: torch.matmul(xb.t(), dhb), 10), "bound_ms": b[0], "bound_by": b[1]}
+    del planes, xf, x_q, xb, dhb
+    torch.cuda.empty_cache()
+    V, D = EMBED_SHAPE
+    planes = torch.randint(-8, 8, (S, V // 2, D), generator=gen, device="cuda", dtype=torch.int8)
+    g = torch.randn((V // 2, D), generator=gen, device="cuda") * 1e-3
+    o = Origin(V // 2, 0, V, D)
+    b = bound_of((4 + 2 * S) * (V // 2) * D, (8.0 * S + 14) * (V // 2) * D, CUDA_CORE_OPS_PER_S)
+    out["opa_dense_block"] = {
+        "ms": cuda_time_ms(lambda: KO.opa_dense(planes, g, 3e-2, fr, spec=spec, key_words=(1, 2), origin=o), 5),
+        "plain_ms": cuda_time_ms(lambda: plain_by_rows(torch, lambda a, q, r0=0: RO.opa_dense_ref(
+            a, q, 3e-2, 30, spec, (1, 2), origin=o), planes, g), 1, 1),
+        "library_ms": None, "bound_ms": b[0], "bound_by": b[1]}
+    b = bound_of(2 * S * (V // 2) * D, CRS_OPS_PER_PLANE_CELL * S * (V // 2) * D, CUDA_CORE_OPS_PER_S)
+    out["crs_block"] = {
+        "ms": cuda_time_ms(lambda: KC.crs(planes, spec=spec), 5),
+        "plain_ms": cuda_time_ms(lambda: plain_by_rows(torch, lambda p: RC.crs_ref(p, spec), planes), 1, 1),
+        "library_ms": None, "bound_ms": b[0], "bound_by": b[1]}
+    del planes, g
+    torch.cuda.empty_cache()
+    for key, t in out.items():
+        extra = f"  whole read {t['whole_ms']:.4f} ms" if "whole_ms" in t else ""
+        lib = "-" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+        print(f"  {key:25s} kernel {t['ms']:.4f} ms{extra}  plain {t['plain_ms']:.4f} ms  library {lib} ms  "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
+    return out
+
+
+def mesh_train_checks(tr, variants, check):
+    """(c)'s numbers printed and held: the losses within MESH_LOSS_TOL of
+    one process's. The weights within MESH_WEIGHT_TOL of max|w| at ideal
+    ADC, and where one process stepped from the mesh's own state with its
+    reads folded as the mesh folds them (``mesh_train(fold=True)``); else,
+    at adc9, where an f32 sum in another order flips a DAC or ADC code,
+    every crossbar leaf's gap within MESH_ADC9_OF_MOVE of its move."""
+    for name, preset, fsdp, steps in variants:
+        t = tr[name]
+        apart = [sum(v["cells_differ"] for v in lv.values()) for lv in t["leaves"]]
+        cells = sum(v["cells"] for v in t["leaves"][0].values())
+        of_move = [max(v["of_update"] for v in lv.values()) for lv in t["leaves"]]
+        one = "one process from the same state, its reads folded at the rank boundary" if t["fold"] else "one process"
+        print(f"  (c) {name}: losses mesh {t['mesh_loss']}, {one} {t['one_loss']}; rank 0's blocks within "
+              f"{[float(f'{x:.3g}') for x in t['rel']]} of max|w|, crossbar cells apart {apart} of {cells}, the "
+              f"worst leaf's |gap| {[float(f'{x:.3g}') for x in of_move]} of its |move|, after each step", flush=True)
+        for k in range(steps):
+            tol = MESH_LOSS_TOL[k]
+            check(abs(t["mesh_loss"][k] - t["one_loss"][k]) <= tol * (1 + abs(t["one_loss"][k])),
+                  f"(c) {name} step {k + 1} loss {t['mesh_loss'][k]} vs {t['one_loss'][k]}")
+        if preset == "ideal" or t["fold"]:
+            check(max(t["rel"]) <= MESH_WEIGHT_TOL, f"(c) {name} weights beyond {MESH_WEIGHT_TOL} of max|w|")
+        else:
+            check(max(of_move) <= MESH_ADC9_OF_MOVE,
+                  f"(c) {name}: a crossbar leaf's gap to one process beyond {MESH_ADC9_OF_MOVE} of its move")
+
+
+def phase_mesh(torch, K, ref, gen):
+    """Phase 20: the mesh. (b) and the block timings in this process; then
+    a 2x2 world of four processes sharing the card over gloo (the backend
+    rule's choice printed): (a) the sharded reads and the fold-order
+    witness, (c) the mesh train steps, (e) a checkpoint across meshes, (d)
+    serving; then a 1x2 world: (d) the engine. Every check's numbers are
+    printed before any failing one fails the phase. Returns the kernels
+    line's launches, timings and errors."""
+    import tempfile
+
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.launch import mesh as M
+
+    spec = DEFAULT_SPEC
+    fails = []
+
+    def check(ok, what):
+        if not ok:
+            fails.append(what)
+
+    t0 = time.perf_counter()
+    cases = mesh_block_checks(torch, spec, gen)
+    print(f"  (b) K1, K2 and K3 on blocks at their origin: {cases} cases bit for bit against the whole leaf "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    timings = mesh_block_timings(torch, K, ref, spec, gen)
+    empty_cache(torch)
+    print(f"  backend rule for {MESH_SHAPE[0] * MESH_SHAPE[1]} ranks on this host: {M.backend_for('cuda', 4)}",
+          flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ranks = M.spawn(mesh_world, 4, args=(d,), timeout=MESH_TIMEOUT)
+        wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    print(f"  2x2 world: {wall:.1f} s ({r0['backend']} on {r0['device']}; reads {r0['reads_s']:.1f} s, training "
+          f"{r0['train_s']:.1f} s, serving {r0['serve_s']:.1f} s; peak {max(r['peak_gib'] for r in ranks):.1f} GiB "
+          "a rank)", flush=True)
+    check({r["backend"] for r in ranks} == {"gloo"}, "the 2x2 world on one card must run over gloo")
+    reads_err = max(r["reads_err"] for r in ranks)
+    read_launches = collections.Counter()
+    for r in ranks:
+        read_launches.update(r["reads_launches"])
+    print(f"  (a) sharded reads on the 4 tiles x 3 shard dims x 2 directions x 2 ADCs: bit for bit at adc None, "
+          f"worst adc9 error {reads_err:.3g}; launches {dict(read_launches)}", flush=True)
+    wit = {k: sum(r["witness"][k] for r in ranks) for k in ("cases", "differ", "outputs")}
+    wit["max_rel"] = max(r["witness"]["max_rel"] for r in ranks)
+    print(f"  (a) fold-order witness, adc9, weights over all 32 bits, Gaussian inputs, contraction split over "
+          f"'model' ({wit['cases']} reads over the 4 ranks): each equal bit for bit to the single-process reads "
+          f"of its two blocks added in f32; against the whole read {wit['differ']} of {wit['outputs']} outputs "
+          f"apart, by at most {wit['max_rel']:.3g} of max", flush=True)
+    train_launches = collections.Counter()
+    for r in ranks:
+        train_launches.update(r["train"]["launches"])
+    mesh_train_checks(r0["train"], MESH_VARIANTS, check)
+    steps = [r["train"]["step_ms"] for r in ranks]
+    print(f"  (c) step ms by rank ({', '.join(f'{v[0]} x {v[3]}' for v in MESH_VARIANTS)}): "
+          f"{[[round(x, 1) for x in s] for s in steps]}; launches over the 4 ranks {dict(train_launches)}",
+          flush=True)
+    # per rank and step: K4 20 reads (5 operand leaves x 2 layers, both directions), K1 10 blocks, K2 the
+    # embedding's block; K3 11 blocks on each CRS step (every second); 4 ranks
+    n_steps = sum(v[3] for v in MESH_VARIANTS)
+    crs_steps = sum(v[3] // 2 for v in MESH_VARIANTS)
+    want = {"mvm_sliced_fused": 20 * n_steps * 4, "opa_fused": 10 * n_steps * 4, "opa_dense": n_steps * 4,
+            "crs": 11 * crs_steps * 4}
+    check(all(train_launches[k] == n for k, n in want.items()), f"(c) launches {dict(train_launches)} != {want}")
+    fs = r0["train"]["adc9_fsdp"]
+    print(f"  (e) the adc9 FSDP state saved on the 2x2 mesh in {fs['ckpt_save_s']:.1f} s, restored on one process "
+          f"in {fs['ckpt_restore_s']:.1f} s: equal {fs['ckpt_equal']}", flush=True)
+    check(fs["ckpt_equal"], "(e) the checkpoint restored on one process differs from the mesh's state")
+    sv = r0["serve"]
+    serve_launches = sum(r["serve"]["launches"] for r in ranks)
+    print(f"  (d) prefill 4 x 32 + 4 decode steps on the mesh, adc9 {sv['ms']:.1f} ms (one process "
+          f"{sv['one_ms']:.1f} ms): adc9 logits within {sv['adc9']['max_rel']:.3g} of max|logit|, argmax equal "
+          f"{sv['adc9']['argmax_equal']:.3f}; lossless within {sv['lossless']['max_rel']:.3g}, argmax equal "
+          f"{sv['lossless']['argmax_equal']:.3f}; K4 launches {serve_launches}", flush=True)
+    check(sv["lossless"]["max_rel"] <= MESH_SERVE_TOL, f"(d) lossless serving logits beyond {MESH_SERVE_TOL}")
+    check(sv["adc9"]["finite"] and sv["adc9"]["argmax_equal"] >= MESH_ADC9_ARGMAX,
+          f"(d) adc9 logits not finite, or argmax equal at fewer than {MESH_ADC9_ARGMAX} of the positions")
+    t0 = time.perf_counter()
+    eng = M.spawn(engine_world, 2, args=(MESH_ENGINE_REQUESTS,), timeout=MESH_TIMEOUT)
+    e0 = eng[0]
+    mesh_train_checks(e0["train"], MESH_MODEL_VARIANTS, check)
+    model_launches = collections.Counter()
+    for e in eng:
+        model_launches.update(e["train"]["launches"])
+    n_steps = sum(v[3] for v in MESH_MODEL_VARIANTS)
+    want = {"mvm_sliced_fused": 20 * n_steps * 2, "opa_fused": 10 * n_steps * 2, "opa_dense": n_steps * 2,
+            "crs": 11 * sum(v[3] // 2 for v in MESH_MODEL_VARIANTS) * 2}
+    print(f"  (c) the 1x2 world's step ms by rank: {[[round(x, 1) for x in e['train']['step_ms']] for e in eng]}; "
+          f"launches over the 2 ranks {dict(model_launches)}", flush=True)
+    check(all(model_launches[k] == n for k, n in want.items()), f"(c) 1x2 launches {dict(model_launches)} != {want}")
+    train_launches.update(model_launches)
+    print(f"  (d) the engine on a 1x2 mesh, {MESH_ENGINE_REQUESTS} requests: adc9 {e0['adc9']['tokens_per_sec']:.2f} "
+          f"tokens/s (wall {e0['adc9']['wall_s']:.1f} s, K4 launches {e0['adc9']['launches']} a rank), lossless "
+          f"tokens equal solo for {e0['lossless_equal']} of {MESH_ENGINE_REQUESTS}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check(e0["lossless_equal"] == MESH_ENGINE_REQUESTS and len({e["adc9"]["clock"] for e in eng}) == 1,
+          "(d) the engine on the mesh: lossless tokens differ from solo, or the ranks' clocks")
+    if fails:
+        raise AssertionError("phase 20: " + "; ".join(fails))
+    engine_launches = sum(e["adc9"]["launches"] + e["lossless"]["launches"] for e in eng)
+    return {
+        "launches": {"mvm_sliced_fused_sharded": train_launches["mvm_sliced_fused"] + serve_launches + engine_launches,
+                     "mvm_sliced_sharded": read_launches["mvm_sliced"],
+                     "opa_fused_block": train_launches["opa_fused"], "opa_dense_block": train_launches["opa_dense"],
+                     "crs_block": train_launches["crs"]},
+        "timings": timings, "reads_err": reads_err}
+
+
 def main() -> int:
     import torch
 
@@ -5164,6 +5966,10 @@ def main() -> int:
     train_launches.update(new_launches)
     train_timings.update(new_timings)
     done("phase 19: gemma2-9b and deepseek-v2-lite-16b at full width")
+    mesh = phase_mesh(torch, K, ref, gen)
+    train_launches.update(mesh["launches"])
+    train_timings.update(mesh["timings"])
+    done("phase 20: the mesh")
     train_launches.update({"opa_dense_" + inst: n for inst, n in dense.items()})
     print(f"K2's dense write, launches by instance over the main-path runs: {dict(dense)}", flush=True)
 
@@ -5283,6 +6089,19 @@ def main() -> int:
           for name in ("opa_fused_gemma2", "opa_fused_wq_dkv", "opa_fused_expert64")),
         entry("opa_dense_expert64", "src/repro_torch/kernels/sliced_opa/csrc/opa_deposit.cu",
               "src/repro/kernels/sliced_opa/kernel.py:90", 0.0),
+        # the mesh (phase 20): a rank's K4 and K5 on its tile block (wi_gate's column block, 256 tokens;
+        # "whole_ms" the whole read), K1 on that block at its origin, K2 and K3 on the embedding's row
+        # block. Launches: the 2x2 world's training steps, serving and the 1x2 engine (K4); the sharded
+        # K5 reads of (a), the unfused entry's only path besides phase 8 (K5); the training steps (K1-K3)
+        entry("mvm_sliced_fused_sharded", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
+              "src/repro/kernels/sliced_mvm/kernel.py:367", mesh["reads_err"]),
+        entry("mvm_sliced_sharded", "src/repro_torch/kernels/sliced_mvm/csrc/mvm_sliced_fused.cu",
+              "src/repro/kernels/sliced_mvm/kernel.py:233", mesh["reads_err"]),
+        entry("opa_fused_block", "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",
+              "src/repro/kernels/sliced_opa/kernel.py:255", 0.0),
+        entry("opa_dense_block", "src/repro_torch/kernels/sliced_opa/csrc/opa_deposit.cu",
+              "src/repro/kernels/sliced_opa/kernel.py:90", 0.0),
+        entry("crs_block", "src/repro_torch/kernels/crs/csrc/crs.cu", "src/repro/kernels/crs/kernel.py:70", 0.0),
     ]}
     unlaunched = [e["name"] for e in line["kernels"] if e["launches"] <= 0]
     if unlaunched:

@@ -33,6 +33,13 @@ other's checkpoints)::
   path ``rng``, as the reference stores its own; both come back as the
   template's host types. bf16 leaves are refused by name (numpy has no
   bfloat16 without the ``ml_dtypes`` package).
+* On a mesh (``mesh=``, ``specs=`` the state's spec tree,
+  ``train.step.train_state_specs``), a save gathers the whole leaves from
+  every rank's blocks and rank 0 writes them in the format above; a restore
+  reads the whole leaves on every rank and keeps this rank's blocks
+  (``train.step.shard_state``). So a checkpoint saved on one mesh restores
+  on another, or on one process, and the other way round: an elastic
+  restore.
 """
 from __future__ import annotations
 
@@ -191,10 +198,23 @@ def _step_dir(directory: str, step: int) -> str:
     return os.path.join(directory, f"step_{step:09d}")
 
 
-def save_checkpoint(directory: str, step: int, tree, keep_last: int = 3, plan=None) -> str:
+def save_checkpoint(directory: str, step: int, tree, keep_last: int = 3, plan=None, mesh=None, specs=None) -> str:
     """Commit ``tree`` as ``step``; returns the committed directory.
     ``plan``: the resolved plan, persisted (``plan.plan_manifest``) so that a
-    restore can check the stored layout against its own plan."""
+    restore can check the stored layout against its own plan. ``mesh`` /
+    ``specs``: ``tree`` is this rank's blocks of a ``TrainState`` (module
+    docstring); every rank calls this, rank 0 writes."""
+    if mesh is not None and mesh.live:
+        import torch.distributed as dist
+
+        from repro_torch.train.step import gather_state
+
+        tree = gather_state(tree, specs, mesh)
+        if dist.get_rank() == 0:
+            save_checkpoint(directory, step, tree, keep_last, plan)
+        del tree
+        dist.barrier()
+        return _step_dir(directory, step)
     os.makedirs(directory, exist_ok=True)
     final = _step_dir(directory, step)
     name = os.path.basename(final)
@@ -283,7 +303,7 @@ def _fuse_wq_dkv(a, b):
     return slice_weights(torch.from_numpy(cat), spec).numpy(), np.asarray(f, dtype=np.int32)
 
 
-def restore_latest(directory: str, template, device=None, plan=None):
+def restore_latest(directory: str, template, device=None, plan=None, mesh=None, specs=None):
     """Restore the newest committed checkpoint into ``template``'s structure;
     returns ``(tree, step)``, or ``(None, -1)`` when there is none.
 
@@ -291,8 +311,15 @@ def restore_latest(directory: str, template, device=None, plan=None):
     device of the template's leaf, or of its first tensor. ``plan``: the
     restoring job's resolved plan; when the manifest has one too, the stored
     layout and write physics are checked against it path by path
-    (``plan.check_plan_compat``) before any leaf loads.
+    (``plan.check_plan_compat``) before any leaf loads. ``mesh`` /
+    ``specs``: the whole ``TrainState`` is read and this rank's blocks of it
+    returned (module docstring).
     """
+    if mesh is not None and mesh.live:
+        from repro_torch.train.step import shard_state
+
+        whole, step = restore_latest(directory, template, device=device, plan=plan)
+        return (None, step) if whole is None else (shard_state(whole, specs, mesh), step)
     steps = list_checkpoints(directory)
     if not steps:
         return None, -1
@@ -374,18 +401,22 @@ def restore_latest(directory: str, template, device=None, plan=None):
 class CheckpointManager:
     """Save every ``every`` steps, keep the last ``keep_last`` commits, and
     persist and check ``plan`` (a resolved plan) with every save and
-    restore."""
+    restore; on a mesh (``mesh``, ``specs``) save and restore whole leaves
+    from and into this rank's blocks."""
 
-    def __init__(self, directory: str, every: int = 100, keep_last: int = 3, plan=None):
+    def __init__(self, directory: str, every: int = 100, keep_last: int = 3, plan=None, mesh=None, specs=None):
         self.directory = directory
         self.every = every
         self.keep_last = keep_last
         self.plan = plan
+        self.mesh, self.specs = mesh, specs
 
     def maybe_save(self, step: int, tree) -> str | None:
         if step % self.every == 0 and step > 0:
-            return save_checkpoint(self.directory, step, tree, self.keep_last, plan=self.plan)
+            return save_checkpoint(self.directory, step, tree, self.keep_last, plan=self.plan, mesh=self.mesh,
+                                   specs=self.specs)
         return None
 
     def restore(self, template, device=None):
-        return restore_latest(self.directory, template, device=device, plan=self.plan)
+        return restore_latest(self.directory, template, device=device, plan=self.plan, mesh=self.mesh,
+                              specs=self.specs)

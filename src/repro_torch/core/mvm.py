@@ -74,6 +74,23 @@ def mvm_sliced(
     return torch.einsum("t...sn,ts->...n", cols, shift_add_scales(spec, io_bits, w.device))
 
 
+def dac_frac_bits(x: torch.Tensor, fid) -> torch.Tensor:
+    """The DAC exponent of a read of ``x``: ``choose_frac_bits`` over
+    ``max|x|``, the global one on a mesh (all-reduced MAX over the data axes
+    of the active ``distributed.fidelity`` scope), so every data shard
+    quantizes against the range a single device sees."""
+    from repro_torch.distributed.fidelity import ShardCtx, active  # lazy: distributed imports the models
+
+    ctx = active()
+    src = x
+    if isinstance(ctx, ShardCtx) and ctx.mesh.group(ctx.data_axes) is not None:
+        from repro_torch.distributed.collectives import all_reduce
+
+        amax = all_reduce(x.detach().abs().max().to(torch.float32).reshape(1), ctx.mesh, ctx.data_axes, "max")
+        src = amax.to(x.dtype)
+    return choose_frac_bits(src, word_bits=fid.io_bits, margin_bits=fid.margin_bits, clip_to_word=False)
+
+
 def fidelity_read(
     planes: torch.Tensor,
     frac_bits,
@@ -86,20 +103,38 @@ def fidelity_read(
     exponent is chosen here (it needs the global ``max|x|``); the quantize,
     bit planes, ADC and shift-and-add run inside the fused read. The result
     is rescaled by ``2^-(x_frac + frac_bits)``; everything stays on the
-    device, with no host sync. Single-device form: the sharded lowering is
-    not ported."""
-    from repro_torch.kernels.sliced_mvm import mvm_sliced_fused_batched  # lazy: kernels import core
+    device, with no host sync.
+
+    On a mesh (a ``distributed.fidelity.use_sharded_fidelity`` scope),
+    ``planes`` are this rank's block (split over the model axis along
+    ``fid.shard_dim``) and ``x`` its tokens: ``max|x|`` is all-reduced
+    (MAX) over the scope's data axes before the exponent is chosen, so every
+    shard quantizes against the range the single-device read sees, and the
+    read runs through ``mvm_sliced_sharded``. In a ``FoldCtx`` scope the
+    whole planes are read through ``mvm_sliced_folded``."""
+    from repro_torch.distributed.fidelity import FoldCtx, active  # lazy: kernels import core
+    from repro_torch.kernels.sliced_mvm import mvm_sliced_folded, mvm_sliced_fused_batched, mvm_sliced_sharded
 
     adc_bits = fid.adc_bits_bwd if transpose else fid.adc_bits_fwd
     device = getattr(fid, "device", None)
     if device is not None and not device.reads_nonideal():
         device = None
-    xf = choose_frac_bits(x, word_bits=fid.io_bits, margin_bits=fid.margin_bits,
-                          clip_to_word=False)
-    acc = mvm_sliced_fused_batched(
-        planes, x, xf, fid.spec, io_bits=fid.io_bits, adc_bits=adc_bits,
-        transpose=transpose, device=device,
-    )
+    xf = dac_frac_bits(x, fid)
+    ctx = active() if planes.dim() == 3 else None
+    if isinstance(ctx, FoldCtx):
+        acc = mvm_sliced_folded(planes, x, xf, fid.spec, parts=ctx.parts, shard_dim=getattr(fid, "shard_dim", None),
+                                io_bits=fid.io_bits, adc_bits=adc_bits, transpose=transpose, device=device)
+    elif ctx is not None:
+        acc = mvm_sliced_sharded(
+            planes, x, fid.spec, mesh=ctx.mesh, data_axes=ctx.data_axes, model_axis=ctx.model_axis,
+            shard_dim=getattr(fid, "shard_dim", None), io_bits=fid.io_bits, adc_bits=adc_bits,
+            transpose=transpose, frac_bits=xf, device=device,
+        )
+    else:
+        acc = mvm_sliced_fused_batched(
+            planes, x, xf, fid.spec, io_bits=fid.io_bits, adc_bits=adc_bits,
+            transpose=transpose, device=device,
+        )
     f = torch.as_tensor(frac_bits, dtype=torch.int32, device=xf.device)
     return acc * exp2i(-(xf + f))
 

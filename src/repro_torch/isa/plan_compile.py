@@ -118,12 +118,16 @@ def _leaf_fidelity(pl: LeafPlan) -> tuple:
 
 
 def _shard_dim(pl: LeafPlan) -> int | None:
-    """The tile-grid dim (0=rows, 1=cols) a leaf's plan shards over 'model'.
-    The reference reads it from ``FidelityConfig.shard_dim`` or the
-    trailing dims of ``LeafPlan.shard``; the port's plans carry neither (shard
-    hints come with the mesh port), so every leaf is unhinted and placement
-    takes the contiguous numbering. ``place_tiles(hints=, n_shards=)``
-    itself is the reference's."""
+    """The tile-grid dim (0=rows, 1=cols) a leaf's plan shards over 'model',
+    from the explicit ``FidelityConfig.shard_dim`` or the trailing-dims
+    ``LeafPlan.shard`` hint."""
+    if pl.fidelity is not None and pl.fidelity.shard_dim is not None:
+        return pl.fidelity.shard_dim
+    if pl.shard:
+        trailing = tuple(pl.shard)[-2:]
+        for i, axis in enumerate(trailing):
+            if axis == "model":
+                return i + (2 - len(trailing))
     return None
 
 

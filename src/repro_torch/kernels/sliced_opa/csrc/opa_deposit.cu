@@ -19,6 +19,10 @@
 // (RNG_COUNTER), or jax.random.uniform's threefry stream at the flat index
 // offset + row·N + col of the leaf (RNG_GRID). The two orders of the scale
 // differ only where -lr·g is subnormal; each instance keeps its reference's.
+// A launch may hold a block of a larger leaf (one rank's block on a mesh):
+// (row0, col0) is its origin and ldn the leaf's column count, so the draws
+// and the stuck hashes take the cell's global (row, col), and the grid
+// index is offset + row·ldn + col.
 // The finalize is K1's (finalize.cuh), held bit for bit on the card already.
 //
 // The template runs over three choices: the input (IN_PQ, an int32 update
@@ -74,6 +78,7 @@ struct DenseParams {
   DeviceParams dv;            // DEV: the write physics (IN_PQ: the stuck mask only)
   uint8_t* stuck_mask;        // [M, N] stuck_bits bytes: mask_mode 1 writes them, 2 reads them
   int mask_mode;
+  int row0, col0, ldn;        // the block's origin in its leaf's [M, N] layer, and that N
 };
 
 __device__ __forceinline__ uint32_t& word_of(uint4& v, int i) {
@@ -103,6 +108,7 @@ opa_dense_kernel(const DenseParams p) {
   constexpr bool COORDS = IN != IN_PQ || DEV;  // the draws and the stuck hashes take (row, col)
   const unsigned long long mn = p.mn;
   const int N = p.N, S = p.dp.S;
+  const int R0 = p.row0, C0 = p.col0;  // the cells' global (row, col) are (r + R0, c + C0)
   const bool stuck = DEV && p.dv.stuck.frac > 0.f;
   // the value multiplied before the rounding: (-lr · g) · 2^F, or g · (2^F · -lr) on DEV
   float pre = 1.f, scale = 1.f;
@@ -159,18 +165,20 @@ opa_dense_kernel(const DenseParams p) {
 #pragma unroll
             for (int b = 0; b < 4; ++b) {
               const float a = DEV ? g[4 * j4 + b] : __fmul_rn(pre, g[4 * j4 + b]);
-              y[b] = increment_of<DEV>(a, scale, r, c, p.dv);
+              y[b] = increment_of<DEV>(a, scale, r + R0, c + C0, p.dv);
               next_cell(r, c, N);
             }
-            // 4 consecutive flat indices from the group's first cell
-            const float4 u = far_u4(rb, cb, RNG_GRID, p.k0, p.k1, p.offset, N, 1, 1, 1, 0);
+            // 4 consecutive flat indices from the group's first cell (the
+            // host runs the scalar body where a group would cross a row of
+            // a block narrower than its leaf)
+            const float4 u = far_u4(rb + R0, cb + C0, RNG_GRID, p.k0, p.k1, p.offset, p.ldn, 1, 1, 1, 0);
 #pragma unroll
             for (int b = 0; b < 4; ++b) q[4 * j4 + b] = update_far(y[b], nth(u, b));
           } else {
 #pragma unroll
             for (int b = 0; b < 4; ++b) {
               const float a = DEV ? g[4 * j4 + b] : __fmul_rn(pre, g[4 * j4 + b]);
-              q[4 * j4 + b] = update_of<DEV>(a, scale, r, c, RNG, p.k0, p.k1, p.dv);
+              q[4 * j4 + b] = update_of<DEV>(a, scale, r + R0, c + C0, RNG, p.k0, p.k1, p.dv);
               next_cell(r, c, N);
             }
           }
@@ -197,7 +205,7 @@ opa_dense_kernel(const DenseParams p) {
             if (p.mask_mode == 2) {
               bits = (word_of(keep, j4) >> (8 * b)) & 0xffu;
             } else {
-              bits = stuck_bits(r, c, p.dp, p.dv.stuck);
+              bits = stuck_bits(r + R0, c + C0, p.dp, p.dv.stuck);
               word_of(keep, j4) |= bits << (8 * b);
             }
             deposit_keep(d, q[4 * j4 + b], p.dp, bits);
@@ -234,16 +242,17 @@ opa_dense_kernel(const DenseParams p) {
       const float g = value_at<IN>(p.src, i);
       const float a = DEV ? g : __fmul_rn(pre, g);
       if (RNG == RNG_GRID)
-        q = update_far(increment_of<DEV>(a, scale, r, c, p.dv), threefry_u01(p.k0, p.k1, p.offset + i));
+        q = update_far(increment_of<DEV>(a, scale, r + R0, c + C0, p.dv),
+                       threefry_u01(p.k0, p.k1, p.offset + (unsigned long long)(r + R0) * p.ldn + (c + C0)));
       else
-        q = update_of<DEV>(a, scale, r, c, RNG, p.k0, p.k1, p.dv);
+        q = update_of<DEV>(a, scale, r + R0, c + C0, RNG, p.k0, p.k1, p.dv);
     }
     int d[MAX_S];
 #pragma unroll
     for (int s = 0; s < MAX_S; ++s)
       if (s < S) d[s] = p.planes[s * mn + i];
     if (stuck) {
-      const uint32_t bits = p.mask_mode == 2 ? p.stuck_mask[i] : stuck_bits(r, c, p.dp, p.dv.stuck);
+      const uint32_t bits = p.mask_mode == 2 ? p.stuck_mask[i] : stuck_bits(r + R0, c + C0, p.dp, p.dv.stuck);
       if (p.mask_mode == 1) p.stuck_mask[i] = (uint8_t)bits;
       deposit_keep(d, q, p.dp, bits);
     } else {
@@ -276,9 +285,11 @@ cudaError_t launch_rng(int rng, bool dev, const DenseParams& p, unsigned blocks,
 // mn = M·N, N the row length. Gradient inputs: frac_bits int32 [1] on the
 // device, lr the host learning rate, rng (enum Rng: 0 half to even, 1
 // counter, 2 grid) under the int32 key words (k0, k1), offset RNG_GRID's
-// flat index of cell (0, 0). plane_max: host int[S]; lim: canonical_limit.
-// vec != 0: the 16-cell body (mn % 16 == 0; planes, src and stuck_mask
-// 16-byte aligned). physics: NULL for the ideal instance, else host
+// flat index of the leaf's cell (0, 0) of this layer. plane_max: host
+// int[S]; lim: canonical_limit. vec != 0: the 16-cell body (mn % 16 == 0;
+// planes, src and stuck_mask 16-byte aligned; N % 16 == 0 or N == ldn).
+// (row0, col0): the block's origin in its layer, ldn the layer's column
+// count (0, 0, N for a whole layer). physics: NULL for the ideal instance, else host
 // float[4] = (asym_up, asym_down, write_noise, stuck_frac) (input 0: 1, 1,
 // 0, stuck_frac), (nk0, nk1) the write-noise key words and stuck_words host
 // int[2·S] (w0_s, w1_s per slice); stuck_mask uint8 [M, N] on the device
@@ -288,8 +299,10 @@ extern "C" int panther_opa_deposit(void* planes, const void* src, int input, con
                                    long long mn, int N, int S, const int* plane_max, int lim, int rng, int k0,
                                    int k1, unsigned long long offset, int vec, const float* physics, int nk0,
                                    int nk1, const int* stuck_words, void* stuck_mask, int mask_mode,
-                                   void* stream) {
+                                   int row0, int col0, int ldn, void* stream) {
   if (S < 1 || S > MAX_S || mn < 1 || N < 1 || mn % N != 0) return (int)cudaErrorInvalidValue;
+  if (row0 < 0 || col0 < 0 || ldn < col0 + N || (vec && N % SEG != 0 && N != ldn))
+    return (int)cudaErrorInvalidValue;
   if (input < IN_PQ || input > IN_BF16 || rng < RNG_NONE || rng > RNG_GRID) return (int)cudaErrorInvalidValue;
   if ((input == IN_PQ && rng != RNG_NONE) || (input != IN_PQ && frac_bits == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -326,6 +339,9 @@ extern "C" int panther_opa_deposit(void* planes, const void* src, int input, con
   }
   p.stuck_mask = static_cast<uint8_t*>(stuck_mask);
   p.mask_mode = mask_mode;
+  p.row0 = row0;
+  p.col0 = col0;
+  p.ldn = ldn;
   const unsigned long long work = vec ? (unsigned long long)mn / SEG : (unsigned long long)mn;
   const unsigned long long want = (work + THREADS - 1) / THREADS;
   const unsigned blocks = (unsigned)(want < 132 * 16 ? want : 132 * 16);

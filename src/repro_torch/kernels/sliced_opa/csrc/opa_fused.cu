@@ -20,7 +20,11 @@
 // offset + row·N + col of the leaf (the reference reads it as an [M, N] f32
 // input; here it is generated in place, and no draw crosses device memory);
 // or "hw", the port's Philox stream over the reference's tile grid in place
-// of the TPU's hardware PRNG. No draw depends on the CUDA blocking. The
+// of the TPU's hardware PRNG. No draw depends on the CUDA blocking. A
+// launch may hold a block of a larger leaf (one rank's block on a mesh):
+// (row0, col0) is its origin and ldn the leaf's column count, so every draw
+// is taken at the cell's global (row, col) and "grid"'s flat index is
+// offset + row·ldn + col; at the zero origin of a whole leaf ldn = N. The
 // source is a runtime field of the launch. The grid and hw draws are ~100
 // and ~40 integer operations a cell (threefry's 20 rounds; Philox's 10
 // shared by 4 cells), the counter hash ~10; they run out of line, one call
@@ -120,16 +124,33 @@ struct OpaParams {
   unsigned long long offset; // RNG_GRID: flat index of the block's cell (0, 0) in its leaf
   int hw_bm, hw_bn, hw_tn;   // RNG_HW: the tile (bm, bn) and N / bn
   int hw4;                   // RNG_HW: bn % 4 == 0, so 4 aligned cells share one Philox block
+  int row0, col0, ldn;       // the block's origin in its leaf's [M, N] layer, and that N
 };
 
+// the draws and the finalize of the block's cell (r, c), at its global
+// (r + row0, c + col0)
 __device__ __forceinline__ float4 far_u4(int r, int c, const OpaParams& a) {
-  return ::far_u4(r, c, a.rng, a.k0, a.k1, a.offset, a.N, a.hw_bm, a.hw_bn, a.hw_tn, a.hw4);
+  return ::far_u4(r + a.row0, c + a.col0, a.rng, a.k0, a.k1, a.offset, a.ldn, a.hw_bm, a.hw_bn, a.hw_tn, a.hw4);
 }
 
-// the deposit of update q into the S digits p of the cell at global (r, c)
+template <bool DEV>
+__device__ __forceinline__ float increment_at(float acc, float scale, int r, int c, const OpaParams& a) {
+  return increment_of<DEV>(acc, scale, r + a.row0, c + a.col0, a.dv);
+}
+
+template <bool DEV>
+__device__ __forceinline__ int update_at(float acc, float scale, int r, int c, const OpaParams& a) {
+  return update_of<DEV>(acc, scale, r + a.row0, c + a.col0, a.rng, a.k0, a.k1, a.dv);
+}
+
+__device__ __forceinline__ uint32_t stuck_bits_at(int r, int c, const OpaParams& a) {
+  return stuck_bits(r + a.row0, c + a.col0, a.dp, a.dv.stuck);
+}
+
+// the deposit of update q into the S digits p of the block's cell (r, c)
 template <bool DEV>
 __device__ __forceinline__ void deposit_cell(int* p, int q, int r, int c, const OpaParams& a) {
-  if (DEV && a.dv.stuck.frac > 0.f) deposit_stuck(p, q, a.dp, r, c, a.dv.stuck);
+  if (DEV && a.dv.stuck.frac > 0.f) deposit_stuck(p, q, a.dp, r + a.row0, c + a.col0, a.dv.stuck);
   else deposit_one(p, q, a.dp);
 }
 
@@ -230,14 +251,14 @@ opa_fused_kernel(const OpaParams a) {
       if (a.rng >= RNG_GRID) {
         float y[4];
 #pragma unroll
-        for (int b = 0; b < 4; ++b) y[b] = increment_of<DEV>(acc[i][j4 + b], scale, r, c0 + j4 + b, a.dv);
+        for (int b = 0; b < 4; ++b) y[b] = increment_at<DEV>(acc[i][j4 + b], scale, r, c0 + j4 + b, a);
         const float4 u = far_u4(r, c0 + j4, a);  // past N: drawn, never deposited
 #pragma unroll
         for (int b = 0; b < 4; ++b) q[j4 + b] = update_far(y[b], nth(u, b));
       } else {
 #pragma unroll
         for (int b = 0; b < 4; ++b)
-          q[j4 + b] = update_of<DEV>(acc[i][j4 + b], scale, r, c0 + j4 + b, a.rng, a.k0, a.k1, a.dv);
+          q[j4 + b] = update_at<DEV>(acc[i][j4 + b], scale, r, c0 + j4 + b, a);
       }
     }
     if (a.vec && c0 + TN <= N) {
@@ -514,14 +535,14 @@ opa_mma_kernel(const OpaParams a) {
         float4 u;
         if (FAR) {
 #pragma unroll
-          for (int b = 0; b < 4; ++b) y[b] = increment_of<DEV>(vs[b], scale, r, c + 4 * j4 + b, a.dv);
+          for (int b = 0; b < 4; ++b) y[b] = increment_at<DEV>(vs[b], scale, r, c + 4 * j4 + b, a);
           u = far_u4(r, c + 4 * j4, a);
         }
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
           const int j = 4 * j4 + b;
           const int q = FAR ? update_far(y[b], nth(u, b))
-                            : update_of<DEV>(vs[b], scale, r, c + j, a.rng, a.k0, a.k1, a.dv);
+                            : update_at<DEV>(vs[b], scale, r, c + j, a);
           int p[MAX_S];
 #pragma unroll
           for (int s = 0; s < MAX_S; ++s)
@@ -531,7 +552,7 @@ opa_mma_kernel(const OpaParams a) {
             if (a.mask_mode == 2) {
               bits = (word_of(keep, j4) >> (8 * b)) & 0xffu;
             } else {
-              bits = stuck_bits(r, c + j, a.dp, a.dv.stuck);
+              bits = stuck_bits_at(r, c + j, a);
               word_of(keep, j4) |= bits << (8 * b);
             }
             deposit_keep(p, q, a.dp, bits);
@@ -553,16 +574,16 @@ opa_mma_kernel(const OpaParams a) {
     } else if (OPA_PART != 3) {
       for (int j = 0; j < SEG && c + j < N; ++j) {
         const float acc = cs[cs_at(lr, SEG * seg + j)];
-        const int q = FAR ? update_far(increment_of<DEV>(acc, scale, r, c + j, a.dv),
+        const int q = FAR ? update_far(increment_at<DEV>(acc, scale, r, c + j, a),
                                        nth(far_u4(r, (c + j) & ~3, a), (c + j) & 3))
-                          : update_of<DEV>(acc, scale, r, c + j, a.rng, a.k0, a.k1, a.dv);
+                          : update_at<DEV>(acc, scale, r, c + j, a);
         int p[MAX_S];
 #pragma unroll
         for (int s = 0; s < MAX_S; ++s)
           if (s < S) p[s] = row[s * plane + j];
         if (stuck) {
           uint8_t* m = a.stuck_mask + (size_t)r * N + c + j;
-          const uint32_t bits = a.mask_mode == 2 ? *m : stuck_bits(r, c + j, a.dp, a.dv.stuck);
+          const uint32_t bits = a.mask_mode == 2 ? *m : stuck_bits_at(r, c + j, a);
           if (a.mask_mode == 1) *m = (uint8_t)bits;
           deposit_keep(p, q, a.dp, bits);
         } else {
@@ -607,8 +628,10 @@ cudaError_t launch_body(bool bf16, bool mma, const OpaParams& a, cudaStream_t st
 // (bf16 operands only), else the CUDA-core body. lr: the host learning rate
 // (the kernel folds -lr·2^F). rng (enum Rng) != 0 rounds stochastically by
 // that draw under the int32 key words (k0, k1); 0 half to even. offset:
-// RNG_GRID's flat index of cell (0, 0); hw_bm, hw_bn: RNG_HW's tile, which
-// divides (M, N). plane_max: host int[S]; lim: canonical_limit. vec != 0:
+// RNG_GRID's flat index of the layer's cell (0, 0); hw_bm, hw_bn: RNG_HW's
+// tile of the layer, which divides (ldm, ldn) and the block's origin.
+// (row0, col0): the block's origin in its layer, ldn the layer's column
+// count (0, 0, N for a whole layer). plane_max: host int[S]; lim: canonical_limit. vec != 0:
 // planes 16-byte aligned with N % 16 == 0 (mma), 8-byte aligned with N % 8
 // == 0 (CUDA-core body). physics: NULL for the ideal device, else host
 // float[4] = (asym_up, asym_down, write_noise, stuck_frac), with (nk0, nk1)
@@ -621,12 +644,15 @@ extern "C" int panther_opa_fused(void* planes, const void* x, const void* dh, co
                                  int lim, int bf16, int mma, int rng, int k0, int k1,
                                  unsigned long long offset, int hw_bm, int hw_bn, int vec,
                                  const float* physics, int nk0, int nk1, const int* stuck_words,
-                                 void* stuck_mask, int mask_mode, void* stream) {
+                                 void* stuck_mask, int mask_mode, int row0, int col0, int ldn,
+                                 void* stream) {
   if (S < 1 || S > MAX_S || Tn < 0 || M < 1 || N < 1 || (mma && !bf16)) return (int)cudaErrorInvalidValue;
   if (mask_mode < 0 || mask_mode > 2 || (mask_mode && (!mma || !stuck_mask))) return (int)cudaErrorInvalidValue;
   if ((M + 127) / 128 > 65535) return (int)cudaErrorInvalidValue;
   if (rng < RNG_NONE || rng > RNG_HW) return (int)cudaErrorInvalidValue;
-  if (rng == RNG_HW && (hw_bm < 1 || hw_bn < 1 || M % hw_bm || N % hw_bn)) return (int)cudaErrorInvalidValue;
+  if (row0 < 0 || col0 < 0 || ldn < col0 + N) return (int)cudaErrorInvalidValue;
+  if (rng == RNG_HW && (hw_bm < 1 || hw_bn < 1 || row0 % hw_bm || col0 % hw_bn || ldn % hw_bn))
+    return (int)cudaErrorInvalidValue;
   OpaParams a;
   a.planes = static_cast<int8_t*>(planes);
   a.x = x;
@@ -642,7 +668,7 @@ extern "C" int panther_opa_fused(void* planes, const void* x, const void* dh, co
   a.offset = offset;
   a.hw_bm = rng == RNG_HW ? hw_bm : 1;
   a.hw_bn = rng == RNG_HW ? hw_bn : 1;
-  a.hw_tn = N / a.hw_bn;
+  a.hw_tn = ldn / a.hw_bn;
   a.hw4 = a.hw_bn % 4 == 0;
   a.vec = vec;
   a.ld16 = M % 8 == 0 && N % 8 == 0 && (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dh)) % 16 == 0;
@@ -663,6 +689,9 @@ extern "C" int panther_opa_fused(void* planes, const void* x, const void* dh, co
   }
   a.stuck_mask = static_cast<uint8_t*>(stuck_mask);
   a.mask_mode = mask_mode;
+  a.row0 = row0;
+  a.col0 = col0;
+  a.ldn = ldn;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(dev ? launch_body<true>(bf16, mma, a, st) : launch_body<false>(bf16, mma, a, st));
 }

@@ -39,6 +39,12 @@ CUDA-core body, for ``opa_fused``; ``dense_instance`` for ``opa_dense``;
 ``"ideal"``, ``"stuck"`` for ``opa_deposit``). The stuck-cell mask is
 frozen: the device instances of both libraries cache it a byte a cell
 (``_STUCK_BITS``).
+
+A launch may update a block of a larger leaf (``origin``, a
+``kernels.common.Origin``; one rank's block on a mesh): the kernels take
+its first row and column and the layer's column count, and draw every cell
+at its global (row, col); None is the whole layer at (0, 0), the launch of
+a single device.
 """
 from __future__ import annotations
 
@@ -53,7 +59,7 @@ import torch
 from repro_torch.core.fixed_point import RNG_MODES, check_rng_mode, device_pattern_words
 from repro_torch.core.slicing import SliceSpec
 from repro_torch.kernels import build as _build
-from repro_torch.kernels.common import hw_tiles
+from repro_torch.kernels.common import hw_tiles, whole
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"opa_deposit": [CSRC / "opa_deposit.cu"], "opa_fused": [CSRC / "opa_fused.cu"],
@@ -108,7 +114,7 @@ def _bind(path, name: str):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
                        ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
             ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     elif name == "opa_im2col":
         fn = lib.panther_opa_im2col
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] + [
@@ -117,8 +123,8 @@ def _bind(path, name: str):
         fn = lib.panther_opa_fused
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
             ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_ulonglong] + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -151,19 +157,21 @@ def _physics(asym_up: float, asym_down: float, write_noise: float, stuck_frac: f
 
 
 # the stuck-cell masks, one byte of slice bits a cell (ref.stuck_bits_ref),
-# by (card, stuck_seed, f32 stuck_frac, S, M, N): the mask is frozen, so the
-# first launch at a block shape writes it and later launches read it. A memo
-# of a pure function of its key: which caller fills an entry changes no
-# result.
+# by (card, stuck_seed, f32 stuck_frac, S, M, N, row0, col0): the mask is
+# frozen, so the first launch on a block writes it and later launches read
+# it. A memo of a pure function of its key: which caller fills an entry
+# changes no result.
 _STUCK_BITS: dict = {}
 
 
-def _stuck_mask(planes: torch.Tensor, dev):
+def _stuck_mask(planes: torch.Tensor, dev, origin=None):
     """``(key, mask, mask_mode)`` of the stuck-cell mask of a launch on
-    planes ``[S, M, N]``: mode 2 reads the cached mask, mode 1 has the
-    launch write a new one, to be stored under ``key`` once launched."""
+    planes ``[S, M, N]`` at ``origin`` (None: (0, 0)): mode 2 reads the
+    cached mask, mode 1 has the launch write a new one, to be stored under
+    ``key`` once launched."""
     S, M, N = planes.shape
-    key = (planes.device, dev.stuck_seed, float(np.float32(dev.stuck_frac)), S, M, N)
+    at = (0, 0) if origin is None else (origin.row, origin.col)
+    key = (planes.device, dev.stuck_seed, float(np.float32(dev.stuck_frac)), S, M, N) + ((at,) if at != (0, 0) else ())
     mask = _STUCK_BITS.get(key)
     if mask is not None:
         return key, mask, 2
@@ -185,24 +193,26 @@ def _launch(name: str, planes: torch.Tensor, *args) -> None:
 
 def _deposit_launch(planes: torch.Tensor, src: torch.Tensor, spec: SliceSpec, *, frac_bits=None, lr=0.0,
                     rng: int = 0, key_words=None, offset: int = 0, physics=None, dev=None,
-                    noise_words=None) -> None:
+                    noise_words=None, origin=None) -> None:
     """One launch of ``csrc/opa_deposit.cu`` on planes ``[S, M, N]`` and its
     input ``src`` ``[M, N]`` (int32 p_q, f32 or bf16 g). ``physics``: None,
     or the device instance's host float[4]; ``dev`` the DeviceModel whose
-    stuck cells it keeps."""
+    stuck cells it keeps; ``origin`` the block's place in its layer."""
     S, M, N = planes.shape
+    o = whole(origin, M, N)
     k0, k1 = (0, 0) if key_words is None else key_words
     nk0, nk1 = (0, 0) if noise_words is None else noise_words
     words = key = mask = None
     mode = 0
     if dev is not None and dev.stuck_frac > 0.0:
         words = _stuck_words(dev.stuck_seed, S)
-        key, mask, mode = _stuck_mask(planes, dev)
-    vec = int(M * N % 16 == 0 and planes.data_ptr() % 16 == 0 and src.data_ptr() % 16 == 0)
+        key, mask, mode = _stuck_mask(planes, dev, o)
+    vec = int(M * N % 16 == 0 and planes.data_ptr() % 16 == 0 and src.data_ptr() % 16 == 0
+              and (N % 16 == 0 or N == o.cols))
     _launch("opa_deposit", planes, planes.data_ptr(), src.data_ptr(), _DENSE_INPUTS[src.dtype],
             None if frac_bits is None else frac_bits.data_ptr(), float(np.float32(lr)), M * N, N, S,
             _ptr(_plane_max(spec)), spec.canonical_limit, rng, k0, k1, offset, vec, _ptr(physics), nk0, nk1,
-            _ptr(words), None if mask is None else mask.data_ptr(), mode)
+            _ptr(words), None if mask is None else mask.data_ptr(), mode, o.row, o.col, o.cols)
     if mode == 1:  # written by this launch, in stream order before any later one
         _STUCK_BITS[key] = mask
 
@@ -230,7 +240,7 @@ def opa_deposit(planes: torch.Tensor, p_q: torch.Tensor, *, spec: SliceSpec, stu
 
 def opa_dense(planes: torch.Tensor, g: torch.Tensor, lr: float, frac_bits: torch.Tensor, *, spec: SliceSpec,
               key_words=None, rng_mode: str = "counter", offset: int = 0, dev=None,
-              noise_words=None) -> torch.Tensor:
+              noise_words=None, origin=None) -> torch.Tensor:
     """planes int8 [S, M, N] updated in place by ``-lr · g`` on the ``2^-F``
     grid, g [M, N] contiguous f32 or bf16 on the planes' CUDA device, read as
     it is; frac_bits a 1-element int32 tensor read on the device; lr a host
@@ -241,7 +251,8 @@ def opa_dense(planes: torch.Tensor, g: torch.Tensor, lr: float, frac_bits: torch
     rounds ``(-lr · g) · 2^F`` as ``quantize`` does, or a write-nonideal
     DeviceModel for the device instance, which rounds ``g · (2^F · -lr)``
     with the physics as ``opa_device_update`` does, ``noise_words`` the
-    write-noise key words when ``dev.write_noise > 0``. Returns ``planes``."""
+    write-noise key words when ``dev.write_noise > 0``. ``origin``: the
+    block's place in its layer (module docstring). Returns ``planes``."""
     if not (planes.is_cuda and g.is_cuda and frac_bits.is_cuda):
         raise ValueError("opa_dense kernel takes CUDA tensors only")
     if not (planes.device == g.device == frac_bits.device):
@@ -257,14 +268,15 @@ def opa_dense(planes: torch.Tensor, g: torch.Tensor, lr: float, frac_bits: torch
     if dev is not None and dev.write_noise > 0.0 and noise_words is None:
         raise ValueError("DeviceModel.write_noise requires write-noise key words")
     draw = "rint" if key_words is None else check_rng_mode(rng_mode)
-    if not (0 <= offset and offset + g.numel() <= 2**64):
+    o = whole(origin, *g.shape)
+    if not (0 <= offset and offset + o.rows * o.cols <= 2**64):
         raise ValueError(f"opa_dense grid offset {offset} out of the 64-bit counter range")
     if g.numel() == 0:
         return planes
     physics = None if dev is None else _physics(dev.asym_up, dev.asym_down, dev.write_noise, dev.stuck_frac)
     _deposit_launch(planes, g, spec, frac_bits=frac_bits, lr=lr, rng=_RNG_CODES.get(draw, 0),
                     key_words=key_words, offset=offset if draw == "grid" else 0, physics=physics, dev=dev,
-                    noise_words=noise_words)
+                    noise_words=noise_words, origin=o)
     opa_dense.launches += 1
     opa_dense.instances[dense_instance(g.dtype, draw, dev is not None)] += 1
     return planes
@@ -272,7 +284,7 @@ def opa_dense(planes: torch.Tensor, g: torch.Tensor, lr: float, frac_bits: torch
 
 def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float,
               frac_bits: torch.Tensor, *, spec: SliceSpec, key_words=None, rng_mode: str = "counter",
-              offset: int = 0, dev=None, noise_words=None, body=None) -> torch.Tensor:
+              offset: int = 0, dev=None, noise_words=None, body=None, origin=None) -> torch.Tensor:
     """planes int8 [S, M, N] updated in place by ``-lr · xᵀdh`` on the
     ``2^-F`` grid; x [T, M] and dh [T, N] contiguous f32 or bf16 (one
     dtype); frac_bits a 1-element int32 tensor read on the device; lr a host
@@ -285,7 +297,8 @@ def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float
     ``noise_words`` the write-noise key words when ``dev.write_noise > 0``.
     ``body``: None takes ``body_for(x.dtype)``; ``"fma"`` runs the CUDA-core
     body on either dtype (the same-work yardstick); ``"mma"`` takes bf16
-    only. Returns ``planes``."""
+    only. ``origin``: the block's place in its layer (module docstring;
+    under ``"hw"`` on the layer's tile grid). Returns ``planes``."""
     if not (planes.is_cuda and x.is_cuda and dh.is_cuda and frac_bits.is_cuda):
         raise ValueError("opa_fused kernel takes CUDA tensors only")
     if not (planes.device == x.device == dh.device == frac_bits.device):
@@ -309,13 +322,17 @@ def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float
     if dev is not None and dev.write_noise > 0.0 and noise_words is None:
         raise ValueError("DeviceModel.write_noise requires write-noise key words")
     check_rng_mode(rng_mode, plain=False)
-    if not (0 <= offset and offset + M * N <= 2**64):
+    o = whole(origin, M, N)
+    if not (0 <= offset and offset + o.rows * o.cols <= 2**64):
         raise ValueError(f"opa_fused grid offset {offset} out of the 64-bit counter range")
     if M == 0 or N == 0:
         return planes
     k0, k1 = (0, 0) if key_words is None else key_words
     rng = 0 if key_words is None else _RNG_CODES[rng_mode]
-    bm, bn = hw_tiles(M, N) if rng == _RNG_CODES["hw"] else (0, 0)
+    bm, bn = hw_tiles(o.rows, o.cols) if rng == _RNG_CODES["hw"] else (0, 0)
+    if bm and (o.row % bm or o.col % bn or M % bm or N % bn):
+        raise ValueError(f"opa_fused: block [{M}, {N}] at ({o.row}, {o.col}) is off the hw draw's ({bm}, {bn}) "
+                         f"tile grid of its [{o.rows}, {o.cols}] layer")
     offset = offset if rng == _RNG_CODES["grid"] else 0
     physics = stuck = None
     nk0 = nk1 = 0
@@ -330,11 +347,12 @@ def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float
     mask = key = None
     mode = 0
     if stuck is not None and body == "mma":
-        key, mask, mode = _stuck_mask(planes, dev)
+        key, mask, mode = _stuck_mask(planes, dev, o)
     _launch("opa_fused", planes, planes.data_ptr(), x.data_ptr(), dh.data_ptr(), frac_bits.data_ptr(),
             float(np.float32(lr)), x.shape[0], M, N, S, _ptr(_plane_max(spec)), spec.canonical_limit,
             _OPERAND_DTYPES[x.dtype], int(body == "mma"), rng, k0, k1, offset, bm, bn, vec,
-            _ptr(physics), nk0, nk1, _ptr(stuck), None if mask is None else mask.data_ptr(), mode)
+            _ptr(physics), nk0, nk1, _ptr(stuck), None if mask is None else mask.data_ptr(), mode, o.row, o.col,
+            o.cols)
     if mode == 1:  # written by this launch, in stream order before any later one
         _STUCK_BITS[key] = mask
     opa_fused.launches += 1

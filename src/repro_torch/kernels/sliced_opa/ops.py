@@ -34,6 +34,17 @@ a layer block; the other draws and a write-nonideal device take one
 ``opa_fused`` launch a channel tile on a channel-major copy of the block
 (correct, and slow). CPU planes run ``ref.opa_im2col_ref`` a block.
 
+On a mesh each rank updates its block of a leaf (``origin``, a
+``kernels.common.Origin``: the block's first row and column in the leaf's
+``[M, N]`` layer, that layer's shape, and the block's layers' flat indices
+in the leaf's stack). Every draw then keys on the leaf's coordinates: the
+layer keys and grid offsets on the global layer index and ``M·N``, the
+counter hash, the write noise and the stuck mask on the global (row, col),
+the grid stream at ``offset + row·N + col``, the hw stream on the layer's
+tile grid (an origin off that grid raises). So a block's update equals the
+same block of the whole leaf's. A conv-tap leaf's im2col entry takes no
+origin: the name rules replicate ``conv_w``.
+
 Dense gradients (``opa_dense_update``, ``opa_device_update``) write in one
 kernel launch a layer block on CUDA planes: the gradient in, the rounding
 draw, the physics and the deposit in one pass, with no update tensor in
@@ -48,7 +59,7 @@ import torch
 from repro_torch.core.fixed_point import WRITE_NOISE_FOLD, check_rng_mode
 from repro_torch.core.prng import fold_in
 from repro_torch.core.slicing import SliceSpec
-from repro_torch.kernels.common import layer_views
+from repro_torch.kernels.common import hw_tiles, layer_views, whole
 from . import kernel as _k
 from . import ref as _ref
 
@@ -91,54 +102,77 @@ def opa_deposit(planes: torch.Tensor, p_q: torch.Tensor, spec: SliceSpec, *, stu
     return planes.copy_(new)
 
 
+def check_origin(origin, m: int, n: int, rng_mode: str | None):
+    """``origin`` completed for an ``[m, n]`` block (``common.whole``); under
+    the hw draw the block must sit on the layer's tile grid."""
+    o = whole(origin, m, n)
+    if rng_mode == "hw" and (o.row, o.col) != (0, 0):
+        bm, bn = hw_tiles(o.rows, o.cols)
+        if o.row % bm or o.col % bn or m % bm or n % bn:
+            raise ValueError(f"block [{m}, {n}] at ({o.row}, {o.col}) is off the hw draw's ({bm}, {bn}) tile grid "
+                             f"of its [{o.rows}, {o.cols}] layer")
+    return o
+
+
 def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float, frac_bits,
               spec: SliceSpec, *, key_words=None, rng_mode: str = "counter", offset: int = 0, device=None,
-              noise_words=None) -> torch.Tensor:
+              noise_words=None, origin=None) -> torch.Tensor:
     """One ``[S, M, N]`` block: ``planes <- deposit(planes, q(-lr · xᵀdh ·
-    2^F))``, in place; ``key_words``, ``rng_mode``, ``offset``, ``device``
-    and ``noise_words`` as in ``kernel.opa_fused``."""
+    2^F))``, in place; ``key_words``, ``rng_mode``, ``offset``, ``device``,
+    ``noise_words`` and ``origin`` (the block's place in its layer, None
+    the whole layer) as in ``kernel.opa_fused``."""
     device = _normalize_device(device)
     if key_words is not None:
         check_rng_mode(rng_mode, plain=not planes.is_cuda)
+    origin = check_origin(origin, *planes.shape[1:], rng_mode if key_words is not None else None)
     if planes.is_cuda:
         frac = torch.as_tensor(frac_bits, dtype=torch.int32, device=planes.device).reshape(1)
         return _k.opa_fused(planes, x.contiguous(), dh.contiguous(), lr, frac, spec=spec, key_words=key_words,
-                            rng_mode=rng_mode, offset=offset, dev=device, noise_words=noise_words)
+                            rng_mode=rng_mode, offset=offset, dev=device, noise_words=noise_words, origin=origin)
     if planes.device.type != "cpu":
         raise ValueError(f"no OPA implementation for device {planes.device}")
     return planes.copy_(_ref.opa_fused_ref(planes, x, dh, lr, frac_bits, spec, key_words, device, noise_words,
-                                           rng_mode=rng_mode, offset=offset))
+                                           rng_mode=rng_mode, offset=offset, origin=origin))
 
 
 def opa_fused_update(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float,
                      frac_bits, spec: SliceSpec, *, stochastic: bool = False, key=None,
-                     rng_mode: str = "counter", device=None) -> torch.Tensor:
+                     rng_mode: str = "counter", device=None, origin=None) -> torch.Tensor:
     """The PANTHER update from gradient operands: planes ``[S, *stack, M,
     N]``, x ``[*stack, T, M]``, dh ``[*stack, T, N]``; ``lr`` a host float;
     ``key`` a host key (``core.prng``); ``rng_mode`` the rounding draw
-    (module docstring); ``device`` a DeviceModel or None. In place; returns
-    ``planes``. The write noise applies under deterministic rounding too."""
+    (module docstring); ``device`` a DeviceModel or None; ``origin`` this
+    block's place in the leaf (module docstring; None the whole leaf). In
+    place; returns ``planes``. The write noise applies under deterministic
+    rounding too."""
     device = _normalize_device(device)
     _check_keys(device, stochastic, key, rng_mode, plain=not planes.is_cuda)
     stacked = planes.dim() > 3
-    M, N = planes.shape[-2:]
-    x3 = x.reshape(-1, x.shape[-2], M)
-    dh3 = dh.reshape(-1, dh.shape[-2], N)
+    m, n = planes.shape[-2:]
+    o = whole(origin, m, n)
+    x3 = x.reshape(-1, x.shape[-2], m)
+    dh3 = dh.reshape(-1, dh.shape[-2], n)
     dk = fold_in(key, WRITE_NOISE_FOLD) if device is not None and device.write_noise > 0.0 else None
     for l, block in enumerate(layer_views(planes)):
-        words, offset = _ref.layer_rounding(key if stochastic else None, l, stacked, rng_mode, M, N)
+        gl = o.layer(l)
+        words, offset = _ref.layer_rounding(key if stochastic else None, gl, stacked, rng_mode, o.rows, o.cols)
         opa_fused(block, x3[l], dh3[l], lr, frac_bits, spec, key_words=words, rng_mode=rng_mode, offset=offset,
-                  device=device, noise_words=_ref.layer_key_words(dk, l, stacked))
+                  device=device, noise_words=_ref.layer_key_words(dk, gl, stacked), origin=o)
     return planes
 
 
 def opa_im2col_update(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float, frac_bits,
                       spec: SliceSpec, *, stochastic: bool = False, key=None, rng_mode: str = "counter",
-                      device=None) -> torch.Tensor:
+                      device=None, origin=None) -> torch.Tensor:
     """The PANTHER update of a conv-tap leaf from its im2col operands
     (module docstring): planes ``[S, *lead, K, C]``, x ``[*lead, C, T,
     K]``, dh ``[*lead, C, T, 1]``; ``lr``, ``key``, ``rng_mode`` and
-    ``device`` as in ``opa_fused_update``. In place; returns ``planes``."""
+    ``device`` as in ``opa_fused_update``. A block of the leaf (``origin``
+    set) raises: the name rules replicate ``conv_w``. In place; returns
+    ``planes``."""
+    if origin is not None:
+        raise NotImplementedError("a block of a conv-tap leaf (a plan hint or FSDP sharding conv_w): the im2col "
+                                  "update takes whole leaves only")
     device = _normalize_device(device)
     _check_keys(device, stochastic, key, rng_mode, plain=not planes.is_cuda)
     if not planes.is_cuda and planes.device.type != "cpu":
@@ -181,7 +215,8 @@ def im2col_tiles(block: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: flo
 
 
 def opa_dense_update(planes: torch.Tensor, g: torch.Tensor, lr: float, frac_bits, spec: SliceSpec, *,
-                     stochastic: bool = False, key=None, rng_mode: str = "counter", device=None) -> torch.Tensor:
+                     stochastic: bool = False, key=None, rng_mode: str = "counter", device=None,
+                     origin=None) -> torch.Tensor:
     """The PANTHER update from a dense gradient: planes ``[S, *stack, M,
     N]``, g ``[*stack, M, N]``; ``lr`` a host float; ``key`` a host key;
     ``rng_mode`` the rounding draw, ``"counter"`` or ``"grid"`` (``"hw"``
@@ -190,32 +225,37 @@ def opa_dense_update(planes: torch.Tensor, g: torch.Tensor, lr: float, frac_bits
     ``opa_deposit(planes, quantize(-lr · g, F, stochastic, key,
     rng_mode))``, with them its ``opa_device_update``. On CUDA planes one
     ``opa_dense`` launch a layer block (f32 and bf16 gradients read as they
-    are, other dtypes widened to f32 first). In place; returns ``planes``."""
+    are, other dtypes widened to f32 first). ``origin``: this block's place
+    in the leaf (module docstring; None the whole leaf). In place; returns
+    ``planes``."""
     device = _normalize_device(device)
     _check_keys(device, stochastic, key, rng_mode, plain=True)
     stacked = planes.dim() > 3
-    M, N = planes.shape[-2:]
+    m, n = planes.shape[-2:]
+    o = whole(origin, m, n)
     if g.dtype not in (torch.float32, torch.bfloat16):
         g = g.to(torch.float32)
-    g3 = g.reshape(-1, M, N)
+    g3 = g.reshape(-1, m, n)
     dk = fold_in(key, WRITE_NOISE_FOLD) if device is not None and device.write_noise > 0.0 else None
     if not planes.is_cuda and planes.device.type != "cpu":
         raise ValueError(f"no OPA implementation for device {planes.device}")
     frac = torch.as_tensor(frac_bits, dtype=torch.int32, device=planes.device).reshape(1)
     for l, block in enumerate(layer_views(planes)):
-        words, offset = _ref.layer_rounding(key if stochastic else None, l, stacked, rng_mode, M, N)
-        noise_words = _ref.layer_key_words(dk, l, stacked)
+        gl = o.layer(l)
+        words, offset = _ref.layer_rounding(key if stochastic else None, gl, stacked, rng_mode, o.rows, o.cols)
+        noise_words = _ref.layer_key_words(dk, gl, stacked)
         if planes.is_cuda:
             _k.opa_dense(block, g3[l].contiguous(), lr, frac, spec=spec, key_words=words, rng_mode=rng_mode,
-                         offset=offset, dev=device, noise_words=noise_words)
+                         offset=offset, dev=device, noise_words=noise_words, origin=o)
         else:
             block.copy_(_ref.opa_dense_ref(block, g3[l], lr, frac_bits, spec, words, device, noise_words,
-                                           rng_mode=rng_mode, offset=offset))
+                                           rng_mode=rng_mode, offset=offset, origin=o))
     return planes
 
 
 def opa_device_update(planes: torch.Tensor, g: torch.Tensor, lr: float, frac_bits, spec: SliceSpec, *,
-                      device, stochastic: bool = False, key=None, rng_mode: str = "counter") -> torch.Tensor:
+                      device, stochastic: bool = False, key=None, rng_mode: str = "counter",
+                      origin=None) -> torch.Tensor:
     """The dense-gradient update under a write-nonideal ``device``: the
     physics of ``opa_fused_update`` (asymmetry, write noise, rounding,
     deposit, stuck mask) on a materialized gradient ``g`` ``[*stack, M,
@@ -225,4 +265,4 @@ def opa_device_update(planes: torch.Tensor, g: torch.Tensor, lr: float, frac_bit
     if not device.writes_nonideal():
         raise ValueError("opa_device_update takes a write-nonideal DeviceModel")
     return opa_dense_update(planes, g, lr, frac_bits, spec, stochastic=stochastic, key=key, rng_mode=rng_mode,
-                            device=device)
+                            device=device, origin=origin)

@@ -17,6 +17,13 @@ as in the reference's source and its jnp oracle. ``opa_dense_ref`` is the
 dense write's (the reference's ``quantize`` and ``opa_deposit``, or its
 ``opa_device_update``) on one block. The CPU tests run these versions, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
+
+Every draw is a function of the cell's global (row, col) in its leaf's
+``[M, N]`` layer. A block of a layer (one rank's block on a mesh) takes its
+``kernels.common.Origin``: its cells draw at ``(origin.row + r, origin.col
++ c)``, the ``"grid"`` stream at ``offset + row·origin.cols + col``, the
+``"hw"`` stream on the layer's tile grid, so the block's update equals the
+same block of the whole layer's.
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ from repro_torch.core.fixed_point import (
 from repro_torch.core.opa import opa_batched
 from repro_torch.core.prng import counter_key_scalars, fold_in, uniform
 from repro_torch.core.slicing import SliceSpec
-from repro_torch.kernels.common import hw_tiles
+from repro_torch.kernels.common import hw_tiles, whole
 
 _MASK = 0xFFFFFFFF
 
@@ -57,9 +64,9 @@ def _f32(v) -> float:
     return float(np.float32(v))
 
 
-def _coords(r0: int, rows: int, cols: int, device):
+def _coords(r0: int, rows: int, cols: int, device, c0: int = 0):
     r = torch.arange(r0, r0 + rows, dtype=torch.int32, device=device)[:, None]
-    c = torch.arange(cols, dtype=torch.int32, device=device)[None, :]
+    c = torch.arange(c0, c0 + cols, dtype=torch.int32, device=device)[None, :]
     return r, c
 
 
@@ -86,50 +93,60 @@ def philox4x32_10(ctr: tuple, k0, k1) -> tuple:
     return c0, c1, c2, c3
 
 
-def hw_uniform_ref(k0: int, k1: int, M: int, N: int, device=None) -> torch.Tensor:
+def hw_uniform_ref(k0: int, k1: int, M: int, N: int, device=None, *, r0: int = 0, rows: int | None = None,
+                   c0: int = 0, cols: int | None = None) -> torch.Tensor:
     """The ``"hw"`` draw of an ``[M, N]`` block under the int32 key words
     ``(k0, k1)``, f32 ``[M, N]``: tile ``tid = (r // bm)·(N // bn) + c // bn``
     (``hw_tiles``) seeds Philox4x32-10 with key ``(fmix32(k0 ^ fmix32(k1 ^
     tid)), 0)``; the in-tile cell ``e = (r % bm)·bn + c % bn`` takes word
     ``e % 4`` of counter ``(e // 4, 0, 0, 0)``, as ``(word >> 8) · 2^-24``.
-    ``hw_u01`` of ``counter.cuh``, bit for bit."""
+    ``hw_u01`` of ``counter.cuh``, bit for bit. ``r0``/``rows`` and
+    ``c0``/``cols`` pick a block of the layer (default the whole)."""
     bm, bn = hw_tiles(M, N)
-    r = torch.arange(M, dtype=torch.int32, device=device)[:, None]
-    c = torch.arange(N, dtype=torch.int32, device=device)[None, :]
+    rows = M - r0 if rows is None else rows
+    cols = N - c0 if cols is None else cols
+    r, c = _coords(r0, rows, cols, device, c0)
     tid = (r // bm) * (N // bn) + c // bn
     seed = _fmix32(k0 ^ _fmix32(tid ^ k1)).to(torch.int64) & _MASK
     e = ((r % bm) * bn + c % bn).to(torch.int64)
     zero = torch.zeros_like(e)
     words = philox4x32_10((e >> 2, zero, zero, zero), seed, 0)
-    w = (e & 3).expand(M, N)
+    w = (e & 3).expand(rows, cols)
     word = torch.where(w == 0, words[0], torch.where(w == 1, words[1], torch.where(w == 2, words[2], words[3])))
     return (word >> 8).to(torch.float32) * _U24
 
 
 def rounding_u(key_words, rng_mode: str, r0: int, rows: int, N: int, *, offset: int = 0, M=None,
-               device=None) -> torch.Tensor:
-    """The U[0, 1) rounding draw of rows ``r0..r0 + rows`` of an ``[M, N]``
-    block (``M`` defaults to ``r0 + rows``) under the int32 key words:
-    ``"counter"`` the hash at (row, col); ``"grid"`` ``jax.random.uniform``'s
-    stream at flat index ``offset + row·N + col`` (``offset`` the block's
-    first element in its leaf); ``"hw"`` ``hw_uniform_ref``'s tile stream."""
+               device=None, c0: int = 0, ld: int | None = None) -> torch.Tensor:
+    """The U[0, 1) rounding draw of the ``[rows, N]`` cells at rows ``r0..``
+    and columns ``c0..`` of an ``[M, ld]`` layer (``M`` defaults to ``r0 +
+    rows``, ``ld`` to ``c0 + N``) under the int32 key words: ``"counter"``
+    the hash at (row, col); ``"grid"`` ``jax.random.uniform``'s stream at
+    flat index ``offset + row·ld + col`` (``offset`` the layer's first
+    element in its leaf); ``"hw"`` ``hw_uniform_ref``'s tile stream."""
+    ld = c0 + N if ld is None else ld
     if check_rng_mode(rng_mode, plain=False) == "hw":
-        return hw_uniform_ref(*key_words, r0 + rows if M is None else M, N, device)[r0:r0 + rows]
+        return hw_uniform_ref(*key_words, r0 + rows if M is None else M, ld, device, r0=r0, rows=rows, c0=c0,
+                              cols=N)
     if rng_mode == "grid":
-        return uniform(key_words, (rows, N), offset=offset + r0 * N, device=device)
-    r, c = _coords(r0, rows, N, device)
+        if ld == N:
+            return uniform(key_words, (rows, N), offset=offset + r0 * N, device=device)
+        span = uniform(key_words, ((rows - 1) * ld + N,), offset=offset + r0 * ld + c0, device=device)
+        return span.as_strided((rows, N), (ld, 1)).clone()
+    r, c = _coords(r0, rows, N, device, c0)
     return counter_u01(r, c, *key_words)
 
 
 def write_rows(y: torch.Tensor, device, r0: int = 0, noise_words=None, key_words=None, *,
-               rng_mode: str = "counter", offset: int = 0, M=None) -> torch.Tensor:
-    """The update's finalize before the deposit, on rows ``r0..`` of one
-    ``[M, N]`` block: ``y`` f32 ``[rows, N]`` the grid-scaled increment;
-    ``device`` a DeviceModel or None; ``noise_words`` / ``key_words`` the
-    int32 key words of the write noise / the rounding draw (None: no noise /
-    round half to even), the draw ``rounding_u``'s of ``rng_mode``,
-    ``offset`` and ``M`` -> int32 ``[rows, N]``."""
-    r, c = _coords(r0, *y.shape, y.device)
+               rng_mode: str = "counter", offset: int = 0, M=None, c0: int = 0, ld: int | None = None) -> torch.Tensor:
+    """The update's finalize before the deposit, on the cells at rows
+    ``r0..`` and columns ``c0..`` of an ``[M, ld]`` layer: ``y`` f32 ``[rows,
+    N]`` the grid-scaled increment; ``device`` a DeviceModel or None;
+    ``noise_words`` / ``key_words`` the int32 key words of the write noise /
+    the rounding draw (None: no noise / round half to even), the draw
+    ``rounding_u``'s of ``rng_mode``, ``offset``, ``M`` and ``ld`` -> int32
+    ``[rows, N]``."""
+    r, c = _coords(r0, *y.shape, y.device, c0)
     if device is not None and (device.asym_up != 1.0 or device.asym_down != 1.0):
         y = torch.where(y >= 0.0, y * _f32(device.asym_up), y * _f32(device.asym_down))
     if device is not None and device.write_noise > 0.0:
@@ -137,29 +154,32 @@ def write_rows(y: torch.Tensor, device, r0: int = 0, noise_words=None, key_words
             raise ValueError("DeviceModel.write_noise requires a PRNG key")
         y = y + counter_gauss(r, c, *noise_words) * _f32(device.write_noise)
     if key_words is not None:
-        y = torch.floor(y + rounding_u(key_words, rng_mode, r0, *y.shape, offset=offset, M=M, device=y.device))
+        y = torch.floor(y + rounding_u(key_words, rng_mode, r0, *y.shape, offset=offset, M=M, device=y.device,
+                                       c0=c0, ld=ld))
     else:
         y = torch.round(y)
     lim = float(2**31 - 1)
     return _f32_to_i32(torch.clamp(y, -lim, lim))
 
 
-def stuck_rows(device, spec: SliceSpec, r0: int, rows: int, cols: int, on=None) -> torch.Tensor:
-    """The frozen per-slice stuck-cell mask of rows ``r0..`` of an ``[M,
-    N]`` block: bool ``[S, rows, cols]``, slice ``s`` keyed by
-    ``device_pattern_words(stuck_seed, s)``, on torch device ``on``. The
-    same on every layer."""
-    r, c = _coords(r0, rows, cols, on)
+def stuck_rows(device, spec: SliceSpec, r0: int, rows: int, cols: int, on=None, c0: int = 0) -> torch.Tensor:
+    """The frozen per-slice stuck-cell mask of the cells at rows ``r0..``
+    and columns ``c0..`` of a layer: bool ``[S, rows, cols]``, slice ``s``
+    keyed by ``device_pattern_words(stuck_seed, s)``, on torch device
+    ``on``. The same on every layer."""
+    r, c = _coords(r0, rows, cols, on, c0)
     frac = _f32(device.stuck_frac)
     return torch.stack([counter_u01(r, c, *device_pattern_words(device.stuck_seed, s)) < frac
                         for s in range(spec.n_slices)])
 
 
-def stuck_bits_ref(device, spec: SliceSpec, rows: int, cols: int, on=None) -> torch.Tensor:
-    """The stuck-cell mask of an ``[rows, cols]`` block packed a byte a
-    cell, bit ``s`` set where slice ``s`` is stuck: the mask K1's tensor-core
-    body caches (``kernel._STUCK_BITS``). uint8 ``[rows, cols]``."""
-    mask = stuck_rows(device, spec, 0, rows, cols, on)
+def stuck_bits_ref(device, spec: SliceSpec, rows: int, cols: int, on=None, *, r0: int = 0,
+                   c0: int = 0) -> torch.Tensor:
+    """The stuck-cell mask of an ``[rows, cols]`` block at ``(r0, c0)``
+    packed a byte a cell, bit ``s`` set where slice ``s`` is stuck: the mask
+    K1's tensor-core body caches (``kernel._STUCK_BITS``). uint8 ``[rows,
+    cols]``."""
+    mask = stuck_rows(device, spec, r0, rows, cols, on, c0)
     bits = torch.zeros((rows, cols), dtype=torch.int32, device=mask.device)
     for s in range(spec.n_slices):
         bits |= mask[s].to(torch.int32) << s
@@ -225,19 +245,23 @@ def write_device(y: torch.Tensor, device, *, key, stochastic: bool, rng_mode: st
 
 
 def opa_fused_ref(planes, x, dh, lr, frac_bits, spec: SliceSpec, key_words=None, device=None,
-                  noise_words=None, *, rng_mode: str = "counter", offset: int = 0):
+                  noise_words=None, *, rng_mode: str = "counter", offset: int = 0, origin=None):
     """planes int8 [S, M, N]; x [T, M] and dh [T, N] (any float dtype);
     ``lr`` a host float; ``frac_bits`` the weight grid exponent F;
     ``key_words`` None (round half to even) or two int32 Python ints, the
-    key of the ``rng_mode`` draw (``rounding_u``; ``offset`` the block's
+    key of the ``rng_mode`` draw (``rounding_u``; ``offset`` the layer's
     flat offset in its leaf under ``"grid"``); ``device`` a write-nonideal
-    DeviceModel or None, with ``noise_words`` the write-noise key words ->
-    new int8 planes [S, M, N]."""
+    DeviceModel or None, with ``noise_words`` the write-noise key words;
+    ``origin`` the block's ``Origin`` in its layer (None: the whole layer)
+    -> new int8 planes [S, M, N]."""
     acc = x.to(torch.float32).T @ dh.to(torch.float32)
+    o = whole(origin, *acc.shape)
     scale = exp2i(torch.as_tensor(frac_bits, dtype=torch.int32)).to(acc.device) * -_lr32(lr)
-    p_q = write_rows(acc * scale, device, 0, noise_words, key_words, rng_mode=rng_mode, offset=offset)
+    p_q = write_rows(acc * scale, device, o.row, noise_words, key_words, rng_mode=rng_mode, offset=offset,
+                     M=o.rows, c0=o.col, ld=o.cols)
     if device is not None and device.stuck_frac > 0.0:
-        return deposit_keep_ref(planes, p_q, stuck_bits_ref(device, spec, *acc.shape, acc.device), spec)
+        bits = stuck_bits_ref(device, spec, *acc.shape, acc.device, r0=o.row, c0=o.col)
+        return deposit_keep_ref(planes, p_q, bits, spec)
     return opa_batched(planes, p_q, spec)
 
 
@@ -274,21 +298,23 @@ def dense_increment(g: torch.Tensor, lr, frac_bits, device=None) -> torch.Tensor
 
 
 def opa_dense_ref(planes, g, lr, frac_bits, spec: SliceSpec, key_words=None, device=None, noise_words=None, *,
-                  rng_mode: str = "counter", offset: int = 0, r0: int = 0):
+                  rng_mode: str = "counter", offset: int = 0, r0: int = 0, origin=None):
     """The dense write of rows ``r0..`` of one ``[M, N]`` block: planes int8
     ``[S, rows, N]``, g ``[rows, N]`` (any float dtype); ``lr`` a host
     float; ``frac_bits`` F; ``key_words`` None (round half to even) or the
     int32 words of the ``rng_mode`` draw (``"counter"``, or ``"grid"`` at
-    flat offset ``offset``); ``device`` a write-nonideal DeviceModel or
-    None, ``noise_words`` its write-noise key words -> new int8 planes: the
-    finalize (``write_rows`` of ``dense_increment``), the deposit and, on a
-    device with stuck cells, the stuck mask. ``kernel.opa_dense``'s plain
-    version."""
+    flat offset ``offset`` of the layer); ``device`` a write-nonideal
+    DeviceModel or None, ``noise_words`` its write-noise key words;
+    ``origin`` the block's ``Origin`` in its layer (None: the block is the
+    whole layer) -> new int8 planes: the finalize (``write_rows`` of
+    ``dense_increment``), the deposit and, on a device with stuck cells, the
+    stuck mask. ``kernel.opa_dense``'s plain version."""
     y = dense_increment(g, lr, frac_bits, device)
-    p_q = write_rows(y, device, r0, noise_words, key_words, rng_mode=rng_mode, offset=offset)
+    row0, col0, ld = (0, 0, None) if origin is None else (origin.row, origin.col, origin.cols)
+    p_q = write_rows(y, device, row0 + r0, noise_words, key_words, rng_mode=rng_mode, offset=offset, c0=col0, ld=ld)
     new = opa_batched(planes, p_q, spec)
     if device is not None and device.stuck_frac > 0.0:
-        new = torch.where(stuck_rows(device, spec, r0, *y.shape, y.device), planes, new)
+        new = torch.where(stuck_rows(device, spec, row0 + r0, *y.shape, y.device, col0), planes, new)
     return new
 
 

@@ -18,7 +18,15 @@ the reference's format, with the resolved plan in every manifest): it
 restores the newest commit at start, saves every ``--ckpt-every`` steps and
 once at the end. A resumed run continues at the step after the one its
 checkpoint holds (``rstep + 1``, the state's own count), so it equals the
-run that was never interrupted. Meshes are not ported: ``--mesh`` raises.
+run that was never interrupted.
+
+``--mesh debug`` trains on the reference's 2x2 ``(data, model)`` debug mesh
+(``launch.mesh``), one process a mesh coordinate: run alone, the launcher
+spawns the four processes itself (as the reference forces four host
+devices) and returns rank 0's metrics; under ``torchrun --nproc-per-node 4``
+it joins the world it is given. The backend is chosen by
+``launch.mesh.backend_for`` and printed; on ``--device cuda`` with fewer
+cards than ranks the ranks share a card over gloo. Rank 0 prints.
 """
 from __future__ import annotations
 
@@ -47,7 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=20)
-    ap.add_argument("--mesh", default="none", help="not ported: anything but 'none' raises")
+    ap.add_argument("--mesh", default="none", choices=["none", "debug"],
+                    help="debug: the 2x2 (data, model) mesh, one process a coordinate")
     return ap
 
 
@@ -60,19 +69,29 @@ def main(argv=None) -> list:
     and ``time_s``, the host clock at the end of the step since the loop
     began: a device sync only where the step logs)."""
     args = build_parser().parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError("meshes are not ported yet (--mesh)")
+    mesh = None
+    if args.mesh == "debug":
+        import torch.distributed as dist
+
+        from repro_torch.launch import mesh as M
+
+        if not dist.is_initialized() and "RANK" not in os.environ:  # alone: start the 2x2 world
+            return M.spawn(_mesh_main, 4, args=(argv,), timeout=None)[0]
+        M.init_world(args.device)
+        mesh = M.make_debug_mesh()
+    rank0 = mesh is None or all(c == 0 for c in mesh.coordinate.values())
 
     from repro_torch import configs
     from repro_torch import plan as planlib
     from repro_torch.checkpoint import CheckpointManager, list_checkpoints, save_checkpoint
     from repro_torch.data import FrameStub, SyntheticLMDataset
     from repro_torch.device import resolve
+    from repro_torch.train.step import shard_state
     from repro_torch.optim import PantherConfig
     from repro_torch.optim.schedules import constant, cosine, wsd
     from repro_torch.train.step import make_train_step, param_shapes, train_state_init
 
-    device = resolve(args.device)
+    device = resolve(args.device) if mesh is None else mesh.device
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
     sched = {
         "constant": lambda: constant(args.lr),
@@ -93,8 +112,13 @@ def main(argv=None) -> list:
     def batch_of(step):
         b = ds.batch(step)
         return b if frames is None else {**b, "inputs": frames(b["inputs"])}
-    step_fn = make_train_step(cfg, opt_cfg, sched, plan_rules=rules)
+    step_fn = make_train_step(cfg, opt_cfg, sched, plan_rules=rules, mesh=mesh,
+                              global_batch=args.batch if mesh is not None else None)
     state = train_state_init(cfg, opt_cfg, 0, device=device)
+    specs = None
+    if mesh is not None:
+        specs = step_fn.specs
+        state = shard_state(state, specs, mesh)
 
     ckpt, start = None, 0
     if args.ckpt_dir:
@@ -102,21 +126,22 @@ def main(argv=None) -> list:
         # layout or write physics fails instead of misreading the planes
         plan = planlib.resolve_plan(param_shapes(state.digital, state.sliced),
                                     rules if rules is not None else planlib.default_rules(opt_cfg))
-        ckpt = CheckpointManager(args.ckpt_dir, every=args.ckpt_every, plan=plan)
+        ckpt = CheckpointManager(args.ckpt_dir, every=args.ckpt_every, plan=plan, mesh=mesh, specs=specs)
         t0 = time.perf_counter()
         restored, rstep = ckpt.restore(state)
         if restored is not None:
             state, start = restored, rstep + 1
             _sync(device)
-            print(f"checkpoint: restored step {rstep} from {args.ckpt_dir} in {time.perf_counter() - t0:.3f} s")
-            print(f"resumed from step {rstep}", flush=True)
+            if rank0:
+                print(f"checkpoint: restored step {rstep} from {args.ckpt_dir} in {time.perf_counter() - t0:.3f} s")
+                print(f"resumed from step {rstep}", flush=True)
 
     def save(step, fn):
         if step in list_checkpoints(ckpt.directory):  # a re-save keeps the first commit
             return
         t0 = time.perf_counter()
         path = fn(step)
-        if path is not None:
+        if path is not None and rank0:
             print(f"checkpoint: step {step}: {_dir_bytes(path)} bytes in {path} "
                   f"({time.perf_counter() - t0:.3f} s)", flush=True)
 
@@ -124,7 +149,7 @@ def main(argv=None) -> list:
     t0 = time.perf_counter()
     for step in range(start, args.steps):
         state, metrics = step_fn(state, batch_of(step))
-        if step % args.log_every == 0 or step == args.steps - 1:  # the only device syncs
+        if rank0 and (step % args.log_every == 0 or step == args.steps - 1):  # the only device syncs
             aux = f" aux {float(metrics['aux']):.4f}" if cfg.moe is not None else ""
             print(f"step {step:5d} loss {float(metrics['loss']):.4f}{aux} lr {metrics['lr']:.2e} "
                   f"gnorm {float(metrics['grad_norm']):.3f} ({time.perf_counter() - t0:.1f}s)", flush=True)
@@ -132,9 +157,16 @@ def main(argv=None) -> list:
         if ckpt:
             save(step, lambda s: ckpt.maybe_save(s, state))
     if ckpt:
-        save(args.steps - 1, lambda s: save_checkpoint(ckpt.directory, s, state, ckpt.keep_last, plan=ckpt.plan))
-    print("done")
+        save(args.steps - 1, lambda s: save_checkpoint(ckpt.directory, s, state, ckpt.keep_last, plan=ckpt.plan,
+                                                       mesh=mesh, specs=specs))
+    if rank0:
+        print("done")
     return [{k: float(v) for k, v in m.items()} for m in history]
+
+
+def _mesh_main(rank: int, argv):
+    """One rank of the spawned ``--mesh debug`` world."""
+    return main(argv)
 
 
 def _sync(device) -> None:

@@ -201,7 +201,10 @@ class FidelityConfig:
     ``adc_bits_fwd``/``adc_bits_bwd`` ADC resolution per read direction
     (``None`` = ideal ADC), ``fwd``/``bwd`` gates (a disabled path takes the
     dense matmul), ``spec`` the plane layout, ``margin_bits`` DAC headroom,
-    ``device`` the non-ideal physics (None = ideal)."""
+    ``device`` the non-ideal physics (None = ideal), ``shard_dim`` the
+    matrix dim of the dense ``[M, N]`` weight the mesh's 'model' axis
+    shards for reads on a mesh (0 rows, 1 columns, None replicated;
+    ``plan.attach_fidelity_shard_dims`` sets it)."""
 
     io_bits: int = 16
     adc_bits_fwd: int | None = None
@@ -215,6 +218,7 @@ class FidelityConfig:
     # FidelityConfig | None), ...)`` segments over the expert axis in order,
     # None reading at this config; None = every expert at this config
     expert_groups: tuple | None = None
+    shard_dim: int | None = None
 
     def group_slices(self, n_experts: int):
         """``(start, stop, fid)`` per expert segment, covering ``[0,
@@ -280,6 +284,20 @@ class XbarWeight:
     def put(self, x: torch.Tensor, dh: torch.Tensor) -> None:
         """The backward's operands into this wrap's slot entry."""
         self.slot.put(self.index, x, dh)
+
+
+class LayerStack:
+    """A stacked leaf whose layers are made at use: ``stack[i]`` is
+    ``make(i)``. On a mesh, a sharded dense weight is all-gathered one layer
+    at a time this way (``train.step``), as ``lm.layer`` picks it."""
+
+    __slots__ = ("make",)
+
+    def __init__(self, make):
+        self.make = make
+
+    def __getitem__(self, i):
+        return self.make(i)
 
 
 def path_str(path) -> str:
@@ -476,13 +494,13 @@ def _dwconv_fidelity_read(planes: torch.Tensor, frac_bits, v: torch.Tensor, fid,
     intermediate of a cycle, not of all of them). With ``adc_bits=None``
     both directions are exact in f32. -> f32 ``[B, L, C]`` or ``[B, L + K -
     1, C]``."""
-    from repro_torch.core.fixed_point import choose_frac_bits, exp2i, quantize
-    from repro_torch.core.mvm import _adc, bit_planes, shift_add_scales
+    from repro_torch.core.fixed_point import exp2i, quantize
+    from repro_torch.core.mvm import _adc, bit_planes, dac_frac_bits, shift_add_scales
     from repro_torch.core.slicing import LOGICAL_BITS
 
     spec = fid.spec
     adc_bits = fid.adc_bits_bwd if transpose else fid.adc_bits_fwd
-    xf = choose_frac_bits(v, word_bits=fid.io_bits, margin_bits=fid.margin_bits, clip_to_word=False)
+    xf = dac_frac_bits(v, fid)
     v_q = quantize(v, xf, fid.io_bits)
     w = planes.to(torch.float32)  # [S, K, C]
     K = planes.shape[-2]

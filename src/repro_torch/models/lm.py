@@ -43,6 +43,7 @@ from . import attention as att
 from . import mamba2 as m2
 from . import xlstm as xl
 from .common import (
+    LayerStack,
     LMConfig,
     ShapeDtype,
     XbarWeight,
@@ -402,7 +403,7 @@ BLOCKS: dict[str, BlockDef] = {
 def layer(group, i: int):
     """Layer ``i``'s params out of a stacked group (views, no copies)."""
     def pick(x):
-        return x[i] if isinstance(x, (torch.Tensor, XbarWeight)) else x
+        return x[i] if isinstance(x, (torch.Tensor, XbarWeight, LayerStack)) else x
 
     return tree.map(pick, group)
 

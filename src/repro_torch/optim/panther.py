@@ -245,11 +245,24 @@ def operandize(params, sliced, plan, expert_tokens: int | None = None, tokens: i
 def global_grad_norm(grads) -> torch.Tensor:
     """Global L2 norm of a mixed dense/operand gradient tree, in the
     reference's leaf order; operand leaves by the Gram identity."""
+    return torch.sqrt(grad_sq_norm(grads))
+
+
+def grad_sq_norm(grads, keep=None) -> torch.Tensor:
+    """The squared L2 norm of a gradient tree, summed in the reference's
+    leaf order over the leaves whose path ``keep`` accepts (every leaf
+    without it); an f32 zero when it accepts none."""
+    leaves = tree.leaves_sorted(grads)
     total = None
-    for _, g in tree.leaves_sorted(grads):
+    for path, g in leaves:
+        if keep is not None and not keep(path):
+            continue
         t = g.sq_norm() if isinstance(g, OuterProductGrad) else torch.sum(g.to(torch.float32) ** 2)
         total = t if total is None else total + t
-    return torch.sqrt(total)
+    if total is None:
+        g = leaves[0][1]
+        total = torch.zeros((), dtype=torch.float32, device=(g.x if isinstance(g, OuterProductGrad) else g).device)
+    return total
 
 
 def _leaf_device(pl):
@@ -260,7 +273,7 @@ def _leaf_device(pl):
 
 
 def update_split(grads, digital, sliced, step: int, lr: float, cfg: PantherConfig = PantherConfig(),
-                 rng=None, plan=None):
+                 rng=None, plan=None, origins=None):
     """One OPA step on the split state. Returns ``(digital', sliced)``: the
     sliced leaves' planes are updated in place (the same tree comes back),
     the digital leaves are new tensors.
@@ -277,7 +290,10 @@ def update_split(grads, digital, sliced, step: int, lr: float, cfg: PantherConfi
     its physics (operand leaves in K1, dense leaves in K2's device
     instance). CRS runs on every mapped leaf when ``step %
     crs_every == crs_every - 1``: a host branch; as in the reference, it
-    does not hold stuck cells."""
+    does not hold stuck cells. ``origins`` (path -> ``kernels.common.Origin``,
+    on a mesh): where each mapped leaf's planes sit in the whole leaf, so
+    that a rank's block draws as that block of the whole update does; a
+    leaf not in it is whole."""
     if cfg.momentum > 0:
         raise NotImplementedError("update_split takes no momentum: digital-VFU momentum and Tiki-Taka "
                                   "live in panther.update (PantherState)")
@@ -287,6 +303,7 @@ def update_split(grads, digital, sliced, step: int, lr: float, cfg: PantherConfi
     d_at = dict(tree.leaves_with_path(digital))
     s_at = dict(tree.leaves_with_path(sliced))
     pl_at = dict(tree.leaves_with_path(plan)) if plan is not None else {}
+    origins = origins or {}
     new_d = {}
     for i, (path, g) in enumerate(tree.leaves_sorted(grads)):
         s = s_at[path]
@@ -296,18 +313,20 @@ def update_split(grads, digital, sliced, step: int, lr: float, cfg: PantherConfi
             d = d_at[path]
             new_d[path] = (d - lr32 * g.to(d.dtype)).to(d.dtype)
             continue
-        _write_leaf(s, g, lr32, prng.fold_in(base, i), pl_at.get(path), cfg, do_crs)
+        _write_leaf(s, g, lr32, prng.fold_in(base, i), pl_at.get(path), cfg, do_crs, origins.get(path))
     return tree.map_with_path(lambda path, d: new_d.get(path, d), digital), sliced
 
 
-def _write_leaf(s: SlicedTensor, g, lr32: float, key: tuple, pl, cfg: PantherConfig, do_crs: bool) -> None:
+def _write_leaf(s: SlicedTensor, g, lr32: float, key: tuple, pl, cfg: PantherConfig, do_crs: bool,
+                origin=None) -> None:
     """One mapped leaf's write, in place: operand gradients through the
     fused update (K1; a conv-tap leaf's im2col operands through its im2col
     entry), dense ones through the dense write (K2,
     ``opa_dense_update``: the quantize and the deposit, or on a
     write-nonideal device its physics, in one pass); then CRS (K3) when
     ``do_crs``. The "hw" draw exists only inside the fused kernel: dense
-    leaves then take the counter draw, as in the reference."""
+    leaves then take the counter draw, as in the reference. ``origin``:
+    the block's place in the whole leaf (None: the whole leaf)."""
     from repro_torch.kernels.crs import crs
     from repro_torch.kernels.sliced_opa import opa_dense_update, opa_fused_update, opa_im2col_update
 
@@ -315,13 +334,13 @@ def _write_leaf(s: SlicedTensor, g, lr32: float, key: tuple, pl, cfg: PantherCon
     dev = _leaf_device(pl)
     if isinstance(g, OuterProductGrad) and g.kind == "im2col":
         opa_im2col_update(s.planes, g.x, g.dh, lr32, s.frac_bits, spec, stochastic=cfg.stochastic_round, key=key,
-                          rng_mode=cfg.rng_mode, device=dev)
+                          rng_mode=cfg.rng_mode, device=dev, origin=origin)
     elif isinstance(g, OuterProductGrad):
         opa_fused_update(s.planes, g.x, g.dh, lr32, s.frac_bits, spec,
-                         stochastic=cfg.stochastic_round, key=key, rng_mode=cfg.rng_mode, device=dev)
+                         stochastic=cfg.stochastic_round, key=key, rng_mode=cfg.rng_mode, device=dev, origin=origin)
     else:
         opa_dense_update(s.planes, g, lr32, s.frac_bits, spec, stochastic=cfg.stochastic_round, key=key,
-                         rng_mode="counter" if cfg.rng_mode == "hw" else cfg.rng_mode, device=dev)
+                         rng_mode="counter" if cfg.rng_mode == "hw" else cfg.rng_mode, device=dev, origin=origin)
     if do_crs:
         crs(s.planes, spec)
 

@@ -28,8 +28,9 @@ plan in the reference's format, key for key, so each package reads the
 other's manifests; ``check_plan_compat`` refuses a restore whose stored
 planes were laid out or written under another plan.
 
-Not ported yet: shard hints (a manifest that sets one fails to load,
-``leaf_plan_from_dict``).
+``shard`` is a trailing-dims sharding hint overriding the name rules of
+``distributed.sharding``; ``attach_fidelity_shard_dims`` threads the mesh's
+tile split into each fidelity leaf's ``FidelityConfig.shard_dim``.
 """
 from __future__ import annotations
 
@@ -77,6 +78,7 @@ class LeafPlan:
     spec: SliceSpec = DEFAULT_SPEC
     grad: str = "dense"  # "operand" | "dense"
     fidelity: FidelityConfig | None = None
+    shard: tuple | None = None  # trailing-dims sharding hint (None: the name rules)
     group: str | None = None  # operand group kind: None (matmul) | "im2col" | "expert"
     expert_groups: tuple | None = None  # ((count, FidelityConfig | None), ...)
 
@@ -85,6 +87,8 @@ class LeafPlan:
             raise ValueError(f"LeafPlan.grad must be 'operand' or 'dense', got {self.grad!r}")
         if self.group not in GROUP_KINDS:
             raise ValueError(f"LeafPlan.group must be one of {GROUP_KINDS}, got {self.group!r}")
+        if self.shard is not None:
+            object.__setattr__(self, "shard", _tuplify(self.shard))
         if self.expert_groups is not None:
             object.__setattr__(self, "expert_groups", tuple((int(n), g) for n, g in self.expert_groups))
 
@@ -96,7 +100,7 @@ class LeafPlan:
         return "operand" if self.grad == "operand" else "dense"
 
 
-_OVERRIDE_FIELDS = ("mapped", "spec", "grad", "fidelity", "group", "expert_groups")
+_OVERRIDE_FIELDS = ("mapped", "spec", "grad", "fidelity", "shard", "group", "expert_groups")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +113,7 @@ class PlanRule:
     spec: Any = UNSET
     grad: Any = UNSET
     fidelity: Any = UNSET
+    shard: Any = UNSET
     group: Any = UNSET
     expert_groups: Any = UNSET
 
@@ -316,32 +321,75 @@ def plan_by_path(plan_tree) -> dict:
 
 
 def plan_summary(plan_tree) -> str:
-    """One line per distinct (category, spec, ADC) combination with its leaf
-    count, most frequent first: the reference's digest, line for line (the
-    port has no shard hints, so no ``shard=`` part)."""
+    """One line per distinct (category, spec, ADC, shard) combination with
+    its leaf count, most frequent first: the reference's digest, line for
+    line."""
     combos: dict[tuple, int] = {}
     for pl in plan_by_path(plan_tree).values():
         fid = pl.fidelity
         adc = None if fid is None else (fid.adc_bits_fwd, fid.adc_bits_bwd)
-        key = (pl.category, pl.spec.name() if pl.mapped else "-", adc)
+        key = (pl.category, pl.spec.name() if pl.mapped else "-", adc, pl.shard)
         combos[key] = combos.get(key, 0) + 1
     lines = []
-    for (cat, spec, adc), n in sorted(combos.items(), key=lambda kv: -kv[1]):
+    for (cat, spec, adc, shard), n in sorted(combos.items(), key=lambda kv: -kv[1]):
         extra = f" adc(fwd,bwd)={adc}" if adc is not None else ""
+        if shard is not None:
+            extra += f" shard={shard}"
         lines.append(f"  {n:4d} x {cat:8s} spec={spec}{extra}")
     return "\n".join(lines)
 
 
+# --------------------------- mesh (sharded fidelity) ------------------------
+
+
+def attach_fidelity_shard_dims(plan_tree, mesh, params=None):
+    """A copy of ``plan_tree`` whose fidelity leaves carry ``shard_dim``:
+    the matrix dim of the dense ``[M, N]`` weight the mesh's 'model' axis
+    shards (0 rows, 1 columns, None replicated), from the leaf's ``shard``
+    hint or the name rules. ``params`` (a tree mirroring ``plan_tree`` whose
+    leaves have a ``shape``) puts the hint through ``sanitize_spec``, as the
+    stored planes' specs are, so a relocated 'model' axis gives the dim the
+    planes really have. A None or model-less mesh returns the tree as it
+    is."""
+    if mesh is None:
+        return plan_tree
+    from repro_torch.distributed import sharding as shd  # lazy: sharding imports the models
+
+    if shd.MODEL not in mesh.axis_names or mesh.shape[shd.MODEL] <= 1:
+        return plan_tree
+    shapes = {} if params is None else {path_str(p): tuple(leaf.shape) for p, leaf in tree.leaves_sorted(params)}
+
+    def has_model(entry) -> bool:
+        return shd.MODEL in shd.axes_of(entry)
+
+    def one(path, pl: LeafPlan) -> LeafPlan:
+        if pl.fidelity is None:
+            return pl
+        ps = path_str(path)
+        shape = shapes.get(ps)
+        if shape is not None and len(shape) >= 2:
+            trailing = shd.sanitized_leaf_spec(ps, shape, mesh, hint=pl.shard)
+        else:
+            trailing = shd.trailing_spec(ps, hint=pl.shard)
+        sd = None
+        if len(trailing) >= 2:
+            sd = 0 if has_model(trailing[-2]) else (1 if has_model(trailing[-1]) else None)
+        if sd == pl.fidelity.shard_dim:
+            return pl
+        return dataclasses.replace(pl, fidelity=dataclasses.replace(pl.fidelity, shard_dim=sd))
+
+    return tree.map_with_path(one, plan_tree)
+
+
 # ----------------------- serialization (checkpoints) ------------------------
 #
-# The reference's manifest format. The port's LeafPlan has no ``shard`` and
-# its FidelityConfig no ``use_kernel``, ``interpret`` or ``shard_dim``: they
-# are written at the reference's defaults. On reading,
-# ``use_kernel``/``interpret`` (JAX runtime switches) are ignored, and a set
-# ``shard`` or ``shard_dim`` raises. Expert segments are ``[[count,
-# fidelity dict | None], ...]``, at the leaf and inside a fidelity.
+# The reference's manifest format. The port's FidelityConfig has no
+# ``use_kernel`` or ``interpret`` (JAX runtime switches): they are written at
+# the reference's defaults and ignored on reading. Shard hints are lists.
+# Expert segments are ``[[count, fidelity dict | None], ...]``, at the leaf
+# and inside a fidelity.
 
-_FIDELITY_DEFAULTS = {"use_kernel": None, "interpret": None, "shard_dim": None}
+_FIDELITY_DEFAULTS = {"use_kernel": None, "interpret": None}
 _FIDELITY_RUNTIME = ("use_kernel", "interpret")
 
 
@@ -365,14 +413,12 @@ def _fidelity_to_dict(fid: FidelityConfig) -> dict:
     return d
 
 
-def _unported(path, what: str):
-    raise NotImplementedError(f"plan manifest leaf {path!r}: {what} is not ported yet")
+def _tuplify(x):
+    return tuple(_tuplify(e) for e in x) if isinstance(x, (list, tuple)) else x
 
 
 def _fidelity_from_dict(d: dict, path=None) -> FidelityConfig:
     d = {k: v for k, v in d.items() if k not in _FIDELITY_RUNTIME}
-    if d.pop("shard_dim", None) is not None:
-        _unported(path, "fidelity.shard_dim")
     d["spec"] = SliceSpec(tuple(int(c) for c in d["spec"]))
     if d.get("device") is not None:
         d["device"] = DeviceModel(**d["device"])
@@ -388,7 +434,7 @@ def leaf_plan_to_dict(pl: LeafPlan) -> dict:
         "spec": pl.spec.name(),
         "grad": pl.grad,
         "fidelity": None if pl.fidelity is None else _fidelity_to_dict(pl.fidelity),
-        "shard": None,
+        "shard": None if pl.shard is None else [list(s) if isinstance(s, tuple) else s for s in pl.shard],
         "group": pl.group,
         "expert_groups": _expert_groups_to_list(pl.expert_groups),
     }
@@ -396,15 +442,13 @@ def leaf_plan_to_dict(pl: LeafPlan) -> dict:
 
 def leaf_plan_from_dict(d: dict, path=None) -> LeafPlan:
     """The inverse of ``leaf_plan_to_dict`` (reads the reference's
-    manifests too); a set ``shard`` raises ``NotImplementedError`` naming
-    ``path``."""
-    if d.get("shard") is not None:
-        _unported(path, "shard")
+    manifests too)."""
     return LeafPlan(
         mapped=bool(d["mapped"]),
         spec=SliceSpec(tuple(int(c) for c in d["spec"])),
         grad=d["grad"],
         fidelity=None if d.get("fidelity") is None else _fidelity_from_dict(d["fidelity"], path),
+        shard=None if d.get("shard") is None else _tuplify(d["shard"]),
         group=d.get("group"),
         expert_groups=_expert_groups_from_list(d.get("expert_groups"), path),
     )

@@ -39,8 +39,17 @@ depend on its neighbours.
 
 SLA tiers: an engine serves ONE param tree (e.g. a ``fidelity_params`` wrap
 at one ADC resolution); the scheduler composes engines over the same sliced
-planes on one shared clock (``serve.scheduler``). Single device: ``mesh=``
-raises.
+planes on one shared clock (``serve.scheduler``).
+
+On a mesh (``mesh=``, a live ``launch.mesh.Mesh`` with one data rank; the
+model axis any size): every rank runs the same schedule on the same tokens.
+Each page pool lives as this rank's block (``distributed.sharding.
+page_pool_spec``: TP on a trailing dim); an engine call gathers the pools
+it reads or writes, runs, and keeps its block of the result. The
+fidelity-wrapped leaves (``serve.step.fidelity_params(mesh=)``) read on
+this rank's crossbar tile block. The cost of a shape is calibrated on
+every rank (the calls hold collectives) and rank 0's is broadcast, so that
+every rank schedules alike. A mesh with ``data > 1`` raises.
 """
 from __future__ import annotations
 
@@ -52,6 +61,10 @@ import torch
 
 from repro_torch import tree
 from repro_torch.device import resolve
+from repro_torch.distributed import blocks
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed import fidelity as dist_fid
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import lm
 
 from . import kv_pages
@@ -88,15 +101,24 @@ class Engine:
             raise NotImplementedError(
                 "the serving engine feeds sampled token ids back; "
                 "embedding-front archs are not servable through it")
+        self.mesh, self._ctx, self._pool_specs, sharding_fn = mesh, None, None, None
         if mesh is not None:
-            raise NotImplementedError(
-                "the engine on a mesh (sharded page pools) is not ported yet: ROADMAP Queue 1 item 4")
+            if any(mesh.shape[a] > 1 for a in shd.batch_axes(mesh)):
+                raise NotImplementedError("the engine on a mesh with data > 1 (ROADMAP Queue 1, 'the mesh "
+                                          "beyond this slice'): serve with one data rank")
+            if not mesh.live:
+                raise ValueError("Engine(mesh=...) runs on a live mesh (launch.mesh.init_mesh)")
+            self._ctx = dist_fid.ctx_for(mesh, n_slots)
+            pool_spec_of = lambda lay, shape: shd.page_pool_spec(shape, mesh, 2 if lay.is_paged else 1)  # noqa: E731
+            sharding_fn = lambda lay, shape, dtype: blocks.block_shape(pool_spec_of(lay, shape), shape, mesh)  # noqa: E731
         self.device = resolve(device)
         self.cfg, self.params = cfg, params
         self.spec = kv_pages.pool_spec(n_slots, max_seq, page, num_pages)
         self.alloc = kv_pages.PageAllocator(self.spec)
         self.chunk_size = chunk_size
-        self.caches = kv_pages.make_paged_caches(cfg, self.spec, device=self.device)
+        if mesh is not None:
+            self._pool_specs = kv_pages.pool_map(pool_spec_of, cfg, self.spec)
+        self.caches = kv_pages.make_paged_caches(cfg, self.spec, device=self.device, sharding_fn=sharding_fn)
         self.tok = torch.zeros((n_slots,), dtype=torch.int64, device=self.device)
         self.pos = torch.zeros((n_slots,), dtype=torch.int64, device=self.device)
         self.active = np.zeros((n_slots,), bool)
@@ -107,12 +129,25 @@ class Engine:
     # ------------------------------ device fns ------------------------------
 
     def _prefill_fn(self, x):
-        with torch.no_grad():
+        with torch.no_grad(), dist_fid.use_sharded_fidelity(self._ctx):
             return lm.prefill(self.cfg, self.params, x)
 
     def _cont_fn(self, x, caches, start):
-        with torch.no_grad():
+        with torch.no_grad(), dist_fid.use_sharded_fidelity(self._ctx):
             return lm.prefill(self.cfg, self.params, x, caches=caches, start=start)
+
+    def _whole_pools(self):
+        """The page pools whole (gathered from every rank's block on a
+        mesh; the pools themselves off one)."""
+        if self.mesh is None:
+            return self.caches
+        return tree.map(lambda c, sp: blocks.gather(c, sp, self.mesh), self.caches, self._pool_specs)
+
+    def _keep_blocks(self, whole) -> None:
+        """This rank's blocks of the whole pools, as the engine's pools."""
+        if self.mesh is not None:
+            self.caches = tree.map(lambda c, sp: blocks.local_block(c, sp, self.mesh).clone(), whole,
+                                   self._pool_specs)
 
     def _round_fn(self, T, table, caches, tok, pos, active, steps_left):
         """``T`` decode steps over every slot, in place on ``caches``.
@@ -120,7 +155,7 @@ class Engine:
         caches = kv_pages.with_tables(caches, table)
         sentinel = self.spec.max_seq
         toks = []
-        with torch.no_grad():
+        with torch.no_grad(), dist_fid.use_sharded_fidelity(self._ctx):
             for i in range(T):
                 # a slot is live while the round index is under its budget;
                 # the others decode at the sentinel, their writes land on the
@@ -142,7 +177,11 @@ class Engine:
         calibrated first (``_calibrate`` on ``zeros()``, fresh zero operands
         of the same shapes) unless the cost table knows it."""
         if key not in self._costs:
-            self._costs[key] = self._calibrate(fn, zeros)
+            cost = self._calibrate(fn, zeros)
+            if self.mesh is not None:  # every rank schedules on rank 0's cost
+                cost = float(col.broadcast(torch.tensor([cost], dtype=torch.float64, device=self.mesh.device),
+                                           self.mesh)[0])
+            self._costs[key] = cost
         out = fn(*args)
         self._sync()
         return out, self._costs[key] * self.cost_scale
@@ -221,7 +260,9 @@ class Engine:
         L = job.length
         self.alloc.ensure(slot, L)
         solo = lm.unstack_caches(self.cfg, job.caches)
-        kv_pages.admit_caches(self.cfg, self.caches, self.spec, self.alloc.table[slot], slot, solo, L)
+        whole = self._whole_pools()
+        kv_pages.admit_caches(self.cfg, whole, self.spec, self.alloc.table[slot], slot, solo, L)
+        self._keep_blocks(whole)
         first = int(torch.argmax(job.logits[0]))
         self.tok[slot] = first
         self.pos[slot] = L
@@ -244,7 +285,8 @@ class Engine:
         steps = np.where(self.active, steps, 0)
         for s in np.flatnonzero(steps > 0):
             self.alloc.ensure(int(s), int(self.pos_host[s]) + int(steps[s]))
-        args = (self.alloc.device_table(self.device), self.caches, self.tok, self.pos,
+        whole = self._whole_pools()
+        args = (self.alloc.device_table(self.device), whole, self.tok, self.pos,
                 torch.as_tensor(self.active, device=self.device), torch.as_tensor(steps, device=self.device))
 
         def zeros():
@@ -253,6 +295,7 @@ class Engine:
 
         (self.tok, self.pos, toks), dt = self._timed(
             ("round", T), lambda *a: self._round_fn(T, *a), args, zeros)
+        self._keep_blocks(whole)
         self.pos_host += steps
         return toks.cpu().numpy(), dt
 

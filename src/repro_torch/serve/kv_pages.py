@@ -136,27 +136,44 @@ def pool_spec(n_slots: int, max_seq: int, page: int = 16, num_pages: int | None 
     return PoolSpec(n_slots, page, max_pages, num_pages)
 
 
-def make_paged_caches(cfg, spec: PoolSpec, device=None):
-    """Zeroed cache trees in the decode list layout: every paged leaf a pool
-    ``[P + 1, page, *tail]`` (the data pages and the write-only one), every
-    state leaf ``n_slots`` dense rows along its batch axis."""
-    dev = resolve(device)
+def _pool_shape(lay: LeafLayout, spec: PoolSpec) -> tuple:
+    """A pool leaf's whole shape: ``[P + 1, page, *tail]`` paged, else
+    ``n_slots`` rows along the batch axis."""
+    if not lay.is_paged:
+        shape = list(lay.shape)
+        shape[lay.batch_axis] = spec.n_slots
+        return tuple(shape)
+    if (lay.batch_axis, lay.seq_axis) != (0, 1):
+        raise NotImplementedError(
+            f"paged leaves must be [B, S, ...]; got batch axis {lay.batch_axis}, seq axis {lay.seq_axis} "
+            f"for {lay.shape}")
+    return (spec.num_pages + 1, spec.page) + tuple(lay.shape[2:])
 
-    def one(lay: LeafLayout):
-        if not lay.is_paged:
-            shape = list(lay.shape)
-            shape[lay.batch_axis] = spec.n_slots
-            return torch.zeros(tuple(shape), dtype=lay.dtype, device=dev)
-        if (lay.batch_axis, lay.seq_axis) != (0, 1):
-            raise NotImplementedError(
-                f"paged leaves must be [B, S, ...]; got batch axis {lay.batch_axis}, seq axis {lay.seq_axis} "
-                f"for {lay.shape}")
-        return torch.zeros((spec.num_pages + 1, spec.page) + tuple(lay.shape[2:]), dtype=lay.dtype, device=dev)
 
+def pool_map(fn, cfg, spec: PoolSpec):
+    """``fn(layout, whole pool shape)`` over the pools' decode list layout."""
     out = []
     for (name, count), lay in zip(cfg.pattern, cache_layouts(cfg)):
+        one = lambda la: fn(la, _pool_shape(la, spec))  # noqa: E731
         out.append(tree.map(one, lay) if count == 1 else [tree.map(one, lay) for _ in range(count)])
     return out
+
+
+def make_paged_caches(cfg, spec: PoolSpec, device=None, sharding_fn=None):
+    """Zeroed cache trees in the decode list layout: every paged leaf a pool
+    ``[P + 1, page, *tail]`` (the data pages and the write-only one), every
+    state leaf ``n_slots`` dense rows along its batch axis.
+    ``sharding_fn(layout, shape, dtype) -> shape | None`` places each leaf
+    on a mesh: the shape of this process's block of it (None: the whole;
+    ``serve.engine`` passes ``distributed.sharding.page_pool_spec``'s)."""
+    dev = resolve(device)
+
+    def one(lay: LeafLayout, shape: tuple):
+        if sharding_fn is not None:
+            shape = sharding_fn(lay, shape, lay.dtype) or shape
+        return torch.zeros(tuple(shape), dtype=lay.dtype, device=dev)
+
+    return pool_map(one, cfg, spec)
 
 
 # The cache dicts the blocks read at decode: the page table rides beside the

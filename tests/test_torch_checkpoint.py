@@ -342,19 +342,15 @@ def test_leaf_plans_read_back_from_either_package():
                                          ("expert_groups", [[4, None]]), ("fidelity.shard_dim", 0),
                                          ("fidelity.expert_groups", [[4, None]])])
 def test_unported_plan_fields_raise_naming_the_leaf(field, value):
-    """The shard hints are not ported: a manifest that sets one raises,
-    naming the leaf. The operand group kind and the expert segments are
-    (the MoE slice): they read back and write out unchanged."""
+    """Every plan field of the reference's manifests is ported now: the
+    shard hints (the mesh slice), the operand group kind and the expert
+    segments (the MoE slice) read back and write out unchanged."""
     d = tplan.leaf_plan_to_dict(tplan.LeafPlan(mapped=True, grad="operand", fidelity=tcommon.FidelityConfig()))
     if field.startswith("fidelity."):
         d["fidelity"][field.split(".")[1]] = value
     else:
         d[field] = value
-    if "shard" in field:
-        with pytest.raises(NotImplementedError, match="groups/0/attn/wqkv"):
-            tplan.leaf_plan_from_dict(d, "groups/0/attn/wqkv")
-    else:
-        assert tplan.leaf_plan_to_dict(tplan.leaf_plan_from_dict(d, "groups/0/attn/wqkv")) == d
+    assert tplan.leaf_plan_to_dict(tplan.leaf_plan_from_dict(d, "groups/0/attn/wqkv")) == d
     d2 = tplan.leaf_plan_to_dict(tplan.LeafPlan(mapped=True, grad="operand", fidelity=tcommon.FidelityConfig()))
     d2["fidelity"].update(use_kernel=True, interpret=True)  # JAX runtime switches: ignored
     assert tplan.leaf_plan_from_dict(d2).fidelity == tcommon.FidelityConfig()

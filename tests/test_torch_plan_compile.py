@@ -297,9 +297,6 @@ def test_unhinted_placement_matches_legacy_numbering():
     assert _placed(pls) == _placed(jplace_tiles({"a": (1, 2, 2), "b": (1, 1, 1)}, JHierarchy()))
 
 
-@pytest.mark.xfail(strict=True, raises=TypeError,
-                   reason="FidelityConfig.shard_dim and LeafPlan.shard come with the mesh port "
-                          "(ROADMAP Queue 1 item 4)")
 def test_sharded_compile_prices_same_compute():
     """Sharding relocates tiles; it must not change the compute priced."""
     params, plan, _, _ = _two_leaf()

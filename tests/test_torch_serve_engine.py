@@ -193,11 +193,16 @@ def test_admit_evict_any_order_recycles_pages(models):
 
 
 def test_engine_on_a_mesh_raises(models):
-    """The reference's engine on a mesh shards its page pools; the port's
-    is single-device (ROADMAP Queue 1 item 4)."""
+    """The engine on a mesh is ported with one data rank
+    (``tests/test_torch_distributed_serve.py``): ``data > 1`` raises, and a
+    logical mesh cannot serve."""
+    from repro_torch.launch.mesh import logical_mesh
+
     _, cfg, _, params = models["attn"]
     with pytest.raises(NotImplementedError, match="mesh"):
-        _engine(cfg, params, n_slots=2, max_seq=16, page=4, mesh=object())
+        _engine(cfg, params, n_slots=2, max_seq=16, page=4, mesh=logical_mesh((2, 1), ("data", "model")))
+    with pytest.raises(ValueError, match="live mesh"):
+        _engine(cfg, params, n_slots=2, max_seq=16, page=4, mesh=logical_mesh((1, 2), ("data", "model")))
 
 
 def test_sla_tiers_route_and_share_clock(models):

@@ -330,10 +330,16 @@ def test_adc9_step_reads_match_jax_read_by_read(lossless_runs, monkeypatch):
 
 
 def test_make_train_step_refuses_what_is_not_ported():
+    """Meshes are ported (``tests/test_torch_distributed_step.py``); the MoE
+    blocks at data > 1 are not, and a logical mesh cannot run a step."""
+    from repro_torch.launch.mesh import logical_mesh
+
     sched = tsched.constant(LR)
-    for kw in ({"mesh": object()}, {"fsdp": True}):
-        with pytest.raises(NotImplementedError):
-            tstep.make_train_step(CFG_T, TPC(), sched, **kw)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        tstep.make_train_step(tconfigs.get_smoke("granite_moe_1b_a400m"), TPC(), sched,
+                              mesh=logical_mesh((2, 1), ("data", "model")))
+    with pytest.raises(ValueError, match="live mesh"):
+        tstep.make_train_step(CFG_T, TPC(), sched, mesh=logical_mesh((2, 2), ("data", "model")), fsdp=True)
     fid_cfg = dataclasses.replace(CFG_T, fidelity=tconfigs.fidelity_presets()["adc9"])
     step = tstep.make_train_step(fid_cfg, TPC(), sched, operand_grads=False)
     state = tstep.train_state_init(CFG_T, TPC(), 0, device="cpu")
@@ -350,9 +356,10 @@ def test_launcher_trains_on_the_cpu_and_refuses_what_is_not_ported():
     hist = tlaunch.main(["--smoke", "--device", "cpu", "--steps", "1", "--batch", "1", "--seq", "8",
                          "--fidelity", "adc9"])
     assert np.isfinite(hist[0]["loss"])
-    # checkpoints are ported (--ckpt-dir: tests/test_torch_checkpoint.py); meshes are not
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tlaunch.main(["--mesh", "debug"])
+    # checkpoints (--ckpt-dir: tests/test_torch_checkpoint.py) and --mesh debug
+    # (tests/test_torch_distributed_step.py) are ported; other meshes are refused
+    with pytest.raises(SystemExit):
+        tlaunch.main(["--mesh", "production"])
     assert prng.PRNGKey(7) == (0, 7)
 
 
