@@ -26,14 +26,14 @@ Phases:
      and the decode steps' on the decode body, the logits must be finite and
      the adc9-vs-lossless gap finite;
  15. (run after 3) the continuous-batching engine on gemma-2b at full width
-     and half its depth (9 of its 18 layers, ``ENGINE_LAYERS``: the
-     script's time limit) (``serve.engine``/``scheduler`` through
+     and 2 of its 18 layers (``ENGINE_LAYERS``: the script's time limit
+     on a slow host) (``serve.engine``/``scheduler`` through
      ``launch.serve``'s helpers):
      (a) the reference bench's trace (32 requests at 1e4/s, prompts 8/16/32,
      outputs 4 or 120 at 3:1; 8 slots, page 16, chunk 16, max_seq 160)
      under ``continuous`` and ``static`` through the adc9 tree on one cost
      table; (b) tokens/s, p50/p99 inter-token latency and TTFT of each, and
-     K4's launches equal to 5 reads x 9 layers x the model passes
+     K4's launches equal to 5 reads x ENGINE_LAYERS x the model passes
      (prefills, chunks and round steps, calibrations included), all on the
      tensor-core body (every read has 8 tokens or more), counted by tokens
      a read; (c) the continuous run again on fresh engines over the same
@@ -52,7 +52,7 @@ Phases:
      ``lm.param_shapes`` · 1e-9), phase 15's trace under ``continuous``
      and ``static`` on it with ``Engine._calibrate`` refused: the
      crossbar-clock summaries, passes by kind, K4's launches equal to 5
-     reads x 9 layers x the passes, all on the tensor-core body; (b) the
+     reads x ENGINE_LAYERS x the passes, all on the tensor-core body; (b) the
      same trace (tokens mapped into its vocabulary) and clock through the
      ``launch.serve`` bench's narrow model: summaries and every request's
      ``token_times`` equal (a)'s; (c) ``launch.serve --trace --isa-clock``
@@ -178,12 +178,13 @@ Phases:
      launcher (``launch.train.main``) trains gemma-2b 2 adc9 steps with
      ``--ckpt-dir`` (CRS every 3, a checkpoint every 2), then resumes to 3
      steps, printing ``resumed from step 1`` and taking step 2, a CRS step,
-     on the restored planes (every launch count exact); an uninterrupted
-     3-step witness of the same code must equal it bit for bit (step 2's
-     loss and grad norm, and every leaf of the last commit, compared a leaf
-     at a time on the card); a restore under another spec for one leaf
-     must refuse (``check_plan_compat``); bytes, save and restore seconds
-     and GB/s, and the resumed step's time are printed;
+     on the restored planes (every launch count exact; the launcher's
+     steps rematerialize each layer, so K4's forward reads run twice); an
+     uninterrupted 3-step witness of the same code must equal it bit for
+     bit (step 2's loss and grad norm, and every leaf of the last commit,
+     compared a leaf at a time on the card); a restore under another spec
+     for one leaf must refuse (``check_plan_compat``); bytes, save and
+     restore seconds and GB/s, and the resumed step's time are printed;
  14. Fig 10: K2's dense write and K4's 6- and 9-bit reads at each of its
      nine specs on the MLP's shapes against their plain versions; then
      ``spec_sweep()`` and ``io_sweep()`` uncut (400 steps each, every
@@ -217,8 +218,9 @@ Phases:
      counts, by K4 token count and ADC; (c) layer 0's ``moe_apply`` through
      the kernels bit for bit against the plain reads, 4 x 32 prompts and 16
      greedy tokens through the adc9 coverage plan (2376 K4 reads a decode
-     step), and the engine on the bench's trace cut to its first 3 requests,
-     continuous, 8 slots: tokens/s and K4 reads by tokens;
+     step), and the engine on the bench's trace cut to its first 2 requests
+     (the script's time limit), continuous, 8 slots: tokens/s and K4 reads
+     by tokens;
  18. the SSM family: (a) the im2col entry (``opa_im2col``: K1's
      function on a conv-tap block, one launch a layer block) at C 1536
      (xlstm) and 4224 (zamba2), 256 tokens, under the counter draw and
@@ -274,14 +276,40 @@ Phases:
      on gemma-2b's full-width tiles at 256 tokens, shard_dim None/0/1,
      both directions, K4 and K5, bit for bit against the single-process
      read at ideal ADC and within 1e-6 at adc9; (c) gemma-2b at full width
-     on 2 of its 18 layers in f32, two adc9 coverage steps plain and FSDP
-     and one ideal-ADC step, against rank 0's single-process steps (losses
+     on 2 of its 18 layers in f32, two adc9 and two ideal-ADC coverage
+     steps under FSDP (the 1x2 world below steps the blocks with no data
+     shards), against rank 0's single-process steps (losses
      within 1e-3 / 5e-3; the ideal step's weights within 1e-5 of max|w|;
      the adc9 weights printed), each step's launches held to the plan; (e)
      the FSDP state saved on the mesh, restored on one process; (d) prefill
      and decode through adc9 reads on the mesh against one process; then
      the engine on a 1x2 mesh over the trace's first 3 requests, adc9 and
-     lossless (tokens equal to solo serving).
+     lossless (tokens equal to solo serving);
+ 21. remat and the dry run (last): (a) gemma-2b at full width (18 layers),
+     adc9 (``default_rules``), 4 x 256 tokens, one state: a train step under
+     ``remat="none"`` twice, then ``"full"`` and ``"dots"``, losses,
+     metrics and every leaf bit for bit with the first ``"none"`` step
+     wherever the two ``"none"`` runs agree; each step's ms and peak beside
+     the dry run of the same step on meta tensors (``launch.dryrun``): its
+     peak, within 5% of the card's, and its launches by kernel instance,
+     which must equal the card's; (b) one row of 4096 tokens
+     (``train_4k``'s length) under ``"full"``, and under ``"none"`` where
+     the dry run predicts under 75 GiB: finite loss, ms, peak beside the dry
+     run's (within 5%); (c) granite-moe at
+     full width on 2 of its 24 layers, f32, on a (2, 1) world of two
+     processes sharing the card over gloo: two ideal-ADC coverage steps of
+     2 x 1024 tokens (each rank's tokens one whole dispatch group) under
+     the default ``remat="full"``, each against one process stepping under
+     ``"none"`` from the mesh's state before it (losses
+     within 1e-3, the load-balance term within 1e-6 relative, weights within
+     1e-5 of max|w|; the leaves furthest apart printed), K4's expert reads
+     and K1's expert deposits counted on each rank; then prefill of 8 x 16
+     tokens and
+     a decode step on dispatch groups a rank does not hold whole (the
+     gather), the logits within 1e-5 of max of one process's, argmax
+     equal; (d) the im2col entry at a channel origin: zamba2's [8, 4, 4224]
+     block cut in two, each half bit for bit against the whole leaf's
+     launch, timed beside it.
 
 It prints one JSON line with the kernels' numbers, the card's
 ``name, power.limit`` line, and last the device JSON line. Any failure exits
@@ -298,10 +326,7 @@ import sys
 import time
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
-BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
-CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores (the 32-bit elementwise rate)
+
 SLICE_SHAPES = ((2048, 2560), (2048, 2048), (2048, 16384), (16384, 2048))  # gemma-2b reads
 SLICE_READS = (("attn/wqkv", 2048, 2560), ("attn/wo", 2048, 2048), ("mlp/wi_gate", 2048, 16384),
                ("mlp/wi_up", 2048, 16384), ("mlp/wo", 16384, 2048))
@@ -394,13 +419,11 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def bound_ms(B: int, M: int, N: int, S: int, io_bits: int) -> tuple[float, str]:
-    """Least time for one read: planes (int8), x (f32) and frac_bits read
-    once, out (f32) written once, over HBM; 2·B·M·N·S·(io_bits-1) int8 ops
-    over the int8 peak."""
-    nbytes = S * M * N + 4 * B * M + 4 * B * N + 4
-    ops = 2.0 * B * M * N * S * (io_bits - 1)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """Least time for one K4 read (``KW.read_work``): planes (int8), x
+    (f32) and frac_bits read once, out (f32) written once, over HBM;
+    2·B·M·N·S·(io_bits-1) int8 ops over the int8 peak."""
+    from repro_torch.kernels import common as KW
+    return KW.read_work(B, M, N, S, io_bits).bound_ms()
 
 
 def phase_kernels(torch, K, ref, fp, spec, gen):
@@ -624,11 +647,6 @@ def phase_slice(torch, K, gen):
     return instances
 
 
-def bound_of(nbytes: float, ops: float, ops_rate: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def random_planes(torch, spec, shape, gen):
     """int8 planes [S, *shape], each plane uniform over its whole range
     [-m_s, m_s]: saturated cells, carries out of the MSB and digit vectors
@@ -725,13 +743,6 @@ NORM_SHAPE = (18, 2048)  # gemma-2b's norm-scale stacks: 2-D leaves, one block e
 DENSE_DRAWS = ("rint", "counter", "grid")  # half to even, and the two dense rounding draws
 DENSE_LR, DENSE_F = 1e-2, 20
 DENSE_WORDS, DENSE_NOISE_WORDS = (0x2468ACE, -0x13579BD), (77, -99)
-# CUDA-core operations a cell of the dense write beside the deposit's 8 a
-# plane cell: the rounding (rint and a clip; the counter hash; threefry2x32's
-# 20 rounds and key injections) and, on the device instance, the write
-# noise's two hashes and Box-Muller (log1pf, sqrtf, cosf) and the gain; the
-# stuck mask's S hashes are STUCK_OPS_PER_PLANE_CELL a plane cell beside these
-DENSE_DRAW_OPS = {"rint": 4, "counter": 14, "grid": 100}
-DENSE_DEVICE_OPS = 110
 
 
 def dense_entry(torch, dtype, draw, dev):
@@ -958,6 +969,7 @@ def time_dense_kernels(torch, spec, gen):
     ones with all write fields, the stuck mask cached as after a first
     step): kernel, plain version and bound; no one library call computes
     it."""
+    from repro_torch.kernels import common as KW
     from repro_torch.models.common import DeviceModel
 
     S, (V, D) = spec.n_slices, EMBED_SHAPE
@@ -970,10 +982,7 @@ def time_dense_kernels(torch, spec, gen):
             for draw in DENSE_DRAWS:
                 k = cuda_time_ms(lambda: dense_launch(torch, planes, g, spec, draw, d), 5)
                 p = cuda_time_ms(lambda: dense_plain(torch, planes, g, spec, draw, d), 1, 0)
-                nbytes = (g.element_size() + 2 * S) * V * D
-                ops = (8.0 * S + DENSE_DRAW_OPS[draw]
-                       + (DENSE_DEVICE_OPS + STUCK_OPS_PER_PLANE_CELL * S if d is not None else 0)) * V * D
-                b = bound_of(nbytes, ops, CUDA_CORE_OPS_PER_S)
+                b = KW.dense_work(V, D, S, grad_bytes=g.element_size(), draw=draw, dev=d is not None).bound_ms()
                 entry = dense_entry(torch, dtype, draw, d is not None)
                 out[entry] = {"ms": k, "plain_ms": p, "library_ms": None, "bound_ms": b[0], "bound_by": b[1]}
                 print(f"  {entry:30s} embedding {V}x{D}: kernel {k:.4f} ms  plain {p:.4f} ms  bound {b[0]:.4f} ms "
@@ -1136,6 +1145,7 @@ def time_update_kernels(torch, K, ref, spec, gen):
     """One layer's work at the training step's 256 tokens (the five operand
     leaves) for opa_fused and the MᵀVM read, and the embedding's deposit for
     opa_deposit: kernel, plain version, library yardstick and bound."""
+    from repro_torch.kernels import common as KW
     from repro_torch.core.slicing import dequantize_planes
     from repro_torch.kernels.sliced_opa import kernel as KO
     from repro_torch.kernels.sliced_opa import ref as RO
@@ -1153,12 +1163,12 @@ def time_update_kernels(torch, K, ref, spec, gen):
                                                   body="fma"), 10)
         p = cuda_time_ms(lambda: RO.opa_fused_ref(planes, x, dh, 3e-2, frac[0], spec, (1, 2)), 3, 1)
         lib = cuda_time_ms(lambda: torch.matmul(x.t(), dh), 10)
-        b = bound_of(2 * S * M * N + 2 * T * (M + N) + 4, 2.0 * T * M * N, BF16_FLOPS_PER_S)
+        b = KW.opa_work(T, M, N, S).bound_ms()
         rows["opa_fused"].append((k, p, lib, *b, k_fma))
         rows["opa_fused_fma"].append((k_fma, p, lib, *b))
         xf = torch.tensor([10], dtype=torch.int32, device="cuda")
         w = dequantize_planes(planes, 30, spec)
-        b = bound_of(S * M * N + 4 * T * (M + N) + 4, 2.0 * T * M * N * S * 15, INT8_OPS_PER_S)
+        b = KW.read_work(T, M, N, S, 16).bound_ms()
         # K4ᵀ (the training step's dx read) and K4 forward at the step's 256
         # tokens; the dp4a body's time is K5's on x_q, the same work
         for key, transpose in (("mvm_sliced_fused_transpose", True), ("mvm_sliced_fused_256", False)):
@@ -1184,8 +1194,7 @@ def time_update_kernels(torch, K, ref, spec, gen):
     p_q = torch.randint(-2**20, 2**20, (V, D), generator=gen, device="cuda", dtype=torch.int32)
     k = cuda_time_ms(lambda: KO.opa_deposit(planes, p_q, spec=spec), 5)
     p = cuda_time_ms(lambda: plain_by_rows(torch, lambda a, q: RO.opa_deposit_ref(a, q, spec), planes, p_q), 1, 1)
-    # ~8 32-bit operations a plane cell: digit, add, clip, carry
-    b = bound_of((4 + 2 * S) * V * D, 8.0 * S * V * D, CUDA_CORE_OPS_PER_S)
+    b = KW.deposit_work(V, D, S).bound_ms()
     print(f"  opa_deposit embedding {V}x{D}: kernel {k:.4f} ms  plain {p:.4f} ms  bound {b[0]:.4f} ms ({b[1]})",
           flush=True)
     del planes, p_q
@@ -1198,16 +1207,12 @@ def time_update_kernels(torch, K, ref, spec, gen):
     return out
 
 
-# the K3 bound's operations: the byte-lane carry chain, ~13 32-bit operations
-# a word of 4 elements and a slice (crs.cu's crs_words)
-CRS_OPS_PER_PLANE_CELL = 13 / 4
-
-
 def time_crs(torch, spec, gen):
     """K3 over one layer's 5 blocks and over the embedding's block: the
     kernel, the plain version, a device-to-device copy of the same bytes (the
     attainable-bandwidth reference: not the same function, so not a library
     yardstick) and the byte bound."""
+    from repro_torch.kernels import common as KW
     from repro_torch.kernels.crs import kernel as KC
     from repro_torch.kernels.crs import ref as RC
 
@@ -1228,7 +1233,7 @@ def time_crs(torch, spec, gen):
             cells += S * M * N
             del planes, dst
             torch.cuda.empty_cache()
-        t["bound_ms"], t["bound_by"] = bound_of(2 * cells, CRS_OPS_PER_PLANE_CELL * cells, CUDA_CORE_OPS_PER_S)
+        t["bound_ms"], t["bound_by"] = KW.crs_work(cells).bound_ms()
         out[key] = t
         what = "one layer's 5 blocks" if key == "crs" else f"the embedding's block {EMBED_SHAPE}"
         print(f"  {key}: {what}: kernel {t['ms']:.4f} ms, "
@@ -1326,8 +1331,8 @@ def phase_train(torch, gen, dense):
     adc9 = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=opt_cfg.spec)
     steps = {
         "adc9": make_train_step(cfg, opt_cfg, constant(3e-2),
-                                plan_rules=planlib.default_rules(opt_cfg, fidelity=adc9)),
-        "lossless": make_train_step(cfg, opt_cfg, constant(3e-2)),
+                                plan_rules=planlib.default_rules(opt_cfg, fidelity=adc9), remat="none"),
+        "lossless": make_train_step(cfg, opt_cfg, constant(3e-2), remat="none"),
     }
     # blocks a step updates: one per layer of each mapped leaf, by gradient
     # path. The [18, 2048] norm-scale stacks are matrices to the default
@@ -1430,13 +1435,6 @@ PHYSICS = {
     "all": {k: v for k, v in DEVICE.items() if k != "read_noise"},
 }
 T_CHECK = (1, 4, 100, 256)  # token counts of the new kernels' checks (K4 at 1 and 4 on its decode body)
-# 32-bit CUDA-core operations a cell that the write physics add to K1's
-# finalize (two hashes and a Box-Muller for the noise, S = 8 hashes for the
-# stuck mask), and that the stuck mask adds to K2 per plane cell (a hash and
-# a compare): the mask is a pure function of the coordinates, so a bound
-# counts its hashes and not the byte a kernel may cache it in
-DEVICE_OPS_PER_CELL = 150
-STUCK_OPS_PER_PLANE_CELL = 13
 
 
 
@@ -1590,6 +1588,7 @@ def time_device_kernels(torch, spec, gen):
     """One layer's work at 256 tokens for each new instance, and the
     embedding's stuck deposit: kernel, plain version, library yardstick and
     bound, as in time_update_kernels."""
+    from repro_torch.kernels import common as KW
     from repro_torch.core.slicing import dequantize_planes
     from repro_torch.kernels.sliced_mvm import kernel as K
     from repro_torch.kernels.sliced_mvm import ref
@@ -1616,9 +1615,7 @@ def time_device_kernels(torch, spec, gen):
         p = cuda_time_ms(lambda: RO.opa_fused_ref(planes, x, dh, 3e-2, frac[0], spec, (1, 2), dev, (3, 4)), 3, 1)
         lib = cuda_time_ms(lambda: torch.matmul(x.t(), dh), 10)
         # bf16 products on the tensor cores, the physics on the CUDA cores
-        t_bytes = (2 * S * M * N + 2 * T * (M + N) + 4) / HBM_BYTES_PER_S
-        t_ops = 2.0 * T * M * N / BF16_FLOPS_PER_S + DEVICE_OPS_PER_CELL * M * N / CUDA_CORE_OPS_PER_S
-        b = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+        b = KW.opa_work(T, M, N, S, dev=True).bound_ms()
         add("opa_fused_device", k, p, lib, *b, k_fma)
         add("opa_fused_device_fma", k_fma, p, lib, *b)
         w = dequantize_planes(planes, 30, spec)
@@ -1659,8 +1656,7 @@ def time_device_kernels(torch, spec, gen):
                 p = cuda_time_ms(lambda: ref.mvm_sliced_ref(planes, xq_io, spec, io, 9, transpose=transpose),
                                  2, 1)
                 k5, d5 = rows[(transpose, io, 9, False)][-1][2], rows[(transpose, io, 9, False)][-1][1]
-                add(key, k5, p, lib_q, *bound_of(S * M * N + 4 * T * (M + N), 2.0 * T * M * N * S * (io - 1),
-                                                 INT8_OPS_PER_S), d5)
+                add(key, k5, p, lib_q, *KW.read_work(T, M, N, S, io, fused=False).bound_ms(), d5)
                 del xq_io, x_io
             for key, io, d in ((f"mvm_sliced_fused{tag}_read_noise", 16, dev), (f"mvm_sliced_fused{tag}_io8", 8, None),
                                (f"mvm_sliced_fused{tag}_io12", 12, None)):
@@ -1668,8 +1664,7 @@ def time_device_kernels(torch, spec, gen):
                                                             transpose=transpose, dev=d), 3)
                 p = cuda_time_ms(lambda: ref.mvm_sliced_fused_ref(planes, xin, xf[0], spec, io, 9,
                                                                   transpose=transpose, device=d), 2, 1)
-                add(key, k, p, lib, *bound_of(S * M * N + 4 * T * (M + N) + 4, 2.0 * T * M * N * S * (io - 1),
-                                              INT8_OPS_PER_S), rows[(transpose, io, 9, False)][-1][1])
+                add(key, k, p, lib, *KW.read_work(T, M, N, S, io).bound_ms(), rows[(transpose, io, 9, False)][-1][1])
         for key in rows:
             if not isinstance(key, str):
                 continue
@@ -1690,7 +1685,7 @@ def time_device_kernels(torch, spec, gen):
                         RO.opa_deposit_ref(blk, p_q[r0:r0 + 8192], spec))
 
     p = cuda_time_ms(plain, 1, 1)
-    b = bound_of((4 + 2 * S) * V * D, (8.0 + STUCK_OPS_PER_PLANE_CELL) * S * V * D, CUDA_CORE_OPS_PER_S)
+    b = KW.deposit_work(V, D, S, stuck=True).bound_ms()
     print(f"  opa_deposit_stuck embedding {V}x{D}: kernel {k:.4f} ms  plain {p:.4f} ms  bound {b[0]:.4f} ms "
           f"({b[1]})", flush=True)
     del planes, p_q
@@ -1758,7 +1753,8 @@ def phase_device_train(torch, state, ds, blocks, gen, dense):
     fids = {"device": FidelityConfig(adc_bits_fwd=9, adc_bits_bwd=9, device=dev, spec=opt_cfg.spec),
             "io8": FidelityConfig(io_bits=8, adc_bits_fwd=9, adc_bits_bwd=9, spec=opt_cfg.spec),
             "io12": FidelityConfig(io_bits=12, adc_bits_fwd=9, adc_bits_bwd=9, spec=opt_cfg.spec)}
-    steps = {mode: make_train_step(cfg, opt_cfg, constant(3e-2), plan_rules=planlib.default_rules(opt_cfg, fidelity=f))
+    steps = {mode: make_train_step(cfg, opt_cfg, constant(3e-2), plan_rules=planlib.default_rules(opt_cfg, fidelity=f),
+                                   remat="none")
              for mode, f in fids.items()}
     counted = (KO.opa_fused, KO.opa_dense, KO.opa_deposit, KM.mvm_sliced_fused)
     totals = {}
@@ -1919,10 +1915,6 @@ def phase_f32_update(torch, state):
 # passes at l = 0)
 RNG_CASES = (("grid", 0), ("grid", 17), ("hw", 0))
 T_RNG = (1, 17, 256)
-# 32-bit CUDA-core operations a cell that the draw adds to K1's finalize:
-# threefry2x32's 20 rounds and key injections (grid); a quarter of
-# Philox4x32-10's 10 rounds, the tile seed and the tile coordinates (hw)
-RNG_OPS_PER_CELL = {"grid": 100, "hw": 40}
 
 
 def rng_entry(mode, dev, body):
@@ -2074,6 +2066,7 @@ def time_rng_kernels(torch, spec, gen):
     """One layer's 5 blocks at 256 tokens for each grid/hw instance beside
     the counter instance in the same run: kernel (both bodies), plain
     version, the bf16 contraction alone and the bound."""
+    from repro_torch.kernels import common as KW
     from repro_torch.kernels.sliced_opa import kernel as KO
     from repro_torch.kernels.sliced_opa import ref as RO
     from repro_torch.models.common import DeviceModel
@@ -2101,10 +2094,7 @@ def time_rng_kernels(torch, spec, gen):
                 p = cuda_time_ms(lambda: RO.opa_fused_ref(planes, x, dh, 3e-2, frac[0], spec, (1, 2), d, (3, 4),
                                                           rng_mode=mode, offset=offset), 3, 1)
                 # bf16 products on the tensor cores; the draw (and the physics) on the CUDA cores
-                t_bytes = (2 * S * M * N + 2 * T * (M + N) + 4) / HBM_BYTES_PER_S
-                cell_ops = RNG_OPS_PER_CELL[mode] + (DEVICE_OPS_PER_CELL if d is not None else 0)
-                t_ops = 2.0 * T * M * N / BF16_FLOPS_PER_S + cell_ops * M * N / CUDA_CORE_OPS_PER_S
-                b = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+                b = KW.opa_work(T, M, N, S, dev=d is not None, draw=mode).bound_ms()
                 rows.setdefault(rng_entry(mode, d is not None, "mma"), []).append((k, p, lib, *b, k_fma))
                 rows.setdefault(rng_entry(mode, d is not None, "fma"), []).append((k_fma, p, lib, *b))
         for key, r in rows.items():
@@ -2157,7 +2147,8 @@ def phase_rng_train(torch, state, ds, blocks, dense):
                 "device": FidelityConfig(adc_bits_fwd=9, adc_bits_bwd=9, device=dev, spec=opt_cfg.spec)}
         for kind, fid in fids.items():
             steps[mode, kind] = step = make_train_step(cfg, opt_cfg, constant(3e-2),
-                                                       plan_rules=planlib.default_rules(opt_cfg, fidelity=fid))
+                                                       plan_rules=planlib.default_rules(opt_cfg, fidelity=fid),
+               remat="none")
             for fn in (KO.opa_fused, KO.opa_dense, KO.opa_deposit, KM.mvm_sliced_fused, KC.crs):
                 fn.launches = 0
             for fn in (KO.opa_fused, KO.opa_dense, KM.mvm_sliced_fused):
@@ -2347,6 +2338,7 @@ def time_mlp_kernels(torch, gen):
     version and timed beside it: K2 and K3 over the three leaves' blocks
     (S = 8), K4's adc9 read of the three layers at 512 tokens on its
     tensor-core body (M = 64 is a short crossbar tile, N = 10 ragged)."""
+    from repro_torch.kernels import common as KW
     from repro_torch.core.slicing import DEFAULT_SPEC, dequantize_planes
     from repro_torch.kernels.crs import kernel as KC
     from repro_torch.kernels.crs import ref as RC
@@ -2366,8 +2358,7 @@ def time_mlp_kernels(torch, gen):
         dense_case(torch, planes, g, spec, "rint", what=f"opa_dense at the MLP's {M}x{N}")
         k = cuda_time_ms(lambda: dense_launch(torch, planes, g, spec, "rint"), 50)
         p = cuda_time_ms(lambda: dense_plain(torch, planes, g, spec, "rint"), 10)
-        rows["opa_dense_mlp"].append((k, p, None, *bound_of((4 + 2 * S) * M * N, (8.0 * S + DENSE_DRAW_OPS["rint"])
-                                                            * M * N, CUDA_CORE_OPS_PER_S)))
+        rows["opa_dense_mlp"].append((k, p, None, *KW.dense_work(M, N, S, draw="rint").bound_ms()))
         p_q = rail_updates(torch, spec, (M, N), gen)
         if not torch.equal(KO.opa_deposit(planes.clone(), p_q, spec=spec), RO.opa_deposit_ref(planes, p_q, spec)):
             raise AssertionError(f"opa_deposit kernel vs plain at the MLP's {M}x{N}")
@@ -2377,12 +2368,10 @@ def time_mlp_kernels(torch, gen):
             raise AssertionError(f"crs kernel vs plain at the MLP's {M}x{N}")
         k = cuda_time_ms(lambda: KO.opa_deposit(planes, p_q, spec=spec), 50)
         p = cuda_time_ms(lambda: RO.opa_deposit_ref(planes, p_q, spec), 10)
-        rows["opa_deposit_mlp"].append((k, p, None, *bound_of((4 + 2 * S) * M * N, 8.0 * S * M * N,
-                                                               CUDA_CORE_OPS_PER_S)))
+        rows["opa_deposit_mlp"].append((k, p, None, *KW.deposit_work(M, N, S).bound_ms()))
         k = cuda_time_ms(lambda: KC.crs(planes, spec=spec), 50)
         p = cuda_time_ms(lambda: RC.crs_ref(planes, spec), 10)
-        rows["crs_mlp"].append((k, p, None, *bound_of(2 * S * M * N, CRS_OPS_PER_PLANE_CELL * S * M * N,
-                                                       CUDA_CORE_OPS_PER_S)))
+        rows["crs_mlp"].append((k, p, None, *KW.crs_work(S * M * N).bound_ms()))
         x = torch.randn((T_MLP, M), generator=gen, device="cuda")
         got = K.mvm_sliced_fused(planes, x, xf, spec=spec, adc_bits=9)
         want = ref.mvm_sliced_fused_ref(planes, x, xf[0], spec, 16, 9)
@@ -2578,6 +2567,7 @@ def time_opa_microbatch(torch, spec, gen):
     plain version on f32-exact bf16 operands (the tensor-core body), then
     timed beside the plain version, the library call ``xᵀ @ dh`` and the
     bound. Returns the kernels-line timing and the max error."""
+    from repro_torch.kernels import common as KW
     from repro_torch.kernels.sliced_opa import kernel as KO
     from repro_torch.kernels.sliced_opa import ref as RO
 
@@ -2598,7 +2588,7 @@ def time_opa_microbatch(torch, spec, gen):
         k = cuda_time_ms(lambda: KO.opa_fused(planes, x, dh, 3e-2, frac, spec=spec, key_words=(1, 2)), 10)
         p = cuda_time_ms(lambda: RO.opa_fused_ref(planes, x, dh, 3e-2, frac[0], spec, (1, 2)), 2, 1)
         lib = cuda_time_ms(lambda: torch.matmul(x.t(), dh), 10)
-        rs.append((k, p, lib, *bound_of(2 * S * M * N + 2 * T * (M + N) + 4, 2.0 * T * M * N, BF16_FLOPS_PER_S)))
+        rs.append((k, p, lib, *KW.opa_work(T, M, N, S).bound_ms()))
         print(f"  opa_fused_microbatch {name:11s} M={M:5d} N={N:5d} T={T}: kernel {k:.4f} ms  plain {p:.4f} ms  "
               f"library {lib:.4f} ms  bound {rs[-1][3]:.4f} ms ({rs[-1][4]})", flush=True)
         del planes, x, dh
@@ -2666,9 +2656,9 @@ def phase_microbatch(torch, state, phase5, gen, dense):
     cases = (
         ("adc9, microbatches=4", mb, 1024, make_train_step(
             cfg, opt_cfg, constant(3e-2), microbatches=4,
-            plan_rules=planlib.default_rules(opt_cfg, fidelity=adc9, stash_fallback=True))),
+            plan_rules=planlib.default_rules(opt_cfg, fidelity=adc9, stash_fallback=True), remat="none")),
         ("lossless, stash_fallback", SyntheticLMDataset(cfg.vocab, 320, 4, seed=2, device="cuda").batch(0), 1280,
-         make_train_step(cfg, opt_cfg, constant(3e-2), stash_fallback=True)),
+         make_train_step(cfg, opt_cfg, constant(3e-2), stash_fallback=True, remat="none")),
     )
     shapes = param_shapes(state.digital, state.sliced)
     launches = {}
@@ -2874,7 +2864,9 @@ def phase_checkpoint(torch):
         got = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
         torch.cuda.empty_cache()
         L = cfg.n_layers
-        want = {"opa_fused": 5 * L, "opa_dense": 3, "crs": 5 * L + 3, "mvm_sliced_fused": 5 * L,
+        # the launcher's step rematerializes each layer (remat="full", the
+        # default): the backward reads each forward again
+        want = {"opa_fused": 5 * L, "opa_dense": 3, "crs": 5 * L + 3, "mvm_sliced_fused": 2 * 5 * L,
                 "mvm_sliced_fused_transpose": 5 * L}
         if "resumed from step 1" not in out2.getvalue().splitlines() or len(resumed) != 1 or got != want:
             raise AssertionError(f"run 2: {len(resumed)} steps, launches {got} (want {want}); it printed:\n"
@@ -2889,7 +2881,7 @@ def phase_checkpoint(torch):
         state = train_state_init(cfg, opt_cfg, 0, device="cuda")
         fid = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=opt_cfg.spec)
         rules = planlib.default_rules(opt_cfg, fidelity=fid)
-        step_fn = make_train_step(cfg, opt_cfg, constant(3e-2), plan_rules=rules)
+        step_fn = make_train_step(cfg, opt_cfg, constant(3e-2), plan_rules=rules, remat="none")
         ds = SyntheticLMDataset(cfg.vocab, 64, 4, device="cuda")
         for step in range(3):
             state, metrics = step_fn(state, ds.batch(step))
@@ -2995,6 +2987,7 @@ def uniform6_kernels(torch, state, spec, gen):
     plain versions (K1 on f32-exact bf16 operands), then timed at 256 tokens
     beside the plain version, the library call and the bound. Returns the
     two kernels-line timings and the max errors."""
+    from repro_torch.kernels import common as KW
     from repro_torch.core.slicing import dequantize_planes
     from repro_torch.kernels.common import layer_views
     from repro_torch.kernels.sliced_mvm import kernel as K
@@ -3024,8 +3017,7 @@ def uniform6_kernels(torch, state, spec, gen):
         k = cuda_time_ms(lambda: KO.opa_fused(work, x, dh, 0.3, frac, spec=spec), 10)
         p = cuda_time_ms(lambda: RO.opa_fused_ref(planes, x, dh, 0.3, frac[0], spec, None), 3, 1)
         lib = cuda_time_ms(lambda: torch.matmul(x.t(), dh), 10)
-        rows["opa_fused_uniform6"].append((k, p, lib, *bound_of(2 * S * M * N + 2 * T * (M + N) + 4,
-                                                                     2.0 * T * M * N, BF16_FLOPS_PER_S)))
+        rows["opa_fused_uniform6"].append((k, p, lib, *KW.opa_work(T, M, N, S).bound_ms()))
         w = dequantize_planes(planes, frac[0], spec)
         xf = torch.tensor([10], dtype=torch.int32, device="cuda")
         r = [0.0] * 3
@@ -3040,7 +3032,7 @@ def uniform6_kernels(torch, state, spec, gen):
             r[1] += cuda_time_ms(lambda: ref.mvm_sliced_fused_ref(planes, v, xf[0], spec, 16, 9,
                                                                   transpose=transpose), 2, 1)
             r[2] += cuda_time_ms(lambda: torch.matmul(v, w.T if transpose else w), 10)
-        b = bound_of(S * M * N + 4 * T * (M + N) + 4, 2.0 * T * M * N * S * 15, INT8_OPS_PER_S)
+        b = KW.read_work(T, M, N, S, 16).bound_ms()
         rows["mvm_sliced_fused_uniform6"].append((*r, 2 * b[0], b[1]))
         for key, rs in rows.items():
             k, p, lib, b_ms, b_by = rs[-1]
@@ -3087,7 +3079,7 @@ def phase_hetero_full(torch, gen):
     print(f"heterogeneous gemma-2b, {cfg.dtype}, groups {cfg.pattern}: init+slice {time.perf_counter() - t0:.1f} s",
           flush=True)
     ds = SyntheticLMDataset(cfg.vocab, 32, 8, seed=3, device="cuda")
-    step = make_train_step(cfg, opt, constant(0.3), plan=plan)
+    step = make_train_step(cfg, opt, constant(0.3), plan=plan, remat="none")
     counters = {"opa_fused": (KO.opa_fused, "launches"), "opa_dense": (KO.opa_dense, "launches"),
                 "crs": (KC.crs, "launches"), "mvm_sliced_fused": (KM.mvm_sliced_fused, "launches"),
                 "mvm_sliced_fused_transpose": (KM.mvm_sliced_fused, "transpose_launches")}
@@ -3209,9 +3201,9 @@ def phase_fig10(torch, gen):
 # ------------------ the serving engine at full width (phase 15) -----------------
 
 ENGINE_REQUESTS = 32  # the reference bench's trace (src/repro/launch/serve.py:70-79)
-# phases 15-16 serve gemma-2b at full width and half its depth: the whole
-# script must finish inside its time limit on a slow host (PERF.md §4)
-ENGINE_LAYERS = 9
+# phases 15-16 serve gemma-2b at full width and 2 of its 18 layers: the
+# whole script must finish inside its time limit on a slow host (PERF.md §4)
+ENGINE_LAYERS = 2
 # (d): one round's step budgets over the 8 slots; slots 6 and 7 hold no request
 DENSE_CHECK_STEPS = (8, 8, 3, 8, 1, 8, 0, 0)
 
@@ -3638,7 +3630,7 @@ MOE_ARCH = "granite_moe_1b_a400m"
 MOE_BATCH, MOE_SEQ = 4, 64  # training tokens a step: 4 x 64
 # the bench's trace cut to its first 3 requests: the 4th asks for 120 tokens,
 # 120 round steps at ~1.5 s a step (PERF.md §4)
-MOE_ENGINE_REQUESTS = 3
+MOE_ENGINE_REQUESTS = 2
 MOE_BANKS = ("experts_gate", "experts_up", "experts_down")
 MOE_HETERO = ((8, 9), (24, 6))  # the granite analogue of --plan moe-hetero: (experts, ADC bits) in order
 MOE_SERVE_PROMPT, MOE_SERVE_TOKENS = 32, 16
@@ -3745,17 +3737,9 @@ class entry_counts:
 
 
 def zero_kernel_counts():
-    from repro_torch.kernels.crs import kernel as KC
-    from repro_torch.kernels.sliced_mvm import kernel as KM
-    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch import kernels
 
-    KM.mvm_sliced_fused.launches = KM.mvm_sliced_fused.transpose_launches = 0
-    KM.mvm_sliced_fused.instances.clear()
-    for fn in (KO.opa_fused, KO.opa_dense):
-        fn.launches = 0
-        fn.instances.clear()
-    KO.opa_deposit.launches = KC.crs.launches = KO.opa_im2col.launches = 0
-    KO.opa_im2col.instances.clear()
+    kernels.reset_launch_counts()
 
 
 def check_kernel_counts(torch, seen, what):
@@ -3831,7 +3815,7 @@ def moe_train(torch, cfg, opt_cfg, state, device="cuda"):
              "hetero": planlib.coverage_rules(opt_cfg) + (planlib.PlanRule("*/experts_*", expert_groups=hetero),)}
     shapes = param_shapes(state.digital, state.sliced)
     plans = {k: planlib.resolve_plan(shapes, r, tokens=T) for k, r in rules.items()}
-    steps = {k: make_train_step(cfg, opt_cfg, constant(3e-2), plan_rules=r) for k, r in rules.items()}
+    steps = {k: make_train_step(cfg, opt_cfg, constant(3e-2), plan_rules=r, remat="none") for k, r in rules.items()}
     for k, pl in plans.items():
         print(f"  plan {k}:\n" + planlib.plan_summary(pl), flush=True)
     ds = SyntheticLMDataset(cfg.vocab, MOE_SEQ, MOE_BATCH, seed=0, device=device)
@@ -4001,6 +3985,7 @@ def moe_kernel_times(torch, K, cfg, opt_cfg, state, gen, gi=0, suffix=""):
     dense bank's 768 K2 writes timed beside their plain versions, the
     library yardstick and the bound. ``gi``: the pattern group whose layer 0
     is read; ``suffix`` ends the timings' names. Returns the timings."""
+    from repro_torch.kernels import common as KW
     import dataclasses
 
     from repro_torch import configs
@@ -4121,7 +4106,7 @@ def moe_kernel_times(torch, K, cfg, opt_cfg, state, gen, gi=0, suffix=""):
         for _, x, dh, _, _, _ in work:
             torch.bmm(x.transpose(1, 2), dh)
 
-    bs = [bound_of(2 * S * Mb * Nb + 2 * rows * (Mb + Nb) + 4, 2.0 * rows * Mb * Nb, BF16_FLOPS_PER_S)
+    bs = [KW.opa_work(rows, Mb, Nb, S).bound_ms()
           for *_, Mb, Nb in work]
     out[f"opa_fused_expert{suffix}"] = {"ms": cuda_time_ms(k1, 5), "plain_ms": cuda_time_ms(k1_plain, 1, 0),
                                "library_ms": cuda_time_ms(k1_lib, 10), "bound_ms": E * sum(b[0] for b in bs),
@@ -4134,8 +4119,7 @@ def moe_kernel_times(torch, K, cfg, opt_cfg, state, gen, gi=0, suffix=""):
     g = dense_gradient(torch, (L * E, Mb, Nb), torch.float32, gen)
     k2 = cuda_time_ms(lambda: [dense_launch(torch, planes[i], g[i], spec, "counter") for i in range(L * E)], 3)
     k2_plain = cuda_time_ms(lambda: [dense_plain(torch, planes[i], g[i], spec, "counter") for i in range(L * E)], 1, 0)
-    b = bound_of((4 + 2 * S) * L * E * Mb * Nb, (8.0 * S + DENSE_DRAW_OPS["counter"]) * L * E * Mb * Nb,
-                 CUDA_CORE_OPS_PER_S)
+    b = KW.dense_work(L * E * Mb, Nb, S).bound_ms()
     out[f"opa_dense_expert{suffix}"] = {"ms": k2, "plain_ms": k2_plain, "library_ms": None, "bound_ms": b[0],
                                         "bound_by": b[1]}
     del planes, g
@@ -4215,6 +4199,7 @@ def ssm_kernel_checks(torch, K, spec, gen):
     block; K4 forward and MᵀVM on the narrow tiles at adc9; each timed
     beside its plain version, its library yardstick and its bound. Returns
     the timings by kernels-line name."""
+    from repro_torch.kernels import common as KW
     from repro_torch.core import prng
     from repro_torch.core.fixed_point import choose_frac_bits
     from repro_torch.core.slicing import dequantize_planes
@@ -4251,7 +4236,7 @@ def ssm_kernel_checks(torch, K, spec, gen):
         key = prng.PRNGKey(3)
         work = planes.clone()
         x32, dh32 = x.float(), dh[..., 0].float()
-        b = bound_of(2 * S * Kw * C + 2 * C * IM2COL_T * (Kw + 1) + 4, 2.0 * C * IM2COL_T * Kw, CUDA_CORE_OPS_PER_S)
+        b = KW.im2col_work(C, IM2COL_T, Kw, S).bound_ms()
         out[name] = {
             "ms": cuda_time_ms(lambda: KO.opa_im2col(work, x, dh, 3e-2, frac, spec=spec, key=key, layer=0), 20),
             "plain_ms": cuda_time_ms(lambda: RO.opa_im2col_ref(work, x, dh, 3e-2, frac[0], spec, key, 0), 1, 0),
@@ -4267,7 +4252,7 @@ def ssm_kernel_checks(torch, K, spec, gen):
             if not torch.equal(got, want):
                 raise AssertionError(f"(a) K3 on a conv block [{S}, {Kw}, {C}] vs plain")
             checks += 1
-            cb = bound_of(2 * S * Kw * C, CRS_OPS_PER_PLANE_CELL * S * Kw * C, CUDA_CORE_OPS_PER_S)
+            cb = KW.crs_work(S * Kw * C).bound_ms()
             out["crs_conv"] = {"ms": cuda_time_ms(lambda: KC.crs(cplanes, spec=spec), 20),
                                "plain_ms": cuda_time_ms(lambda: RC.crs_ref(cplanes, spec), 5),
                                "library_ms": None, "bound_ms": cb[0], "bound_by": cb[1]}
@@ -4523,7 +4508,7 @@ def train_steps(torch, cfg, opt_cfg, state, gen, device="cuda", modes=("coverage
              "default": planlib.default_rules(opt_cfg, fidelity=adc9)}
     shapes = param_shapes(state.digital, state.sliced)
     plans = {k: planlib.resolve_plan(shapes, r, tokens=T) for k, r in rules.items()}
-    steps = {k: make_train_step(cfg, opt_cfg, constant(3e-2), plan_rules=r) for k, r in rules.items()}
+    steps = {k: make_train_step(cfg, opt_cfg, constant(3e-2), plan_rules=r, remat="none") for k, r in rules.items()}
     ds = SyntheticLMDataset(cfg.vocab, SSM_SEQ, SSM_BATCH, seed=0, device=device)
     cuda = device == "cuda"
     totals = {k: collections.Counter() for k in ("k4", "k1", "im2col", "k2", "k3")}
@@ -4808,6 +4793,7 @@ def tile_kernel_times(torch, K, spec, tiles, rows, gen, directions=(False, True)
     beside it, the library yardstick (``v @ w`` on the dequantized f32
     weights; bf16 ``xᵀ @ dh`` for K1) and the bound. Returns the sums over
     the tiles by direction: {"fwd", "mtvm", "k1"} -> timings."""
+    from repro_torch.kernels import common as KW
     from repro_torch.core.fixed_point import choose_frac_bits
     from repro_torch.core.slicing import dequantize_planes
     from repro_torch.kernels.sliced_mvm import ref
@@ -4845,7 +4831,7 @@ def tile_kernel_times(torch, K, spec, tiles, rows, gen, directions=(False, True)
             del got, want
             x = torch.randn((rows, M), generator=gen, device="cuda").to(torch.bfloat16)
             dh = (torch.randn((rows, N), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
-            b = bound_of(2 * S * M * N + 2 * rows * (M + N) + 4, 2.0 * rows * M * N, BF16_FLOPS_PER_S)
+            b = KW.opa_work(rows, M, N, S).bound_ms()
             parts["k1"].append({
                 "ms": cuda_time_ms(lambda: KO.opa_fused(planes, x, dh, 3e-2, frac, spec=spec, key_words=(1, 2)), 5),
                 "plain_ms": cuda_time_ms(lambda: RO.opa_fused_ref(planes, x, dh, 3e-2, frac[0], spec, (1, 2)), 1, 1),
@@ -5259,8 +5245,8 @@ def mesh_rel(torch, a, b, opt_cfg) -> float:
     return diff / top
 
 
-MESH_VARIANTS = (("adc9", "adc9", False, 2), ("adc9_fsdp", "adc9", True, 2), ("ideal", "ideal", False, 2),
-                 ("ideal_fsdp", "ideal", True, 2))
+# FSDP only: the 1x2 world steps the tile blocks with no data shards (MESH_MODEL_VARIANTS)
+MESH_VARIANTS = (("adc9_fsdp", "adc9", True, 2), ("ideal_fsdp", "ideal", True, 2))
 
 
 def word_ints(torch, planes):
@@ -5332,8 +5318,9 @@ MESH_MODEL_VARIANTS = (("adc9_model", "adc9", False, 2),)  # the 1x2 world's: th
 def mesh_train(torch, mesh, root, directory, variants=MESH_VARIANTS, fold=False):
     """(c) gemma-2b at full width (MESH_LAYERS deep, f32) from the seed
     weights and batches: the ``variants``' steps on the mesh against the
-    single-process steps (rank 0), coverage rules, two steps each: adc9 and
-    ideal ADC, plain and FSDP. Rank 0 compares after each step the losses,
+    single-process steps (rank 0), coverage rules, two steps each (adc9 and
+    ideal ADC under FSDP; adc9 with no data shards on the 1x2 world). Rank
+    0 compares after each step the losses,
     its blocks' weights over the model's max|w| (``mesh_block_rel``) and its
     crossbar cells in units of a word's last bit (``mesh_leaf_gaps``); each
     step's ms on this rank and its launches. ``fold``: the single-process
@@ -5363,9 +5350,9 @@ def mesh_train(torch, mesh, root, directory, variants=MESH_VARIANTS, fold=False)
     for name, preset, fsdp, steps in variants:
         fid = dataclasses.replace(configs.fidelity_presets()[preset], spec=opt_cfg.spec)
         rules = planlib.coverage_rules(opt_cfg, fid)
-        step = S.make_train_step(cfg, opt_cfg, constant(MESH_LR), mesh=mesh, fsdp=fsdp, plan_rules=rules)
+        step = S.make_train_step(cfg, opt_cfg, constant(MESH_LR), mesh=mesh, fsdp=fsdp, plan_rules=rules, remat="none")
         one = S.make_train_step(cfg, opt_cfg, constant(MESH_LR), **({"plan": step.plan} if fold else
-                                                                     {"plan_rules": rules}))
+                                                                     {"plan_rules": rules}), remat="none")
         res = {"mesh_loss": [], "one_loss": [], "rel": [], "leaves": [], "steps": steps, "fold": fold}
         ref = S.train_state_init(cfg, opt_cfg, 0, device=dev) if root and not fold else None
         state = S.shard_state(S.train_state_init(cfg, opt_cfg, 0, device=dev), step.specs, mesh)
@@ -5664,6 +5651,7 @@ def mesh_block_timings(torch, K, ref, spec, gen):
     read beside it), K1 on that block, K2 on the embedding's row block
     128000x2048 (f32, counter), K3 on it: kernel, plain version, library
     yardstick, bound."""
+    from repro_torch.kernels import common as KW
     from repro_torch.core.slicing import dequantize_planes
     from repro_torch.kernels.common import Origin
     from repro_torch.kernels.crs import kernel as KC
@@ -5696,7 +5684,7 @@ def mesh_block_timings(torch, K, ref, spec, gen):
     xb = torch.randn((T, M), generator=gen, device="cuda").to(torch.bfloat16)
     dhb = (torch.randn((T, N // 2), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
     o = Origin(0, N // 2, M, N)
-    b = bound_of(2 * S * M * (N // 2) + 2 * T * (M + N // 2) + 4, 2.0 * T * M * (N // 2), BF16_FLOPS_PER_S)
+    b = KW.opa_work(T, M, N // 2, S).bound_ms()
     out["opa_fused_block"] = {
         "ms": cuda_time_ms(lambda: KO.opa_fused(planes, xb, dhb, 3e-2, fr, spec=spec, key_words=(1, 2), origin=o), 10),
         "plain_ms": cuda_time_ms(lambda: RO.opa_fused_ref(planes, xb, dhb, 3e-2, fr[0], spec, (1, 2), origin=o), 3, 1),
@@ -5707,13 +5695,13 @@ def mesh_block_timings(torch, K, ref, spec, gen):
     planes = torch.randint(-8, 8, (S, V // 2, D), generator=gen, device="cuda", dtype=torch.int8)
     g = torch.randn((V // 2, D), generator=gen, device="cuda") * 1e-3
     o = Origin(V // 2, 0, V, D)
-    b = bound_of((4 + 2 * S) * (V // 2) * D, (8.0 * S + 14) * (V // 2) * D, CUDA_CORE_OPS_PER_S)
+    b = KW.dense_work(V // 2, D, S).bound_ms()
     out["opa_dense_block"] = {
         "ms": cuda_time_ms(lambda: KO.opa_dense(planes, g, 3e-2, fr, spec=spec, key_words=(1, 2), origin=o), 5),
         "plain_ms": cuda_time_ms(lambda: plain_by_rows(torch, lambda a, q, r0=0: RO.opa_dense_ref(
             a, q, 3e-2, 30, spec, (1, 2), origin=o), planes, g), 1, 1),
         "library_ms": None, "bound_ms": b[0], "bound_by": b[1]}
-    b = bound_of(2 * S * (V // 2) * D, CRS_OPS_PER_PLANE_CELL * S * (V // 2) * D, CUDA_CORE_OPS_PER_S)
+    b = KW.crs_work(S * (V // 2) * D).bound_ms()
     out["crs_block"] = {
         "ms": cuda_time_ms(lambda: KC.crs(planes, spec=spec), 5),
         "plain_ms": cuda_time_ms(lambda: plain_by_rows(torch, lambda p: RC.crs_ref(p, spec), planes), 1, 1),
@@ -5863,6 +5851,390 @@ def phase_mesh(torch, K, ref, gen):
         "timings": timings, "reads_err": reads_err}
 
 
+# ----------------------- remat and the dry run (phase 21) -----------------------
+
+REMAT_RUNS = ("none", "none", "full", "dots")  # one state, each mode; "none" twice (repeatability)
+REMAT_BATCH, REMAT_SEQ = 4, 256  # 4 x 256 tokens at gemma-2b's full width, adc9
+LONG_SEQ = 4096  # train_4k's sequence length, one row
+LONG_NONE_GATE_GIB = 75  # "none" at LONG_SEQ runs only where the dry run predicts a peak under this
+PEAK_TOL = 0.05  # the dry run's peak against the card's, relative
+REMAT_LR = 3e-2
+MOE_MESH_LAYERS = 2  # granite's 24 layers cut to 2: the phase's share of the time limit
+MOE_MESH_SEQ = 1024  # 2 rows of it on data 2: each rank's tokens one whole dispatch group
+MOE_MESH_TIMEOUT = 600
+MOE_AUX_TOL = 1e-6  # |aux_mesh - aux_one| <= MOE_AUX_TOL * |aux_one|
+MOE_SERVE_ROWS, MOE_SERVE_PROMPT = 8, 16  # 4 rows a rank: 64 prompt tokens, 4 decode tokens a rank (misaligned)
+MOE_SERVE_TOL = 1e-5  # |logits_mesh - logits_one| <= MOE_SERVE_TOL * max|logits_one|, argmax equal
+IM2COL_ORIGIN_C = 4224  # zamba2's channels, cut in two at a channel origin
+
+
+def storage_bytes(torch, *trees) -> int:
+    """Bytes of the distinct storages of the tensors in ``trees``."""
+    from torch.utils import _pytree as pytree
+
+    seen = {}
+    for t in pytree.tree_leaves(trees):
+        if isinstance(t, torch.Tensor):
+            seen[t.untyped_storage()._cdata] = t.untyped_storage().nbytes()
+    return sum(seen.values())
+
+
+def state_leaves(state) -> list:
+    """A train state's tensors: digital leaves, then planes, in order."""
+    return _leaves(state.digital) + [s.planes for s in _leaves(state.sliced)]
+
+
+def card_step(torch, step, state, batch) -> tuple:
+    """One step on the card: ``(new state, metrics, ms, peak bytes)``, the
+    peak the step's allocations above what was allocated before it plus
+    its arguments' storages (the state's and the batch's): what the dry
+    run's ``peak_per_device_bytes`` counts."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    args = storage_bytes(torch, state_leaves(state), batch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    new, m = step(state, batch)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return new, m, ms, torch.cuda.max_memory_allocated() - base + args
+
+
+def dry_step(torch, cfg, opt_cfg, rules, remat, batch) -> dict:
+    """The dry run (``launch.dryrun.measure``) of the train step the card
+    runs: the same config, plan rules and mode, on meta tensors of the
+    state's layout and the batch's shapes and dtypes."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train.step import make_train_step
+
+    step = make_train_step(cfg, opt_cfg, constant(REMAT_LR), remat=remat, plan_rules=rules)
+    meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in batch.items()}
+    return D.measure(step, D.meta_train_state(cfg, opt_cfg, None), meta)[1]
+
+
+def remat_runs(torch, cfg, opt_cfg, rules, state, batch, modes, pristine=None, compare=True) -> list:
+    """``modes``' steps from one state (restored from ``pristine`` before
+    each but the first), each beside its dry run: ms, peak, launches by
+    instance, and with ``compare`` whether loss, metrics and every leaf
+    equal the first step's where the first two runs agree."""
+    from repro_torch import kernels
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train.step import make_train_step
+
+    out, first, agree, dry_of = [], None, None, {}
+    for i, mode in enumerate(modes):
+        if i and pristine is not None:
+            for t, p in zip(state_leaves(state), pristine):
+                t.copy_(p)
+        step = make_train_step(cfg, opt_cfg, constant(REMAT_LR), remat=mode, plan_rules=rules)
+        kernels.reset_launch_counts()
+        new, m, ms, peak = card_step(torch, step, state, batch)
+        launches = kernels.launch_counts()
+        t0 = time.perf_counter()
+        if mode not in dry_of:  # a mode's dry run is the same step each time
+            dry_of[mode] = dry_step(torch, cfg, opt_cfg, rules, mode, batch)
+        dry = dry_of[mode]
+        dry_s = time.perf_counter() - t0
+        r = {"mode": mode, "ms": ms, "peak": peak, "max_allocated": torch.cuda.max_memory_allocated(),
+             "launches": launches, "dry_peak": dry["memory"]["peak_per_device_bytes"],
+             "dry_launches": dry["kernel_launches"], "dry_s": dry_s,
+             "metrics": {k: float(m[k]) for k in ("loss", "aux", "grad_norm")}}
+        if compare:
+            if first is None:
+                first = [t.clone() for t in state_leaves(new)]
+            else:
+                same = [torch.equal(a, b) for a, b in zip(state_leaves(new), first)]
+                if agree is None:
+                    agree = same  # the second "none": the leaves two runs of one mode agree on
+                r["leaves_equal"] = sum(s for s, a in zip(same, agree) if a)
+                r["leaves_held"] = sum(agree)
+        out.append(r)
+        del new, m, step
+        torch.cuda.empty_cache()
+    del first
+    return out
+
+
+def moe_mesh_cfg(arch=MOE_ARCH):
+    """``arch`` (granite-moe-1b-a400m) at full width, MOE_MESH_LAYERS deep,
+    in f32 (bf16 gradients summed over data shards round apart, as phase
+    20's)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+
+    cfg = configs.get(arch)
+    return dataclasses.replace(cfg, n_layers=MOE_MESH_LAYERS, pattern=((cfg.pattern[0][0], MOE_MESH_LAYERS),),
+                               dtype=torch.float32)
+
+
+def moe_mesh_world(rank, arch=MOE_ARCH):
+    """(c) on one rank of a (2, 1) world sharing the card over gloo
+    (``arch``: granite, or another arch at the same shape to tell the MoE
+    layer's share of a gap from the rest's): two ideal-ADC coverage steps
+    of 2 x MOE_MESH_SEQ tokens (a rank's tokens one whole dispatch group)
+    under the default ``remat="full"`` (the recompute re-runs the DAC
+    range's and the aux term's all-reduces in the backward) with the
+    kernels' launches counted, each against one process stepping under
+    ``"none"`` from the mesh's state before it (rank 0:
+    loss, aux, the weights' gap of max|w| and in grid LSB); then prefill of
+    MOE_SERVE_ROWS x MOE_SERVE_PROMPT tokens and a decode step (groups a
+    rank does not hold whole) on the lossless tree of the trained state,
+    against one process (rank 0)."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs, kernels
+    from repro_torch import plan as planlib
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import lm
+    from repro_torch.optim import PantherConfig, panther
+    from repro_torch.optim.schedules import constant
+    from repro_torch.serve import kv_pages
+    from repro_torch.serve.step import make_decode_step, make_prefill
+    from repro_torch.train import step as S
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    backend, dev = M.init_world("cuda")
+    mesh = M.init_mesh((2, 1))
+    root = dist.get_rank() == 0
+    cfg = moe_mesh_cfg(arch)
+    opt = PantherConfig(crs_every=2, stochastic_round=True)
+    rules = planlib.coverage_rules(opt, dataclasses.replace(configs.fidelity_presets()["ideal"], spec=opt.spec))
+    step = S.make_train_step(cfg, opt, constant(MESH_LR), mesh=mesh, plan_rules=rules)  # remat "full", the default
+    init = lambda: S.train_state_init(cfg, opt, 0, device=dev, plan=step.plan)  # noqa: E731
+    ds = SyntheticLMDataset(cfg.vocab, MOE_MESH_SEQ, 2, device=dev)
+    one = S.make_train_step(cfg, opt, constant(MESH_LR), plan_rules=rules, remat="none")
+    out = {"backend": backend, "losses": [], "aux": [], "ms": [], "one_losses": [], "one_aux": [], "rel": [],
+           "lsb": [], "launches": collections.Counter()}
+    state = S.shard_state(init(), step.specs, mesh)
+    for k in range(2):
+        before = S.gather_state(state, step.specs, mesh)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, ds.batch(k))
+        out["losses"].append(float(m["loss"]))
+        out["aux"].append(float(m["aux"]))
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        out["launches"].update(kernels.launch_counts())
+        whole = S.gather_state(state, step.specs, mesh)
+        if root:  # one process stepping from the mesh's state before this step
+            ref, m1 = one(before, ds.batch(k))
+            out["one_losses"].append(float(m1["loss"]))
+            out["one_aux"].append(float(m1["aux"]))
+            out["rel"].append(mesh_rel(torch, whole, ref, opt))
+            gaps = [(word_ints(torch, a.planes) - word_ints(torch, b.planes)).abs()
+                    for a, b in zip(_leaves(whole.sliced), _leaves(ref.sliced))]
+            out["lsb"].append((max(int(g.max()) for g in gaps), sum(int((g > 0).sum()) for g in gaps),
+                               sum(g.numel() for g in gaps)))
+            out.setdefault("leaves", []).append(moe_leaf_gaps(torch, whole, ref, opt))
+            del ref
+        del before
+    out["launches"] = dict(out["launches"])
+    del state
+    prompts = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab, (MOE_SERVE_ROWS, MOE_SERVE_PROMPT)),
+                              device=dev)
+    params = panther.materialize_split(whole.digital, whole.sliced, PantherConfig())
+
+    def serve(m):
+        prefill, decode = make_prefill(cfg, mesh=m), make_decode_step(cfg, mesh=m)
+        lg, caches = prefill(params, prompts)
+        caches = kv_pages.grow_caches(cfg, lm.unstack_caches(cfg, caches), MOE_SERVE_PROMPT + 1)
+        _, lg2, _ = decode(params, torch.argmax(lg, dim=-1).to(torch.int32), caches, MOE_SERVE_PROMPT)
+        return torch.stack([lg, lg2])
+
+    served = serve(mesh)
+    if root:
+        solo = serve(None)
+        out["serve_rel"] = float((served - solo).abs().max() / solo.abs().max())
+        out["serve_argmax_equal"] = bool(torch.equal(served.argmax(-1), solo.argmax(-1)))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def moe_leaf_gaps(torch, a, b, opt_cfg, top=4) -> list:
+    """The ``top`` leaves of two states furthest apart: (path, max |w_a -
+    w_b| over the model's max|w_b|, the share of cells apart)."""
+    from repro_torch import tree
+    from repro_torch.core.slicing import dequantize_planes
+
+    top_w = 0.0
+    rows = []
+    for (path, x), (_, y) in zip(tree.leaves_with_path(a.sliced), tree.leaves_with_path(b.sliced)):
+        if x is None:
+            continue
+        wx = dequantize_planes(x.planes, x.frac_bits, opt_cfg.spec)
+        wy = dequantize_planes(y.planes, y.frac_bits, opt_cfg.spec)
+        top_w = max(top_w, float(wy.abs().max()))
+        rows.append(["/".join(map(str, path)), float((wx - wy).abs().max()), float((wx != wy).float().mean())])
+    for r in rows:
+        r[1] /= top_w
+    return sorted(rows, key=lambda r: -r[1])[:top]
+
+
+def im2col_origin_check(torch, gen) -> dict:
+    """(d) The im2col entry on zamba2's conv-tap block ``[S, 4, 4224]`` cut
+    at channel 2112 (as FSDP cuts it at data 16 or 32): each half's launch
+    at its channel origin equals the same half of the whole leaf's launch
+    bit for bit, under the counter draw and half to even; the halves and
+    the whole timed."""
+    from repro_torch.kernels import common as KW
+    from repro_torch.core import prng
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.common import Origin
+    from repro_torch.kernels.sliced_opa import kernel as KO
+    from repro_torch.kernels.sliced_opa import ref as RO
+
+    spec, C, Kw = DEFAULT_SPEC, IM2COL_ORIGIN_C, 4
+    planes = random_planes(torch, spec, (Kw, C), gen)
+    x, dh = im2col_operands(torch, C, IM2COL_T, Kw, gen)
+    frac = torch.tensor([20], dtype=torch.int32, device="cuda")
+    checks = 0
+    halves = ((0, C // 2), (C // 2, C))
+    for key in (None, prng.PRNGKey(9)):
+        whole = KO.opa_im2col(planes.clone(), x, dh, 3e-2, frac, spec=spec, key=key, layer=5)
+        for c0, c1 in halves:
+            got = KO.opa_im2col(planes[:, :, c0:c1].contiguous(), x[c0:c1].contiguous(), dh[c0:c1].contiguous(),
+                                3e-2, frac, spec=spec, key=key, layer=5, origin=Origin(0, c0, Kw, C))
+            torch.cuda.synchronize()
+            if not torch.equal(got, whole[:, :, c0:c1]):
+                raise AssertionError(f"(d) the im2col entry at channel origin {c0} (key {key}): "
+                                     f"{int((got != whole[:, :, c0:c1]).sum())} cells differ from the whole leaf's")
+            checks += 1
+    key = prng.PRNGKey(9)
+    parts = [(planes[:, :, a:b].contiguous(), x[a:b].contiguous(), dh[a:b].contiguous(), Origin(0, a, Kw, C))
+             for a, b in halves]
+    half_ms = [cuda_time_ms(lambda p=p: KO.opa_im2col(p[0], p[1], p[2], 3e-2, frac, spec=spec, key=key, layer=5,
+                                                       origin=p[3]), 20) for p in parts]
+    whole_ms = cuda_time_ms(lambda: KO.opa_im2col(planes, x, dh, 3e-2, frac, spec=spec, key=key, layer=5), 20)
+    hp, hx, hd, ho = parts[1]  # the half at a channel origin off 0
+    plain_ms = cuda_time_ms(lambda: RO.opa_im2col_ref(hp, hx, hd, 3e-2, frac[0], spec, key, 5, origin=ho), 1, 0)
+    hx32, hd32 = hx.float(), hd[..., 0].float()
+    lib_ms = cuda_time_ms(lambda: torch.einsum("ctk,ct->kc", hx32, hd32), 20)
+    b = KW.im2col_work(C // 2, IM2COL_T, Kw, spec.n_slices).bound_ms()
+    print(f"  (d) the im2col entry at a channel origin, zamba2's [{spec.n_slices}, {Kw}, {C}] block cut at "
+          f"{C // 2}, {IM2COL_T} tokens: {checks} cases bit for bit against the whole leaf's launch (counter draw, "
+          f"half to even); a half {half_ms[0]:.4f} / {half_ms[1]:.4f} ms, the whole {whole_ms:.4f} ms; the half at "
+          f"{C // 2}: plain {plain_ms:.4f} ms, library (einsum ctk,ct->kc f32) {lib_ms:.4f} ms, bound {b[0]:.4f} ms "
+          f"({b[1]})", flush=True)
+    return {"checks": checks, "half_ms": half_ms, "whole_ms": whole_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b[0], "bound_by": b[1]}
+
+
+def phase_remat(torch, gen):
+    """Phase 21: remat and the dry run. (a) gemma-2b at full width, adc9
+    (``default_rules``), REMAT_BATCH x REMAT_SEQ tokens, one state: a step
+    under each of REMAT_RUNS, each beside its dry run (``launch.dryrun``,
+    meta tensors): losses, metrics and every leaf equal to the first "none"
+    step's wherever the two "none" runs agree; the launches by instance
+    equal to the dry run's; the peaks side by side. (b) one row of LONG_SEQ
+    tokens under "full", and under "none" where its dry-run peak is under
+    LONG_NONE_GATE_GIB. Each dry-run peak within PEAK_TOL of the card's.
+    (c) granite on a (2, 1) world sharing the card over gloo, the mesh
+    stepping under "full" (``moe_mesh_world``). (d) the im2col entry at a channel
+    origin (``im2col_origin_check``). Every number is printed before a
+    failed check fails the phase."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import plan as planlib
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch import mesh as M
+    from repro_torch.optim import PantherConfig
+    from repro_torch.train.step import train_state_init
+
+    fails = []
+
+    def check(ok, what):
+        if not ok:
+            fails.append(what)
+
+    gib = lambda b: b / 2**30  # noqa: E731
+    cfg = configs.get("gemma_2b")
+    opt_cfg = PantherConfig(crs_every=2, stochastic_round=True)
+    rules = planlib.default_rules(opt_cfg, fidelity=dataclasses.replace(configs.fidelity_presets()["adc9"],
+                                                                        spec=opt_cfg.spec))
+    t0 = time.perf_counter()
+    state = train_state_init(cfg, opt_cfg, gen, device="cuda")
+    pristine = [t.clone() for t in state_leaves(state)]
+    print(f"  gemma-2b state and its copy: {time.perf_counter() - t0:.1f} s, "
+          f"{gib(storage_bytes(torch, state_leaves(state))):.2f} GiB each", flush=True)
+    batch = SyntheticLMDataset(cfg.vocab, REMAT_SEQ, REMAT_BATCH, device="cuda").batch(0)
+    runs = remat_runs(torch, cfg, opt_cfg, rules, state, batch, REMAT_RUNS, pristine)
+    for r in runs:
+        gap = r["dry_peak"] / r["peak"] - 1
+        print(f"  (a) {r['mode']:4s} {REMAT_BATCH} x {REMAT_SEQ}: step {r['ms']:.1f} ms, peak {gib(r['peak']):.3f} GiB "
+              f"(max_memory_allocated {gib(r['max_allocated']):.3f}); dry run peak {gib(r['dry_peak']):.3f} GiB "
+              f"({100 * gap:+.2f}%, {r['dry_s']:.1f} s on the host); metrics {r['metrics']}; leaves equal to the "
+              f"first none step {r.get('leaves_equal', '-')} of the {r.get('leaves_held', '-')} the none runs agree "
+              f"on; launches {r['launches']}", flush=True)
+        check(r["launches"] == r["dry_launches"], f"(a) {r['mode']}: launches {r['launches']} != the dry run's "
+                                                  f"{r['dry_launches']}")
+        check(abs(gap) <= PEAK_TOL, f"(a) {r['mode']}: the dry run's peak {100 * gap:+.2f}% from the card's")
+        if "leaves_equal" in r:
+            same = r["metrics"] == runs[0]["metrics"] or runs[1]["metrics"] != runs[0]["metrics"]
+            check(r["leaves_equal"] == r["leaves_held"] and same,
+                  f"(a) {r['mode']}: not bit for bit with the first none step")
+    a = {"runs": runs}
+    del pristine
+    torch.cuda.empty_cache()
+    long_batch = SyntheticLMDataset(cfg.vocab, LONG_SEQ, 1, device="cuda").batch(0)
+    predicted = {mode: dry_step(torch, cfg, opt_cfg, rules, mode, long_batch)["memory"]["peak_per_device_bytes"]
+                 for mode in ("full", "none")}
+    print(f"  (b) 1 x {LONG_SEQ}: the dry run's peak under full {gib(predicted['full']):.3f} GiB, under none "
+          f"{gib(predicted['none']):.3f} GiB", flush=True)
+    modes = ("full", "none") if gib(predicted["none"]) < LONG_NONE_GATE_GIB else ("full",)
+    long_runs = remat_runs(torch, cfg, opt_cfg, rules, state, long_batch, modes, compare=False)
+    for r in long_runs:
+        gap = r["dry_peak"] / r["peak"] - 1
+        print(f"  (b) {r['mode']:4s} 1 x {LONG_SEQ}: step {r['ms']:.1f} ms, peak {gib(r['peak']):.3f} GiB, dry run "
+              f"{gib(r['dry_peak']):.3f} GiB ({100 * gap:+.2f}%); loss {r['metrics']['loss']:.6f}; launches "
+              f"{r['launches']}", flush=True)
+        check(math.isfinite(r["metrics"]["loss"]), f"(b) {r['mode']}: loss not finite")
+        check(r["launches"] == r["dry_launches"], f"(b) {r['mode']}: launches != the dry run's")
+        check(abs(gap) <= PEAK_TOL, f"(b) {r['mode']}: the dry run's peak {100 * gap:+.2f}% from the card's")
+    del state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = M.spawn(moe_mesh_world, 2, timeout=MOE_MESH_TIMEOUT)
+    r0 = ranks[0]
+    wall = time.perf_counter() - t0
+    rel_loss = max(abs(x - y) / (1 + abs(y)) for x, y in zip(r0["losses"], r0["one_losses"]))
+    rel_aux = max(abs(x - y) / abs(y) for x, y in zip(r0["aux"], r0["one_aux"]))
+    print(f"  (c) granite-moe-1b-a400m, {MOE_MESH_LAYERS} layers, f32, on a (2, 1) world ({r0['backend']}; "
+          f"{wall:.1f} s), remat full, each step against one process (none) from the mesh's state before it: losses "
+          f"{r0['losses']} "
+          f"against {r0['one_losses']} ({rel_loss:.3g}); aux {r0['aux']} against {r0['one_aux']} ({rel_aux:.3g} "
+          f"relative); weights {[float(f'{x:.3g}') for x in r0['rel']]} of max|w|, (largest gap in grid LSB, cells "
+          f"apart, cells) {r0['lsb']}; step ms by rank {[[round(x, 1) for x in r['ms']] for r in ranks]}; launches "
+          f"by rank {[r['launches'] for r in ranks]}; serving on split groups: logits {r0['serve_rel']:.3g} of max, "
+          f"argmax equal {r0['serve_argmax_equal']}; peak {max(r['peak_gib'] for r in ranks):.1f} GiB a rank",
+          flush=True)
+    for k, leaves in enumerate(r0["leaves"]):
+        print(f"  (c) step {k + 1}: the leaves furthest apart (path, of max|w|, share of cells apart): "
+              f"{[(p, float(f'{g:.3g}'), float(f'{c:.3g}')) for p, g, c in leaves]}", flush=True)
+    check(rel_loss <= MESH_LOSS_TOL[0], "(c) losses beyond the mesh tolerance")
+    check(rel_aux <= MOE_AUX_TOL, f"(c) aux {rel_aux:.3g} apart, beyond {MOE_AUX_TOL}")
+    check(max(r0["rel"]) <= MESH_WEIGHT_TOL, f"(c) weights {max(r0['rel']):.3g} of max|w| apart")
+    check(all(r["launches"].get("mvm_sliced_fused/io16", 0) > 0 and r["launches"].get("opa_fused/ideal_fma", 0) > 0
+              for r in ranks), "(c) a rank launched no expert read or no expert deposit")
+    check(r0["serve_rel"] <= MOE_SERVE_TOL and r0["serve_argmax_equal"], "(c) serving on split groups differs")
+    d = im2col_origin_check(torch, gen)
+    if fails:
+        raise AssertionError("phase 21: " + "; ".join(fails))
+    return {"a": a, "b": long_runs, "c": ranks, "d": d}
+
+
 def main() -> int:
     import torch
 
@@ -5970,6 +6342,8 @@ def main() -> int:
     train_launches.update(mesh["launches"])
     train_timings.update(mesh["timings"])
     done("phase 20: the mesh")
+    phase_remat(torch, gen)
+    done("phase 21: remat and the dry run")
     train_launches.update({"opa_dense_" + inst: n for inst, n in dense.items()})
     print(f"K2's dense write, launches by instance over the main-path runs: {dict(dense)}", flush=True)
 

@@ -236,7 +236,8 @@ def hetero_plan_demo(steps: int = 40, lr: float = 0.3, device=None) -> dict:
     ds = SyntheticLMDataset(cfg.vocab, seq_len=32, global_batch=8, seed=3, device=dev)
     digital, sliced = panther.init_split(_lm_params(cfg, prng.PRNGKey(0), dev), opt, plan=plan)
     state = TrainState(step=0, digital=digital, sliced=sliced, rng=prng.PRNGKey(7))
-    step = make_train_step(cfg, opt, constant(lr), plan=plan)
+    # every activation kept: the smoke model's steps, timed across PRs since before remat
+    step = make_train_step(cfg, opt, constant(lr), plan=plan, remat="none")
     losses = []
     for i in range(steps):
         state, m = step(state, ds.batch(i))

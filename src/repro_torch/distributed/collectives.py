@@ -6,6 +6,13 @@ and reductions the mesh step and the sharded read use. Each takes a live
 ``all_gather`` and ``broadcast`` are used: both backends take them on CUDA
 tensors.
 
+Every call that crosses ranks is counted in :data:`tally` by kind (the
+reference dry run's five, and ``broadcast``): its count and its result's
+bytes. On a dry mesh (``launch.mesh.dry_mesh``: one rank's coordinate, no
+process group) a call is counted and answered with an output of the right
+shape (an all-gather's blocks are the rank's own block repeated), and sends
+nothing: the dry run (``launch.dryrun``) runs one rank's step that way.
+
 ``tile_psum`` reduces per-shard crossbar partials (the forward's row-block
 shift-and-add partials, the MᵀVM ``dx`` column partials) exactly, in f32:
 the operands are product-grid sums, exact integers where the read is, and
@@ -15,17 +22,53 @@ on a scale shared across the axis before the sum, halving its bytes.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 import torch.distributed as dist
 
 from repro_torch.core import prng
+
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute", "broadcast")
+
+
+class Tally:
+    """The collectives of this process by kind: ``counts`` and ``bytes``
+    (each call's result, as the reference dry run sums its collectives'
+    result operands)."""
+
+    def __init__(self):
+        self.counts = collections.Counter()
+        self.bytes = collections.Counter()
+
+    def add(self, kind: str, nbytes: int) -> None:
+        self.counts[kind] += 1
+        self.bytes[kind] += int(nbytes)
+
+    def clear(self) -> None:
+        self.counts.clear()
+        self.bytes.clear()
+
+    def record(self) -> dict:
+        """``{"bytes", "counts", "total_bytes"}`` over every kind."""
+        by = {k: self.bytes[k] for k in KINDS}
+        return {"bytes": by, "counts": {k: self.counts[k] for k in KINDS}, "total_bytes": sum(by.values())}
+
+
+tally = Tally()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def all_reduce(t: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
     """``t`` reduced over ``axes`` (``"sum"`` or ``"max"``), in place."""
     group = mesh.group(axes)
     if group is not None:
-        dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM, group=group)
+        tally.add("all-reduce", _nbytes(t))
+        if not mesh.dry:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM, group=group)
     return t
 
 
@@ -36,15 +79,22 @@ def all_gather(t: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
     if group is None:
         return t
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t, group=group)
+    n = mesh.axes_size(axes) if mesh.dry else dist.get_world_size(group)
+    parts = [torch.empty_like(t) for _ in range(n)]
+    tally.add("all-gather", n * _nbytes(t))
+    if mesh.dry:
+        parts[mesh.index(axes)].copy_(t)
+    else:
+        dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
 
 
 def broadcast(t: torch.Tensor, mesh, src: int = 0) -> torch.Tensor:
     """``t`` from global rank ``src`` to every rank of the mesh, in place."""
     if mesh.live and mesh.size > 1:
-        dist.broadcast(t, src=src)
+        tally.add("broadcast", _nbytes(t))
+        if not mesh.dry:
+            dist.broadcast(t, src=src)
     return t
 
 

@@ -9,7 +9,9 @@ multiple of 16 the elements before the planes' first 16-byte boundary and
 after their last take a per-element routine in the same launch; for other
 shapes every element does. The library builds at first use
 (``kernels.build``), never at import. The wrapper launches on the current
-stream and counts its launches in ``crs.launches``.
+stream and counts its launches in ``crs.launches``; on fake tensors
+(``kernels.common.is_fake``) it records the launch and its work in
+``common.fake_work`` and launches nothing.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.core.slicing import SliceSpec
 from repro_torch.kernels import build as _build
+from repro_torch.kernels.common import crs_work, fake_work, is_fake, on_card
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "crs.cu"
 MAX_SLICES = 8  # canonical_limit fits int32
@@ -41,7 +44,7 @@ def _entry():
 def crs(planes: torch.Tensor, *, spec: SliceSpec) -> torch.Tensor:
     """planes int8 [S, M, N], contiguous on a CUDA device, canonicalized in
     place; returns ``planes``."""
-    if not planes.is_cuda:
+    if not on_card(planes):
         raise ValueError("crs kernel takes CUDA tensors only")
     if planes.dtype != torch.int8 or planes.dim() != 3 or not planes.is_contiguous():
         raise ValueError(f"planes must be contiguous int8 [S, M, N], got {planes.dtype} {tuple(planes.shape)}")
@@ -50,6 +53,9 @@ def crs(planes: torch.Tensor, *, spec: SliceSpec) -> torch.Tensor:
         raise ValueError(f"planes S={S} vs spec S={spec.n_slices} (at most {MAX_SLICES})")
     mn = planes.shape[1] * planes.shape[2]
     if mn == 0:
+        return planes
+    if is_fake(planes):
+        fake_work.add("crs", "crs", crs_work(S * mn))
         return planes
     fn = _entry()
     with torch.cuda.device(planes.device):

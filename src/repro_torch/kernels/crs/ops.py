@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.slicing import SliceSpec
-from repro_torch.kernels.common import layer_views
+from repro_torch.kernels.common import layer_views, on_card
 from . import kernel as _k
 from . import ref as _ref
 
@@ -18,7 +18,7 @@ def crs(planes: torch.Tensor, spec: SliceSpec) -> torch.Tensor:
     """Canonicalize planes int8 ``[S, *stack, M, N]`` in place (a stacked
     leaf's storage is layer-major, see ``optim.panther``); returns
     ``planes``."""
-    if planes.is_cuda:
+    if on_card(planes):
         for block in layer_views(planes):
             _k.crs(block, spec=spec)
         return planes

@@ -34,7 +34,10 @@ The transpose reads the same row-major planes in place. The source comment
 says what bounds each body on the card and what is left for later.
 
 The library builds at first use (``kernels.build``); nothing is compiled or
-loaded at import, so CPU-only machines import this module freely. The
+loaded at import, so CPU-only machines import this module freely. On fake
+tensors (``kernels.common.is_fake``: the dry run's) a wrapper allocates what
+its launch would, records the launch and its work in ``common.fake_work``
+and launches nothing; its own counters count real launches only. The
 wrappers launch on the current stream and count their launches:
 ``launches`` (forward) and ``transpose_launches`` (MᵀVM) over every
 instance, and ``instances`` by instance name (``instance_name``; decode-body
@@ -53,6 +56,7 @@ import torch
 from repro_torch.core.fixed_point import device_pattern_words
 from repro_torch.core.slicing import SliceSpec
 from repro_torch.kernels import build as _build
+from repro_torch.kernels.common import fake_work, is_fake, on_card, read_work
 from .ref import READ_SALT, READ_SALT_T, XBAR_ROWS, read_offset_scales
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mvm_sliced_fused.cu"
@@ -162,7 +166,7 @@ def _sm_count(index: int) -> int:
 
 def _check_read(planes: torch.Tensor, x: torch.Tensor, x_dtype, spec: SliceSpec, io_bits: int, adc_bits,
                 transpose: bool):
-    if not (planes.is_cuda and x.is_cuda):
+    if not (on_card(planes) and on_card(x)):
         raise ValueError("the sliced-MVM kernels take CUDA tensors only")
     if planes.device != x.device:
         raise ValueError(f"tensors on different devices: {planes.device}, {x.device}")
@@ -183,9 +187,11 @@ def _check_read(planes: torch.Tensor, x: torch.Tensor, x_dtype, spec: SliceSpec,
 
 
 def _run(name: str, planes: torch.Tensor, x: torch.Tensor, spec: SliceSpec, adc_bits, transpose: bool,
-         call) -> tuple:
+         call, body: str, io_bits: int, noisy: bool = False) -> tuple:
     """Allocate the output and launch ``call(out, B, M, N, S, adc_bits,
-    slice_bits, vec, transpose, stream)``; -> (out, launched)."""
+    slice_bits, vec, transpose, stream)``; -> (out, launched). On fake
+    planes (``common.is_fake``) allocate what the launch would (the decode
+    body's workspace and tickets), record its work, and launch nothing."""
     S, M, N = planes.shape
     B = x.shape[0]
     out = torch.empty((B, M if transpose else N), dtype=torch.float32, device=x.device)
@@ -193,6 +199,14 @@ def _run(name: str, planes: torch.Tensor, x: torch.Tensor, spec: SliceSpec, adc_
         return out, False
     if (N if transpose else M) == 0:
         return out.zero_(), False
+    if is_fake(planes):
+        if body == "decode":
+            plan = decode_plan(B, M, N, S)
+            torch.empty((-(-M // XBAR_ROWS), B, N), dtype=torch.float32, device=planes.device)
+            torch.empty(max(plan.col_blocks, 1024), dtype=torch.int32, device=planes.device)
+        fake_work.add(name, instance_name(transpose, io_bits, noisy, body),
+                      read_work(B, M, N, S, io_bits, fused=name == "mvm_sliced_fused"))
+        return out, False
     bits = (ctypes.c_int * S)(*spec.bits_lsb_first)
     vec = int(N % 4 == 0 and planes.data_ptr() % 4 == 0)
     with torch.cuda.device(planes.device):
@@ -233,7 +247,7 @@ def mvm_sliced_fused(
     the global crossbar tile ``tile0 + k`` and column ``col0 + n``. Raises on
     what the kernel does not take."""
     _check_read(planes, x, torch.float32, spec, io_bits, adc_bits, transpose)
-    if not frac_bits.is_cuda or frac_bits.device != planes.device:
+    if not on_card(frac_bits) or frac_bits.device != planes.device:
         raise ValueError(f"frac_bits on {frac_bits.device}, planes on {planes.device}")
     if frac_bits.dtype != torch.int32 or frac_bits.numel() != 1:
         raise ValueError("frac_bits must be a 1-element int32 tensor")
@@ -243,8 +257,8 @@ def mvm_sliced_fused(
     if dev is not None:
         off = ctypes.cast((ctypes.c_float * spec.n_slices)(*read_offset_scales(dev, spec)), ctypes.c_void_p)
         words = device_pattern_words(dev.stuck_seed, READ_SALT_T if transpose else READ_SALT)
-    fn = _lib().panther_mvm_sliced_fused
     body = body_for(x.shape[0], transpose)
+    fn = None if is_fake(planes) else _lib().panther_mvm_sliced_fused
 
     def call(out, B, M, N, S, adc, bits, vec, trans, stream):
         if body != "decode":
@@ -260,7 +274,8 @@ def mvm_sliced_fused(
                   bits, vec, trans, off, *words, int(tile0), int(col0), BODY_CODES[body], ws.data_ptr(),
                   tickets.data_ptr(), tickets.numel(), plan.group, stream)
 
-    out, launched = _run("mvm_sliced_fused", planes, x, spec, adc_bits, transpose, call)
+    out, launched = _run("mvm_sliced_fused", planes, x, spec, adc_bits, transpose, call, body, io_bits,
+                         dev is not None)
     if launched:
         _count(mvm_sliced_fused, transpose, io_bits, dev is not None, body)
     return out
@@ -287,13 +302,13 @@ def mvm_sliced(
         body = body_for(x_q.shape[0], transpose, fused=False)
     if body not in ("dp4a", "mma"):
         raise ValueError(f"mvm_sliced runs the 'mma' or the 'dp4a' body, not {body!r}")
-    fn = _lib().panther_mvm_sliced
+    fn = None if is_fake(planes) else _lib().panther_mvm_sliced
 
     def call(out, B, M, N, S, adc, bits, vec, trans, stream):
         return fn(planes.data_ptr(), x_q.data_ptr(), out, B, M, N, S, io_bits, adc, bits, vec, trans,
                   BODY_CODES[body], stream)
 
-    out, launched = _run("mvm_sliced", planes, x_q, spec, adc_bits, transpose, call)
+    out, launched = _run("mvm_sliced", planes, x_q, spec, adc_bits, transpose, call, body, io_bits)
     if launched:
         _count(mvm_sliced, transpose, io_bits, body=body)
     return out

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.slicing import SliceSpec
+from repro_torch.kernels.common import on_card
 from . import kernel as _k
 from . import ref as _ref
 
@@ -41,7 +42,7 @@ def _normalize_read_device(device):
 def _check_device(planes: torch.Tensor, x: torch.Tensor) -> None:
     if planes.device != x.device:
         raise ValueError(f"planes on {planes.device} but x on {x.device}")
-    if not planes.is_cuda and planes.device.type != "cpu":
+    if not on_card(planes) and planes.device.type != "cpu":
         raise ValueError(f"no sliced-MVM implementation for device {planes.device}")
 
 
@@ -78,7 +79,7 @@ def mvm_sliced_fused(
     device = _normalize_read_device(device)
     frac = torch.as_tensor(frac_bits, dtype=torch.int32, device=planes.device).reshape(1)
     xf = x.to(torch.float32).contiguous()
-    if planes.is_cuda:
+    if on_card(planes):
         return _k.mvm_sliced_fused(planes, xf, frac, spec=spec, io_bits=io_bits, adc_bits=adc_bits,
                                    transpose=transpose, dev=device, tile0=tile0, col0=col0)
     return _ref.mvm_sliced_fused_ref(planes, xf, frac[0], spec, io_bits, adc_bits, transpose=transpose,
@@ -119,7 +120,7 @@ def mvm_sliced(
     when ``transpose``) on the ``io_bits`` DAC grid -> f32 [B, N] ([B, M])
     on the product grid."""
     _check_device(planes, x_q)
-    if planes.is_cuda:
+    if on_card(planes):
         return _k.mvm_sliced(planes, x_q.to(torch.int32).contiguous(), spec=spec, io_bits=io_bits,
                              adc_bits=adc_bits, transpose=transpose)
     return _ref.mvm_sliced_ref(planes, x_q, spec, io_bits, adc_bits, transpose=transpose)

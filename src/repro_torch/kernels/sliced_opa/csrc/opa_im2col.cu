@@ -20,6 +20,12 @@
 // so a launch needs no key array. The stored [S, K, C] block is written in
 // place: there is no transposed copy.
 //
+// A launch may update a block of the leaf's [K, C] layer (one rank's block
+// on a mesh): its first tap row r0 and channel c0, and the leaf's channel
+// count C_leaf. Channel c of the block is then the leaf's channel c0 + c,
+// keyed fold_in(key, l·C_leaf + c0 + c), its cell k drawn at the tile's row
+// r0 + k: the block's update equals the same block of the whole leaf's.
+//
 // Design and bound. One warp owns a channel c and its K cells (K <= 8): its
 // lanes stride the tokens (lane i takes t = i, i + 32, ...), each reading
 // its token's K contiguous patch values and dh once, accumulating K sums
@@ -63,6 +69,8 @@ struct Im2colParams {
   int Tn, K, C;
   uint32_t k0, k1;  // the leaf key's words
   uint32_t layer;   // the block's flat index in the leaf's stack
+  int r0, c0;       // the block's first tap row and channel in the leaf's [K, C] layer
+  uint32_t c_leaf;  // the leaf's channels
   DepositParams dp;
 };
 
@@ -98,12 +106,12 @@ __global__ void __launch_bounds__(WARPS * 32) opa_im2col_kernel(const Im2colPara
     if (k == lane) mine = acc[k];
   int w0 = 0, w1 = 0;
   if (RNG == RNG_COUNTER) {
-    const uint2 w = threefry2x32(a.k0, a.k1, 0u, a.layer * (uint32_t)a.C + (uint32_t)c);
+    const uint2 w = threefry2x32(a.k0, a.k1, 0u, a.layer * a.c_leaf + (uint32_t)(a.c0 + c));
     w0 = (int)w.x;
     w1 = (int)w.y;
   }
   const DeviceParams ideal = {};
-  const int q = update_of<false>(mine, grid_scale(a.lr, a.frac_bits), lane, 0, RNG, w0, w1, ideal);
+  const int q = update_of<false>(mine, grid_scale(a.lr, a.frac_bits), a.r0 + lane, 0, RNG, w0, w1, ideal);
   const size_t plane = (size_t)K * a.C, cell = (size_t)lane * a.C + c;
   int p[MAX_S];
 #pragma unroll
@@ -127,13 +135,17 @@ cudaError_t launch(const Im2colParams& a, cudaStream_t stream) {
 // and dh [C, T, 1] of one dtype (bf16 != 0: bfloat16, else float32),
 // frac_bits int32 [1], all contiguous on the current device. lr: the host
 // learning rate (the kernel folds -lr·2^F). rng: RNG_COUNTER rounds by the
-// counter draw under each tile's fold_in((k0, k1), layer·C + c), (k0, k1)
-// the leaf key's words; RNG_NONE half to even. plane_max: host int[S]; lim:
-// canonical_limit. Returns a cudaError_t (0 on success).
+// counter draw under each tile's fold_in((k0, k1), layer·c_leaf + c0 + c),
+// (k0, k1) the leaf key's words, cell k at the tile's row r0 + k; RNG_NONE
+// half to even. (r0, c0): the block's origin in the leaf's [K, C] layer,
+// c_leaf the leaf's channels ((0, 0) and C for a whole layer). plane_max:
+// host int[S]; lim: canonical_limit. Returns a cudaError_t (0 on success).
 extern "C" int panther_opa_im2col(void* planes, const void* x, const void* dh, const void* frac_bits, float lr,
                                   int Tn, int K, int C, int S, const int* plane_max, int lim, int bf16, int rng,
-                                  unsigned k0, unsigned k1, unsigned layer, void* stream) {
+                                  unsigned k0, unsigned k1, unsigned layer, int r0, int c0, unsigned c_leaf,
+                                  void* stream) {
   if (S < 1 || S > MAX_S || K < 1 || K > MAX_K || C < 1 || Tn < 0) return (int)cudaErrorInvalidValue;
+  if (r0 < 0 || c0 < 0 || (long long)c0 + C > (long long)c_leaf) return (int)cudaErrorInvalidValue;
   if (rng != RNG_NONE && rng != RNG_COUNTER) return (int)cudaErrorInvalidValue;
   Im2colParams a;
   a.planes = static_cast<int8_t*>(planes);
@@ -147,6 +159,9 @@ extern "C" int panther_opa_im2col(void* planes, const void* x, const void* dh, c
   a.k0 = k0;
   a.k1 = k1;
   a.layer = layer;
+  a.r0 = r0;
+  a.c0 = c0;
+  a.c_leaf = c_leaf;
   a.dp.S = S;
   a.dp.lim = lim;
   for (int s = 0; s < MAX_S; ++s) a.dp.plane_max[s] = s < S ? plane_max[s] : 0;

@@ -27,15 +27,19 @@
   place from the im2col operands ``x [C, T, K]`` / ``dh [C, T, 1]``, one
   launch a layer block where the reference runs one ``[K, 1]`` tile a
   channel; each channel tile rounds under ``fold_in(key, layer·C + c)``,
-  derived in the kernel. Counter draw or half to even, ideal write; its
-  instances are by operand dtype (``"bf16"``, ``"f32"``).
+  derived in the kernel (on a block at an origin, the leaf's channel and
+  C). Counter draw or half to even, ideal write; its instances are by
+  operand dtype (``"bf16"``, ``"f32"``).
 
 Each source says what bounds it. The libraries build at first use
-(``kernels.build``), never at import. The wrappers launch on the current
-stream and count their launches: ``launches`` over every instance, and
-``instances`` by instance (``instance_name``: ``"ideal"``, ``"device"``,
-with ``"_grid"``/``"_hw"`` for those draws and ``"_fma"`` for the
-CUDA-core body, for ``opa_fused``; ``dense_instance`` for ``opa_dense``;
+(``kernels.build``), never at import. On fake tensors
+(``kernels.common.is_fake``: the dry run's) a wrapper allocates what its
+launch would, records the launch and its work in ``common.fake_work``
+and launches nothing; its own counters count real launches only. The
+wrappers launch on the current stream and count their launches:
+``launches`` over every instance, and ``instances`` by instance
+(``instance_name``: ``"ideal"``, ``"device"``, with ``"_grid"``/``"_hw"``
+for those draws and ``"_fma"`` for the CUDA-core body, for ``opa_fused``; ``dense_instance`` for ``opa_dense``;
 ``"ideal"``, ``"stuck"`` for ``opa_deposit``). The stuck-cell mask is
 frozen: the device instances of both libraries cache it a byte a cell
 (``_STUCK_BITS``).
@@ -59,7 +63,8 @@ import torch
 from repro_torch.core.fixed_point import RNG_MODES, check_rng_mode, device_pattern_words
 from repro_torch.core.slicing import SliceSpec
 from repro_torch.kernels import build as _build
-from repro_torch.kernels.common import hw_tiles, whole
+from repro_torch.kernels.common import (dense_work, deposit_work, fake_work, hw_tiles, im2col_work, is_fake, on_card,
+                                        opa_work, whole)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"opa_deposit": [CSRC / "opa_deposit.cu"], "opa_fused": [CSRC / "opa_fused.cu"],
@@ -118,7 +123,7 @@ def _bind(path, name: str):
     elif name == "opa_im2col":
         fn = lib.panther_opa_im2col
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] + [
-            ctypes.c_int] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_void_p]
+            ctypes.c_int] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_int] * 2 + [ctypes.c_uint, ctypes.c_void_p]
     else:
         fn = lib.panther_opa_fused
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
@@ -207,6 +212,8 @@ def _deposit_launch(planes: torch.Tensor, src: torch.Tensor, spec: SliceSpec, *,
     if dev is not None and dev.stuck_frac > 0.0:
         words = _stuck_words(dev.stuck_seed, S)
         key, mask, mode = _stuck_mask(planes, dev, o)
+    if is_fake(planes):  # the mask allocated as the launch would; nothing launched, nothing kept
+        return
     vec = int(M * N % 16 == 0 and planes.data_ptr() % 16 == 0 and src.data_ptr() % 16 == 0
               and (N % 16 == 0 or N == o.cols))
     _launch("opa_deposit", planes, planes.data_ptr(), src.data_ptr(), _DENSE_INPUTS[src.dtype],
@@ -222,7 +229,7 @@ def opa_deposit(planes: torch.Tensor, p_q: torch.Tensor, *, spec: SliceSpec, stu
     contiguous on one CUDA device; returns ``planes``. ``stuck``: a
     DeviceModel with ``stuck_frac > 0`` (the stuck instance: its stuck
     digits keep their value), or None."""
-    if not (planes.is_cuda and p_q.is_cuda) or planes.device != p_q.device:
+    if not (on_card(planes) and on_card(p_q)) or planes.device != p_q.device:
         raise ValueError("opa_deposit kernel takes CUDA tensors on one device only")
     _check_planes(planes, spec)
     if p_q.dtype != torch.int32 or tuple(p_q.shape) != tuple(planes.shape[1:]) or not p_q.is_contiguous():
@@ -233,8 +240,12 @@ def opa_deposit(planes: torch.Tensor, p_q: torch.Tensor, *, spec: SliceSpec, stu
         return planes
     physics = None if stuck is None else _physics(1.0, 1.0, 0.0, stuck.stuck_frac)
     _deposit_launch(planes, p_q, spec, physics=physics, dev=stuck)
+    instance = "ideal" if stuck is None else "stuck"
+    if is_fake(planes):
+        fake_work.add("opa_deposit", instance, deposit_work(*p_q.shape, planes.shape[0], stuck=stuck is not None))
+        return planes
     opa_deposit.launches += 1
-    opa_deposit.instances["ideal" if stuck is None else "stuck"] += 1
+    opa_deposit.instances[instance] += 1
     return planes
 
 
@@ -253,7 +264,7 @@ def opa_dense(planes: torch.Tensor, g: torch.Tensor, lr: float, frac_bits: torch
     with the physics as ``opa_device_update`` does, ``noise_words`` the
     write-noise key words when ``dev.write_noise > 0``. ``origin``: the
     block's place in its layer (module docstring). Returns ``planes``."""
-    if not (planes.is_cuda and g.is_cuda and frac_bits.is_cuda):
+    if not (on_card(planes) and on_card(g) and on_card(frac_bits)):
         raise ValueError("opa_dense kernel takes CUDA tensors only")
     if not (planes.device == g.device == frac_bits.device):
         raise ValueError("opa_dense: tensors on different devices")
@@ -277,8 +288,13 @@ def opa_dense(planes: torch.Tensor, g: torch.Tensor, lr: float, frac_bits: torch
     _deposit_launch(planes, g, spec, frac_bits=frac_bits, lr=lr, rng=_RNG_CODES.get(draw, 0),
                     key_words=key_words, offset=offset if draw == "grid" else 0, physics=physics, dev=dev,
                     noise_words=noise_words, origin=o)
+    instance = dense_instance(g.dtype, draw, dev is not None)
+    if is_fake(planes):
+        fake_work.add("opa_dense", instance, dense_work(*g.shape, planes.shape[0], grad_bytes=g.element_size(),
+                                                        draw=draw, dev=dev is not None))
+        return planes
     opa_dense.launches += 1
-    opa_dense.instances[dense_instance(g.dtype, draw, dev is not None)] += 1
+    opa_dense.instances[instance] += 1
     return planes
 
 
@@ -299,7 +315,7 @@ def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float
     body on either dtype (the same-work yardstick); ``"mma"`` takes bf16
     only. ``origin``: the block's place in its layer (module docstring;
     under ``"hw"`` on the layer's tile grid). Returns ``planes``."""
-    if not (planes.is_cuda and x.is_cuda and dh.is_cuda and frac_bits.is_cuda):
+    if not (on_card(planes) and on_card(x) and on_card(dh) and on_card(frac_bits)):
         raise ValueError("opa_fused kernel takes CUDA tensors only")
     if not (planes.device == x.device == dh.device == frac_bits.device):
         raise ValueError("opa_fused: tensors on different devices")
@@ -342,12 +358,18 @@ def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float
             nk0, nk1 = noise_words
         if dev.stuck_frac > 0.0:
             stuck = _stuck_words(dev.stuck_seed, S)
-    word = 16 if body == "mma" else 8  # bytes of a plane row a thread moves at once
-    vec = int(N % word == 0 and planes.data_ptr() % word == 0)
     mask = key = None
     mode = 0
     if stuck is not None and body == "mma":
         key, mask, mode = _stuck_mask(planes, dev, o)
+    instance = instance_name(dev is not None, body, rng_mode if rng else "counter")
+    if is_fake(planes):  # the mask allocated as the launch would; nothing launched, nothing kept
+        fake_work.add("opa_fused", instance, opa_work(x.shape[0], M, N, S, dev=dev is not None,
+                                                      draw=rng_mode if rng else "counter",
+                                                      operand_bytes=x.element_size()))
+        return planes
+    word = 16 if body == "mma" else 8  # bytes of a plane row a thread moves at once
+    vec = int(N % word == 0 and planes.data_ptr() % word == 0)
     _launch("opa_fused", planes, planes.data_ptr(), x.data_ptr(), dh.data_ptr(), frac_bits.data_ptr(),
             float(np.float32(lr)), x.shape[0], M, N, S, _ptr(_plane_max(spec)), spec.canonical_limit,
             _OPERAND_DTYPES[x.dtype], int(body == "mma"), rng, k0, k1, offset, bm, bn, vec,
@@ -356,12 +378,12 @@ def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float
     if mode == 1:  # written by this launch, in stream order before any later one
         _STUCK_BITS[key] = mask
     opa_fused.launches += 1
-    opa_fused.instances[instance_name(dev is not None, body, rng_mode if rng else "counter")] += 1
+    opa_fused.instances[instance] += 1
     return planes
 
 
 def opa_im2col(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float, frac_bits: torch.Tensor, *,
-               spec: SliceSpec, key=None, layer: int = 0) -> torch.Tensor:
+               spec: SliceSpec, key=None, layer: int = 0, origin=None) -> torch.Tensor:
     """planes int8 [S, K, C] (one layer block of a conv-tap leaf) updated in
     place by ``-lr · xᵀdh`` of each channel on the ``2^-F`` grid: x [C, T,
     K] and dh [C, T, 1] contiguous f32 or bf16 (one dtype) on the planes'
@@ -369,13 +391,18 @@ def opa_im2col(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: floa
     host float; key None (round half to even) or the leaf's host key
     (``core.prng``), channel c rounding by the counter draw under
     ``fold_in(key, layer·C + c)`` at its tile's cell (k, 0); ``layer`` the
-    block's flat index in the leaf's stack. Returns ``planes``."""
-    if not (planes.is_cuda and x.is_cuda and dh.is_cuda and frac_bits.is_cuda):
+    block's flat index in the leaf's stack. ``origin``: the block's place
+    in the leaf's ``[K, C]`` layer (``common.Origin``; None the whole
+    layer): channel c is the leaf's ``origin.col + c``, keyed by the leaf's
+    C, and cell k sits at the tile's row ``origin.row + k``. Returns
+    ``planes``."""
+    if not (on_card(planes) and on_card(x) and on_card(dh) and on_card(frac_bits)):
         raise ValueError("opa_im2col kernel takes CUDA tensors only")
     if not (planes.device == x.device == dh.device == frac_bits.device):
         raise ValueError("opa_im2col: tensors on different devices")
     _check_planes(planes, spec)
     S, K, C = planes.shape
+    o = whole(origin, K, C)
     if x.dtype not in _OPERAND_DTYPES or dh.dtype != x.dtype:
         raise ValueError(f"x and dh must share a dtype in {list(_OPERAND_DTYPES)}, got {x.dtype}, {dh.dtype}")
     if x.dim() != 3 or tuple(x.shape[::2]) != (C, K) or tuple(dh.shape) != (C, x.shape[1], 1):
@@ -384,16 +411,21 @@ def opa_im2col(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: floa
         raise ValueError("x and dh must be contiguous")
     if frac_bits.dtype != torch.int32 or frac_bits.numel() != 1:
         raise ValueError("frac_bits must be a 1-element int32 tensor")
-    if K > 8 or not 0 <= layer * C < 2**32:
+    if K > 8 or not 0 <= (layer + 1) * o.cols <= 2**32:
         raise ValueError(f"opa_im2col takes K <= 8 taps and a flat tile index under 2^32 (K {K}, layer {layer})")
     if K == 0 or C == 0:
+        return planes
+    instance = _DTYPE_NAMES[x.dtype]
+    if is_fake(planes):
+        fake_work.add("opa_im2col", instance, im2col_work(C, x.shape[1], K, S, x.element_size()))
         return planes
     k0, k1 = (0, 0) if key is None else (key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF)
     _launch("opa_im2col", planes, planes.data_ptr(), x.data_ptr(), dh.data_ptr(), frac_bits.data_ptr(),
             float(np.float32(lr)), x.shape[1], K, C, S, _ptr(_plane_max(spec)), spec.canonical_limit,
-            _OPERAND_DTYPES[x.dtype], 0 if key is None else _RNG_CODES["counter"], k0, k1, layer)
+            _OPERAND_DTYPES[x.dtype], 0 if key is None else _RNG_CODES["counter"], k0, k1, layer, o.row, o.col,
+            o.cols)
     opa_im2col.launches += 1
-    opa_im2col.instances[_DTYPE_NAMES[x.dtype]] += 1
+    opa_im2col.instances[instance] += 1
     return planes
 
 

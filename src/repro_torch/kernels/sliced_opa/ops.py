@@ -59,7 +59,7 @@ import torch
 from repro_torch.core.fixed_point import WRITE_NOISE_FOLD, check_rng_mode
 from repro_torch.core.prng import fold_in
 from repro_torch.core.slicing import SliceSpec
-from repro_torch.kernels.common import hw_tiles, layer_views, whole
+from repro_torch.kernels.common import Origin, hw_tiles, layer_views, on_card, whole
 from . import kernel as _k
 from . import ref as _ref
 
@@ -89,7 +89,7 @@ def opa_deposit(planes: torch.Tensor, p_q: torch.Tensor, spec: SliceSpec, *, stu
     digit, or None."""
     if stuck is not None and not stuck.stuck_frac > 0.0:
         stuck = None
-    if planes.is_cuda:
+    if on_card(planes):
         p3 = p_q.reshape(-1, *p_q.shape[-2:])
         for l, block in enumerate(layer_views(planes)):
             _k.opa_deposit(block, p3[l].contiguous(), spec=spec, stuck=stuck)
@@ -123,9 +123,9 @@ def opa_fused(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float
     the whole layer) as in ``kernel.opa_fused``."""
     device = _normalize_device(device)
     if key_words is not None:
-        check_rng_mode(rng_mode, plain=not planes.is_cuda)
+        check_rng_mode(rng_mode, plain=not on_card(planes))
     origin = check_origin(origin, *planes.shape[1:], rng_mode if key_words is not None else None)
-    if planes.is_cuda:
+    if on_card(planes):
         frac = torch.as_tensor(frac_bits, dtype=torch.int32, device=planes.device).reshape(1)
         return _k.opa_fused(planes, x.contiguous(), dh.contiguous(), lr, frac, spec=spec, key_words=key_words,
                             rng_mode=rng_mode, offset=offset, dev=device, noise_words=noise_words, origin=origin)
@@ -146,7 +146,7 @@ def opa_fused_update(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr
     place; returns ``planes``. The write noise applies under deterministic
     rounding too."""
     device = _normalize_device(device)
-    _check_keys(device, stochastic, key, rng_mode, plain=not planes.is_cuda)
+    _check_keys(device, stochastic, key, rng_mode, plain=not on_card(planes))
     stacked = planes.dim() > 3
     m, n = planes.shape[-2:]
     o = whole(origin, m, n)
@@ -167,17 +167,18 @@ def opa_im2col_update(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, l
     """The PANTHER update of a conv-tap leaf from its im2col operands
     (module docstring): planes ``[S, *lead, K, C]``, x ``[*lead, C, T,
     K]``, dh ``[*lead, C, T, 1]``; ``lr``, ``key``, ``rng_mode`` and
-    ``device`` as in ``opa_fused_update``. A block of the leaf (``origin``
-    set) raises: the name rules replicate ``conv_w``. In place; returns
-    ``planes``."""
-    if origin is not None:
-        raise NotImplementedError("a block of a conv-tap leaf (a plan hint or FSDP sharding conv_w): the im2col "
-                                  "update takes whole leaves only")
+    ``device`` as in ``opa_fused_update``. ``origin``: this block's place
+    in the leaf (its first tap row and channel in the leaf's ``[K, C]``
+    layer, the layer's K and C, its layers' flat indices; None the whole
+    leaf): channel c is the leaf's ``origin.col + c`` and its tile's key
+    index ``l·C + origin.col + c`` with the leaf's C, its cells at the
+    tile's rows ``origin.row + k``. In place; returns ``planes``."""
     device = _normalize_device(device)
-    _check_keys(device, stochastic, key, rng_mode, plain=not planes.is_cuda)
-    if not planes.is_cuda and planes.device.type != "cpu":
+    _check_keys(device, stochastic, key, rng_mode, plain=not on_card(planes))
+    if not on_card(planes) and planes.device.type != "cpu":
         raise ValueError(f"no OPA implementation for device {planes.device}")
     K, C = planes.shape[-2:]
+    o = whole(origin, K, C)
     T = x.shape[-2]
     x4 = x.reshape(-1, C, T, K)
     dh4 = dh.reshape(-1, C, T, 1)
@@ -185,32 +186,40 @@ def opa_im2col_update(planes: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, l
     dk = fold_in(key, WRITE_NOISE_FOLD) if device is not None and device.write_noise > 0.0 else None
     entry = device is None and (rkey is None or rng_mode == "counter")
     for l, block in enumerate(layer_views(planes)):
-        if entry and planes.is_cuda:
+        gl = o.layer(l)
+        if entry and on_card(planes):
             frac = torch.as_tensor(frac_bits, dtype=torch.int32, device=planes.device).reshape(1)
-            _k.opa_im2col(block, x4[l].contiguous(), dh4[l].contiguous(), lr, frac, spec=spec, key=rkey, layer=l)
-        elif not planes.is_cuda:
-            block.copy_(_ref.opa_im2col_ref(block, x4[l], dh4[l], lr, frac_bits, spec, rkey, l, rng_mode=rng_mode,
-                                            device=device, noise_key=dk))
+            _k.opa_im2col(block, x4[l].contiguous(), dh4[l].contiguous(), lr, frac, spec=spec, key=rkey, layer=gl,
+                          origin=o)
+        elif not on_card(planes):
+            block.copy_(_ref.opa_im2col_ref(block, x4[l], dh4[l], lr, frac_bits, spec, rkey, gl, rng_mode=rng_mode,
+                                            device=device, noise_key=dk, origin=o))
         else:
-            im2col_tiles(block, x4[l], dh4[l], lr, frac_bits, spec, l, rkey, rng_mode=rng_mode, device=device,
-                         noise_key=dk)
+            im2col_tiles(block, x4[l], dh4[l], lr, frac_bits, spec, gl, rkey, rng_mode=rng_mode, device=device,
+                         noise_key=dk, origin=o)
     return planes
 
 
 def im2col_tiles(block: torch.Tensor, x: torch.Tensor, dh: torch.Tensor, lr: float, frac_bits, spec: SliceSpec,
-                 layer: int, key=None, *, rng_mode: str = "counter", device=None, noise_key=None) -> torch.Tensor:
+                 layer: int, key=None, *, rng_mode: str = "counter", device=None, noise_key=None,
+                 origin=None) -> torch.Tensor:
     """One ``[S, K, C]`` layer block of a conv-tap leaf (x ``[C, T, K]``, dh
     ``[C, T, 1]``) the reference's way on the card: one ``opa_fused`` launch
     a channel tile, tile c keyed by its flat index ``layer·C + c`` as in
     ``ref.opa_im2col_ref``, each tile ``[S, K, 1]`` contiguous in a
-    channel-major copy of the block. Any draw and device model; in place."""
+    channel-major copy of the block. Any draw and device model; ``origin``
+    as in ``opa_im2col_update`` (each tile then at row ``origin.row`` of
+    its ``[K_leaf, 1]`` tile). In place."""
     K, C = block.shape[-2:]
+    o = whole(origin, K, C)
+    tile_origin = Origin(o.row, 0, o.rows, 1) if o.rows != K else None
     tiles = block.permute(2, 0, 1).contiguous()  # [C, S, K]
     for c in range(C):
-        i = layer * C + c
-        words, offset = _ref.layer_rounding(key, i, True, rng_mode, K, 1)
+        i = layer * o.cols + o.col + c
+        words, offset = _ref.layer_rounding(key, i, True, rng_mode, o.rows, 1)
         opa_fused(tiles[c].unsqueeze(-1), x[c].contiguous(), dh[c].contiguous(), lr, frac_bits, spec, key_words=words,
-                  rng_mode=rng_mode, offset=offset, device=device, noise_words=_ref.layer_key_words(noise_key, i, True))
+                  rng_mode=rng_mode, offset=offset, device=device, noise_words=_ref.layer_key_words(noise_key, i, True),
+                  origin=tile_origin)
     return block.copy_(tiles.permute(1, 2, 0))
 
 
@@ -237,14 +246,14 @@ def opa_dense_update(planes: torch.Tensor, g: torch.Tensor, lr: float, frac_bits
         g = g.to(torch.float32)
     g3 = g.reshape(-1, m, n)
     dk = fold_in(key, WRITE_NOISE_FOLD) if device is not None and device.write_noise > 0.0 else None
-    if not planes.is_cuda and planes.device.type != "cpu":
+    if not on_card(planes) and planes.device.type != "cpu":
         raise ValueError(f"no OPA implementation for device {planes.device}")
     frac = torch.as_tensor(frac_bits, dtype=torch.int32, device=planes.device).reshape(1)
     for l, block in enumerate(layer_views(planes)):
         gl = o.layer(l)
         words, offset = _ref.layer_rounding(key if stochastic else None, gl, stacked, rng_mode, o.rows, o.cols)
         noise_words = _ref.layer_key_words(dk, gl, stacked)
-        if planes.is_cuda:
+        if on_card(planes):
             _k.opa_dense(block, g3[l].contiguous(), lr, frac, spec=spec, key_words=words, rng_mode=rng_mode,
                          offset=offset, dev=device, noise_words=noise_words, origin=o)
         else:

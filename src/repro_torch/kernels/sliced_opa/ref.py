@@ -45,7 +45,7 @@ from repro_torch.core.fixed_point import (
 from repro_torch.core.opa import opa_batched
 from repro_torch.core.prng import counter_key_scalars, fold_in, uniform
 from repro_torch.core.slicing import SliceSpec
-from repro_torch.kernels.common import hw_tiles, whole
+from repro_torch.kernels.common import Origin, hw_tiles, whole
 
 _MASK = 0xFFFFFFFF
 
@@ -266,22 +266,29 @@ def opa_fused_ref(planes, x, dh, lr, frac_bits, spec: SliceSpec, key_words=None,
 
 
 def opa_im2col_ref(planes, x, dh, lr, frac_bits, spec: SliceSpec, key=None, layer: int = 0, *,
-                   rng_mode: str = "counter", device=None, noise_key=None):
+                   rng_mode: str = "counter", device=None, noise_key=None, origin=None):
     """The reference's route for a conv-tap layer block: planes int8 ``[S,
     K, C]``, x ``[C, T, K]``, dh ``[C, T, 1]`` -> new int8 planes. Channel
     c is the ``[K, 1]`` tile ``planes[:, :, c]`` of the channel-as-stack
     view, flat stack index ``i = layer·C + c``, updated by ``opa_fused_ref``
     with ``layer_rounding(key, i)``'s draw (``key`` None: half to even) and,
     with a write-nonideal ``device``, the write noise under
-    ``fold_in(noise_key, i)``. ``kernel.opa_im2col``'s plain version (the
-    counter draw and half to even on the ideal write)."""
+    ``fold_in(noise_key, i)``. ``origin``: the block's place in the leaf's
+    ``[K, C]`` layer (None the whole layer): channel c is the leaf's
+    ``origin.col + c`` (``i`` with the leaf's C) and its cells sit at the
+    tile's rows ``origin.row + k``. ``kernel.opa_im2col``'s plain version
+    (the counter draw and half to even on the ideal write)."""
     K, C = planes.shape[-2:]
+    row0, col0, K_leaf, C_leaf = (0, 0, K, C) if origin is None else (origin.row, origin.col, origin.rows,
+                                                                       origin.cols)
+    tile = None if K_leaf == K else Origin(row0, 0, K_leaf, 1)
     out = planes.clone()
     for c in range(C):
-        i = layer * C + c
-        words, offset = layer_rounding(key, i, True, rng_mode, K, 1)
+        i = layer * C_leaf + col0 + c
+        words, offset = layer_rounding(key, i, True, rng_mode, K_leaf, 1)
         out[:, :, c:c + 1] = opa_fused_ref(planes[:, :, c:c + 1], x[c], dh[c], lr, frac_bits, spec, words, device,
-                                           layer_key_words(noise_key, i, True), rng_mode=rng_mode, offset=offset)
+                                           layer_key_words(noise_key, i, True), rng_mode=rng_mode, offset=offset,
+                                           origin=tile)
     return out
 
 

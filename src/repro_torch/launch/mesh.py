@@ -7,7 +7,9 @@ axes (``group(axes)``; the one-axis groups are those of
 ``torch.distributed.device_mesh.init_device_mesh``, ranks in row-major
 order of the coordinates). A mesh with no process group is *logical*, like
 JAX's ``AbstractMesh``: the spec functions (``distributed.sharding``),
-``plan_compile`` and the tests use it.
+``plan_compile`` and the tests use it. A *dry* mesh (:func:`dry_mesh`) has
+one rank's coordinate and no process group behind its groups: its
+collectives are counted and answered locally (the dry run's).
 
 The backend is chosen by one rule (:func:`backend_for`), printed by
 :func:`init_world`: NCCL when every rank has a card of its own; gloo when
@@ -50,6 +52,12 @@ class Mesh:
         return self.groups is not None
 
     @property
+    def dry(self) -> bool:
+        """A dry mesh (``dry_mesh``): one rank's coordinate, collectives
+        counted and answered locally, no process group."""
+        return isinstance(self.groups, _DryGroups)
+
+    @property
     def size(self) -> int:
         return math.prod(self.shape.values())
 
@@ -73,7 +81,7 @@ class Mesh:
 
     def __repr__(self):
         where = "logical" if not self.live else f"rank coordinate {self.coordinate} on {self.device}"
-        return f"Mesh({self.shape}, {where})"
+        return f"Mesh({self.shape}, {where}{', dry' if self.dry else ''})"
 
 
 def _axes(axes) -> tuple:
@@ -87,6 +95,24 @@ _WORLD_DEVICE: list = []  # the device init_world gave this rank
 
 def logical_mesh(shape: tuple, axis_names: tuple) -> Mesh:
     return Mesh(dict(zip(axis_names, shape)))
+
+
+class _DryGroups(dict):
+    """The groups of a dry mesh: a name for every set of axes, no process
+    group behind any."""
+
+    def __missing__(self, axes):
+        return ("dry", axes)
+
+
+def dry_mesh(mesh: Mesh, coordinate: dict | None = None, device="cuda") -> Mesh:
+    """``mesh``'s shape seen from one rank (``coordinate``; rank 0 by
+    default) with no process group: the mesh code paths run as on a live
+    mesh, and ``distributed.collectives`` counts each call and answers it
+    with an output of the right shape, sending nothing. The dry run
+    (``launch.dryrun``) steps one rank this way on fake tensors."""
+    coordinate = coordinate if coordinate is not None else {a: 0 for a in mesh.axis_names}
+    return Mesh(mesh.shape, coordinate=dict(coordinate), groups=_DryGroups(), device=torch.device(device))
 
 
 def single_mesh(device="cuda", axis_names: tuple = ("data", "model")) -> Mesh:

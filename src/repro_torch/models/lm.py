@@ -17,9 +17,21 @@ one call of the zamba shared attention + MLP block, whose params live at the
 top level, ``params["shared"]``, over ``concat(h, x0)``). A block's training
 ``apply`` returns ``(h, aux)``, ``aux`` its MoE load-balance term (zero for
 the others); ``hidden`` sums it over the layers and ``loss_fn`` adds
-``aux_weight`` times it. The reference rematerializes each layer in the
-backward; that saves memory and does not change the numbers, and the port
-keeps the activations instead.
+``aux_weight`` times it.
+
+Remat (``hidden(remat=...)``, the reference's ``_remat_wrap``): ``"full"``
+runs each layer under ``torch.utils.checkpoint`` (non-reentrant), so the
+backward recomputes the layer's forward from its input and keeps nothing
+else; ``"dots"`` saves the matmuls with no batch dims (``aten.mm`` /
+``addmm``, the counterpart of ``dots_with_no_batch_dims_saveable``) and
+recomputes the rest (batched products, the attention, the crossbar reads);
+``"none"`` keeps every activation. A layer's params are picked inside the
+checkpointed body, so on a mesh a dense weight's per-layer all-gather
+(``LayerStack``) is freed after the layer and gathered again in the
+backward. The loss head runs chunk by chunk under checkpoint whatever the
+mode (``loss_parts``). No mode changes a number: the operand slots are
+filled in the backward, which runs once, and no forward draws from torch's
+generators (read noise is a pure function of the coordinates).
 
 Caches are written in place at decode (and by a prefill continuation): the
 K/V rows of the attention blocks, MLA's ``c_kv``/``k_rope`` rows, and the
@@ -32,6 +44,7 @@ ring its decode wraps around.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, NamedTuple
 
@@ -474,17 +487,59 @@ def _head_out(cfg: LMConfig, params, h: torch.Tensor, table=None) -> torch.Tenso
     return softcap(logits, cfg.softcap_final)
 
 
-def hidden(cfg: LMConfig, params, inputs: torch.Tensor, table=None):
+REMAT_MODES = ("full", "dots", "none")
+
+
+def remat_mode(remat) -> str:
+    """``"full"``, ``"dots"`` or ``"none"``; ``True`` / ``False`` are
+    aliases of ``"full"`` / ``"none"``, as in the reference's
+    ``make_train_step``."""
+    mode = {True: "full", False: "none"}.get(remat, remat) if isinstance(remat, bool) else remat
+    if mode not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES} (or a bool), got {remat!r}")
+    return mode
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(fn, remat="full"):
+    """``fn`` run under the ``remat`` mode's checkpoint (the module
+    docstring); ``"none"`` returns ``fn``."""
+    mode = remat_mode(remat)
+    if mode == "none":
+        return fn
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {"use_reentrant": False, "preserve_rng_state": False}
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    return lambda *args: checkpoint(fn, *args, **kw)
+
+
+def _layer_apply(cfg: LMConfig, block: BlockDef, ctx: dict, gparams, i, h: torch.Tensor):
+    """One layer's training forward: layer ``i`` of a stacked group (None:
+    the group's one layer) picked here, inside whatever checkpoint wraps
+    this body."""
+    return block.apply(cfg, gparams if i is None else layer(gparams, i), h, ctx)
+
+
+def hidden(cfg: LMConfig, params, inputs: torch.Tensor, table=None, remat="none"):
     """Backbone training forward without the LM head: ``(h [B, S, d],
     aux)``, ``aux`` the f32 sum of the blocks' load-balance terms in layer
-    order."""
+    order. ``remat``: each layer's checkpoint mode (module docstring)."""
     h = _embed_in(cfg, params, inputs, table)
     ctx = {"positions": torch.arange(h.shape[1], device=h.device), "x0": h, "shared": params.get("shared")}
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for (name, count), gparams in zip(cfg.pattern, params["groups"]):
-        block = BLOCKS[name]
+        body = remat_wrap(functools.partial(_layer_apply, cfg, BLOCKS[name], ctx), remat)
         for i in range(count):
-            h, aux = block.apply(cfg, gparams if count == 1 else layer(gparams, i), h, ctx)
+            h, aux = body(gparams, i if count > 1 else None, h)
             aux_total = aux_total + aux
     return h, aux_total
 
@@ -510,12 +565,19 @@ def _nll_of_chunk(cfg: LMConfig, params, h_c, labels_c, table=None) -> torch.Ten
 LOSS_CHUNK = 1024
 
 
-def loss_parts(cfg: LMConfig, params, batch):
+def _nll_sum_of_chunk(cfg: LMConfig, params, table, h_c, labels_c) -> torch.Tensor:
+    return _nll_of_chunk(cfg, params, h_c, labels_c, table).sum()
+
+
+def loss_parts(cfg: LMConfig, params, batch, remat="none"):
     """``(nll, aux)``: the mean next-token cross entropy and the summed MoE
     load-balance term. batch: {inputs, labels, mask?}. Above ``LOSS_CHUNK``
-    tokens a sequence is summed chunk by chunk, in the reference's order."""
+    tokens a sequence is summed chunk by chunk, in the reference's order,
+    each chunk's head and softmax under checkpoint (its f32 logits live one
+    chunk at a time, forward and backward, as in the reference's scan
+    body). ``remat``: the layers' checkpoint mode (``hidden``)."""
     table = _table(cfg, params)
-    h, aux = hidden(cfg, params, batch["inputs"], table)
+    h, aux = hidden(cfg, params, batch["inputs"], table, remat=remat)
     labels = batch["labels"]
     mask = batch.get("mask")
     B, S, _ = h.shape
@@ -524,10 +586,11 @@ def loss_parts(cfg: LMConfig, params, batch):
         nll = _nll_of_chunk(cfg, params, h, labels, table) * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1.0), aux
     if S % C == 0 and S > C:
+        chunk = remat_wrap(functools.partial(_nll_sum_of_chunk, cfg, params, table), "full")
         total = torch.zeros((), dtype=torch.float32, device=h.device)
         for q in range(S // C):
             sl = slice(q * C, (q + 1) * C)
-            total = total + _nll_of_chunk(cfg, params, h[:, sl], labels[:, sl], table).sum()
+            total = total + chunk(h[:, sl], labels[:, sl])
         return total / float(B * S), aux
     return _nll_of_chunk(cfg, params, h, labels, table).sum() / float(B * S), aux
 
@@ -535,10 +598,10 @@ def loss_parts(cfg: LMConfig, params, batch):
 AUX_WEIGHT = 0.01  # the MoE load-balance term's weight in the loss
 
 
-def loss_fn(cfg: LMConfig, params, batch, aux_weight: float = AUX_WEIGHT) -> torch.Tensor:
+def loss_fn(cfg: LMConfig, params, batch, aux_weight: float = AUX_WEIGHT, remat="none") -> torch.Tensor:
     """Next-token cross entropy plus ``aux_weight`` times the MoE
     load-balance term (``loss_parts``)."""
-    nll, aux = loss_parts(cfg, params, batch)
+    nll, aux = loss_parts(cfg, params, batch, remat=remat)
     return nll + aux_weight * aux
 
 

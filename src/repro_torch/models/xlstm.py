@@ -202,7 +202,9 @@ def _slstm_cell(cfg: LMConfig, p, xg: torch.Tensor, state: dict) -> dict:
     hd]``."""
     H = cfg.xlstm.n_heads
     hd = cfg.d_model // H
-    rec = torch.einsum("bhd,hde->bhe", state["h"], p["r"])  # [B, H, 4hd]
+    # the reference's dtype promotion: an r in bf16 (a bf16 compute dtype) reads in f32
+    dt = torch.promote_types(state["h"].dtype, p["r"].dtype)
+    rec = torch.einsum("bhd,hde->bhe", state["h"].to(dt), p["r"].to(dt))  # [B, H, 4hd]
     xg_h = xg.reshape(-1, 4, H, hd).permute(0, 2, 1, 3).reshape(-1, H, 4 * hd)
     i_pre, f_pre, z_pre, o_pre = torch.chunk(xg_h + rec, 4, dim=-1)
     logf = F.logsigmoid(f_pre)

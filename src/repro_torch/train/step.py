@@ -40,8 +40,15 @@ times the MoE load-balance term; ``metrics["aux"]`` is that term, zero for
 dense models.
 
 The state's step and rng are host values, and the learning-rate schedule is
-a host function, so nothing in the step waits on the device. Not ported:
-remat (activations are kept).
+a host function, so nothing in the step waits on the device.
+
+``remat`` (``"full"``, the reference's default; ``"dots"``; ``"none"``;
+``True``/``False`` as aliases) is each layer's checkpoint mode
+(``lm.hidden``): ``"full"`` keeps a layer's input and recomputes its
+forward in the backward (its crossbar reads and, on a mesh, its weights'
+all-gathers too), ``"dots"`` also keeps the matmuls with no batch dims. The
+loss head runs chunk by chunk under checkpoint above ``lm.LOSS_CHUNK``
+tokens whatever the mode. No mode changes a number.
 
 On a ``(data, model)`` mesh (``make_train_step(mesh=...)``, one process per
 mesh coordinate, ``launch.mesh``) each rank holds its block of every leaf
@@ -60,9 +67,12 @@ in global token order; each rank's update then writes its own block at its
 global origin (``kernels.common.Origin``), so the state equals the
 single-device step's up to the order of float sums. ``fsdp=True``
 additionally shards the planes over 'data' (``sharding.fsdp_spec``),
-gathered at use. MoE blocks at ``data > 1`` raise: their capacity is set
-per dispatch group, so a data shard would change which tokens drop. One
-step body serves both cases: ``_Whole`` (one device, every hook the
+gathered at use; a conv-tap leaf's im2col operands are cut to the block
+(its taps or channels) like any other. MoE blocks at ``data > 1`` train
+where a rank's tokens are whole dispatch groups of the global batch
+(``models.mlp.groups_aligned``; capacity is set per group), their
+load-balance term over the batch; otherwise they raise. One step body
+serves both cases: ``_Whole`` (one device, every hook the
 identity) and ``_Blocks`` (a rank's blocks) say where the leaves live.
 """
 from __future__ import annotations
@@ -114,7 +124,7 @@ def param_shapes(digital, sliced):
 
 
 def make_train_step(cfg: LMConfig, opt_cfg: PantherConfig, lr_schedule, mesh=None, global_batch: int | None = None,
-                    microbatches: int = 1, fsdp: bool = False, grad_dtype=torch.float32,
+                    remat="full", microbatches: int = 1, fsdp: bool = False, grad_dtype=torch.float32,
                     operand_grads: bool = True, plan=None, plan_rules=None, stash_fallback: bool = False):
     """Returns ``train_step(state, batch) -> (state', metrics)``; ``metrics``
     holds ``loss``, ``aux`` and ``grad_norm`` (device scalars) and ``lr`` (a
@@ -122,9 +132,9 @@ def make_train_step(cfg: LMConfig, opt_cfg: PantherConfig, lr_schedule, mesh=Non
 
     ``cfg.fidelity``, or per leaf ``plan``/``plan_rules``, turns on
     crossbar-in-the-loop training; it rides the operand pipeline. The
-    sliced state's planes are updated in place. ``microbatches``,
-    ``grad_dtype`` and ``stash_fallback`` as in the module docstring;
-    ``stash_fallback`` only augments the default rules.
+    sliced state's planes are updated in place. ``remat``,
+    ``microbatches``, ``grad_dtype`` and ``stash_fallback`` as in the
+    module docstring; ``stash_fallback`` only augments the default rules.
 
     ``mesh``, a live ``launch.mesh.Mesh``: the mesh step (module
     docstring) on this rank's blocks (``shard_state(train_state_init(...,
@@ -134,6 +144,7 @@ def make_train_step(cfg: LMConfig, opt_cfg: PantherConfig, lr_schedule, mesh=Non
     ``fsdp`` changes nothing, as in the reference."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+    remat = lm.remat_mode(remat)
     fidelity = cfg.fidelity
     if (plan is not None or plan_rules is not None) and fidelity is not None:
         raise ValueError("with an explicit plan, attach fidelity per leaf via PlanRule(fidelity=...) "
@@ -184,7 +195,7 @@ def make_train_step(cfg: LMConfig, opt_cfg: PantherConfig, lr_schedule, mesh=Non
             params = panther.operandize(params, sliced, plan_t, expert_tokens=expert_tokens(cfg, tokens),
                                         tokens=tokens)
         with lay.reads(dp):
-            nll, aux = lm.loss_parts(cfg, params, batch)
+            nll, aux = lm.loss_parts(cfg, params, batch, remat=remat)
             loss = nll + lm.AUX_WEIGHT * aux
             # a leaf the loss never reads (the shared experts' norm scale: the
             # reference's shared MLP has one, and its moe_apply skips it) gets a
@@ -275,9 +286,6 @@ def _merge_operands(ops: list, microbatches: int) -> OuterProductGrad:
 
 
 # ------------------------------------ mesh ------------------------------------
-
-
-MOE_BLOCKS = ("moe", "mla_moe")
 
 
 def _plan_of(cfg: LMConfig, opt_cfg: PantherConfig, plan):
@@ -500,11 +508,6 @@ class _Blocks(_Whole):
     ``storage_specs`` (module docstring)."""
 
     def __init__(self, cfg, opt_cfg, mesh, fsdp, operand_grads, plan, rules, global_batch):
-        data_ranks = math.prod(mesh.shape[a] for a in shd.batch_axes(mesh))
-        if data_ranks > 1 and any(name in MOE_BLOCKS for name, _ in cfg.pattern):
-            raise NotImplementedError(
-                "MoE blocks on a mesh with data > 1: capacity is set per dispatch group, so a data shard changes "
-                "which tokens drop (ROADMAP Queue 1, 'the mesh beyond this slice')")
         if not mesh.live:
             raise ValueError("make_train_step(mesh=...) runs on a live mesh (launch.mesh.init_mesh), not a logical one")
         shapes = lm.param_shapes(cfg)
@@ -566,22 +569,27 @@ class _Blocks(_Whole):
         return dist_fid.use_sharded_fidelity(dist_fid.ShardCtx(mesh=self.mesh, data_axes=dp, model_axis=self.maxis))
 
     def _cut(self, g: OuterProductGrad, spec, shape) -> OuterProductGrad:
+        """Operands cut to the block of a leaf of ``shape`` under ``spec``:
+        ``x [*stack, T, M]`` / ``dh [*stack, T, N]`` to its stack, rows and
+        columns; im2col ``x [*stack, C, T, K]`` / ``dh [*stack, C, T, 1]``
+        to its stack, channels and taps."""
         sl = blocks.block_slices(spec, shape, self.mesh)
+        if g.kind == "im2col":
+            return OuterProductGrad(g.x[(*sl[:-2], sl[-1], slice(None), sl[-2])], g.dh[(*sl[:-2], sl[-1])], g.kind)
         return OuterProductGrad(g.x[(*sl[:-2], slice(None), sl[-2])], g.dh[(*sl[:-2], slice(None), sl[-1])], g.kind)
 
     def operand_block(self, path, g: OuterProductGrad, dp) -> OuterProductGrad:
         """A leaf's operands cut to this rank's model block (stack, rows,
-        cols), gathered along the token axis over the data axes, then cut
-        to the FSDP part of the block."""
-        if g.kind == "im2col":
-            if blocks.sharded(self.w_spec[path]):
-                raise NotImplementedError("a sharded conv-tap leaf (a plan hint or FSDP sharding conv_w)")
-        elif blocks.sharded(self.m_spec[path]):
+        cols; a conv-tap leaf's channels and taps), gathered along the token
+        axis over the data axes (an expert bank's ``G·C`` capacity rows
+        group-major, so the ranks' groups land in global order), then cut to
+        the FSDP part of the block."""
+        if blocks.sharded(self.m_spec[path]):
             g = self._cut(g, self.m_spec[path], self.shape_at[path])
         x = col.all_gather(g.x.contiguous(), self.mesh, dp, dim=g.x.dim() - 2)
         dh = col.all_gather(g.dh.contiguous(), self.mesh, dp, dim=g.dh.dim() - 2)
         g = OuterProductGrad(x, dh, g.kind)
-        if self.fsdp and g.kind != "im2col" and blocks.sharded(self.fsdp_part(path)):
+        if self.fsdp and blocks.sharded(self.fsdp_part(path)):
             g = self._cut(g, self.fsdp_part(path), blocks.block_shape(self.m_spec[path], self.shape_at[path],
                                                                       self.mesh))
             g = OuterProductGrad(g.x.contiguous(), g.dh.contiguous(), g.kind)

@@ -138,7 +138,7 @@ def test_restore_into_training_continues(tmp_path, state):
     save_checkpoint(d, 3, state)
     restored, _ = restore_latest(d, state)
     cfg = tconfigs.get_smoke("gemma_2b")
-    step = make_train_step(cfg, TPC(crs_every=1), constant(3e-2))  # a CRS step on the restored planes
+    step = make_train_step(cfg, TPC(crs_every=1), constant(3e-2), remat="none")  # a CRS step on the restored planes
     batch = SyntheticLMDataset(cfg.vocab, 8, 2, device="cpu").batch(0)
     a, ma = step(restored, batch)
     b, mb = step(state, batch)

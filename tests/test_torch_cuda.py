@@ -350,7 +350,7 @@ def test_training_step_on_the_card_goes_through_every_kernel(card):
     before = [c.launches for c in counters] + [K.mvm_sliced_fused.transpose_launches]
     ideal_before, dense_before = dict(KO.opa_fused.instances), dict(KO.opa_dense.instances)
     deposit_before = KO.opa_deposit.launches
-    state, metrics = make_train_step(cfg, opt, constant(1e-2), plan_rules=rules)(
+    state, metrics = make_train_step(cfg, opt, constant(1e-2), plan_rules=rules, remat="none")(
         state, SyntheticLMDataset(cfg.vocab, 8, 2).batch(0))
     after = [c.launches for c in counters] + [K.mvm_sliced_fused.transpose_launches]
     reads = 5 * cfg.n_layers
@@ -592,7 +592,8 @@ def test_device_training_step_on_the_card_goes_through_every_kernel(card):
     state = train_state_init(cfg, opt, 0)
     before = {c: dict(c.instances) for c in (K.mvm_sliced_fused, KO.opa_fused, KO.opa_dense)}
     crs_before = KC.crs.launches
-    state, metrics = make_train_step(cfg, opt, constant(1e-2), plan_rules=planlib.default_rules(opt, fidelity=fid))(
+    state, metrics = make_train_step(cfg, opt, constant(1e-2), plan_rules=planlib.default_rules(opt, fidelity=fid),
+                                     remat="none")(
         state, SyntheticLMDataset(cfg.vocab, 8, 2).batch(0))
     reads = 5 * cfg.n_layers
     got = {c: {k: v - before[c].get(k, 0) for k, v in c.instances.items() if v != before[c].get(k, 0)}
@@ -990,7 +991,8 @@ def test_training_steps_under_grid_and_hw_go_through_their_instances(card):
         opt = PantherConfig(crs_every=2, rng_mode=mode)
         state = train_state_init(cfg, opt, 0)
         before = dict(KO.opa_fused.instances)
-        state, metrics = make_train_step(cfg, opt, constant(1e-2))(state, SyntheticLMDataset(cfg.vocab, 8, 2).batch(0))
+        state, metrics = make_train_step(cfg, opt, constant(1e-2),
+                                         remat="none")(state, SyntheticLMDataset(cfg.vocab, 8, 2).batch(0))
         torch.cuda.synchronize()
         assert {k: v - before.get(k, 0) for k, v in KO.opa_fused.instances.items()
                 if v != before.get(k, 0)} == {f"ideal_{mode}": blocks}
@@ -1084,13 +1086,14 @@ def test_microbatched_step_on_the_card_updates_each_block_once_at_all_tokens(car
     cfg = dataclasses.replace(configs.get_smoke("gemma_2b"), dtype=torch.float32)
     opt = PantherConfig(stochastic_round=False, crs_every=1000)
     batch = SyntheticLMDataset(cfg.vocab, 16, 8, seed=5, device=card).batch(0)
-    _, full = make_train_step(cfg, opt, constant(0.1))(train_state_init(cfg, opt, 0, device=card), batch)
+    _, full = make_train_step(cfg, opt, constant(0.1), remat="none")(train_state_init(cfg, opt, 0, device=card), batch)
     tokens, real = [], ops.opa_fused
     monkeypatch.setattr(ops, "opa_fused", lambda planes, x, *a, **k: (tokens.append(x.shape[0]),
                                                                      real(planes, x, *a, **k))[1])
     before = KO.opa_fused.launches
     mb = {k: v.reshape(4, 2, 16) for k, v in batch.items()}
-    state, m = make_train_step(cfg, opt, constant(0.1), microbatches=4)(train_state_init(cfg, opt, 0, device=card), mb)
+    state, m = make_train_step(cfg, opt, constant(0.1), microbatches=4,
+                               remat="none")(train_state_init(cfg, opt, 0, device=card), mb)
     assert KO.opa_fused.launches - before == len(tokens) == 5 * cfg.n_layers and set(tokens) == {8 * 16}
     assert abs(float(m["loss"]) - float(full["loss"])) <= 1e-5 * float(full["loss"])
     assert state.step == 1
@@ -1299,3 +1302,37 @@ def test_im2col_update_takes_one_launch_a_layer_block(card):
         launched = (KO.opa_im2col.launches - entry, KO.opa_fused.launches - tile)
         assert launched == ((6, 0) if mode == "counter" else (0, 6 * C))
         assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("mode", ["counter", "rint", "grid", "hw"])
+def test_im2col_update_of_a_block_at_its_origin_is_the_leaf_s_block(card, mode):
+    """A conv-tap leaf [2, 4, C] cut into blocks of channels (C/2 at channel
+    0 and C/2, as FSDP cuts zamba2's 4224 channels) and of taps (2 at tap 0
+    and 2): each block's update at its origin (``kernels.common.Origin``)
+    equals the same block of the whole leaf's, bit for bit: the entry under
+    the counter draw and half to even (channel tile keyed by the leaf's
+    index l·C + c0 + c, cells at the leaf's tap rows), the per-tile K1
+    launches under the grid and hw draws (hw: the tap blocks sit off the
+    [4, 1] tile's draw grid and raise)."""
+    from repro_torch.core import prng
+    from repro_torch.core.slicing import DEFAULT_SPEC
+    from repro_torch.kernels.common import Origin
+    from repro_torch.kernels.sliced_opa import opa_im2col_update
+
+    g = torch.Generator(device=card).manual_seed(13)
+    C, T = 4224, 64
+    planes = torch.randint(-8, 8, (2, 8, 4, C), generator=g, device=card, dtype=torch.int8).movedim(1, 0)
+    x, dh = _im2col_operands(card, g, 2 * C, T, 4, torch.bfloat16)
+    x, dh = x.reshape(2, C, T, 4), dh.reshape(2, C, T, 1)
+    kw = dict(stochastic=mode != "rint", key=prng.PRNGKey(4), rng_mode="counter" if mode == "rint" else mode)
+    whole = opa_im2col_update(planes.clone(), x, dh, 0.25, 12, DEFAULT_SPEC, **kw)
+    for k0, k1, c0, c1 in ((0, 4, 0, C // 2), (0, 4, C // 2, C), (0, 2, 0, C), (2, 4, 0, C)):
+        blk = planes[:, :, k0:k1, c0:c1].movedim(1, 0).contiguous().movedim(0, 1)
+        args = (blk, x[:, c0:c1, :, k0:k1], dh[:, c0:c1], 0.25, 12, DEFAULT_SPEC)
+        if mode == "hw" and k1 - k0 < 4:
+            with pytest.raises(ValueError, match="tile grid"):
+                opa_im2col_update(*args, **kw, origin=Origin(k0, c0, 4, C))
+            continue
+        got = opa_im2col_update(*args, **kw, origin=Origin(k0, c0, 4, C))
+        torch.cuda.synchronize()
+        assert torch.equal(got, whole[:, :, k0:k1, c0:c1]), (mode, k0, c0)

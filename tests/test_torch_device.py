@@ -442,7 +442,8 @@ def test_an_all_ideal_device_trains_as_no_device(start):
     for dev in (None, tcommon.DeviceModel()):
         st = _state_from_jax(start)
         rules = tplan.default_rules(TPC(), fidelity=dataclasses.replace(fid, device=dev))
-        st, m = tstep.make_train_step(CFG_T, TPC(crs_every=2), tsched.constant(LR), plan_rules=rules)(st, data.batch(0))
+        st, m = tstep.make_train_step(CFG_T, TPC(crs_every=2), tsched.constant(LR), plan_rules=rules,
+                                      remat="none")(st, data.batch(0))
         out.append((float(m["loss"]), _planes_of(st)))
     assert out[0][0] == out[1][0]
     for path, p in out[0][1].items():
@@ -459,7 +460,7 @@ def noisy_lossless_runs(start):
     step_j = jax.jit(jstep.make_train_step(CFG_J, JPC(crs_every=2), jsched.constant(LR),
                                            plan_rules=jrules(JPC(), fidelity=fj)))
     step_t = tstep.make_train_step(CFG_T, TPC(crs_every=2), tsched.constant(LR),
-                                   plan_rules=tplan.default_rules(TPC(), fidelity=ft))
+                                   plan_rules=tplan.default_rules(TPC(), fidelity=ft), remat="none")
     dj, dt = JData(CFG_J.vocab, SEQ, B), TData(CFG_T.vocab, SEQ, B, device="cpu")
     sj, st = start, _state_from_jax(start)
     before = _planes_of(st)
@@ -513,7 +514,7 @@ def test_adc9_device_step_reads_match_jax_read_by_read(start, monkeypatch):
     st = _state_from_jax(start)
     before = _planes_of(st)
     step = tstep.make_train_step(CFG_T, TPC(crs_every=2), tsched.constant(LR),
-                                 plan_rules=tplan.default_rules(TPC(), fidelity=ft))
+                                 plan_rules=tplan.default_rules(TPC(), fidelity=ft), remat="none")
     st, m = step(st, TData(CFG_T.vocab, SEQ, B, device="cpu").batch(0))
     assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
     assert len(reads) == 2 * 5 * CFG_T.n_layers and sum(r[3] for r in reads) == len(reads) // 2

@@ -59,6 +59,16 @@ HETERO_FIRST_RTOL, HETERO_TRACK_RTOL, HETERO_STEPS = 2e-3, 5e-2, 8
 NORMAL_ULPS, NORMAL_SHARE = 4, 0.02
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the sweeps' many small products gain nothing
+    from more, and the suite runs six workers on the host's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _jax_claims(results):
     """The reference's printed claims, as its ``spec_sweep`` computes them."""
     paper_pick = results["44466555"]["loss"]

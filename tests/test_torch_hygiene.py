@@ -137,7 +137,7 @@ def test_cpu_training_step_takes_the_plain_versions_and_launches_nothing():
     opt = PantherConfig(crs_every=1)
     rules = planlib.default_rules(opt, fidelity=configs.fidelity_presets()["adc9"])
     state = train_state_init(cfg, opt, 0, device="cpu")
-    state, metrics = make_train_step(cfg, opt, constant(1e-2), plan_rules=rules)(
+    state, metrics = make_train_step(cfg, opt, constant(1e-2), plan_rules=rules, remat="none")(
         state, SyntheticLMDataset(cfg.vocab, 8, 2, device="cpu").batch(0))
     assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
     counts = (K.mvm_sliced_fused.launches, K.mvm_sliced_fused.transpose_launches,

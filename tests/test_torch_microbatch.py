@@ -148,7 +148,8 @@ def test_microbatched_step_matches_jax(start):
     jb, jmb, tb, tmb = _batches()
     opt_j, opt_t = JPC(stochastic_round=False, crs_every=1000), TPC(stochastic_round=False, crs_every=1000)
     sj, mj = jax.jit(jstep.make_train_step(CFG_J, opt_j, jsched.constant(LR), microbatches=G))(start, jmb)
-    st, mt = tstep.make_train_step(CFG_T, opt_t, tsched.constant(LR), microbatches=G)(_state_from_jax(start), tmb)
+    st, mt = tstep.make_train_step(CFG_T, opt_t, tsched.constant(LR), microbatches=G,
+                                   remat="none")(_state_from_jax(start), tmb)
     assert abs(float(mt["loss"]) - float(mj["loss"])) < LOSS_TOL
     assert abs(float(mt["grad_norm"]) - float(mj["grad_norm"])) <= 1e-4 * float(mj["grad_norm"])
     start_v = {p: _plane_values(s.planes) for p, s in tree.leaves_with_path(_state_from_jax(start).sliced)
@@ -197,7 +198,7 @@ def test_microbatched_step_matches_full_batch(start, monkeypatch):
     each operand leaf reaching the update as one gradient of G·T tokens."""
     jb, jmb, tb, tmb = _batches()
     opt = TPC(stochastic_round=False, crs_every=1000)
-    sf, mf = tstep.make_train_step(CFG_T, opt, tsched.constant(LR))(_state_from_jax(start), tb)
+    sf, mf = tstep.make_train_step(CFG_T, opt, tsched.constant(LR), remat="none")(_state_from_jax(start), tb)
     seen = {}
     real = tpan.update_split
 
@@ -206,7 +207,8 @@ def test_microbatched_step_matches_full_batch(start, monkeypatch):
         return real(grads, *a, **k)
 
     monkeypatch.setattr(tpan, "update_split", spy)
-    sm, mm = tstep.make_train_step(CFG_T, opt, tsched.constant(LR), microbatches=G)(_state_from_jax(start), tmb)
+    sm, mm = tstep.make_train_step(CFG_T, opt, tsched.constant(LR), microbatches=G,
+                                   remat="none")(_state_from_jax(start), tmb)
     assert abs(float(mm["loss"]) - float(mf["loss"])) < LOSS_TOL
     _check_ulps(_grid_ulps(sf.sliced, sm.sliced))
     assert seen and all(shape[-2] == B * SEQ for shape in seen.values()), seen
@@ -218,9 +220,9 @@ def test_stash_fallback_step_bit_identical_to_operand_step():
     bit-compatible with the operand pipeline: planes equal, bit for bit."""
     opt = TPC(stochastic_round=True, crs_every=64)
     batch = TData(CFG_T.vocab, 32, 8, seed=1, device="cpu").batch(0)
-    sa, ma = tstep.make_train_step(CFG_T, opt, tsched.constant(0.5))(
+    sa, ma = tstep.make_train_step(CFG_T, opt, tsched.constant(0.5), remat="none")(
         tstep.train_state_init(CFG_T, opt, 0, device="cpu"), batch)
-    step = tstep.make_train_step(CFG_T, opt, tsched.constant(0.5), stash_fallback=True)
+    step = tstep.make_train_step(CFG_T, opt, tsched.constant(0.5), stash_fallback=True, remat="none")
     sb, mb = step(tstep.train_state_init(CFG_T, opt, 0, device="cpu"), batch)
     assert float(ma["loss"]) == float(mb["loss"])
     for (_, a), (_, b) in zip(tree.leaves_with_path(sa.sliced), tree.leaves_with_path(sb.sliced)):
@@ -234,11 +236,11 @@ def test_stash_fallback_step_bit_identical_to_operand_step():
 def test_stash_fallback_with_explicit_rules_raises():
     rules = tplan.default_rules(TPC())
     with pytest.raises(ValueError, match="stash_fallback"):
-        tstep.make_train_step(CFG_T, TPC(), tsched.constant(LR), plan_rules=rules, stash_fallback=True)
+        tstep.make_train_step(CFG_T, TPC(), tsched.constant(LR), plan_rules=rules, stash_fallback=True, remat="none")
     state = tstep.train_state_init(CFG_T, TPC(), 0, device="cpu")
     plan = tplan.resolve_plan(tstep.param_shapes(state.digital, state.sliced), rules)
     with pytest.raises(ValueError, match="stash_fallback"):
-        tstep.make_train_step(CFG_T, TPC(), tsched.constant(LR), plan=plan, stash_fallback=True)
+        tstep.make_train_step(CFG_T, TPC(), tsched.constant(LR), plan=plan, stash_fallback=True, remat="none")
     with pytest.raises(ValueError, match="microbatches"):
-        tstep.make_train_step(CFG_T, TPC(), tsched.constant(LR), microbatches=4)(
+        tstep.make_train_step(CFG_T, TPC(), tsched.constant(LR), microbatches=4, remat="none")(
             state, TData(CFG_T.vocab, 8, 2, device="cpu").batch(0))

@@ -246,6 +246,6 @@ def test_fidelity_step_mla_arch_runs():
     plan = plan_by_path(resolve_plan(tstep.param_shapes(s0.digital, s0.sliced), rules))
     for leaf in ("wq_dkv", "w_uk", "w_uv", "wo"):
         assert all(pl.fidelity is not None for path, pl in plan.items() if path.endswith(f"attn/{leaf}"))
-    _, m = tstep.make_train_step(cfg, opt, constant(0.1), plan_rules=rules)(
+    _, m = tstep.make_train_step(cfg, opt, constant(0.1), plan_rules=rules, remat="none")(
         s0, SyntheticLMDataset(cfg.vocab, 16, 2, device="cpu").batch(0))
     assert np.isfinite(float(m["loss"]))

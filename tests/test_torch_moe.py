@@ -282,7 +282,7 @@ def test_granite_smoke_step_matches_the_reference(start, rules, microbatches):
     step_j = jax.jit(jstep.make_train_step(CFG_J, JPC(crs_every=2), jsched.constant(LR), plan_rules=rj(JPC()),
                                            microbatches=microbatches))
     step_t = tstep.make_train_step(CFG_T, TPC(crs_every=2), tsched.constant(LR), plan_rules=rt(TPC()),
-                                   microbatches=microbatches)
+                                   microbatches=microbatches, remat="none")
     bj, bt = JData(CFG_J.vocab, SEQ, B).batch(0), TData(CFG_T.vocab, SEQ, B, device="cpu").batch(0)
     if microbatches > 1:
         bj = jax.tree.map(lambda a: a.reshape(microbatches, B // microbatches, SEQ), bj)

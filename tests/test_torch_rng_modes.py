@@ -306,7 +306,7 @@ def test_update_split_grid_on_given_gradients_bit_identical(start, step):
 
 def test_lossless_train_step_under_grid_matches_jax(start):
     step_j = jax.jit(jstep.make_train_step(CFG_J, JPC(crs_every=2, rng_mode="grid"), jsched.constant(LR)))
-    step_t = tstep.make_train_step(CFG_T, TPC(crs_every=2, rng_mode="grid"), tsched.constant(LR))
+    step_t = tstep.make_train_step(CFG_T, TPC(crs_every=2, rng_mode="grid"), tsched.constant(LR), remat="none")
     st = _state_from_jax(start)
     start_v = {p: _plane_values(s.planes) for p, s in _t_by_path(st.sliced).items()}
     sj, mj = step_j(start, JData(CFG_J.vocab, SEQ, B).batch(0))

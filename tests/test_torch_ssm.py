@@ -367,7 +367,7 @@ def test_fused_step_runs_on_non_attention_archs(arch):
     plan = tplan.resolve_plan(tstep.param_shapes(state.digital, state.sliced), tplan.default_rules(opt))
     assert not any(pl.grad == "operand" for _, pl in tree.leaves_with_path(plan))
     assert not any(pl.mapped for p, pl in tree.leaves_with_path(plan) if p[-1] == "conv_w")
-    step = tstep.make_train_step(cfg, opt, tsched.constant(0.1))
+    step = tstep.make_train_step(cfg, opt, tsched.constant(0.1), remat="none")
     state, m = step(state, TData(cfg.vocab, 16, 4, device="cpu").batch(9))
     assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
 
@@ -385,7 +385,8 @@ def test_adc9_coverage_step_reads_the_taps_through_the_crossbar(arch, monkeypatc
     monkeypatch.setattr(tcommon, "_dwconv_fidelity_read",
                         lambda *a, transpose=False: reads.append(transpose) or real(*a, transpose=transpose))
     state = tstep.train_state_init(cfg, opt, 0, device="cpu")
-    step = tstep.make_train_step(cfg, opt, tsched.constant(LR), plan_rules=tplan.coverage_rules(opt, adc9))
+    step = tstep.make_train_step(cfg, opt, tsched.constant(LR), plan_rules=tplan.coverage_rules(opt, adc9),
+                                 remat="none")
     before = {p: s.planes.clone() for p, s in tree.leaves_with_path(state.sliced) if s is not None}
     state, m = step(state, TData(cfg.vocab, SEQ, B, device="cpu").batch(0))
     assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
@@ -422,7 +423,7 @@ def test_smoke_step_matches_the_reference(arch, rules):
     rj, rt = RULES[rules]
     start = jstep.train_state_init(cfg_j, JPC(crs_every=2), jax.random.PRNGKey(0))
     step_j = jax.jit(jstep.make_train_step(cfg_j, JPC(crs_every=2), jsched.constant(LR), plan_rules=rj(JPC())))
-    step_t = tstep.make_train_step(cfg_t, TPC(crs_every=2), tsched.constant(LR), plan_rules=rt(TPC()))
+    step_t = tstep.make_train_step(cfg_t, TPC(crs_every=2), tsched.constant(LR), plan_rules=rt(TPC()), remat="none")
     np_tree = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     st = convert.train_state_from_jax(0, np_tree(start.digital), np_tree(start.sliced), start.rng, device="cpu")
     start_v = {tcommon.path_str(p): _plane_values(s.planes) for p, s in tree.leaves_with_path(st.sliced)

@@ -230,7 +230,7 @@ def test_update_split_on_given_gradients_bit_identical(start, step):
 def lossless_runs(start):
     """STEPS lossless steps of both packages from the same state and data."""
     step_j = jax.jit(jstep.make_train_step(CFG_J, JPC(crs_every=2), jsched.constant(LR)))
-    step_t = tstep.make_train_step(CFG_T, TPC(crs_every=2), tsched.constant(LR))
+    step_t = tstep.make_train_step(CFG_T, TPC(crs_every=2), tsched.constant(LR), remat="none")
     dj, dt = JData(CFG_J.vocab, SEQ, B), TData(CFG_T.vocab, SEQ, B, device="cpu")
     sj, st = start, _state_from_jax(start)
     st0 = _copy_state(st)
@@ -275,8 +275,8 @@ def test_lossless_train_steps_match_jax(lossless_runs):
 
 def test_operand_and_dense_pipelines_agree(lossless_runs):
     r = lossless_runs
-    dense_step = tstep.make_train_step(CFG_T, TPC(crs_every=2), tsched.constant(LR), operand_grads=False)
-    op_step = tstep.make_train_step(CFG_T, TPC(crs_every=2), tsched.constant(LR))
+    dense_step = tstep.make_train_step(CFG_T, TPC(crs_every=2), tsched.constant(LR), operand_grads=False, remat="none")
+    op_step = tstep.make_train_step(CFG_T, TPC(crs_every=2), tsched.constant(LR), remat="none")
     a, b = _copy_state(r["port0"]), _copy_state(r["port0"])
     batch = r["data"].batch(0)
     a, ma = op_step(a, batch)
@@ -306,7 +306,7 @@ def test_adc9_step_reads_match_jax_read_by_read(lossless_runs, monkeypatch):
     fid_t = tconfigs.fidelity_presets()["adc9"]
     fid_j = jconfigs.fidelity_presets()["adc9"]
     step = tstep.make_train_step(CFG_T, TPC(crs_every=2), tsched.constant(LR),
-                                 plan_rules=tplan.default_rules(TPC(), fidelity=fid_t))
+                                 plan_rules=tplan.default_rules(TPC(), fidelity=fid_t), remat="none")
     state = _copy_state(lossless_runs["port0"])
     for i in range(2):
         state, m = step(state, lossless_runs["data"].batch(i))
@@ -330,18 +330,25 @@ def test_adc9_step_reads_match_jax_read_by_read(lossless_runs, monkeypatch):
 
 
 def test_make_train_step_refuses_what_is_not_ported():
-    """Meshes are ported (``tests/test_torch_distributed_step.py``); the MoE
-    blocks at data > 1 are not, and a logical mesh cannot run a step."""
-    from repro_torch.launch.mesh import logical_mesh
+    """Meshes are ported (``tests/test_torch_distributed_step.py``), and the
+    MoE blocks at data > 1 where a rank's tokens are whole dispatch groups
+    (``tests/test_torch_distributed_archs.py``); training on groups a rank
+    does not hold whole is not (here on a dry mesh, the dry run's), and a
+    logical mesh cannot run a step."""
+    from repro_torch.launch.mesh import dry_mesh, logical_mesh
 
     sched = tsched.constant(LR)
+    moe = tconfigs.get_smoke("granite_moe_1b_a400m")
+    dm = dry_mesh(logical_mesh((2, 1), ("data", "model")), device="cpu")
+    step = tstep.make_train_step(moe, TPC(), sched, mesh=dm, remat="none")
+    state = tstep.shard_state(tstep.train_state_init(moe, TPC(), 0, device="cpu", plan=step.plan), step.specs, dm)
     with pytest.raises(NotImplementedError, match="MoE"):
-        tstep.make_train_step(tconfigs.get_smoke("granite_moe_1b_a400m"), TPC(), sched,
-                              mesh=logical_mesh((2, 1), ("data", "model")))
+        step(state, TData(moe.vocab, 8, 2, device="cpu").batch(0))
     with pytest.raises(ValueError, match="live mesh"):
-        tstep.make_train_step(CFG_T, TPC(), sched, mesh=logical_mesh((2, 2), ("data", "model")), fsdp=True)
+        tstep.make_train_step(CFG_T, TPC(), sched, mesh=logical_mesh((2, 2), ("data", "model")), fsdp=True,
+                              remat="none")
     fid_cfg = dataclasses.replace(CFG_T, fidelity=tconfigs.fidelity_presets()["adc9"])
-    step = tstep.make_train_step(fid_cfg, TPC(), sched, operand_grads=False)
+    step = tstep.make_train_step(fid_cfg, TPC(), sched, operand_grads=False, remat="none")
     state = tstep.train_state_init(CFG_T, TPC(), 0, device="cpu")
     with pytest.raises(ValueError, match="operand pipeline"):
         step(state, TData(CFG_T.vocab, 8, 1, device="cpu").batch(0))

@@ -58,8 +58,8 @@ def _step_variants(cfg, opt_cfg, mesh, variants, batch_size=4, seq=16):
         if preset is not None:
             fid = dataclasses.replace(configs.fidelity_presets()[preset], spec=opt_cfg.spec)
             rules = planlib.default_rules(opt_cfg, fidelity=fid)
-        step = S.make_train_step(cfg, opt_cfg, constant(LR), mesh=mesh, fsdp=fsdp, plan_rules=rules)
-        one = S.make_train_step(cfg, opt_cfg, constant(LR), plan_rules=rules)
+        step = S.make_train_step(cfg, opt_cfg, constant(LR), mesh=mesh, fsdp=fsdp, plan_rules=rules, remat="none")
+        one = S.make_train_step(cfg, opt_cfg, constant(LR), plan_rules=rules, remat="none")
         state = S.shard_state(S.train_state_init(cfg, opt_cfg, 0, device="cpu"), step.specs, mesh)
         ref = S.train_state_init(cfg, opt_cfg, 0, device="cpu") if root else None
         res = {k: [] for k in ("mesh_loss", "single_loss", "same_loss", "mesh_gnorm", "single_gnorm", "free_rel",
@@ -382,8 +382,8 @@ def _ckpt_checks(cfg, opt_cfg, mesh, directory):
     fid = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=opt_cfg.spec)
     rules = planlib.default_rules(opt_cfg, fidelity=fid)
     ds = SyntheticLMDataset(cfg.vocab, 16, 4, device="cpu")
-    mesh_step = S.make_train_step(cfg, opt_cfg, constant(LR), mesh=mesh, plan_rules=rules)
-    one = S.make_train_step(cfg, opt_cfg, constant(LR), plan_rules=rules)
+    mesh_step = S.make_train_step(cfg, opt_cfg, constant(LR), mesh=mesh, plan_rules=rules, remat="none")
+    one = S.make_train_step(cfg, opt_cfg, constant(LR), plan_rules=rules, remat="none")
     specs = mesh_step.specs
     root = dist.get_rank() == 0
     fresh = lambda: S.train_state_init(cfg, opt_cfg, 0, device="cpu")  # noqa: E731
@@ -437,7 +437,7 @@ def sleeper(rank):
 # ------------------------------ every architecture ------------------------------
 
 
-def arch_world(rank, cases, fold_presets=()):
+def arch_world(rank, cases, fold_presets=(), extras=False):
     """One mesh step of each SMOKE arch (f32, lr ``LR``) against the
     single-process step from the same state, for each ``(shape, rules,
     archs)`` case (adc9 reads): rank 0's (loss, one-process loss, weight
@@ -463,18 +463,171 @@ def arch_world(rank, cases, fold_presets=()):
             batch = SyntheticLMDataset(cfg.vocab, 16, 4, device="cpu").batch(0)
             if cfg.input_mode != "tokens":
                 batch = {**batch, "inputs": FrameStub(cfg.vocab, cfg.d_model, device="cpu")(batch["inputs"])}
-            step = S.make_train_step(cfg, opt, constant(LR), mesh=mesh, plan_rules=rules)
+            step = S.make_train_step(cfg, opt, constant(LR), mesh=mesh, plan_rules=rules, remat="none")
             init = lambda: S.train_state_init(cfg, opt, 0, device="cpu", plan=step.plan)  # noqa: E731
             state, m = step(S.shard_state(init(), step.specs, mesh), batch)
             got = S.gather_state(state, step.specs, mesh)
             if root:
-                ref, m1 = S.make_train_step(cfg, opt, constant(LR), plan_rules=rules)(init(), batch)
+                ref, m1 = S.make_train_step(cfg, opt, constant(LR), plan_rules=rules, remat="none")(init(), batch)
                 out[(shape, rules_name, arch)] = (float(m["loss"]), float(m1["loss"]), _rel(got, ref, opt))
     if fold_presets:
         mesh = M.init_mesh((2, 2))
         for preset in fold_presets:
             out[("fold", preset)] = _fold_steps(mesh, opt, preset)
+    if extras:
+        out.update(_mesh_extras(M.init_mesh((2, 2)), opt, fid))
     return out
+
+
+MOE_GROUP = 16  # the MoE cases' dispatch group (the model's is 1024): a rank's row of 16 tokens one whole group
+DRY_SHAPE = {"kind": "train", "seq_len": 16, "global_batch": 4}  # the dry run's SMOKE cell
+
+
+def _mesh_extras(mesh, opt, fid):
+    """Rank 0's results of:
+
+    * ``("moe", arch)``: one ideal-ADC ``coverage_rules`` step of each MoE
+      SMOKE arch on the (4, 1) mesh, on aligned dispatch groups (4 x 16
+      tokens, a row a rank, the group cut to ``MOE_GROUP`` tokens in this
+      process: the card runs the model's 1024, ``chip_smoke.py`` phase 21),
+      against one process: (loss, one-process loss, aux, one-process aux,
+      weight gap);
+    * ``("remat", "moe", arch)``: that mesh step under ``remat="full"``
+      (the default) and under ``"none"`` from one state: loss, aux, grad
+      norm and every leaf equal (a bool);
+    * on ``mesh`` (2, 2):
+    * ``("remat", "fsdp", SMOKE)``: one adc9 ``coverage_rules`` FSDP step of
+      the SMOKE arch under ``"full"`` and ``"none"`` from one state, equal
+      as above (the recompute gathers each layer's blocks again);
+    * ``("conv_fsdp", arch)``: one adc9 ``coverage_rules`` FSDP step of each
+      SSM arch (``conv_w``'s planes sharded over 'data', updated a block at
+      its origin) against one process: (loss, one-process loss, weight gap);
+    * ``("moe_serve", ...)``: granite SMOKE at capacity factor 1.0 served on
+      groups a rank does not hold whole (prefill of 2 x 5 tokens and two
+      decode steps): the mesh's logits against one process's, and against
+      the logits of each rank's rows dispatched alone (the fault repaired);
+    * ``"dry_tally"``: the collectives of the dry run's SMOKE train cell
+      (``launch.dryrun``) stepped live, as ``distributed.collectives``
+      counts them."""
+    from repro_torch import configs, plan as planlib
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.distributed import collectives as col
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models.common import MoECfg
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train import step as S
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import mlp
+
+    root = all(v == 0 for v in mesh.coordinate.values())
+    out = {}
+    ideal = dataclasses.replace(configs.fidelity_presets()["ideal"], spec=opt.spec)
+    data4 = M.init_mesh((4, 1))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the remat cases compare two steps bit for bit
+    model_group, mlp.MOE_GROUP = mlp.MOE_GROUP, MOE_GROUP
+    for arch in ("granite_moe_1b_a400m", "deepseek_v2_lite_16b"):
+        cfg = dataclasses.replace(configs.get_smoke(arch), dtype=torch.float32)
+        rules = planlib.coverage_rules(opt, ideal)
+        batch = SyntheticLMDataset(cfg.vocab, MOE_GROUP, 4, device="cpu").batch(0)
+        step = S.make_train_step(cfg, opt, constant(LR), mesh=data4, plan_rules=rules, remat="none")
+        init = lambda: S.train_state_init(cfg, opt, 0, device="cpu", plan=step.plan)  # noqa: E731
+        state, m = step(S.shard_state(init(), step.specs, data4), batch)
+        got = S.gather_state(state, step.specs, data4)
+        full = S.make_train_step(cfg, opt, constant(LR), mesh=data4, plan_rules=rules)
+        state_f, m_f = full(S.shard_state(init(), full.specs, data4), batch)
+        got_f = S.gather_state(state_f, full.specs, data4)
+        if root:
+            ref, m1 = S.make_train_step(cfg, opt, constant(LR), plan_rules=rules, remat="none")(init(), batch)
+            out[("moe", arch)] = (float(m["loss"]), float(m1["loss"]), float(m["aux"]), float(m1["aux"]),
+                                  _rel(got, ref, opt))
+            out[("remat", "moe", arch)] = _same_step(got, m, got_f, m_f)
+    mlp.MOE_GROUP = model_group
+    cfg = dataclasses.replace(configs.get_smoke(SMOKE), dtype=torch.float32)
+    rules = planlib.coverage_rules(opt, fid)
+    batch = SyntheticLMDataset(cfg.vocab, 16, 4, device="cpu").batch(0)
+    got = {}
+    for mode in ("none", "full"):
+        step = S.make_train_step(cfg, opt, constant(LR), mesh=mesh, fsdp=True, plan_rules=rules, remat=mode)
+        state = S.train_state_init(cfg, opt, 0, device="cpu", plan=step.plan)
+        state, m = step(S.shard_state(state, step.specs, mesh), batch)
+        got[mode] = (S.gather_state(state, step.specs, mesh), m)
+    if root:
+        out[("remat", "fsdp", SMOKE)] = _same_step(*got["none"], *got["full"])
+    torch.set_num_threads(threads)
+    for arch in ("xlstm_125m", "zamba2_1p2b"):
+        cfg = dataclasses.replace(configs.get_smoke(arch), dtype=torch.float32)
+        rules = planlib.coverage_rules(opt, fid)
+        batch = SyntheticLMDataset(cfg.vocab, 16, 4, device="cpu").batch(0)
+        step = S.make_train_step(cfg, opt, constant(LR), mesh=mesh, fsdp=True, plan_rules=rules, remat="none")
+        init = lambda: S.train_state_init(cfg, opt, 0, device="cpu", plan=step.plan)  # noqa: E731
+        state, m = step(S.shard_state(init(), step.specs, mesh), batch)
+        got = S.gather_state(state, step.specs, mesh)
+        if root:
+            ref, m1 = S.make_train_step(cfg, opt, constant(LR), plan_rules=rules, remat="none")(init(), batch)
+            out[("conv_fsdp", arch)] = (float(m["loss"]), float(m1["loss"]), _rel(got, ref, opt))
+    out[("moe_serve",)] = _moe_serve(mesh, dataclasses.replace(
+        configs.get_smoke("granite_moe_1b_a400m"), dtype=torch.float32,
+        moe=MoECfg(n_experts=4, top_k=2, d_ff_expert=32, capacity_factor=1.0)))
+    cfg = configs.get_smoke(SMOKE)
+    step, g = D.train_cell_step(cfg, DRY_SHAPE, mesh)
+    state = S.shard_state(S.train_state_init(cfg, D.TRAIN_OPT, 0, device="cpu", plan=step.plan), step.specs, mesh)
+    batch = SyntheticLMDataset(cfg.vocab, DRY_SHAPE["seq_len"], DRY_SHAPE["global_batch"], device="cpu").batch(0)
+    col.tally.clear()
+    step(state, {k: v.to(torch.int32) for k, v in batch.items()})
+    out["dry_tally"] = (g, col.tally.record())
+    return out
+
+
+def _same_step(a, ma, b, mb) -> bool:
+    """Whether two steps' states (every plane, frac-bits and digital leaf)
+    and metrics (loss, aux, grad norm) are equal bit for bit."""
+    from repro_torch import tree
+
+    def leaves(st):
+        out = [(("d",) + p, x) for p, x in tree.leaves_with_path(st.digital) if x is not None]
+        for p, x in tree.leaves_with_path(st.sliced):
+            if x is not None:
+                out += [(("s",) + p, x.planes), (("f",) + p, x.frac_bits)]
+        return out
+
+    ta, tb = leaves(a), leaves(b)
+    return [p for p, _ in ta] == [p for p, _ in tb] and all(torch.equal(x, y) for (_, x), (_, y) in zip(ta, tb)) \
+        and all(float(ma[k]) == float(mb[k]) for k in ("loss", "aux", "grad_norm"))
+
+
+def _moe_serve(mesh, cfg):
+    """Prefill and two decode steps of 2 x 5 prompt tokens on ``mesh`` and
+    on one process, and on one process with each rank's row served alone:
+    rank 0's ``(max |mesh - one| / max |one|, tokens equal, max |alone -
+    one| / max |one|)``."""
+    from repro_torch.models import lm
+    from repro_torch.optim import PantherConfig, panther
+    from repro_torch.serve import kv_pages
+    from repro_torch.serve.step import make_decode_step, make_prefill
+    from repro_torch.train import step as S
+
+    opt = PantherConfig()
+    state = S.train_state_init(cfg, opt, 0, device="cpu")
+    params = panther.materialize_split(state.digital, state.sliced, opt)
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (2, 5)))
+
+    def run(m, rows):
+        prefill, decode = make_prefill(cfg, mesh=m), make_decode_step(cfg, mesh=m)
+        lg, caches = prefill(params, rows)
+        caches = kv_pages.grow_caches(cfg, lm.unstack_caches(cfg, caches), 5 + 3)
+        seq, tok = [lg], torch.argmax(lg, dim=-1)
+        for i in range(2):
+            tok, lg, caches = decode(params, tok, caches, 5 + i)
+            seq.append(lg)
+        return torch.stack(seq)
+
+    got, one = run(mesh, prompts), run(None, prompts)
+    alone = torch.cat([run(None, prompts[r:r + 1]) for r in range(2)], dim=1)
+    top = one.abs().max()
+    return (float((got - one).abs().max() / top), bool(torch.equal(got.argmax(-1), one.argmax(-1))),
+            float((alone - one).abs().max() / top))
 
 
 FOLD_WIDTH = 512  # a rank's half of each contraction is 2 crossbar tiles: the fold reorders a sum
@@ -497,8 +650,9 @@ def _fold_steps(mesh, opt, preset):
     cfg = dataclasses.replace(configs.get_smoke("gemma_2b"), d_model=FOLD_WIDTH, d_ff=FOLD_WIDTH,
                               head_dim=FOLD_WIDTH // 4, dtype=torch.float32)
     fid = dataclasses.replace(configs.fidelity_presets()[preset], spec=opt.spec)
-    step = S.make_train_step(cfg, opt, constant(LR), mesh=mesh, plan_rules=planlib.coverage_rules(opt, fid))
-    one = S.make_train_step(cfg, opt, constant(LR), plan=step.plan)
+    step = S.make_train_step(cfg, opt, constant(LR), mesh=mesh, plan_rules=planlib.coverage_rules(opt, fid),
+                             remat="none")
+    one = S.make_train_step(cfg, opt, constant(LR), plan=step.plan, remat="none")
     ds = SyntheticLMDataset(cfg.vocab, 16, 4, device="cpu")
     state = S.shard_state(S.train_state_init(cfg, opt, 0, device="cpu", plan=step.plan), step.specs, mesh)
     root = all(v == 0 for v in mesh.coordinate.values())

@@ -51,7 +51,7 @@ def check_smoke_step(cfg_j, cfg_t, rules: str, batch: int, seq: int) -> set:
     rj, rt = RULES[rules]
     start = jstep.train_state_init(cfg_j, JPC(crs_every=2), jax.random.PRNGKey(0))
     step_j = jax.jit(jstep.make_train_step(cfg_j, JPC(crs_every=2), jsched.constant(LR), plan_rules=rj(JPC())))
-    step_t = tstep.make_train_step(cfg_t, TPC(crs_every=2), tsched.constant(LR), plan_rules=rt(TPC()))
+    step_t = tstep.make_train_step(cfg_t, TPC(crs_every=2), tsched.constant(LR), plan_rules=rt(TPC()), remat="none")
     np_tree = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     st = convert.train_state_from_jax(0, np_tree(start.digital), np_tree(start.sliced), start.rng, device="cpu")
     start_v = {tcommon.path_str(p): plane_values(s.planes) for p, s in tree.leaves_with_path(st.sliced)
