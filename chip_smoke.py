@@ -52,10 +52,8 @@ Phases:
      ``lm.param_shapes`` · 1e-9), phase 15's trace under ``continuous``
      and ``static`` on it with ``Engine._calibrate`` refused: the
      crossbar-clock summaries, passes by kind, K4's launches equal to 5
-     reads x ENGINE_LAYERS x the passes, all on the tensor-core body; (b) the
-     same trace (tokens mapped into its vocabulary) and clock through the
-     ``launch.serve`` bench's narrow model: summaries and every request's
-     ``token_times`` equal (a)'s; (c) ``launch.serve --trace --isa-clock``
+     reads x ENGINE_LAYERS x the passes, all on the tensor-core body; (c)
+     ``launch.serve --trace --isa-clock`` (the bench's narrow model)
      on the card: its ``crossbar_clock`` and tier tokens/s equal to
      ``BENCH_serve.json``'s exactly, the tiers reading through K4 at adc9
      and adc6, their 4-slot rounds on the decode body; (d) the first K4 read
@@ -218,7 +216,7 @@ Phases:
      counts, by K4 token count and ADC; (c) layer 0's ``moe_apply`` through
      the kernels bit for bit against the plain reads, 4 x 32 prompts and 16
      greedy tokens through the adc9 coverage plan (2376 K4 reads a decode
-     step), and the engine on the bench's trace cut to its first 2 requests
+     step), and the engine on the bench's trace cut to its first request
      (the script's time limit), continuous, 8 slots: tokens/s and K4 reads
      by tokens;
  18. the SSM family: (a) the im2col entry (``opa_im2col``: K1's
@@ -280,11 +278,19 @@ Phases:
      steps under FSDP (the 1x2 world below steps the blocks with no data
      shards), against rank 0's single-process steps (losses
      within 1e-3 / 5e-3; the ideal step's weights within 1e-5 of max|w|;
-     the adc9 weights printed), each step's launches held to the plan; (e)
-     the FSDP state saved on the mesh, restored on one process; (d) prefill
-     and decode through adc9 reads on the mesh against one process; then
-     the engine on a 1x2 mesh over the trace's first 3 requests, adc9 and
-     lossless (tokens equal to solo serving);
+     the adc9 weights printed), each step's launches held to the plan (at
+     data 2 the operand leaves' outer products, summed over data, through
+     K2: no K1 launch), rank 0's peak a step within 5% of the dry run's;
+     (e) the FSDP state saved on the mesh, restored on one process; (d)
+     prefill and decode through adc9 reads on the mesh against one
+     process; the engine at data 2 over the trace's first 2 requests, adc9
+     and lossless (tokens equal to solo serving); (a') the data-2 update of
+     wi_gate at full width, its outer product reduced over data through
+     K2, bit for bit against K1 on the operands gathered over data (f32-
+     exact operands, FSDP, counter, grid and device draws, 2
+     microbatches); then a 1x2 world: two adc9 steps against one process
+     whose reads fold at the rank boundary, and the engine over the
+     trace's first 2 requests;
  21. remat and the dry run (last): (a) gemma-2b at full width (18 layers),
      adc9 (``default_rules``), 4 x 256 tokens, one state: a train step under
      ``remat="none"`` twice, then ``"full"`` and ``"dots"``, losses,
@@ -303,11 +309,12 @@ Phases:
      ``"none"`` from the mesh's state before it (losses
      within 1e-3, the load-balance term within 1e-6 relative, weights within
      1e-5 of max|w|; the leaves furthest apart printed), K4's expert reads
-     and K1's expert deposits counted on each rank; then prefill of 8 x 16
-     tokens and
-     a decode step on dispatch groups a rank does not hold whole (the
-     gather), the logits within 1e-5 of max of one process's, argmax
-     equal; (d) the im2col entry at a channel origin: zamba2's [8, 4, 4224]
+     counted and every update K2's (one launch a layer block) on each
+     rank; (c') one step of 8 x 16 tokens on dispatch groups a rank does
+     not hold whole against one process, the same bounds; then prefill of
+     8 x 16 tokens and a decode step on such groups (the gather), the
+     logits within 1e-5 of max of one process's, argmax equal; (d) the
+     im2col entry at a channel origin: zamba2's [8, 4, 4224]
      block cut in two, each half bit for bit against the whole leaf's
      launch, timed beside it.
 
@@ -1300,6 +1307,34 @@ class embedding_crs_launches:
 
     def __exit__(self, *exc):
         self.pkg.crs = self.saved
+
+
+class reduced_block_launches:
+    """While inside, K2's launches on reduced operand blocks are counted (a
+    list of one int, yielded): the optimizer writes each leaf through
+    ``optim.panther._write_leaf``, and around each call that hands an
+    operand leaf a dense gradient (at ``data > 1`` its outer product
+    summed over data) the difference in K2's own launch count is added."""
+
+    def __enter__(self):
+        from repro_torch.kernels.sliced_opa import kernel as KO
+        from repro_torch.models.common import OuterProductGrad
+        from repro_torch.optim import panther
+
+        self.mod, self.saved, count = panther, panther._write_leaf, [0]
+
+        def on_leaf(s, g, lr32, key, pl, *args):
+            before = KO.opa_dense.launches
+            out = self.saved(s, g, lr32, key, pl, *args)
+            if pl is not None and pl.grad == "operand" and not isinstance(g, OuterProductGrad):
+                count[0] += KO.opa_dense.launches - before
+            return out
+
+        panther._write_leaf = on_leaf
+        return count
+
+    def __exit__(self, *exc):
+        self.mod._write_leaf = self.saved
 
 
 def phase_train(torch, gen, dense):
@@ -3486,20 +3521,12 @@ class no_calibration:
         self.Engine._calibrate = self.saved
 
 
-def timings_equal(a, b) -> bool:
-    """Two ``run_trace`` results with the same ``token_times``, request by
-    request (the tokens depend on the model)."""
-    return [(r.rid, r.token_times) for r in a["requests"]] == [(r.rid, r.token_times) for r in b["requests"]]
-
-
 def phase_isa_clock(torch, K, ref, state):
     """The serving engine on the crossbar-cycle clock and the ISA pipeline:
-    gemma-2b at full width through the adc9 tree (a), the bench's narrow
-    model on the same clock (b), the reference's serving record (c), one
-    round's K4 read against its plain version (d), gemma-2b's compiled
-    training step (e)."""
+    gemma-2b at full width through the adc9 tree (a), the reference's
+    serving record (c), one round's K4 read against its plain version (d),
+    gemma-2b's compiled training step (e)."""
     import contextlib
-    import dataclasses
     import tempfile
 
     from repro_torch import configs
@@ -3550,23 +3577,6 @@ def phase_isa_clock(torch, K, ref, state):
     if launches != want or instances != {"io16": want} or sum(by_tokens.values()) != want or not kept:
         raise AssertionError(f"(a) K4 launches {launches} ({instances}) != 5 reads x {layers} layers x {passes} "
                              f"passes = {want} on the tensor-core body, or no round read kept")
-
-    # (b): the bench's narrow model on the same clock object: the same
-    # schedule (tokens mapped into its vocabulary)
-    ncfg = LS.bench_config("gemma-2b")
-    nparams, _, _ = LS._weights(ncfg, torch.device("cuda"))
-    ntrace = [dataclasses.replace(r, tokens=r.tokens % ncfg.vocab) for r in trace]
-    t0 = time.perf_counter()
-    with no_calibration(Engine):
-        nruns, _ = LS.run_policies(ncfg, nparams, ntrace, "cuda", clock)
-    for policy in runs:
-        same = sch.summarize(nruns[policy]) == summaries[policy] and timings_equal(nruns[policy], runs[policy])
-        if not same:
-            raise AssertionError(f"(b) {policy}: the narrow model's schedule differs from gemma-2b's on one clock")
-    print(f"  (b) the narrow model (d {ncfg.d_model}, {sum(n for _, n in ncfg.pattern)} layers) on the same "
-          f"clock: wall {time.perf_counter() - t0:.1f} s; summaries and every request's token_times equal (a)'s",
-          flush=True)
-    del nparams
 
     # (c): the reference's serving record, through the launcher on the card
     record = json.loads((Path(__file__).resolve().parent / SERVE_RECORD).read_text())
@@ -5083,7 +5093,10 @@ MESH_ADC9_OF_MOVE = 0.5  # adc9 steps: a crossbar leaf's |w_mesh - w_one| within
 # (L2 over rank 0's block). A block written at a wrong origin or from wrong operands is ~1-1.4 of its move;
 # the code flips that an f32 sum in another order sets off stay below it (0.42 after two steps on an H100)
 MESH_ADC9_ARGMAX = 0.9  # adc9 serving: the share of positions whose argmax equals one process's
-MESH_ENGINE_REQUESTS = 3  # the bench's trace cut to its first 3 requests, as phases 17-19
+MESH_ENGINE_REQUESTS = 2  # the bench's trace cut to its first 2 requests, as phases 18-19
+MESH_REDUCED_LEAF = ("groups", 0, "mlp", "wi_gate")  # (a'): the reduced update's full-width leaf
+MESH_REDUCED_TOKENS = 64  # a rank's tokens a microbatch in (a'), two microbatches
+MESH_REDUCED_DRAWS = (("counter", False), ("grid", False), ("counter", True))  # (rng_mode, write-nonideal device)
 MESH_TIMEOUT = 900
 MESH_LR = 1e-2  # the CPU mesh tests' rate
 
@@ -5213,6 +5226,95 @@ def fold_witness(torch, planes, spec, mesh, rows, transpose, gen, witness):
     witness["differ"] += int((got != whole).sum())
     witness["outputs"] += got.numel()
     witness["max_rel"] = max(witness["max_rel"], rel)
+
+
+def reduced_update_check(torch, mesh):
+    """(a') The update of an operand leaf at ``data > 1`` both ways on this
+    rank's block of gemma-2b's full-width ``wi_gate`` ([2, 2048, 16384];
+    1024x8192 a rank under FSDP), from each of two microbatches'
+    operands (this rank's MESH_REDUCED_TOKENS tokens, bf16, f32-exact:
+    small integers, ``dh`` on a 2^-6 grid, so every sum is exact in any
+    order): the outer product summed over the data axes
+    (``_Blocks.operand_block``: cuBLAS f32, TF32 off; the f32 sum of the
+    two, halved; ``local_grad``'s all-reduce and FSDP cut) written by K2,
+    against the operands gathered along the token axis
+    (``_Blocks.gathered``, ``_merge_operands``) written by K1, under FSDP
+    (the block all-reduced, then cut; the CPU tests run the plain layout
+    too), under MESH_REDUCED_DRAWS: bit for bit. Returns (cases, cases
+    apart, K1 launches, K2 launches)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import plan as planlib
+    from repro_torch import tree
+    from repro_torch.core import prng
+    from repro_torch.distributed import blocks
+    from repro_torch.models.common import DeviceModel, OperandSlot, OuterProductGrad
+    from repro_torch.optim import PantherConfig, panther
+    from repro_torch.train import step as S
+
+    cfg = mesh_cfg()
+    dp = ("data",)
+    path = MESH_REDUCED_LEAF
+    gen = torch.Generator(device="cuda").manual_seed(40 + mesh.index(dp))  # this data rank's tokens
+    cases = bad = 0
+    c0 = mesh_counts()
+    for fsdp in (True,):
+        for mode, nonideal in MESH_REDUCED_DRAWS:
+            opt = PantherConfig(stochastic_round=True, rng_mode=mode)
+            dev = DeviceModel(**{k: v for k, v in DEVICE.items() if k != "read_noise"}) if nonideal else None
+            fid = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=opt.spec, device=dev)
+            lay = S._Blocks(cfg, opt, mesh, fsdp, True, None, planlib.coverage_rules(opt, fid), None)
+            pl = dict(tree.leaves_with_path(lay.plan))[path]
+            shape = lay.shape_at[path]
+            block = blocks.block_shape(lay.w_spec[path], shape, mesh)
+            planes = torch.randint(-7, 8, (opt.spec.n_slices, *block), generator=gen, device="cuda", dtype=torch.int8)
+            ops = [OuterProductGrad(
+                torch.randint(-8, 9, (*shape[:-2], MESH_REDUCED_TOKENS, shape[-2]), generator=gen,
+                              device="cuda").to(torch.bfloat16),
+                (torch.randint(-8, 9, (*shape[:-2], MESH_REDUCED_TOKENS, shape[-1]), generator=gen,
+                               device="cuda").float() / 64).to(torch.bfloat16)) for _ in range(2)]
+            key = prng.fold_in(prng.PRNGKey(5), 3)
+            slots = [OperandSlot.holding(o, cut=lay.slot_cut(path)) for o in ops]
+            reduces = lay.reduces(slots[0].kind, dp)
+            reduced = sum(lay.operand_block(path, slot, dp) for slot in slots) / 2
+            gathered = S._merge_operands([lay.gathered(path, OperandSlot.holding(o, cut=lay.slot_cut(path)).grad(), dp)
+                                          for o in ops], 2)
+            got = []
+            for grad in (lay.local_grad(path, reduced, dp), gathered):
+                st = panther.SlicedTensor(blocks.layer_major(planes),
+                                          torch.tensor(30, dtype=torch.int32, device="cuda"))
+                panther._write_leaf(st, grad, 3e-2, key, pl, opt, False, lay.origins.get(path))
+                got.append(st.planes)
+            cases += 1
+            bad += int(not (reduces and torch.equal(*got)))
+            del planes, ops, slots, reduced, gathered, got
+    c1 = mesh_counts()
+    return cases, bad, c1["opa_fused"] - c0["opa_fused"], c1["opa_dense"] - c0["opa_dense"]
+
+
+def mesh_dry_peak(torch, preset) -> int:
+    """The dry run's peak (``launch.dryrun.measure``, meta tensors) of rank 0's
+    FSDP coverage step at ``preset`` on the MESH_SHAPE mesh: the step
+    ``mesh_train`` runs, its state and batch included, in bytes."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import plan as planlib
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as M
+    from repro_torch.optim import PantherConfig
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train import step as S
+
+    cfg = mesh_cfg()
+    opt_cfg = PantherConfig(crs_every=2, stochastic_round=True)
+    rules = planlib.coverage_rules(opt_cfg, dataclasses.replace(configs.fidelity_presets()[preset], spec=opt_cfg.spec))
+    dm = M.dry_mesh(M.logical_mesh(MESH_SHAPE, ("data", "model")), device="meta")
+    step = S.make_train_step(cfg, opt_cfg, constant(MESH_LR), mesh=dm, fsdp=True, plan_rules=rules, remat="none")
+    state = S.shard_state(D.meta_train_state(cfg, opt_cfg, step.plan), step.specs, dm)
+    batch = {k: torch.empty((4, 64), dtype=torch.int64, device="meta") for k in ("inputs", "labels")}
+    return D.measure(step, state, batch)[1]["memory"]["peak_per_device_bytes"]
 
 
 def empty_cache(torch):
@@ -5347,61 +5449,68 @@ def mesh_train(torch, mesh, root, directory, variants=MESH_VARIANTS, fold=False)
     opt_cfg = PantherConfig(crs_every=2, stochastic_round=True)
     ds = SyntheticLMDataset(cfg.vocab, 64, 4, device=dev)
     out = {"launches": collections.Counter(), "step_ms": []}
-    for name, preset, fsdp, steps in variants:
-        fid = dataclasses.replace(configs.fidelity_presets()[preset], spec=opt_cfg.spec)
-        rules = planlib.coverage_rules(opt_cfg, fid)
-        step = S.make_train_step(cfg, opt_cfg, constant(MESH_LR), mesh=mesh, fsdp=fsdp, plan_rules=rules, remat="none")
-        one = S.make_train_step(cfg, opt_cfg, constant(MESH_LR), **({"plan": step.plan} if fold else
-                                                                     {"plan_rules": rules}), remat="none")
-        res = {"mesh_loss": [], "one_loss": [], "rel": [], "leaves": [], "steps": steps, "fold": fold}
-        ref = S.train_state_init(cfg, opt_cfg, 0, device=dev) if root and not fold else None
-        state = S.shard_state(S.train_state_init(cfg, opt_cfg, 0, device=dev), step.specs, mesh)
-        init = {p: s.planes.clone() for p, s in tree.leaves_with_path(state.sliced) if s is not None} if root else None
-        empty_cache(torch)
-        for k in range(steps):
-            if fold:
-                ref = S.gather_state(state, step.specs, mesh)  # a collective: every rank
-                ref = ref if root else None
-            c0 = mesh_counts()
-            sync(torch)
-            t0 = time.perf_counter()
-            state, m = step(state, ds.batch(k))
-            loss = float(m["loss"])
-            sync(torch)
-            out["step_ms"].append(1e3 * (time.perf_counter() - t0))
-            c1 = mesh_counts()
-            out["launches"].update({key: c1[key] - c0[key] for key in c1})
-            res["mesh_loss"].append(loss)
-            dist.barrier()  # rank 0's witness below launches nothing the counts read
-            if root:
-                with dist_fid.use_sharded_fidelity(dist_fid.FoldCtx(mesh.shape["model"]) if fold else None):
-                    ref, m1 = one(ref, ds.batch(k))
-                res["one_loss"].append(float(m1["loss"]))
-                res["rel"].append(mesh_block_rel(torch, state, ref, step.specs, mesh, opt_cfg))
-                res["leaves"].append(mesh_leaf_gaps(torch, state, ref, init, step.specs, mesh))
-                worst = max(res["leaves"][-1].items(), key=lambda kv: kv[1]["of_update"])
-                print(f"    (c) {name} step {k + 1}: loss {loss:.6f} (one process {res['one_loss'][k]:.6f}), "
-                      f"{out['step_ms'][-1]:.1f} ms on rank 0; rank 0's blocks within {res['rel'][-1]:.3g} of "
-                      f"max|w|; the worst crossbar leaf {worst[0]}: {worst[1]}", flush=True)
-            if fold:
-                ref = None
-            dist.barrier()
-        if name == "adc9_fsdp":  # (e)
-            t0 = time.perf_counter()
-            save_checkpoint(directory, steps - 1, state, plan=step.plan, mesh=mesh, specs=step.specs)
-            res["ckpt_save_s"] = time.perf_counter() - t0
-            if root:
+    with reduced_block_launches() as on_reduced:  # K2 on the operand blocks, by leaf
+        for name, preset, fsdp, steps in variants:
+            fid = dataclasses.replace(configs.fidelity_presets()[preset], spec=opt_cfg.spec)
+            rules = planlib.coverage_rules(opt_cfg, fid)
+            step = S.make_train_step(cfg, opt_cfg, constant(MESH_LR), mesh=mesh, fsdp=fsdp, plan_rules=rules,
+                                     remat="none")
+            one = S.make_train_step(cfg, opt_cfg, constant(MESH_LR), **({"plan": step.plan} if fold else
+                                                                         {"plan_rules": rules}), remat="none")
+            res = {"mesh_loss": [], "one_loss": [], "rel": [], "leaves": [], "peak": [], "steps": steps, "fold": fold}
+            ref = S.train_state_init(cfg, opt_cfg, 0, device=dev) if root and not fold else None
+            state = S.shard_state(S.train_state_init(cfg, opt_cfg, 0, device=dev), step.specs, mesh)
+            init = ({p: s.planes.clone() for p, s in tree.leaves_with_path(state.sliced) if s is not None}
+                    if root else None)
+            empty_cache(torch)
+            for k in range(steps):
+                if fold:
+                    ref = S.gather_state(state, step.specs, mesh)  # a collective: every rank
+                    ref = ref if root else None
+                c0 = {**mesh_counts(), "opa_dense_reduced": on_reduced[0]}
+                batch = ds.batch(k)
+                sync(torch)
+                base, args = torch.cuda.memory_allocated(), storage_bytes(torch, state_leaves(state), batch)
+                torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
-                restored, rstep = restore_latest(directory, S.train_state_init(cfg, opt_cfg, 0, device=dev),
-                                                 device=dev)
-                res["ckpt_restore_s"] = time.perf_counter() - t0
-                res["ckpt_equal"] = rstep == steps - 1 and mesh_block_rel(torch, state, restored, step.specs, mesh,
-                                                                          opt_cfg) == 0.0
-                del restored
-            dist.barrier()
-        out[name] = res
-        del state, ref, init
-        empty_cache(torch)
+                state, m = step(state, batch)
+                loss = float(m["loss"])
+                sync(torch)
+                out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+                res["peak"].append(torch.cuda.max_memory_allocated() - base + args)  # as phase 21's card_step
+                c1 = {**mesh_counts(), "opa_dense_reduced": on_reduced[0]}
+                out["launches"].update({key: c1[key] - c0[key] for key in c1})
+                res["mesh_loss"].append(loss)
+                dist.barrier()  # rank 0's witness below launches nothing the counts read
+                if root:
+                    with dist_fid.use_sharded_fidelity(dist_fid.FoldCtx(mesh.shape["model"]) if fold else None):
+                        ref, m1 = one(ref, ds.batch(k))
+                    res["one_loss"].append(float(m1["loss"]))
+                    res["rel"].append(mesh_block_rel(torch, state, ref, step.specs, mesh, opt_cfg))
+                    res["leaves"].append(mesh_leaf_gaps(torch, state, ref, init, step.specs, mesh))
+                    worst = max(res["leaves"][-1].items(), key=lambda kv: kv[1]["of_update"])
+                    print(f"    (c) {name} step {k + 1}: loss {loss:.6f} (one process {res['one_loss'][k]:.6f}), "
+                          f"{out['step_ms'][-1]:.1f} ms on rank 0; rank 0's blocks within {res['rel'][-1]:.3g} of "
+                          f"max|w|; the worst crossbar leaf {worst[0]}: {worst[1]}", flush=True)
+                if fold:
+                    ref = None
+                dist.barrier()
+            if name == "adc9_fsdp":  # (e)
+                t0 = time.perf_counter()
+                save_checkpoint(directory, steps - 1, state, plan=step.plan, mesh=mesh, specs=step.specs)
+                res["ckpt_save_s"] = time.perf_counter() - t0
+                if root:
+                    t0 = time.perf_counter()
+                    restored, rstep = restore_latest(directory, S.train_state_init(cfg, opt_cfg, 0, device=dev),
+                                                     device=dev)
+                    res["ckpt_restore_s"] = time.perf_counter() - t0
+                    res["ckpt_equal"] = rstep == steps - 1 and mesh_block_rel(torch, state, restored, step.specs, mesh,
+                                                                              opt_cfg) == 0.0
+                    del restored
+                dist.barrier()
+            out[name] = res
+            del state, ref, init
+            empty_cache(torch)
     out["launches"] = dict(out["launches"])
     return out
 
@@ -5470,7 +5579,8 @@ def mesh_serve(torch, mesh, root):
 
 
 def mesh_world(rank, directory):
-    """The 2x2 world's work on one rank: (a), (c), (e), (d). Returns this
+    """The 2x2 world's work on one rank: (a), (c), (e), (d), the engine at
+    data 2 (``mesh_engine``), (a') (``reduced_update_check``). Returns this
     rank's results."""
     import os
 
@@ -5498,24 +5608,46 @@ def mesh_world(rank, directory):
     out["serve_s"] = time.perf_counter() - t0
     if root:
         print(f"    (d) serving done on rank 0 in {out['serve_s']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    out["engine"] = mesh_engine(torch, mesh, MESH_ENGINE_REQUESTS)
+    out["engine_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["reduced"] = reduced_update_check(torch, mesh)
+    out["reduced_s"] = time.perf_counter() - t0
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return out
 
 
 def engine_world(rank, requests):
     """The 1x2 world: (c) the MESH_MODEL_VARIANTS' steps (``mesh_train``);
-    (d) the engine on the 1x2 mesh over the bench's trace cut to
-    ``requests``: through the adc9 tree (tokens/s, K4 launches), and the
-    lossless tree's tokens against solo serving (rank 0)."""
-    import dataclasses
+    (d) the engine on the 1x2 mesh (``mesh_engine``)."""
     import os
 
     import torch
     import torch.distributed as dist
 
+    from repro_torch.launch import mesh as M
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    M.init_world("cuda")
+    mesh = M.init_mesh((1, 2))
+    out = {"train": mesh_train(torch, mesh, dist.get_rank() == 0, None, MESH_MODEL_VARIANTS, fold=True)}
+    out.update(mesh_engine(torch, mesh, requests))
+    return out
+
+
+def mesh_engine(torch, mesh, requests):
+    """(d) The engine on ``mesh`` (at data 2 each data rank decodes its 4 of
+    the 8 slots) over the bench's trace cut to ``requests``: through the
+    adc9 tree (tokens/s, K4 launches), and the lossless tree's tokens
+    against solo serving (rank 0)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
     from repro_torch import configs
     from repro_torch import plan as planlib
-    from repro_torch.launch import mesh as M
+    from repro_torch.distributed import fidelity as dist_fid
     from repro_torch.launch import serve as LS
     from repro_torch.optim import PantherConfig, panther
     from repro_torch.serve import scheduler as sch
@@ -5524,10 +5656,7 @@ def engine_world(rank, requests):
     from repro_torch.train import step as S
 
     dev = "cuda"
-    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
-    M.init_world(dev)
-    mesh = M.init_mesh((1, 2))
-    out = {"train": mesh_train(torch, mesh, dist.get_rank() == 0, None, MESH_MODEL_VARIANTS, fold=True)}
+    out = {}
     cfg = mesh_cfg()
     opt_cfg = PantherConfig()
     state = S.train_state_init(cfg, opt_cfg, 0, device=dev)
@@ -5548,9 +5677,12 @@ def engine_world(rank, requests):
                      "launches": mesh_counts()["mvm_sliced_fused"] - c0["mvm_sliced_fused"],
                      "tokens": {r.rid: list(r.tokens) for r in res["requests"]}, "clock": res["clock"]}
     if dist.get_rank() == 0:
+        rows = LS.N_SLOTS // mesh.axes_size(dist_fid.ctx_for(mesh, LS.N_SLOTS).data_axes)  # the slots a rank decodes
         with torch.no_grad():
-            solo = {r.rid: replicated_solo_tokens(torch, cfg, lossless, r, LS.N_SLOTS, dev) for r in trace}
+            solo = {r.rid: replicated_solo_tokens(torch, cfg, lossless, r, rows, dev) for r in trace}
         out["lossless_equal"] = sum(out["lossless"]["tokens"][rid] == t for rid, t in solo.items())
+    del adc9, lossless
+    empty_cache(torch)
     return out
 
 
@@ -5648,9 +5780,10 @@ def mesh_block_checks(torch, spec, gen):
 def mesh_block_timings(torch, K, ref, spec, gen):
     """A rank's kernels on its block (the 2x2 mesh's): K4 and K5 on
     wi_gate's column block 2048x8192 at 256 tokens (the whole 2048x16384
-    read beside it), K1 on that block, K2 on the embedding's row block
-    128000x2048 (f32, counter), K3 on it: kernel, plain version, library
-    yardstick, bound."""
+    read beside it), K1 on that block, K2 on wi_gate's reduced FSDP block
+    (the f32 partial product and K1 on the gathered operands beside it), K2
+    on the embedding's row block 128000x2048 (f32, counter), K3 on it:
+    kernel, plain version, library yardstick, bound."""
     from repro_torch.kernels import common as KW
     from repro_torch.core.slicing import dequantize_planes
     from repro_torch.kernels.common import Origin
@@ -5691,6 +5824,28 @@ def mesh_block_timings(torch, K, ref, spec, gen):
         "library_ms": cuda_time_ms(lambda: torch.matmul(xb.t(), dhb), 10), "bound_ms": b[0], "bound_by": b[1]}
     del planes, xf, x_q, xb, dhb
     torch.cuda.empty_cache()
+    # K2 on a reduced operand block: wi_gate's FSDP block 1024x8192 at (1024, 8192) on the 2x2 mesh, the
+    # all-reduced f32 outer product; beside it the f32 partial product of the model block 2048x8192 over
+    # a data rank's 128 tokens (the library call the reduction makes) and K1 on the same block's
+    # operands gathered over data (256 tokens), the update the reduction replaces
+    Mb, Nb = M // 2, N // 2
+    planes = torch.randint(-8, 8, (S, Mb, Nb), generator=gen, device="cuda", dtype=torch.int8)
+    g = torch.randn((Mb, Nb), generator=gen, device="cuda") * 1e-3
+    xr = torch.randn((T // 2, M), generator=gen, device="cuda").to(torch.bfloat16)
+    dr = (torch.randn((T // 2, N // 2), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+    xg = torch.randn((T, Mb), generator=gen, device="cuda").to(torch.bfloat16)
+    dg = (torch.randn((T, Nb), generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+    o = Origin(Mb, Nb, M, N)
+    b = KW.dense_work(Mb, Nb, S).bound_ms()
+    out["opa_dense_reduced"] = {
+        "ms": cuda_time_ms(lambda: KO.opa_dense(planes, g, 3e-2, fr, spec=spec, key_words=(1, 2), origin=o), 10),
+        "plain_ms": cuda_time_ms(lambda: RO.opa_dense_ref(planes, g, 3e-2, 30, spec, (1, 2), origin=o), 2, 1),
+        "library_ms": None, "bound_ms": b[0], "bound_by": b[1],
+        "product_ms": cuda_time_ms(lambda: xr.float().T @ dr.float(), 10),
+        "k1_gathered_ms": cuda_time_ms(lambda: KO.opa_fused(planes, xg, dg, 3e-2, fr, spec=spec, key_words=(1, 2),
+                                                            origin=o), 10)}
+    del planes, g, xr, dr, xg, dg
+    torch.cuda.empty_cache()
     V, D = EMBED_SHAPE
     planes = torch.randint(-8, 8, (S, V // 2, D), generator=gen, device="cuda", dtype=torch.int8)
     g = torch.randn((V // 2, D), generator=gen, device="cuda") * 1e-3
@@ -5710,6 +5865,9 @@ def mesh_block_timings(torch, K, ref, spec, gen):
     torch.cuda.empty_cache()
     for key, t in out.items():
         extra = f"  whole read {t['whole_ms']:.4f} ms" if "whole_ms" in t else ""
+        if "product_ms" in t:
+            extra = (f"  f32 partial product (2048x8192, 128 tokens) {t['product_ms']:.4f} ms, K1 on the gathered "
+                     f"operands (256 tokens) {t['k1_gathered_ms']:.4f} ms")
         lib = "-" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         print(f"  {key:25s} kernel {t['ms']:.4f} ms{extra}  plain {t['plain_ms']:.4f} ms  library {lib} ms  "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
@@ -5777,8 +5935,8 @@ def phase_mesh(torch, K, ref, gen):
         wall = time.perf_counter() - t0
     r0 = ranks[0]
     print(f"  2x2 world: {wall:.1f} s ({r0['backend']} on {r0['device']}; reads {r0['reads_s']:.1f} s, training "
-          f"{r0['train_s']:.1f} s, serving {r0['serve_s']:.1f} s; peak {max(r['peak_gib'] for r in ranks):.1f} GiB "
-          "a rank)", flush=True)
+          f"{r0['train_s']:.1f} s, serving {r0['serve_s']:.1f} s, engine {r0['engine_s']:.1f} s, (a') "
+          f"{r0['reduced_s']:.1f} s; peak {max(r['peak_gib'] for r in ranks):.1f} GiB a rank)", flush=True)
     check({r["backend"] for r in ranks} == {"gloo"}, "the 2x2 world on one card must run over gloo")
     reads_err = max(r["reads_err"] for r in ranks)
     read_launches = collections.Counter()
@@ -5800,13 +5958,36 @@ def phase_mesh(torch, K, ref, gen):
     print(f"  (c) step ms by rank ({', '.join(f'{v[0]} x {v[3]}' for v in MESH_VARIANTS)}): "
           f"{[[round(x, 1) for x in s] for s in steps]}; launches over the 4 ranks {dict(train_launches)}",
           flush=True)
-    # per rank and step: K4 20 reads (5 operand leaves x 2 layers, both directions), K1 10 blocks, K2 the
-    # embedding's block; K3 11 blocks on each CRS step (every second); 4 ranks
+    # per rank and step: K4 20 reads (5 operand leaves x 2 layers, both directions); at data 2 no K1 launch
+    # and 11 K2 blocks (the 10 operand blocks' reduced outer products, counted around their leaves' writes,
+    # and the embedding's block); K3 11 blocks on each CRS step (every second); 4 ranks
     n_steps = sum(v[3] for v in MESH_VARIANTS)
     crs_steps = sum(v[3] // 2 for v in MESH_VARIANTS)
-    want = {"mvm_sliced_fused": 20 * n_steps * 4, "opa_fused": 10 * n_steps * 4, "opa_dense": n_steps * 4,
-            "crs": 11 * crs_steps * 4}
+    want = {"mvm_sliced_fused": 20 * n_steps * 4, "opa_fused": 0, "opa_dense": 11 * n_steps * 4,
+            "opa_dense_reduced": 10 * n_steps * 4, "crs": 11 * crs_steps * 4}
     check(all(train_launches[k] == n for k, n in want.items()), f"(c) launches {dict(train_launches)} != {want}")
+    t0 = time.perf_counter()
+    dry = mesh_dry_peak(torch, "adc9")  # the ideal-ADC step holds the same tensors (the same plan, other reads)
+    print(f"  (c) the dry run of rank 0's adc9 FSDP step: peak {dry / 2**30:.3f} GiB ({time.perf_counter() - t0:.1f} s "
+          "on the host)", flush=True)
+    for name, preset, fsdp, steps in MESH_VARIANTS:
+        peaks = r0["train"][name]["peak"]
+        gaps = [dry / p - 1 for p in peaks]
+        print(f"  (c) {name}: rank 0's peak a step {[round(p / 2**30, 3) for p in peaks]} GiB, the dry run "
+              f"{', '.join(f'{100 * g:+.2f}%' for g in gaps)} from it", flush=True)
+        check(all(abs(g) <= PEAK_TOL for g in gaps), f"(c) {name}: the dry run's peak beyond {PEAK_TOL} of the card's")
+    cases, bad, k1, k2 = (sum(r["reduced"][i] for r in ranks) for i in range(4))
+    print(f"  (a') the reduced update of {'/'.join(map(str, MESH_REDUCED_LEAF))} at full width against the gathered "
+          f"one, FSDP, {[m + (' device' if d else '') for m, d in MESH_REDUCED_DRAWS]}, 2 microbatches: "
+          f"{cases - bad} of {cases} rank blocks bit for bit (K2 launches {k2}, K1 {k1})", flush=True)
+    check(bad == 0 and cases == 4 * len(MESH_REDUCED_DRAWS), "(a') the reduced update differs from the gathered")
+    ge = r0["engine"]
+    print(f"  (d) the engine at data 2 (4 slots a data rank), {MESH_ENGINE_REQUESTS} requests: adc9 "
+          f"{ge['adc9']['tokens_per_sec']:.2f} tokens/s (wall {ge['adc9']['wall_s']:.1f} s, K4 launches "
+          f"{ge['adc9']['launches']} a rank), lossless tokens equal solo for {ge['lossless_equal']} of "
+          f"{MESH_ENGINE_REQUESTS}", flush=True)
+    check(ge["lossless_equal"] == MESH_ENGINE_REQUESTS and len({r["engine"]["adc9"]["clock"] for r in ranks}) == 1,
+          "(d) the engine at data 2: lossless tokens differ from solo, or the ranks' clocks")
     fs = r0["train"]["adc9_fsdp"]
     print(f"  (e) the adc9 FSDP state saved on the 2x2 mesh in {fs['ckpt_save_s']:.1f} s, restored on one process "
           f"in {fs['ckpt_restore_s']:.1f} s: equal {fs['ckpt_equal']}", flush=True)
@@ -5829,7 +6010,7 @@ def phase_mesh(torch, K, ref, gen):
         model_launches.update(e["train"]["launches"])
     n_steps = sum(v[3] for v in MESH_MODEL_VARIANTS)
     want = {"mvm_sliced_fused": 20 * n_steps * 2, "opa_fused": 10 * n_steps * 2, "opa_dense": n_steps * 2,
-            "crs": 11 * sum(v[3] // 2 for v in MESH_MODEL_VARIANTS) * 2}
+            "opa_dense_reduced": 0, "crs": 11 * sum(v[3] // 2 for v in MESH_MODEL_VARIANTS) * 2}
     print(f"  (c) the 1x2 world's step ms by rank: {[[round(x, 1) for x in e['train']['step_ms']] for e in eng]}; "
           f"launches over the 2 ranks {dict(model_launches)}", flush=True)
     check(all(model_launches[k] == n for k, n in want.items()), f"(c) 1x2 launches {dict(model_launches)} != {want}")
@@ -5842,12 +6023,14 @@ def phase_mesh(torch, K, ref, gen):
           "(d) the engine on the mesh: lossless tokens differ from solo, or the ranks' clocks")
     if fails:
         raise AssertionError("phase 20: " + "; ".join(fails))
-    engine_launches = sum(e["adc9"]["launches"] + e["lossless"]["launches"] for e in eng)
+    engine_launches = sum(e["adc9"]["launches"] + e["lossless"]["launches"] for e in eng) + \
+        sum(r["engine"]["adc9"]["launches"] + r["engine"]["lossless"]["launches"] for r in ranks)
     return {
         "launches": {"mvm_sliced_fused_sharded": train_launches["mvm_sliced_fused"] + serve_launches + engine_launches,
                      "mvm_sliced_sharded": read_launches["mvm_sliced"],
-                     "opa_fused_block": train_launches["opa_fused"], "opa_dense_block": train_launches["opa_dense"],
-                     "crs_block": train_launches["crs"]},
+                     "opa_fused_block": train_launches["opa_fused"],
+                     "opa_dense_block": train_launches["opa_dense"] - train_launches["opa_dense_reduced"],
+                     "opa_dense_reduced": train_launches["opa_dense_reduced"], "crs_block": train_launches["crs"]},
         "timings": timings, "reads_err": reads_err}
 
 
@@ -5865,6 +6048,7 @@ MOE_MESH_TIMEOUT = 600
 MOE_AUX_TOL = 1e-6  # |aux_mesh - aux_one| <= MOE_AUX_TOL * |aux_one|
 MOE_SERVE_ROWS, MOE_SERVE_PROMPT = 8, 16  # 4 rows a rank: 64 prompt tokens, 4 decode tokens a rank (misaligned)
 MOE_SERVE_TOL = 1e-5  # |logits_mesh - logits_one| <= MOE_SERVE_TOL * max|logits_one|, argmax equal
+MOE_SPLIT_ROWS, MOE_SPLIT_SEQ = 8, 16  # (c') one group of 128 tokens, 64 a rank: groups a rank does not hold whole
 IM2COL_ORIGIN_C = 4224  # zamba2's channels, cut in two at a channel origin
 
 
@@ -5981,10 +6165,13 @@ def moe_mesh_world(rank, arch=MOE_ARCH):
     range's and the aux term's all-reduces in the backward) with the
     kernels' launches counted, each against one process stepping under
     ``"none"`` from the mesh's state before it (rank 0:
-    loss, aux, the weights' gap of max|w| and in grid LSB); then prefill of
-    MOE_SERVE_ROWS x MOE_SERVE_PROMPT tokens and a decode step (groups a
-    rank does not hold whole) on the lossless tree of the trained state,
-    against one process (rank 0)."""
+    loss, aux, the weights' gap of max|w| and in grid LSB); (c') one more
+    step on MOE_SPLIT_ROWS x MOE_SPLIT_SEQ tokens (dispatch groups a rank
+    does not hold whole: ``moe_apply``'s gather, the experts' outer
+    products summed over data) against one process from the same state,
+    its launches counted; then prefill of MOE_SERVE_ROWS x MOE_SERVE_PROMPT
+    tokens and a decode step (groups a rank does not hold whole) on the
+    lossless tree of the trained state, against one process (rank 0)."""
     import dataclasses
     import os
 
@@ -5994,6 +6181,7 @@ def moe_mesh_world(rank, arch=MOE_ARCH):
 
     from repro_torch import configs, kernels
     from repro_torch import plan as planlib
+    from repro_torch import tree
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.launch import mesh as M
     from repro_torch.models import lm
@@ -6041,7 +6229,25 @@ def moe_mesh_world(rank, arch=MOE_ARCH):
             del ref
         del before
     out["launches"] = dict(out["launches"])
-    del state
+    # (c') a step on dispatch groups a rank does not hold whole, from the mesh's state, against one process
+    split = SyntheticLMDataset(cfg.vocab, MOE_SPLIT_SEQ, MOE_SPLIT_ROWS, device=dev).batch(0)
+    before = S.gather_state(state, step.specs, mesh)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, split)
+    sp = {"loss": float(m["loss"]), "aux": float(m["aux"]), "ms": 1e3 * (time.perf_counter() - t0),
+          "launches": kernels.launch_counts()}
+    whole = S.gather_state(state, step.specs, mesh)
+    if root:
+        ref, m1 = one(before, split)
+        sp.update(one_loss=float(m1["loss"]), one_aux=float(m1["aux"]), rel=mesh_rel(torch, whole, ref, opt))
+        del ref
+    out["split"] = sp
+    # at data 2 every mapped leaf's update is K2's, one launch a layer block (no K1 launch)
+    shapes = dict(tree.leaves_with_path(lm.param_shapes(cfg)))
+    out["k2_blocks"] = sum(math.prod(shapes[p].shape[:-2]) for p, pl in tree.leaves_with_path(step.plan) if pl.mapped)
+    del state, before
     prompts = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab, (MOE_SERVE_ROWS, MOE_SERVE_PROMPT)),
                               device=dev)
     params = panther.materialize_split(whole.digital, whole.sliced, PantherConfig())
@@ -6226,8 +6432,24 @@ def phase_remat(torch, gen):
     check(rel_loss <= MESH_LOSS_TOL[0], "(c) losses beyond the mesh tolerance")
     check(rel_aux <= MOE_AUX_TOL, f"(c) aux {rel_aux:.3g} apart, beyond {MOE_AUX_TOL}")
     check(max(r0["rel"]) <= MESH_WEIGHT_TOL, f"(c) weights {max(r0['rel']):.3g} of max|w| apart")
-    check(all(r["launches"].get("mvm_sliced_fused/io16", 0) > 0 and r["launches"].get("opa_fused/ideal_fma", 0) > 0
-              for r in ranks), "(c) a rank launched no expert read or no expert deposit")
+    sp = r0["split"]
+    print(f"  (c') one step on split dispatch groups ({MOE_SPLIT_ROWS} x {MOE_SPLIT_SEQ} tokens, 64 of one group of "
+          f"128 a rank) from the mesh's state against one process: loss {sp['loss']} against {sp['one_loss']}, aux "
+          f"{sp['aux']} against {sp['one_aux']}, weights {sp['rel']:.3g} of max|w|; {sp['ms']:.1f} ms on rank 0; "
+          f"launches by rank {[r['split']['launches'] for r in ranks]}", flush=True)
+    check(abs(sp["loss"] - sp["one_loss"]) <= MESH_LOSS_TOL[0] * (1 + abs(sp["one_loss"])), "(c') loss apart")
+    check(abs(sp["aux"] - sp["one_aux"]) <= MOE_AUX_TOL * abs(sp["one_aux"]), "(c') aux apart")
+    check(sp["rel"] <= MESH_WEIGHT_TOL, f"(c') weights {sp['rel']:.3g} of max|w| apart")
+
+    def updates(launches, kernel):
+        return sum(n for k, n in launches.items() if k.startswith(kernel + "/"))
+
+    # at data 2 every mapped leaf writes through K2, one launch a layer block and step; K1 launches none
+    check(all(r["launches"].get("mvm_sliced_fused/io16", 0) > 0 and updates(r["launches"], "opa_fused") == 0
+              and updates(r["launches"], "opa_dense") == 2 * r["k2_blocks"]
+              and updates(r["split"]["launches"], "opa_fused") == 0
+              and updates(r["split"]["launches"], "opa_dense") == r["k2_blocks"] for r in ranks),
+          "(c) a rank launched no expert read, or its updates were not K2's, one launch a layer block")
     check(r0["serve_rel"] <= MOE_SERVE_TOL and r0["serve_argmax_equal"], "(c) serving on split groups differs")
     d = im2col_origin_check(torch, gen)
     if fails:
@@ -6474,6 +6696,11 @@ def main() -> int:
         entry("opa_fused_block", "src/repro_torch/kernels/sliced_opa/csrc/opa_fused.cu",
               "src/repro/kernels/sliced_opa/kernel.py:255", 0.0),
         entry("opa_dense_block", "src/repro_torch/kernels/sliced_opa/csrc/opa_deposit.cu",
+              "src/repro/kernels/sliced_opa/kernel.py:90", 0.0),
+        # K2 on wi_gate's reduced FSDP block at data 2 ("product_ms": the f32 partial product the reduction
+        # takes; "k1_gathered_ms": K1 on the gathered operands it replaces). Launches: the 2x2 world's steps'
+        # operand blocks, counted around each operand leaf's write (``reduced_block_launches``)
+        entry("opa_dense_reduced", "src/repro_torch/kernels/sliced_opa/csrc/opa_deposit.cu",
               "src/repro/kernels/sliced_opa/kernel.py:90", 0.0),
         entry("crs_block", "src/repro_torch/kernels/crs/csrc/crs.cu", "src/repro/kernels/crs/kernel.py:70", 0.0),
     ]}

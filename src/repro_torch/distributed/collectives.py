@@ -4,7 +4,9 @@ and reductions the mesh step and the sharded read use. Each takes a live
 ``launch.mesh.Mesh`` and the axes to reduce or gather over; over no axis
 (or axes of size 1) it returns its input. Only ``all_reduce``,
 ``all_gather`` and ``broadcast`` are used: both backends take them on CUDA
-tensors.
+tensors. ``all_gather_with_grad`` is the gather whose backward sums the
+cotangent over the axes (an ``all_reduce``) and keeps this rank's block;
+``mean_grad`` the identity whose backward averages it over the axes.
 
 Every call that crosses ranks is counted in :data:`tally` by kind (the
 reference dry run's five, and ``broadcast``): its count and its result's
@@ -87,6 +89,58 @@ def all_gather(t: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
     else:
         dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
+
+
+class _GatherSummedBack(torch.autograd.Function):
+    """``all_gather`` forward; backward: the cotangent summed over the axes
+    (``all_reduce``: gloo has no reduce-scatter) and this rank's block kept."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.n = mesh, axes, dim, t.shape[dim]
+        return all_gather(t, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g.clone(memory_format=torch.contiguous_format), ctx.mesh, ctx.axes)
+        return g.narrow(ctx.dim, ctx.mesh.index(ctx.axes) * ctx.n, ctx.n), None, None, None
+
+
+def all_gather_with_grad(t: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """``all_gather`` of this rank's shard ``t`` for a computation that
+    every rank of ``axes`` runs on the whole, each from its own loss: the
+    gradient of ``t`` is the sum over those ranks of their cotangents' rows
+    of ``t``."""
+    if mesh.group(axes) is None:
+        return t
+    return _GatherSummedBack.apply(t, mesh, axes, dim)
+
+
+class _MeanBack(torch.autograd.Function):
+    """The identity forward; backward: the cotangent summed over the axes
+    (``all_reduce``) and divided by their size."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g.clone(memory_format=torch.contiguous_format), ctx.mesh, ctx.axes)
+        return g / ctx.mesh.axes_size(ctx.axes), None, None
+
+
+def mean_grad(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``t`` itself, whose gradient is the mean over the ranks of ``axes``
+    of their cotangents: where each rank's loss reaches a whole tensor that
+    every rank computes alike through its own rows only, every rank then
+    runs the backward from there on the same (the whole loss's) cotangent,
+    scaled by 1/size so that the ranks' gradients summed over ``axes`` are
+    the whole loss's."""
+    if mesh.group(axes) is None:
+        return t
+    return _MeanBack.apply(t, mesh, axes)
 
 
 def broadcast(t: torch.Tensor, mesh, src: int = 0) -> torch.Tensor:

@@ -115,19 +115,35 @@ class OperandSlot:
     each entry must have (an expert bank's capacity rows, the reference's
     exact cotangent shape). A slot written twice in one backward raises:
     operand gradients do not sum, and each operand weight is used once per
-    layer."""
+    layer. ``cut``, when given, maps each entry's ``(x, dh)`` to what the
+    slot keeps (on a mesh, copies of a rank's block of them, so that the
+    backward's whole operands are freed as it goes)."""
 
-    __slots__ = ("stack", "layers", "tokens", "kind", "x", "dh")
+    __slots__ = ("stack", "layers", "tokens", "kind", "cut", "x", "dh")
 
     def __init__(self, stack: tuple = (), grouped: bool = False, tokens: int | None = None,
-                 kind: str = "matmul"):
+                 kind: str = "matmul", cut=None):
         self.stack = tuple(stack)
         self.layers = self.stack[:-1] if grouped else self.stack
         self.tokens = tokens
         self.kind = kind
+        self.cut = cut
         n = math.prod(self.layers)
         self.x = [None] * n
         self.dh = [None] * n
+
+    @classmethod
+    def holding(cls, g: OuterProductGrad, grouped: bool = False, cut=None) -> "OperandSlot":
+        """A slot of a matmul leaf with the operands ``g`` (``x [*stack, T,
+        M]``, ``dh [*stack, T, N]``; an expert bank's stack ends in its
+        expert axis, ``grouped``) put into it entry by entry, as a backward
+        puts them."""
+        slot = cls(tuple(g.x.shape[:-2]), grouped=grouped, cut=cut)
+        n = len(slot.layers)
+        x, dh = g.x.reshape(-1, *g.x.shape[n:]), g.dh.reshape(-1, *g.dh.shape[n:])
+        for i in range(x.shape[0]):
+            slot.put(i, x[i], dh[i])
+        return slot
 
     def put(self, i: int, x: torch.Tensor, dh: torch.Tensor) -> None:
         if self.tokens is not None and x.shape[-2] != self.tokens:
@@ -135,7 +151,18 @@ class OperandSlot:
         if self.x[i] is not None:
             raise RuntimeError(f"operand slot of layer {i} written twice in one backward: "
                                "an operand-form weight must be used once per layer")
-        self.x[i], self.dh[i] = x, dh
+        self.x[i], self.dh[i] = (x, dh) if self.cut is None else self.cut(x, dh)
+
+    def drain(self):
+        """Each entry's ``(x, dh)`` in order, released from the slot as it
+        is yielded."""
+        if any(v is None for v in self.x):
+            raise RuntimeError("operand slot not filled: a layer's weight was never read")
+        for i in range(len(self.x)):
+            entry = self.x[i], self.dh[i]
+            self.x[i] = self.dh[i] = None
+            yield entry
+            del entry
 
     def grad(self) -> OuterProductGrad:
         """The operands as one ``OuterProductGrad`` (layers stacked)."""

@@ -105,10 +105,21 @@ def moe_apply(cfg: LMConfig, p, h: torch.Tensor, with_aux: bool = False):
     batch's, as in the reference's one program over the whole batch. Where
     this rank's tokens are whole global groups (``groups_aligned``) they are
     dispatched here, and the load-balance term's two means are taken over
-    the data axes. Otherwise (serving only: decode's few tokens) the normed
-    input is all-gathered over the data axes in global row order, the global
-    groups dispatched and run through the experts, and this rank's rows
-    kept; training on such groups raises."""
+    the data axes. Otherwise (decode's few tokens, or a training batch
+    whose groups span ranks) the normed input is all-gathered over the data
+    axes in global row order, the global groups dispatched and run through
+    the experts on every rank, and this rank's rows kept. In the backward
+    the layer's output cotangent is averaged over the data axes
+    (``collectives.mean_grad``): each rank's loss, scaled by its share of
+    the tokens, reaches the output through its own rows only, so every rank
+    then runs the same backward, one process's over D, and its crossbar
+    reads quantize the whole cotangent as one process's do (the DAC's
+    exponent moves by log2 D, its codes stay). The gather's backward sums
+    the input's cotangent over the data axes and keeps this rank's rows
+    (``collectives.all_gather_with_grad``). So the experts' and the
+    router's gradients summed over the data axes are the batch's. The
+    load-balance term is the global logits' on every rank, so it enters the
+    sum of the ranks' scaled losses once."""
     B, S, d = h.shape
     x = rms_norm(p["ln"], h, cfg.norm_eps)
     ctx = _data_ctx()
@@ -116,14 +127,11 @@ def moe_apply(cfg: LMConfig, p, h: torch.Tensor, with_aux: bool = False):
         yt, logits = _moe_ffn(cfg, p, x)
         out = h + yt
         return (out, _aux_from_logits(cfg.moe, logits, ctx)) if with_aux else out
-    if torch.is_grad_enabled():
-        raise NotImplementedError(
-            f"MoE training on a data shard of {B * S} tokens: a rank's tokens must be whole dispatch groups of the "
-            f"global batch (tokens a rank divisible by min(MOE_GROUP={MOE_GROUP}, global tokens), rows contiguous)")
     from repro_torch.distributed import blocks
     from repro_torch.distributed import collectives as col
 
-    yt, logits = _moe_ffn(cfg, p, col.all_gather(x, ctx.mesh, ctx.data_axes, dim=0))
+    yt, logits = _moe_ffn(cfg, p, col.all_gather_with_grad(x, ctx.mesh, ctx.data_axes, dim=0))
+    yt = col.mean_grad(yt, ctx.mesh, ctx.data_axes)
     out = h + yt[blocks.block_slices((ctx.data_axes,), (yt.shape[0],), ctx.mesh)[0]]
     return (out, _aux_from_logits(cfg.moe, logits)) if with_aux else out
 

@@ -209,7 +209,7 @@ def needs_dense(s, pl) -> bool:
     return s is not None and not (fid is not None and fid.fwd and fid.bwd)
 
 
-def operandize(params, sliced, plan, expert_tokens: int | None = None, tokens: int | None = None):
+def operandize(params, sliced, plan, expert_tokens: int | None = None, tokens: int | None = None, cut=None):
     """Wrap each operand leaf of a param tree (``plan.grad == "operand"``,
     mapped) in a train-side ``XbarWeight`` with an ``OperandSlot``: the
     model's backward then leaves ``(x, dh)`` there instead of a dense
@@ -221,16 +221,19 @@ def operandize(params, sliced, plan, expert_tokens: int | None = None, tokens: i
     must have (checked as the backward writes the slot). A conv-tap leaf
     (``plan.group == "im2col"``) gets an im2col slot, ``tokens`` (the
     flattened tokens of one forward, ``B·L``) the token count of its
-    patches. ``params`` may hold None where ``needs_dense`` is False."""
+    patches. ``cut`` (path -> a slot's ``OperandSlot.cut`` or None): what
+    each slot keeps of its entries (on a mesh, this rank's model block).
+    ``params`` may hold None where ``needs_dense`` is False."""
     def wrap(path, p, s, pl):
         if s is None or pl.grad != "operand":
             return p
         stack = tuple(s.planes.shape[1:-2])
+        keep = cut(path) if cut is not None else None
         if pl.group == "im2col":
-            slot = OperandSlot(stack, tokens=tokens, kind="im2col")
+            slot = OperandSlot(stack, tokens=tokens, kind="im2col", cut=keep)
         else:
             grouped = pl.group == "expert"
-            slot = OperandSlot(stack, grouped=grouped, tokens=expert_tokens if grouped else None)
+            slot = OperandSlot(stack, grouped=grouped, tokens=expert_tokens if grouped else None, cut=keep)
         if pl.fidelity is None:
             return XbarWeight(p, None, None, None, slot)
         planes, frac = _fid_leaves(s, stack)
@@ -324,9 +327,15 @@ def _write_leaf(s: SlicedTensor, g, lr32: float, key: tuple, pl, cfg: PantherCon
     entry), dense ones through the dense write (K2,
     ``opa_dense_update``: the quantize and the deposit, or on a
     write-nonideal device its physics, in one pass); then CRS (K3) when
-    ``do_crs``. The "hw" draw exists only inside the fused kernel: dense
-    leaves then take the counter draw, as in the reference. ``origin``:
-    the block's place in the whole leaf (None: the whole leaf)."""
+    ``do_crs``. A mesh step at ``data > 1`` hands an operand leaf's block
+    here as a dense gradient, its outer product summed over the data axes
+    (``train.step._Blocks.operand_block``): K2 then writes it, each layer
+    under the rounding and write-noise keys K1 would draw, so the two
+    writes agree bit for bit where the f32 sums are exact. The "hw" draw
+    exists only inside the fused kernel: dense leaves then take the counter
+    draw, as in the reference (so a mesh step under "hw" keeps its operand
+    leaves' operands gathered, for K1). ``origin``: the block's place in
+    the whole leaf (None: the whole leaf)."""
     from repro_torch.kernels.crs import crs
     from repro_torch.kernels.sliced_opa import opa_dense_update, opa_fused_update, opa_im2col_update
 

@@ -41,15 +41,27 @@ SLA tiers: an engine serves ONE param tree (e.g. a ``fidelity_params`` wrap
 at one ADC resolution); the scheduler composes engines over the same sliced
 planes on one shared clock (``serve.scheduler``).
 
-On a mesh (``mesh=``, a live ``launch.mesh.Mesh`` with one data rank; the
-model axis any size): every rank runs the same schedule on the same tokens.
-Each page pool lives as this rank's block (``distributed.sharding.
-page_pool_spec``: TP on a trailing dim); an engine call gathers the pools
-it reads or writes, runs, and keeps its block of the result. The
-fidelity-wrapped leaves (``serve.step.fidelity_params(mesh=)``) read on
-this rank's crossbar tile block. The cost of a shape is calibrated on
-every rank (the calls hold collectives) and rank 0's is broadcast, so that
-every rank schedules alike. A mesh with ``data > 1`` raises.
+On a mesh (``mesh=``, a live ``launch.mesh.Mesh`` of any shape): every
+rank runs the same schedule (admission, pages, rounds) on the same
+requests. Each page pool lives as this rank's block (``distributed.
+sharding.page_pool_spec``: TP on a trailing dim, replicated over the data
+axes); an engine call gathers the pools it reads or writes, runs, and keeps
+its block of the result. The fidelity-wrapped leaves
+(``serve.step.fidelity_params(mesh=)``) read on this rank's crossbar tile
+block. Prefill runs at batch 1 with no token sharding (every rank the whole
+prompt: the reference's ``_scope1``), so every rank writes an admitted
+request's caches. A decode round runs under ``ctx_for(mesh, n_slots)``: the
+slots split over the data axes that divide ``n_slots``, each rank decoding
+its rows of slots (its reads' DAC range global over the data axes, a MoE
+layer's split dispatch groups through ``moe_apply``'s gather) and the
+emitted tokens, positions and tokens-so-far gathered over the data axes. A
+slot is decoded by one data rank for the engine's life, so a rank's copy of
+the pools holds its own slots' pages and state rows current; another
+rank's slots' entries in it may go stale and are never read by it (a
+reused page is rewritten by the admission and the decode writes before
+the slot's position mask lets a read see it). The cost of a shape is
+calibrated on every rank (the calls hold collectives) and rank 0's is
+broadcast, so that every rank schedules alike.
 """
 from __future__ import annotations
 
@@ -101,14 +113,15 @@ class Engine:
             raise NotImplementedError(
                 "the serving engine feeds sampled token ids back; "
                 "embedding-front archs are not servable through it")
-        self.mesh, self._ctx, self._pool_specs, sharding_fn = mesh, None, None, None
+        self.mesh, self._ctx, self._ctx1, self._pool_specs, sharding_fn = mesh, None, None, None, None
+        self._rows = slice(0, n_slots)  # the slots this rank decodes
         if mesh is not None:
-            if any(mesh.shape[a] > 1 for a in shd.batch_axes(mesh)):
-                raise NotImplementedError("the engine on a mesh with data > 1 (ROADMAP Queue 1, 'the mesh "
-                                          "beyond this slice'): serve with one data rank")
             if not mesh.live:
                 raise ValueError("Engine(mesh=...) runs on a live mesh (launch.mesh.init_mesh)")
-            self._ctx = dist_fid.ctx_for(mesh, n_slots)
+            self._ctx = dist_fid.ctx_for(mesh, n_slots)  # decode rounds: slots over the data axes
+            self._ctx1 = dist_fid.ctx_for(mesh, 1)  # prefill at batch 1: every rank the whole prompt
+            if self._ctx.data_axes:
+                self._rows = blocks.block_slices((self._ctx.data_axes,), (n_slots,), mesh)[0]
             pool_spec_of = lambda lay, shape: shd.page_pool_spec(shape, mesh, 2 if lay.is_paged else 1)  # noqa: E731
             sharding_fn = lambda lay, shape, dtype: blocks.block_shape(pool_spec_of(lay, shape), shape, mesh)  # noqa: E731
         self.device = resolve(device)
@@ -129,11 +142,11 @@ class Engine:
     # ------------------------------ device fns ------------------------------
 
     def _prefill_fn(self, x):
-        with torch.no_grad(), dist_fid.use_sharded_fidelity(self._ctx):
+        with torch.no_grad(), dist_fid.use_sharded_fidelity(self._ctx1):
             return lm.prefill(self.cfg, self.params, x)
 
     def _cont_fn(self, x, caches, start):
-        with torch.no_grad(), dist_fid.use_sharded_fidelity(self._ctx):
+        with torch.no_grad(), dist_fid.use_sharded_fidelity(self._ctx1):
             return lm.prefill(self.cfg, self.params, x, caches=caches, start=start)
 
     def _whole_pools(self):
@@ -149,9 +162,19 @@ class Engine:
             self.caches = tree.map(lambda c, sp: blocks.local_block(c, sp, self.mesh).clone(), whole,
                                    self._pool_specs)
 
+    def _over_data(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's rows of slots' ``t`` gathered over the decode's data
+        axes (``t`` itself off a mesh or with none)."""
+        if self._ctx is None or not self._ctx.data_axes:
+            return t
+        return col.all_gather(t, self.mesh, self._ctx.data_axes, dim=dim)
+
     def _round_fn(self, T, table, caches, tok, pos, active, steps_left):
-        """``T`` decode steps over every slot, in place on ``caches``.
-        Returns the final (tok, pos) and the emitted tokens ``[T, n_slots]``."""
+        """``T`` decode steps over this rank's slots (``table``, ``tok``,
+        ``pos``, ``active``, ``steps_left`` their rows; ``caches`` the whole
+        pools, state leaves cut to the rows by ``kv_pages.slot_rows``), in
+        place on ``caches``. Returns the final (tok, pos) and the emitted
+        tokens ``[T, rows]``."""
         caches = kv_pages.with_tables(caches, table)
         sentinel = self.spec.max_seq
         toks = []
@@ -286,15 +309,18 @@ class Engine:
         for s in np.flatnonzero(steps > 0):
             self.alloc.ensure(int(s), int(self.pos_host[s]) + int(steps[s]))
         whole = self._whole_pools()
-        args = (self.alloc.device_table(self.device), whole, self.tok, self.pos,
-                torch.as_tensor(self.active, device=self.device), torch.as_tensor(steps, device=self.device))
+        r = self._rows
+        args = (self.alloc.device_table(self.device)[r], kv_pages.slot_rows(self.cfg, whole, r), self.tok[r],
+                self.pos[r], torch.as_tensor(self.active[r], device=self.device),
+                torch.as_tensor(steps[r], device=self.device))
 
         def zeros():
-            return (torch.zeros_like(args[0]), kv_pages.make_paged_caches(self.cfg, self.spec, device=self.device),
+            pools = kv_pages.make_paged_caches(self.cfg, self.spec, device=self.device)
+            return (torch.zeros_like(args[0]), kv_pages.slot_rows(self.cfg, pools, r),
                     *(torch.zeros_like(a) for a in args[2:]))
 
-        (self.tok, self.pos, toks), dt = self._timed(
-            ("round", T), lambda *a: self._round_fn(T, *a), args, zeros)
+        (tok, pos, toks), dt = self._timed(("round", T), lambda *a: self._round_fn(T, *a), args, zeros)
+        self.tok, self.pos, toks = self._over_data(tok), self._over_data(pos), self._over_data(toks, dim=1)
         self._keep_blocks(whole)
         self.pos_host += steps
         return toks.cpu().numpy(), dt

@@ -176,6 +176,19 @@ def make_paged_caches(cfg, spec: PoolSpec, device=None, sharding_fn=None):
     return pool_map(one, cfg, spec)
 
 
+def slot_rows(cfg, caches, rows: slice):
+    """The pools as a decode over the slots ``rows`` takes them: paged
+    leaves whole (the rows' table picks their pages), state leaves cut to
+    the rows along their batch axis (views, so the decode's in-place writes
+    land in the pools). ``caches`` itself when ``rows`` is every slot."""
+    def one(lay: LeafLayout, pool):
+        if lay.is_paged or (rows.start == 0 and rows.stop == pool.shape[lay.batch_axis]):
+            return pool
+        return pool.narrow(lay.batch_axis, rows.start, rows.stop - rows.start)
+
+    return _map_layers(one, cfg, cache_layouts(cfg), caches)
+
+
 # The cache dicts the blocks read at decode: the page table rides beside the
 # leaf entries of each attention unit dict ({"k", "v"}: also each half of a
 # gemma2 pair, and zamba's shared block's, nested beside its mamba states;

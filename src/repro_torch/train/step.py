@@ -31,7 +31,10 @@ after another, each one's activations freed before the next; dense leaves
 sum their gradients in ``grad_dtype``, then divide by G; operand leaves
 take each microbatch's ``(x, dh)`` out of their slots and concatenate them
 along the token axis, ``dh`` scaled by 1/G, so each block's update is one
-fused-update launch at G·T tokens. The plan is resolved per microbatch
+fused-update launch at G·T tokens. On a mesh whose data axes hold more
+than one rank an operand leaf instead takes each microbatch's f32 product
+(its operands then freed), sums them in f32 whatever ``grad_dtype`` is and
+divides by G. The plan is resolved per microbatch
 token count, so ``stash_fallback`` (``plan.operand_stash_rule``) sees the
 tokens of one microbatch, as in the reference.
 
@@ -61,19 +64,30 @@ never gathered over the model axis: its reads run on the rank's crossbar
 tile block (``kernels.sliced_mvm.mvm_sliced_sharded``), the DAC range
 global over the data axes. The loss on a rank is scaled by its share of
 the tokens, so the sum of the dense gradients over the data axes
-(``all_reduce``) is the batch's gradient; an operand leaf's ``(x, dh)`` are
-cut to the block's rows and columns and all-gathered along the token axis
-in global token order; each rank's update then writes its own block at its
-global origin (``kernels.common.Origin``), so the state equals the
-single-device step's up to the order of float sums. ``fsdp=True``
-additionally shards the planes over 'data' (``sharding.fsdp_spec``),
-gathered at use; a conv-tap leaf's im2col operands are cut to the block
-(its taps or channels) like any other. MoE blocks at ``data > 1`` train
-where a rank's tokens are whole dispatch groups of the global batch
-(``models.mlp.groups_aligned``; capacity is set per group), their
-load-balance term over the batch; otherwise they raise. One step body
-serves both cases: ``_Whole`` (one device, every hook the
-identity) and ``_Blocks`` (a rank's blocks) say where the leaves live.
+(``all_reduce``) is the batch's gradient. An operand leaf's ``(x, dh)`` are
+cut to the block's rows and columns and keep this rank's tokens: where the
+data axes hold more than one rank, the block's gradient is their f32
+outer product ``xᵀ·dh`` over this rank's tokens, a dense gradient summed
+over the data axes like any other (``_Blocks.operand_block``; the
+reference's operands stay sharded over data and XLA partitions its
+``einsum`` the same way), which the dense write (K2) deposits. Two kinds
+keep today's gather along the token axis (in global token order) and the
+fused update (K1): the ``"hw"`` draw, which exists only inside K1, and a
+conv-tap leaf's im2col operands, whose channel tiles draw under keys of
+their own. Each rank's update then writes its own block at its global
+origin (``kernels.common.Origin``), so the state equals the single-device
+step's up to the order of float sums (bit for bit where those sums are
+exact). ``fsdp=True`` additionally shards the planes over 'data'
+(``sharding.fsdp_spec``), gathered at use; a conv-tap leaf's im2col
+operands are cut to the block (its taps or channels) like any other. MoE
+blocks at ``data > 1`` dispatch a rank's tokens where they are whole
+dispatch groups of the global batch (``models.mlp.groups_aligned``;
+capacity is set per group), their load-balance term over the batch;
+otherwise every data rank runs the global groups on the gathered tokens
+and keeps its rows (``models.mlp.moe_apply``), so the experts' operands are
+the global dispatch on every rank beside this rank's rows' ``dh``. One step
+body serves both cases: ``_Whole`` (one device, every hook the identity)
+and ``_Blocks`` (a rank's blocks) say where the leaves live.
 """
 from __future__ import annotations
 
@@ -94,7 +108,7 @@ from repro_torch.distributed import fidelity as dist_fid
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.common import Origin
 from repro_torch.models import lm
-from repro_torch.models.common import LayerStack, LMConfig, OuterProductGrad, ShapeDtype, XbarWeight
+from repro_torch.models.common import LayerStack, LMConfig, OperandSlot, OuterProductGrad, ShapeDtype, XbarWeight
 from repro_torch.optim import PantherConfig, panther
 from repro_torch.optim.panther import SlicedTensor
 
@@ -192,8 +206,8 @@ def make_train_step(cfg: LMConfig, opt_cfg: PantherConfig, lr_schedule, mesh=Non
         operands land in their own. The loss is scaled by this rank's
         share of the tokens (1 on one device) before the backward."""
         if operand_grads:
-            params = panther.operandize(params, sliced, plan_t, expert_tokens=expert_tokens(cfg, tokens),
-                                        tokens=tokens)
+            params = panther.operandize(params, sliced, plan_t, expert_tokens=expert_tokens(cfg, tokens, D),
+                                        tokens=tokens, cut=lay.slot_cut)
         with lay.reads(dp):
             nll, aux = lm.loss_parts(cfg, params, batch, remat=remat)
             loss = nll + lm.AUX_WEIGHT * aux
@@ -203,8 +217,7 @@ def make_train_step(cfg: LMConfig, opt_cfg: PantherConfig, lr_schedule, mesh=Non
             gs = torch.autograd.grad(loss * (1.0 / D), [p for _, p in wrt], allow_unused=True)
         dense = {path: torch.zeros_like(p) if g is None else g for (path, p), g in zip(wrt, gs)}
         grads = tree.map_with_path(
-            lambda path, p: lay.operand_block(path, p.slot.grad(), dp) if isinstance(p, XbarWeight)
-            else dense[path], params)
+            lambda path, p: lay.operand_block(path, p.slot, dp) if isinstance(p, XbarWeight) else dense[path], params)
         return loss.detach(), aux.detach(), grads
 
     def train_step(state: TrainState, batch):
@@ -224,6 +237,8 @@ def make_train_step(cfg: LMConfig, opt_cfg: PantherConfig, lr_schedule, mesh=Non
             loss, aux, grads = grads_of(params, wrt, sliced, plan_t, batch, tokens, dp, D)
         else:
             loss, aux, dense, ops = None, None, {}, {}
+            operand = {path for path, pl in tree.leaves_with_path(plan_t)
+                       if operand_grads and pl.mapped and pl.grad == "operand"}  # the leaves operandize wraps
             for g in range(microbatches):
                 l_g, a_g, g_g = grads_of(params, wrt, sliced, plan_t, {k: v[g] for k, v in batch.items()},
                                          tokens, dp, D)
@@ -233,7 +248,7 @@ def make_train_step(cfg: LMConfig, opt_cfg: PantherConfig, lr_schedule, mesh=Non
                     if isinstance(x, OuterProductGrad):
                         ops.setdefault(path, []).append(x)
                     else:
-                        x = x.to(grad_dtype)
+                        x = x if path in operand else x.to(grad_dtype)  # a reduced operand block stays f32
                         dense[path] = dense[path] + x if path in dense else x
                 del l_g, x
             loss, aux = loss / microbatches, aux / microbatches
@@ -263,17 +278,42 @@ def _check_operand_pipeline(plan, operand_grads: bool):
     return plan
 
 
-def expert_tokens(cfg: LMConfig, tokens: int) -> int | None:
+def expert_tokens(cfg: LMConfig, tokens: int, data_ranks: int = 1) -> int | None:
     """The capacity tokens an expert's operands have in one forward of
-    ``tokens`` flattened tokens: ``G · C`` (``G = tokens // sg`` dispatch
-    groups of ``sg = min(MOE_GROUP, tokens)``, ``C`` slots an expert a
-    group); None without MoE."""
+    ``tokens`` flattened tokens on each of ``data_ranks`` data ranks: ``G ·
+    C`` (``G = tokens // sg`` dispatch groups of ``sg = min(MOE_GROUP,
+    tokens)``, ``C`` slots an expert a group), the global batch's where a
+    rank's tokens are not whole groups (``models.mlp.moe_apply`` then runs
+    the global groups on every rank); None without MoE."""
     if cfg.moe is None:
         return None
-    from repro_torch.models.mlp import MOE_GROUP, moe_capacity
+    from repro_torch.models.mlp import MOE_GROUP, groups_aligned, moe_capacity
 
+    if not groups_aligned(tokens, data_ranks):
+        tokens *= data_ranks
     sg = min(MOE_GROUP, tokens)
     return (tokens // sg) * moe_capacity(cfg.moe, sg)
+
+
+def outer_product(slot: OperandSlot) -> torch.Tensor:
+    """``xᵀ·dh`` of a filled slot's operands (entries ``x [(E,) T, M]``,
+    ``dh [(E,) T, N]``) in f32, ``[*stack, M, N]``: one product an entry
+    (an expert bank's experts batched), its f32 copies of the entry's
+    operands the only transient, each entry's operands released from the
+    slot once its product is taken. Products of bf16 operands are exact in
+    f32 and the sums are f32 sums, as in K1: on a card TF32 must be off
+    (torch's default), else this raises."""
+    out = None
+    for i, (x, dh) in enumerate(slot.drain()):
+        if out is None:
+            if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+                raise RuntimeError("the operands' outer product is an f32 product: turn TF32 off "
+                                   "(torch.backends.cuda.matmul.allow_tf32)")
+            out = torch.empty((len(slot.x), *x.shape[:-2], x.shape[-1], dh.shape[-1]), dtype=torch.float32,
+                              device=x.device)
+        torch.matmul(x.to(torch.float32).mT, dh.to(torch.float32), out=out[i])
+        del x, dh
+    return out.reshape(*slot.layers, *out.shape[1:])
 
 
 def _merge_operands(ops: list, microbatches: int) -> OuterProductGrad:
@@ -487,8 +527,11 @@ class _Whole:
     def reads(self, dp):
         return contextlib.nullcontext()
 
-    def operand_block(self, path, g, dp):
-        return g
+    def slot_cut(self, path):
+        return None
+
+    def operand_block(self, path, slot, dp):
+        return slot.grad()
 
     def local_grad(self, path, g, dp):
         return g
@@ -515,7 +558,7 @@ class _Blocks(_Whole):
         self.plan = planlib.attach_fidelity_shard_dims(_check_operand_pipeline(plan, operand_grads), mesh, shapes)
         self.specs = storage_specs(cfg, opt_cfg, mesh, fsdp, plan=self.plan)
         mspecs = storage_specs(cfg, opt_cfg, mesh, False, plan=self.plan) if fsdp else self.specs
-        self.mesh, self.fsdp, self.global_batch = mesh, fsdp, global_batch
+        self.mesh, self.fsdp, self.global_batch, self.rng_mode = mesh, fsdp, global_batch, opt_cfg.rng_mode
         self.maxis = "model" if mesh.shape.get("model", 1) > 1 else None
         self.stacked_groups = {gi for gi, (_, count) in enumerate(cfg.pattern) if count > 1}
         self.shape_at = {path: tuple(leaf.shape) for path, leaf in tree.leaves_with_path(shapes)}
@@ -524,6 +567,7 @@ class _Blocks(_Whole):
         self.m_spec = {path: sp.planes[1:] for path, sp in tree.leaves_with_path(mspecs.sliced) if sp is not None}
         self.origins = {path: o for path, sp in self.w_spec.items()
                         if (o := block_origin(sp, self.shape_at[path], mesh)) is not None}
+        self.groups = {path: pl.group for path, pl in tree.leaves_with_path(self.plan)}
 
     def fsdp_part(self, path):
         """The dims of a leaf's stored spec that FSDP added ('data' alone)."""
@@ -578,14 +622,52 @@ class _Blocks(_Whole):
             return OuterProductGrad(g.x[(*sl[:-2], sl[-1], slice(None), sl[-2])], g.dh[(*sl[:-2], sl[-1])], g.kind)
         return OuterProductGrad(g.x[(*sl[:-2], slice(None), sl[-2])], g.dh[(*sl[:-2], slice(None), sl[-1])], g.kind)
 
-    def operand_block(self, path, g: OuterProductGrad, dp) -> OuterProductGrad:
-        """A leaf's operands cut to this rank's model block (stack, rows,
-        cols; a conv-tap leaf's channels and taps), gathered along the token
-        axis over the data axes (an expert bank's ``G·C`` capacity rows
+    def slot_cut(self, path):
+        """What a leaf's operand slot keeps of each entry: copies of this
+        rank's model block of its operands (its experts, rows and columns;
+        a conv-tap entry's taps and channels), so that the backward's whole
+        operands are freed as it goes; None where the block is the whole
+        leaf. No operand leaf shards its layer dims."""
+        spec, shape = self.m_spec[path], self.shape_at[path]
+        if not blocks.sharded(spec):
+            return None
+        group = self.groups[path]
+        lead = len(shape) - 2 - (group == "expert")  # the slot's layer dims
+        if blocks.sharded(spec[:lead]):
+            raise NotImplementedError(f"operand leaf {path} shards a layer dim: {spec}")
+        kind = "im2col" if group == "im2col" else "matmul"
+
+        def cut(x, dh):
+            g = self._cut(OuterProductGrad(x, dh, kind), spec[lead:], shape[lead:])
+            return g.x.contiguous(), g.dh.contiguous()
+
+        return cut
+
+    def reduces(self, kind: str, dp) -> bool:
+        """Whether a leaf's operands of ``kind`` sum their outer product
+        over the data axes ``dp`` (more than one rank) instead of being
+        gathered: every kind but the im2col operands, under every draw but
+        ``"hw"``."""
+        return self.mesh.axes_size(dp) > 1 and kind != "im2col" and self.rng_mode != "hw"
+
+    def operand_block(self, path, slot, dp):
+        """A leaf's gradient from its slot's operands of this rank's model
+        block (``slot_cut``). Where they ``reduces``: the block's f32
+        ``outer_product`` over this rank's tokens, a dense gradient of the
+        model block that ``local_grad`` sums over the data axes and cuts to
+        the FSDP part, and the dense write (K2) deposits: it draws each
+        layer's rounding and write noise under the keys the fused update
+        (K1) would, so the two writes agree bit for bit where the f32 sums
+        are exact. Otherwise (the ``"hw"`` draw, which only K1 has; im2col
+        operands, whose channel tiles K2 does not key) the operands gathered
+        along the token axis over the data axes (``gathered``), for K1."""
+        return outer_product(slot) if self.reduces(slot.kind, dp) else self.gathered(path, slot.grad(), dp)
+
+    def gathered(self, path, g: OuterProductGrad, dp) -> OuterProductGrad:
+        """Operands of a leaf's model block gathered along the token axis
+        over the data axes ``dp`` (an expert bank's ``G·C`` capacity rows
         group-major, so the ranks' groups land in global order), then cut to
         the FSDP part of the block."""
-        if blocks.sharded(self.m_spec[path]):
-            g = self._cut(g, self.m_spec[path], self.shape_at[path])
         x = col.all_gather(g.x.contiguous(), self.mesh, dp, dim=g.x.dim() - 2)
         dh = col.all_gather(g.dh.contiguous(), self.mesh, dp, dim=g.dh.dim() - 2)
         g = OuterProductGrad(x, dh, g.kind)

@@ -28,10 +28,20 @@ And (``W._mesh_extras``):
   relative (its two means taken over the data axes);
 * on the (2, 2) mesh: the SSM archs' FSDP step, ``conv_w``'s planes sharded over 'data' and
   each rank's block updated at its origin, against one process;
+* the MoE archs train on the (2, 2) mesh where each data rank holds half
+  of one dispatch group (4 x 16 tokens at the model's group of 1024:
+  ``moe_apply`` gathers the group, its backward sums over data, and the
+  experts' outer products are summed over data), ideal-ADC reads, under
+  ``remat="full"``, against one process whose reads fold at the rank
+  boundary, with the same tolerances (against the unfolded process
+  deepseek's embedding lands 6e-4 of max|w| apart: the fold's f32 order
+  flips a DAC code of a later read, as on the (1, 2) mesh);
 * granite served on groups a rank does not hold whole (capacity factor
   1.0, so experts overflow): the logits within ``1e-5`` of max of one
   process's and its tokens equal, where each rank's rows dispatched alone
-  are ``1e-3`` or more apart (the fault the gather repairs);
+  are ``1e-3`` or more apart (the fault the gather repairs); granite's
+  engine on the (2, 2) mesh (each data rank decoding one slot) serves the
+  one-process engine's tokens;
 * the MoE (4, 1) step and an FSDP step of the SMOKE arch on the (2, 2)
   mesh under ``remat="full"`` (the default: the recompute gathers each
   layer's blocks again and re-runs the DAC range's and the aux term's
@@ -90,6 +100,14 @@ def test_moe_trains_on_whole_dispatch_groups_like_one_process(world, arch):
     assert rel <= 1e-5
 
 
+@pytest.mark.parametrize("arch", W.MOE_SPLIT_ARCHS)
+def test_moe_trains_on_split_dispatch_groups_like_one_process(world, arch):
+    loss, one, aux, aux_one, rel = world[("moe_split", arch)]
+    assert abs(loss - one) <= 1e-3 * (1 + abs(one))
+    assert abs(aux - aux_one) <= 1e-6 * abs(aux_one)
+    assert rel <= 1e-5
+
+
 @pytest.mark.parametrize("arch", ["xlstm_125m", "zamba2_1p2b"])
 def test_conv_tap_blocks_under_fsdp_step_like_one_process(world, arch):
     loss, one, rel = world[("conv_fsdp", arch)]
@@ -107,6 +125,10 @@ def test_moe_serves_split_dispatch_groups_like_one_process(world):
     rel, tokens_equal, alone = world[("moe_serve",)]
     assert rel <= 1e-5 and tokens_equal
     assert alone >= 1e-3
+
+
+def test_moe_engine_at_data_2_serves_one_process_s_tokens(world):
+    assert world[("moe_engine",)] is True
 
 
 def test_dry_run_counts_the_live_world_s_collectives(world):

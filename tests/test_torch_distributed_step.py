@@ -8,7 +8,15 @@ bf16 gradients summed over data shards round apart), from the seed-0 state,
 two steps, with ideal-ADC and adc9 reads, plain and FSDP:
 
 * losses within ``1e-3 · (1 + |loss|)`` of the single-process run at step 1
-  and ``5e-3 ·`` at step 2 (the reference's tolerances);
+  and ``5e-3 ·`` at step 2 (the reference's tolerances), grad norms within
+  the same shares of its norms, and each loss within ``1e-3 ·`` of the
+  single-process step's from the mesh's own state. One exception: the adc9
+  runs' grad norms at step 2. An operand leaf's outer product is summed
+  over the data ranks' tokens in another f32 order than one process's, a
+  few cells of step 1's update land a grid LSB apart (2.6e-8 of max|w|),
+  and a DAC or ADC code of step 2's reads flips (the free runs' grad norms
+  1.5% apart). There the mesh's step-2 grad norm is held within ``1e-6 ·``
+  of the single-process step's from the mesh's own state (2.2e-7 apart);
 * the weights after step 1, and after every mesh step against the
   single-process step from the same state, within ``1e-5 · max|w|`` of the
   model (the port's tolerance for sums in another order). Two runs apart
@@ -19,7 +27,18 @@ two steps, with ideal-ADC and adc9 reads, plain and FSDP:
   memory;
 * ``launch.train --mesh debug --smoke --device cpu --steps 2``, which spawns
   its own 2x2 world; the backend rule; a world that outlives its timeout is
-  killed.
+  killed;
+* an operand leaf's update at ``data > 1``, its outer product summed over
+  the data axes and written by the dense write (K2's plain version), equal
+  bit for bit on every rank to the update from its operands gathered along
+  the token axis (K1's plain version), on f32-exact operands: gemma-2b's
+  ``wi_gate`` and ``wo`` and granite's expert bank, plain and FSDP, two
+  microbatches, under the counter and grid draws and on a write-nonideal
+  device;
+* ``Engine(mesh=)`` at data 2 (each data rank decoding its slot): on the
+  lossless tree every request's tokens equal solo serving, through the adc9
+  reads the one-process engine's on the same costs, every rank's clock
+  equal.
 """
 from __future__ import annotations
 
@@ -37,6 +56,7 @@ from repro_torch.launch import mesh as M  # noqa: E402
 VARIANTS = (("ideal", "ideal", False), ("ideal_fsdp", "ideal", True), ("adc9", "adc9", False),
             ("adc9_fsdp", "adc9", True))
 LOSS_TOL = (1e-3, 5e-3)
+SAME_STATE_GNORM_TOL = 1e-6  # adc9 at step 2: the grad norm against one process's from the mesh's state
 WEIGHT_TOL = 1e-5
 WORLD_TIMEOUT = 240
 
@@ -50,11 +70,15 @@ def world(tmp_path_factory):
 @pytest.mark.parametrize("variant", [v[0] for v in VARIANTS])
 def test_mesh_step_losses_track_the_single_process_step(world, variant):
     r = world["steps"][variant]
+    adc9 = {v[0]: v[1] for v in VARIANTS}[variant] == "adc9"
     for k, tol in enumerate(LOSS_TOL):
         assert abs(r["mesh_loss"][k] - r["single_loss"][k]) <= tol * (1 + abs(r["single_loss"][k]))
         assert abs(r["mesh_loss"][k] - r["same_loss"][k]) <= LOSS_TOL[0] * (1 + abs(r["same_loss"][k]))
         assert math.isfinite(r["mesh_gnorm"][k])
-        assert abs(r["mesh_gnorm"][k] - r["single_gnorm"][k]) <= tol * r["single_gnorm"][k]
+        if adc9 and k == 1:  # the free runs part by a flipped code (the module docstring)
+            assert abs(r["mesh_gnorm"][k] - r["same_gnorm"][k]) <= SAME_STATE_GNORM_TOL * r["same_gnorm"][k]
+        else:
+            assert abs(r["mesh_gnorm"][k] - r["single_gnorm"][k]) <= tol * r["single_gnorm"][k]
 
 
 @pytest.mark.parametrize("variant", [v[0] for v in VARIANTS])
@@ -68,6 +92,20 @@ def test_mesh_step_weights_equal_the_single_process_step(world, variant):
 def test_checkpoint_resumes_across_meshes(world, direction):
     got = world["ckpt"][direction]
     assert all(got) if isinstance(got, list) else got
+
+
+def test_reduced_operand_update_equals_the_gathered_update_bit_for_bit(world):
+    want = len(W.REDUCED_LEAVES) * 2 * len(W.REDUCED_DRAWS)
+    assert world["reduced"] == [(want, 0)] * 4
+
+
+def test_engine_at_data_2_serves_solo_tokens(world):
+    assert world["engine"]["engine_lossless"]["equal_solo"]
+    assert len(set(world["engine"]["clocks"])) == 1
+
+
+def test_engine_at_data_2_reads_like_one_process(world):
+    assert world["engine"]["engine_adc9"]["equal_one"]
 
 
 def test_launcher_trains_on_the_debug_mesh():

@@ -193,13 +193,14 @@ def test_admit_evict_any_order_recycles_pages(models):
 
 
 def test_engine_on_a_mesh_raises(models):
-    """The engine on a mesh is ported with one data rank
-    (``tests/test_torch_distributed_serve.py``): ``data > 1`` raises, and a
-    logical mesh cannot serve."""
+    """The engine on a mesh is ported, one data rank and more
+    (``tests/test_torch_distributed_serve.py``,
+    ``tests/test_torch_distributed_step.py``); a logical mesh cannot serve,
+    whatever its shape."""
     from repro_torch.launch.mesh import logical_mesh
 
     _, cfg, _, params = models["attn"]
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="live mesh"):
         _engine(cfg, params, n_slots=2, max_seq=16, page=4, mesh=logical_mesh((2, 1), ("data", "model")))
     with pytest.raises(ValueError, match="live mesh"):
         _engine(cfg, params, n_slots=2, max_seq=16, page=4, mesh=logical_mesh((1, 2), ("data", "model")))

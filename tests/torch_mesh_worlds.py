@@ -15,10 +15,21 @@ LR = 1e-2
 STEPS = 2
 
 
-def _world(shape):
+def _join():
+    """Join the spawned gloo world on the CPU, this rank's products on one
+    intra-op thread: the suite runs the worlds beside other test workers,
+    where a rank's small products on several threads slow the whole world
+    several-fold."""
     from repro_torch.launch import mesh as M
 
     M.init_world("cpu", verbose=False)
+    torch.set_num_threads(1)
+
+
+def _world(shape):
+    from repro_torch.launch import mesh as M
+
+    _join()
     return M.init_mesh(shape)
 
 
@@ -44,7 +55,8 @@ def _step_variants(cfg, opt_cfg, mesh, variants, batch_size=4, seq=16):
     process; and each mesh step again on one process from the mesh's own
     state before it. Returns rank 0's per-variant losses, grad norms and
     weight differences (``_rel``): ``free`` the two runs apart, ``same`` a
-    mesh step against the one-process step from the same state."""
+    mesh step against the one-process step from the same state (whose loss
+    and grad norm are ``same_loss`` and ``same_gnorm``)."""
     from repro_torch import configs, plan as planlib
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.optim.schedules import constant
@@ -62,8 +74,8 @@ def _step_variants(cfg, opt_cfg, mesh, variants, batch_size=4, seq=16):
         one = S.make_train_step(cfg, opt_cfg, constant(LR), plan_rules=rules, remat="none")
         state = S.shard_state(S.train_state_init(cfg, opt_cfg, 0, device="cpu"), step.specs, mesh)
         ref = S.train_state_init(cfg, opt_cfg, 0, device="cpu") if root else None
-        res = {k: [] for k in ("mesh_loss", "single_loss", "same_loss", "mesh_gnorm", "single_gnorm", "free_rel",
-                               "same_rel")}
+        res = {k: [] for k in ("mesh_loss", "single_loss", "same_loss", "mesh_gnorm", "single_gnorm", "same_gnorm",
+                               "free_rel", "same_rel")}
         for k in range(STEPS):
             before = S.gather_state(state, step.specs, mesh)
             state, m = step(state, ds.batch(k))
@@ -76,6 +88,7 @@ def _step_variants(cfg, opt_cfg, mesh, variants, batch_size=4, seq=16):
                 res["single_loss"].append(float(m1["loss"]))
                 res["single_gnorm"].append(float(m1["grad_norm"]))
                 res["same_loss"].append(float(m2["loss"]))
+                res["same_gnorm"].append(float(m2["grad_norm"]))
                 res["free_rel"].append(_rel(got, ref, opt_cfg))
                 res["same_rel"].append(_rel(got, same, opt_cfg))
         out[name] = res
@@ -232,7 +245,7 @@ def reads_world(rank, shapes):
     read, collective and update-block checks; rank 0's results."""
     from repro_torch.launch import mesh as M
 
-    M.init_world("cpu", verbose=False)
+    _join()
     out = {}
     for shape in shapes:
         mesh = M.init_mesh(shape)
@@ -308,13 +321,31 @@ def engine_tokens(cfg, params, mesh, costs=None) -> dict:
     return {r.rid: list(r.tokens) for r in res["requests"]}, res["clock"]
 
 
-def serve_world(rank, shape):
-    """Prefill and decode on ``shape`` against one process (lossless tokens
-    and logits, adc9 logits), and the engine on the mesh (lossless tokens
-    against solo serving; adc9 tokens against the one-process engine on the
-    same costs); rank 0's results, every rank's clock."""
+def engine_checks(mesh, cfg, params, served_one, served_mesh) -> dict:
+    """The engine on ``mesh`` over the test trace: on the lossless tree
+    every request's tokens against solo serving (each shape's cost
+    calibrated on every rank, rank 0's broadcast); through the adc9 reads
+    against the one-process engine on the same costs; every rank's
+    clock."""
     from repro_torch.serve import scheduler as sch
     from repro_torch.serve import trace as tr
+
+    trace = tr.synth_trace(vocab=cfg.vocab, **SERVE_TRACE)
+    got, clock = engine_tokens(cfg, params, mesh)
+    out = {"engine_lossless": {"equal_solo": all(got[r.rid] == solo_tokens(cfg, params, r.tokens, r.out_len)
+                                                 for r in trace)}}
+    costs = sch.IsaClock(1e-3, ENGINE_GRID["n_slots"])
+    got, _ = engine_tokens(cfg, served_mesh, mesh, costs)
+    want, _ = engine_tokens(cfg, served_one, None, costs)
+    out["engine_adc9"] = {"equal_one": got == want}
+    out["clocks"] = _all_ranks(clock, mesh)
+    return out
+
+
+def serve_world(rank, shape):
+    """Prefill and decode on ``shape`` against one process (lossless tokens
+    and logits, adc9 logits), and the engine on the mesh
+    (``engine_checks``); rank 0's results, every rank's clock."""
     from repro_torch.serve.step import make_decode_step, make_prefill
 
     mesh = _world(shape)
@@ -336,15 +367,7 @@ def serve_world(rank, shape):
             logits[key] = torch.stack(seq)
         out[name] = {"max_rel": float((logits["mesh"] - logits["one"]).abs().max() / logits["one"].abs().max()),
                      "tokens_equal": bool(torch.equal(logits["mesh"].argmax(-1), logits["one"].argmax(-1)))}
-    trace = tr.synth_trace(vocab=cfg.vocab, **SERVE_TRACE)
-    got, clock = engine_tokens(cfg, params, mesh)  # calibrated, rank 0's costs broadcast
-    out["engine_lossless"] = {"equal_solo": all(got[r.rid] == solo_tokens(cfg, params, r.tokens, r.out_len)
-                                                for r in trace)}
-    costs = sch.IsaClock(1e-3, ENGINE_GRID["n_slots"])
-    got, _ = engine_tokens(cfg, served_mesh, mesh, costs)
-    want, _ = engine_tokens(cfg, served_one, None, costs)
-    out["engine_adc9"] = {"equal_one": got == want}
-    out["clocks"] = _all_ranks(clock, mesh)
+    out.update(engine_checks(mesh, cfg, params, served_one, served_mesh))
     return out
 
 
@@ -413,9 +436,72 @@ def _ckpt_checks(cfg, opt_cfg, mesh, directory):
     return out
 
 
+REDUCED_LEAVES = (("gemma_2b", ("groups", 0, "mlp", "wi_gate")), ("gemma_2b", ("groups", 0, "attn", "wo")),
+                  ("granite_moe_1b_a400m", ("groups", 0, "moe", "experts_gate")))
+REDUCED_TOKENS = 5  # a rank's tokens a microbatch
+REDUCED_DRAWS = (("counter", False), ("grid", False), ("counter", True))  # (rng_mode, write-nonideal device)
+
+
+def _reduced_update_checks(mesh):
+    """An operand leaf's update at ``data > 1``, both ways, on this rank's
+    block: each of two microbatches' operands (this rank's tokens, f32-exact:
+    small integers, ``dh`` on a 2^-6 grid, so every sum is exact in f32 in
+    any order) summed as the outer product over the data axes
+    (``OperandSlot.holding`` with ``_Blocks.slot_cut`` -> ``_Blocks.operand_block`` -> f32
+    products summed and halved ->
+    ``local_grad``'s all-reduce and FSDP cut -> the dense write's plain
+    version, K2's) and gathered along the token axis as before
+    (``_Blocks.gathered`` -> ``_merge_operands`` -> the fused update's
+    plain version, K1's), for gemma-2b's ``wi_gate`` and ``wo`` and
+    granite's expert bank ``[L, E, M, N]`` (SMOKE, ``coverage_rules``),
+    plain and FSDP, under the counter and grid draws and on a
+    write-nonideal device. Returns (cases, cases whose planes differ)."""
+    from repro_torch import configs, plan as planlib, tree
+    from repro_torch.core import prng
+    from repro_torch.distributed import blocks
+    from repro_torch.models.common import DeviceModel, OperandSlot, OuterProductGrad
+    from repro_torch.optim import PantherConfig, panther
+    from repro_torch.train import step as S
+
+    dp = tuple(a for a in ("data",) if mesh.shape[a] > 1)
+    cases = bad = 0
+    for arch, path in REDUCED_LEAVES:
+        cfg = configs.get_smoke(arch)
+        for fsdp in (False, True):
+            for mode, nonideal in REDUCED_DRAWS:
+                opt = PantherConfig(stochastic_round=True, rng_mode=mode)
+                fid = dataclasses.replace(configs.fidelity_presets()["ideal"], spec=opt.spec,
+                                          device=DeviceModel(**UPDATE_DEVICE) if nonideal else None)
+                lay = S._Blocks(cfg, opt, mesh, fsdp, True, None, planlib.coverage_rules(opt, fid), None)
+                pl = dict(tree.leaves_with_path(lay.plan))[path]
+                shape = lay.shape_at[path]
+                g = torch.Generator().manual_seed(17)
+                whole = torch.randint(-7, 8, (opt.spec.n_slices, *shape), generator=g, dtype=torch.int8)
+                planes = whole[(slice(None), *blocks.block_slices(lay.w_spec[path], shape, mesh))]
+                g.manual_seed(100 + mesh.index(dp))  # this rank's tokens
+                ops = [OuterProductGrad(torch.randint(-8, 9, (*shape[:-2], REDUCED_TOKENS, shape[-2]), generator=g)
+                                        .float(), torch.randint(-8, 9, (*shape[:-2], REDUCED_TOKENS, shape[-1]),
+                                                                generator=g).float() / 64) for _ in range(2)]
+                key = prng.fold_in(prng.PRNGKey(5), 3)
+                slots = [OperandSlot.holding(o, pl.group == "expert", lay.slot_cut(path)) for o in ops]
+                reduces = lay.reduces(slots[0].kind, dp)
+                reduced = sum(lay.operand_block(path, slot, dp) for slot in slots) / 2
+                gathered = S._merge_operands([lay.gathered(path, OperandSlot.holding(
+                    o, pl.group == "expert", lay.slot_cut(path)).grad(), dp) for o in ops], 2)
+                got = []
+                for grad in (lay.local_grad(path, reduced, dp), gathered):
+                    s = panther.SlicedTensor(blocks.layer_major(planes), torch.tensor(12, dtype=torch.int32))
+                    panther._write_leaf(s, grad, 3e-2, key, pl, opt, False, lay.origins.get(path))
+                    got.append(s.planes)
+                cases += 1
+                bad += int(not (reduces and torch.equal(*got)))
+    return cases, bad
+
+
 def step_world(rank, shape, variants, directory):
-    """The step variants (``_step_variants``) and the checkpoint checks on
-    one world; rank 0's results."""
+    """The step variants (``_step_variants``), the checkpoint checks, the
+    reduced operand update (``_reduced_update_checks``, every rank's) and
+    the engine (``engine_checks``) on one world; rank 0's results."""
     from repro_torch import configs
     from repro_torch.optim import PantherConfig
 
@@ -424,6 +510,8 @@ def step_world(rank, shape, variants, directory):
     opt_cfg = PantherConfig(crs_every=2, stochastic_round=True)
     out = {"steps": _step_variants(cfg, opt_cfg, mesh, variants)}
     out["ckpt"] = _ckpt_checks(cfg, opt_cfg, mesh, directory)
+    out["reduced"] = _all_ranks(_reduced_update_checks(mesh), mesh)
+    out["engine"] = engine_checks(mesh, *serving_setup(mesh))
     return out
 
 
@@ -450,7 +538,7 @@ def arch_world(rank, cases, fold_presets=(), extras=False):
     from repro_torch.optim.schedules import constant
     from repro_torch.train import step as S
 
-    M.init_world("cpu", verbose=False)
+    _join()
     opt = PantherConfig(crs_every=1, stochastic_round=True)
     fid = dataclasses.replace(configs.fidelity_presets()["adc9"], spec=opt.spec)
     out = {}
@@ -480,6 +568,7 @@ def arch_world(rank, cases, fold_presets=(), extras=False):
 
 
 MOE_GROUP = 16  # the MoE cases' dispatch group (the model's is 1024): a rank's row of 16 tokens one whole group
+MOE_SPLIT_ARCHS = ("granite_moe_1b_a400m", "deepseek_v2_lite_16b")  # trained on groups split over data
 DRY_SHAPE = {"kind": "train", "seq_len": 16, "global_batch": 4}  # the dry run's SMOKE cell
 
 
@@ -502,16 +591,29 @@ def _mesh_extras(mesh, opt, fid):
     * ``("conv_fsdp", arch)``: one adc9 ``coverage_rules`` FSDP step of each
       SSM arch (``conv_w``'s planes sharded over 'data', updated a block at
       its origin) against one process: (loss, one-process loss, weight gap);
+    * ``("moe_split", arch)``: one ideal-ADC ``coverage_rules`` step of
+      each of ``MOE_SPLIT_ARCHS`` on ``mesh`` under ``remat="full"`` (the
+      default), 4 x 16 tokens at the model's dispatch group: one group of
+      64 tokens, half of it on each data rank (``moe_apply``'s gather, the
+      experts' operands summed over data), against one process whose reads
+      fold at the mesh's rank boundary (``FoldCtx``: the ideal reads split
+      their contraction over 'model', and the fold's f32 order alone flips
+      a DAC code in deepseek's later reads): (loss, one-process loss, aux,
+      one-process aux, weight gap);
     * ``("moe_serve", ...)``: granite SMOKE at capacity factor 1.0 served on
       groups a rank does not hold whole (prefill of 2 x 5 tokens and two
       decode steps): the mesh's logits against one process's, and against
       the logits of each rank's rows dispatched alone (the fault repaired);
+    * ``("moe_engine",)``: granite SMOKE's engine on ``mesh`` (each data rank
+      a slot: its decode's dispatch groups split) against the one-process
+      engine on the same costs: tokens equal (a bool);
     * ``"dry_tally"``: the collectives of the dry run's SMOKE train cell
       (``launch.dryrun``) stepped live, as ``distributed.collectives``
       counts them."""
     from repro_torch import configs, plan as planlib
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import fidelity as dist_fid
     from repro_torch.launch import dryrun as D
     from repro_torch.models.common import MoECfg
     from repro_torch.optim.schedules import constant
@@ -567,9 +669,23 @@ def _mesh_extras(mesh, opt, fid):
         if root:
             ref, m1 = S.make_train_step(cfg, opt, constant(LR), plan_rules=rules, remat="none")(init(), batch)
             out[("conv_fsdp", arch)] = (float(m["loss"]), float(m1["loss"]), _rel(got, ref, opt))
+    for arch in MOE_SPLIT_ARCHS:
+        cfg = dataclasses.replace(configs.get_smoke(arch), dtype=torch.float32)
+        rules = planlib.coverage_rules(opt, ideal)
+        batch = SyntheticLMDataset(cfg.vocab, 16, 4, device="cpu").batch(0)
+        step = S.make_train_step(cfg, opt, constant(LR), mesh=mesh, plan_rules=rules)
+        init = lambda: S.train_state_init(cfg, opt, 0, device="cpu", plan=step.plan)  # noqa: E731
+        state, m = step(S.shard_state(init(), step.specs, mesh), batch)
+        got = S.gather_state(state, step.specs, mesh)
+        if root:
+            with dist_fid.use_sharded_fidelity(dist_fid.FoldCtx(mesh.shape["model"])):
+                ref, m1 = S.make_train_step(cfg, opt, constant(LR), plan=step.plan, remat="none")(init(), batch)
+            out[("moe_split", arch)] = (float(m["loss"]), float(m1["loss"]), float(m["aux"]), float(m1["aux"]),
+                                        _rel(got, ref, opt))
+    granite = dataclasses.replace(configs.get_smoke("granite_moe_1b_a400m"), dtype=torch.float32)
     out[("moe_serve",)] = _moe_serve(mesh, dataclasses.replace(
-        configs.get_smoke("granite_moe_1b_a400m"), dtype=torch.float32,
-        moe=MoECfg(n_experts=4, top_k=2, d_ff_expert=32, capacity_factor=1.0)))
+        granite, moe=MoECfg(n_experts=4, top_k=2, d_ff_expert=32, capacity_factor=1.0)))
+    out[("moe_engine",)] = _moe_engine(mesh, granite)
     cfg = configs.get_smoke(SMOKE)
     step, g = D.train_cell_step(cfg, DRY_SHAPE, mesh)
     state = S.shard_state(S.train_state_init(cfg, D.TRAIN_OPT, 0, device="cpu", plan=step.plan), step.specs, mesh)
@@ -595,6 +711,22 @@ def _same_step(a, ma, b, mb) -> bool:
     ta, tb = leaves(a), leaves(b)
     return [p for p, _ in ta] == [p for p, _ in tb] and all(torch.equal(x, y) for (_, x), (_, y) in zip(ta, tb)) \
         and all(float(ma[k]) == float(mb[k]) for k in ("loss", "aux", "grad_norm"))
+
+
+def _moe_engine(mesh, cfg) -> bool:
+    """Whether ``cfg``'s engine on ``mesh`` (lossless tree, seed 0) serves
+    the test trace's tokens of the one-process engine on the same costs."""
+    from repro_torch.optim import PantherConfig, panther
+    from repro_torch.serve import scheduler as sch
+    from repro_torch.train import step as S
+
+    opt = PantherConfig()
+    state = S.train_state_init(cfg, opt, 0, device="cpu")
+    params = panther.materialize_split(state.digital, state.sliced, opt)
+    costs = sch.IsaClock(1e-3, ENGINE_GRID["n_slots"])
+    got, _ = engine_tokens(cfg, params, mesh, costs)
+    want, _ = engine_tokens(cfg, params, None, costs)
+    return got == want
 
 
 def _moe_serve(mesh, cfg):
